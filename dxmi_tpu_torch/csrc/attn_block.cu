@@ -1,0 +1,312 @@
+// K2: the whole attention block, fp32:
+//   y = x + proj(attention(qkv(GroupNorm(x)))) on (B, S, C).
+//
+// Replaces: dxmi_tpu/ops/attn_block.py:_kernel (run by _pallas_forward with
+// bb=1, public entry fused_attn_block), the Pallas TPU kernel that holds a
+// whole (S, C) element, its q/k/v, the logits of 256-row q tiles and the
+// four weight matrices in ~16 MB of VMEM.
+//
+// Bound on the H100: operations. At the main path's shape (B=100, S=256,
+// C=256, one head) the block does 20 GFLOP of fp32 products (qkv 10.1,
+// logits 3.4, AV 3.4, proj 3.4) against 52 MB of input and output: 0.30 ms
+// at the 67 TFLOP/s fp32 peak against 0.016 ms of memory time. fp32 is the
+// reference's precision here, so the tensor cores (bf16/TF32) are not used.
+//
+// Design: Hopper has 227 KB of shared memory per block, not 16 MB, so the
+// block is tiled into four launches, all hand-written:
+//   (a) K1's per-(sample, group) statistics, written per channel;
+//   (b) a SIMT fp32 GEMM (128x128 tiles, 8x8 outputs per thread, two
+//       shared-memory stages) that applies GN while loading x and computes
+//       qkv = h W_qkv + b_qkv, scaling the q and k columns by d^-1/4 in its
+//       epilogue (attn_block.py:253-254);
+//   (c) a flash-style attention kernel: one block per (sample, head,
+//       64-row q tile) keeps the q tile in shared memory, streams K/V in
+//       64-row tiles, carries an online fp32 softmax (running max and sum
+//       per row), and gives each thread 4x4 scores and 4 rows x 16 columns
+//       of the output in registers;
+//   (d) the same GEMM for proj, with a bias-plus-residual epilogue.
+// The qkv and attention-output intermediates go through device memory
+// (the TPU kernel keeps them in VMEM); fusing them is later work.
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+// ---- (b), (d): fp32 SIMT GEMM C[M,N] = A[M,K] B[K,N] + epilogue --------
+constexpr int GBM = 128, GBN = 128, GBK = 8, kGemmThreads = 256;
+
+enum Prologue { kPlainA = 0, kGroupNormA = 1 };
+enum Epilogue { kBiasScaleQK = 0, kBiasResidual = 1 };
+
+// Thread (ty, tx) = (tid / 16, tid % 16) owns rows {4ty..4ty+3, 64+4ty..}
+// and columns {4tx..4tx+3, 64+4tx..} of the 128x128 tile.
+template <int PRO, int EPI>
+__global__ void __launch_bounds__(kGemmThreads)
+sgemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
+             float* __restrict__ Cm, int M, int N, int K,
+             const float* __restrict__ bias, const float* __restrict__ resid,
+             float qk_scale, int qk_cols, const float* __restrict__ mean_c,
+             const float* __restrict__ rstd_c, const float* __restrict__ gs,
+             const float* __restrict__ gb, int rows_per_sample) {
+  __shared__ __align__(16) float As[2][GBK][GBM + 4];  // transposed A tiles
+  __shared__ __align__(16) float Bs[2][GBK][GBN + 4];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+  // this thread's loads: A row a_r, k offset a_k; B row b_k, column b_n
+  const int a_r = tid >> 1, a_k = (tid & 1) * 4, a_m = m0 + a_r;
+  const int b_k = tid >> 5, b_n = (tid & 31) * 4;
+  float4 ra = make_float4(0.f, 0.f, 0.f, 0.f), rb = ra;
+
+  auto load = [&](int k0) {
+    ra = make_float4(0.f, 0.f, 0.f, 0.f);
+    rb = ra;
+    if (a_m < M) ra = ldg4(A + (size_t)a_m * K + k0 + a_k);
+    if (n0 + b_n < N) rb = ldg4(Bm + (size_t)(k0 + b_k) * N + n0 + b_n);
+  };
+  auto store = [&](int k0, int st) {
+    float4 v = ra;
+    if (PRO == kGroupNormA && a_m < M) {
+      const int k = k0 + a_k;
+      const size_t bk = (size_t)(a_m / rows_per_sample) * K + k;
+      v = gn_affine4(v, ldg4(mean_c + bk), ldg4(rstd_c + bk), ldg4(gs + k),
+                     ldg4(gb + k));
+    }
+    As[st][a_k][a_r] = v.x;
+    As[st][a_k + 1][a_r] = v.y;
+    As[st][a_k + 2][a_r] = v.z;
+    As[st][a_k + 3][a_r] = v.w;
+    *reinterpret_cast<float4*>(&Bs[st][b_k][b_n]) = rb;
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  load(0);
+  store(0, 0);
+  __syncthreads();
+  int st = 0;
+  for (int k0 = 0; k0 < K; k0 += GBK, st ^= 1) {
+    const bool more = k0 + GBK < K;
+    if (more) load(k0 + GBK);
+#pragma unroll
+    for (int kk = 0; kk < GBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[st][kk][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[st][kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[st][kk][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&Bs[st][kk][64 + tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    // the other stage was last read before the previous barrier
+    if (more) store(k0 + GBK, st ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (n >= N) continue;
+      float v = acc[i][j] + bias[n];
+      if (EPI == kBiasScaleQK) {
+        if (n < qk_cols) v *= qk_scale;
+      } else {
+        v = resid[(size_t)m * N + n] + v;
+      }
+      Cm[(size_t)m * N + n] = v;
+    }
+  }
+}
+
+// ---- (c): attention core, online softmax -------------------------------
+constexpr int QT = 64, KT = 64, kAttnThreads = 256, LDP = QT + 4;
+
+__host__ __device__ constexpr int attn_smem_floats(int d) {
+  return (QT + KT) * (d + 4) + KT * d + KT * LDP;
+}
+
+// qkv: (B, S, 3C) with q and k pre-scaled; out: (B, S, C). Thread
+// (ty, tx) = (tid / 16, tid % 16) owns q rows 4ty..4ty+3 of the tile; its
+// scores are the keys {tx + 16j} of each K/V tile, its output columns
+// {64i + 4tx .. +3}. A row's 16 threads are 16 lanes of one warp.
+__global__ void __launch_bounds__(kAttnThreads, 1)
+attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S,
+                int C, int d) {
+  extern __shared__ __align__(16) float smem[];
+  const int ldq = d + 4;
+  float* Qs = smem;             // [QT][ldq]
+  float* Ks = Qs + QT * ldq;    // [KT][ldq]
+  float* Vs = Ks + KT * ldq;    // [KT][d]
+  float* Pt = Vs + KT * d;      // [KT][LDP]: probabilities, key-major
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const size_t row3 = 3 * (size_t)C;
+  const float* base = qkv + (size_t)b * S * row3 + (size_t)h * d;
+  const int d4 = d / 4;
+
+  for (int idx = tid; idx < QT * d4; idx += kAttnThreads) {
+    const int i = idx / d4, c4 = (idx - i * d4) * 4;
+    *reinterpret_cast<float4*>(Qs + i * ldq + c4) =
+        ldg4(base + (size_t)(q0 + i) * row3 + c4);
+  }
+
+  float m_i[4], l_i[4];
+  float4 o[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m_i[r] = -INFINITY;
+    l_i[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[r][i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (int k0 = 0; k0 < S; k0 += KT) {
+    __syncthreads();  // the previous tile's K, V and P are no longer read
+    for (int idx = tid; idx < KT * d4; idx += kAttnThreads) {
+      const int j = idx / d4, c4 = (idx - j * d4) * 4;
+      const float* src = base + (size_t)(k0 + j) * row3 + c4;
+      *reinterpret_cast<float4*>(Ks + j * ldq + c4) = ldg4(src + C);
+      *reinterpret_cast<float4*>(Vs + j * d + c4) = ldg4(src + 2 * C);
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+    for (int c = 0; c < d; c += 4) {
+      float4 q[4], k[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        q[r] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + r) * ldq + c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        k[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * ldq + c);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[r][j] = fmaf(q[r].x, k[j].x, s[r][j]);
+          s[r][j] = fmaf(q[r].y, k[j].y, s[r][j]);
+          s[r][j] = fmaf(q[r].z, k[j].z, s[r][j]);
+          s[r][j] = fmaf(q[r].w, k[j].w, s[r][j]);
+        }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
+#pragma unroll
+      for (int o_ = 8; o_ > 0; o_ >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o_));
+      const float m_new = fmaxf(m_i[r], mx);
+      const float alpha = expf(m_i[r] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[r][j] - m_new);
+        Pt[(tx + 16 * j) * LDP + ty * 4 + r] = p;
+        psum += p;
+      }
+#pragma unroll
+      for (int o_ = 8; o_ > 0; o_ >>= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, o_);
+      l_i[r] = l_i[r] * alpha + psum;
+      m_i[r] = m_new;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        o[r][i].x *= alpha; o[r][i].y *= alpha;
+        o[r][i].z *= alpha; o[r][i].w *= alpha;
+      }
+    }
+    __syncwarp();  // a row's probabilities come from 16 lanes of this warp
+
+    for (int j = 0; j < KT; ++j) {
+      const float4 p = *reinterpret_cast<const float4*>(Pt + j * LDP + ty * 4);
+      const float pr[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (64 * i + tx * 4 < d) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(Vs + j * d + 64 * i + tx * 4);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            o[r][i].x = fmaf(pr[r], v.x, o[r][i].x);
+            o[r][i].y = fmaf(pr[r], v.y, o[r][i].y);
+            o[r][i].z = fmaf(pr[r], v.z, o[r][i].z);
+            o[r][i].w = fmaf(pr[r], v.w, o[r][i].w);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float inv_l = 1.f / l_i[r];
+    float* orow = out + ((size_t)b * S + q0 + ty * 4 + r) * C + (size_t)h * d;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (64 * i + tx * 4 < d)
+        *reinterpret_cast<float4*>(orow + 64 * i + tx * 4) =
+            make_float4(o[r][i].x * inv_l, o[r][i].y * inv_l,
+                        o[r][i].z * inv_l, o[r][i].w * inv_l);
+    }
+  }
+}
+
+}  // namespace
+
+// x, y: (B, S, C); w_qkv: (C, 3C) with [3, nh, d] output columns; b_qkv:
+// (3C,); w_proj: (C, C); mean_c/rstd_c: (B, C); qkv: (B, S, 3C) and attn:
+// (B, S, C) scratch. Needs S % 64 == 0, C % 32 == 0, d = C/nh with
+// d % 16 == 0 and d <= 256.
+extern "C" int dxmi_attn_block(const float* x, const float* gs,
+                               const float* gb, const float* w_qkv,
+                               const float* b_qkv, const float* w_proj,
+                               const float* b_proj, float* y, float* mean_c,
+                               float* rstd_c, float* qkv, float* attn, int B,
+                               int S, int C, int nh, int G, float eps,
+                               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = launch_gn_stats(x, mean_c, rstd_c, B, S, C, G, eps, s);
+  if (err != cudaSuccess) return (int)err;
+
+  const int M = B * S, d = C / nh;
+  const float qk_scale = (float)(1.0 / sqrt(sqrt((double)d)));
+  dim3 g_qkv((3 * C + GBN - 1) / GBN, (M + GBM - 1) / GBM);
+  sgemm_kernel<kGroupNormA, kBiasScaleQK><<<g_qkv, kGemmThreads, 0, s>>>(
+      x, w_qkv, qkv, M, 3 * C, C, b_qkv, nullptr, qk_scale, 2 * C, mean_c,
+      rstd_c, gs, gb, S);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int smem = attn_smem_floats(d) * (int)sizeof(float);
+  err = cudaFuncSetAttribute(attn_fwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_fwd_kernel<<<dim3(S / QT, nh, B), kAttnThreads, smem, s>>>(qkv, attn,
+                                                                  S, C, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  dim3 g_proj((C + GBN - 1) / GBN, (M + GBM - 1) / GBM);
+  sgemm_kernel<kPlainA, kBiasResidual><<<g_proj, kGemmThreads, 0, s>>>(
+      attn, w_proj, y, M, C, C, b_proj, x, 1.f, 0, nullptr, nullptr, nullptr,
+      nullptr, S);
+  return (int)cudaGetLastError();
+}

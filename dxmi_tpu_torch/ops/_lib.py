@@ -1,0 +1,137 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+All kernel sources (``dxmi_tpu_torch/csrc/*.cu``) have a plain C interface.
+One ``nvcc`` call compiles them for ``sm_90a`` into
+``build/dxmi_tpu_torch/libkernels.so`` at the repository root on first use,
+and ``ctypes`` binds the entry points. Every pointer and the stream travel
+as ``c_void_p`` (a plain int argument would be cut to 32 bits); every entry
+point returns ``cudaGetLastError()`` after its launches, and ``check``
+raises on a non-zero code.
+
+Each wrapper adds one to its entry in ``LAUNCHES`` per call that launches
+its kernel on the card; the CPU path (the plain version) does not count.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import os
+import pathlib
+import subprocess
+import threading
+from typing import List, Optional
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "dxmi_tpu_torch"
+LIB_PATH = BUILD_DIR / "libkernels.so"
+NVCC_TIMEOUT_S = 240
+
+LAUNCHES: "collections.Counter[str]" = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# entry point -> argument types (all return int, the CUDA error code)
+_SIGNATURES = {
+    # x, scale, bias, y, mean_c, rstd_c, B, HW, C, G, eps, silu, stream
+    "dxmi_gn_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # x, gn_scale, gn_bias, w(9,Cin,Cout) bf16, bias, y, mean_c, rstd_c,
+    # B, H, W, Cin, Cout, G, eps, stream
+    "dxmi_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj, y, mean_c, rstd_c,
+    # qkv scratch, attn scratch, B, S, C, nh, G, eps, stream
+    "dxmi_attn_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _F, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> List[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def nvcc_command(out: pathlib.Path, verbose: bool = False) -> List[str]:
+    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", f"-I{CSRC}",
+           "-o", str(out)]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    return cmd + [str(s) for s in sources()]
+
+
+def build(verbose: bool = False) -> subprocess.CompletedProcess:
+    """Compile every kernel source into ``LIB_PATH`` with one nvcc call
+    (bounded by ``NVCC_TIMEOUT_S``). Writes to a temporary name first so
+    that a concurrent loader never sees a half-written library."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"libkernels.{os.getpid()}.so"
+    proc = subprocess.run(nvcc_command(tmp, verbose), capture_output=True,
+                          text=True, timeout=NVCC_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, LIB_PATH)
+    return proc
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any(s.stat().st_mtime > built for s in CSRC.iterdir())
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if missing or older than a
+    source."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if _stale():
+                build()
+            handle = ctypes.CDLL(str(LIB_PATH))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def require(t: torch.Tensor, name: str, shape, dtype=torch.float32,
+            device: Optional[torch.device] = None) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte aligned CUDA tensor of the
+    given shape and dtype (on ``device`` when given): the kernels load 16
+    bytes at a time."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must be 16-byte aligned")
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()

@@ -1,0 +1,67 @@
+"""Flax params (as numpy) -> the port's PyTorch state dicts.
+
+``unet_small_from_flax`` inverts ``dxmi_tpu.utils.convert.convert_unet_small``:
+flax module names go back to the reference's dotted paths, GroupNorm
+``gn/{scale,bias}`` back to ``weight``/``bias``, conv kernels (kh, kw, I, O)
+back to (O, I, kh, kw) and dense kernels (I, O) back to (O, I).
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+_RENAMES = [
+    (re.compile(r"^temb_dense(\d)$"), r"temb.dense.\1"),
+    (re.compile(r"^down_(\d+)_block_(\d+)$"), r"down.\1.block.\2"),
+    (re.compile(r"^down_(\d+)_attn_(\d+)$"), r"down.\1.attn.\2"),
+    (re.compile(r"^down_(\d+)_downsample$"), r"down.\1.downsample"),
+    (re.compile(r"^up_(\d+)_block_(\d+)$"), r"up.\1.block.\2"),
+    (re.compile(r"^up_(\d+)_attn_(\d+)$"), r"up.\1.attn.\2"),
+    (re.compile(r"^up_(\d+)_upsample$"), r"up.\1.upsample"),
+    (re.compile(r"^mid_(block_1|attn_1|block_2)$"), r"mid.\1"),
+]
+
+
+def _leaves(tree: Dict[str, Any], path: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), np.asarray(v, dtype=np.float32)
+
+
+def unet_small_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``UNetSmall`` from the JAX ``UNetSmall``
+    params tree (numpy leaves; a ``{'params': ...}`` wrapper is accepted)."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for path, val in _leaves(params):
+        *mods, leaf = path
+        if mods and mods[-1] == "gn":
+            mods, name = mods[:-1], {"scale": "weight", "bias": "bias"}[leaf]
+        elif leaf == "kernel":
+            name = "weight"
+            val = val.transpose(3, 2, 0, 1) if val.ndim == 4 else val.T
+        elif leaf == "bias":
+            name = "bias"
+        else:
+            raise ValueError(f"unhandled flax leaf {'/'.join(path)}")
+        top = mods[0]
+        for pat, repl in _RENAMES:
+            top = pat.sub(repl, top)
+        key = ".".join([top, *mods[1:], name])
+        out[key] = torch.from_numpy(np.ascontiguousarray(val))
+    return out
+
+
+def var_sampler_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``VARSampler`` from the JAX sampler params
+    ``{'net': <UNetSmall params>, 'log_betas': (T,)}``."""
+    out = {f"net.{k}": v for k, v in unet_small_from_flax(params["net"]).items()}
+    out["log_betas"] = torch.from_numpy(
+        np.asarray(params["log_betas"], dtype=np.float32))
+    return out

@@ -1,0 +1,68 @@
+"""The port needs only torch, numpy and the stdlib: every module of
+dxmi_tpu_torch, and chip_smoke.py, import with jax, flax, yaml, msgpack,
+PIL and dxmi_tpu made unimportable. chip_smoke.py refuses to run without a
+card, and outside the repository."""
+import os
+import shutil
+import subprocess
+import sys
+
+import yaml
+
+import chip_smoke
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "msgpack", "PIL", "dxmi_tpu")
+
+IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+BLOCKED = set(%r)
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked import of " + name)
+        return None
+
+sys.meta_path.insert(0, Blocker())
+import dxmi_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(dxmi_tpu_torch.__path__,
+                                               "dxmi_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def _run(args, cwd, timeout=120):
+    env = dict(os.environ, PYTHONPATH=cwd)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_imports_no_jax_yaml_or_reference():
+    proc = _run(["-c", IMPORT_ALL % (BLOCKED,)], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 13
+
+
+def test_chip_smoke_fixture_config_matches_yaml():
+    with open(os.path.join(REPO, "tests", "fixtures", "torch_rundir_t10",
+                           "config.yaml")) as f:
+        assert chip_smoke.FIXTURE_CONFIG == yaml.safe_load(f)
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run(["chip_smoke.py"], REPO)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    proc = _run(["chip_smoke.py"], str(tmp_path))
+    assert proc.returncode != 0
+    assert proc.stdout == ""
