@@ -27,6 +27,22 @@
 //   (d) the same GEMM for proj, with a bias-plus-residual epilogue.
 // The qkv and attention-output intermediates go through device memory
 // (the TPU kernel keeps them in VMEM); fusing them is later work.
+//
+// bf16 form (the ADM nets' multi-head blocks, dxmi_attn_block_bf16): the same
+// four launches with the rounding of the TPU kernel's bf16 body
+// (attn_block.py:225-258). Bound: operations on the bf16 tensor cores; at
+// ImageNet64's 32x32 maps (B=100, S=1024, C=384, nh=6) the block does
+// 91 + 30 GFLOP of qkv and proj products and 161 GFLOP of attention, 0.29 ms
+// at 989 TFLOP/s, against 157 MB of input and output. (a) takes fp32
+// two-pass statistics of the bf16 x; (b) and (d) are a tensor-core GEMM
+// (128x128 block tiles of 8 warps, each 64x32 with mma.sync m16n8k16 bf16,
+// fp32 accumulators, ldmatrix, two shared stages, weights by cp.async) whose
+// A loads apply h = x * (gn_scale * rstd) + (gn_bias - mean * gn_scale *
+// rstd) in fp32 and round h to bf16 (b), or copy the attention output (d);
+// their epilogues round the accumulator to bf16, add the bf16 bias in bf16,
+// and scale q and k by the bf16 d^-1/4 in bf16 (b) or add the residual in
+// bf16 (d); (c) is K4's flash-attention kernel (flash_attn.cu) with
+// sm_scale 1, reading q, k and v through the qkv buffer's row stride.
 #include <math.h>
 
 #include "common.cuh"
@@ -269,7 +285,225 @@ attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S,
   }
 }
 
+// ---- bf16 form: tensor-core GEMM C[M,N] = A[M,K] B[K,N] + epilogue -------
+constexpr int HBM = 128, HBN = 128, HBK = 32, kHThreads = 256;
+constexpr int LDA = HBK + 8;  // bf16 per A row: 80 B, ldmatrix conflict-free
+constexpr int LDBH = HBN + 8;  // bf16 per B row: 272 B
+
+// A: (M, K) bf16 rows; Bm: (K, N) bf16; Cm: (M, N) bf16. PRO == kGroupNormA
+// normalises A on load with per-(sample, channel) statistics; EPI ==
+// kBiasScaleQK rounds, adds the bias and scales columns < qk_cols by the
+// bf16 qk_scale; EPI == kBiasResidual rounds, adds the bias, then resid.
+template <int PRO, int EPI>
+__global__ void __launch_bounds__(kHThreads)
+hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
+             bf16* __restrict__ Cm, int M, int N, int K,
+             const bf16* __restrict__ bias, const bf16* __restrict__ resid,
+             float qk_scale, int qk_cols, const float* __restrict__ mean_c,
+             const float* __restrict__ rstd_c, const float* __restrict__ gs,
+             const float* __restrict__ gb, int rows_per_sample) {
+  __shared__ __align__(128) bf16 As[2][HBM * LDA];
+  __shared__ __align__(128) bf16 Bs[2][HBK * LDBH];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int m0 = blockIdx.y * HBM, n0 = blockIdx.x * HBN;
+  // this thread's two 8-element chunks of each A tile and of each B tile
+  int a_r[2], a_c[2], b_r[2], b_c[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int idx = tid + u * kHThreads;
+    a_r[u] = idx >> 2;
+    a_c[u] = (idx & 3) * 8;
+    b_r[u] = idx >> 4;
+    b_c[u] = (idx & 15) * 8;
+  }
+  uint4 ra[2];
+
+  auto copy_b_async = [&](int k0, int st) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const bool ok = n0 + b_c[u] < N;
+      const bf16* src = ok ? Bm + (size_t)(k0 + b_r[u]) * N + n0 + b_c[u] : Bm;
+      cp_async16(smem_u32(&Bs[st][b_r[u] * LDBH + b_c[u]]), src, ok ? 16 : 0);
+    }
+    if (PRO != kGroupNormA) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int m = m0 + a_r[u];
+        const bool ok = m < M;
+        const bf16* src = ok ? A + (size_t)m * K + k0 + a_c[u] : A;
+        cp_async16(smem_u32(&As[st][a_r[u] * LDA + a_c[u]]), src, ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  auto load_a = [&](int k0) {  // GN path: global -> registers
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int m = m0 + a_r[u];
+      ra[u] = m < M ? __ldg(reinterpret_cast<const uint4*>(
+                          A + (size_t)m * K + k0 + a_c[u]))
+                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  auto store_a = [&](int k0, int st) {  // GN path: normalise, round, store
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int m = m0 + a_r[u];
+      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+      if (m < M) {
+        const bf16* xv = reinterpret_cast<const bf16*>(&ra[u]);
+        unsigned* out = reinterpret_cast<unsigned*>(&packed);
+        const int k = k0 + a_c[u];
+        const size_t bk = (size_t)(m / rows_per_sample) * K + k;
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          float hv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float sc = __fmul_rn(gs[k + j + e], rstd_c[bk + j + e]);
+            const float sh = __fsub_rn(gb[k + j + e],
+                                       __fmul_rn(mean_c[bk + j + e], sc));
+            hv[e] = __fadd_rn(__fmul_rn(__bfloat162float(xv[j + e]), sc), sh);
+          }
+          out[j / 2] = pack_bf16(hv[0], hv[1]);
+        }
+      }
+      *reinterpret_cast<uint4*>(&As[st][a_r[u] * LDA + a_c[u]]) = packed;
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  copy_b_async(0, 0);
+  if (PRO == kGroupNormA) {
+    load_a(0);
+    store_a(0, 0);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int n_k = K / HBK;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int st = kt & 1;
+    const bool more = kt + 1 < n_k;
+    if (more) {  // stage st^1 was last read before the last barrier
+      copy_b_async((kt + 1) * HBK, st ^ 1);
+      if (PRO == kGroupNormA) load_a((kt + 1) * HBK);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HBK; kk += 16) {
+      unsigned a[4][4], b[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldsm_x4(a[i], smem_u32(&As[st][(wm * 64 + i * 16 + (lane & 15)) * LDA +
+                                       kk + (lane >> 4) * 8]));
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        unsigned r[4];
+        ldsm_x4_trans(r, smem_u32(&Bs[st][(kk + (lane & 7) +
+                                           ((lane >> 3) & 1) * 8) * LDBH +
+                                          wn * 32 + jj * 16 +
+                                          (lane >> 4) * 8]));
+        b[2 * jj][0] = r[0];
+        b[2 * jj][1] = r[1];
+        b[2 * jj + 1][0] = r[2];
+        b[2 * jj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+    if (more) {
+      if (PRO == kGroupNormA) store_a((kt + 1) * HBK, st ^ 1);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm * 64 + i * 16 + g + half * 8;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn * 32 + j * 8 + 2 * t;
+        if (n >= N) continue;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float u = rb(rb(acc[i][j][2 * half + e]) +
+                       __bfloat162float(bias[n + e]));
+          if (EPI == kBiasScaleQK) {
+            if (n + e < qk_cols) u = rb(u * qk_scale);
+          } else {
+            u = rb(__bfloat162float(resid[(size_t)m * N + n + e]) + u);
+          }
+          v[e] = u;
+        }
+        *reinterpret_cast<unsigned*>(Cm + (size_t)m * N + n) =
+            pack_bf16(v[0], v[1]);
+      }
+    }
+  }
+}
+
 }  // namespace
+
+// bf16 x, y: (B, S, C); w_qkv: (C, 3C) with [3, nh, d] output columns, b_qkv
+// (3C,), w_proj (C, C), b_proj (C,) bf16; gs, gb fp32; mean_c/rstd_c: (B, C)
+// fp32 scratch; qkv: (B, S, 3C) and attn: (B, S, C) bf16 scratch. Needs
+// S % 64 == 0, C % 32 == 0, C / G <= 64 and d = C/nh with d % 8 == 0 and
+// d <= 128.
+extern "C" int dxmi_attn_block_bf16(const void* x, const float* gs,
+                                    const float* gb, const void* w_qkv,
+                                    const void* b_qkv, const void* w_proj,
+                                    const void* b_proj, void* y,
+                                    float* mean_c, float* rstd_c, void* qkv,
+                                    void* attn, int B, int S, int C, int nh,
+                                    int G, float eps, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* qkvb = static_cast<bf16*>(qkv);
+  bf16* attnb = static_cast<bf16*>(attn);
+  if (C % HBK) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      launch_gn_stats_bf16(xb, mean_c, rstd_c, B, S, C, G, eps, 0, s);
+  if (err != cudaSuccess) return (int)err;
+
+  const int M = B * S, d = C / nh;
+  // the TPU body scales by jnp.asarray(d ** -0.25, bf16)
+  const float qk_scale =
+      __bfloat162float(__float2bfloat16_rn((float)(1.0 / sqrt(sqrt((double)d)))));
+  dim3 g_qkv((3 * C + HBN - 1) / HBN, (M + HBM - 1) / HBM);
+  hgemm_kernel<kGroupNormA, kBiasScaleQK><<<g_qkv, kHThreads, 0, s>>>(
+      xb, static_cast<const bf16*>(w_qkv), qkvb, M, 3 * C, C,
+      static_cast<const bf16*>(b_qkv), nullptr, qk_scale, 2 * C, mean_c,
+      rstd_c, gs, gb, S);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  err = launch_flash_attn(qkvb, qkvb + C, qkvb + 2 * C, attnb, B, S, nh, d,
+                          3 * C, C, 1.f, s);
+  if (err != cudaSuccess) return (int)err;
+
+  dim3 g_proj((C + HBN - 1) / HBN, (M + HBM - 1) / HBM);
+  hgemm_kernel<kPlainA, kBiasResidual><<<g_proj, kHThreads, 0, s>>>(
+      attnb, static_cast<const bf16*>(w_proj), static_cast<bf16*>(y), M, C, C,
+      static_cast<const bf16*>(b_proj), xb, 1.f, 0, nullptr, nullptr, nullptr,
+      nullptr, S);
+  return (int)cudaGetLastError();
+}
 
 // x, y: (B, S, C); w_qkv: (C, 3C) with [3, nh, d] output columns; b_qkv:
 // (3C,); w_proj: (C, C); mean_c/rstd_c: (B, C); qkv: (B, S, 3C) and attn:

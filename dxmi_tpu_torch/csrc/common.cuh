@@ -1,18 +1,39 @@
-// Shared pieces of the port's kernels: the GroupNorm statistics pass that
-// K1 (groupnorm.cu), K3 (conv_fused.cu) and K2 (attn_block.cu) all start
-// from, and the affine and SiLU they apply.
+// Shared pieces of the port's kernels: the GroupNorm statistics passes that
+// K1 (groupnorm.cu), K3 (conv_fused.cu) and K2 (attn_block.cu) start from,
+// the affine and SiLU they apply, bf16 rounding, the tensor-core helpers
+// (ldmatrix, mma.sync m16n8k16 bf16, cp.async) of K2, K3 and K4, and the
+// flash-attention launch (flash_attn.cu) that K4 and K2's bf16 form share.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+typedef __nv_bfloat16 bf16;
 
 // Per-(sample, group) mean and 1/sqrt(var + eps) of a channels-last
 // (B, HW, C) fp32 tensor, two-pass in fp32 (the JAX package's default
 // group_norm_silu_reference), written out per channel: mean_c and rstd_c
 // are (B, C), so that a consumer reads them with the same 16-byte loads as
-// x. Needs C / G <= 32. Defined in groupnorm.cu.
+// x. Needs C / G <= 64. Defined in groupnorm.cu.
 cudaError_t launch_gn_stats(const float* x, float* mean_c, float* rstd_c,
                             int B, int HW, int C, int G, float eps,
                             cudaStream_t stream);
+
+// The same for a bf16 tensor. onepass == 0: two-pass fp32 statistics;
+// onepass == 1: the bf16_onepass mode (s1 and s2 of bf16 x and bf16 x*x in
+// fp32; mean, var + eps and the rsqrt each rounded to bf16).
+cudaError_t launch_gn_stats_bf16(const bf16* x, float* mean_c, float* rstd_c,
+                                 int B, int HW, int C, int G, float eps,
+                                 int onepass, cudaStream_t stream);
+
+// softmax(q k^T * sm_scale) v per (sample, head) for bf16 q, k, v whose
+// rows (one per position) are row_stride elements apart, heads d apart
+// within a row; o rows are out_row_stride apart. Needs S % 64 == 0,
+// d % 8 == 0, d <= 128 and 16-byte aligned rows. Defined in flash_attn.cu.
+cudaError_t launch_flash_attn(const bf16* q, const bf16* k, const bf16* v,
+                              bf16* o, int B, int S, int nh, int d,
+                              int row_stride, int out_row_stride,
+                              float sm_scale, cudaStream_t stream);
 
 // ((x - mean) * rstd) * scale + bias, the plain version's order.
 __device__ __forceinline__ float4 gn_affine4(float4 v, float4 m, float4 r,
@@ -27,4 +48,57 @@ __device__ __forceinline__ float silu(float t) { return t / (1.f + expf(-t)); }
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// round to bf16 and back: the rounding XLA applies after each bf16 op
+__device__ __forceinline__ float rb(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ unsigned int pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned int*>(&v);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16-byte async copy; src_bytes == 0 writes zeros
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }

@@ -27,8 +27,6 @@
 // epilogue adds the bias and writes fp32 straight from the accumulators.
 // Two blocks share an SM, so one block's loads overlap the other's
 // products; no wgmma or TMA yet.
-#include <cuda_bf16.h>
-
 #include "common.cuh"
 
 namespace {
@@ -43,45 +41,6 @@ constexpr int kWeightBytes = 9 * BK * LDB * 2;
 // (BM + 2W + 2 rows) and one row of zeros
 __host__ __device__ constexpr int conv_smem_bytes(int W) {
   return kWeightBytes + (BM + 2 * W + 3) * LDH * 2;
-}
-
-__device__ __forceinline__ unsigned int pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned int*>(&v);
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16-byte async copy; src_bytes == 0 writes zeros
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
 }
 
 __global__ void __launch_bounds__(kThreads, 2)

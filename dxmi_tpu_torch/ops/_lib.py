@@ -1,7 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 All kernel sources (``dxmi_tpu_torch/csrc/*.cu``) have a plain C interface.
-One ``nvcc`` call compiles them for ``sm_90a`` into
+One ``nvcc`` call per source compiles them for ``sm_90a`` (all started
+together) and one more links them into
 ``build/dxmi_tpu_torch/libkernels.so`` at the repository root on first use,
 and ``ctypes`` binds the entry points. Every pointer and the stream travel
 as ``c_void_p`` (a plain int argument would be cut to 32 bits); every entry
@@ -26,7 +27,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "dxmi_tpu_torch"
 LIB_PATH = BUILD_DIR / "libkernels.so"
-NVCC_TIMEOUT_S = 240
+NVCC_TIMEOUT_S = 300
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
@@ -35,8 +36,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # entry point -> argument types (all return int, the CUDA error code)
 _SIGNATURES = {
-    # x, scale, bias, y, mean_c, rstd_c, B, HW, C, G, eps, silu, stream
-    "dxmi_gn_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # x, scale, bias, y, mean_c, rstd_c, B, HW, C, G, eps, silu, is_bf16,
+    # onepass, stream
+    "dxmi_gn_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                        _I, _P],
     # x, gn_scale, gn_bias, w(9,Cin,Cout) bf16, bias, y, mean_c, rstd_c,
     # B, H, W, Cin, Cout, G, eps, stream
     "dxmi_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P,
@@ -45,6 +48,11 @@ _SIGNATURES = {
     # qkv scratch, attn scratch, B, S, C, nh, G, eps, stream
     "dxmi_attn_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _F, _P],
+    # the same arguments, bf16 tensors (GN parameters and statistics fp32)
+    "dxmi_attn_block_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, o, B, S, nh, d, row_stride, out_row_stride, sm_scale, stream
+    "dxmi_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -55,30 +63,69 @@ def sources() -> List[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def nvcc_command(out: pathlib.Path, verbose: bool = False) -> List[str]:
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+def _nvcc() -> str:
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", f"-I{CSRC}",
-           "-o", str(out)]
+
+
+def compile_command(src: pathlib.Path, obj: pathlib.Path,
+                    verbose: bool = False) -> List[str]:
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-Xcompiler", "-fPIC", f"-I{CSRC}", "-c", "-o", str(obj)]
     if verbose:
         cmd += ["-Xptxas", "-v"]
-    return cmd + [str(s) for s in sources()]
+    return cmd + [str(src)]
 
 
 def build(verbose: bool = False) -> subprocess.CompletedProcess:
-    """Compile every kernel source into ``LIB_PATH`` with one nvcc call
-    (bounded by ``NVCC_TIMEOUT_S``). Writes to a temporary name first so
-    that a concurrent loader never sees a half-written library."""
+    """Compile every kernel source, one nvcc process each, all started
+    together, then link them into ``LIB_PATH``; each process is bounded by
+    ``NVCC_TIMEOUT_S``. Writes to temporary names first so that a
+    concurrent loader never sees a half-written library. Returns the
+    compilers' output (``-Xptxas -v`` when ``verbose``)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libkernels.{os.getpid()}.so"
-    proc = subprocess.run(nvcc_command(tmp, verbose), capture_output=True,
-                          text=True, timeout=NVCC_TIMEOUT_S)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return proc
+    tag = os.getpid()
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        jobs.append((obj, subprocess.Popen(
+            compile_command(src, obj, verbose), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    out, err, failed = [], [], []
+    try:
+        for obj, proc in jobs:
+            o, e = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            out.append(o)
+            err.append(e)
+            if proc.returncode != 0:
+                failed.append(obj.name)
+    finally:
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    objs = [str(obj) for obj, _ in jobs]
+    if not failed:
+        tmp = BUILD_DIR / f"libkernels.{tag}.so"
+        link = subprocess.run([_nvcc(), "-gencode",
+                               "arch=compute_90a,code=sm_90a", "-shared",
+                               "-o", str(tmp), *objs],
+                              capture_output=True, text=True,
+                              timeout=NVCC_TIMEOUT_S)
+        out.append(link.stdout)
+        err.append(link.stderr)
+        if link.returncode != 0:
+            failed.append("link")
+        else:
+            os.replace(tmp, LIB_PATH)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                           + "\n".join(out) + "\n".join(err))
+    return subprocess.CompletedProcess(["nvcc"], 0, "\n".join(out),
+                                       "\n".join(err))
 
 
 def _stale() -> bool:

@@ -11,12 +11,28 @@ to 1e-3) or False (analytic schedule sigmas, last pinned to 1e-3).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
 from dxmi_tpu_torch.schedules import var_schedule
+
+LOG_2PI = math.log(2.0 * math.pi)
+
+
+def gaussian_logp_mean(x: torch.Tensor, mean: torch.Tensor,
+                       sigma: torch.Tensor) -> torch.Tensor:
+    """Per-sample Normal log-density, averaged over the non-batch dims.
+    ``x`` is data (detached); gradients flow through ``mean`` and
+    ``sigma``."""
+    x = x.detach()
+    if sigma.dim() < x.dim():
+        sigma = sigma.expand_as(x)
+    z = (x - mean) / sigma
+    logp = -0.5 * z * z - torch.log(sigma) - 0.5 * LOG_2PI
+    return logp.reshape(x.shape[0], -1).mean(dim=1)
 
 
 class VARSampler(nn.Module):

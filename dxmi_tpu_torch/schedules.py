@@ -1,9 +1,11 @@
-"""Diffusion schedule numerics (host-side numpy precompute).
+"""Diffusion schedule numerics.
 
-A copy of the numpy half of ``dxmi_tpu/schedules.py`` (``make_beta_schedule``,
-``ddpm_grid``, ``get_var_noise``, ``precompute_var_steps``, ``var_schedule``),
-kept here so that the port never imports the JAX package. Everything runs
-once on the host; the sampler turns the results into tensors on its device.
+A copy of ``dxmi_tpu/schedules.py`` (``make_beta_schedule``, ``ddpm_grid``,
+``get_var_noise``, ``precompute_var_steps``, ``var_schedule``, and the
+Karras/EDM ``karras_schedule``, ``edm_scalings``, ``edm_rescaled_t``), kept
+here so that the port never imports the JAX package. The grids are numpy,
+computed once on the host; the samplers turn them into tensors on their
+device. ``edm_scalings`` and ``edm_rescaled_t`` act on tensors.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import math
 from typing import Callable, Tuple
 
 import numpy as np
+import torch
 
 DDPM_BETA_0 = 1e-4
 DDPM_BETA_T = 2e-2
@@ -190,3 +193,72 @@ def var_schedule(n_timesteps: int, schedule: str = "quadratic") -> VarSchedule:
                        sigma_q=f32(sigma_q),
                        init_sigma=f32(init_sigma),
                        gamma_bar=f32(gamma_bar), eta=f32(eta))
+
+
+# ---------------------------------------------------------------------------
+# Karras / EDM schedule (dxmi_tpu/schedules.py karras_sigmas .. edm_rescaled_t)
+# ---------------------------------------------------------------------------
+
+
+def karras_sigmas(n: int, sigma_min: float = 0.002, sigma_max: float = 80.0,
+                  rho: float = 7.0) -> np.ndarray:
+    """rho-spaced EDM sigma grid with a trailing zero, shape (n+1,)."""
+    ramp = np.linspace(0.0, 1.0, n)
+    min_inv_rho = sigma_min ** (1.0 / rho)
+    max_inv_rho = sigma_max ** (1.0 / rho)
+    sigmas = (max_inv_rho + ramp * (min_inv_rho - max_inv_rho)) ** rho
+    return np.concatenate([sigmas, [0.0]]).astype(np.float32)
+
+
+def ancestral_split(sigmas: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Split consecutive sigma pairs into (sigma_down, sigma_up) for
+    Euler-ancestral sampling. Input (T+1,) -> outputs (T,)."""
+    sigma_from, sigma_to = sigmas[:-1], sigmas[1:]
+    sigma_up = np.sqrt(sigma_to**2 * (sigma_from**2 - sigma_to**2)
+                       / np.maximum(sigma_from**2, 1e-20))
+    sigma_down = np.sqrt(np.maximum(sigma_to**2 - sigma_up**2, 0.0))
+    return sigma_down.astype(np.float32), sigma_up.astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class KarrasSchedule:
+    """Per-step constants of the EDM Euler-ancestral policy, float32 arrays
+    of shape (T,) indexed by sampling step (0 = most noisy)."""
+
+    sigmas: np.ndarray      # sigma at each sampling step
+    sigma_down: np.ndarray
+    sigma_up: np.ndarray    # noise actually added
+    sigma_max: float
+    sigma_data: float
+
+
+def karras_schedule(n_timesteps: int, sigma_min: float = 0.002,
+                    sigma_max: float = 80.0, rho: float = 7.0,
+                    stochastic_last: bool = False,
+                    sigma_data: float = 0.5) -> KarrasSchedule:
+    """The EDM policy schedule. ``stochastic_last`` keeps a non-zero terminal
+    sigma by building an (n+1)-point grid and dropping its final zero."""
+    if stochastic_last:
+        full = karras_sigmas(n_timesteps + 1, sigma_min, sigma_max, rho)[:-1]
+    else:
+        full = karras_sigmas(n_timesteps, sigma_min, sigma_max, rho)
+    down, up = ancestral_split(full)
+    return KarrasSchedule(sigmas=full[:-1], sigma_down=down, sigma_up=up,
+                          sigma_max=float(sigma_max),
+                          sigma_data=float(sigma_data))
+
+
+def edm_scalings(sigma: torch.Tensor, sigma_data: float = 0.5):
+    """EDM preconditioning (c_skip, c_out, c_in) of a sigma tensor."""
+    c_skip = sigma_data**2 / (sigma**2 + sigma_data**2)
+    c_out = sigma * sigma_data / torch.sqrt(sigma**2 + sigma_data**2)
+    c_in = 1.0 / torch.sqrt(sigma**2 + sigma_data**2)
+    return c_skip, c_out, c_in
+
+
+def edm_rescaled_t(sigma: torch.Tensor) -> torch.Tensor:
+    """Timestep conditioning fed to the ADM U-Net: 250 log(sigma + 1e-44).
+    The 1e-44 is a float32 denormal; torch keeps it (log 0 -> -101.3),
+    where XLA on the CPU flushes it to zero (-inf). The sampler never
+    passes sigma = 0."""
+    return 1000.0 * 0.25 * torch.log(sigma + 1e-44)

@@ -1,9 +1,11 @@
 """Flax params (as numpy) -> the port's PyTorch state dicts.
 
-``unet_small_from_flax`` inverts ``dxmi_tpu.utils.convert.convert_unet_small``:
-flax module names go back to the reference's dotted paths, GroupNorm
+``unet_small_from_flax`` and ``unet_adm_from_flax`` invert
+``dxmi_tpu.utils.convert.convert_unet_small`` and ``convert_unet_adm``: flax
+module names go back to the reference's dotted paths, GroupNorm
 ``gn/{scale,bias}`` back to ``weight``/``bias``, conv kernels (kh, kw, I, O)
-back to (O, I, kh, kw) and dense kernels (I, O) back to (O, I).
+back to (O, I, kh, kw), dense kernels (I, O) back to (O, I) and embedding
+tables to ``weight``.
 """
 from __future__ import annotations
 
@@ -62,6 +64,44 @@ def var_sampler_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict of the port's ``VARSampler`` from the JAX sampler params
     ``{'net': <UNetSmall params>, 'log_betas': (T,)}``."""
     out = {f"net.{k}": v for k, v in unet_small_from_flax(params["net"]).items()}
+    out["log_betas"] = torch.from_numpy(
+        np.asarray(params["log_betas"], dtype=np.float32))
+    return out
+
+
+def _adm_module_path(name: str) -> str:
+    """flax module name -> reference dotted path: ``input_blocks_1_0`` ->
+    ``input_blocks.1.0``, ``output_blocks_2_2_conv`` -> ``output_blocks.2.2.conv``,
+    ``input_blocks_3_0_op`` -> ``input_blocks.3.0.op``."""
+    name = re.sub(r"_(\d+)", r".\1", name)
+    return re.sub(r"_(op|conv)$", r".\1", name)
+
+
+def unet_adm_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``UNetADM`` from the JAX ``UNetADM`` params
+    tree (numpy leaves; a ``{'params': ...}`` wrapper is accepted)."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for path, val in _leaves(params):
+        *mods, leaf = path
+        if mods and mods[-1] == "gn":
+            mods, name = mods[:-1], {"scale": "weight", "bias": "bias"}[leaf]
+        elif leaf == "kernel":
+            name = "weight"
+            val = val.transpose(3, 2, 0, 1) if val.ndim == 4 else val.T
+        elif leaf in ("bias", "embedding"):
+            name = "bias" if leaf == "bias" else "weight"
+        else:
+            raise ValueError(f"unhandled flax leaf {'/'.join(path)}")
+        key = ".".join([*(_adm_module_path(m) for m in mods), name])
+        out[key] = torch.from_numpy(np.ascontiguousarray(val))
+    return out
+
+
+def edm_sampler_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``EDMSampler`` from the JAX sampler params
+    ``{'net': <UNetADM params>, 'log_betas': (T,)}``."""
+    out = {f"net.{k}": v for k, v in unet_adm_from_flax(params["net"]).items()}
     out["log_betas"] = torch.from_numpy(
         np.asarray(params["log_betas"], dtype=np.float32))
     return out

@@ -46,13 +46,31 @@ def _run(args, cwd, timeout=120):
 def test_port_imports_no_jax_yaml_or_reference():
     proc = _run(["-c", IMPORT_ALL % (BLOCKED,)], REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 13
+    # 13 modules of the CIFAR-10 slice, 5 of the ImageNet64 slice
+    # (ops.attention, ops.phase_up, models.unet_adm, samplers.edm,
+    # generate_large)
+    assert int(proc.stdout.split()[-1]) >= 18
 
 
 def test_chip_smoke_fixture_config_matches_yaml():
     with open(os.path.join(REPO, "tests", "fixtures", "torch_rundir_t10",
                            "config.yaml")) as f:
         assert chip_smoke.FIXTURE_CONFIG == yaml.safe_load(f)
+
+
+def test_chip_smoke_adm_fixture_config_matches_yaml():
+    with open(os.path.join(REPO, "tests", "fixtures", "torch_rundir_adm_t10",
+                           "config.yaml")) as f:
+        assert chip_smoke.ADM_FIXTURE_CONFIG == yaml.safe_load(f)
+
+
+def test_chip_smoke_imagenet64_config_matches_yaml():
+    """chip_smoke.py's ImageNet64 config is the generation half (the
+    diffusion and sampler sections) of configs/imagenet64/T10.yaml."""
+    with open(os.path.join(REPO, "configs", "imagenet64", "T10.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    assert chip_smoke.IMAGENET64_T10 == {k: cfg[k]
+                                         for k in ("diffusion", "sampler")}
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -6,14 +6,18 @@ without the repository's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances are chip_smoke.TOL (stated and reasoned there).
+Tolerances are chip_smoke.TOL (stated and reasoned there); the bf16 attention
+block is held by chip_smoke.attn_bf16_check (the JAX package's own bf16
+criterion and an element-wise limit on the attention part), and flash
+attention by chip_smoke.flash_check (a per-row limit).
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import TOL
+from chip_smoke import TOL, attn_bf16_check, flash_check
 from dxmi_tpu_torch.ops import _lib
+from dxmi_tpu_torch.ops.attention import flash_mha, flash_mha_reference
 from dxmi_tpu_torch.ops.attn_block import attn_block, attn_block_reference
 from dxmi_tpu_torch.ops.conv_fused import gn_silu_conv, gn_silu_conv_reference
 from dxmi_tpu_torch.ops.groupnorm import group_norm, group_norm_silu_reference
@@ -94,4 +98,90 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):
         group_norm(torch.zeros(2, 8, 64, device=card).transpose(1, 2),
                    torch.ones(8, device=card), torch.zeros(8, device=card), 8)
+    assert not _lib.LAUNCHES
+
+
+def _bf16(rs, device, shape, scale, shift):
+    return torch.from_numpy((rs.randn(*shape) * scale + shift)
+                            .astype(np.float32)).to(device).bfloat16()
+
+
+@pytest.mark.parametrize("stats", ["fp32", "bf16_onepass"])
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("shape", [(100, 64, 1536), (100, 4096, 192),
+                                   (8, 64, 1344), (8, 256, 960),
+                                   (4, 16, 1152), (4, 1024, 384),
+                                   (3, 7, 64)])
+def test_group_norm_bf16(card, shape, silu, stats):
+    rs = np.random.RandomState(3)
+    C = shape[-1]
+    x = _bf16(rs, card, shape, 2.0, 0.5)
+    s, b = _tensors(rs, card, ((C,), 0.1, 1.0), ((C,), 0.1, 0.0))
+    atol, rtol = TOL["gn_silu_bf16"]
+    torch.testing.assert_close(
+        group_norm(x, s, b, 32, 1e-5, silu, stats).float(),
+        group_norm_silu_reference(x, s, b, 32, 1e-5, silu, stats).float(),
+        rtol=rtol, atol=atol)
+    assert _lib.LAUNCHES["gn_silu_bf16"] == 1
+
+
+@pytest.mark.parametrize("shape", [(8, 1024, 96), (4, 64, 1536)])
+def test_group_norm_fp32_onepass(card, shape):
+    C = shape[-1]
+    x, s, b = _tensors(np.random.RandomState(4), card, (shape, 2.0, 0.5),
+                       ((C,), 0.1, 1.0), ((C,), 0.1, 0.0))
+    _check(group_norm(x, s, b, 32, 1e-5, True, "bf16_onepass"),
+           group_norm_silu_reference(x, s, b, 32, 1e-5, True, "bf16_onepass"),
+           "gn_silu")
+
+
+@pytest.mark.parametrize("B,S,C,nh", [(8, 1024, 384, 6), (8, 256, 576, 9),
+                                      (8, 64, 768, 12), (2, 64, 64, 2),
+                                      (2, 128, 96, 3)])
+def test_attn_block_bf16(card, B, S, C, nh):
+    rs = np.random.RandomState(5)
+    x = _bf16(rs, card, (B, S, C), 1.0, 0.0)
+    gs, gb = _tensors(rs, card, ((C,), 0.1, 1.0), ((C,), 0.1, 0.0))
+    w = [_bf16(rs, card, shape, scale, 0.0)
+         for shape, scale in (((C, 3 * C), C ** -0.5), ((3 * C,), 0.02),
+                              ((C, C), C ** -0.5), ((C,), 0.02))]
+    attn_bf16_check(attn_block(x, gs, gb, *w, num_heads=nh),
+                    attn_block_reference(x, gs, gb, *w, num_heads=nh), x,
+                    "attn_block_bf16")
+    assert _lib.LAUNCHES["attn_block_bf16"] == 1
+
+
+@pytest.mark.parametrize("B,S,nh,d", [(4, 1024, 6, 64), (2, 512, 2, 128),
+                                      (2, 512, 4, 32), (1, 640, 2, 36)])
+def test_flash_mha(card, B, S, nh, d):
+    rs = np.random.RandomState(6)
+    q, k, v = (_bf16(rs, card, (B, S, nh, d), 1.0, 0.0) for _ in range(3))
+    flash_check(flash_mha(q, k, v, d ** -0.5),
+                flash_mha_reference(q, k, v, d ** -0.5), q, k, v, d ** -0.5,
+                "flash_attn")
+    assert _lib.LAUNCHES["flash_attn"] == 1
+
+
+def test_flash_mha_reads_qkv_views(card):
+    """q, k, v as strided views of one (B, S, 3, nh, d) tensor, as the ADM
+    attention block passes them."""
+    qkv = _bf16(np.random.RandomState(7), card, (2, 1024, 3, 6, 64), 1.0, 0.0)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    flash_check(flash_mha(q, k, v, 0.125), flash_mha_reference(q, k, v, 0.125),
+                q, k, v, 0.125, "flash_attn")
+
+
+def test_unported_forms_raise(card):
+    """A CUDA tensor launches the kernel or raises: K2 has no bf16 form at
+    d=256 and K4 no fp32 form yet."""
+    rs = np.random.RandomState(8)
+    x = _bf16(rs, card, (1, 256, 256), 1.0, 0.0)
+    gs, gb = _tensors(rs, card, ((256,), 0.1, 1.0), ((256,), 0.1, 0.0))
+    w = [_bf16(rs, card, shape, 0.05, 0.0)
+         for shape in ((256, 768), (768,), (256, 256), (256,))]
+    with pytest.raises(NotImplementedError):
+        attn_block(x, gs, gb, *w, num_heads=1)
+    q = torch.zeros(1, 512, 2, 64, device=card)
+    with pytest.raises(NotImplementedError):
+        flash_mha(q, q, q, 0.125)
     assert not _lib.LAUNCHES

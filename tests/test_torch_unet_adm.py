@@ -1,0 +1,389 @@
+"""The ImageNet64 slice on the CPU against dxmi_tpu: UNetADM on converted
+weights (every route, fp32 and bf16, both upsampling forms), the kernel
+launch table of the full-width ImageNet64 net (counted on the meta device,
+without computing a forward), the converter's round trip, the trained ADM
+fixture's trajectory through config -> checkpoint -> EDMSampler -> UNetADM at
+tests/test_golden_adm_fixture.py's limits, and the generate_large CLI."""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+import chip_smoke
+from dxmi_tpu.models.unet_adm import UNetADM as JaxUNetADM
+from dxmi_tpu.utils.convert import convert_unet_adm
+from dxmi_tpu_torch.generate_large import load_sampler
+from dxmi_tpu_torch.models import unet_adm
+from dxmi_tpu_torch.models.unet_adm import (AttentionBlockADM, ResBlockADM,
+                                            UNetADM, create_unet_adm)
+from dxmi_tpu_torch.samplers.edm import EDMSampler
+from dxmi_tpu_torch.utils.checkpoint import load_sampler_state
+from dxmi_tpu_torch.utils.convert import (edm_sampler_from_flax,
+                                          unet_adm_from_flax)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_rundir_adm_t10")
+
+# a small net (16x16: attention at 8x8, S=64) and a 32x32 one
+# whose 32x32 attention (S=1024) opens the flash route
+SMALL = dict(in_channels=3, model_channels=32, out_channels=3,
+             num_res_blocks=1, channel_mult=(1, 2), num_heads=2,
+             use_scale_shift_norm=True, resblock_updown=True, num_classes=4)
+NETS = {16: dict(SMALL, image_size=16, attention_resolutions=(2,)),
+        32: dict(SMALL, image_size=32, attention_resolutions=(1, 2))}
+
+
+def _seeded_flax_params(cfg, seed):
+    """The JAX net's params tree with every leaf drawn from a seeded normal
+    (the module's own init zeroes out_layers_3, proj_out and out_2)."""
+    net = JaxUNetADM(**cfg)
+    R = cfg["image_size"]
+    shapes = jax.eval_shape(
+        lambda: net.init(jax.random.key(0), jnp.zeros((1, R, R, 3)),
+                         jnp.zeros((1,)), jnp.zeros((1,), jnp.int32)))
+    rs = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        names = [getattr(p, "key", "") for p in path]
+        z = rs.randn(*leaf.shape).astype(np.float32)
+        if names[-1] == "embedding":
+            return z
+        if names[-1] == "kernel":
+            return z / np.sqrt(np.prod(leaf.shape[:-1]))
+        if names[-2:] == ["gn", "scale"]:
+            return 1.0 + 0.1 * z
+        return 0.1 * z
+
+    return jax.tree_util.tree_map_with_path(draw, shapes["params"])
+
+
+def _inputs(R, seed):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(2, 3, R, R).astype(np.float32)
+    t = np.array([1095.3, -180.4], np.float32)  # rescaled EDM times
+    y = np.array([1, 3], np.int32)
+    return x, t, y
+
+
+@pytest.fixture(scope="module", params=[16, 32])
+def small(request):
+    R = request.param
+    params = _seeded_flax_params(NETS[R], seed=R)
+    return R, params, unet_adm_from_flax(params)
+
+
+def _jax_out(cfg, params, x, t, y, **kw):
+    net = JaxUNetADM(**cfg, **kw)
+    out = net.apply({"params": params}, jnp.asarray(x.transpose(0, 2, 3, 1)),
+                    jnp.asarray(t), jnp.asarray(y))
+    return np.asarray(out).transpose(0, 3, 1, 2)
+
+
+def _port_out(cfg, state, x, t, y, **kw):
+    net = UNetADM(**cfg, **kw)
+    net.load_state_dict(state)
+    net.cast_weights()
+    with torch.no_grad():
+        out = net(torch.from_numpy(x), torch.from_numpy(t),
+                  torch.from_numpy(y).long())
+    assert out.dtype == torch.float32
+    return out.numpy()
+
+
+@pytest.mark.parametrize("up_impl", ["resize", "phase"])
+def test_fp32_routes_match_jax(small, up_impl):
+    """Every attention route in fp32 equals the JAX einsum path at 1e-4
+    (the fused route runs K2's plain version; in fp32 the flash route is
+    the einsum path, K4 being bf16)."""
+    R, params, state = small
+    x, t, y = _inputs(R, seed=1)
+    ref = _jax_out(NETS[R], params, x, t, y, up_impl=up_impl)
+    assert np.abs(ref).mean() > 0.1
+    for impl in ("einsum", "fused", "flash"):
+        ours = _port_out(NETS[R], state, x, t, y, attn_impl=impl,
+                         up_impl=up_impl)
+        np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-4,
+                                   err_msg=impl)
+
+
+# bf16 nets: torch and XLA round each bf16 operation to the same type, but
+# their convolutions and matmuls sum in other orders and torch's conv adds
+# its bias before rounding (XLA after), so single-ulp differences (2^-8
+# relative) enter at every layer and grow through the depth. Measured, each
+# bf16 net sits ~1.5-1.9% (mean relative error) from the fp32 net, and the
+# port's and JAX's bf16 nets ~2% from each other: independent bf16 noise.
+# So the port's bf16 net must be no further from the fp32 JAX net than 1.5x
+# JAX's own bf16 net is, and within 2x that distance of JAX's bf16 net.
+def _rel(a, b):
+    return float(np.abs(a - b).mean() / np.abs(b).mean())
+
+
+def _bf16_close(ours, ref_bf16, ref_fp32, name):
+    noise = _rel(ref_bf16, ref_fp32)
+    assert noise < 3e-2, (name, noise)
+    assert _rel(ours, ref_fp32) < 1.5 * noise, (name, _rel(ours, ref_fp32))
+    assert _rel(ours, ref_bf16) < 2 * noise, (name, _rel(ours, ref_bf16))
+
+
+@pytest.mark.parametrize("gn_stats", ["fp32", "bf16_onepass"])
+def test_bf16_einsum_matches_jax(small, monkeypatch, gn_stats):
+    R, params, state = small
+    x, t, y = _inputs(R, seed=2)
+    ref32 = _jax_out(NETS[R], params, x, t, y)
+    monkeypatch.setenv("DXMI_GN_STATS", gn_stats)
+    ref = _jax_out(NETS[R], params, x, t, y, dtype=jnp.bfloat16,
+                   softmax_f32=False, up_impl="phase")
+    ours = _port_out(NETS[R], state, x, t, y, dtype=torch.bfloat16,
+                     softmax_f32=False, attn_impl="einsum", up_impl="phase",
+                     gn_stats=gn_stats)
+    _bf16_close(ours, ref, ref32, gn_stats)
+
+
+def test_bf16_kernel_routes_match_jax(small, monkeypatch):
+    """fused (K2's bf16 plain version) and flash (K4's, at the 32x32 map)
+    against the JAX einsum path with an fp32 softmax, the same arithmetic
+    class."""
+    R, params, state = small
+    x, t, y = _inputs(R, seed=3)
+    ref32 = _jax_out(NETS[R], params, x, t, y)
+    monkeypatch.setenv("DXMI_GN_STATS", "bf16_onepass")
+    ref = _jax_out(NETS[R], params, x, t, y, dtype=jnp.bfloat16,
+                   softmax_f32=True)
+    for impl in ("fused", "flash"):
+        ours = _port_out(NETS[R], state, x, t, y, dtype=torch.bfloat16,
+                         attn_impl=impl, gn_stats="bf16_onepass")
+        _bf16_close(ours, ref, ref32, impl)
+
+
+def test_bf16_fused_matches_jax_fused_kernel(monkeypatch):
+    """The 16x16 net with the JAX fused attention block forced into its
+    Pallas kernel (interpret mode) against the port's fused route."""
+    params = _seeded_flax_params(NETS[16], seed=16)
+    x, t, y = _inputs(16, seed=4)
+    ref32 = _jax_out(NETS[16], params, x, t, y)
+    monkeypatch.setenv("DXMI_FUSED_ATTN_FORCE", "1")
+    ref = _jax_out(NETS[16], params, x, t, y, dtype=jnp.bfloat16,
+                   attn_impl="fused")
+    ours = _port_out(NETS[16], unet_adm_from_flax(params), x, t, y,
+                     dtype=torch.bfloat16, attn_impl="fused")
+    _bf16_close(ours, ref, ref32, "fused")
+
+
+def _count_launches(monkeypatch, net, R):
+    """Run ``net`` on the meta device (shapes only, no arithmetic) with the
+    kernel wrappers replaced by counters named as the real wrappers count
+    their launches on the card."""
+    counts = {}
+
+    def counter(name, out):
+        def fn(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            return out(args[0])
+        return fn
+
+    monkeypatch.setattr(unet_adm, "group_norm",
+                        counter("gn_silu_bf16", torch.empty_like))
+    monkeypatch.setattr(unet_adm, "attn_block",
+                        counter("attn_block_bf16", torch.empty_like))
+    monkeypatch.setattr(unet_adm, "flash_mha",
+                        counter("flash_attn", torch.empty_like))
+    x = torch.empty(1, 3, R, R, device="meta")
+    net(x, torch.empty(1, device="meta"),
+        torch.zeros(1, dtype=torch.long, device="meta"))
+    return counts
+
+
+@pytest.mark.parametrize("attn_impl", ["fused", "flash"])
+def test_imagenet64_launch_table(monkeypatch, attn_impl):
+    """The launches per forward that chip_smoke.py checks in phase E2, from
+    the full-width ImageNet64 net (configs/imagenet64/T10.yaml) run on the
+    meta device: 36 ResBlocks, 22 attention blocks (7 at 32x32, 7 at 16x16,
+    8 at 8x8), and the gates' choices at their real shapes."""
+    cfg = dict(chip_smoke.IMAGENET64_T10["diffusion"])
+    for k in ("sigma_min", "sigma_max", "weight_schedule", "distillation"):
+        cfg.pop(k)
+    with torch.device("meta"):
+        net = create_unet_adm(**cfg, attn_impl=attn_impl, up_impl="phase",
+                              gn_stats="bf16_onepass")
+    assert net.dtype == torch.bfloat16
+    assert sum(isinstance(m, ResBlockADM) for m in net.modules()) == 36
+    assert sum(isinstance(m, AttentionBlockADM) for m in net.modules()) == 22
+    assert sum(p.numel() for p in net.parameters()) == 295_899_267
+    counts = _count_launches(monkeypatch, net.cast_weights(), 64)
+    assert counts == chip_smoke.ADM_LAUNCHES_PER_FORWARD[attn_impl]
+
+
+@pytest.mark.parametrize("attn_impl,want", [
+    ("fused", {"attn_block_bf16": 22}), ("flash", {"flash_attn": 7})])
+def test_imagenet64_fp32_routes(monkeypatch, attn_impl, want):
+    """The attention routes are the JAX gates alone: the full-width net in
+    fp32 sends the same maps to K2 or K4 as in bf16 (on the card a form
+    the kernels do not take raises rather than falling back)."""
+    cfg = dict(chip_smoke.IMAGENET64_T10["diffusion"], use_fp16=False)
+    for k in ("sigma_min", "sigma_max", "weight_schedule", "distillation"):
+        cfg.pop(k)
+    with torch.device("meta"):
+        net = create_unet_adm(**cfg, attn_impl=attn_impl)
+    assert net.dtype == torch.float32
+    counts = _count_launches(monkeypatch, net, 64)
+    assert {k: v for k, v in counts.items() if k != "gn_silu_bf16"} == want
+
+
+def test_convert_roundtrip():
+    """reference sampler.pth -> dxmi_tpu's convert_unet_adm -> the port's
+    edm_sampler_from_flax gives back the reference keys and values."""
+    state = load_sampler_state(os.path.join(FIXTURE, "sampler.pth"))
+    ref = torch.load(os.path.join(FIXTURE, "sampler.pth"), map_location="cpu",
+                     weights_only=True)["state_dict"]
+    flax = convert_unet_adm({k: v.numpy() for k, v in ref.items()})
+    back = edm_sampler_from_flax({"net": flax["params"],
+                                  "log_betas": flax["log_betas"]})
+    assert set(back) == set(state)
+    for k in state:
+        torch.testing.assert_close(back[k], state[k], rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def adm_rundir():
+    with open(os.path.join(FIXTURE, "config.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    return (cfg, np.load(os.path.join(FIXTURE, "golden.npz")),
+            load_sampler_state(os.path.join(FIXTURE, "sampler.pth")))
+
+
+@pytest.mark.parametrize("attn_impl", ["einsum", "fused"])
+def test_adm_fixture_replay(adm_rundir, attn_impl):
+    """The trained fixture's golden trajectory (injected x, eps, labels;
+    each step restarted from the golden mean) at the JAX golden test's
+    limits: per-step mean 5e-3, sigma 1e-5 relative, final sample 5e-3."""
+    cfg, golden, state = adm_rundir
+    sampler = load_sampler(cfg, state, "cpu", attn_impl=attn_impl,
+                           up_impl="resize", gn_stats="fp32")
+    assert isinstance(sampler, EDMSampler)
+    np.testing.assert_allclose(sampler.sigmas.numpy(),
+                               golden["sigmas_grid"][:-1], rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(sampler.log_betas.detach().numpy(),
+                               golden["log_betas"], rtol=0, atol=1e-6)
+    x = torch.from_numpy(golden["x_init"])
+    y = torch.from_numpy(golden["y"]).long()
+    with torch.no_grad():
+        for t in range(sampler.n_timesteps):
+            out = sampler.sample_step(x, t, torch.from_numpy(golden["eps"][t]),
+                                      y)
+            err = np.abs(out["mean"].numpy() - golden["means"][t]).max()
+            assert err < 5e-3, f"step {t}: mean drift {err:.2e}"
+            np.testing.assert_allclose(
+                out["sigma"].numpy().reshape(-1, 1, 1, 1), golden["sigmas"][t],
+                rtol=1e-5, atol=1e-6, err_msg=f"step {t} sigma")
+            x = torch.from_numpy(golden["means"][t]
+                                 + golden["sigmas"][t] * golden["eps"][t])
+    np.testing.assert_allclose(out["sample"].numpy(), golden["final"], rtol=0,
+                               atol=5e-3)
+
+
+def test_adm_fixture_rollout(adm_rundir):
+    """sample() on its own means with the injected x, eps and labels ends
+    at the golden sample, and carries the trajectory entries."""
+    cfg, golden, state = adm_rundir
+    sampler = load_sampler(cfg, state, "cpu", attn_impl="fused")
+    with torch.no_grad():
+        out = sampler.sample(8, x0=torch.from_numpy(golden["x_init"]),
+                             eps=torch.from_numpy(golden["eps"]),
+                             y=torch.from_numpy(golden["y"]).long())
+    assert out["l_sample"].shape == (11, 8, 3, 16, 16)
+    assert out["logp"].shape == out["entropy"].shape == (10, 8)
+    np.testing.assert_allclose(out["sample"].numpy(), golden["final"], rtol=0,
+                               atol=5e-3)
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        create_unet_adm(16, 32, 1, quant_int8="static")
+    with pytest.raises(NotImplementedError):
+        create_unet_adm(16, 32, 1, use_checkpoint=True)
+
+
+def _cli(*args):
+    return subprocess.run(
+        [sys.executable, "-m", "dxmi_tpu_torch.generate_large", "--log_dir",
+         FIXTURE, "--n_generate", "8", "--batchsize", "8", *args],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES=""))
+
+
+def test_generate_large_cli(tmp_path):
+    out = tmp_path / "samples.npz"
+    proc = _cli("--device", "cpu", "--save_npz", str(out))
+    assert proc.returncode == 0, proc.stderr
+    arr = np.load(out)
+    assert arr["arr_0"].shape == (8, 16, 16, 3)
+    assert arr["arr_0"].dtype == np.uint8
+    assert arr["arr_1"].shape == (8,) and arr["arr_1"].max() < 4
+
+
+@pytest.mark.parametrize("args,msg", [((), "no CUDA device"),
+                                      (("--device", "cpu", "--int8"),
+                                       "not ported yet")])
+def test_generate_large_cli_refuses(args, msg):
+    """Without --device cpu and with no card it raises instead of running
+    on the CPU; unported options raise."""
+    proc = _cli(*args)
+    assert proc.returncode != 0
+    assert msg in proc.stderr
+
+
+def test_edm_sample_step_matches_jax(adm_rundir):
+    """One Euler-ancestral step on the trained fixture, port against
+    dxmi_tpu's EDMSampler.sample_step with the same noise (drawn from the
+    JAX key and injected): every entry of the step's dict, at the fixture
+    replay's 5e-3 for the network-dependent ones and 1e-5 for sigma and
+    entropy."""
+    from dxmi_tpu.models.unet_adm import create_unet_adm as jax_create
+    from dxmi_tpu.samplers.edm import EDMSampler as JaxEDMSampler
+    from dxmi_tpu.samplers.edm import KarrasDenoiser as JaxDenoiser
+    from dxmi_tpu.utils import checkpoint as ckptlib
+
+    cfg, golden, state = adm_rundir
+    dcfg = dict(cfg["diffusion"])
+    smin, smax = dcfg.pop("sigma_min"), dcfg.pop("sigma_max")
+    dcfg.pop("weight_schedule")
+    dist = dcfg.pop("distillation")
+    jsampler = JaxEDMSampler(jax_create(**dcfg),
+                             JaxDenoiser(sigma_min=smin, sigma_max=smax,
+                                         distillation=dist),
+                             **cfg["sampler"])
+    ckpt, _ = ckptlib.load_run_checkpoint(FIXTURE, "sampler", "last",
+                                          torch_kind="unet_adm")
+    params = jax.tree.map(jnp.asarray, ckpt["params"])
+    sampler = load_sampler(cfg, state, "cpu", attn_impl="einsum",
+                           up_impl="resize", gn_stats="fp32")
+    x = golden["x_init"]
+    y = golden["y"]
+    key = jax.random.key(7)
+    for t in (0, 9):
+        ref = jsampler.sample_step(params, jnp.asarray(x.transpose(0, 2, 3, 1)),
+                                   jnp.full((8,), t, jnp.int32), key,
+                                   y=jnp.asarray(y, jnp.int32))
+        noise = np.asarray(jax.random.normal(key, (8, 16, 16, 3)))
+        with torch.no_grad():
+            out = sampler.sample_step(
+                torch.from_numpy(x), t,
+                torch.from_numpy(noise.transpose(0, 3, 1, 2).copy()),
+                torch.from_numpy(y).long())
+        for k in ("sample", "mean", "control"):
+            np.testing.assert_allclose(
+                out[k].numpy(), np.asarray(ref[k]).transpose(0, 3, 1, 2),
+                rtol=0, atol=5e-3, err_msg=f"step {t} {k}")
+        for k, tol in (("sigma", 1e-5), ("entropy", 1e-5), ("logp", 5e-3),
+                       ("logp_terminal", 0)):
+            np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
+                                       rtol=1e-5, atol=tol,
+                                       err_msg=f"step {t} {k}")
+        x = out["sample"].numpy()
