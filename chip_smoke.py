@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
-needs torch and numpy only (no JAX, YAML or msgpack). Phases, each printed
-with its seconds; any failure exits non-zero naming the phase:
+needs torch and numpy only (no JAX, PyYAML or msgpack: configs are read by
+the port's own YAML reader). Phases, each printed with its seconds; any
+failure exits non-zero naming the phase:
 
   B  build every kernel from dxmi_tpu_torch/csrc (one bounded nvcc process
      per source, all started together) and print -Xptxas -v (registers,
      shared memory, spills);
   K  hold each kernel against its plain PyTorch version at the full-width
-     CIFAR-10 and ImageNet64 shapes;
+     CIFAR-10 and ImageNet64 shapes (K5 also at LSUN's C=1024 maps);
   T  time each kernel, its plain version and one PyTorch library call with
      CUDA events;
   G  replay the trained reference fixture (tests/fixtures/torch_rundir_t10)
@@ -21,9 +22,17 @@ with its seconds; any failure exits non-zero naming the phase:
      main path launched each kernel the expected number of times;
   G2 replay the trained ADM fixture (tests/fixtures/torch_rundir_adm_t10)
      with its injected noise and labels, einsum and fused attention;
+  G2-int8 the ADM fixture under --int8: calibration from injected draws and
+     the int8 step means, against the JAX package's (tests/torch_fixtures/
+     adm_int8_golden.npz);
   E2 generate 2 batches of 100 ImageNet64 samples at T=10 at the full width
      of configs/imagenet64/T10.yaml (bf16) with seeded random weights, with
-     fused and with flash attention, checking the launches of each path.
+     fused and with flash attention, checking the launches of each path;
+  E2-int8 the same under --int8 (W8A8 static, calibrated first as the CLI
+     does), through K5 and K8;
+  C  run the generation CLIs (generate_cifar10, generate_large with and
+     without --int8) as subprocesses on the fixture run dirs with
+     --save_npz, and hold each npz to the in-process samples.
 
 The line before the last line is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record, and the last line is
@@ -44,13 +53,20 @@ import torch
 import torch.nn.functional as F
 
 from dxmi_tpu_torch import generate_large
+from dxmi_tpu_torch.config import load_yaml
 from dxmi_tpu_torch.generate_cifar10 import (generate, load_sampler,
-                                             sample_batches)
+                                             sample_batches, to_uint8)
 from dxmi_tpu_torch.ops import _lib
 from dxmi_tpu_torch.ops.attention import flash_mha, flash_mha_reference
-from dxmi_tpu_torch.ops.attn_block import attn_block, attn_block_reference
+from dxmi_tpu_torch.ops.attn_block import (attn_block, attn_block_int8,
+                                           attn_block_int8_plain,
+                                           attn_block_reference,
+                                           prep_int8_mats)
 from dxmi_tpu_torch.ops.conv_fused import gn_silu_conv, gn_silu_conv_reference
 from dxmi_tpu_torch.ops.groupnorm import group_norm, group_norm_silu_reference
+from dxmi_tpu_torch.ops.quant import (SAME_3X3, calib_channel_scale,
+                                      int8_conv_apply, int8_conv_reference,
+                                      prepare_conv_static)
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.utils.checkpoint import load_sampler_state
 
@@ -60,91 +76,36 @@ ADM_FIXTURE_DIR = os.path.join(REPO, "tests", "fixtures",
                                "torch_rundir_adm_t10")
 WATCHDOG_S = 1100
 
-# tests/fixtures/torch_rundir_t10/config.yaml as PyYAML reads it (the card
-# needs no YAML; tests/test_torch_imports.py holds the two equal).
-FIXTURE_CONFIG = {
-    "sampler_net": {"_target_": "models.DxMI.unet_small.Model",
-                    "resolution": 16, "in_channels": 3, "out_ch": 3,
-                    "ch": 32, "ch_mult": [1, 2], "num_res_blocks": 1,
-                    "attn_resolutions": [8], "dropout": 0.1},
-    "sampler": {"_target_": "models.DxMI.var_sampler.VARSampler",
-                "n_timesteps": 10, "sample_shape": [3, 16, 16],
-                "trainable_beta": "fix_last"},
-    "energy": None,
-    "value": {"_target_": "models.value.TimeIndependentValue",
-              "net": {"_target_": "models.modules.IGEBMEncoderV2",
-                      "in_chan": 3, "out_chan": 1, "use_spectral_norm": False,
-                      "keepdim": False, "out_activation": "linear",
-                      "avg_pool_dim": 1, "learn_out_scale": True, "nh": 32}},
-    "trainer": {"_target_": "models.DxMI.trainer.DxMI_Trainer", "tau1": 0.1,
-                "tau2": 0.01, "gamma": 1, "use_sampler_beta": True,
-                "time_cost": 0, "adavelreg": 0.99, "entropy_in_value": None,
-                "velocity_in_value": None, "time_cost_sig": True},
-    "training": {"batchsize": 32, "lr": "1e-4", "v_lr": "1e-4",
-                 "beta_lr": "1e-3", "seed": 7},
-    "data": {"name": "cifar10"},
-}
-
-# The generation half of configs/cifar10/T10.yaml (full width).
-CIFAR10_T10 = {
-    "sampler_net": {"_target_": "dxmi_tpu.models.unet_small.UNetSmall",
-                    "resolution": 32, "in_channels": 3, "out_ch": 3,
-                    "ch": 128, "ch_mult": [1, 2, 2, 2], "num_res_blocks": 2,
-                    "attn_resolutions": [16], "dropout": 0.1},
-    "sampler": {"_target_": "dxmi_tpu.samplers.var.VARSampler",
-                "n_timesteps": 10, "sample_shape": [3, 32, 32],
-                "trainable_beta": "fix_last"},
-}
+CIFAR10_CONFIG = os.path.join(REPO, "configs", "cifar10", "T10.yaml")
+IMAGENET64_CONFIG = os.path.join(REPO, "configs", "imagenet64", "T10.yaml")
+INT8_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
+                           "adm_int8_golden.npz")
 BATCH, N_BATCHES, T = 100, 2, 10
 
-# tests/fixtures/torch_rundir_adm_t10/config.yaml as PyYAML reads it
-# (tests/test_torch_imports.py holds the two equal).
-ADM_FIXTURE_CONFIG = {
-    "diffusion": {"sigma_min": 0.002, "sigma_max": 80.0, "image_size": 16,
-                  "num_channels": 32, "num_res_blocks": 1, "num_heads": 2,
-                  "num_heads_upsample": -1, "num_head_channels": -1,
-                  "attention_resolutions": "8", "channel_mult": "1,2",
-                  "dropout": 0.0, "class_cond": True, "num_classes": 4,
-                  "use_checkpoint": False, "use_scale_shift_norm": True,
-                  "resblock_updown": True, "use_fp16": False,
-                  "use_new_attention_order": False, "learn_sigma": False,
-                  "weight_schedule": "uniform", "distillation": False},
-    "sampler": {"sample_shape": [3, 16, 16], "n_timesteps": 10,
-                "class_cond": True, "num_classes": 4,
-                "trainable_beta": "fix_last", "sigma_min": 0.002,
-                "sigma_max": 80.0},
-    "trainer": {"_target_": "models.DxMI.trainer.DxMI_Trainer_Cond",
-                "tau1": 0.1, "tau2": 0.01, "gamma": 1, "n_timesteps": 10,
-                "use_sampler_beta": True, "adavelreg": 0.99,
-                "entropy_in_value": None, "velocity_in_value": None,
-                "value_grad_clip": True, "time_cost": 0,
-                "skip_sampler_tau": 3, "time_cost_sig": 1},
-    "value": {"_target_": "models.value.TimeIndependentValue",
-              "net": {"_target_": "models.modules.IGEBMEncoderV2",
-                      "in_chan": 3, "out_chan": 1, "use_spectral_norm": False,
-                      "keepdim": False, "out_activation": "linear",
-                      "avg_pool_dim": 1, "learn_out_scale": True, "nh": 32}},
-    "training": {"seed": 11, "batchsize": 16},
-    "data": {"name": "adm_fixture_synthetic", "image_size": 16,
-             "class_cond": True, "n_class": 4},
-}
 
-# The generation half of configs/imagenet64/T10.yaml (full width, bf16).
-IMAGENET64_T10 = {
-    "diffusion": {"sigma_min": 0.002, "sigma_max": 80.0, "image_size": 64,
-                  "num_channels": 192, "num_res_blocks": 3, "num_heads": 4,
-                  "num_heads_upsample": -1, "num_head_channels": 64,
-                  "attention_resolutions": "32,16,8", "channel_mult": "",
-                  "dropout": 0.0, "class_cond": True, "use_checkpoint": False,
-                  "use_scale_shift_norm": True, "resblock_updown": True,
-                  "use_fp16": True, "use_new_attention_order": False,
-                  "learn_sigma": False, "weight_schedule": "uniform",
-                  "distillation": False},
-    "sampler": {"sample_shape": [3, 64, 64], "n_timesteps": 10,
-                "class_cond": True, "num_classes": 1000,
-                "trainable_beta": "fix_last", "sigma_min": 0.002,
-                "sigma_max": 80.0},
-}
+def fixture_config():
+    """tests/fixtures/torch_rundir_t10/config.yaml, read by the port's YAML
+    reader (the card has no PyYAML)."""
+    return load_yaml(os.path.join(FIXTURE_DIR, "config.yaml"))
+
+
+def cifar10_t10():
+    """The generation half of configs/cifar10/T10.yaml (full width)."""
+    cfg = load_yaml(CIFAR10_CONFIG)
+    return {k: cfg[k] for k in ("sampler_net", "sampler")}
+
+
+def adm_fixture_config():
+    """tests/fixtures/torch_rundir_adm_t10/config.yaml."""
+    return load_yaml(os.path.join(ADM_FIXTURE_DIR, "config.yaml"))
+
+
+def imagenet64_t10():
+    """The generation half of configs/imagenet64/T10.yaml (full width,
+    bf16)."""
+    cfg = load_yaml(IMAGENET64_CONFIG)
+    return {k: cfg[k] for k in ("diffusion", "sampler")}
+
 
 # Kernel launches per UNetADM forward at that config (36 ResBlocks, 22
 # attention blocks: 7 at 32x32, 7 at 16x16, 8 at 8x8; tests/
@@ -155,7 +116,13 @@ IMAGENET64_T10 = {
 ADM_LAUNCHES_PER_FORWARD = {
     "fused": {"gn_silu_bf16": 73, "attn_block_bf16": 22},
     "flash": {"gn_silu_bf16": 95, "flash_attn": 7},
+    # --int8 (static, fused): K5 every attention block, K8 the 72 ResBlock
+    # 3x3 convs with each of the 3 up-blocks' first conv as 4 phase convs
+    "int8": {"gn_silu_bf16": 73, "attn_block_i8": 22, "int8_conv": 81},
 }
+# Calibration's full-precision forwards under --int8 (2 rounds of 10 steps
+# at 8 samples): K1 runs the attention norms too, K4 the 32x32 maps.
+ADM_CALIB_LAUNCHES = {"gn_silu_bf16": 95 * 20, "flash_attn": 7 * 20}
 
 # Kernel launches per UNetSmall forward at that config (fuse_gn_conv=True,
 # attn_impl='fused'): K1 = norm_out + the 4x4 mid block's norm, K3 = conv1
@@ -163,10 +130,11 @@ ADM_LAUNCHES_PER_FORWARD = {
 LAUNCHES_PER_FORWARD = {"gn_silu": 2, "gn_silu_conv3x3": 44, "attn_block": 5}
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, fp32 outside the
-# tensor cores, bf16 tensor cores.
+# tensor cores, bf16 and int8 tensor cores.
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 # Stated tolerances |kernel - plain| <= ATOL + RTOL * |plain|. K1 and K2 are
 # fp32 with another summation order (the JAX package's fp32 kernel test
@@ -244,6 +212,75 @@ def flash_check(out, ref, q, k, v, sm_scale, what):
         raise AssertionError(f"{what}: {bad} elements over the limit (worst "
                              f"{share.max().item():.3f})")
     return err.max().item(), share.max().item()
+# K5, the int8 attention block, against its plain version. Its int8
+# products are exact, but the GN statistics (another fp32 summation order)
+# and the attention core (K2's fp32 core; in bf16 K4's, which rounds p
+# before normalising) move the values that are quantised by an fp32 ulp or
+# a bf16 rounding, and an element that lies at a rounding boundary then
+# flips by one int8 level. One level of one proj input moves output column n
+# by up to 127 swp[n] (the largest |w * sa_p| of the column), far more than
+# the rounding noise, so each gate has a base limit for the elements no flip
+# reached and, beyond it, one such level:
+#   fp32: base 2e-4 + 2e-4 |plain|, the JAX package's own limit for
+#         _kernel_i8 against its oracle (tests/test_attn_block.py:335);
+#   bf16: K2's two gates (ATTN_BF16_MEAN_REL on the mean relative error;
+#         base one bf16 ulp of |y| + 2^-4 (|P| + mean |P|) on P = y - x);
+# and at most ATTN_I8_FLIP_SHARE of the elements may exceed their base (the
+# rows a flip reached: one flip of a proj input reaches about half of its
+# row, 0.9% of a (64, 64) element). A wrong dequantisation scale, a missing
+# clip or a dropped key tile moves whole columns or rows by more than a level
+# (tests/test_torch_chip_checks.py shows each failing on the CPU).
+ATTN_I8_FP32_TOL = 2e-4
+ATTN_I8_FLIP_SHARE = 2e-2
+
+
+def calibrated_attn_scales(x, gs, gb, w_qkv, b_qkv, num_heads, eps=1e-5):
+    """sa_q and sa_p as calibration records them for this input:
+    calib_channel_scale of the fp32 GN output and of the fp32 attention
+    output (so that 0.5% of each activation clips, as in sampling)."""
+    B, S, C = x.shape
+    d = C // num_heads
+    g = x.float().reshape(B, S, 32, C // 32)
+    mean = g.mean(dim=(1, 3), keepdim=True)
+    var = (g - mean).square().mean(dim=(1, 3), keepdim=True)
+    h = ((g - mean) * torch.rsqrt(var + eps)).reshape(B, S, C) * gs + gb
+    q, k, v = (h @ w_qkv.float() + b_qkv.float()).reshape(
+        B, S, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    a = F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)
+    a = a.transpose(1, 2).reshape(B * S, C)
+    return (calib_channel_scale(h.reshape(-1, C)), calib_channel_scale(a))
+
+
+def attn_i8_check(out, ref, x, mats, what):
+    """Hold K5 to its plain version (the gates above). Returns (max abs
+    err, share of elements over their base limit, worst element beyond its
+    base in int8 levels of its column): over 1 level, or too many elements
+    over the base, fails."""
+    fp32 = x.dtype == torch.float32
+    out, ref, x = out.float(), ref.float(), x.float()
+    err = (out - ref).abs()
+    level = 127.0 * mats.swp.float()
+    if fp32:
+        base = ATTN_I8_FP32_TOL + ATTN_I8_FP32_TOL * ref.abs()
+        rel = 0.0
+    else:
+        rel = (err.mean() / ref.abs().mean()).item()
+        p = (ref - x).abs()
+        base = (bf16_ulp(torch.maximum(out.abs(), ref.abs()))
+                + ATTN_BF16_P_REL * (p + p.mean()))
+    over = (err - base).clamp_min(0)
+    share = (over > 0).float().mean().item()
+    worst = (over / level).max().item()
+    if not torch.isfinite(out).all() or rel >= ATTN_BF16_MEAN_REL \
+            or share > ATTN_I8_FLIP_SHARE or worst > 1:
+        raise AssertionError(
+            f"{what}: over the limit: {share:.2%} of the elements over their "
+            f"base limit (at most {ATTN_I8_FLIP_SHARE:.0%}), worst "
+            f"{worst:.3f} int8 levels beyond it (at most 1), mean rel err "
+            f"{rel:.3e}")
+    return err.max().item(), share, worst
+
+
 # Fixture replay: per-step mean against golden.npz. Unfused (K1, K2) at the
 # JAX golden test's 5e-4; fused (K3's bf16 operands) at 2e-2, about three
 # times the 6.2e-3 that the same bf16 arithmetic shows on the CPU.
@@ -268,7 +305,22 @@ INFO = {
                         "dxmi_tpu/ops/attn_block.py:225"),
     "flash_attn": ("dxmi_tpu_torch/csrc/flash_attn.cu",
                    "dxmi_tpu/ops/attention.py:53"),
+    "attn_block_i8": ("dxmi_tpu_torch/csrc/attn_block_i8.cu",
+                      "dxmi_tpu/ops/attn_block.py:353"),
+    "int8_conv": ("dxmi_tpu_torch/csrc/int8_conv.cu",
+                  "dxmi_tpu/ops/quant.py:68"),
 }
+
+
+def adm_int8_calib_draws(seed):
+    """The injected draws of the ADM fixture's int8 calibration (two rounds
+    of eight samples, T=10, 4 classes, sigma_max 80), NCHW float32, from a
+    numpy seed: x0 (2, 8, 3, 16, 16), eps (2, 10, 8, 3, 16, 16), y (2, 8).
+    tests/torch_fixtures/make_adm_int8_golden.py feeds JAX the same."""
+    rs = np.random.RandomState(seed)
+    x0 = rs.randn(2, 8, 3, 16, 16).astype(np.float32) * np.float32(80.0)
+    eps = rs.randn(2, 10, 8, 3, 16, 16).astype(np.float32)
+    return x0, eps, rs.randint(0, 4, size=(2, 8)).astype(np.int64)
 
 
 class PhaseError(Exception):
@@ -344,6 +396,48 @@ ADM_ATTN_SHAPES = [(BATCH, 1024, 384, 6), (BATCH, 256, 576, 9),
 FLASH_SHAPES = [(BATCH, 1024, 6, 64)]
 
 
+# K5 (int8 attention block): fp32 at the trained ADM fixture's 8x8 map (batch
+# 8), bf16 at ImageNet64's three maps and at LSUN's C=1024 maps, which only
+# the int8 gate admits. K8 (int8 conv): the widest ImageNet64 3x3 conv
+# (8x8, 1536 -> 768), the 32x32 up-block's four 2x2 phase convs, a 64x64
+# conv, and fixture convs in fp32 (static, and dynamic: a scalar scale).
+I8_ATTN_SHAPES = [(8, 64, 64, 2, torch.float32),
+                  (BATCH, 1024, 384, 6, torch.bfloat16),
+                  (BATCH, 256, 576, 9, torch.bfloat16),
+                  (BATCH, 64, 768, 12, torch.bfloat16),
+                  (BATCH, 256, 1024, 16, torch.bfloat16)]
+PHASE_PADS = [((1, 0), (1, 0)), ((1, 0), (0, 1)), ((0, 1), (1, 0)),
+              ((0, 1), (0, 1))]
+I8_CONV_SHAPES = ([(BATCH, 8, 1536, 768, SAME_3X3, torch.bfloat16, False)]
+                  + [(BATCH, 32, 384, 384, pad, torch.bfloat16, False)
+                     for pad in PHASE_PADS]
+                  + [(BATCH, 64, 384, 192, SAME_3X3, torch.bfloat16, False),
+                     (8, 16, 96, 32, SAME_3X3, torch.float32, False),
+                     (8, 16, 96, 32, SAME_3X3, torch.float32, True)])
+
+
+def attn_i8_case(gen, B, S, C, nh, dtype):
+    """attn_case's distributions in ``dtype`` with the activation scales
+    that calibration records for them; returns the wrapper's arguments."""
+    x, gs, gb, wq, bq, wp, bp = attn_case(gen, B, S, C)
+    sa_q, sa_p = calibrated_attn_scales(x, gs, gb, wq, bq, nh)
+    return (x.to(dtype), gs, gb, prep_int8_mats(wq, wp, sa_q, sa_p), bq, bp)
+
+
+def conv_i8_case(gen, B, R, Cin, Cout, pad, dtype, dynamic):
+    """An NHWC input and prepared int8 weights: per-channel activation
+    scales at the input's 0.995 quantile, or (dynamic) a scalar max / 127."""
+    x = randn(gen, B, R, R, Cin, scale=2.0, shift=0.3).to(dtype)
+    kh = 3 if pad == SAME_3X3 else 2
+    k = randn(gen, kh, kh, Cin, Cout, scale=(kh * kh * Cin) ** -0.5)
+    if dynamic:
+        a = torch.clamp(x.float().abs().amax(), min=1e-8) / 127.0
+    else:
+        a = calib_channel_scale(x.reshape(-1, Cin))
+    b = randn(gen, Cout, scale=0.1)
+    return x, prepare_conv_static(k, a), b, pad, dtype
+
+
 def gn_bf16_case(gen, B, HW, C, silu, stats):
     return (randn(gen, B, HW, C, scale=2.0, shift=0.5).bfloat16(),
             randn(gen, C, scale=0.1, shift=1.0), randn(gen, C, scale=0.1),
@@ -410,6 +504,28 @@ def phase_kernels(gen):
         print(f"  K flash_attn {shape}: max abs err {err:.3e}, worst element "
               f"beyond one ulp at {share:.3f} of its row's limit")
         errs["flash_attn"] = err
+    errs["attn_block_i8"] = 0.0
+    for B, S, C, nh, dt in I8_ATTN_SHAPES:
+        x, gs, gb, mats, bq, bp = attn_i8_case(gen, B, S, C, nh, dt)
+        what = f"attn_block_i8 {(B, S, C, nh)} {str(dt)[6:]}"
+        err, share, worst = attn_i8_check(
+            attn_block_int8(x, gs, gb, mats, bq, bp, nh),
+            attn_block_int8_plain(x, gs, gb, mats, bq, bp, nh), x, mats, what)
+        print(f"  K {what}: max abs err {err:.3e}, {share:.3%} of elements "
+              f"over their base limit (tol {ATTN_I8_FLIP_SHARE:.0%}), worst "
+              f"{worst:.3f} int8 levels beyond it (tol 1)")
+        errs["attn_block_i8"] = max(errs["attn_block_i8"], err)
+    errs["int8_conv"] = 0.0
+    for shape in I8_CONV_SHAPES:
+        x, q, b, pad, dt = conv_i8_case(gen, *shape)
+        err = (int8_conv_apply(x, q, b, pad, dt).float()
+               - int8_conv_reference(x, q, b, pad, dt).float()).abs().max()
+        err = err.item()
+        print(f"  K int8_conv {shape[:4]} pad {pad} {str(dt)[6:]}"
+              f"{' dynamic' if shape[-1] else ''}: max abs err {err:g} "
+              "(must be 0: exact int32 sums, elementwise epilogue)")
+        if err != 0:
+            raise AssertionError(f"int8_conv {shape}: max abs err {err}")
     return errs
 
 
@@ -481,7 +597,8 @@ def phase_times(gen):
              + 2 * B * S * C * C + 5 * B * S * S})
 
     rows.update(adm_time_rows(gen))
-    peaks = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS}
+    rows.update(int8_time_rows(gen))
+    peaks = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS, "int8": INT8_OPS}
     for name, r in rows.items():
         t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
         t_ops = sum(v / peaks[k] for k, v in r.pop("ops").items()) * 1e3
@@ -551,13 +668,75 @@ def adm_time_rows(gen):
     return rows
 
 
+def int8_time_rows(gen):
+    """T rows of K5 (bf16, the ImageNet64 32x32 map first, then the other
+    maps, printed) and K8 (the widest ImageNet64 conv, then the phase and
+    64x64 convs). Library yardsticks: K5, the same block from PyTorch calls
+    (bf16 GN, the int8 products as torch._int_mm, SDPA); K8, one
+    torch._int_mm on the im2col matrix (built outside the timed call)."""
+    rows = {}
+    for i, (B, S, C, nh, dt) in enumerate(I8_ATTN_SHAPES[1:]):
+        a = attn_i8_case(gen, B, S, C, nh, dt)
+        x, gs, gb, m, bq, bp = a
+        d = C // nh
+
+        def library_attn():
+            g = F.group_norm(x.transpose(1, 2), 32, gs.bfloat16(),
+                             gb.bfloat16(), 1e-5).transpose(1, 2)
+            hq = torch.clamp(torch.round(g.float() * m.isa_q), -127,
+                             127).to(torch.int8).reshape(B * S, C)
+            qkv = (torch._int_mm(hq, m.wq.t()).float() * m.swq + bq).bfloat16()
+            q, k, v = qkv.reshape(B, S, 3, nh, d).permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)
+            aq = torch.clamp(torch.round(o.transpose(1, 2).reshape(
+                B * S, C).float() * m.isa_p), -127, 127).to(torch.int8)
+            y = (torch._int_mm(aq, m.wp.t()).float() * m.swp + bp).bfloat16()
+            return x + y.reshape(B, S, C)
+
+        name = "attn_block_i8" if i == 0 else \
+            f"attn_block_i8 {(B, S, C, nh)}"
+        rows[name] = dict(
+            ms=time_ms(lambda: attn_block_int8(*a, nh)),
+            plain_ms=time_ms(lambda: attn_block_int8_plain(*a, nh), iters=3,
+                             warmup=1),
+            library_ms=time_ms(library_attn),
+            # x read, y written (bf16); int8 weights; fp32 scales and biases
+            bytes=2 * B * S * C * 2 + 4 * C * C + (3 * C * 3 + C * 3) * 4,
+            ops={"int8": 2 * B * S * C * 4 * C, "bf16": 4 * B * S * S * C,
+                 "fp32": 5 * B * nh * S * S + 8 * B * S * C})
+    for i, shape in enumerate(I8_CONV_SHAPES[:2] + I8_CONV_SHAPES[5:6]):
+        x, q, b, pad, dt = conv_i8_case(gen, *shape)
+        B, R, Cin, Cout = shape[:4]
+        kh = q.w_i8.shape[1]
+        M, K = B * R * R, kh * kh * Cin
+        (pt, pb), (pl, pr) = pad
+        xi = torch.clamp(torch.round(x.float() * q.xscale), -127,
+                         127).to(torch.int8)
+        cols = F.pad(xi.permute(0, 3, 1, 2).float(), (pl, pr, pt, pb))
+        cols = torch.stack([cols[:, :, ty:ty + R, tx:tx + R]
+                            for ty in range(kh) for tx in range(kh)], -1)
+        cols = cols.permute(0, 2, 3, 4, 1).reshape(M, K).to(torch.int8)
+        w = q.w_i8.reshape(Cout, K).t()
+        name = "int8_conv" if i == 0 else f"int8_conv {shape[:4]} pad {pad}"
+        rows[name] = dict(
+            ms=time_ms(lambda: int8_conv_apply(x, q, b, pad, dt)),
+            plain_ms=time_ms(lambda: int8_conv_reference(x, q, b, pad, dt),
+                             iters=3, warmup=1),
+            library_ms=time_ms(lambda: torch._int_mm(cols, w)),
+            bytes=(M * Cin + M * Cout) * x.element_size() + Cout * K
+            + (Cin + 2 * Cout) * 4,
+            ops={"int8": 2 * M * Cout * K, "fp32": 2 * M * Cin + 3 * M * Cout})
+        del cols
+    return rows
+
+
 def phase_replay():
     golden = np.load(os.path.join(FIXTURE_DIR, "golden.npz"))
     state = load_sampler_state(os.path.join(FIXTURE_DIR, "sampler_best.pth"))
     errs = {}
     for fuse in (False, True):
         _lib.reset_launches()
-        sampler = load_sampler(FIXTURE_CONFIG, state, "cuda",
+        sampler = load_sampler(fixture_config(), state, "cuda",
                                fuse_gn_conv=fuse)
         x = torch.from_numpy(golden["x0"]).cuda()
         worst = 0.0
@@ -590,12 +769,13 @@ def phase_replay():
 
 def phase_generate():
     # warm-up outside the counted run (cuDNN plans, allocator)
-    generate(CIFAR10_T10, None, BATCH, BATCH, "cuda", seed=1)
+    cfg = cifar10_t10()
+    generate(cfg, None, BATCH, BATCH, "cuda", seed=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
     t0 = time.perf_counter()
-    x = generate(CIFAR10_T10, None, BATCH * N_BATCHES, BATCH, "cuda", seed=0)
+    x = generate(cfg, None, BATCH * N_BATCHES, BATCH, "cuda", seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_lib.LAUNCHES)
@@ -608,7 +788,7 @@ def phase_generate():
         raise AssertionError(f"launches {launches}, expected {want}")
     peak = torch.cuda.max_memory_allocated()
 
-    sampler = load_sampler(CIFAR10_T10, None, "cuda", seed=0)
+    sampler = load_sampler(cfg, None, "cuda", seed=0)
     sample_batches(sampler, BATCH, BATCH, seed=2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -664,7 +844,7 @@ def phase_replay_adm():
     for impl in ("einsum", "fused"):
         _lib.reset_launches()
         sampler = generate_large.load_sampler(
-            ADM_FIXTURE_CONFIG, state, "cuda", attn_impl=impl,
+            adm_fixture_config(), state, "cuda", attn_impl=impl,
             up_impl="resize", gn_stats="fp32")
         x = torch.from_numpy(golden["x_init"]).cuda()
         worst = 0.0
@@ -698,46 +878,206 @@ def phase_replay_adm():
     return errs
 
 
+# G2-int8: the port's int8 step means against JAX's (INT8_GOLDEN), each step
+# restarted from the golden state. An int8 trajectory amplifies fp32 noise:
+# a value at a rounding boundary flips by one int8 level, and on the CPU a
+# 1e-7 relative perturbation of the port's own input already moves a step
+# mean by up to 0.16 (7e-3 on average over its elements). Each step is read
+# against the effect of int8 itself, the distance between JAX's int8 step
+# and the port's full-precision step from the same state, in two ways:
+# - INT8_STEP_RATIO: per step, the mean error over the elements is at most
+#   half the mean int8 effect (the port on the CPU: 0.03-0.23). Running in
+#   full precision, or a kernel fault, fails it.
+# - INT8_MEDIAN_RATIO: averaged over the steps, the median error over the
+#   elements is at most 0.1 of the median int8 effect. Rounding flips under
+#   fp32 noise move a minority of the elements, so the median barely sees
+#   them (the port on the CPU: 0.011-0.030, its input as given and under
+#   six 1e-7 perturbations); a layer wired wrong moves them all. Planted
+#   on the CPU, attention blocks left in full precision read 0.253, the
+#   phase up-block in full precision 0.258, one conv's scale doubled 0.262
+#   and left at zero 7.85 (tests/test_torch_adm_int8_golden.py).
+# The calibrated scales agree with JAX's within 1e-4 of each buffer's
+# largest (5e-6 on the CPU: the quantile of |x| barely moves with fp32
+# noise). tests/torch_fixtures/int8_cpu_report.py prints the CPU figures.
+INT8_STEP_RATIO = 0.5
+INT8_MEDIAN_RATIO = 0.1
+INT8_SCALE_REL = 1e-4
+
+
+def replay_adm_int8(sampler, fp_sampler, golden, gold, device):
+    """Per-step (mean ratio, median ratio, max abs err) of an int8 sampler
+    against the golden int8 step means, each step from the golden state;
+    the ratios are the error's mean (median) over the elements over the
+    mean (median) distance of the full-precision step."""
+    y = torch.from_numpy(gold["y"]).long().to(device)
+    x = torch.from_numpy(gold["x_init"]).to(device)
+    out = []
+    with torch.no_grad():
+        for t in range(sampler.n_timesteps):
+            eps = torch.from_numpy(gold["eps"][t]).to(device)
+            step = sampler.sample_step(x, t, noise=eps, y=y)
+            mean = step["mean"].cpu().numpy()
+            fp = fp_sampler.sample_step(x, t, noise=eps, y=y)["mean"]
+            ref = golden["means"][t]
+            err = np.abs(mean - ref)
+            effect = np.abs(fp.cpu().numpy() - ref)
+            out.append((float(err.mean() / effect.mean()),
+                        float(np.median(err) / np.median(effect)),
+                        float(err.max())))
+            x = torch.from_numpy(ref + gold["sigmas"][t]
+                                 * gold["eps"][t]).to(device)
+    final = float(np.abs(step["sample"].cpu().numpy()
+                         - golden["final"]).max())
+    return out, final
+
+
+def check_int8_replay(steps):
+    """G2-int8's gates on ``replay_adm_int8``'s readings; returns (worst
+    per-step mean ratio, median ratio averaged over the steps) or raises."""
+    worst = max(r for r, _, _ in steps)
+    median = float(np.mean([m for _, m, _ in steps]))
+    if not worst <= INT8_STEP_RATIO:
+        raise AssertionError(f"int8 step means {worst:.3f} of the int8 "
+                             "effect from JAX's")
+    if not median <= INT8_MEDIAN_RATIO:
+        raise AssertionError(f"int8 step means' median error {median:.3f} "
+                             "of the int8 effect from JAX's")
+    return worst, median
+
+
+def load_int8_golden_scales(net, golden):
+    scales = {k[len("scale/"):]: torch.from_numpy(v)
+              for k, v in golden.items() if k.startswith("scale/")}
+    _, unexpected = net.load_state_dict(scales, strict=False)
+    if unexpected:
+        raise AssertionError(f"golden scales with no buffer: {unexpected}")
+    net.prepare_int8()
+    return scales
+
+
+def phase_replay_adm_int8():
+    """The trained ADM fixture under --int8 (fp32 net: K5 in fp32 at the
+    8x8 maps, K8 at every ResBlock conv, four phase convs in the up-block):
+    calibration from the golden's injected draws against JAX's scales, then
+    the int8 step means with JAX's scales against JAX's (both gates
+    above)."""
+    golden = dict(np.load(INT8_GOLDEN))
+    gold = np.load(os.path.join(ADM_FIXTURE_DIR, "golden.npz"))
+    state = load_sampler_state(os.path.join(ADM_FIXTURE_DIR, "sampler.pth"))
+    cfg = adm_fixture_config()
+    sampler = generate_large.load_sampler(cfg, state, "cuda", int8=True)
+    fp_sampler = generate_large.load_sampler(cfg, state, "cuda")
+    x0, eps, ys = adm_int8_calib_draws(int(golden["calib_seed"]))
+    sampler.calibrate_quant(n_sample=x0.shape[1], n_rounds=x0.shape[0],
+                            x0=torch.from_numpy(x0).cuda(),
+                            eps=torch.from_numpy(eps).cuda(),
+                            y=torch.from_numpy(ys).cuda())
+    ours = {k: v.clone() for k, v in sampler.net.state_dict().items()}
+    want = load_int8_golden_scales(sampler.net, golden)
+    worst_scale = max(float((ours[k].cpu() - v).abs().max() / v.abs().max())
+                      for k, v in want.items())
+    if not worst_scale <= INT8_SCALE_REL:
+        raise AssertionError(f"calibrated scales {worst_scale:.3e} from "
+                             "JAX's")
+    _lib.reset_launches()
+    steps, final = replay_adm_int8(sampler, fp_sampler, golden, gold, "cuda")
+    used = {k for k, v in _lib.LAUNCHES.items() if v}
+    print(f"  G2-int8: {len(want)} calibrated scales within {worst_scale:.3e}"
+          f" of JAX's (tol {INT8_SCALE_REL:g})")
+    print("  G2-int8: per-step mean err / int8 effect "
+          + " ".join(f"{r:.3f}" for r, _, _ in steps)
+          + f" (tol {INT8_STEP_RATIO:g}); median err / int8 effect "
+          + " ".join(f"{m:.3f}" for _, m, _ in steps)
+          + f" (average tol {INT8_MEDIAN_RATIO:g}); max abs err "
+          + " ".join(f"{e:.2e}" for _, _, e in steps)
+          + f"; final {final:.3e}; kernels {sorted(used)}")
+    worst, median = check_int8_replay(steps)
+    print(f"  G2-int8: worst mean ratio {worst:.3f}, median ratio averaged "
+          f"over the steps {median:.4f}")
+    if used != {"gn_silu", "attn_block", "attn_block_i8", "int8_conv"}:
+        raise AssertionError(f"launched {used}")
+    return worst
+
+
+def phase_cli():
+    """The generation CLIs as a user runs them, in subprocesses on the card,
+    on the fixture run dirs (config.yaml through the port's YAML reader,
+    --save_npz streaming): generate_cifar10, generate_large, generate_large
+    --int8. Each npz is held to the in-process samples of the same seed,
+    within one uint8 level (another process may get another cuDNN
+    algorithm); the labels equal."""
+    out_dir = os.path.join(REPO, "build", "chip_smoke_cli")
+    os.makedirs(out_dir, exist_ok=True)
+    runs = [("generate_cifar10", FIXTURE_DIR, (), 4),
+            ("generate_large", ADM_FIXTURE_DIR, (), 8),
+            ("generate_large", ADM_FIXTURE_DIR, ("--int8",), 8)]
+    for module, run_dir, extra, bs in runs:
+        path = os.path.join(out_dir, f"{module}{''.join(extra)}.npz")
+        if os.path.exists(path):
+            os.remove(path)
+        cmd = [sys.executable, "-m", f"dxmi_tpu_torch.{module}", "--log_dir",
+               run_dir, "--n_generate", "8", "--batchsize", str(bs),
+               "--save_npz", path, *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=300,
+                              env=dict(os.environ, PYTHONPATH=REPO))
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd[2:])} failed:\n"
+                                 f"{proc.stdout}{proc.stderr}")
+        got = np.load(path)
+        state = load_sampler_state(os.path.join(
+            run_dir, "sampler_best.pth" if module == "generate_cifar10"
+            else "sampler.pth"))
+        if module == "generate_cifar10":
+            x, y = generate(fixture_config(), state, 8, bs, "cuda"), None
+        else:
+            x, y = generate_large.generate(adm_fixture_config(), state, 8,
+                                           bs, "cuda", int8=bool(extra))
+        want = to_uint8(x)
+        diff = int(np.abs(got["arr_0"].astype(np.int16) - want).max())
+        if got["arr_0"].shape != want.shape or diff > 1:
+            raise AssertionError(f"{module} {extra}: npz {got['arr_0'].shape}"
+                                 f" {diff} uint8 levels from the in-process "
+                                 "samples")
+        if y is not None and not np.array_equal(got["arr_1"], y.numpy()):
+            raise AssertionError(f"{module} {extra}: labels differ")
+        last = proc.stdout.strip().splitlines()[-2:]
+        print(f"  C {module} {' '.join(extra)}: {time.perf_counter() - t0:.1f}"
+              f" s, npz {got['arr_0'].shape} {got['arr_0'].dtype} within "
+              f"{diff} uint8 level of in-process; {' | '.join(last)}")
+
+
 def phase_generate_adm():
     """ImageNet64 T=10 at full width (bf16, ~296M parameters drawn on the
     card from a seed), fused and flash attention: a warm-up batch, then
     2 batches through generate() (setup included) with the launches counted,
-    then 2 batches of sampling alone, then a profiled trajectory."""
+    then 2 batches of sampling alone, then a profiled trajectory. Returns
+    the launches of each path and the fused path's samples."""
+    cfg = imagenet64_t10()
     launches, samples = {}, {}
     for impl in ("fused", "flash"):
-        generate_large.generate(IMAGENET64_T10, None, BATCH, BATCH, "cuda",
-                                seed=1, attn_impl=impl)
+        generate_large.generate(cfg, None, BATCH, BATCH, "cuda", seed=1,
+                                attn_impl=impl)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _lib.reset_launches()
         t0 = time.perf_counter()
-        x, y = generate_large.generate(IMAGENET64_T10, None,
-                                       BATCH * N_BATCHES, BATCH, "cuda",
-                                       seed=0, attn_impl=impl)
+        x, y = generate_large.generate(cfg, None, BATCH * N_BATCHES, BATCH,
+                                       "cuda", seed=0, attn_impl=impl)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = dict(_lib.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        if tuple(x.shape) != (BATCH * N_BATCHES, 3, 64, 64):
-            raise AssertionError(f"{impl}: samples of shape {tuple(x.shape)}")
-        if not torch.isfinite(x).all():
-            raise AssertionError(f"{impl}: non-finite samples")
-        if y is None or int(y.min()) < 0 or int(y.max()) >= 1000:
-            raise AssertionError(f"{impl}: labels out of range")
+        check_adm_samples(x, y, impl)
         want = {k: v * T * N_BATCHES
                 for k, v in ADM_LAUNCHES_PER_FORWARD[impl].items()}
         if got != want:
             raise AssertionError(f"{impl}: launches {got}, expected {want}")
-        sampler = generate_large.load_sampler(IMAGENET64_T10, None, "cuda",
-                                              seed=0, attn_impl=impl)
-        generate_large.sample_batches(sampler, BATCH, BATCH, seed=2)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        generate_large.sample_batches(sampler, BATCH * N_BATCHES, BATCH,
-                                      seed=3)
-        torch.cuda.synchronize()
-        steady = time.perf_counter() - t0
+        sampler = generate_large.load_sampler(cfg, None, "cuda", seed=0,
+                                              attn_impl=impl)
+        steady = time_sampling(sampler)
         n_params = sum(p.numel() for p in sampler.net.parameters())
         print(f"  E2 {impl}: launches {got} (expected {want})")
         print(f"  E2 {impl}: generate(): {x.shape[0]} samples in {wall:.3f} s"
@@ -758,7 +1098,80 @@ def phase_generate_adm():
           f"{samples['fused'].std().item():.3f})")
     if not d < E2_FUSED_FLASH_MEAN:
         raise AssertionError(f"E2: fused and flash samples {d:.4f} apart")
-    return launches
+    return launches, samples["fused"]
+
+
+def check_adm_samples(x, y, what):
+    if tuple(x.shape) != (BATCH * N_BATCHES, 3, 64, 64):
+        raise AssertionError(f"{what}: samples of shape {tuple(x.shape)}")
+    if not torch.isfinite(x).all():
+        raise AssertionError(f"{what}: non-finite samples")
+    if y is None or int(y.min()) < 0 or int(y.max()) >= 1000:
+        raise AssertionError(f"{what}: labels out of range")
+
+
+def time_sampling(sampler):
+    """Seconds of N_BATCHES batches of sampling alone, after a warm-up
+    batch."""
+    generate_large.sample_batches(sampler, BATCH, BATCH, seed=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate_large.sample_batches(sampler, BATCH * N_BATCHES, BATCH, seed=3)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_generate_adm_int8(fused):
+    """E2 under --int8 (W8A8 static, fused attention): a warm-up through
+    generate(); then load_sampler, which draws the seed-0 weights and
+    calibrates on 2 x 10 full-precision steps at 8 samples as the CLI does
+    (setup), and 2 batches of 100 with the launches counted; then sampling
+    alone and a profiled trajectory. ``fused``: E2's fused samples of the
+    same seeds."""
+    cfg = imagenet64_t10()
+    generate_large.generate(cfg, None, BATCH, BATCH, "cuda", seed=1,
+                            int8=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    sampler = generate_large.load_sampler(cfg, None, "cuda", seed=0,
+                                          int8=True)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    calib = dict(_lib.LAUNCHES)
+    _lib.reset_launches()
+    x, y = generate_large.sample_batches(sampler, BATCH * N_BATCHES, BATCH,
+                                         seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_adm_samples(x, y, "int8")
+    want = {k: v * T * N_BATCHES
+            for k, v in ADM_LAUNCHES_PER_FORWARD["int8"].items()}
+    if got != want:
+        raise AssertionError(f"int8: launches {got}, expected {want}")
+    if calib != ADM_CALIB_LAUNCHES:
+        raise AssertionError(f"int8 calibration: launches {calib}, expected "
+                             f"{ADM_CALIB_LAUNCHES}")
+    steady = time_sampling(sampler)
+    d = (x - fused).abs().mean().item()
+    print(f"  E2-int8: calibration launches {calib} (expected "
+          f"{ADM_CALIB_LAUNCHES}); sampling launches {got} (expected {want})")
+    print(f"  E2-int8: load + calibration {setup:.3f} s; {x.shape[0]} samples"
+          f" in {wall:.3f} s with setup ({x.shape[0] / wall:.2f} img/s); "
+          f"sampling alone {BATCH * N_BATCHES / steady:.2f} img/s; samples "
+          f"in [{x.min().item():.3f}, {x.max().item():.3f}], std "
+          f"{x.std().item():.3f}; peak allocated {peak / 2**20:.1f} MiB; "
+          f"mean |int8 - fused bf16| over the same seeds {d:.4f}")
+    profile_run(lambda: generate_large.sample_batches(sampler, BATCH, BATCH,
+                                                      seed=4),
+                f"E2-int8 profile, one trajectory of {BATCH}", top=16)
+    del sampler
+    torch.cuda.empty_cache()
+    return got
 
 
 def nvidia_smi():
@@ -788,14 +1201,19 @@ def main() -> int:
         run_phase("G", phase_replay)
         launches = run_phase("E", phase_generate)
         run_phase("G2", phase_replay_adm)
-        adm = run_phase("E2", phase_generate_adm)
+        run_phase("G2-int8", phase_replay_adm_int8)
+        adm, fused = run_phase("E2", phase_generate_adm)
+        int8 = run_phase("E2-int8", lambda: phase_generate_adm_int8(fused))
+        run_phase("C", phase_cli)
         smi = nvidia_smi()
     except PhaseError as e:
         print(str(e), file=sys.stderr, flush=True)
         return 1
     launches.update(gn_silu_bf16=adm["fused"]["gn_silu_bf16"],
                     attn_block_bf16=adm["fused"]["attn_block_bf16"],
-                    flash_attn=adm["flash"]["flash_attn"])
+                    flash_attn=adm["flash"]["flash_attn"],
+                    attn_block_i8=int8["attn_block_i8"],
+                    int8_conv=int8["int8_conv"])
     kernels = []
     for name, (src, replaces) in INFO.items():
         r = times[name]

@@ -460,6 +460,18 @@ hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
 
 }  // namespace
 
+cudaError_t launch_attn_core_f32(const float* qkv, float* out, int B, int S,
+                                 int C, int nh, cudaStream_t stream) {
+  const int d = C / nh;
+  const int smem = attn_smem_floats(d) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  attn_fwd_kernel<<<dim3(S / QT, nh, B), kAttnThreads, smem, stream>>>(
+      qkv, out, S, C, d);
+  return cudaGetLastError();
+}
+
 // bf16 x, y: (B, S, C); w_qkv: (C, 3C) with [3, nh, d] output columns, b_qkv
 // (3C,), w_proj (C, C), b_proj (C,) bf16; gs, gb fp32; mean_c/rstd_c: (B, C)
 // fp32 scratch; qkv: (B, S, 3C) and attn: (B, S, C) bf16 scratch. Needs
@@ -529,13 +541,7 @@ extern "C" int dxmi_attn_block(const float* x, const float* gs,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int smem = attn_smem_floats(d) * (int)sizeof(float);
-  err = cudaFuncSetAttribute(attn_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_fwd_kernel<<<dim3(S / QT, nh, B), kAttnThreads, smem, s>>>(qkv, attn,
-                                                                  S, C, d);
-  err = cudaGetLastError();
+  err = launch_attn_core_f32(qkv, attn, B, S, C, nh, s);
   if (err != cudaSuccess) return (int)err;
 
   dim3 g_proj((C + GBN - 1) / GBN, (M + GBM - 1) / GBM);

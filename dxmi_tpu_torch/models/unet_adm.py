@@ -23,6 +23,18 @@ through K4; everything else takes the einsum path, with a bf16 softmax when
 ``softmax_f32`` is False, as ``unet_adm.py:275-296``. The routes are the JAX
 gates alone: on the card a form the kernels do not take (K4 in fp32, K2 at
 some head widths) raises instead of falling back.
+
+int8 (``quant_int8``): ``'static'`` runs each ResBlock's two 3x3 convs as
+``QConv`` with calibrated per-input-channel activation scales, the phase
+up-block's conv with its own scale (four K8 launches), and, with
+``quant_attn='static'`` and ``attn_impl='fused'``, every attention block that
+``fused_attn_available(..., int8=True)`` admits through K5; ``True`` runs the
+ResBlock convs with per-call (dynamic) activation scales. The layers that
+quantise keep fp32 weights (``cast_weights`` leaves them), as the JAX package
+quantises from its fp32 parameters. Calibration (``set_calibrating``) runs
+the full-precision forward and records the running maxima of
+``calib_channel_scale`` into the ``act_scale``, ``attn_act_scale`` and
+``attn_proj_scale`` buffers; ``prepare_int8`` then quantises the weights once.
 """
 from __future__ import annotations
 
@@ -35,14 +47,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from dxmi_tpu_torch.ops.attention import flash_available, flash_mha
-from dxmi_tpu_torch.ops.attn_block import attn_block, fused_attn_available
+from dxmi_tpu_torch.ops.attn_block import (Int8AttnMats, attn_block,
+                                           attn_block_int8,
+                                           fused_attn_available,
+                                           prep_int8_mats)
 from dxmi_tpu_torch.ops.groupnorm import group_norm, sigmoid
-from dxmi_tpu_torch.ops.phase_up import conv3x3_nearest_up2
+from dxmi_tpu_torch.ops.phase_up import (conv3x3_nearest_up2,
+                                         prepare_phase_int8)
+from dxmi_tpu_torch.ops.quant import Int8Layer, QConv, record_act_scale
 from dxmi_tpu_torch.ops.trig import reduce_mod_2pi
 
 GN_EPS = 1e-5
 ATTN_IMPLS = ("einsum", "flash", "fused")
 UP_IMPLS = ("resize", "phase")
+QUANT_MODES = (False, True, "static")
+# buffers of calibrated activation scales (a checkpoint may lack them)
+QUANT_SCALE_NAMES = ("act_scale", "attn_act_scale", "attn_proj_scale")
 
 
 def adm_timestep_embedding(t: torch.Tensor, dim: int,
@@ -85,6 +105,12 @@ def _mat(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     return conv.weight[:, :, 0, 0].t().to(dtype).contiguous()
 
 
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` in ``x``'s dtype (its weights may be kept in fp32)."""
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                    conv.stride, conv.padding)
+
+
 class GroupNormADM(nn.GroupNorm):
     """GroupNorm(32), eps 1e-5, fp32 affine, optional fused SiLU, through
     K1; the output keeps the input's dtype."""
@@ -99,30 +125,61 @@ class GroupNormADM(nn.GroupNorm):
                                 self.gn_stats))
 
 
-class ResBlockADM(nn.Module):
+class ResBlockADM(Int8Layer, nn.Module):
     """GN-SiLU-conv / emb FiLM / GN-SiLU-zero-conv residual block with
     optional in-block resampling; ``up_impl='phase'`` computes the up-block's
     conv3x3(nearest_up2(.)) by the phase decomposition and runs the skip 1x1
-    conv on the small grid (it commutes with nearest upsampling)."""
+    conv on the small grid (it commutes with nearest upsampling). ``quant``
+    (False, True or 'static') runs the two 3x3 convs in W8A8 int8 with
+    outputs in ``dtype``: ``QConv``s, or for the phase up-block the four
+    phase convs with the block's own ``act_scale`` ('static' only; dynamic
+    leaves it in full precision, as the JAX block does)."""
 
     def __init__(self, channels: int, emb_channels: int, out_channels: int,
                  use_scale_shift_norm: bool, up: bool = False,
                  down: bool = False, up_impl: str = "resize",
-                 gn_stats: str = "fp32", dropout: float = 0.0):
+                 gn_stats: str = "fp32", dropout: float = 0.0,
+                 quant: object = False, dtype: torch.dtype = torch.float32):
         super().__init__()
+        phase_up = up and up_impl == "phase"
+
+        def conv3(cin: int, plain: bool = False) -> nn.Conv2d:
+            if quant and not plain:
+                return QConv(cin, out_channels, static_act=quant == "static",
+                             out_dtype=dtype)
+            return nn.Conv2d(cin, out_channels, 3, padding=1)
+
         self.in_layers = nn.ModuleList([
             GroupNormADM(channels, gn_stats), nn.SiLU(),
-            nn.Conv2d(channels, out_channels, 3, padding=1)])
+            conv3(channels, plain=phase_up)])
         self.emb_layers = nn.ModuleList([
             nn.SiLU(), nn.Linear(emb_channels, (2 if use_scale_shift_norm
                                                 else 1) * out_channels)])
         self.out_layers = nn.ModuleList([
             GroupNormADM(out_channels, gn_stats), nn.SiLU(), nn.Dropout(dropout),
-            nn.Conv2d(out_channels, out_channels, 3, padding=1)])
+            conv3(out_channels)])
         if channels != out_channels:
             self.skip_connection = nn.Conv2d(channels, out_channels, 1)
         self.use_scale_shift_norm = use_scale_shift_norm
         self.up, self.down, self.up_impl = up, down, up_impl
+        self.phase_int8 = phase_up and quant == "static"
+        if self.phase_int8:
+            self.register_buffer("act_scale", torch.zeros(channels))
+
+    def quantise_int8(self):
+        if self.phase_int8:
+            return prepare_phase_int8(self.in_layers[2].weight,
+                                      self.act_scale)
+        return None
+
+    def _phase_up(self, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        conv_in = self.in_layers[2]
+        if self.phase_int8 and not self.calibrating:
+            return conv3x3_nearest_up2(h, conv_in.weight, conv_in.bias, dt,
+                                       prepared=self.int8_operands())
+        if self.phase_int8:
+            record_act_scale(self.act_scale, h)
+        return conv3x3_nearest_up2(h, conv_in.weight, conv_in.bias, dt)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
@@ -130,7 +187,7 @@ class ResBlockADM(nn.Module):
         conv_in = self.in_layers[2]
         skip_done = False
         if self.up and self.up_impl == "phase":
-            h = conv3x3_nearest_up2(h, conv_in.weight, conv_in.bias, dt)
+            h = self._phase_up(h, dt)
             if hasattr(self, "skip_connection"):
                 x = self.skip_connection(x)
                 skip_done = True
@@ -154,12 +211,18 @@ class ResBlockADM(nn.Module):
         return x + h
 
 
-class AttentionBlockADM(nn.Module):
+class AttentionBlockADM(Int8Layer, nn.Module):
     """Multi-head self-attention over the flattened map with q and k each
-    scaled by d^-1/4; the qkv 1x1 conv's output rows are [3, nh, d]."""
+    scaled by d^-1/4; the qkv 1x1 conv's output rows are [3, nh, d].
+    ``quant='static'`` with ``attn_impl='fused'`` runs the maps that the
+    int8 gate admits through K5 with the calibrated ``attn_act_scale``
+    (post-GN) and ``attn_proj_scale`` (post-attention); while
+    ``calibrating`` it runs the full-precision path (GN, qkv, flash or
+    einsum, proj) and records both."""
 
     def __init__(self, channels: int, num_heads: int, attn_impl: str,
-                 softmax_f32: bool, gn_stats: str = "fp32"):
+                 softmax_f32: bool, gn_stats: str = "fp32",
+                 quant: object = False):
         super().__init__()
         self.norm = GroupNormADM(channels, gn_stats)
         self.qkv = nn.Conv2d(channels, 3 * channels, 1)
@@ -167,18 +230,42 @@ class AttentionBlockADM(nn.Module):
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.softmax_f32 = softmax_f32
+        self.int8 = quant == "static" and attn_impl == "fused"
+        if self.int8:
+            self.register_buffer("attn_act_scale", torch.zeros(channels))
+            self.register_buffer("attn_proj_scale", torch.zeros(channels))
+
+    def quantise_int8(self) -> Optional[Int8AttnMats]:
+        if not self.int8:
+            return None
+        return prep_int8_mats(_mat(self.qkv, torch.float32),
+                              _mat(self.proj_out, torch.float32),
+                              self.attn_act_scale, self.attn_proj_scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
         S, nh, dt = H * W, self.num_heads, x.dtype
         d = C // nh
-        if self.attn_impl == "fused" and fused_attn_available(S, C, nh):
+        calibrating = False
+        if self.int8 and fused_attn_available(S, C, nh, int8=True):
+            calibrating = self.calibrating
+            if not calibrating:
+                y = attn_block_int8(_nhwc(x).reshape(B, S, C),
+                                    self.norm.weight, self.norm.bias,
+                                    self.int8_operands(),
+                                    self.qkv.bias.float(),
+                                    self.proj_out.bias.float(), nh, GN_EPS)
+                return _nchw(y.reshape(B, H, W, C))
+        elif self.attn_impl == "fused" and fused_attn_available(S, C, nh):
             y = attn_block(_nhwc(x).reshape(B, S, C), self.norm.weight,
                            self.norm.bias, _mat(self.qkv, dt),
                            self.qkv.bias.to(dt), _mat(self.proj_out, dt),
                            self.proj_out.bias.to(dt), nh, GN_EPS)
             return _nchw(y.reshape(B, H, W, C))
-        qkv = _nhwc(self.qkv(self.norm(x))).reshape(B, S, 3, nh, d)
+        h = self.norm(x)
+        if calibrating:
+            record_act_scale(self.attn_act_scale, h)
+        qkv = _nhwc(_conv(self.qkv, h)).reshape(B, S, 3, nh, d)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         scale = 1.0 / math.sqrt(math.sqrt(d))
         if self.attn_impl in ("flash", "fused") and flash_available(S, d):
@@ -192,7 +279,10 @@ class AttentionBlockADM(nn.Module):
             w = torch.softmax(logits, dim=-1).to(dt)
             a = torch.einsum("bhqk,bkhd->bqhd", w, v)
         a = _nchw(a.reshape(B, H, W, C))
-        return x + self.proj_out(a.contiguous(memory_format=torch.channels_last))
+        if calibrating:
+            record_act_scale(self.attn_proj_scale, a)
+        return x + _conv(self.proj_out,
+                         a.contiguous(memory_format=torch.channels_last))
 
 
 class Downsample(nn.Module):
@@ -225,7 +315,8 @@ class UNetADM(nn.Module):
     """The ADM U-Net. ``forward(x_nchw, t[, y]) -> (B, out_channels, H, W)``
     fp32. Constructor arguments follow ``dxmi_tpu``'s ``UNetADM``
     (``attention_resolutions`` are downsample rates); ``dtype`` is the
-    compute dtype. int8 quantisation and gradient checkpointing are not
+    compute dtype; ``quant_int8`` (False, True, 'static') and ``quant_attn``
+    (False, 'static') select the int8 layers. Gradient checkpointing is not
     ported yet."""
 
     def __init__(self, image_size: int, in_channels: int = 3,
@@ -240,8 +331,14 @@ class UNetADM(nn.Module):
                  resblock_updown: bool = False,
                  dtype: torch.dtype = torch.float32, softmax_f32: bool = True,
                  attn_impl: str = "einsum", up_impl: str = "resize",
-                 gn_stats: str = "fp32"):
+                 gn_stats: str = "fp32", quant_int8: object = False,
+                 quant_attn: object = False):
         super().__init__()
+        if quant_int8 not in QUANT_MODES or quant_attn not in (False,
+                                                               "static"):
+            raise ValueError(f"quant_int8={quant_int8!r}, quant_attn="
+                             f"{quant_attn!r}: expected one of {QUANT_MODES} "
+                             "and False or 'static'")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r}, expected one of "
                              f"{ATTN_IMPLS}")
@@ -265,9 +362,10 @@ class UNetADM(nn.Module):
             return num_heads
 
         res = dict(emb_channels=ted, use_scale_shift_norm=use_scale_shift_norm,
-                   up_impl=up_impl, gn_stats=gn_stats, dropout=dropout)
+                   up_impl=up_impl, gn_stats=gn_stats, dropout=dropout,
+                   quant=quant_int8, dtype=dtype)
         attn = dict(attn_impl=attn_impl, softmax_f32=softmax_f32,
-                    gn_stats=gn_stats)
+                    gn_stats=gn_stats, quant=quant_attn)
 
         self.time_embed = nn.ModuleList([nn.Linear(mc, ted), nn.SiLU(),
                                          nn.Linear(ted, ted)])
@@ -332,22 +430,51 @@ class UNetADM(nn.Module):
 
     def cast_weights(self) -> "UNetADM":
         """Round conv, linear and embedding weights to the compute dtype once
-        (no-op in fp32). GroupNorm affine parameters and the phase-upsample
-        convs (whose tap sums run in fp32) stay fp32."""
+        (no-op in fp32). GroupNorm affine parameters, the phase-upsample
+        convs (whose tap sums run in fp32) and the weights of the int8
+        layers (quantised from fp32) stay fp32."""
         if self.dtype == torch.float32:
             return self
         keep = set()
         for m in self.modules():
-            if isinstance(m, GroupNormADM):
+            if isinstance(m, (GroupNormADM, QConv)):
                 keep.update(id(p) for p in m.parameters())
             elif isinstance(m, ResBlockADM) and m.up and m.up_impl == "phase":
                 keep.update(id(p) for p in m.in_layers[2].parameters())
             elif isinstance(m, Upsample) and m.up_impl == "phase":
                 keep.update(id(p) for p in m.conv.parameters())
+            elif isinstance(m, AttentionBlockADM) and m.int8:
+                keep.update(id(p) for p in m.qkv.parameters())
+                keep.update(id(p) for p in m.proj_out.parameters())
         for p in self.parameters():
             if id(p) not in keep:
                 p.data = p.data.to(self.dtype)
         return self
+
+    def _int8_layers(self):
+        return [m for m in self.modules() if isinstance(m, Int8Layer)]
+
+    def set_calibrating(self, on: bool) -> None:
+        """Switch every static int8 layer into (or out of) calibration:
+        full-precision forwards that record activation scales. Switching it
+        on drops the weights that ``prepare_int8`` quantised."""
+        for m in self._int8_layers():
+            m.calibrating = on
+            if on:
+                m.clear_int8()
+
+    def reset_quant_scales(self) -> None:
+        """Zero every calibrated activation scale (an uncalibrated net)."""
+        for name, buf in self.named_buffers():
+            if name.endswith(QUANT_SCALE_NAMES):
+                buf.zero_()
+
+    def prepare_int8(self) -> None:
+        """Quantise the int8 layers' weights with the current scales once,
+        so that forwards reuse them (a forward quantises them itself when no
+        cache is there); call again after changing either in place."""
+        for m in self._int8_layers():
+            m.prepare_int8()
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -402,10 +529,9 @@ def create_unet_adm(image_size: int, num_channels: int, num_res_blocks: int,
     arguments, with the "32,16,8" attention-resolution string turned into
     downsample rates. ``use_fp16`` selects bf16 compute with a bf16 einsum
     softmax. ``attn_impl`` defaults to ``'flash'`` in bf16 and ``'einsum'``
-    in fp32, and ``up_impl`` to ``'resize'`` (the JAX factory's defaults
-    without its environment variables)."""
-    if quant_int8 or quant_attn:
-        raise NotImplementedError("quant_int8/quant_attn: not ported yet")
+    in fp32, ``up_impl`` to ``'resize'``, and ``quant_attn`` to ``'static'``
+    exactly when ``quant_int8 == 'static'`` and ``attn_impl == 'fused'`` (the
+    JAX factory's defaults without its environment variables)."""
     if use_checkpoint:
         raise NotImplementedError("use_checkpoint: not ported yet")
     cm: Tuple[int, ...] = (tuple(int(c) for c in str(channel_mult).split(","))
@@ -418,6 +544,9 @@ def create_unet_adm(image_size: int, num_channels: int, num_res_blocks: int,
         softmax_f32 = not use_fp16
     if attn_impl is None:
         attn_impl = "flash" if use_fp16 else "einsum"
+    if quant_attn is None:
+        quant_attn = ("static" if quant_int8 == "static"
+                      and attn_impl == "fused" else False)
     return UNetADM(
         image_size=image_size, in_channels=3, model_channels=num_channels,
         out_channels=6 if learn_sigma else 3, num_res_blocks=num_res_blocks,
@@ -428,7 +557,8 @@ def create_unet_adm(image_size: int, num_channels: int, num_res_blocks: int,
         use_scale_shift_norm=use_scale_shift_norm,
         resblock_updown=resblock_updown, dtype=dtype,
         softmax_f32=softmax_f32, attn_impl=attn_impl,
-        up_impl=up_impl or "resize", gn_stats=gn_stats)
+        up_impl=up_impl or "resize", gn_stats=gn_stats,
+        quant_int8=quant_int8, quant_attn=quant_attn)
 
 
 def seeded_normal_(module: nn.Module, seed: int) -> nn.Module:

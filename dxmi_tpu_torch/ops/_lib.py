@@ -53,6 +53,14 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, o, B, S, nh, d, row_stride, out_row_stride, sm_scale, stream
     "dxmi_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, is_bf16, gs, gb, wq, swq, isa_q, bq, wp, swp, isa_p, bp, y, mean_c,
+    # rstd_c, qkv scratch, attn scratch, B, S, C, nh, G, eps, stream
+    "dxmi_attn_block_i8": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # x, x_bf16, xs, divide, w, dq, bias (or null), y, y_bf16, B, H, W, Cin,
+    # Cout, kh, kw, pad_top, pad_left, stream
+    "dxmi_int8_conv": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,6 @@
 """The attention block GN + q/k/v 1x1 + attention + proj 1x1 + residual:
-kernel K2 and its plain version.
+kernel K2 and its plain version, and its int8 (W8A8) form, kernel K5, with
+its plain version and the JAX package's oracle.
 
 ``attn_block`` mirrors ``dxmi_tpu.ops.attn_block.fused_attn_block`` (the
 forward at one batch element per program): on a CPU tensor it runs the plain
@@ -15,27 +16,38 @@ weights cast to bf16, AV accumulated in fp32 and rounded to bf16; proj as
 for q/k/v, then the residual added in bf16. The JAX generation entry sets
 ``DXMI_FUSED_NOMAX=1``, which drops the softmax's max subtraction (exact
 math); the port keeps one max-subtracting softmax.
+
+``attn_block_int8`` mirrors ``fused_attn_block_int8``: the same block with the
+qkv and proj products in int8 (``_kernel_i8``, ``attn_block.py:353``). Its
+plain version follows that kernel's body, not the JAX oracle: h is quantised
+straight from the fp32 GN epilogue, and each dequantisation adds the fp32
+bias before rounding to the compute dtype.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from dxmi_tpu_torch.ops import _lib
+from dxmi_tpu_torch.ops.quant import int8_matmul_static, quantize_per_channel
 
 GROUPS = 32
 
 
-def fused_attn_available(seq_len: int, channels: int, num_heads: int) -> bool:
+def fused_attn_available(seq_len: int, channels: int, num_heads: int,
+                         int8: bool = False) -> bool:
     """The JAX gate (``attn_block.py:59``, without its backend test): whole
-    64-row q tiles (S >= 64, S % 64 == 0), d = C / nh <= 256, C <= 768 and
+    64-row q tiles (S >= 64, S % 64 == 0), d = C / nh <= 256, C <= 768 (C <=
+    1024 for the int8 block, whose weights are half the size) and
     S * C <= 1024 * 512, over whole groups of 32 channels (GroupNorm(32))."""
     if channels % GROUPS or channels % num_heads:
         return False
     d = channels // num_heads
     return (seq_len >= 64 and seq_len % 64 == 0 and d <= 256
-            and channels <= 768 and seq_len * channels <= 1024 * 512)
+            and channels <= (1024 if int8 else 768)
+            and seq_len * channels <= 1024 * 512)
 
 
 def kernel_takes(channels: int, num_heads: int, dtype: torch.dtype) -> bool:
@@ -145,4 +157,159 @@ def attn_block(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
         num_heads, GROUPS, float(eps), _lib.stream())
     _lib.check(code, f"dxmi_{form}")
     _lib.LAUNCHES[form] += 1
+    return y
+
+
+# ---- the int8 block: K5 -------------------------------------------------
+
+
+class Int8AttnMats(NamedTuple):
+    """The int8 block's prepared operands (``_prep_int8_mats``), weights in
+    the kernel's output-major layout: ``wq`` (3C, C) and ``wp`` (C, C) int8,
+    one row per output channel with the activation scales folded into it;
+    ``swq`` (3C,) and ``swp`` (C,) fp32 dequantisation scales; ``isa_q`` and
+    ``isa_p`` (C,) fp32 reciprocal activation scales."""
+    wq: torch.Tensor
+    swq: torch.Tensor
+    isa_q: torch.Tensor
+    wp: torch.Tensor
+    swp: torch.Tensor
+    isa_p: torch.Tensor
+
+
+def prep_int8_mats(w_qkv: torch.Tensor, w_proj: torch.Tensor,
+                   sa_qkv: torch.Tensor, sa_proj: torch.Tensor
+                   ) -> Int8AttnMats:
+    """``_prep_int8_mats`` (``attn_block.py:672``): fold the activation
+    scales (floored at 1e-8, so that uncalibrated zeros stay finite) into
+    the fp32 weights' input axes and quantise per output channel. ``w_qkv``
+    is (C, 3C) and ``w_proj`` (C, C), as ``attn_block`` takes them."""
+    C = w_qkv.shape[0]
+    sa_q = torch.clamp(sa_qkv.float().reshape(C), min=1e-8)
+    sa_p = torch.clamp(sa_proj.float().reshape(C), min=1e-8)
+    wq, swq = quantize_per_channel(w_qkv.float() * sa_q[:, None], axis=-1)
+    wp, swp = quantize_per_channel(w_proj.float() * sa_p[:, None], axis=-1)
+    return Int8AttnMats(wq.t().contiguous(), swq.reshape(-1).contiguous(),
+                        (1.0 / sa_q).contiguous(), wp.t().contiguous(),
+                        swp.reshape(-1).contiguous(),
+                        (1.0 / sa_p).contiguous())
+
+
+def attn_block_int8_reference(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj,
+                              b_proj, sa_qkv, sa_proj, num_heads: int,
+                              eps: float = 1e-5) -> torch.Tensor:
+    """The JAX package's oracle of the int8 block
+    (``attn_block_int8_reference``, ``attn_block.py:322``): GN in fp32, h
+    rounded to the compute dtype, ``int8_matmul_static`` qkv, the attention
+    in the compute dtype with an fp32 softmax, ``int8_matmul_static`` proj,
+    residual."""
+    B, S, C = x.shape
+    nh = num_heads
+    d = C // nh
+    dt = x.dtype
+    g = x.float().reshape(B, S, GROUPS, C // GROUPS)
+    mean = g.mean(dim=(1, 3), keepdim=True)
+    var = (g - mean).square().mean(dim=(1, 3), keepdim=True)
+    h = ((g - mean) * torch.rsqrt(var + eps)).reshape(B, S, C)
+    h = (h * gn_scale + gn_bias).to(dt)
+    qkv = int8_matmul_static(h, w_qkv, b_qkv, sa_qkv, out_dtype=dt)
+    qkv = qkv.reshape(B, S, 3, nh, d)
+    scale = torch.tensor(1.0 / math.sqrt(math.sqrt(d)), dtype=dt)
+    q, k, v = qkv[:, :, 0] * scale, qkv[:, :, 1] * scale, qkv[:, :, 2]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    w = torch.softmax(logits, dim=-1).to(dt)
+    a = torch.einsum("bhqk,bkhd->bqhd", w.float(), v.float()).to(dt)
+    y = int8_matmul_static(a.reshape(B, S, C), w_proj, b_proj, sa_proj,
+                           out_dtype=dt)
+    return x + y
+
+
+def _quant_rows(a: torch.Tensor, isa: torch.Tensor) -> torch.Tensor:
+    """round(a * isa), clipped to +-127, as float64 int8 values."""
+    return torch.clamp(torch.round(a * isa), -127, 127).double()
+
+
+def attn_block_int8_plain(x, gn_scale, gn_bias, mats: Int8AttnMats, b_qkv,
+                          b_proj, num_heads: int,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """Plain K5, the arithmetic of the TPU body ``_kernel_i8``: fp32 GN
+    statistics (two-pass here, one-pass there: they differ at fp32
+    rounding), h quantised straight from the fp32 epilogue x * s_c + t_c;
+    exact int8 products (float64 sums of integers); qkv = dt(acc * swq +
+    b_qkv); q and k scaled by dt(d^-1/4) in dt; the attention core in dt
+    with an fp32 softmax; the output quantised, proj = dt(acc * swp +
+    b_proj); y = x + proj in dt."""
+    B, S, C = x.shape
+    nh = num_heads
+    d = C // nh
+    dt = x.dtype
+    xf = x.float()
+    g = xf.reshape(B, S, GROUPS, C // GROUPS)
+    mean = g.mean(dim=(1, 3))
+    rstd = torch.rsqrt((g - mean[:, None, :, None]).square().mean(dim=(1, 3))
+                       + eps)
+    s_c = gn_scale.float() * rstd.repeat_interleave(C // GROUPS, dim=1)
+    t_c = gn_bias.float() - mean.repeat_interleave(C // GROUPS, dim=1) * s_c
+    h_i8 = _quant_rows(xf * s_c[:, None] + t_c[:, None], mats.isa_q)
+    acc = (h_i8 @ mats.wq.double().t()).to(torch.int32)
+    qkv = (acc.float() * mats.swq + b_qkv.float()).to(dt).reshape(B, S, 3, nh,
+                                                                  d)
+    scale = torch.tensor(1.0 / math.sqrt(math.sqrt(d)), dtype=dt)
+    q, k, v = qkv[:, :, 0] * scale, qkv[:, :, 1] * scale, qkv[:, :, 2]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    w = torch.softmax(logits, dim=-1).to(dt)
+    a = torch.einsum("bhqk,bkhd->bqhd", w.float(), v.float()).to(dt)
+    a_i8 = _quant_rows(a.reshape(B, S, C).float(), mats.isa_p)
+    acc = (a_i8 @ mats.wp.double().t()).to(torch.int32)
+    y = (acc.float() * mats.swp + b_proj.float()).to(dt)
+    return x + y
+
+
+def attn_block_int8(x, gn_scale, gn_bias, mats: Int8AttnMats, b_qkv, b_proj,
+                    num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """The int8 attention block on fp32 or bf16 ``x`` (B, S, C) with fp32
+    GN parameters and biases and prepared int8 weights. On the card: K5,
+    for shapes that ``fused_attn_available(..., int8=True)`` admits, in the
+    forms that ``kernel_takes`` names (others raise); it counts as
+    ``attn_block_i8``."""
+    if x.device.type == "cpu":
+        return attn_block_int8_plain(x, gn_scale, gn_bias, mats, b_qkv,
+                                     b_proj, num_heads, eps)
+    B, S, C = x.shape
+    dt = x.dtype
+    if not fused_attn_available(S, C, num_heads, int8=True):
+        raise ValueError(f"attn_block_int8 kernel: S={S}, C={C}, "
+                         f"nh={num_heads} outside fused_attn_available")
+    if not kernel_takes(C, num_heads, dt):
+        raise NotImplementedError(
+            f"attn_block_int8 kernel: d={C // num_heads} in {dt} not ported "
+            "yet (fp32 at d % 16 == 0, bf16 at d % 8 == 0 and d <= 128)")
+    dev = x.device
+    _lib.require(x, "x", (B, S, C), dtype=dt)
+    for name, t, shape, dtype in (
+            ("gn_scale", gn_scale, (C,), torch.float32),
+            ("gn_bias", gn_bias, (C,), torch.float32),
+            ("wq", mats.wq, (3 * C, C), torch.int8),
+            ("swq", mats.swq, (3 * C,), torch.float32),
+            ("isa_q", mats.isa_q, (C,), torch.float32),
+            ("b_qkv", b_qkv, (3 * C,), torch.float32),
+            ("wp", mats.wp, (C, C), torch.int8),
+            ("swp", mats.swp, (C,), torch.float32),
+            ("isa_p", mats.isa_p, (C,), torch.float32),
+            ("b_proj", b_proj, (C,), torch.float32)):
+        _lib.require(t, name, shape, dtype=dtype, device=dev)
+    y = torch.empty_like(x)
+    stats = torch.empty((2, B * C), device=dev, dtype=torch.float32)
+    qkv = torch.empty((B, S, 3 * C), device=dev, dtype=dt)
+    attn = torch.empty((B, S, C), device=dev, dtype=dt)
+    code = _lib.lib().dxmi_attn_block_i8(
+        x.data_ptr(), int(dt == torch.bfloat16), gn_scale.data_ptr(),
+        gn_bias.data_ptr(), mats.wq.data_ptr(), mats.swq.data_ptr(),
+        mats.isa_q.data_ptr(), b_qkv.data_ptr(), mats.wp.data_ptr(),
+        mats.swp.data_ptr(), mats.isa_p.data_ptr(), b_proj.data_ptr(),
+        y.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        qkv.data_ptr(), attn.data_ptr(), B, S, C, num_heads, GROUPS,
+        float(eps), _lib.stream())
+    _lib.check(code, "dxmi_attn_block_i8")
+    _lib.LAUNCHES["attn_block_i8"] += 1
     return y

@@ -8,6 +8,7 @@ the 1e-4 sigma floor for the log-probability. The T-step loop is a Python
 loop of network forwards; samples are NCHW. Noise and labels come from an
 explicit ``torch.Generator`` or are injected (``x0``, per-step ``eps``, ``y``),
 which is how the tests hold the port against the JAX package.
+``calibrate_quant`` calibrates the static int8 layers of the net.
 """
 from __future__ import annotations
 
@@ -99,6 +100,42 @@ class EDMSampler(nn.Module):
                 < self.n_timesteps - 3
             sig = torch.where(keep, sig, self.sigma_up)
         return sig
+
+    @torch.no_grad()
+    def calibrate_quant(self, generator: Optional[torch.Generator] = None,
+                        n_sample: int = 8, n_rounds: int = 2,
+                        x0: Optional[torch.Tensor] = None,
+                        eps: Optional[torch.Tensor] = None,
+                        y: Optional[torch.Tensor] = None) -> None:
+        """Calibrate the static activation scales of a ``quant_int8='static'``
+        net (``dxmi_tpu.samplers.edm.EDMSampler.calibrate_quant``): zero them,
+        run ``n_rounds`` full-precision trajectories of T Euler-ancestral
+        steps at ``n_sample`` with fresh x ~ N(0, 1) * sigma_max and fresh
+        labels each round, keeping each layer's running maximum; then
+        quantise the weights once (``prepare_int8``). ``x0`` (rounds, n, C,
+        H, W), ``eps`` (rounds, T, n, C, H, W) and ``y`` (rounds, n) inject
+        the draws, which the JAX package takes from threefry keys."""
+        device = self.log_betas.device
+        net = self.net
+        net.reset_quant_scales()
+        net.set_calibrating(True)
+        try:
+            for r in range(n_rounds):
+                yr = None
+                if self.class_cond:
+                    yr = y[r] if y is not None else torch.randint(
+                        0, self.num_classes, (n_sample,), generator=generator,
+                        device=device)
+                x = (x0[r] if x0 is not None else torch.randn(
+                    (n_sample, *self.sample_shape), generator=generator,
+                    device=device) * self.sigma_max)
+                for t in range(self.n_timesteps):
+                    x = self.sample_step(x, t, None if eps is None
+                                         else eps[r][t], yr,
+                                         generator)["sample"]
+        finally:
+            net.set_calibrating(False)
+        net.prepare_int8()
 
     def sample_step(self, x: torch.Tensor, t: int,
                     noise: Optional[torch.Tensor] = None,

@@ -5,7 +5,8 @@
 module names go back to the reference's dotted paths, GroupNorm
 ``gn/{scale,bias}`` back to ``weight``/``bias``, conv kernels (kh, kw, I, O)
 back to (O, I, kh, kw), dense kernels (I, O) back to (O, I) and embedding
-tables to ``weight``.
+tables to ``weight``. ``adm_quant_scales_from_flax`` carries the JAX net's
+calibrated ``quant_scales`` collection into the port's scale buffers.
 """
 from __future__ import annotations
 
@@ -95,6 +96,25 @@ def unet_adm_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unhandled flax leaf {'/'.join(path)}")
         key = ".".join([*(_adm_module_path(m) for m in mods), name])
         out[key] = torch.from_numpy(np.ascontiguousarray(val))
+    return out
+
+
+def adm_quant_scales_from_flax(scales: Dict[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """State-dict entries of the port's ``UNetADM`` scale buffers from the
+    JAX ``quant_scales`` collection (``act_scale`` of each ``QConv`` and
+    phase up-block, ``attn_act_scale``/``attn_proj_scale`` of each int8
+    attention block; a ``{'quant_scales': ...}`` wrapper is accepted): the
+    flax module path goes back to the reference's dotted path, the leaf
+    name stays. Load them with ``load_state_dict(..., strict=False)``."""
+    scales = scales.get("quant_scales", scales)
+    out: Dict[str, torch.Tensor] = {}
+    for path, val in _leaves(scales):
+        *mods, leaf = path
+        if leaf not in ("act_scale", "attn_act_scale", "attn_proj_scale"):
+            raise ValueError(f"unhandled quant_scales leaf {'/'.join(path)}")
+        key = ".".join([*(_adm_module_path(m) for m in mods), leaf])
+        out[key] = torch.from_numpy(np.array(val, dtype=np.float32))
     return out
 
 

@@ -1,19 +1,24 @@
-"""The card checks of the bf16 attention kernels (chip_smoke.attn_bf16_check
-for K2, chip_smoke.flash_check for K4), held on the CPU against replicas of
-the kernels' arithmetic: each check passes a replica that sums in another
-order (K2: float64 sums; K4: the kernel's online softmax over 64-key tiles,
-p rounded before it is normalised) and fails the same replica with a fault
-planted (a dropped 64-key tile, a q/k scale a few percent off, uniform
-attention weights)."""
+"""The card checks of the attention kernels (chip_smoke.attn_bf16_check for
+K2's bf16 form, chip_smoke.flash_check for K4, chip_smoke.attn_i8_check for
+K5), held on the CPU against replicas of the kernels' arithmetic: each check
+passes a replica that sums in another order (K2: float64 sums; K4: the
+kernel's online softmax over 64-key tiles, p rounded before it is
+normalised; K5: float64 GN statistics and K4's core or a float64 one) and
+fails the same replica with a fault planted (a dropped 64-key tile, a q/k
+scale a few percent off, uniform attention weights; for K5 the neighbouring
+column's dequantisation scale and a missing clip)."""
 import math
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import attn_bf16_check, flash_check
+from chip_smoke import (ATTN_I8_FLIP_SHARE, attn_bf16_check, attn_i8_check,
+                        calibrated_attn_scales, flash_check)
 from dxmi_tpu_torch.ops.attention import flash_mha_reference
-from dxmi_tpu_torch.ops.attn_block import GROUPS, attn_block_reference
+from dxmi_tpu_torch.ops.attn_block import (GROUPS, attn_block_int8_plain,
+                                           attn_block_reference,
+                                           prep_int8_mats)
 
 BF16 = torch.bfloat16
 
@@ -120,3 +125,81 @@ def test_flash_check(fault):
     else:
         with pytest.raises(AssertionError, match="over the limit"):
             flash_check(out, ref, q, k, v, 0.125, "replica")
+
+
+# ---- K5, the int8 block: chip_smoke.attn_i8_check --------------------------
+
+def _i8_inputs(S, C, nh, dtype, seed):
+    """chip_smoke's K5 case: attn_case's distributions, with the activation
+    scales that calibration records for this input."""
+    x, gs, gb, wq, bq, wp, bp = (t.float() for t in _attn_inputs(S, C, seed))
+    sa_q, sa_p = calibrated_attn_scales(x, gs, gb, wq, bq, nh)
+    return (x.to(dtype), gs, gb, prep_int8_mats(wq, wp, sa_q, sa_p), bq, bp)
+
+
+def _i8_replica(x, gs, gb, mats, bq, bp, nh, fault=None, eps=1e-5):
+    """K5's arithmetic in another order: GN statistics summed in float64;
+    the attention core in float64 (fp32) or as K4 computes it (bf16: an
+    online softmax over 64-key tiles, p rounded before it is normalised).
+    Faults: the proj dequantised with its neighbouring column's scale, no
+    clip before the int8 cast (an int8 cast wraps around), a dropped 64-key
+    tile."""
+    B, S, C = x.shape
+    d = C // nh
+    dt = x.dtype
+    xd = x.double()
+    g = xd.reshape(B, S, GROUPS, C // GROUPS)
+    mean = g.mean(dim=(1, 3))
+    rstd = torch.rsqrt((g - mean[:, None, :, None]).square().mean(dim=(1, 3))
+                       + eps)
+    s_c = gs * rstd.repeat_interleave(C // GROUPS, 1).float()
+    t_c = gb - mean.repeat_interleave(C // GROUPS, 1).float() * s_c
+
+    def quant(v, isa):
+        r = torch.round(v * isa)
+        if fault == "clip":  # the int8 cast of an unclipped value wraps
+            return (r.to(torch.int32).to(torch.int8)).double()
+        return torch.clamp(r, -127, 127).double()
+
+    h = quant(x.float() * s_c[:, None] + t_c[:, None], mats.isa_q)
+    acc = (h @ mats.wq.double().t()).to(torch.int32).float()
+    qkv = (acc * mats.swq + bq).to(dt).reshape(B, S, 3, nh, d)
+    sc = torch.tensor(1.0 / math.sqrt(math.sqrt(d)), dtype=dt)
+    q, k, v = qkv[:, :, 0] * sc, qkv[:, :, 1] * sc, qkv[:, :, 2]
+    if dt == BF16:
+        a = _flash_replica(q, k, v, 1.0, "drop" if fault == "drop" else None)
+    else:
+        lg = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double())
+        if fault == "drop":
+            lg[..., 64:128] = -math.inf
+        a = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(lg, dim=-1),
+                         v.double()).float()
+    swp = mats.swp.roll(1) if fault == "scale" else mats.swp
+    acc = (quant(a.reshape(B, S, C).float(), mats.isa_p)
+           @ mats.wp.double().t()).to(torch.int32).float()
+    return x + (acc * swp + bp).to(dt)
+
+
+I8_CASES = [(64, 64, 2, torch.float32), (256, 128, 2, torch.float32),
+            (1024, 384, 6, BF16), (256, 576, 9, BF16), (64, 768, 12, BF16),
+            (256, 1024, 16, BF16)]
+
+
+@pytest.mark.parametrize("S,C,nh,dtype", I8_CASES)
+def test_attn_i8_check_passes_another_order(S, C, nh, dtype):
+    a = _i8_inputs(S, C, nh, dtype, seed=S + C)
+    out = _i8_replica(*a, nh)
+    ref = attn_block_int8_plain(*a, num_heads=nh)
+    err, share, worst = attn_i8_check(out, ref, a[0], a[3], "replica")
+    assert share <= 0.5 * ATTN_I8_FLIP_SHARE and worst <= 1, (share, worst)
+
+
+@pytest.mark.parametrize("S,C,nh,dtype,fault", [
+    (S, C, nh, dt, fault) for S, C, nh, dt in I8_CASES
+    for fault in ("scale", "clip", "drop") if S > 64 or fault != "drop"])
+def test_attn_i8_check_fails_planted_fault(S, C, nh, dtype, fault):
+    a = _i8_inputs(S, C, nh, dtype, seed=S + C)
+    with pytest.raises(AssertionError, match="over the limit"):
+        attn_i8_check(_i8_replica(*a, nh, fault),
+                      attn_block_int8_plain(*a, num_heads=nh), a[0], a[3],
+                      "replica")

@@ -117,3 +117,39 @@ def test_generate_cli(tmp_path):
     assert proc.returncode == 0, proc.stderr
     arr = np.load(out)["arr_0"]
     assert arr.shape == (4, 16, 16, 3) and arr.dtype == np.uint8
+
+
+def _cifar_cli(*args):
+    return subprocess.run(
+        [sys.executable, "-m", "dxmi_tpu_torch.generate_cifar10",
+         "--log_dir", FIXTURE, "--n_generate", "4", "--batchsize", "2",
+         "--device", "cpu", *args],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=REPO))
+
+
+def test_generate_cli_streams_the_in_process_samples(tmp_path):
+    """The CLI reads config.yaml with the port's YAML reader and streams
+    uint8 batches; they are the in-process samples of the same seed
+    (within one uint8 level, as chip_smoke.py phase C holds them)."""
+    from dxmi_tpu_torch.config import load_yaml
+    from dxmi_tpu_torch.generate_cifar10 import generate, to_uint8
+    from dxmi_tpu_torch.utils.checkpoint import load_sampler_state
+
+    out = tmp_path / "samples.npz"
+    proc = _cifar_cli("--save_npz", str(out), "--seed", "3")
+    assert proc.returncode == 0, proc.stderr
+    assert "streamed" in proc.stdout
+    want = to_uint8(generate(
+        load_yaml(os.path.join(FIXTURE, "config.yaml")),
+        load_sampler_state(os.path.join(FIXTURE, "sampler_best.pth")), 4, 2,
+        "cpu", seed=3))
+    got = np.load(out)["arr_0"]
+    assert got.shape == want.shape
+    assert np.abs(got.astype(np.int16) - want).max() <= 1
+
+
+def test_generate_cli_int8_not_ported():
+    proc = _cifar_cli("--int8")
+    assert proc.returncode != 0
+    assert "not ported yet" in proc.stderr

@@ -8,17 +8,25 @@ without the repository's conftest:
 
 Tolerances are chip_smoke.TOL (stated and reasoned there); the bf16 attention
 block is held by chip_smoke.attn_bf16_check (the JAX package's own bf16
-criterion and an element-wise limit on the attention part), and flash
-attention by chip_smoke.flash_check (a per-row limit).
+criterion and an element-wise limit on the attention part), flash
+attention by chip_smoke.flash_check (a per-row limit), the int8 attention
+block by chip_smoke.attn_i8_check (a base limit, and one int8 level for the
+few elements a rounding flip reached), and the int8 conv exactly (its int32
+sums are exact and its quantise and epilogue elementwise).
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import TOL, attn_bf16_check, flash_check
+from chip_smoke import (TOL, attn_bf16_check, attn_i8_check,
+                        calibrated_attn_scales, flash_check)
 from dxmi_tpu_torch.ops import _lib
 from dxmi_tpu_torch.ops.attention import flash_mha, flash_mha_reference
-from dxmi_tpu_torch.ops.attn_block import attn_block, attn_block_reference
+from dxmi_tpu_torch.ops import quant
+from dxmi_tpu_torch.ops.attn_block import (attn_block, attn_block_int8,
+                                           attn_block_int8_plain,
+                                           attn_block_reference,
+                                           prep_int8_mats)
 from dxmi_tpu_torch.ops.conv_fused import gn_silu_conv, gn_silu_conv_reference
 from dxmi_tpu_torch.ops.groupnorm import group_norm, group_norm_silu_reference
 
@@ -184,4 +192,67 @@ def test_unported_forms_raise(card):
     q = torch.zeros(1, 512, 2, 64, device=card)
     with pytest.raises(NotImplementedError):
         flash_mha(q, q, q, 0.125)
+    assert not _lib.LAUNCHES
+
+
+@pytest.mark.parametrize("B,S,C,nh,dtype", [
+    (8, 64, 64, 2, torch.float32), (2, 256, 128, 2, torch.float32),
+    (8, 1024, 384, 6, torch.bfloat16), (8, 256, 576, 9, torch.bfloat16),
+    (8, 64, 768, 12, torch.bfloat16), (4, 256, 1024, 16, torch.bfloat16),
+    (2, 128, 96, 3, torch.bfloat16)])
+def test_attn_block_int8(card, B, S, C, nh, dtype):
+    rs = np.random.RandomState(9)
+    x, gs, gb = _tensors(rs, card, ((B, S, C), 1.0, 0.0), ((C,), 0.1, 1.0),
+                         ((C,), 0.1, 0.0))
+    wq, bq, wp, bp = _tensors(rs, card, ((C, 3 * C), C ** -0.5, 0.0),
+                              ((3 * C,), 0.02, 0.0), ((C, C), C ** -0.5, 0.0),
+                              ((C,), 0.02, 0.0))
+    mats = prep_int8_mats(wq, wp, *calibrated_attn_scales(x, gs, gb, wq, bq,
+                                                          nh))
+    x = x.to(dtype)
+    attn_i8_check(attn_block_int8(x, gs, gb, mats, bq, bp, nh),
+                  attn_block_int8_plain(x, gs, gb, mats, bq, bp, nh), x,
+                  mats, "attn_block_i8")
+    assert _lib.LAUNCHES["attn_block_i8"] == 1
+
+
+@pytest.mark.parametrize("B,R,Cin,Cout,k,pad,dtype,dynamic", [
+    (4, 8, 1536, 768, 3, quant.SAME_3X3, torch.bfloat16, False),
+    (2, 32, 384, 384, 2, ((1, 0), (0, 1)), torch.bfloat16, False),
+    (2, 32, 384, 384, 2, ((0, 1), (1, 0)), torch.bfloat16, False),
+    (2, 64, 192, 192, 3, quant.SAME_3X3, torch.bfloat16, True),
+    (4, 16, 96, 64, 3, quant.SAME_3X3, torch.float32, False),
+    (3, 5, 64, 40, 1, ((0, 0), (0, 0)), torch.float32, False)])
+def test_int8_conv(card, B, R, Cin, Cout, k, pad, dtype, dynamic):
+    rs = np.random.RandomState(10)
+    x, w, b = _tensors(rs, card, ((B, R, R, Cin), 2.0, 0.3),
+                       ((k, k, Cin, Cout), (k * k * Cin) ** -0.5, 0.0),
+                       ((Cout,), 0.1, 0.0))
+    x = x.to(dtype)
+    if dynamic:
+        out = quant.int8_conv(x, w, b, padding=pad, out_dtype=dtype)
+        a = torch.clamp(x.float().abs().amax(), min=1e-8) / 127.0
+    else:
+        a = quant.calib_channel_scale(x.reshape(-1, Cin))
+        out = quant.int8_conv_static(x, w, b, a, padding=pad,
+                                     out_dtype=dtype)
+    ref = quant.int8_conv_reference(x, quant.prepare_conv_static(w, a), b,
+                                    pad, dtype)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert _lib.LAUNCHES["int8_conv"] == 1
+
+
+def test_int8_forms_raise(card):
+    """K5 has no bf16 form at d=256 and K8 no form at Cin % 32 != 0."""
+    rs = np.random.RandomState(11)
+    x = _bf16(rs, card, (1, 256, 256), 1.0, 0.0)
+    v = torch.ones(256, device=card)
+    mats = prep_int8_mats(torch.ones(256, 768, device=card),
+                          torch.ones(256, 256, device=card), v, v)
+    with pytest.raises(NotImplementedError):
+        attn_block_int8(x, v, v, mats, torch.zeros(768, device=card), v, 1)
+    x = torch.zeros(1, 8, 8, 48, device=card)
+    with pytest.raises(ValueError):
+        quant.int8_conv_static(x, torch.ones(3, 3, 48, 32, device=card), None,
+                               torch.ones(48, device=card))
     assert not _lib.LAUNCHES

@@ -22,9 +22,12 @@ from dxmi_tpu_torch.generate_large import load_sampler
 from dxmi_tpu_torch.models import unet_adm
 from dxmi_tpu_torch.models.unet_adm import (AttentionBlockADM, ResBlockADM,
                                             UNetADM, create_unet_adm)
+from dxmi_tpu_torch.ops import phase_up, quant
+from dxmi_tpu_torch.ops.quant import QConv
 from dxmi_tpu_torch.samplers.edm import EDMSampler
 from dxmi_tpu_torch.utils.checkpoint import load_sampler_state
-from dxmi_tpu_torch.utils.convert import (edm_sampler_from_flax,
+from dxmi_tpu_torch.utils.convert import (adm_quant_scales_from_flax,
+                                          edm_sampler_from_flax,
                                           unet_adm_from_flax)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -193,6 +196,15 @@ def _count_launches(monkeypatch, net, R):
                         counter("attn_block_bf16", torch.empty_like))
     monkeypatch.setattr(unet_adm, "flash_mha",
                         counter("flash_attn", torch.empty_like))
+    monkeypatch.setattr(unet_adm, "attn_block_int8",
+                        counter("attn_block_i8", torch.empty_like))
+
+    def int8_conv(x, q, bias, padding, out_dtype):
+        counts["int8_conv"] = counts.get("int8_conv", 0) + 1
+        return torch.empty(*x.shape[:3], q.w_i8.shape[0], dtype=out_dtype,
+                           device=x.device)
+    monkeypatch.setattr(quant, "int8_conv_apply", int8_conv)
+    monkeypatch.setattr(phase_up, "int8_conv_apply", int8_conv)
     x = torch.empty(1, 3, R, R, device="meta")
     net(x, torch.empty(1, device="meta"),
         torch.zeros(1, dtype=torch.long, device="meta"))
@@ -205,7 +217,7 @@ def test_imagenet64_launch_table(monkeypatch, attn_impl):
     the full-width ImageNet64 net (configs/imagenet64/T10.yaml) run on the
     meta device: 36 ResBlocks, 22 attention blocks (7 at 32x32, 7 at 16x16,
     8 at 8x8), and the gates' choices at their real shapes."""
-    cfg = dict(chip_smoke.IMAGENET64_T10["diffusion"])
+    cfg = dict(chip_smoke.imagenet64_t10()["diffusion"])
     for k in ("sigma_min", "sigma_max", "weight_schedule", "distillation"):
         cfg.pop(k)
     with torch.device("meta"):
@@ -225,7 +237,7 @@ def test_imagenet64_fp32_routes(monkeypatch, attn_impl, want):
     """The attention routes are the JAX gates alone: the full-width net in
     fp32 sends the same maps to K2 or K4 as in bf16 (on the card a form
     the kernels do not take raises rather than falling back)."""
-    cfg = dict(chip_smoke.IMAGENET64_T10["diffusion"], use_fp16=False)
+    cfg = dict(chip_smoke.imagenet64_t10()["diffusion"], use_fp16=False)
     for k in ("sigma_min", "sigma_max", "weight_schedule", "distillation"):
         cfg.pop(k)
     with torch.device("meta"):
@@ -304,10 +316,15 @@ def test_adm_fixture_rollout(adm_rundir):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        create_unet_adm(16, 32, 1, quant_int8="static")
+    """int8 is ported (quant_int8 'static' and True build); gradient
+    checkpointing is not, and an unknown int8 mode is refused."""
+    net = create_unet_adm(16, 32, 1, channel_mult="1,2", quant_int8="static",
+                          attn_impl="fused")
+    assert any(isinstance(m, QConv) for m in net.modules())
     with pytest.raises(NotImplementedError):
         create_unet_adm(16, 32, 1, use_checkpoint=True)
+    with pytest.raises(ValueError):
+        create_unet_adm(16, 32, 1, quant_int8="dynamic")
 
 
 def _cli(*args):
@@ -328,9 +345,11 @@ def test_generate_large_cli(tmp_path):
     assert arr["arr_1"].shape == (8,) and arr["arr_1"].max() < 4
 
 
-@pytest.mark.parametrize("args,msg", [((), "no CUDA device"),
-                                      (("--device", "cpu", "--int8"),
-                                       "not ported yet")])
+@pytest.mark.parametrize("args,msg", [
+    ((), "no CUDA device"),
+    (("--device", "cpu", "--guidance_scale", "0.1"), "not ported yet"),
+    (("--device", "cpu", "--skip_fid"), "not ported yet"),
+    (("--device", "cpu", "--save_dir", "pngs"), "not ported yet")])
 def test_generate_large_cli_refuses(args, msg):
     """Without --device cpu and with no card it raises instead of running
     on the CPU; unported options raise."""
@@ -387,3 +406,165 @@ def test_edm_sample_step_matches_jax(adm_rundir):
                                        rtol=1e-5, atol=tol,
                                        err_msg=f"step {t} {k}")
         x = out["sample"].numpy()
+
+
+# ---- int8 (quant_int8, quant_attn) ------------------------------------------
+
+def _imagenet64_net(**kw):
+    cfg = dict(chip_smoke.imagenet64_t10()["diffusion"])
+    for k in ("sigma_min", "sigma_max", "weight_schedule", "distillation"):
+        cfg.pop(k)
+    with torch.device("meta"):
+        return create_unet_adm(**cfg, up_impl="phase",
+                               gn_stats="bf16_onepass", **kw)
+
+
+def test_imagenet64_int8_launch_table(monkeypatch):
+    """The launches per forward that chip_smoke.py checks in phase E2-int8,
+    at the full-width ImageNet64 net with --int8 (quant_int8='static',
+    attn_impl='fused', so quant_attn='static'): K5 at all 22 attention
+    blocks, K8 at the 72 ResBlock 3x3 convs with each of the 3 up-blocks'
+    first conv as 4 phase convs (81), K1 73, K2 none."""
+    net = _imagenet64_net(attn_impl="fused", quant_int8="static")
+    assert sum(isinstance(m, QConv) for m in net.modules()) == 69
+    assert sum(isinstance(m, AttentionBlockADM) and m.int8
+               for m in net.modules()) == 22
+    counts = _count_launches(monkeypatch, net.cast_weights(), 64)
+    assert counts == chip_smoke.ADM_LAUNCHES_PER_FORWARD["int8"]
+
+
+def test_cast_weights_keeps_int8_layers_fp32():
+    """The int8 layers quantise from fp32 weights, as the JAX package does
+    from its fp32 parameters; every other conv and linear weight is bf16."""
+    net = _imagenet64_net(attn_impl="fused", quant_int8="static")
+    net.cast_weights()
+    for m in net.modules():
+        if isinstance(m, QConv):
+            assert m.weight.dtype == m.bias.dtype == torch.float32
+            assert m.out_dtype == torch.bfloat16
+        elif isinstance(m, AttentionBlockADM):
+            assert m.qkv.weight.dtype == m.proj_out.weight.dtype \
+                == torch.float32
+    assert net.input_blocks[0][0].weight.dtype == torch.bfloat16
+    assert net.out[2].weight.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(attn_impl="fused", quant_int8="static"), "static"),
+    (dict(attn_impl="flash", quant_int8="static"), False),
+    (dict(attn_impl="fused", quant_int8=True), False),
+    (dict(attn_impl="fused", quant_int8="static", quant_attn=False), False)])
+def test_quant_attn_default(kw, want):
+    """quant_attn=None resolves as the JAX factory does: on exactly when
+    quant_int8 == 'static' and attn_impl == 'fused'."""
+    from dxmi_tpu.models.unet_adm import create_unet_adm as jax_create
+    net = _imagenet64_net(**kw)
+    on = any(isinstance(m, AttentionBlockADM) and m.int8
+             for m in net.modules())
+    assert on == bool(want)
+    cfg = dict(chip_smoke.imagenet64_t10()["diffusion"])
+    for k in ("sigma_min", "sigma_max", "weight_schedule", "distillation"):
+        cfg.pop(k)
+    assert jax_create(**cfg, **kw).quant_attn == want
+
+
+def _jax_int8(cfg, params, x, t, y, jdt, **kw):
+    """JAX's calibrate (from zero scales) and int8 apply on one batch;
+    returns (scales, output NCHW)."""
+    net = JaxUNetADM(**cfg, dtype=jdt, quant_int8="static", **kw)
+    R = cfg["image_size"]
+    shapes = jax.eval_shape(net.init, jax.random.key(0),
+                            jnp.zeros((1, R, R, 3)), jnp.zeros((1,)),
+                            jnp.zeros((1,), jnp.int32))["quant_scales"]
+    zeros = jax.tree.map(lambda a: jnp.zeros(a.shape, a.dtype), shapes)
+    args = (jnp.asarray(x.transpose(0, 2, 3, 1)), jnp.asarray(t),
+            jnp.asarray(y))
+    _, upd = net.apply({"params": params, "quant_scales": zeros}, *args,
+                       mutable=["quant_scales"])
+    out = net.apply({"params": params, "quant_scales": upd["quant_scales"]},
+                    *args)
+    return upd["quant_scales"], np.asarray(out, np.float32).transpose(0, 3,
+                                                                      1, 2)
+
+
+def _port_int8(cfg, state, x, t, y, tdt, jax_scales, **kw):
+    """The port's calibrating pass and, with JAX's scales loaded, its int8
+    forward; returns (its own scales, output)."""
+    net = UNetADM(**cfg, dtype=tdt, quant_int8="static", **kw)
+    net.load_state_dict(state, strict=False)
+    net.cast_weights()
+    args = (torch.from_numpy(x), torch.from_numpy(t),
+            torch.from_numpy(y).long())
+    with torch.no_grad():
+        net.set_calibrating(True)
+        net(*args)
+        net.set_calibrating(False)
+        ours = {k: v.clone() for k, v in net.state_dict().items()
+                if k.endswith(("act_scale", "attn_proj_scale"))}
+        net.load_state_dict(adm_quant_scales_from_flax(
+            jax.tree.map(np.asarray, jax_scales)), strict=False)
+        net.prepare_int8()
+        out = net(*args).numpy()
+    return ours, out
+
+
+INT8_ROUTES = [dict(attn_impl="einsum"),
+               dict(attn_impl="fused", quant_attn="static", up_impl="phase")]
+
+
+@pytest.mark.parametrize("kw", INT8_ROUTES, ids=["convs", "k5_k8_phase"])
+def test_int8_fp32_net_matches_jax(monkeypatch, kw):
+    """The 16x16 net in fp32 with static int8: the calibrating pass records
+    JAX's scales (rtol 1e-5 of each buffer's largest), and with JAX's
+    scales loaded the int8 forward matches JAX's int8 apply within 5e-3
+    (the fixture replay's limit: the fp32 orders of K1's statistics and of
+    the attention core flip an int8 rounding now and then; 7.8e-4 measured
+    with K5, 1.7e-6 without)."""
+    monkeypatch.setenv("DXMI_FUSED_ATTN_FORCE", "1")
+    params = _seeded_flax_params(NETS[16], seed=5)
+    x, t, y = _inputs(16, seed=1)
+    scales, ref = _jax_int8(NETS[16], params, x, t, y, jnp.float32, **kw)
+    ours, out = _port_int8(NETS[16], unet_adm_from_flax(params), x, t, y,
+                           torch.float32, scales, **kw)
+    want = adm_quant_scales_from_flax(jax.tree.map(np.asarray, scales))
+    assert set(ours) == set(want)
+    for k, v in want.items():
+        assert (ours[k] - v).abs().max() <= 1e-5 * v.abs().max(), k
+    np.testing.assert_allclose(out, ref, rtol=0, atol=5e-3)
+
+
+def test_int8_bf16_net_matches_jax(monkeypatch):
+    """The same net in bf16 (K5 at the 8x8 map, K8, the int8 phase
+    up-block): with JAX's scales loaded, the port's int8 output is no
+    further from JAX's fp32 int8 output than 1.5x JAX's own bf16 int8
+    output is, and within 2x that distance of JAX's bf16 output (bf16
+    rounding noise, as for the bf16 nets above; int8 rounding flips add to
+    it, 3.4-4.3% between JAX's own bf16 and fp32 int8 nets, so that
+    distance is capped at 6e-2 here instead of 3e-2)."""
+    monkeypatch.setenv("DXMI_FUSED_ATTN_FORCE", "1")
+    monkeypatch.setenv("DXMI_GN_STATS", "bf16_onepass")
+    kw = INT8_ROUTES[1]
+    params = _seeded_flax_params(NETS[16], seed=6)
+    x, t, y = _inputs(16, seed=2)
+    scales, ref = _jax_int8(NETS[16], params, x, t, y, jnp.bfloat16, **kw)
+    _, ref32 = _jax_int8(NETS[16], params, x, t, y, jnp.float32, **kw)
+    _, out = _port_int8(NETS[16], unet_adm_from_flax(params), x, t, y,
+                        torch.bfloat16, scales, gn_stats="bf16_onepass",
+                        **kw)
+    noise = _rel(ref, ref32)
+    assert noise < 6e-2, noise
+    assert _rel(out, ref32) < 1.5 * noise, (_rel(out, ref32), noise)
+    assert _rel(out, ref) < 2 * noise, (_rel(out, ref), noise)
+
+
+def test_generate_large_cli_int8(tmp_path):
+    """--int8 on the CPU: calibration, then the plain versions of K5 and
+    K8; the npz streams samples and labels."""
+    out = tmp_path / "adm8.npz"
+    proc = _cli("--device", "cpu", "--int8", "--save_npz", str(out))
+    assert proc.returncode == 0, proc.stderr
+    assert "int8: static activation scales calibrated" in proc.stdout
+    arr = np.load(out)
+    assert arr["arr_0"].shape == (8, 16, 16, 3)
+    assert arr["arr_0"].dtype == np.uint8
+    assert arr["arr_1"].shape == (8,) and arr["arr_1"].dtype == np.int64

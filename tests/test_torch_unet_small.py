@@ -92,7 +92,7 @@ def test_full_width_launch_table(monkeypatch):
             return _fn(*a, **k)
         monkeypatch.setattr(port, attr, counted)
     torch.manual_seed(0)
-    net = config.instantiate(chip_smoke.CIFAR10_T10["sampler_net"]).eval()
+    net = config.instantiate(chip_smoke.cifar10_t10()["sampler_net"]).eval()
     with torch.no_grad():
         out = net(torch.randn(1, 3, 32, 32), torch.tensor([500.0]))
     assert out.shape == (1, 3, 32, 32) and torch.isfinite(out).all()
