@@ -12,7 +12,9 @@ failure exits non-zero naming the phase:
      per source, all started together) and print -Xptxas -v (registers,
      shared memory, spills);
   K  hold each kernel against its plain PyTorch version at the full-width
-     CIFAR-10 and ImageNet64 shapes (K5 also at LSUN's C=1024 maps);
+     CIFAR-10 and ImageNet64 shapes (K5 also at LSUN's C=1024 maps; the
+     backward kernels K4-dkv, K4-dq and K6 at the ImageNet64 maps and K6
+     also at the ADM fixture's fp32 shape);
   T  time each kernel, its plain version and one PyTorch library call with
      CUDA events;
   G  replay the trained reference fixture (tests/fixtures/torch_rundir_t10)
@@ -30,9 +32,20 @@ failure exits non-zero naming the phase:
      fused and with flash attention, checking the launches of each path;
   E2-int8 the same under --int8 (W8A8 static, calibrated first as the CLI
      does), through K5 and K8;
+  G3 one DxMITrainerCond iteration (update_f_v + update_sampler) on the
+     ADM fixture with injected draws, einsum and fused_train (K2 forward, K6
+     backward, fp32), against the JAX package's (tests/torch_fixtures/
+     adm_train_golden.npz);
+  E3 DxMI training at the full width of configs/imagenet64/T10.yaml (bf16,
+     seeded random weights, the structured fake pool): 3 steps with flash
+     attention (K4 forward, K4-dkv, K4-dq) and 3 with fused_train (K2, K6),
+     checking the launches per step, finite metrics and no skipped update,
+     and the first minibatch's gradient by einsum, flash and fused_train;
   C  run the generation CLIs (generate_cifar10, generate_large with and
      without --int8) as subprocesses on the fixture run dirs with
-     --save_npz, and hold each npz to the in-process samples.
+     --save_npz, and hold each npz to the in-process samples; then
+     train_image_large for 2 steps on a shrunken config and generate_large
+     on the run dir it wrote.
 
 The line before the last line is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record, and the last line is
@@ -47,18 +60,27 @@ import subprocess
 import sys
 import time
 import traceback
+import zlib
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dxmi_tpu_torch import generate_large
-from dxmi_tpu_torch.config import load_yaml
+from dxmi_tpu_torch import generate_large, train_image_large
+from dxmi_tpu_torch.config import instantiate, load_yaml, merge
 from dxmi_tpu_torch.generate_cifar10 import (generate, load_sampler,
                                              sample_batches, to_uint8)
 from dxmi_tpu_torch.ops import _lib
-from dxmi_tpu_torch.ops.attention import flash_mha, flash_mha_reference
-from dxmi_tpu_torch.ops.attn_block import (attn_block, attn_block_int8,
+from dxmi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                          flash_mha, flash_mha_bwd,
+                                          flash_mha_fwd,
+                                          flash_mha_reference,
+                                          flash_mha_reference_bwd,
+                                          flash_reference_dkv,
+                                          flash_reference_dq)
+from dxmi_tpu_torch.ops.attn_block import (attn_block, attn_block_bwd,
+                                           attn_block_bwd_reference,
+                                           attn_block_int8,
                                            attn_block_int8_plain,
                                            attn_block_reference,
                                            prep_int8_mats)
@@ -68,7 +90,10 @@ from dxmi_tpu_torch.ops.quant import (SAME_3X3, calib_channel_scale,
                                       int8_conv_apply, int8_conv_reference,
                                       prepare_conv_static)
 from dxmi_tpu_torch.runtime import select_device
-from dxmi_tpu_torch.utils.checkpoint import load_sampler_state
+from dxmi_tpu_torch.trainers.buffer import from_d_sample
+from dxmi_tpu_torch.trainers.dxmi_cond import DxMITrainerCond
+from dxmi_tpu_torch.utils.checkpoint import (load_sampler_state,
+                                             load_value_state)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE_DIR = os.path.join(REPO, "tests", "fixtures", "torch_rundir_t10")
@@ -80,6 +105,8 @@ CIFAR10_CONFIG = os.path.join(REPO, "configs", "cifar10", "T10.yaml")
 IMAGENET64_CONFIG = os.path.join(REPO, "configs", "imagenet64", "T10.yaml")
 INT8_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
                            "adm_int8_golden.npz")
+TRAIN_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
+                            "adm_train_golden.npz")
 BATCH, N_BATCHES, T = 100, 2, 10
 
 
@@ -309,6 +336,16 @@ INFO = {
                       "dxmi_tpu/ops/attn_block.py:353"),
     "int8_conv": ("dxmi_tpu_torch/csrc/int8_conv.cu",
                   "dxmi_tpu/ops/quant.py:68"),
+    "flash_attn_bwd_dkv": (
+        "dxmi_tpu_torch/csrc/flash_attn_bwd.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:796 "
+        "(jax.grad of dxmi_tpu/ops/attention.py:53)"),
+    "flash_attn_bwd_dq": (
+        "dxmi_tpu_torch/csrc/flash_attn_bwd.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1146 "
+        "(jax.grad of dxmi_tpu/ops/attention.py:53)"),
+    "attn_block_bwd_bf16": ("dxmi_tpu_torch/csrc/attn_block_bwd.cu",
+                            "dxmi_tpu/ops/attn_block.py:406"),
 }
 
 
@@ -321,6 +358,69 @@ def adm_int8_calib_draws(seed):
     x0 = rs.randn(2, 8, 3, 16, 16).astype(np.float32) * np.float32(80.0)
     eps = rs.randn(2, 10, 8, 3, 16, 16).astype(np.float32)
     return x0, eps, rs.randint(0, 4, size=(2, 8)).astype(np.int64)
+
+
+def direction(name, shape):
+    """A fixed standard-normal direction for the tensor ``name`` (float64,
+    seeded by the name's CRC-32): the golden keeps each parameter update's
+    dot product with it."""
+    return np.random.RandomState(zlib.crc32(name.encode())).standard_normal(
+        shape)
+
+
+def adm_train_replay(golden, device, attn_impl="einsum"):
+    """One DxMITrainerCond iteration of the port on the ADM fixture with the
+    case, data, trajectory and draws of ``golden`` (TRAIN_GOLDEN's arrays):
+    update_f_v, then update_sampler with the golden's permutation and
+    noise. Returns the arrays the golden keeps (``metric/*``, ``log_betas``,
+    the update norms and projections), computed the same way."""
+    cfg = adm_fixture_config()
+    state = load_sampler_state(os.path.join(ADM_FIXTURE_DIR, "sampler.pth"))
+    sampler = generate_large.load_sampler(cfg, state, device,
+                                          attn_impl=attn_impl,
+                                          up_impl="resize", gn_stats="fp32")
+    value = instantiate(cfg["value"]).to(device)
+    value.load_state_dict(load_value_state(os.path.join(ADM_FIXTURE_DIR,
+                                                        "value.pth")))
+    tcfg = {k: v for k, v in cfg["trainer"].items() if k != "_target_"}
+    trainer = DxMITrainerCond(
+        **{**tcfg, "batchsize": int(golden["case/batchsize"])})
+    trainer.set_models(sampler, value, lr=float(golden["case/lr"]),
+                       v_lr=float(golden["case/v_lr"]),
+                       beta_lr=float(golden["case/beta_lr"]))
+
+    def t(name, dtype=None):
+        a = torch.from_numpy(np.asarray(golden[name])).to(device)
+        return a if dtype is None else a.to(dtype)
+
+    # the trainer reads no policy means: the golden does not keep them
+    l_sample = t("l_sample")
+    buf = from_d_sample({"l_sample": l_sample,
+                         "mean": torch.zeros_like(l_sample[1:]),
+                         "sigma": t("sigma"), "logp": t("logp"),
+                         "entropy": t("entropy"), "y": t("traj_y")})
+
+    def params():
+        return {k: v.detach().double().cpu().clone() for k, v in
+                [*value.state_dict().items(),
+                 *(("s:net." + k, v)
+                   for k, v in sampler.net.state_dict().items())]}
+
+    before = params()
+    m = trainer.update_f_v(t("img"), buf, y=t("y"))
+    m.update(trainer.update_sampler(buf, perm=t("perm"),
+                                    noise=list(t("noise"))))
+    out = {f"metric/{k}": v.float().cpu().numpy() for k, v in m.items()}
+    out["log_betas"] = sampler.log_betas.detach().cpu().numpy()
+    after = params()
+    for key, b in before.items():
+        tag, name = ("s", key[2:]) if key.startswith("s:") else ("v", key)
+        delta = (after[key] - b).numpy()
+        out[f"{tag}norm/{name}"] = np.float64(np.linalg.norm(delta))
+        out[f"{tag}proj/{name}"] = np.float64(
+            (delta * direction(name, delta.shape)).sum())
+    out["nan_guard_skips"] = trainer.nan_guard_skips
+    return out
 
 
 class PhaseError(Exception):
@@ -454,6 +554,444 @@ def flash_case(gen, B, S, nh, d):
             d ** -0.5)
 
 
+# ---- the training slice: K4-dkv, K4-dq, K6, G3, E3 -----------------------
+
+TRAIN_BATCH = 128  # training.batchsize of configs/imagenet64/T10.yaml
+# K4-dkv and K4-dq on the card, against their plain versions at the 32x32
+# maps. Both follow the TPU bodies' roundings (p and ds rounded to bf16
+# before their products, fp32 sums, the gradients rounded once), so they
+# differ only by another order of the fp32 sums and exp: a rounding of p or
+# ds flips where a value lies at a bf16 boundary (rare), and the final
+# rounding of a sum can land one ulp apart. Two gates per gradient: mean
+# |kernel - plain| / mean |plain| below 2^-10 (6.2e-8 measured on the
+# H100), and element by element at most two bf16 ulps of the larger of the
+# two plus 2^-5 mean |plain| (an element near zero that a flipped term
+# 2^-8 |p do| reached: 0.006 of the mean at worst between the plain
+# version and JAX's kernel on the CPU, tests/test_torch_flash_bwd.py). dk
+# and dv swapped, a dropped 64-key tile or di left out move the mean error
+# by 1/16 or more (tests/test_torch_chip_checks.py).
+FLASH_BWD_MEAN_REL = 2.0 ** -10
+# K6 on bf16: its recompute of h and qkv takes fp32 statistics in another
+# order (two-pass where the TPU body is one-pass), so a few elements of h,
+# qkv, w and dlg round the other way, and each moves the sums it enters by
+# 2^-8 of its term: mean |kernel - plain| / mean |plain| of each parameter
+# cotangent below 5e-3 (6.3e-4 at worst measured on the H100), of dx below
+# 1e-3 (1.7e-4: dx sums terms that both round alike), and max |kernel -
+# plain| below 2^-4 max |plain| (6.3e-3). The cotangent ct is drawn with a
+# mean (0.5) as a loss gives, so that the GroupNorm backward's mean terms
+# matter: without the hp mean(dhp hp) term dx moves by 1.7e-3 or more,
+# without mean(dhp) by 4e-2; dgs and dgb swapped or a dropped key tile move
+# a parameter cotangent by 10% or more (tests/test_torch_chip_checks.py).
+# On fp32: the JAX package's own limits for its backward kernel, 5e-4 +
+# 5e-4 |plain| (tests/test_attn_block.py:466).
+ATTN_BWD_BF16_MEAN_REL = 5e-3
+ATTN_BWD_BF16_DX_MEAN_REL = 1e-3
+ATTN_BWD_BF16_MAX_REL = 2.0 ** -4
+ATTN_BWD_FP32_TOL = 5e-4
+ATTN_BWD_NAMES = ("dx", "dgs", "dgb", "dw_qkv", "db_qkv", "dw_proj", "db_proj")
+FLASH_BWD_SHAPES = [(32, 1024, 6, 64)]
+ATTN_BWD_SHAPES = [(16, 1024, 384, 6, torch.bfloat16),
+                   (16, 256, 576, 9, torch.bfloat16),
+                   (32, 64, 768, 12, torch.bfloat16),
+                   (8, 64, 64, 2, torch.float32)]
+
+
+def flash_bwd_check(out, ref, what):
+    """Hold one K4 gradient to its plain version (the gates above); returns
+    (mean rel err, max abs err)."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    rel = (err.mean() / ref.abs().mean()).item()
+    limit = (2 * bf16_ulp(torch.maximum(out.abs(), ref.abs()))
+             + 2.0 ** -5 * ref.abs().mean())
+    bad = int((err > limit).sum())
+    if not torch.isfinite(out).all() or rel >= FLASH_BWD_MEAN_REL or bad:
+        raise AssertionError(f"{what}: mean rel err {rel:.3e} (tol "
+                             f"{FLASH_BWD_MEAN_REL:.3e}), {bad} elements "
+                             "over the limit")
+    return rel, err.max().item()
+
+
+def attn_bwd_check(outs, refs, dtype, what):
+    """Hold K6's seven cotangents to its plain version; returns the worst
+    (mean rel err, max abs err) over them."""
+    worst = (0.0, 0.0)
+    for name, out, ref in zip(ATTN_BWD_NAMES, outs, refs):
+        out, ref = out.float(), ref.float()
+        err = (out - ref).abs()
+        rel = (err.mean() / ref.abs().mean()).item()
+        if dtype == torch.float32:
+            ok = bool((err <= ATTN_BWD_FP32_TOL
+                       + ATTN_BWD_FP32_TOL * ref.abs()).all())
+        else:
+            limit = (ATTN_BWD_BF16_DX_MEAN_REL if name == "dx"
+                     else ATTN_BWD_BF16_MEAN_REL)
+            ok = (rel < limit and err.max().item()
+                  <= ATTN_BWD_BF16_MAX_REL * ref.abs().max().item())
+        if not torch.isfinite(out).all() or not ok:
+            raise AssertionError(f"{what} {name}: mean rel err {rel:.3e}, "
+                                 f"max abs err {err.max().item():.3e} of "
+                                 f"max |plain| {ref.abs().max().item():.3e}")
+        worst = (max(worst[0], rel), max(worst[1], err.max().item()))
+    return worst
+
+
+def flash_bwd_case(gen, B, S, nh, d):
+    """qkv, o, lse and a cotangent do of the 32x32 attention (bf16)."""
+    qkv = randn(gen, B, S, 3, nh, d).bfloat16()
+    sm = d ** -0.5
+    o, lse = flash_mha_fwd(qkv, sm)
+    return qkv, o, lse, randn(gen, B, S, nh, d).bfloat16(), sm
+
+
+def attn_bwd_case(gen, B, S, C, dtype):
+    """x, ct and the parameters of an attention block (weights, biases and
+    x in ``dtype``, GroupNorm parameters fp32)."""
+    x, gs, gb, wq, bq, wp, _ = attn_case(gen, B, S, C)
+    ct = randn(gen, B, S, C, shift=0.5)
+    return (x.to(dtype), ct.to(dtype), gs, gb, wq.to(dtype), bq.to(dtype),
+            wp.to(dtype))
+
+
+def phase_kernels_train(gen, errs):
+    """K for the backward kernels (adds to ``errs``)."""
+    for shape in FLASH_BWD_SHAPES:
+        qkv, o, lse, do, sm = flash_bwd_case(gen, *shape)
+        got = flash_mha_bwd(qkv, o, lse, do, sm)
+        ref = flash_mha_reference_bwd(qkv, o, lse, do, sm)
+        for i, name in ((1, "dk"), (2, "dv"), (0, "dq")):
+            rel, err = flash_bwd_check(got[:, :, i], ref[:, :, i],
+                                       f"flash_attn_bwd {name} {shape}")
+            kernel = "flash_attn_bwd_dq" if i == 0 else "flash_attn_bwd_dkv"
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+            print(f"  K {kernel} {name} {shape}: mean rel err {rel:.3e} (tol "
+                  f"{FLASH_BWD_MEAN_REL:.3e}), max abs err {err:.3e}")
+        again = flash_mha_bwd(qkv, o, lse, do, sm)
+        if not torch.equal(got, again):
+            raise AssertionError("flash_attn_bwd: a replay differs")
+        del qkv, o, lse, do, got, ref, again
+    for B, S, C, nh, dt in ATTN_BWD_SHAPES:
+        a = attn_bwd_case(gen, B, S, C, dt)
+        outs = attn_block_bwd(*a, nh)
+        refs = attn_block_bwd_reference(*a, nh)
+        what = f"attn_block_bwd {(B, S, C, nh)} {str(dt)[6:]}"
+        rel, err = attn_bwd_check(outs, refs, dt, what)
+        again = attn_block_bwd(*a, nh)
+        if not all(torch.equal(u, v) for u, v in zip(outs, again)):
+            raise AssertionError(f"{what}: a replay differs")
+        name = "attn_block_bwd_bf16" if dt == torch.bfloat16 \
+            else "attn_block_bwd"
+        errs[name] = max(errs.get(name, 0.0), err)
+        print(f"  K {what}: worst mean rel err {rel:.3e}, max abs err "
+              f"{err:.3e} over dx and the six parameter cotangents; replay "
+              "bit-equal")
+
+
+def train_time_rows(gen):
+    """T rows of K4-dkv, K4-dq (at the 32x32 map, batch 128) and K6 bf16
+    (the three maps at batch 128; the first is the recorded row). Library
+    yardsticks: the backward alone of autograd through
+    F.scaled_dot_product_attention (one call gives dq, dk and dv), and of
+    the library composition that K2's row times."""
+    rows = {}
+    B, S, nh, d = TRAIN_BATCH, 1024, 6, 64
+    qkv, o, lse, do, sm = flash_bwd_case(gen, B, S, nh, d)
+    di, dqkv = flash_bwd_dkv(qkv, o, lse, do, sm)
+    qt, kt, vt = (qkv[:, :, i].transpose(1, 2).detach().clone()
+                  .requires_grad_(True) for i in range(3))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, scale=sm)
+    dot = do.transpose(1, 2).contiguous()
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True))
+    n, st = B * S * nh * d, B * nh * S
+    rows["flash_attn_bwd_dkv"] = dict(
+        ms=time_ms(lambda: flash_bwd_dkv(qkv, o, lse, do, sm, dqkv)),
+        plain_ms=time_ms(lambda: flash_reference_dkv(qkv, o, lse, do, sm),
+                         iters=3, warmup=1),
+        library_ms=lib_ms,
+        # q, k, v, o, do read, lse read, di written, dk, dv written
+        bytes=(5 * n + 2 * n) * 2 + 2 * st * 4,
+        # s, dp, dv and dk products; exp and ds per logit; di
+        ops={"bf16": 4 * 2 * B * nh * S * S * d,
+             "fp32": 6 * B * nh * S * S + 2 * n})
+    rows["flash_attn_bwd_dq"] = dict(
+        ms=time_ms(lambda: flash_bwd_dq(qkv, do, lse, di, dqkv, sm)),
+        plain_ms=time_ms(lambda: flash_reference_dq(qkv, o, lse, do, sm),
+                         iters=3, warmup=1),
+        library_ms=lib_ms,
+        # q, k, v, do read, lse and di read, dq written
+        bytes=5 * n * 2 + 2 * st * 4,
+        ops={"bf16": 3 * 2 * B * nh * S * S * d,
+             "fp32": 6 * B * nh * S * S})
+    del qkv, o, lse, do, di, dqkv, qt, kt, vt, ot, dot
+    torch.cuda.empty_cache()
+    for i, (S, C, nh) in enumerate([(1024, 384, 6), (256, 576, 9),
+                                    (64, 768, 12)]):
+        a = attn_bwd_case(gen, TRAIN_BATCH, S, C, torch.bfloat16)
+        x, ct, gs, gb, wq, bq, wp = a
+        d = C // nh
+        xl = x.detach().clone().requires_grad_(True)
+        pl = [t.detach().clone().requires_grad_(True)
+              for t in (gs, gb, wq, bq, wp)]
+
+        def library_fwd():
+            g = F.group_norm(xl.transpose(1, 2), 32, pl[0].bfloat16(),
+                             pl[1].bfloat16(), 1e-5).transpose(1, 2)
+            q, k, v = (g @ pl[2] + pl[3]).reshape(
+                TRAIN_BATCH, S, 3, nh, d).permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)
+            return xl + o.transpose(1, 2).reshape(TRAIN_BATCH, S, C) @ pl[4]
+
+        y = library_fwd()
+        M = TRAIN_BATCH * S
+        name = ("attn_block_bwd_bf16" if i == 0 else
+                f"attn_block_bwd_bf16 {(TRAIN_BATCH, S, C, nh)}")
+        rows[name] = dict(
+            ms=time_ms(lambda: attn_block_bwd(*a, nh), iters=10),
+            plain_ms=time_ms(lambda: attn_block_bwd_reference(*a, nh),
+                             iters=2, warmup=1),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                y, [xl, *pl], ct, retain_graph=True), iters=10),
+            # x, ct read and dx written (bf16); weights read; fp32
+            # cotangents of every parameter written
+            bytes=3 * M * C * 2 + 4 * C * C * 2 + (4 * C * C + 6 * C) * 4,
+            # qkv recompute, da, dh, dW_qkv, dW_proj (11 M C^2 multiply-
+            # adds); logits, a, dv, da v^T, dq, dk (6 B nh S^2 d); softmax
+            # and its backward (~8 per logit); GroupNorm forward and
+            # backward (~20 per element)
+            ops={"bf16": 2 * 11 * M * C * C + 2 * 6 * TRAIN_BATCH * nh * S
+                 * S * d, "fp32": 8 * TRAIN_BATCH * nh * S * S + 20 * M * C})
+        del a, x, ct, xl, pl, y
+        torch.cuda.empty_cache()
+    return rows
+
+
+# G3: the port's DxMITrainerCond iteration on the ADM fixture against the
+# JAX package's (TRAIN_GOLDEN), both fp32. The trainer's metrics (every
+# loss, value, cost and entropy, per step too) within 1e-3 of each
+# vector's largest (2.2e-5 measured on the CPU); the value update (norm and
+# projection of each tensor's change) within 1e-3 over all tensors
+# together (5e-6 on the CPU); log_betas within 1e-5. The sampler net's
+# update passes RAdam's steps 6-10, m / sqrt(v), which turn a gradient at
+# the noise floor into a step of +-lr: so each tensor's update norm and
+# projection within 5% of its own plus 1% of the largest over the tensors
+# (0.24 of that limit on the CPU, einsum and fused_train).
+G3_METRIC_REL = 1e-3
+G3_VALUE_REL = 1e-3
+G3_BETAS_ABS = 1e-5
+G3_SAMPLER_REL, G3_SAMPLER_FLOOR = 0.05, 0.01
+
+
+def train_golden_check(port, golden, what):
+    """The G3 gates; returns (worst metric rel err, value rel err, worst
+    sampler share of its limit)."""
+    worst_m = 0.0
+    for k in golden:
+        if k.startswith("metric/"):
+            a, b = (np.asarray(x, np.float64) for x in (port[k], golden[k]))
+            rel = np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)
+            if not np.isfinite(a).all() or rel > G3_METRIC_REL:
+                raise AssertionError(f"{what} {k}: {a} vs JAX {b}")
+            worst_m = max(worst_m, rel)
+    b_err = np.abs(port["log_betas"] - golden["log_betas"]).max()
+    if b_err > G3_BETAS_ABS:
+        raise AssertionError(f"{what}: log_betas {b_err:.3e} from JAX's")
+    v_rel = 0.0
+    for kind in ("vnorm/", "vproj/"):
+        ks = [k for k in golden if k.startswith(kind)]
+        a = np.array([port[k] for k in ks])
+        b = np.array([golden[k] for k in ks])
+        v_rel = max(v_rel, np.linalg.norm(a - b) / np.linalg.norm(b))
+    if not v_rel <= G3_VALUE_REL:
+        raise AssertionError(f"{what}: value update {v_rel:.3e} from JAX's")
+    share = 0.0
+    for kind in ("snorm/", "sproj/"):
+        ks = [k for k in golden if k.startswith(kind)]
+        a = np.array([port[k] for k in ks])
+        b = np.array([golden[k] for k in ks])
+        lim = G3_SAMPLER_REL * np.abs(b) + G3_SAMPLER_FLOOR * np.abs(b).max()
+        s = np.abs(a - b) / lim
+        if not np.isfinite(a).all() or s.max() > 1:
+            i = int(np.argmax(s))
+            raise AssertionError(f"{what}: {ks[i]} {a[i]:.4e} vs JAX "
+                                 f"{b[i]:.4e}")
+        share = max(share, float(s.max()))
+    if port["nan_guard_skips"]:
+        raise AssertionError(f"{what}: {port['nan_guard_skips']} updates "
+                             "skipped")
+    return worst_m, v_rel, share
+
+
+def phase_train_replay():
+    golden = dict(np.load(TRAIN_GOLDEN))
+    out = {}
+    for impl in ("einsum", "fused_train"):
+        _lib.reset_launches()
+        port = adm_train_replay(golden, "cuda", impl)
+        used = {k for k, v in _lib.LAUNCHES.items() if v}
+        want = {"gn_silu"} | ({"attn_block", "attn_block_bwd"}
+                              if impl == "fused_train" else set())
+        if used != want:
+            raise AssertionError(f"G3 {impl}: launched {used}, expected "
+                                 f"{want}")
+        m, v, s = train_golden_check(port, golden, f"G3 {impl}")
+        print(f"  G3 {impl}: metrics within {m:.3e} (tol {G3_METRIC_REL:g})"
+              f", value update {v:.3e} (tol {G3_VALUE_REL:g}), sampler "
+              f"updates at {s:.3f} of their limit; d_loss "
+              f"{float(port['metric/ebm/d_loss_']):.5f}, sampler_loss "
+              f"{float(port['metric/sampler/sampler_loss_']):.5f}; kernels "
+              f"{sorted(used)} {dict(_lib.LAUNCHES)}")
+        out[impl] = port
+    return out
+
+
+# E3 launches per training step at configs/imagenet64/T10.yaml: the
+# sampling phase runs T=10 forwards, the sampler update G = T B / B = 10
+# minibatches of one forward and one backward each (no use_checkpoint), so
+# 20 forwards and 10 backwards. flash: K4 at the 7 maps of 32x32, K1 at
+# the 95 norms of each forward; fused_train: K2 and K6 at all 22 attention
+# blocks (every map passes fused_attn_bwd_available), K1 at the 73 others.
+TRAIN_FORWARDS, TRAIN_BACKWARDS, E3_STEPS = 20, 10, 3
+TRAIN_LAUNCHES_PER_STEP = {
+    "flash": {"gn_silu_bf16": 95 * TRAIN_FORWARDS,
+              "flash_attn": 7 * TRAIN_FORWARDS,
+              "flash_attn_bwd_dkv": 7 * TRAIN_BACKWARDS,
+              "flash_attn_bwd_dq": 7 * TRAIN_BACKWARDS},
+    "fused_train": {"gn_silu_bf16": 73 * TRAIN_FORWARDS,
+                    "attn_block_bf16": 22 * TRAIN_FORWARDS,
+                    "attn_block_bwd_bf16": 22 * TRAIN_BACKWARDS},
+}
+# Wiring: from one state, batch and noise, the first sampler minibatch's
+# gradient by einsum (bf16 softmax at every map), flash and fused_train.
+# The three differ by bf16 roundings placed differently (the einsum path
+# rounds its softmax to bf16, K2 and K4 keep it fp32; K2 and K6 recompute
+# GroupNorm in fp32): 0.0017-0.0020 of the gradient's norm pairwise on the
+# H100. The limit is ten times that; an attention gradient wired wrong moves
+# the whole gradient by the share that flows through the 22 blocks.
+E3_GRAD_REL = 0.02
+# rows of the first minibatch in the wiring check (the einsum path holds bf16
+# logits of every 32x32 map for the backward)
+E3_GRAD_ROWS = 32
+
+
+def imagenet64_train_config():
+    """configs/imagenet64/T10.yaml with its dataset config merged."""
+    return merge(load_yaml(IMAGENET64_CONFIG), load_yaml(os.path.join(
+        REPO, "configs", "imagenet64", "imagenet64.yaml")))
+
+
+def build_trainer(cfg, attn_impl, batchsize):
+    """The CLI's sampler (seed weights), value and DxMITrainerCond."""
+    tr = cfg["training"]
+    seed = int(tr["seed"])
+    sampler = train_image_large.build_sampler(
+        cfg, torch.device("cuda"), seed, attn_impl=attn_impl)
+    with torch.device("cuda"):
+        value = instantiate(cfg["value"])
+    trainer = instantiate(cfg["trainer"], batchsize=batchsize,
+                          n_timesteps=cfg["sampler"]["n_timesteps"])
+    trainer.set_models(sampler, value, lr=float(tr["lr"]),
+                       v_lr=float(tr["v_lr"]),
+                       beta_lr=float(tr.get("beta_lr") or tr["lr"]))
+    return trainer
+
+
+def e3_grads(cfg, batchsize, rows):
+    """The first sampler minibatch's gradient (net and log_betas, fp32,
+    flattened) of the seed-0 state under each attention path, on the same
+    buffer rows, step noise and labels."""
+    grads = {}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    trainer = build_trainer(cfg, "einsum", batchsize)
+    with torch.no_grad():
+        d = trainer.sampler.sample(rows, generator=gen)
+    flat = from_d_sample(d).flat()
+    idx = torch.randperm(flat["state"].shape[0], generator=gen,
+                         device="cuda")[:rows]
+    noise = torch.randn(flat["state"][idx].shape, generator=gen,
+                        device="cuda")
+    for impl in ("einsum", "flash", "fused_train"):
+        for m in trainer.sampler.net.modules():
+            if hasattr(m, "attn_impl"):
+                m.attn_impl = impl
+        loss = trainer.minibatch_loss(flat, idx, noise)[0]
+        grads[impl] = torch.cat([g.reshape(-1).float()
+                                 for g in trainer.sampler_grads(loss)])
+    del trainer
+    torch.cuda.empty_cache()
+    return grads
+
+
+def phase_train():
+    """E3 (see the module docstring)."""
+    cfg = imagenet64_train_config()
+    B = TRAIN_BATCH
+    out = {}
+    for impl in ("flash", "fused_train"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = build_trainer(cfg, impl, B)
+        n_params = sum(p.numel() for p in trainer.sampler.parameters())
+        data = train_image_large.fake_data(
+            cfg, trainer.sampler, 1024, B, int(cfg["training"]["seed"]),
+            torch.device("cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        steps = []
+        for i in range(E3_STEPS):
+            x, y = next(data)
+            _lib.reset_launches()
+            t0 = time.perf_counter()
+            m = train_image_large.train_step(trainer, x, y, gen)
+            wall = time.perf_counter() - t0
+            got = dict(_lib.LAUNCHES)
+            if got != TRAIN_LAUNCHES_PER_STEP[impl]:
+                raise AssertionError(f"E3 {impl} step {i}: launches {got}, "
+                                     f"expected "
+                                     f"{TRAIN_LAUNCHES_PER_STEP[impl]}")
+            bad = [k for k, v in m.items() if not k.startswith("time/")
+                   and not torch.isfinite(torch.as_tensor(v)).all()]
+            if bad:
+                raise AssertionError(f"E3 {impl} step {i}: non-finite {bad}")
+            steps.append((wall, m))
+            print(f"  E3 {impl} step {i}: {wall:.3f} s (sample "
+                  f"{m['time/sample']:.3f}, update_f_v "
+                  f"{m['time/update_f_v']:.3f}, update_sampler "
+                  f"{m['time/update_sampler']:.3f}); d_loss "
+                  f"{float(m['ebm/d_loss_']):.4f}, v_loss "
+                  f"{float(m['ebm/v_loss_']):.4f}, sampler_loss "
+                  f"{float(m['sampler/sampler_loss_']):.4f}", flush=True)
+        if trainer.nan_guard_skips:
+            raise AssertionError(f"E3 {impl}: {trainer.nan_guard_skips} "
+                                 "updates skipped by the non-finite guard")
+        peak = torch.cuda.max_memory_allocated()
+        later = [w for w, _ in steps[1:]]
+        phases = {k: np.mean([m[f"time/{k}"] for _, m in steps[1:]])
+                  for k in ("sample", "update_f_v", "update_sampler")}
+        print(f"  E3 {impl}: {n_params} sampler parameters, batch {B}; "
+              f"{np.mean(later):.3f} s/step over steps 1-{E3_STEPS - 1} "
+              f"(sample {phases['sample']:.3f}, update_f_v "
+              f"{phases['update_f_v']:.3f}, update_sampler "
+              f"{phases['update_sampler']:.3f}); launches per step "
+              f"{TRAIN_LAUNCHES_PER_STEP[impl]} as expected; nan-guard "
+              f"skips 0; peak allocated {peak / 2**30:.2f} GiB", flush=True)
+        x, y = next(data)
+        profile_run(lambda: train_image_large.train_step(trainer, x, y, gen),
+                    f"E3 {impl} profile, one training step", top=16)
+        out[impl] = TRAIN_LAUNCHES_PER_STEP[impl]
+        del trainer, data
+        torch.cuda.empty_cache()
+    grads = e3_grads(cfg, B, E3_GRAD_ROWS)
+    for a, b in (("flash", "einsum"), ("fused_train", "einsum"),
+                 ("fused_train", "flash")):
+        rel = ((grads[a] - grads[b]).norm() / grads[b].norm()).item()
+        print(f"  E3 wiring: |g_{a} - g_{b}| / |g_{b}| = {rel:.4f} (tol "
+              f"{E3_GRAD_REL:g}); |g_{b}| {grads[b].norm().item():.4e}")
+        if not rel < E3_GRAD_REL:
+            raise AssertionError(f"E3 wiring: {a} and {b} gradients {rel:.3f}"
+                                 " apart")
+    return out
+
+
 def phase_build():
     proc = _lib.build(verbose=True)
     for line in (proc.stdout + proc.stderr).splitlines():
@@ -526,6 +1064,7 @@ def phase_kernels(gen):
               "(must be 0: exact int32 sums, elementwise epilogue)")
         if err != 0:
             raise AssertionError(f"int8_conv {shape}: max abs err {err}")
+    phase_kernels_train(gen, errs)
     return errs
 
 
@@ -598,6 +1137,7 @@ def phase_times(gen):
 
     rows.update(adm_time_rows(gen))
     rows.update(int8_time_rows(gen))
+    rows.update(train_time_rows(gen))
     peaks = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS, "int8": INT8_OPS}
     for name, r in rows.items():
         t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
@@ -1046,6 +1586,64 @@ def phase_cli():
         print(f"  C {module} {' '.join(extra)}: {time.perf_counter() - t0:.1f}"
               f" s, npz {got['arr_0'].shape} {got['arr_0'].dtype} within "
               f"{diff} uint8 level of in-process; {' | '.join(last)}")
+    train_cli(out_dir)
+
+
+# train_image_large on a shrunken ImageNet64 config (16x16, 32 channels, one
+# res block, attention at 8x8 with 2 heads, 4 classes, fp32, value nh 16,
+# batch 8): the ADM fixture's shape, so fused_train sends its attention
+# blocks through K2 and K6 in fp32.
+SHRUNK_TRAIN_ARGS = [
+    "--diffusion.image_size", "16", "--diffusion.num_channels", "32",
+    "--diffusion.num_res_blocks", "1", "--diffusion.attention_resolutions",
+    "8", "--diffusion.channel_mult", "1,2", "--diffusion.num_head_channels",
+    "-1", "--diffusion.num_heads", "2", "--diffusion.num_classes", "4",
+    "--diffusion.use_fp16", "False", "--sampler.sample_shape", "[3,16,16]",
+    "--sampler.num_classes", "4", "--value.net.nh", "16",
+    "--training.batchsize", "8", "--training.log_every", "1"]
+
+
+def train_cli_commands(run, device="cuda"):
+    """The training CLI (2 steps) and the generation CLI on the run dir it
+    writes, relative to the working directory of both."""
+    train = [sys.executable, "-m", "dxmi_tpu_torch.train_image_large",
+             "--config", IMAGENET64_CONFIG, "--dataset",
+             os.path.join(REPO, "configs", "imagenet64", "imagenet64.yaml"),
+             "--run", run, "--fake_data", "--fake_data_size", "32",
+             "--max_steps", "2", "--attn_impl", "fused_train", "--device",
+             device, *SHRUNK_TRAIN_ARGS]
+    log_dir = os.path.join("results", "imagenet64", "T10", run)
+    gen = [sys.executable, "-m", "dxmi_tpu_torch.generate_large", "--log_dir",
+           log_dir, "--sampler", "last", "--n_generate", "8", "--batchsize",
+           "8", "--device", device, "--save_npz",
+           os.path.join(log_dir, "samples.npz")]
+    return train, gen, log_dir
+
+
+def train_cli(out_dir):
+    """train_image_large for 2 steps in a subprocess, then generate_large
+    on its run dir: the training log, no skipped update, finite samples."""
+    train, gen, log_dir = train_cli_commands("chip_smoke")
+    outs = []
+    for cmd in (train, gen):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=out_dir, capture_output=True,
+                              text=True, timeout=300,
+                              env=dict(os.environ, PYTHONPATH=REPO))
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd[2:4])} failed:\n"
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        outs.append(proc.stdout)
+        print(f"  C {cmd[2]}: {time.perf_counter() - t0:.1f} s; "
+              f"{' | '.join(l for l in lines if l.startswith('iter'))} "
+              f"{' | '.join(lines[-2:])}")
+    if "nan-guard skips: 0" not in outs[0]:
+        raise AssertionError("train_image_large skipped an update")
+    got = np.load(os.path.join(out_dir, log_dir, "samples.npz"))
+    if got["arr_0"].shape != (8, 16, 16, 3) or got["arr_1"].shape != (8,):
+        raise AssertionError(f"generate_large on the trained run dir: npz "
+                             f"{got['arr_0'].shape}")
 
 
 def phase_generate_adm():
@@ -1204,6 +1802,8 @@ def main() -> int:
         run_phase("G2-int8", phase_replay_adm_int8)
         adm, fused = run_phase("E2", phase_generate_adm)
         int8 = run_phase("E2-int8", lambda: phase_generate_adm_int8(fused))
+        run_phase("G3", phase_train_replay)
+        train = run_phase("E3", phase_train)
         run_phase("C", phase_cli)
         smi = nvidia_smi()
     except PhaseError as e:
@@ -1213,7 +1813,11 @@ def main() -> int:
                     attn_block_bf16=adm["fused"]["attn_block_bf16"],
                     flash_attn=adm["flash"]["flash_attn"],
                     attn_block_i8=int8["attn_block_i8"],
-                    int8_conv=int8["int8_conv"])
+                    int8_conv=int8["int8_conv"],
+                    **{k: train["flash"][k] for k in
+                       ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")},
+                    attn_block_bwd_bf16=train["fused_train"][
+                        "attn_block_bwd_bf16"])
     kernels = []
     for name, (src, replaces) in INFO.items():
         r = times[name]

@@ -2,7 +2,11 @@
 
 ``load_yaml`` reads the repo's YAML configs with a small stdlib reader
 (``parse_yaml``) that gives PyYAML's ``safe_load`` results (YAML 1.1) for the
-subset those files use, so the entry points run where PyYAML is missing.
+subset those files use, so the entry points run where PyYAML is missing;
+``to_yaml`` writes that subset back (a run directory's ``config.yaml``).
+``merge``, ``parse_unknown_args`` and ``parse_nested_args`` are the JAX
+package's (``dxmi_tpu/config.py``): deep merges and typed ``--a.b value``
+overrides.
 
 ``_target_`` paths of the JAX package (``dxmi_tpu.*``) and of the reference
 (``models.DxMI.*``) resolve through an alias table to the port's classes,
@@ -10,8 +14,12 @@ so the repo's configs and reference run directories build port modules.
 """
 from __future__ import annotations
 
+import ast
+import copy
 import importlib
+import math
 import re
+import sys
 from typing import Any, Callable, Dict, List, Tuple
 
 _ALIASES: Dict[str, str] = {
@@ -23,6 +31,22 @@ _ALIASES: Dict[str, str] = {
         "dxmi_tpu_torch.samplers.var.VARSampler",
     "models.DxMI.var_sampler.VARSampler":
         "dxmi_tpu_torch.samplers.var.VARSampler",
+    "dxmi_tpu.trainers.dxmi.DxMITrainer":
+        "dxmi_tpu_torch.trainers.dxmi.DxMITrainer",
+    "models.DxMI.trainer.DxMI_Trainer":
+        "dxmi_tpu_torch.trainers.dxmi.DxMITrainer",
+    "dxmi_tpu.trainers.dxmi_cond.DxMITrainerCond":
+        "dxmi_tpu_torch.trainers.dxmi_cond.DxMITrainerCond",
+    "models.DxMI.trainer.DxMI_Trainer_Cond":
+        "dxmi_tpu_torch.trainers.dxmi_cond.DxMITrainerCond",
+    "dxmi_tpu.models.value.TimeIndependentValue":
+        "dxmi_tpu_torch.models.value.TimeIndependentValue",
+    "models.value.TimeIndependentValue":
+        "dxmi_tpu_torch.models.value.TimeIndependentValue",
+    "dxmi_tpu.models.igebm.IGEBMEncoder":
+        "dxmi_tpu_torch.models.igebm.IGEBMEncoder",
+    "models.modules.IGEBMEncoderV2":
+        "dxmi_tpu_torch.models.igebm.IGEBMEncoder",
 }
 
 # YAML 1.1 plain-scalar resolution, as PyYAML's resolver does it. A float
@@ -197,6 +221,123 @@ def load_yaml(path: str) -> Dict[str, Any]:
     """Read a YAML config file with ``parse_yaml`` (no PyYAML needed)."""
     with open(path) as f:
         return parse_yaml(f.read()) or {}
+
+
+def _emit_scalar(v: Any) -> str:
+    """A scalar as ``parse_yaml`` reads it back."""
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v)
+        if "." not in r:  # YAML 1.1 floats need a dot: 1e-08 -> 1.0e-08
+            mant, _, exp = r.partition("e")
+            r = f"{mant}.0" + (f"e{exp}" if exp else "")
+        if "e" in r and r.split("e")[1][0] not in "+-":
+            r = r.replace("e", "e+")
+        return r
+    if isinstance(v, str):
+        try:
+            plain_ok = _plain(v, "") == v and v.strip() == v and "'" not in v
+        except YamlSubsetError:
+            plain_ok = False
+        return v if plain_ok and v else "'" + v.replace("'", "''") + "'"
+    raise YamlSubsetError(f"cannot write {type(v).__name__} {v!r}")
+
+
+def to_yaml(cfg: Dict[str, Any], indent: int = 0) -> str:
+    """``cfg`` (nested dicts of scalars and lists of scalars) as YAML that
+    ``parse_yaml`` reads back equal."""
+    lines = []
+    pad = " " * indent
+    for k, v in cfg.items():
+        if isinstance(v, dict) and v:
+            lines.append(f"{pad}{k}:")
+            lines.append(to_yaml(v, indent + 2).rstrip("\n"))
+        elif isinstance(v, (list, tuple)):
+            lines.append(f"{pad}{k}: [" + ", ".join(
+                _emit_scalar(x) for x in v) + "]")
+        else:
+            lines.append(f"{pad}{k}: "
+                         f"{'null' if isinstance(v, dict) else _emit_scalar(v)}")
+    return "\n".join(lines) + "\n"
+
+
+def save_yaml(cfg: Dict[str, Any], path: str) -> None:
+    with open(path, "w") as f:
+        f.write(to_yaml(cfg))
+
+
+def merge(*configs: Dict[str, Any]) -> Dict[str, Any]:
+    """Deep-merge configs left to right (later wins, dicts merge)."""
+    def _merge(a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:
+        out = dict(a)
+        for k, v in b.items():
+            if k in out and isinstance(out[k], dict) and isinstance(v, dict):
+                out[k] = _merge(out[k], v)
+            else:
+                out[k] = copy.deepcopy(v)
+        return out
+
+    acc: Dict[str, Any] = {}
+    for c in configs:
+        acc = _merge(acc, c)
+    return acc
+
+
+def parse_arg_type(val: str) -> Any:
+    """A CLI string as None, bool, int, float, list or str."""
+    if val in ("None", "none", "null", "Null"):
+        return None
+    if val in ("True", "true"):
+        return True
+    if val in ("False", "false"):
+        return False
+    for cast in (int, float):
+        try:
+            return cast(val)
+        except ValueError:
+            pass
+    if val.startswith("[") and val.endswith("]"):
+        try:
+            return ast.literal_eval(val)
+        except (ValueError, SyntaxError):
+            pass
+    return val
+
+
+def parse_unknown_args(l_args: List[str]) -> Dict[str, Any]:
+    """``--key value`` pairs into a flat dict of typed values; a trailing
+    unpaired token is dropped with a warning."""
+    if len(l_args) % 2 == 1:
+        print(f"WARNING: ignoring trailing override token {l_args[-1]!r} "
+              "(overrides are --key value pairs)", file=sys.stderr)
+    out: Dict[str, Any] = {}
+    for i in range(len(l_args) // 2):
+        key = l_args[2 * i]
+        if not key.startswith("--"):
+            raise ValueError(f"expected --key, got {key!r}")
+        out[key[2:]] = parse_arg_type(l_args[2 * i + 1])
+    return out
+
+
+def parse_nested_args(d_cmd_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """Dot-separated keys into nested dicts."""
+    out: Dict[str, Any] = {}
+    for key, val in d_cmd_cfg.items():
+        node = out
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return out
 
 
 def resolve_target(path: str) -> Callable:

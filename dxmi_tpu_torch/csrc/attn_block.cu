@@ -460,6 +460,28 @@ hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
 
 }  // namespace
 
+cudaError_t launch_qkv_gemm(const float* h, const float* w, const float* b,
+                            float* qkv, int M, int C, float qk_scale,
+                            cudaStream_t s) {
+  if (C % GBK) return cudaErrorInvalidValue;
+  dim3 g((3 * C + GBN - 1) / GBN, (M + GBM - 1) / GBM);
+  sgemm_kernel<kPlainA, kBiasScaleQK><<<g, kGemmThreads, 0, s>>>(
+      h, w, qkv, M, 3 * C, C, b, nullptr, qk_scale, 2 * C, nullptr, nullptr,
+      nullptr, nullptr, 1);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_qkv_gemm(const bf16* h, const bf16* w, const bf16* b,
+                            bf16* qkv, int M, int C, float qk_scale,
+                            cudaStream_t s) {
+  if (C % HBK) return cudaErrorInvalidValue;
+  dim3 g((3 * C + HBN - 1) / HBN, (M + HBM - 1) / HBM);
+  hgemm_kernel<kPlainA, kBiasScaleQK><<<g, kHThreads, 0, s>>>(
+      h, w, qkv, M, 3 * C, C, b, nullptr, qk_scale, 2 * C, nullptr, nullptr,
+      nullptr, nullptr, 1);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_attn_core_f32(const float* qkv, float* out, int B, int S,
                                  int C, int nh, cudaStream_t stream) {
   const int d = C / nh;
@@ -505,8 +527,8 @@ extern "C" int dxmi_attn_block_bf16(const void* x, const float* gs,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  err = launch_flash_attn(qkvb, qkvb + C, qkvb + 2 * C, attnb, B, S, nh, d,
-                          3 * C, C, 1.f, s);
+  err = launch_flash_attn(qkvb, qkvb + C, qkvb + 2 * C, attnb, nullptr, B, S,
+                          nh, d, 3 * C, C, 1.f, s);
   if (err != cudaSuccess) return (int)err;
 
   dim3 g_proj((C + HBN - 1) / HBN, (M + HBM - 1) / HBM);

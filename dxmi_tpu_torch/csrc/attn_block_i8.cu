@@ -52,9 +52,7 @@ constexpr int LDR = IBK + 16;  // bytes per shared row: 48, ldmatrix conflict-fr
 enum Prologue { kGroupNormA = 0, kPlainA = 1 };
 enum Epilogue { kBiasScaleQK = 0, kBiasResidual = 1 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-// round to the compute dtype and back
+// round to the compute dtype and back (to_f is common.cuh's)
 __device__ __forceinline__ float round_to(float v, float) { return v; }
 __device__ __forceinline__ float round_to(float v, bf16) { return rb(v); }
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -235,8 +233,8 @@ cudaError_t core(const float* qkv, float* attn, int B, int S, int C, int nh,
 }
 cudaError_t core(const bf16* qkv, bf16* attn, int B, int S, int C, int nh,
                  cudaStream_t s) {
-  return launch_flash_attn(qkv, qkv + C, qkv + 2 * C, attn, B, S, nh, C / nh,
-                           3 * C, C, 1.f, s);
+  return launch_flash_attn(qkv, qkv + C, qkv + 2 * C, attn, nullptr, B, S,
+                           nh, C / nh, 3 * C, C, 1.f, s);
 }
 
 template <typename T>

@@ -30,10 +30,12 @@ cudaError_t launch_gn_stats_bf16(const bf16* x, float* mean_c, float* rstd_c,
 
 // softmax(q k^T * sm_scale) v per (sample, head) for bf16 q, k, v whose
 // rows (one per position) are row_stride elements apart, heads d apart
-// within a row; o rows are out_row_stride apart. Needs S % 64 == 0,
-// d % 8 == 0, d <= 128 and 16-byte aligned rows. Defined in flash_attn.cu.
+// within a row; o rows are out_row_stride apart; lse, when not null, gets
+// each row's logsumexp of the scaled logits, (B, nh, S) fp32. Needs
+// S % 64 == 0, d % 8 == 0, d <= 128 and 16-byte aligned rows. Defined in
+// flash_attn.cu.
 cudaError_t launch_flash_attn(const bf16* q, const bf16* k, const bf16* v,
-                              bf16* o, int B, int S, int nh, int d,
+                              bf16* o, float* lse, int B, int S, int nh, int d,
                               int row_stride, int out_row_stride,
                               float sm_scale, cudaStream_t stream);
 
@@ -43,6 +45,52 @@ cudaError_t launch_flash_attn(const bf16* q, const bf16* k, const bf16* v,
 // attn_block.cu.
 cudaError_t launch_attn_core_f32(const float* qkv, float* out, int B, int S,
                                  int C, int nh, cudaStream_t stream);
+
+// qkv = h W_qkv + b_qkv with the q and k columns (the first 2C) scaled by
+// qk_scale: launch (b) of K2 on an already normalised h (M, C), rounded as
+// K2 rounds in each dtype. K6 recomputes the forward with it. Needs
+// C % 32 == 0. Defined in attn_block.cu.
+cudaError_t launch_qkv_gemm(const float* h, const float* w, const float* b,
+                            float* qkv, int M, int C, float qk_scale,
+                            cudaStream_t stream);
+cudaError_t launch_qkv_gemm(const bf16* h, const bf16* w, const bf16* b,
+                            bf16* qkv, int M, int C, float qk_scale,
+                            cudaStream_t stream);
+
+// The attention backward of K4 and K6 (flash_attn_bwd.cu), per (sample,
+// head) on strided rows: p = exp(q.k * sm_scale - lse) in fp32,
+// dv = sum_q T(p) dout, dp = dout.v, ds = T((dp - di) p * sm_scale),
+// dk = sum_q ds q, dq = sum_k ds k (T() rounds to the element type), dq and
+// dk times out_scale_qk at the end. Row strides are in elements, head h
+// starts at column h * d; lse and di are (B, nh, S). Each output pointer may
+// be null; the fp32 ones get the sums, the T ones the same rounded to T.
+template <typename T>
+struct AttnBwdArgs {
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* dout;
+  const float* lse;
+  const float* di;
+  float* dq_f;
+  float* dk_f;
+  float* dv_f;
+  T* dq_t;
+  T* dk_t;
+  T* dv_t;
+  int in_stride, dout_stride, out_stride;
+  int S, nh, d;
+  float sm_scale, out_scale_qk;
+};
+
+// dk and dv (one block per 64 keys) and dq (one block per 64 query rows).
+// Need S % 64 == 0, d % 4 == 0, d <= 64 and strides that are multiples of 4.
+template <typename T>
+cudaError_t launch_attn_bwd_dkv(const AttnBwdArgs<T>& a, int B,
+                                cudaStream_t stream);
+template <typename T>
+cudaError_t launch_attn_bwd_dq(const AttnBwdArgs<T>& a, int B,
+                               cudaStream_t stream);
 
 // ((x - mean) * rstd) * scale + bias, the plain version's order.
 __device__ __forceinline__ float4 gn_affine4(float4 v, float4 m, float4 r,
@@ -128,6 +176,31 @@ __device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
   const bf16* e = reinterpret_cast<const bf16*>(&r);
 #pragma unroll
   for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(e[j]);
+}
+
+// element-type helpers of the kernels generic in fp32 / bf16
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+// v rounded to T and back (the identity for fp32)
+template <typename T>
+__device__ __forceinline__ float round_t(float v);
+template <>
+__device__ __forceinline__ float round_t<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_t<bf16>(float v) { return rb(v); }
+// four consecutive elements as fp32 (16-byte fp32 / 8-byte bf16 aligned)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // 16-byte async copy; src_bytes == 0 writes zeros

@@ -28,6 +28,9 @@
 // is cast to bf16 before it is normalised (the online form cannot
 // normalise first). q, k and v are read through row strides, so K2's bf16
 // form runs the same kernel on its (B, S, 3C) qkv buffer without copies.
+// For training the kernel also writes each row's natural-log logsumexp of
+// the scaled logits (m + log l, fp32), the residual that the backward
+// kernels (flash_attn_bwd.cu) recompute p from.
 #include <math.h>
 
 #include "common.cuh"
@@ -44,9 +47,9 @@ __host__ __device__ constexpr int flash_smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int S,
-                 int d, int row_stride, int out_row_stride,
-                 float scale_log2) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int S, int d, int row_stride,
+                 int out_row_stride, float scale_log2) {
   constexpr int LD = D + 8;  // bf16 per shared row: ldmatrix conflict-free
   constexpr int CH = D / 8;  // 16-byte chunks per row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -179,6 +182,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
   }
   const int row = q0 + warp * 16 + (lane >> 2);
+  if (lse != nullptr && (lane & 3) == 0) {
+    // m_r is in units of log2 of the scaled logits
+    float* lrow = lse + ((size_t)b * gridDim.y + h) * S + row;
+    lrow[0] = (m_r[0] + log2f(l_r[0])) * 0.6931471805599453f;
+    lrow[8] = (m_r[1] + log2f(l_r[1])) * 0.6931471805599453f;
+  }
   bf16* o0 = o + ((size_t)b * S + row) * out_row_stride + (size_t)h * d;
   bf16* o1 = o0 + (size_t)8 * out_row_stride;
 #pragma unroll
@@ -195,45 +204,45 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                   int B, int S, int nh, int d, int row_stride,
+                   float* lse, int B, int S, int nh, int d, int row_stride,
                    int out_row_stride, float scale_log2, cudaStream_t stream) {
   const int smem = flash_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   flash_fwd_kernel<D><<<dim3(S / FBQ, nh, B), kFlashThreads, smem, stream>>>(
-      q, k, v, o, S, d, row_stride, out_row_stride, scale_log2);
+      q, k, v, o, lse, S, d, row_stride, out_row_stride, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 cudaError_t launch_flash_attn(const bf16* q, const bf16* k, const bf16* v,
-                              bf16* o, int B, int S, int nh, int d,
-                              int row_stride, int out_row_stride,
+                              bf16* o, float* lse, int B, int S, int nh,
+                              int d, int row_stride, int out_row_stride,
                               float sm_scale, cudaStream_t stream) {
   if (S % FBQ || d % 8 || d > 128 || row_stride % 8 || out_row_stride % 8)
     return cudaErrorInvalidValue;
   const float scale_log2 = sm_scale * 1.4426950408889634f;  // log2(e)
   if (d <= 32)
-    return launch<32>(q, k, v, o, B, S, nh, d, row_stride, out_row_stride,
+    return launch<32>(q, k, v, o, lse, B, S, nh, d, row_stride, out_row_stride,
                       scale_log2, stream);
   if (d <= 64)
-    return launch<64>(q, k, v, o, B, S, nh, d, row_stride, out_row_stride,
+    return launch<64>(q, k, v, o, lse, B, S, nh, d, row_stride, out_row_stride,
                       scale_log2, stream);
-  return launch<128>(q, k, v, o, B, S, nh, d, row_stride, out_row_stride,
+  return launch<128>(q, k, v, o, lse, B, S, nh, d, row_stride, out_row_stride,
                      scale_log2, stream);
 }
 
 // q, k, v: bf16 (B, S, nh, d) views with unit stride in d, heads d apart
 // and rows row_stride elements apart; o: (B, S, nh, d), rows
-// out_row_stride apart.
+// out_row_stride apart; lse: (B, nh, S) fp32, or null.
 extern "C" int dxmi_flash_attn(const void* q, const void* k, const void* v,
-                               void* o, int B, int S, int nh, int d,
-                               int row_stride, int out_row_stride,
+                               void* o, float* lse, int B, int S, int nh,
+                               int d, int row_stride, int out_row_stride,
                                float sm_scale, void* stream) {
   return (int)launch_flash_attn(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), B, S, nh, d,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, B, S, nh, d,
       row_stride, out_row_stride, sm_scale, (cudaStream_t)stream);
 }

@@ -9,8 +9,10 @@ names and the NCHW weight layout are the reference checkpoint's
 checkpoint's [3, nh, d] order. Activations run in ``torch.channels_last``.
 
 ``dtype=torch.bfloat16`` (``use_fp16`` in the configs) computes in bf16 as the
-JAX package does: ``cast_weights`` rounds the conv, linear and embedding
-weights to bf16 once (flax casts its fp32 parameters on every call); the
+JAX package does: every conv, linear and embedding casts its weights to the
+compute dtype where it is used, as flax casts its fp32 parameters on every
+call, so training keeps fp32 master parameters; for sampling,
+``cast_weights`` rounds them to bf16 once, which gives the same values. The
 GroupNorm affine parameters stay fp32, and so do the phase-upsample convs,
 whose tap sums run in fp32 before rounding. Each operation rounds its result
 to bf16, as XLA does.
@@ -20,9 +22,15 @@ statistics mode); ``attn_impl='fused'`` sends each attention block whose
 shape ``fused_attn_available`` admits through K2; ``'flash'`` (and ``'fused'``
 where K2 does not admit the shape) sends maps that ``flash_available`` admits
 through K4; everything else takes the einsum path, with a bf16 softmax when
-``softmax_f32`` is False, as ``unet_adm.py:275-296``. The routes are the JAX
-gates alone: on the card a form the kernels do not take (K4 in fp32, K2 at
-some head widths) raises instead of falling back.
+``softmax_f32`` is False, as ``unet_adm.py:275-296``. ``'fused_train'``
+(``unet_adm.py:217-224``) sends each block that ``fused_attn_bwd_available``
+admits through ``fused_attn_block_train`` (K2 forward, K6 backward) and the
+rest as ``'flash'`` does. Every layer is differentiable: K1 through
+``GroupNormFn``, K4 through ``FlashAttention`` (K4-dkv and K4-dq backward). ``use_checkpoint`` recomputes each ResBlock in the backward
+(``torch.utils.checkpoint``, the JAX package's ``nn.remat``, ``:370-371``);
+dropout follows the module's ``train()`` mode. The routes are the JAX gates
+alone: on the card a form the kernels do not take (K4 in fp32, K2 at some
+head widths) raises instead of falling back.
 
 int8 (``quant_int8``): ``'static'`` runs each ResBlock's two 3x3 convs as
 ``QConv`` with calibrated per-input-channel activation scales, the phase
@@ -46,10 +54,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from dxmi_tpu_torch.ops.attention import flash_available, flash_mha
 from dxmi_tpu_torch.ops.attn_block import (Int8AttnMats, attn_block,
                                            attn_block_int8,
                                            fused_attn_available,
+                                           fused_attn_block_train,
+                                           fused_attn_bwd_available,
                                            prep_int8_mats)
 from dxmi_tpu_torch.ops.groupnorm import group_norm, sigmoid
 from dxmi_tpu_torch.ops.phase_up import (conv3x3_nearest_up2,
@@ -58,7 +70,7 @@ from dxmi_tpu_torch.ops.quant import Int8Layer, QConv, record_act_scale
 from dxmi_tpu_torch.ops.trig import reduce_mod_2pi
 
 GN_EPS = 1e-5
-ATTN_IMPLS = ("einsum", "flash", "fused")
+ATTN_IMPLS = ("einsum", "flash", "fused", "fused_train")
 UP_IMPLS = ("resize", "phase")
 QUANT_MODES = (False, True, "static")
 # buffers of calibrated activation scales (a checkpoint may lack them)
@@ -106,9 +118,17 @@ def _mat(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``conv`` in ``x``'s dtype (its weights may be kept in fp32)."""
+    """``conv`` in ``x``'s dtype (its weights may be kept in fp32); an int8
+    ``QConv`` runs its own forward."""
+    if isinstance(conv, QConv):
+        return conv(x)
     return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
                     conv.stride, conv.padding)
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``lin`` in ``x``'s dtype."""
+    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
 
 class GroupNormADM(nn.GroupNorm):
@@ -189,7 +209,7 @@ class ResBlockADM(Int8Layer, nn.Module):
         if self.up and self.up_impl == "phase":
             h = self._phase_up(h, dt)
             if hasattr(self, "skip_connection"):
-                x = self.skip_connection(x)
+                x = _conv(self.skip_connection, x)
                 skip_done = True
             x = _upsample2x(x)
         else:
@@ -197,17 +217,17 @@ class ResBlockADM(Int8Layer, nn.Module):
                 h, x = _upsample2x(h), _upsample2x(x)
             elif self.down:
                 h, x = F.avg_pool2d(h, 2), F.avg_pool2d(x, 2)
-            h = conv_in(h)
-        emb_out = self.emb_layers[1](silu(emb))[:, :, None, None]
+            h = _conv(conv_in, h)
+        emb_out = _linear(self.emb_layers[1], silu(emb))[:, :, None, None]
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=1)
             h = self.out_layers[0](h)
             h = h * (1 + scale) + shift
         else:
             h = self.out_layers[0](h + emb_out)
-        h = self.out_layers[3](self.out_layers[2](silu(h)))
+        h = _conv(self.out_layers[3], self.out_layers[2](silu(h)))
         if hasattr(self, "skip_connection") and not skip_done:
-            x = self.skip_connection(x)
+            x = _conv(self.skip_connection, x)
         return x + h
 
 
@@ -247,6 +267,14 @@ class AttentionBlockADM(Int8Layer, nn.Module):
         S, nh, dt = H * W, self.num_heads, x.dtype
         d = C // nh
         calibrating = False
+        if self.attn_impl == "fused_train" and fused_attn_bwd_available(S, C,
+                                                                        nh):
+            y = fused_attn_block_train(
+                _nhwc(x).reshape(B, S, C), self.norm.weight, self.norm.bias,
+                self.qkv.weight[:, :, 0, 0].t(), self.qkv.bias,
+                self.proj_out.weight[:, :, 0, 0].t(), self.proj_out.bias, nh,
+                GN_EPS)
+            return _nchw(y.reshape(B, H, W, C))
         if self.int8 and fused_attn_available(S, C, nh, int8=True):
             calibrating = self.calibrating
             if not calibrating:
@@ -268,7 +296,7 @@ class AttentionBlockADM(Int8Layer, nn.Module):
         qkv = _nhwc(_conv(self.qkv, h)).reshape(B, S, 3, nh, d)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         scale = 1.0 / math.sqrt(math.sqrt(d))
-        if self.attn_impl in ("flash", "fused") and flash_available(S, d):
+        if self.attn_impl != "einsum" and flash_available(S, d):
             a = flash_mha(q, k, v, scale * scale)
         else:
             # the Python scale enters XLA's arithmetic in the compute dtype
@@ -293,7 +321,7 @@ class Downsample(nn.Module):
         self.op = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.op(x)
+        return _conv(self.op, x)
 
 
 class Upsample(nn.Module):
@@ -308,7 +336,7 @@ class Upsample(nn.Module):
         if self.up_impl == "phase":
             return conv3x3_nearest_up2(x, self.conv.weight, self.conv.bias,
                                        x.dtype)
-        return self.conv(_upsample2x(x))
+        return _conv(self.conv, _upsample2x(x))
 
 
 class UNetADM(nn.Module):
@@ -316,8 +344,8 @@ class UNetADM(nn.Module):
     fp32. Constructor arguments follow ``dxmi_tpu``'s ``UNetADM``
     (``attention_resolutions`` are downsample rates); ``dtype`` is the
     compute dtype; ``quant_int8`` (False, True, 'static') and ``quant_attn``
-    (False, 'static') select the int8 layers. Gradient checkpointing is not
-    ported yet."""
+    (False, 'static') select the int8 layers; ``use_checkpoint`` recomputes
+    each ResBlock in the backward."""
 
     def __init__(self, image_size: int, in_channels: int = 3,
                  model_channels: int = 192, out_channels: int = 3,
@@ -332,7 +360,7 @@ class UNetADM(nn.Module):
                  dtype: torch.dtype = torch.float32, softmax_f32: bool = True,
                  attn_impl: str = "einsum", up_impl: str = "resize",
                  gn_stats: str = "fp32", quant_int8: object = False,
-                 quant_attn: object = False):
+                 quant_attn: object = False, use_checkpoint: bool = False):
         super().__init__()
         if quant_int8 not in QUANT_MODES or quant_attn not in (False,
                                                                "static"):
@@ -351,6 +379,7 @@ class UNetADM(nn.Module):
         self.image_size = image_size
         self.num_classes = num_classes
         self.dtype = dtype
+        self.use_checkpoint = use_checkpoint
         mc = model_channels
         ted = mc * 4
 
@@ -483,11 +512,12 @@ class UNetADM(nn.Module):
                              f"image_size {self.image_size}")
         dt = self.dtype
         emb = adm_timestep_embedding(t, self.time_embed[0].in_features).to(dt)
-        emb = self.time_embed[2](silu(self.time_embed[0](emb)))
+        emb = _linear(self.time_embed[2], silu(_linear(self.time_embed[0],
+                                                       emb)))
         if self.num_classes is not None:
             if y is None:
                 raise ValueError("class-conditional model needs y")
-            emb = emb + self.label_emb(y)
+            emb = emb + F.embedding(y, self.label_emb.weight.to(dt))
 
         h = x.to(dt).contiguous(memory_format=torch.channels_last)
         hs = []
@@ -499,13 +529,19 @@ class UNetADM(nn.Module):
             h = torch.cat([h, hs.pop()], dim=1)
             h = self._run(layers, h, emb)
         h = self.out[0](h, silu=False)
-        return self.out[2](silu(h)).float()
+        return _conv(self.out[2], silu(h)).float()
 
-    @staticmethod
-    def _run(layers: nn.ModuleList, h: torch.Tensor,
+    def _run(self, layers: nn.ModuleList, h: torch.Tensor,
              emb: torch.Tensor) -> torch.Tensor:
         for layer in layers:
-            h = layer(h, emb) if isinstance(layer, ResBlockADM) else layer(h)
+            if isinstance(layer, nn.Conv2d):
+                h = _conv(layer, h)
+            elif not isinstance(layer, ResBlockADM):
+                h = layer(h)
+            elif self.use_checkpoint and torch.is_grad_enabled():
+                h = checkpoint(layer, h, emb, use_reentrant=False)
+            else:
+                h = layer(h, emb)
         return h
 
 
@@ -532,8 +568,6 @@ def create_unet_adm(image_size: int, num_channels: int, num_res_blocks: int,
     in fp32, ``up_impl`` to ``'resize'``, and ``quant_attn`` to ``'static'``
     exactly when ``quant_int8 == 'static'`` and ``attn_impl == 'fused'`` (the
     JAX factory's defaults without its environment variables)."""
-    if use_checkpoint:
-        raise NotImplementedError("use_checkpoint: not ported yet")
     cm: Tuple[int, ...] = (tuple(int(c) for c in str(channel_mult).split(","))
                            if channel_mult else ())
     attn_ds = tuple(image_size // int(r)
@@ -558,7 +592,8 @@ def create_unet_adm(image_size: int, num_channels: int, num_res_blocks: int,
         resblock_updown=resblock_updown, dtype=dtype,
         softmax_f32=softmax_f32, attn_impl=attn_impl,
         up_impl=up_impl or "resize", gn_stats=gn_stats,
-        quant_int8=quant_int8, quant_attn=quant_attn)
+        quant_int8=quant_int8, quant_attn=quant_attn,
+        use_checkpoint=use_checkpoint)
 
 
 def seeded_normal_(module: nn.Module, seed: int) -> nn.Module:

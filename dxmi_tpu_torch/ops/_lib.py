@@ -51,8 +51,20 @@ _SIGNATURES = {
     # the same arguments, bf16 tensors (GN parameters and statistics fp32)
     "dxmi_attn_block_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _F, _P],
-    # q, k, v, o, B, S, nh, d, row_stride, out_row_stride, sm_scale, stream
-    "dxmi_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, o, lse (or null), B, S, nh, d, row_stride, out_row_stride,
+    # sm_scale, stream
+    "dxmi_flash_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # qkv, o, dout, lse, di scratch, dqkv, B, S, nh, d, sm_scale, stream
+    "dxmi_flash_attn_bwd_dkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                _P],
+    # qkv, dout, lse, di, dqkv, B, S, nh, d, sm_scale, stream
+    "dxmi_flash_attn_bwd_dq": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x, ct, gs, gb, w_qkv, b_qkv, w_proj, dx, dgs, dgb, dw_qkv, db_qkv,
+    # dw_proj, db_proj, then scratch mean_c, rstd_c, h, qkv, da, a, lse, di,
+    # dqkv_f, dqkv_t, dh, part; B, S, C, nh, G, eps, splits, chunks, stream
+    "dxmi_attn_block_bwd": [_P] * 26 + [_I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "dxmi_attn_block_bwd_bf16": [_P] * 26 + [_I, _I, _I, _I, _I, _F, _I, _I,
+                                             _P],
     # x, is_bf16, gs, gb, wq, swq, isa_q, bq, wp, swp, isa_p, bp, y, mean_c,
     # rstd_c, qkv scratch, attn scratch, B, S, C, nh, G, eps, stream
     "dxmi_attn_block_i8": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

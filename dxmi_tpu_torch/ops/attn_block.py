@@ -17,6 +17,15 @@ for q/k/v, then the residual added in bf16. The JAX generation entry sets
 ``DXMI_FUSED_NOMAX=1``, which drops the softmax's max subtraction (exact
 math); the port keeps one max-subtracting softmax.
 
+``fused_attn_block_train`` mirrors ``fused_attn_block_train``
+(``attn_block.py:652``): the forward is K2 (``_pallas_forward``,
+``:630-631``) and the backward is K6 (``_kernel_bwd``, ``:406``, in
+``csrc/attn_block_bwd.cu``), which recomputes every intermediate from x and
+the parameters, as ``_make_op_train`` saves only those (``:633-646``). Its
+plain version ``attn_block_bwd_reference`` repeats the TPU body's arithmetic
+and roundings step by step (``:406-556``). The parameter cotangents come back
+in fp32.
+
 ``attn_block_int8`` mirrors ``fused_attn_block_int8``: the same block with the
 qkv and proj products in int8 (``_kernel_i8``, ``attn_block.py:353``). Its
 plain version follows that kernel's body, not the JAX oracle: h is quantised
@@ -48,6 +57,14 @@ def fused_attn_available(seq_len: int, channels: int, num_heads: int,
     return (seq_len >= 64 and seq_len % 64 == 0 and d <= 256
             and channels <= (1024 if int8 else 768)
             and seq_len * channels <= 1024 * 512)
+
+
+def fused_attn_bwd_available(seq_len: int, channels: int,
+                             num_heads: int) -> bool:
+    """The training gate (``attn_block.py:612``): the forward gate plus
+    S * C <= 1024 * 384."""
+    return (fused_attn_available(seq_len, channels, num_heads)
+            and seq_len * channels <= 1024 * 384)
 
 
 def kernel_takes(channels: int, num_heads: int, dtype: torch.dtype) -> bool:
@@ -158,6 +175,167 @@ def attn_block(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
     _lib.check(code, f"dxmi_{form}")
     _lib.LAUNCHES[form] += 1
     return y
+
+
+# ---- the backward: K6 ----------------------------------------------------
+
+
+def attn_block_bwd_reference(x, ct, gn_scale, gn_bias, w_qkv, b_qkv, w_proj,
+                             num_heads: int, eps: float = 1e-5):
+    """Plain K6, the arithmetic of ``_kernel_bwd`` (``attn_block.py:406``):
+    one-pass fp32 GroupNorm statistics; hp = (x - mean) rstd and h = dt(hp
+    gs + gb); qkv = dt(h W_qkv) + dt(b_qkv) in dt, q and k times dt(d^-1/4);
+    da = dt(ct W_proj^T); per head the fp32 softmax w of the fp32 logits,
+    a = dt(dt(w) v), dv = dt(w)^T da, dlg = w (da v^T - rowsum(da v^T w)),
+    dq = dt(dlg) k d^-1/4, dk = dt(dlg)^T q d^-1/4; dh = dt(dqkv) W_qkv^T;
+    the parameter sums and the GroupNorm backward in fp32. Returns (dx in
+    x's dtype, dgs, dgb, dw_qkv, db_qkv, dw_proj, db_proj in fp32)."""
+    dt = x.dtype
+    B, S, C = x.shape
+    nh = num_heads
+    d = C // nh
+    cg = C // GROUPS
+    xf, ctf = x.float(), ct.float()
+    g = xf.reshape(B, S, GROUPS, cg)
+    mean = g.mean(dim=(1, 3))
+    var = (g * g).mean(dim=(1, 3)) - mean * mean
+    inv = torch.rsqrt(var + eps)
+    mean_c = mean.repeat_interleave(cg, dim=1)[:, None]
+    inv_c = inv.repeat_interleave(cg, dim=1)[:, None]
+    hp = (xf - mean_c) * inv_c
+    h = (hp * gn_scale.float() + gn_bias.float()).to(dt)
+    qkv = (h.float() @ w_qkv.float()).to(dt) + b_qkv.to(dt)
+    da = (ctf @ w_proj.float().t()).to(dt)
+    scale = torch.tensor(1.0 / math.sqrt(math.sqrt(d)), dtype=dt)
+    sf = float(torch.tensor(1.0 / math.sqrt(math.sqrt(d)),
+                            dtype=torch.float32))
+    qkv = qkv.reshape(B, S, 3, nh, d)
+    qs, ks, vh = qkv[:, :, 0] * scale, qkv[:, :, 1] * scale, qkv[:, :, 2]
+    dah = da.reshape(B, S, nh, d).float()
+    lg = torch.einsum("bqhd,bkhd->bhqk", qs.float(), ks.float())
+    w = torch.softmax(lg, dim=-1)
+    wb = w.to(dt).float()
+    a = torch.einsum("bhqk,bkhd->bqhd", wb, vh.float()).to(dt)
+    dv = torch.einsum("bhqk,bqhd->bkhd", wb, dah)
+    dwt = torch.einsum("bqhd,bkhd->bhqk", dah, vh.float())
+    dlg = (w * (dwt - (dwt * w).sum(-1, keepdim=True))).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dlg, ks.float()) * sf
+    dk = torch.einsum("bhqk,bqhd->bkhd", dlg, qs.float()) * sf
+    gq = torch.stack([dq, dk, dv], dim=2).reshape(B, S, 3 * C)
+    gqb = gq.to(dt).float()
+    dh = gqb @ w_qkv.float().t()
+    dw_qkv = torch.einsum("bsc,bsj->cj", h.float(), gqb)
+    db_qkv = gq.sum(dim=(0, 1))
+    dw_proj = torch.einsum("bsc,bsj->cj", a.reshape(B, S, C).float(), ctf)
+    db_proj = ctf.sum(dim=(0, 1))
+    dgs = (dh * hp).sum(dim=(0, 1))
+    dgb = dh.sum(dim=(0, 1))
+    dhp = dh * gn_scale.float()
+    g1 = dhp.reshape(B, S, GROUPS, cg).mean(dim=(1, 3))
+    g2 = (dhp * hp).reshape(B, S, GROUPS, cg).mean(dim=(1, 3))
+    g1c = g1.repeat_interleave(cg, dim=1)[:, None]
+    g2c = g2.repeat_interleave(cg, dim=1)[:, None]
+    dx = (ctf + inv_c * (dhp - g1c - hp * g2c)).to(dt)
+    return dx, dgs, dgb, dw_qkv, db_qkv, dw_proj, db_proj
+
+
+# fp32 partials of the weight GEMMs: one slice per this many rows of B * S
+# (at most 32 slices); bias sums: one chunk per 1024 rows
+BWD_ROWS_PER_SLICE, BWD_MAX_SLICES, BWD_ROWS_PER_CHUNK = 4096, 32, 1024
+
+
+def attn_block_bwd(x, ct, gn_scale, gn_bias, w_qkv, b_qkv, w_proj,
+                   num_heads: int, eps: float = 1e-5):
+    """The block's backward: (dx, dgs, dgb, dw_qkv, db_qkv, dw_proj,
+    db_proj) as ``attn_block_bwd_reference``. On the card: K6, for shapes
+    that ``fused_attn_bwd_available`` admits, fp32 or bf16 ``x`` with
+    d % 4 == 0 and d <= 64 (others raise); weights and biases in x's dtype,
+    GN parameters fp32; it counts as ``attn_block_bwd`` (fp32) or
+    ``attn_block_bwd_bf16``."""
+    if x.device.type == "cpu":
+        return attn_block_bwd_reference(x, ct, gn_scale, gn_bias, w_qkv,
+                                        b_qkv, w_proj, num_heads, eps)
+    B, S, C = x.shape
+    nh, dt, dev = num_heads, x.dtype, x.device
+    d = C // nh
+    if not fused_attn_bwd_available(S, C, nh):
+        raise ValueError(f"attn_block_bwd kernel: S={S}, C={C}, nh={nh} "
+                         "outside fused_attn_bwd_available")
+    if dt not in (torch.float32, torch.bfloat16) or d % 4 or d > 64:
+        raise NotImplementedError(f"attn_block_bwd kernel: d={d} in {dt} not "
+                                  "ported yet (d % 4 == 0, d <= 64)")
+    _lib.require(x, "x", (B, S, C), dtype=dt)
+    _lib.require(ct, "ct", (B, S, C), dtype=dt, device=dev)
+    for name, t, shape, dtype in (
+            ("gn_scale", gn_scale, (C,), torch.float32),
+            ("gn_bias", gn_bias, (C,), torch.float32),
+            ("w_qkv", w_qkv, (C, 3 * C), dt), ("b_qkv", b_qkv, (3 * C,), dt),
+            ("w_proj", w_proj, (C, C), dt)):
+        _lib.require(t, name, shape, dtype=dtype, device=dev)
+    M = B * S
+    splits = max(1, min(BWD_MAX_SLICES, M // BWD_ROWS_PER_SLICE))
+    chunks = -(-M // BWD_ROWS_PER_CHUNK)
+    f32 = dict(device=dev, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    grads = [torch.empty(n, **f32) for n in
+             (C, C, C * 3 * C, 3 * C, C * C, C)]
+    scratch_f = [torch.empty(n, **f32) for n in (
+        B * C, B * C, B * nh * S, B * nh * S, M * 3 * C, M * C,
+        max(splits * 3 * C * C, chunks * 3 * C, 2 * B * C))]
+    mean_c, rstd_c, lse, di, dqkv_f, dh, part = scratch_f
+    h, da, a = (torch.empty((M, C), device=dev, dtype=dt) for _ in range(3))
+    qkv, dqkv_t = (torch.empty((M, 3 * C), device=dev, dtype=dt)
+                   for _ in range(2))
+    form = "attn_block_bwd_bf16" if dt == torch.bfloat16 else "attn_block_bwd"
+    ptrs = [t.data_ptr() for t in (x, ct, gn_scale, gn_bias, w_qkv, b_qkv,
+                                   w_proj, dx, *grads, mean_c, rstd_c, h, qkv,
+                                   da, a, lse, di, dqkv_f, dqkv_t, dh, part)]
+    code = getattr(_lib.lib(), f"dxmi_{form}")(
+        *ptrs, B, S, C, nh, GROUPS, float(eps), splits, chunks, _lib.stream())
+    _lib.check(code, f"dxmi_{form}")
+    _lib.LAUNCHES[form] += 1
+    dgs, dgb, dw_qkv, db_qkv, dw_proj, db_proj = grads
+    return (dx, dgs, dgb, dw_qkv.reshape(C, 3 * C), db_qkv,
+            dw_proj.reshape(C, C), db_proj)
+
+
+class FusedAttnBlockTrain(torch.autograd.Function):
+    """The attention block with K2 forward and K6 backward; saves only x and
+    the parameters. Weights and biases arrive in any float dtype (the fp32
+    master parameters of training) and are cast to x's dtype for the
+    kernels; their cotangents return in the parameters' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
+                num_heads, eps):
+        dt = x.dtype
+        y = attn_block(x, gn_scale, gn_bias, w_qkv.to(dt).contiguous(),
+                       b_qkv.to(dt), w_proj.to(dt).contiguous(),
+                       b_proj.to(dt), num_heads, eps)
+        ctx.save_for_backward(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj,
+                              b_proj)
+        ctx.num_heads, ctx.eps = num_heads, eps
+        return y
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, gs, gb, wq, bq, wp, bp = ctx.saved_tensors
+        dt = x.dtype
+        dx, dgs, dgb, dwq, dbq, dwp, dbp = attn_block_bwd(
+            x, ct.to(dt).contiguous(), gs, gb, wq.to(dt).contiguous(),
+            bq.to(dt), wp.to(dt).contiguous(), ctx.num_heads, ctx.eps)
+        return (dx, dgs.to(gs.dtype), dgb.to(gb.dtype), dwq.to(wq.dtype),
+                dbq.to(bq.dtype), dwp.to(wp.dtype), dbp.to(bp.dtype), None,
+                None)
+
+
+def fused_attn_block_train(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj,
+                           b_proj, num_heads: int,
+                           eps: float = 1e-5) -> torch.Tensor:
+    """The attention block for training: K2 forward, K6 backward
+    (``FusedAttnBlockTrain``). x: (B, S, C); w_qkv (C, 3C); w_proj (C, C)."""
+    return FusedAttnBlockTrain.apply(x, gn_scale, gn_bias, w_qkv, b_qkv,
+                                     w_proj, b_proj, num_heads, eps)
 
 
 # ---- the int8 block: K5 -------------------------------------------------

@@ -15,6 +15,10 @@ as the ``stats`` argument:
   each operation as XLA does (``groupnorm.py:66-90``). For fp32 input this
   is one-pass fp32 statistics.
 
+``group_norm`` is differentiable (``GroupNormFn``): the forward is K1, the
+backward differentiates the plain version recomputed from the saved x, scale
+and bias, as the JAX package's ``_bwd`` does (``groupnorm.py:252-264``).
+
 XLA evaluates a bf16 sigmoid as 1 / (1 + exp(-x)) with each of the three
 operations rounded to bf16; ``sigmoid`` does the same (torch's own bf16
 sigmoid rounds once, and differs in about 3% of bf16 inputs).
@@ -71,12 +75,42 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                num_groups: int = 32, eps: float = 1e-6, silu: bool = False,
                stats: str = "fp32") -> torch.Tensor:
     """GroupNorm(+SiLU) of a channels-last fp32 or bf16 tensor ``x``
-    (B, ..., C) with fp32 ``scale`` and ``bias``.
+    (B, ..., C) with fp32 ``scale`` and ``bias``; differentiable
+    (``GroupNormFn``) when a gradient is wanted.
 
     On the card: K1, which needs ``C % num_groups == 0``, at most 64
     channels per group, and ``C`` a multiple of 4 (fp32) or 8 (bf16) for its
     16-byte loads. It counts as ``gn_silu`` (fp32) or ``gn_silu_bf16``.
     """
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return GroupNormFn.apply(x, scale, bias, num_groups, eps, silu, stats)
+    return _group_norm_forward(x, scale, bias, num_groups, eps, silu, stats)
+
+
+class GroupNormFn(torch.autograd.Function):
+    """K1 with the gradient of its plain version, recomputed from the saved
+    x, scale and bias."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, silu, stats):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (num_groups, eps, silu, stats)
+        return _group_norm_forward(x, scale, bias, num_groups, eps, silu,
+                                   stats)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            xs, ss, bs = (t.detach().requires_grad_(True)
+                          for t in (x, scale, bias))
+            y = group_norm_silu_reference(xs, ss, bs, *ctx.args)
+            dx, dscale, dbias = torch.autograd.grad(y, (xs, ss, bs), dy)
+        return dx, dscale, dbias, None, None, None, None
+
+
+def _group_norm_forward(x, scale, bias, num_groups, eps, silu, stats):
     if stats not in STATS_MODES:
         raise ValueError(f"stats={stats!r}, expected one of {STATS_MODES}")
     if x.device.type == "cpu":
@@ -104,3 +138,4 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     _lib.check(code, "dxmi_gn_forward")
     _lib.LAUNCHES["gn_silu_bf16" if bf16 else "gn_silu"] += 1
     return y
+

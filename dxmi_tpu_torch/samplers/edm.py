@@ -7,7 +7,10 @@ per-step noise ``log_betas`` initialised from log(clamp(sigma_up, 1e-3)),
 the 1e-4 sigma floor for the log-probability. The T-step loop is a Python
 loop of network forwards; samples are NCHW. Noise and labels come from an
 explicit ``torch.Generator`` or are injected (``x0``, per-step ``eps``, ``y``),
-which is how the tests hold the port against the JAX package.
+which is how the tests hold the port against the JAX package. ``sample``
+returns the per-step trajectory (``l_sample``, ``mean``, ``sigma``, ``logp``,
+``entropy``) that the trainers' buffer consumes; ``sample_step`` is the
+differentiable policy step of the sampler update.
 ``calibrate_quant`` calibrates the static int8 layers of the net.
 """
 from __future__ import annotations
@@ -88,6 +91,11 @@ class EDMSampler(nn.Module):
         self.log_betas = nn.Parameter(
             torch.log(torch.clamp(self.sigma_up, min=1e-3)))
 
+    @property
+    def betas_for_q_default(self) -> torch.Tensor:
+        """The trainer's q-process betas: sigmas^2 (``edm.py:110-113``)."""
+        return self.sigmas ** 2
+
     def sigmas_up_all(self) -> torch.Tensor:
         """Effective per-step injected-noise sigma (T,)."""
         if self.trainable_beta is False:
@@ -137,22 +145,29 @@ class EDMSampler(nn.Module):
             net.set_calibrating(False)
         net.prepare_int8()
 
-    def sample_step(self, x: torch.Tensor, t: int,
+    def sample_step(self, x: torch.Tensor, t: Union[int, torch.Tensor],
                     noise: Optional[torch.Tensor] = None,
                     y: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> Dict[str, torch.Tensor]:
-        """One Euler-ancestral step at sampling step ``t``: denoise, ODE step
-        to sigma_down, add sigma_up noise. Returns sample, mean, control
-        (B, C, H, W) and sigma (clamped to >= 1e-4), logp, entropy (B,)."""
+                    generator: Optional[torch.Generator] = None,
+                    train: bool = False) -> Dict[str, torch.Tensor]:
+        """One Euler-ancestral step at sampling step ``t`` (an int, or one
+        step per row as a (B,) tensor): denoise, ODE step to sigma_down, add
+        sigma_up noise (``noise``, or drawn from ``generator``). Returns
+        sample, mean, control (B, C, H, W) and sigma (clamped to >= 1e-4),
+        logp, entropy (B,) (``edm.py:190-224``). Differentiable in the net
+        and in ``log_betas`` when called with gradients on; ``train`` puts
+        the net in training mode (dropout) for the call, as the JAX
+        package's ``train=True``."""
         B = x.shape[0]
-        sigma = self.sigmas[t].expand(B)
+        t = torch.as_tensor(t, device=self.sigmas.device).expand(B)
+        self.net.train(train)
+        sigma = self.sigmas[t]
         _, denoised = self.diffusion.denoise(self.net, x, sigma, y)
         sigma_b = sigma[:, None, None, None]
         d = (x - denoised) / sigma_b
         dt = (self.sigma_down[t] - sigma)[:, None, None, None]
         mu = x + d * dt
-        sigma_up = self.sigmas_up_all()[t].expand(B)
+        sigma_up = self.sigmas_up_all()[t]
         if noise is None:
             noise = torch.randn(x.shape, generator=generator, device=x.device,
                                 dtype=x.dtype)

@@ -1,0 +1,202 @@
+"""DxMI training of the class-conditional EDM sampler for ImageNet64 / LSUN
+with the port (``train_image_large.py:100-306``): UNetADM + EDMSampler +
+``DxMITrainerCond``, one iteration being
+
+    sample -> update_f_v -> update_sampler (full-buffer sweep)
+
+    python -m dxmi_tpu_torch.train_image_large --config configs/imagenet64/T10.yaml \
+        --dataset configs/imagenet64/imagenet64.yaml --run myrun --fake_data \
+        [--max_steps N] [--attn_impl flash|fused_train|einsum] \
+        [--up_impl phase|resize] [--gn_stats fp32|bf16_onepass] \
+        [--device cuda|cpu] [--any.dot.key value ...]
+
+The net keeps fp32 master parameters and computes in its config's dtype
+(bf16 under ``use_fp16``). Without ``training.pretrained_path`` on disk the
+net's weights are drawn from ``training.seed`` (``seeded_normal_``). The run
+directory ``results/<data.name>/<config name>/<run>`` gets ``config.yaml``
+and, at the end, ``sampler_last.pth`` and ``value_last.pth`` in the
+reference's format, which ``generate_large --sampler last`` reads. Each
+``log_every`` iterations it prints the JAX entry's line (d_loss,
+sampler_loss, it/s). Not ported yet (they raise): the ImageNet folder loader
+(use ``--fake_data``), FID during training, ``--wandb``, ``--resume``,
+``--data_workers`` and ``--save_state_every``.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dxmi_tpu_torch.config import (instantiate, load_yaml, merge,
+                                   parse_nested_args, parse_unknown_args,
+                                   save_yaml, to_yaml)
+from dxmi_tpu_torch.data.synthetic import structured_class_images
+from dxmi_tpu_torch.models.unet_adm import create_unet_adm, seeded_normal_
+from dxmi_tpu_torch.runtime import select_device
+from dxmi_tpu_torch.samplers import sample_chunked
+from dxmi_tpu_torch.samplers.edm import EDMSampler, KarrasDenoiser
+from dxmi_tpu_torch.trainers import buffer as buflib
+from dxmi_tpu_torch.utils.checkpoint import (load_sampler_state,
+                                             save_run_checkpoint)
+
+
+def build_sampler(cfg: Dict[str, Any], device: torch.device, seed: int,
+                  attn_impl: Optional[str] = None,
+                  up_impl: Optional[str] = None,
+                  gn_stats: str = "fp32") -> EDMSampler:
+    """The config's EDMSampler on ``device`` with fp32 parameters: the
+    pretrained checkpoint when ``training.pretrained_path`` exists, else
+    weights drawn from ``seed``."""
+    dcfg = dict(cfg["diffusion"])
+    sigma_min = dcfg.pop("sigma_min", 0.002)
+    sigma_max = dcfg.pop("sigma_max", 80.0)
+    dcfg.pop("weight_schedule", None)
+    distillation = dcfg.pop("distillation", False)
+    with device:
+        net = create_unet_adm(**dcfg, attn_impl=attn_impl, up_impl=up_impl,
+                              gn_stats=gn_stats)
+        sampler = EDMSampler(net, KarrasDenoiser(sigma_min=sigma_min,
+                                                 sigma_max=sigma_max,
+                                                 distillation=distillation),
+                             **cfg["sampler"])
+    sampler.to(device)
+    path = cfg["training"].get("pretrained_path")
+    if path and os.path.exists(path):
+        sampler.load_state_dict(load_sampler_state(path), strict=False)
+        print(f"pretrained EDM loaded from {path}", flush=True)
+    else:
+        if path:
+            print(f"WARNING: pretrained ckpt {path} missing; random init "
+                  f"from seed {seed}", flush=True)
+        seeded_normal_(net, seed)
+    return sampler
+
+
+def fake_data(cfg: Dict[str, Any], sampler: EDMSampler, size: int,
+              batchsize: int, seed: int, device: torch.device
+              ) -> Iterator[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """Batches (x NCHW, y or None) drawn with replacement from the structured
+    class pool, as the JAX entry's ``--fake_data``."""
+    res = sampler.sample_shape[1]
+    pool_x, pool_y = structured_class_images(
+        max(size, batchsize), res, max(sampler.num_classes, 1), seed=seed)
+    pool_x = torch.from_numpy(np.ascontiguousarray(
+        pool_x.transpose(0, 3, 1, 2))).to(device)
+    pool_y = torch.from_numpy(pool_y.astype(np.int64)).to(device)
+    class_cond = bool(cfg["sampler"].get("class_cond"))
+    print(f"using structured fake data ({len(pool_x)} images)", flush=True)
+    rng = np.random.RandomState(seed)
+    while True:
+        idx = torch.from_numpy(rng.randint(0, len(pool_x), batchsize)).to(
+            device)
+        yield pool_x[idx], (pool_y[idx] if class_cond else None)
+
+
+def train_step(trainer, x: torch.Tensor, y: Optional[torch.Tensor],
+               generator: torch.Generator) -> Dict[str, Any]:
+    """One DxMI iteration; returns the metrics of both phases and each
+    phase's host seconds (after a device synchronize) under ``time/``."""
+    sync = (torch.cuda.synchronize if x.device.type == "cuda"
+            else (lambda: None))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        d_sample = sample_chunked(trainer.sampler, trainer.batchsize,
+                                  trainer.sample_chunks, generator)
+    traj = buflib.from_d_sample(d_sample)
+    sync()
+    t1 = time.perf_counter()
+    m_energy = trainer.update_f_v(x, traj, y=y)
+    sync()
+    t2 = time.perf_counter()
+    m_sampler = trainer.update_sampler(traj, generator=generator)
+    sync()
+    t3 = time.perf_counter()
+    return {**m_energy, **m_sampler, "time/sample": t1 - t0,
+            "time/update_f_v": t2 - t1, "time/update_sampler": t3 - t2}
+
+
+def main() -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--config", required=True)
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--run", default="run")
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--fake_data", action="store_true")
+    p.add_argument("--fake_data_size", type=int, default=1024)
+    p.add_argument("--up_impl", default=None, choices=["phase", "resize"])
+    p.add_argument("--gn_stats", default="fp32",
+                   choices=["fp32", "bf16_onepass"])
+    p.add_argument("--attn_impl", default=None,
+                   choices=["einsum", "flash", "fused_train"])
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--wandb", action="store_true")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--data_workers", type=int, default=None)
+    p.add_argument("--save_state_every", type=int, default=None)
+    args, unknown = p.parse_known_args()
+    for flag, on in (("--wandb", args.wandb), ("--resume", args.resume),
+                     ("--data_workers", args.data_workers is not None),
+                     ("--save_state_every",
+                      args.save_state_every is not None)):
+        if on:
+            raise NotImplementedError(f"{flag}: not ported yet (ROADMAP.md)")
+
+    cfg = merge(load_yaml(args.config), load_yaml(args.dataset),
+                parse_nested_args(parse_unknown_args(unknown)))
+    print(to_yaml(cfg), flush=True)
+    tr = cfg["training"]
+    seed = int(tr["seed"])
+    dev = select_device(args.device)
+    batchsize = int(tr["batchsize"])
+
+    sampler = build_sampler(cfg, dev, seed, args.attn_impl, args.up_impl,
+                            args.gn_stats)
+    with dev:
+        value = instantiate(cfg["value"])
+    value.to(dev)
+    trainer = instantiate(cfg["trainer"], batchsize=batchsize,
+                          n_timesteps=cfg["sampler"]["n_timesteps"])
+    trainer.set_models(sampler, value, lr=float(tr["lr"]),
+                       v_lr=float(tr["v_lr"]),
+                       beta_lr=float(tr.get("beta_lr") or tr["lr"]))
+
+    if not args.fake_data:
+        raise NotImplementedError("the ImageNet folder loader: not ported "
+                                  "yet (ROADMAP.md); pass --fake_data")
+    data = fake_data(cfg, sampler, args.fake_data_size, batchsize, seed, dev)
+    name = cfg["data"]["name"]
+    if tr.get("fid_every") and any(os.path.exists(f) for f in (
+            f"datasets/VIRTUAL_{name}_labeled.npz",
+            f"datasets/VIRTUAL_{name}.npz")):
+        raise NotImplementedError("FID during training: not ported yet "
+                                  "(ROADMAP.md); set training.fid_every None")
+
+    model_cfg_name = os.path.basename(args.config).split(".")[0]
+    logdir = os.path.join(f"results/{name}/{model_cfg_name}", args.run)
+    os.makedirs(logdir, exist_ok=True)
+    save_yaml(cfg, os.path.join(logdir, "config.yaml"))
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log_every = int(tr["log_every"])
+    n_iter = int(tr["n_iter"]) if args.max_steps is None else args.max_steps
+    t0 = time.time()
+    for i_iter in range(n_iter):
+        x, y = next(data)
+        m = train_step(trainer, x, y, gen)
+        if i_iter % log_every == 0:
+            ips = (i_iter + 1) / (time.time() - t0)
+            print(f"iter {i_iter} d_loss={float(m['ebm/d_loss_']):.4f} "
+                  f"sampler_loss={float(m['sampler/sampler_loss_']):.4f} "
+                  f"({ips:.3f} it/s)", flush=True)
+    save_run_checkpoint(logdir, "last", sampler, value,
+                        meta={"i_iter": n_iter})
+    print(f"nan-guard skips: {trainer.nan_guard_skips}", flush=True)
+    print("done", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,16 @@
 """Run-directory checkpoints in the reference's PyTorch format.
 
-The run directory holds ``config.yaml`` and ``sampler_{best,last}.pth``
-(``dxmi_tpu.utils.checkpoint.resolve_run_checkpoint`` also reads flax
-msgpack files; loading those is not ported yet).
+The run directory holds ``config.yaml``, ``sampler_{best,last}.pth`` and
+``value_{best,last}.pth`` (``dxmi_tpu.utils.checkpoint.resolve_run_checkpoint``
+also reads flax msgpack files; loading those is not ported yet).
+``save_run_checkpoint`` writes the ``{'state_dict': ...}`` files that the
+reference and ``load_sampler_state`` / ``load_value_state`` read; the full
+train state (optimizers, resume) is not ported yet.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -23,19 +26,45 @@ def resolve_run_checkpoint(log_dir: str, name: str, which: str) -> str:
         f"{name}.pth; msgpack checkpoints are not readable by the port yet)")
 
 
+def _state_dict_of(path: str) -> Dict[str, torch.Tensor]:
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    for container in ("state_dict", "model", "ema"):
+        if container in ckpt and isinstance(ckpt[container], dict):
+            return ckpt[container]
+    return ckpt
+
+
+def load_value_state(path: str) -> Dict[str, torch.Tensor]:
+    """A reference value checkpoint (``TimeIndependentValue`` state dict,
+    keys ``net.*``) as a state dict of the port's ``TimeIndependentValue``;
+    containers and ``module.`` prefixes are unwrapped."""
+    return {k.replace("module.", ""): v
+            for k, v in _state_dict_of(path).items()}
+
+
+def save_run_checkpoint(log_dir: str, which: str, sampler, value,
+                        meta: Optional[Dict] = None) -> None:
+    """Write ``sampler_{which}.pth`` (the network's keys without the
+    ``net.`` prefix, and ``log_betas``, as the reference's sampler files) and
+    ``value_{which}.pth`` (the value's own keys): fp32 tensors on the CPU
+    under ``state_dict``, with ``meta``'s entries beside it."""
+    os.makedirs(log_dir, exist_ok=True)
+    sampler_sd = {k[4:] if k.startswith("net.") else k: v
+                  for k, v in sampler.state_dict().items()}
+    for name, sd in (("sampler", sampler_sd), ("value", value.state_dict())):
+        sd = {k: v.detach().float().cpu() for k, v in sd.items()}
+        torch.save({"state_dict": sd, **(meta or {})},
+                   os.path.join(log_dir, f"{name}_{which}.pth"))
+
+
 def load_sampler_state(path: str) -> Dict[str, torch.Tensor]:
     """A reference sampler checkpoint as a state dict of the port's
     ``VARSampler``: network weights under ``net.``, plus ``log_betas`` when
     the file has them. Container keys (``state_dict``/``model``/``ema``) and
     ``module.`` prefixes are unwrapped; the reference's ``std`` buffer is
     dropped (the port pins the last sigma itself)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    for container in ("state_dict", "model", "ema"):
-        if container in ckpt and isinstance(ckpt[container], dict):
-            ckpt = ckpt[container]
-            break
     out = {}
-    for key, val in ckpt.items():
+    for key, val in _state_dict_of(path).items():
         key = key.replace("module.", "")
         if key == "std":
             continue

@@ -7,6 +7,9 @@ module names go back to the reference's dotted paths, GroupNorm
 back to (O, I, kh, kw), dense kernels (I, O) back to (O, I) and embedding
 tables to ``weight``. ``adm_quant_scales_from_flax`` carries the JAX net's
 calibrated ``quant_scales`` collection into the port's scale buffers.
+``igebm_from_flax`` and ``value_from_flax`` invert ``convert_igebm`` and
+``wrap_value_params`` (``dxmi_tpu/utils/convert.py:168-275``); the port's
+value state dicts are the reference ``value.pth`` layout.
 """
 from __future__ import annotations
 
@@ -125,3 +128,34 @@ def edm_sampler_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     out["log_betas"] = torch.from_numpy(
         np.asarray(params["log_betas"], dtype=np.float32))
     return out
+
+
+def igebm_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``IGEBMEncoder`` from the JAX
+    ``IGEBMEncoder`` params (numpy leaves; a ``{'params': ...}`` wrapper is
+    accepted): ``block_<i>`` -> ``blocks.<i>``, ``skip`` -> ``skip.0``,
+    ``class_embed/embedding`` -> ``class_embed.weight``."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for path, val in _leaves(params):
+        *mods, leaf = path
+        mods = [re.sub(r"^block_(\d+)$", r"blocks.\1", m) for m in mods]
+        if mods[-1] == "skip":
+            mods.append("0")
+        if leaf == "kernel":
+            name = "weight"
+            val = val.transpose(3, 2, 0, 1) if val.ndim == 4 else val.T
+        elif leaf in ("bias", "embedding"):
+            name = "bias" if leaf == "bias" else "weight"
+        else:
+            raise ValueError(f"unhandled flax leaf {'/'.join(path)}")
+        out[".".join([*mods, name])] = torch.from_numpy(np.array(val))
+    return out
+
+
+def value_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``TimeIndependentValue`` from the JAX value
+    params ``{'net': <IGEBMEncoder params>}`` (a ``{'params': ...}`` wrapper
+    is accepted)."""
+    params = params.get("params", params)
+    return {f"net.{k}": v for k, v in igebm_from_flax(params["net"]).items()}

@@ -1,12 +1,16 @@
 """The card checks of the attention kernels (chip_smoke.attn_bf16_check for
 K2's bf16 form, chip_smoke.flash_check for K4, chip_smoke.attn_i8_check for
-K5), held on the CPU against replicas of the kernels' arithmetic: each check
-passes a replica that sums in another order (K2: float64 sums; K4: the
+K5, chip_smoke.flash_bwd_check for K4-dkv and K4-dq,
+chip_smoke.attn_bwd_check for K6), held on the CPU against replicas of the
+kernels' arithmetic: each check passes a replica that sums in another order
+(K2: float64 sums; K4: the
 kernel's online softmax over 64-key tiles, p rounded before it is
 normalised; K5: float64 GN statistics and K4's core or a float64 one) and
 fails the same replica with a fault planted (a dropped 64-key tile, a q/k
 scale a few percent off, uniform attention weights; for K5 the neighbouring
-column's dequantisation scale and a missing clip)."""
+column's dequantisation scale and a missing clip; for the backward kernels
+dk and dv swapped, di left out, dgs and dgb swapped, a missing GroupNorm
+backward term)."""
 import math
 
 import numpy as np
@@ -203,3 +207,144 @@ def test_attn_i8_check_fails_planted_fault(S, C, nh, dtype, fault):
         attn_i8_check(_i8_replica(*a, nh, fault),
                       attn_block_int8_plain(*a, num_heads=nh), a[0], a[3],
                       "replica")
+
+
+# ---- the backward kernels: chip_smoke.flash_bwd_check (K4-dkv, K4-dq) and
+# chip_smoke.attn_bwd_check (K6) -------------------------------------------
+
+
+def _flash_bwd_replica(qkv, o, lse, do, sm, fault=None):
+    """K4's backward with float64 sums (another order than the plain
+    version's fp32), rounding p and ds to bf16 where the kernels do."""
+    q, k, v = (t.double() for t in qkv.unbind(2))
+    dof = do.double()
+    di = (o.double() * dof).sum(-1).permute(0, 2, 1)
+    if fault == "no_di":
+        di = torch.zeros_like(di)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm
+    p = torch.exp(logits - lse.double()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v)
+    ds = ((dp - di[..., None]) * p * sm).to(BF16).double()
+    pb = p.to(BF16).double()
+    if fault == "drop":
+        pb[..., 64:128] = 0
+        ds[..., 64:128] = 0
+    dv = torch.einsum("bhqk,bqhd->bkhd", pb, dof)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    if fault == "swap":
+        dk, dv = dv, dk
+    return torch.stack([dq, dk, dv], dim=2).to(BF16)
+
+
+def _flash_bwd_case(seed, S=512, nh=2, d=64):
+    from dxmi_tpu_torch.ops.attention import flash_mha_fwd
+
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(1, S, 3, nh, d, generator=g).to(BF16)
+    o, lse = flash_mha_fwd(qkv, d ** -0.5)
+    return qkv, o, lse, torch.randn(1, S, nh, d, generator=g).to(BF16), \
+        d ** -0.5
+
+
+@pytest.mark.parametrize("fault", [None, "swap", "drop", "no_di"])
+def test_flash_bwd_check(fault):
+    """The float64-order replica passes every gradient's gate; with dk and
+    dv swapped, a dropped 64-key tile or di left out, some gradient
+    fails."""
+    from chip_smoke import flash_bwd_check
+    from dxmi_tpu_torch.ops.attention import flash_mha_reference_bwd
+
+    qkv, o, lse, do, sm = _flash_bwd_case(11)
+    ref = flash_mha_reference_bwd(qkv, o, lse, do, sm)
+    got = _flash_bwd_replica(qkv, o, lse, do, sm, fault)
+
+    def check():
+        for i in range(3):
+            flash_bwd_check(got[:, :, i], ref[:, :, i], f"grad {i}")
+
+    if fault is None:
+        check()
+    else:
+        with pytest.raises(AssertionError):
+            check()
+
+
+def _attn_bwd_replica(x, ct, gs, gb, wq, bq, wp, nh, fault=None, eps=1e-5):
+    """K6 as the kernel computes it: two-pass GroupNorm statistics (the
+    plain version's are one-pass), float64 sums, rounding to the element
+    type where the kernel rounds."""
+    dt = x.dtype
+    B, S, C = x.shape
+    d, cg = C // nh, C // GROUPS
+    xf, ctf = x.double(), ct.double()
+    g = xf.reshape(B, S, GROUPS, cg)
+    mean = g.mean(dim=(1, 3))
+    inv = torch.rsqrt((g - mean[:, None, :, None]).square().mean(dim=(1, 3))
+                      + eps)
+    mean_c = mean.repeat_interleave(cg, 1)[:, None]
+    inv_c = inv.repeat_interleave(cg, 1)[:, None]
+    hp = (xf - mean_c) * inv_c
+    h = (hp * gs.double() + gb.double()).to(dt)
+    qkv = (h.double() @ wq.double()).to(dt) + bq.to(dt)
+    da = (ctf @ wp.double().t()).to(dt).double()
+    scale = torch.tensor(1.0 / math.sqrt(math.sqrt(d)), dtype=dt)
+    sf = float(torch.tensor(1.0 / math.sqrt(math.sqrt(d))))
+    qkv = qkv.reshape(B, S, 3, nh, d)
+    qs, ks, vh = ((qkv[:, :, 0] * scale).double(),
+                  (qkv[:, :, 1] * scale).double(), qkv[:, :, 2].double())
+    dah = da.reshape(B, S, nh, d)
+    w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qs, ks), dim=-1)
+    if fault == "drop":
+        w[..., 64:128] = 0
+    wb = w.to(dt).double()
+    a = torch.einsum("bhqk,bkhd->bqhd", wb, vh).to(dt).double()
+    dv = torch.einsum("bhqk,bqhd->bkhd", wb, dah)
+    dwt = torch.einsum("bqhd,bkhd->bhqk", dah, vh)
+    dlg = (w * (dwt - (dwt * w).sum(-1, keepdim=True))).to(dt).double()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dlg, ks) * sf
+    dk = torch.einsum("bhqk,bqhd->bkhd", dlg, qs) * sf
+    gq = torch.stack([dq, dk, dv], dim=2).reshape(B, S, 3 * C)
+    gqb = gq.to(dt).double()
+    dh = gqb @ wq.double().t()
+    dhp = dh * gs.double()
+    g1 = dhp.reshape(B, S, GROUPS, cg).mean(dim=(1, 3))
+    g2 = (dhp * hp).reshape(B, S, GROUPS, cg).mean(dim=(1, 3))
+    g1c = g1.repeat_interleave(cg, 1)[:, None]
+    g2c = g2.repeat_interleave(cg, 1)[:, None]
+    if fault == "no_gn_term":
+        g2c = torch.zeros_like(g2c)
+    if fault == "no_gn_mean":
+        g1c = torch.zeros_like(g1c)
+    dx = ctf + inv_c * (dhp - g1c - hp * g2c)
+    dgs, dgb = (dh * hp).sum((0, 1)), dh.sum((0, 1))
+    if fault == "swap_gs_gb":
+        dgs, dgb = dgb, dgs
+    out = (dx.to(dt), dgs, dgb,
+           torch.einsum("bsc,bsj->cj", h.double(), gqb), gq.sum((0, 1)),
+           torch.einsum("bsc,bsj->cj", a.reshape(B, S, C), ctf),
+           ctf.sum((0, 1)))
+    return (out[0],) + tuple(t.float() for t in out[1:])
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+@pytest.mark.parametrize("fault", [None, "swap_gs_gb", "no_gn_term",
+                                   "no_gn_mean", "drop"])
+def test_attn_bwd_check(dtype, fault):
+    """The kernel-order replica passes K6's gate in bf16 and fp32; with dgs
+    and dgb swapped, either term of the GroupNorm backward missing (hp
+    mean(dhp hp), mean(dhp)) or a dropped 64-key tile, it fails."""
+    from chip_smoke import attn_bwd_check
+    from dxmi_tpu_torch.ops.attn_block import attn_block_bwd_reference
+
+    x, gs, gb, wq, bq, wp, _ = _attn_inputs(256, 128, 12)
+    x, wq, bq, wp = (t.to(dtype) for t in (x, wq, bq, wp))
+    g = torch.Generator().manual_seed(13)
+    ct = (torch.randn(x.shape, generator=g) + 0.5).to(dtype)
+    refs = attn_block_bwd_reference(x, ct, gs, gb, wq, bq, wp, 2)
+    outs = _attn_bwd_replica(x, ct, gs, gb, wq, bq, wp, 2, fault)
+    if fault is None:
+        attn_bwd_check(outs, refs, dtype, "replica")
+    else:
+        with pytest.raises(AssertionError):
+            attn_bwd_check(outs, refs, dtype, "replica")

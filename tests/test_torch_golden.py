@@ -14,9 +14,11 @@ import torch
 from dxmi_tpu_torch.config import instantiate, load_yaml
 from dxmi_tpu_torch.generate_cifar10 import load_sampler
 from dxmi_tpu_torch.models.unet_small import UNetSmall
+from dxmi_tpu_torch.models.value import TimeIndependentValue
 from dxmi_tpu_torch.samplers import sample_chunked
 from dxmi_tpu_torch.samplers.var import VARSampler
 from dxmi_tpu_torch.utils.checkpoint import (load_sampler_state,
+                                             load_value_state,
                                              resolve_run_checkpoint)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,12 +33,23 @@ def rundir():
 
 
 def test_config_builds_port_modules(rundir):
-    cfg, _, _ = rundir
+    """The run dir's config builds the port's sampler and (since the value
+    nets are ported) its value, which loads value_best.pth and gives the
+    reference's v_out on the final samples (test_golden_fixture.py's
+    limits)."""
+    cfg, golden, _ = rundir
     sampler = instantiate(cfg["sampler"], net=instantiate(cfg["sampler_net"]))
     assert isinstance(sampler, VARSampler)
     assert isinstance(sampler.net, UNetSmall)
-    with pytest.raises(KeyError):
-        instantiate(cfg["value"])
+    value = instantiate(cfg["value"])
+    assert isinstance(value, TimeIndependentValue)
+    value.load_state_dict(load_value_state(os.path.join(FIXTURE,
+                                                        "value_best.pth")))
+    with torch.no_grad():
+        out = value(torch.from_numpy(golden["final"]), torch.full((8,), 9))
+    np.testing.assert_allclose(out.numpy().reshape(-1),
+                               golden["v_out"].reshape(-1), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_log_betas_roundtrip(rundir):

@@ -11,8 +11,11 @@ block is held by chip_smoke.attn_bf16_check (the JAX package's own bf16
 criterion and an element-wise limit on the attention part), flash
 attention by chip_smoke.flash_check (a per-row limit), the int8 attention
 block by chip_smoke.attn_i8_check (a base limit, and one int8 level for the
-few elements a rounding flip reached), and the int8 conv exactly (its int32
-sums are exact and its quantise and epilogue elementwise).
+few elements a rounding flip reached), the int8 conv exactly (its int32
+sums are exact and its quantise and epilogue elementwise), and the backward
+kernels by chip_smoke.flash_bwd_check (K4-dkv, K4-dq) and
+chip_smoke.attn_bwd_check (K6); their autograd functions against autograd
+through the plain forwards.
 """
 import numpy as np
 import pytest
@@ -256,3 +259,128 @@ def test_int8_forms_raise(card):
         quant.int8_conv_static(x, torch.ones(3, 3, 48, 32, device=card), None,
                                torch.ones(48, device=card))
     assert not _lib.LAUNCHES
+
+
+# ---- the training slice: K4-dkv, K4-dq, K6 and their autograd functions ----
+
+
+@pytest.mark.parametrize("B,S,nh,d", [(4, 1024, 6, 64), (2, 512, 2, 64),
+                                      (2, 512, 4, 32)])
+def test_flash_backward(card, B, S, nh, d):
+    from chip_smoke import flash_bwd_check
+    from dxmi_tpu_torch.ops.attention import (flash_mha_bwd, flash_mha_fwd,
+                                              flash_mha_reference_bwd)
+
+    g = torch.Generator(device=card).manual_seed(0)
+    qkv = torch.randn(B, S, 3, nh, d, generator=g, device=card).bfloat16()
+    do = torch.randn(B, S, nh, d, generator=g, device=card).bfloat16()
+    o, lse = flash_mha_fwd(qkv, d ** -0.5)
+    got = flash_mha_bwd(qkv, o, lse, do, d ** -0.5)
+    ref = flash_mha_reference_bwd(qkv, o, lse, do, d ** -0.5)
+    for i in range(3):
+        flash_bwd_check(got[:, :, i], ref[:, :, i], f"grad {i}")
+    assert torch.equal(got, flash_mha_bwd(qkv, o, lse, do, d ** -0.5))
+    assert _lib.LAUNCHES["flash_attn_bwd_dkv"] == 2
+    assert _lib.LAUNCHES["flash_attn_bwd_dq"] == 2
+
+
+def test_flash_autograd_matches_plain_autograd(card):
+    """FlashAttention's gradients against autograd through the plain forward
+    (whose backward is PyTorch's own): the same function, differing by
+    the roundings of p, ds and the bf16 gradients."""
+    from dxmi_tpu_torch.ops.attention import flash_mha, flash_mha_reference
+
+    g = torch.Generator(device=card).manual_seed(1)
+    qkv = torch.randn(2, 1024, 3, 6, 64, generator=g, device=card).bfloat16()
+    do = torch.randn(2, 1024, 6, 64, generator=g, device=card).bfloat16()
+    a = qkv.clone().requires_grad_(True)
+    ga, = torch.autograd.grad(flash_mha(*a.unbind(2), 0.125), a, do)
+    b = qkv.float().requires_grad_(True)
+    gb, = torch.autograd.grad(flash_mha_reference(*b.unbind(2), 0.125), b,
+                              do.float())
+    rel = ((ga.float() - gb).abs().mean() / gb.abs().mean()).item()
+    assert rel < 2e-2, rel
+    assert _lib.LAUNCHES["flash_attn"] == 1
+
+
+@pytest.mark.parametrize("B,S,C,nh,dtype", [
+    (4, 1024, 384, 6, torch.bfloat16), (8, 256, 576, 9, torch.bfloat16),
+    (8, 64, 768, 12, torch.bfloat16), (8, 64, 64, 2, torch.float32),
+    (2, 128, 96, 3, torch.float32)])
+def test_attn_block_backward(card, B, S, C, nh, dtype):
+    from chip_smoke import attn_bwd_check
+    from dxmi_tpu_torch.ops.attn_block import (attn_block_bwd,
+                                               attn_block_bwd_reference)
+
+    rs = np.random.RandomState(2)
+    x, ct, gs, gb, wq, bq, wp = _tensors(
+        rs, card, ((B, S, C), 2.0, 0.5), ((B, S, C), 1.0, 0.5),
+        ((C,), 0.1, 1.0), ((C,), 0.1, 0.0), ((C, 3 * C), C ** -0.5, 0.0),
+        ((3 * C,), 0.1, 0.0), ((C, C), C ** -0.5, 0.0))
+    args = (x.to(dtype), ct.to(dtype), gs, gb, wq.to(dtype), bq.to(dtype),
+            wp.to(dtype))
+    outs = attn_block_bwd(*args, nh)
+    attn_bwd_check(outs, attn_block_bwd_reference(*args, nh), dtype, "K6")
+    assert all(torch.equal(a, b) for a, b in zip(outs,
+                                                  attn_block_bwd(*args, nh)))
+
+
+def test_fused_train_autograd_matches_plain_autograd(card):
+    """FusedAttnBlockTrain (K2 forward, K6 backward) with fp32 master
+    parameters against autograd through the fp32 plain forward: the fp32
+    block within the JAX package's 5e-4 limits."""
+    from dxmi_tpu_torch.ops.attn_block import (attn_block_reference,
+                                               fused_attn_block_train)
+
+    rs = np.random.RandomState(3)
+    B, S, C, nh = 4, 64, 64, 2
+    params = _tensors(rs, card, ((B, S, C), 2.0, 0.5), ((C,), 0.1, 1.0),
+                      ((C,), 0.1, 0.0), ((C, 3 * C), C ** -0.5, 0.0),
+                      ((3 * C,), 0.1, 0.0), ((C, C), C ** -0.5, 0.0),
+                      ((C,), 0.1, 0.0))
+    ct = torch.randn(B, S, C, device=card)
+    a = [t.clone().requires_grad_(True) for t in params]
+    ga = torch.autograd.grad(fused_attn_block_train(*a, num_heads=nh), a, ct)
+    b = [t.clone().requires_grad_(True) for t in params]
+    gb = torch.autograd.grad(attn_block_reference(*b, num_heads=nh), b, ct)
+    for x, y in zip(ga, gb):
+        torch.testing.assert_close(x, y, rtol=5e-4, atol=5e-4)
+    assert _lib.LAUNCHES["attn_block"] == 1
+    assert _lib.LAUNCHES["attn_block_bwd"] == 1
+
+
+def test_group_norm_autograd(card):
+    """K1 forward with the plain version's gradient on the card."""
+    rs = np.random.RandomState(4)
+    x, s, b = _tensors(rs, card, ((4, 256, 192), 2.0, 0.5), ((192,), 0.1, 1.0),
+                       ((192,), 0.1, 0.0))
+    x = x.bfloat16().requires_grad_(True)
+    s.requires_grad_(True)
+    y = group_norm(x, s, b, 32, 1e-5, True, "bf16_onepass")
+    gy = torch.randn_like(y)
+    got = torch.autograd.grad(y, (x, s), gy)
+    x2 = x.detach().requires_grad_(True)
+    s2 = s.detach().requires_grad_(True)
+    want = torch.autograd.grad(group_norm_silu_reference(
+        x2, s2, b, 32, 1e-5, True, "bf16_onepass"), (x2, s2), gy)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    assert _lib.LAUNCHES["gn_silu_bf16"] == 1
+
+
+def test_backward_forms_raise(card):
+    from dxmi_tpu_torch.ops.attention import flash_mha_fwd
+    from dxmi_tpu_torch.ops.attn_block import attn_block_bwd
+
+    with pytest.raises(NotImplementedError):
+        flash_mha_fwd(torch.zeros(1, 512, 3, 2, 64, device=card), 0.125)
+    with pytest.raises(NotImplementedError):
+        flash_mha_fwd(torch.zeros(1, 512, 3, 1, 128, device=card,
+                                  dtype=torch.bfloat16), 0.125)
+    x = torch.zeros(1, 64, 256, device=card)
+    with pytest.raises(NotImplementedError):
+        attn_block_bwd(x, x, torch.ones(256, device=card),
+                       torch.zeros(256, device=card),
+                       torch.zeros(256, 768, device=card),
+                       torch.zeros(768, device=card),
+                       torch.zeros(256, 256, device=card), 2)

@@ -316,15 +316,20 @@ def test_adm_fixture_rollout(adm_rundir):
 
 
 def test_unported_options_raise():
-    """int8 is ported (quant_int8 'static' and True build); gradient
-    checkpointing is not, and an unknown int8 mode is refused."""
+    """int8 is ported (quant_int8 'static' and True build) and so is
+    gradient checkpointing (tests/test_torch_unet_adm_train.py holds its
+    gradients); an unknown int8 mode is refused, and so is
+    conv_resample=False, which is not ported."""
     net = create_unet_adm(16, 32, 1, channel_mult="1,2", quant_int8="static",
                           attn_impl="fused")
     assert any(isinstance(m, QConv) for m in net.modules())
-    with pytest.raises(NotImplementedError):
-        create_unet_adm(16, 32, 1, use_checkpoint=True)
+    assert create_unet_adm(16, 32, 1, channel_mult="1,2",
+                           use_checkpoint=True).use_checkpoint
     with pytest.raises(ValueError):
         create_unet_adm(16, 32, 1, quant_int8="dynamic")
+    with pytest.raises(NotImplementedError):
+        UNetADM(16, model_channels=32, num_res_blocks=1, channel_mult=(1, 2),
+                conv_resample=False)
 
 
 def _cli(*args):

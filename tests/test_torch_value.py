@@ -1,0 +1,105 @@
+"""The value nets: the port's ``IGEBMEncoder`` and ``TimeIndependentValue``
+against ``dxmi_tpu.models.igebm`` / ``value`` on the ADM fixture's
+``value.pth`` (the reference ``IGEBMEncoderV2`` layout, loaded by the port
+as it is and by JAX through its converter), the flax -> port converter,
+class-conditional FiLM, and the spectral-norm option that is not ported."""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dxmi_tpu.models.igebm import IGEBMEncoder as JaxIGEBM
+from dxmi_tpu.models.value import TimeIndependentValue as JaxValue
+from dxmi_tpu.utils import checkpoint as jax_ckpt
+from dxmi_tpu_torch.config import instantiate, load_yaml
+from dxmi_tpu_torch.models.igebm import IGEBMEncoder
+from dxmi_tpu_torch.models.value import TimeIndependentValue
+from dxmi_tpu_torch.utils.checkpoint import load_value_state
+from dxmi_tpu_torch.utils.convert import igebm_from_flax, value_from_flax
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                       "torch_rundir_adm_t10")
+
+
+def _fixture_value():
+    cfg = load_yaml(os.path.join(FIXTURE, "config.yaml"))
+    value = instantiate(cfg["value"])
+    value.load_state_dict(load_value_state(os.path.join(FIXTURE,
+                                                        "value.pth")))
+    return cfg, value
+
+
+def test_fixture_value_matches_jax():
+    """The reference value.pth in both frameworks, on images and labels:
+    fp32 within 1e-5 relative of the output's scale (3e-7 measured)."""
+    cfg, value = _fixture_value()
+    ckpt, _ = jax_ckpt.load_run_checkpoint(FIXTURE, "value", "last",
+                                           torch_kind="value")
+    vcfg = {k: v for k, v in cfg["value"]["net"].items() if k != "_target_"}
+    jvalue = JaxValue(net=JaxIGEBM(**vcfg))
+    rs = np.random.RandomState(0)
+    x = rs.randn(4, 3, 16, 16).astype(np.float32)
+    t = np.arange(4)
+    y = rs.randint(0, 4, 4)
+    ref = np.asarray(jvalue.apply({"params": jax.tree.map(
+        jnp.asarray, ckpt["params"])}, jnp.asarray(x.transpose(0, 2, 3, 1)),
+        jnp.asarray(t), jnp.asarray(y)))
+    with torch.no_grad():
+        ours = value(torch.from_numpy(x), torch.from_numpy(t),
+                     torch.from_numpy(y)).numpy()
+    assert ours.shape == ref.shape == (4, 1)
+    np.testing.assert_allclose(ours, ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+def test_flax_params_convert_to_the_reference_layout():
+    """value_from_flax inverts dxmi_tpu's convert_igebm + wrap_value_params:
+    the fixture's value.pth round-trips to its own keys and values."""
+    ckpt, _ = jax_ckpt.load_run_checkpoint(FIXTURE, "value", "last",
+                                           torch_kind="value")
+    back = value_from_flax(jax.tree.map(np.asarray, ckpt["params"]))
+    want = load_value_state(os.path.join(FIXTURE, "value.pth"))
+    assert set(back) == set(want)
+    for k in want:
+        torch.testing.assert_close(back[k], want[k], rtol=0, atol=0, msg=k)
+
+
+def test_class_conditional_encoder_matches_jax():
+    """n_class FiLM blocks (no conv biases, embeddings), keepdim head:
+    a JAX init converted with igebm_from_flax gives the same outputs."""
+    jnet = JaxIGEBM(in_chan=3, out_chan=2, n_class=5, keepdim=True,
+                    avg_pool_dim=2, nh=8, learn_out_scale=False)
+    rs = np.random.RandomState(1)
+    x = rs.randn(3, 16, 16, 3).astype(np.float32)
+    y = np.array([0, 4, 2])
+    params = jnet.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(y))
+    # move the FiLM embeddings off their (1, 0) init so the test sees them
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, v: v + 0.1 * jax.random.normal(jax.random.key(len(str(p))),
+                                                 v.shape)
+        if "class_embed" in str(p) else v, params)
+    ref = np.asarray(jnet.apply(params, jnp.asarray(x), jnp.asarray(y)))
+    net = IGEBMEncoder(in_chan=3, out_chan=2, n_class=5, keepdim=True,
+                       avg_pool_dim=2, nh=8)
+    net.load_state_dict(igebm_from_flax(jax.tree.map(np.asarray, params)))
+    with torch.no_grad():
+        ours = net(torch.from_numpy(x.transpose(0, 3, 1, 2)),
+                   torch.from_numpy(y)).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_spectral_norm_raises():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        IGEBMEncoder(use_spectral_norm=True)
+
+
+def test_time_is_ignored():
+    _, value = _fixture_value()
+    x = torch.randn(2, 3, 16, 16)
+    with torch.no_grad():
+        torch.testing.assert_close(value(x, torch.tensor([0, 1])),
+                                   value(x, torch.tensor([9, 3])))
+    assert isinstance(value, TimeIndependentValue)
