@@ -12,9 +12,10 @@ failure exits non-zero naming the phase:
      per source, all started together) and print -Xptxas -v (registers,
      shared memory, spills);
   K  hold each kernel against its plain PyTorch version at the full-width
-     CIFAR-10 and ImageNet64 shapes (K5 also at LSUN's C=1024 maps; the
-     backward kernels K4-dkv, K4-dq and K6 at the ImageNet64 maps and K6
-     also at the ADM fixture's fp32 shape);
+     CIFAR-10 and ImageNet64 shapes (K5 also at LSUN's C=1024 maps; K4's
+     logsumexp, the backward kernels K4-dkv, K4-dq and K6 at the ImageNet64
+     maps at E3's batch 128, K4-dkv/dq also chained from the plain forward,
+     and K6 also at the ADM fixture's fp32 shape);
   T  time each kernel, its plain version and one PyTorch library call with
      CUDA events;
   G  replay the trained reference fixture (tests/fixtures/torch_rundir_t10)
@@ -40,7 +41,8 @@ failure exits non-zero naming the phase:
      seeded random weights, the structured fake pool): 3 steps with flash
      attention (K4 forward, K4-dkv, K4-dq) and 3 with fused_train (K2, K6),
      checking the launches per step, finite metrics and no skipped update,
-     and the first minibatch's gradient by einsum, flash and fused_train;
+     and the first minibatch's gradient by einsum, flash and fused_train,
+     whole and per group of the attention blocks' parameters;
   C  run the generation CLIs (generate_cifar10, generate_large with and
      without --int8) as subprocesses on the fixture run dirs with
      --save_npz, and hold each npz to the in-process samples; then
@@ -70,15 +72,20 @@ from dxmi_tpu_torch import generate_large, train_image_large
 from dxmi_tpu_torch.config import instantiate, load_yaml, merge
 from dxmi_tpu_torch.generate_cifar10 import (generate, load_sampler,
                                              sample_batches, to_uint8)
+from dxmi_tpu_torch.models.unet_adm import AttentionBlockADM
 from dxmi_tpu_torch.ops import _lib
 from dxmi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
                                           flash_mha, flash_mha_bwd,
                                           flash_mha_fwd,
                                           flash_mha_reference,
                                           flash_mha_reference_bwd,
+                                          flash_mha_reference_fwd,
                                           flash_reference_dkv,
                                           flash_reference_dq)
-from dxmi_tpu_torch.ops.attn_block import (attn_block, attn_block_bwd,
+from dxmi_tpu_torch.ops.attn_block import (BWD_MAX_SLICES,
+                                           BWD_ROWS_PER_CHUNK,
+                                           BWD_ROWS_PER_SLICE, attn_block,
+                                           attn_block_bwd,
                                            attn_block_bwd_reference,
                                            attn_block_int8,
                                            attn_block_int8_plain,
@@ -557,58 +564,98 @@ def flash_case(gen, B, S, nh, d):
 # ---- the training slice: K4-dkv, K4-dq, K6, G3, E3 -----------------------
 
 TRAIN_BATCH = 128  # training.batchsize of configs/imagenet64/T10.yaml
+# Phase K holds the backward kernels at E3's shapes (batch 128), where K6's
+# wrapper takes 32, 8 and 2 slices of the rows for its weight GEMMs and
+# 128, 32 and 8 chunks for its bias sums at the 32x32, 16x16 and 8x8 maps.
+#
+# K4's logsumexp (the training residual of the forward) against the plain
+# version's, fp32: |kernel - plain| <= FLASH_LSE_ATOL. Both take
+# lse = m + log(sum exp(s - m)) over fp32 logits s of bf16 q, k, and differ
+# by the order of the fp32 sums: a logit (64 exact products) by at most
+# 64 * 2^-24 * sum |q k| * sm_scale, about 2e-5 at these inputs, and the
+# sum of 1024 terms in [0, 1] by at most 1024 * 2^-24 = 6e-5 of itself, so
+# 6e-5 in lse; 1e-4 holds both (1.4e-6 measured on the H100, 9.5e-7 on a
+# CPU replica of the kernel's sums). An ln/log2 unit slip moves lse (~7.4 here)
+# by 30% (about 2), one off by log 2 by 0.69, another row's value by the
+# rows' spread (~0.1) (tests/test_torch_chip_checks.py).
+FLASH_LSE_ATOL = 1e-4
 # K4-dkv and K4-dq on the card, against their plain versions at the 32x32
-# maps. Both follow the TPU bodies' roundings (p and ds rounded to bf16
-# before their products, fp32 sums, the gradients rounded once), so they
-# differ only by another order of the fp32 sums and exp: a rounding of p or
-# ds flips where a value lies at a bf16 boundary (rare), and the final
+# maps, from the kernel forward's o and lse (the same inputs on both sides).
+# Both follow the TPU bodies' roundings (p and ds rounded to bf16 before
+# their products, fp32 sums, the gradients rounded once), so they differ
+# only by another order of the fp32 sums and exp: a rounding of p or ds
+# flips where a value lies at a bf16 boundary (rare), and the final
 # rounding of a sum can land one ulp apart. Two gates per gradient: mean
-# |kernel - plain| / mean |plain| below 2^-10 (6.2e-8 measured on the
-# H100), and element by element at most two bf16 ulps of the larger of the
-# two plus 2^-5 mean |plain| (an element near zero that a flipped term
-# 2^-8 |p do| reached: 0.006 of the mean at worst between the plain
+# |kernel - plain| / mean |plain| below 2^-10 (3.4e-8 measured on the H100
+# at batch 128), and element by element at most two bf16 ulps of the larger
+# of the two plus 2^-5 mean |plain| (an element near zero that a flipped
+# term 2^-8 |p do| reached: 0.006 of the mean at worst between the plain
 # version and JAX's kernel on the CPU, tests/test_torch_flash_bwd.py). dk
 # and dv swapped, a dropped 64-key tile or di left out move the mean error
 # by 1/16 or more (tests/test_torch_chip_checks.py).
 FLASH_BWD_MEAN_REL = 2.0 ** -10
+# The chain: kernel forward and backward against the plain forward and
+# backward, so that a wrong logsumexp or o cannot pass by entering both
+# sides. K4 rounds p before it normalises, so about half of o's elements
+# lie one bf16 ulp from the plain o, and di = rowsum(o do) moves with
+# them: dq and dk move by 6.8e-4 of their mean on the CPU (a replica of
+# K4's forward, tests/test_torch_chip_checks.py test_flash_bwd_chain_check)
+# and on the H100, dv by 6e-6. The chain's gate is the mean alone, at 2^-8, almost six times
+# that; lse off by log 2 doubles p and every dv.
+FLASH_CHAIN_MEAN_REL = 2.0 ** -8
 # K6 on bf16: its recompute of h and qkv takes fp32 statistics in another
 # order (two-pass where the TPU body is one-pass), so a few elements of h,
 # qkv, w and dlg round the other way, and each moves the sums it enters by
 # 2^-8 of its term: mean |kernel - plain| / mean |plain| of each parameter
-# cotangent below 5e-3 (6.3e-4 at worst measured on the H100), of dx below
-# 1e-3 (1.7e-4: dx sums terms that both round alike), and max |kernel -
-# plain| below 2^-4 max |plain| (6.3e-3). The cotangent ct is drawn with a
-# mean (0.5) as a loss gives, so that the GroupNorm backward's mean terms
-# matter: without the hp mean(dhp hp) term dx moves by 1.7e-3 or more,
-# without mean(dhp) by 4e-2; dgs and dgb swapped or a dropped key tile move
-# a parameter cotangent by 10% or more (tests/test_torch_chip_checks.py).
-# On fp32: the JAX package's own limits for its backward kernel, 5e-4 +
-# 5e-4 |plain| (tests/test_attn_block.py:466).
+# cotangent below 5e-3 (3.8e-4 at worst measured on the H100 at batch
+# 128), of dx below 1e-3 (1.7e-4 at batch 16: dx sums terms that both
+# round alike), and max |kernel - plain| below 2^-4 max |plain| (6.3e-3 at
+# batch 16-32). The cotangent ct
+# is drawn with a mean (0.5) as a loss gives, so that the GroupNorm
+# backward's mean terms matter: without the hp mean(dhp hp) term dx moves
+# by 1.7e-3 or more, without mean(dhp) by 4e-2; dgs and dgb swapped or a
+# dropped key tile move a parameter cotangent by 10% or more
+# (tests/test_torch_chip_checks.py). On fp32: the JAX package's own limits
+# for its backward kernel, 5e-4 + 5e-4 |plain| (tests/test_attn_block.py:
+# 466).
 ATTN_BWD_BF16_MEAN_REL = 5e-3
 ATTN_BWD_BF16_DX_MEAN_REL = 1e-3
 ATTN_BWD_BF16_MAX_REL = 2.0 ** -4
 ATTN_BWD_FP32_TOL = 5e-4
 ATTN_BWD_NAMES = ("dx", "dgs", "dgb", "dw_qkv", "db_qkv", "dw_proj", "db_proj")
-FLASH_BWD_SHAPES = [(32, 1024, 6, 64)]
-ATTN_BWD_SHAPES = [(16, 1024, 384, 6, torch.bfloat16),
-                   (16, 256, 576, 9, torch.bfloat16),
-                   (32, 64, 768, 12, torch.bfloat16),
+FLASH_BWD_SHAPES = [(TRAIN_BATCH, 1024, 6, 64)]
+ATTN_BWD_SHAPES = [(TRAIN_BATCH, 1024, 384, 6, torch.bfloat16),
+                   (TRAIN_BATCH, 256, 576, 9, torch.bfloat16),
+                   (TRAIN_BATCH, 64, 768, 12, torch.bfloat16),
                    (8, 64, 64, 2, torch.float32)]
 
 
-def flash_bwd_check(out, ref, what):
-    """Hold one K4 gradient to its plain version (the gates above); returns
+def flash_lse_check(lse, ref, what):
+    """Hold K4's logsumexp to the plain version's; returns max abs err."""
+    err = (lse - ref).abs().max().item()
+    if not torch.isfinite(lse).all() or not err <= FLASH_LSE_ATOL:
+        raise AssertionError(f"{what}: logsumexp {err:.3e} from the plain "
+                             f"version's (tol {FLASH_LSE_ATOL:g})")
+    return err
+
+
+def flash_bwd_check(out, ref, what, mean_rel=FLASH_BWD_MEAN_REL,
+                    elementwise=True):
+    """Hold one K4 gradient to its plain version (the gates above; the
+    chain's: ``mean_rel=FLASH_CHAIN_MEAN_REL, elementwise=False``); returns
     (mean rel err, max abs err)."""
     out, ref = out.float(), ref.float()
     err = (out - ref).abs()
     rel = (err.mean() / ref.abs().mean()).item()
-    limit = (2 * bf16_ulp(torch.maximum(out.abs(), ref.abs()))
-             + 2.0 ** -5 * ref.abs().mean())
-    bad = int((err > limit).sum())
-    if not torch.isfinite(out).all() or rel >= FLASH_BWD_MEAN_REL or bad:
+    bad = 0
+    if elementwise:
+        limit = (2 * bf16_ulp(torch.maximum(out.abs(), ref.abs()))
+                 + 2.0 ** -5 * ref.abs().mean())
+        bad = int((err > limit).sum())
+    if not torch.isfinite(out).all() or not rel < mean_rel or bad:
         raise AssertionError(f"{what}: mean rel err {rel:.3e} (tol "
-                             f"{FLASH_BWD_MEAN_REL:.3e}), {bad} elements "
-                             "over the limit")
+                             f"{mean_rel:.3e}), {bad} elements over the "
+                             "limit")
     return rel, err.max().item()
 
 
@@ -657,19 +704,36 @@ def phase_kernels_train(gen, errs):
     """K for the backward kernels (adds to ``errs``)."""
     for shape in FLASH_BWD_SHAPES:
         qkv, o, lse, do, sm = flash_bwd_case(gen, *shape)
+        q, k, v = qkv.unbind(2)
+        o_p, lse_p = flash_mha_reference_fwd(q, k, v, sm)
+        lse_err = flash_lse_check(lse, lse_p, f"flash_attn lse {shape}")
+        _, share = flash_check(o, o_p, q, k, v, sm, f"flash_attn o {shape}")
+        print(f"  K flash_attn with logsumexp {shape}: lse max abs err "
+              f"{lse_err:.3e} (tol {FLASH_LSE_ATOL:g}); o at {share:.3f} of "
+              "its limit")
         got = flash_mha_bwd(qkv, o, lse, do, sm)
         ref = flash_mha_reference_bwd(qkv, o, lse, do, sm)
+        chain = flash_mha_reference_bwd(qkv, o_p, lse_p, do, sm)
+        del o_p, lse_p
         for i, name in ((1, "dk"), (2, "dv"), (0, "dq")):
-            rel, err = flash_bwd_check(got[:, :, i], ref[:, :, i],
-                                       f"flash_attn_bwd {name} {shape}")
+            what = f"flash_attn_bwd {name} {shape}"
+            rel, err = flash_bwd_check(got[:, :, i], ref[:, :, i], what)
+            crel, _ = flash_bwd_check(got[:, :, i], chain[:, :, i],
+                                      f"{what} chained",
+                                      mean_rel=FLASH_CHAIN_MEAN_REL,
+                                      elementwise=False)
             kernel = "flash_attn_bwd_dq" if i == 0 else "flash_attn_bwd_dkv"
             errs[kernel] = max(errs.get(kernel, 0.0), err)
             print(f"  K {kernel} {name} {shape}: mean rel err {rel:.3e} (tol "
-                  f"{FLASH_BWD_MEAN_REL:.3e}), max abs err {err:.3e}")
+                  f"{FLASH_BWD_MEAN_REL:.3e}), max abs err {err:.3e}; "
+                  f"chained from the plain forward {crel:.3e} (tol "
+                  f"{FLASH_CHAIN_MEAN_REL:.3e})")
+        del ref, chain
         again = flash_mha_bwd(qkv, o, lse, do, sm)
         if not torch.equal(got, again):
             raise AssertionError("flash_attn_bwd: a replay differs")
-        del qkv, o, lse, do, got, ref, again
+        del qkv, o, lse, do, got, again
+        torch.cuda.empty_cache()
     for B, S, C, nh, dt in ATTN_BWD_SHAPES:
         a = attn_bwd_case(gen, B, S, C, dt)
         outs = attn_block_bwd(*a, nh)
@@ -682,9 +746,14 @@ def phase_kernels_train(gen, errs):
         name = "attn_block_bwd_bf16" if dt == torch.bfloat16 \
             else "attn_block_bwd"
         errs[name] = max(errs.get(name, 0.0), err)
+        M = B * S
         print(f"  K {what}: worst mean rel err {rel:.3e}, max abs err "
               f"{err:.3e} over dx and the six parameter cotangents; replay "
-              "bit-equal")
+              f"bit-equal; "
+              f"{max(1, min(BWD_MAX_SLICES, M // BWD_ROWS_PER_SLICE))} "
+              f"slices, {-(-M // BWD_ROWS_PER_CHUNK)} chunks")
+        del a, outs, refs, again
+        torch.cuda.empty_cache()
 
 
 def train_time_rows(gen):
@@ -866,12 +935,25 @@ TRAIN_LAUNCHES_PER_STEP = {
 # The three differ by bf16 roundings placed differently (the einsum path
 # rounds its softmax to bf16, K2 and K4 keep it fp32; K2 and K6 recompute
 # GroupNorm in fp32): 0.0017-0.0020 of the gradient's norm pairwise on the
-# H100. The limit is ten times that; an attention gradient wired wrong moves
-# the whole gradient by the share that flows through the 22 blocks.
+# H100. Two gates per pair. (1) The whole gradient within E3_GRAD_REL, ten
+# times that. (2) Each group of the attention blocks' leaves (one leaf, e.g.
+# qkv.weight, over the blocks of one width, i.e. one map) within
+# E3_GROUP_REL of its own norm: a cotangent wired to the wrong input or
+# dropped moves its group by its whole norm, but the whole gradient only by
+# that group's share of it. On the CPU at a shrunken width in fp32
+# (tests/test_torch_chip_checks.py test_wiring_check) dk and dv swapped in
+# FlashAttention, dgs and dgb swapped and db_proj dropped in
+# FusedAttnBlockTrain read 1.57, 1.74 and 1.00 on their worst group, but
+# 0.047, 0.0081 and 0.0041 on the whole gradient (the last two pass gate
+# 1). E3_GROUP_REL is a quarter of the smallest group reading; at full
+# width in bf16 the worst group reads 0.0021 on the H100.
 E3_GRAD_REL = 0.02
+E3_GROUP_REL = 0.25
 # rows of the first minibatch in the wiring check (the einsum path holds bf16
 # logits of every 32x32 map for the backward)
 E3_GRAD_ROWS = 32
+E3_PAIRS = (("flash", "einsum"), ("fused_train", "einsum"),
+            ("fused_train", "flash"))
 
 
 def imagenet64_train_config():
@@ -880,13 +962,13 @@ def imagenet64_train_config():
         REPO, "configs", "imagenet64", "imagenet64.yaml")))
 
 
-def build_trainer(cfg, attn_impl, batchsize):
+def build_trainer(cfg, attn_impl, batchsize, device="cuda"):
     """The CLI's sampler (seed weights), value and DxMITrainerCond."""
     tr = cfg["training"]
     seed = int(tr["seed"])
     sampler = train_image_large.build_sampler(
-        cfg, torch.device("cuda"), seed, attn_impl=attn_impl)
-    with torch.device("cuda"):
+        cfg, torch.device(device), seed, attn_impl=attn_impl)
+    with torch.device(device):
         value = instantiate(cfg["value"])
     trainer = instantiate(cfg["trainer"], batchsize=batchsize,
                           n_timesteps=cfg["sampler"]["n_timesteps"])
@@ -896,30 +978,75 @@ def build_trainer(cfg, attn_impl, batchsize):
     return trainer
 
 
-def e3_grads(cfg, batchsize, rows):
-    """The first sampler minibatch's gradient (net and log_betas, fp32,
-    flattened) of the seed-0 state under each attention path, on the same
-    buffer rows, step noise and labels."""
+def e3_grads(cfg, batchsize, rows, device="cuda"):
+    """The first sampler minibatch's gradient (net and log_betas, fp32) of
+    the seed-0 state under each attention path, on the same buffer rows,
+    step noise and labels: {impl: [gradient per parameter]}, and each
+    attention-block parameter's group (``attention_groups``)."""
     grads = {}
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    trainer = build_trainer(cfg, "einsum", batchsize)
+    gen = torch.Generator(device=device).manual_seed(5)
+    trainer = build_trainer(cfg, "einsum", batchsize, device)
     with torch.no_grad():
         d = trainer.sampler.sample(rows, generator=gen)
     flat = from_d_sample(d).flat()
     idx = torch.randperm(flat["state"].shape[0], generator=gen,
-                         device="cuda")[:rows]
+                         device=device)[:rows]
     noise = torch.randn(flat["state"][idx].shape, generator=gen,
-                        device="cuda")
+                        device=device)
     for impl in ("einsum", "flash", "fused_train"):
         for m in trainer.sampler.net.modules():
             if hasattr(m, "attn_impl"):
                 m.attn_impl = impl
         loss = trainer.minibatch_loss(flat, idx, noise)[0]
-        grads[impl] = torch.cat([g.reshape(-1).float()
-                                 for g in trainer.sampler_grads(loss)])
+        grads[impl] = [g.float() for g in trainer.sampler_grads(loss)]
+    groups = attention_groups(trainer.sampler.net)
     del trainer
-    torch.cuda.empty_cache()
-    return grads
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return grads, groups
+
+
+def attention_groups(net):
+    """Parameter index (in ``net.parameters()`` order) -> group of the
+    attention blocks' leaves: the leaf's name and the block's width, e.g.
+    "qkv.weight C=384" (at ImageNet64 the width names the map: 384 the
+    32x32 maps, 576 the 16x16, 768 the 8x8)."""
+    blocks = {name: m.norm.weight.shape[0] for name, m in net.named_modules()
+              if isinstance(m, AttentionBlockADM)}
+    groups = {}
+    for i, (name, _) in enumerate(net.named_parameters()):
+        for prefix, C in blocks.items():
+            if name.startswith(prefix + "."):
+                groups[i] = f"{name[len(prefix) + 1:]} C={C}"
+    return groups
+
+
+def wiring_readings(ga, gb, groups):
+    """|g_a - g_b| / |g_b| over the whole gradient, and the worst of it
+    over the attention groups (with that group's name)."""
+    def rel(ia):
+        a = torch.cat([ga[i].reshape(-1) for i in ia])
+        b = torch.cat([gb[i].reshape(-1) for i in ia])
+        return ((a - b).norm() / b.norm()).item()
+
+    by_group = {}
+    for i, g in groups.items():
+        by_group.setdefault(g, []).append(i)
+    worst = max((rel(ia), g) for g, ia in by_group.items())
+    return rel(range(len(ga))), worst[0], worst[1]
+
+
+def wiring_check(grads, groups):
+    """The E3 wiring gates over ``E3_PAIRS``; returns a line per pair."""
+    lines = []
+    for a, b in E3_PAIRS:
+        whole, worst, group = wiring_readings(grads[a], grads[b], groups)
+        lines.append(f"|g_{a} - g_{b}| / |g_{b}| = {whole:.4f} (tol "
+                     f"{E3_GRAD_REL:g}), worst attention group {group} "
+                     f"{worst:.4f} (tol {E3_GROUP_REL:g})")
+        if not (whole < E3_GRAD_REL and worst < E3_GROUP_REL):
+            raise AssertionError(f"E3 wiring: {lines[-1]}")
+    return lines
 
 
 def phase_train():
@@ -980,15 +1107,8 @@ def phase_train():
         out[impl] = TRAIN_LAUNCHES_PER_STEP[impl]
         del trainer, data
         torch.cuda.empty_cache()
-    grads = e3_grads(cfg, B, E3_GRAD_ROWS)
-    for a, b in (("flash", "einsum"), ("fused_train", "einsum"),
-                 ("fused_train", "flash")):
-        rel = ((grads[a] - grads[b]).norm() / grads[b].norm()).item()
-        print(f"  E3 wiring: |g_{a} - g_{b}| / |g_{b}| = {rel:.4f} (tol "
-              f"{E3_GRAD_REL:g}); |g_{b}| {grads[b].norm().item():.4e}")
-        if not rel < E3_GRAD_REL:
-            raise AssertionError(f"E3 wiring: {a} and {b} gradients {rel:.3f}"
-                                 " apart")
+    for line in wiring_check(*e3_grads(cfg, B, E3_GRAD_ROWS)):
+        print(f"  E3 wiring: {line}")
     return out
 
 

@@ -33,7 +33,7 @@
 // each summing in a fixed order (no atomics: replays are bit for bit the
 // same):
 //   1. K1's GroupNorm statistics (two-pass fp32, per (sample, channel));
-//   2. h = T(hp gs + gb), materialised (M, C);
+//   2. h = T(hp gs + gb), materialised (M, C) by K1's apply kernel;
 //   3. qkv, q and k pre-scaled: K2's own qkv GEMM (launch (b), tensor cores
 //      in bf16) on h;
 //   4. da = T(ct W_proj^T): a SIMT fp32 GEMM on strided operands;
@@ -188,78 +188,18 @@ cudaError_t colsum(const T* in, int rows, int cols, int chunks, float* part,
   return sum_parts(part, chunks, cols, out, s);
 }
 
-// h = T(((x - mean) rstd) gs + gb) on (M, C), statistics per (sample, C)
-template <typename T>
-__global__ void gn_apply_kernel(const T* __restrict__ x,
-                                const float* __restrict__ mean_c,
-                                const float* __restrict__ rstd_c,
-                                const float* __restrict__ gs,
-                                const float* __restrict__ gb,
-                                T* __restrict__ h, int S, int C,
-                                long long total) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(i % C);
-    const long long bc = (i / C / S) * C + c;
-    const float hp = __fmul_rn(__fsub_rn(to_f(x[i]), mean_c[bc]), rstd_c[bc]);
-    store_as(h + i, __fadd_rn(__fmul_rn(hp, gs[c]), gb[c]));
-  }
-}
-
 // ---- 5: forward statistics and output per (sample, head, 64 rows) ------
-constexpr int BT = 64, kThreads = 256, LDS = BT + 4;
+constexpr int BT = kBwdTile, LDS = BT + 4;
 
 template <int D>
 __host__ __device__ constexpr int stats_smem_floats() {
   return 3 * BT * (D + 4) + BT * LDS;
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void tile_in(float* dst, const T* src,
-                                        int row_stride, int d) {
-  constexpr int LD = D + 4, C4 = D / 4;
-  for (int idx = threadIdx.x; idx < BT * C4; idx += kThreads) {
-    const int r = idx / C4, c = (idx - r * C4) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c < d) v = load4(src + (size_t)r * row_stride + c);
-    *reinterpret_cast<float4*>(dst + r * LD + c) = v;
-  }
-}
-
-// s[r][j] = q row (4ty + r) . k row (tx + 16j)
-template <int D>
-__device__ __forceinline__ void logits(float (&s)[4][4], const float* Qs,
-                                       const float* Ks, int ty, int tx) {
-  constexpr int LD = D + 4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < D; c += 4) {
-    float4 q[4], k[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      q[r] = *reinterpret_cast<const float4*>(Qs + (4 * ty + r) * LD + c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      k[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + c);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[r][j] = fmaf(q[r].x, k[j].x, s[r][j]);
-        s[r][j] = fmaf(q[r].y, k[j].y, s[r][j]);
-        s[r][j] = fmaf(q[r].z, k[j].z, s[r][j]);
-        s[r][j] = fmaf(q[r].w, k[j].w, s[r][j]);
-      }
-  }
-}
-
 // qkv: (B, S, 3C) with q and k pre-scaled; da: (B, S, C). Writes lse and di
 // (B, nh, S) and a = T(T(w) v) into (B, S, C).
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads)
 attn_stats_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
                   float* __restrict__ lse, float* __restrict__ di,
                   T* __restrict__ a_out, int S, int C, int nh) {
@@ -286,7 +226,7 @@ attn_stats_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
     tile_in<T, D>(Ks, base + (size_t)k0 * row3 + C, row3, d);
     __syncthreads();
     float s[4][4];
-    logits<D>(s, Qs, Ks, ty, tx);
+    tile_dots<D>(s, Qs, Ks, ty, tx);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
@@ -321,7 +261,7 @@ attn_stats_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
     tile_in<T, D>(Vs, base + (size_t)k0 * row3 + 2 * C, row3, d);
     __syncthreads();
     float s[4][4];
-    logits<D>(s, Qs, Ks, ty, tx);
+    tile_dots<D>(s, Qs, Ks, ty, tx);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -442,6 +382,19 @@ cudaError_t stats(const bf16* x, float* mean_c, float* rstd_c, int B, int S,
   return launch_gn_stats_bf16(x, mean_c, rstd_c, B, S, C, G, eps, 0, s);
 }
 
+// h = T(((x - mean) rstd) gs + gb): K1's apply, fp32 arithmetic rounded
+// once
+cudaError_t apply(const float* x, const float* gs, const float* gb,
+                  const float* mean_c, const float* rstd_c, float* h, int B,
+                  int S, int C, cudaStream_t s) {
+  return launch_gn_apply(x, gs, gb, mean_c, rstd_c, h, B, S, C, 0, s);
+}
+cudaError_t apply(const bf16* x, const float* gs, const float* gb,
+                  const float* mean_c, const float* rstd_c, bf16* h, int B,
+                  int S, int C, cudaStream_t s) {
+  return launch_gn_apply(x, gs, gb, mean_c, rstd_c, h, B, S, C, 0, 0, s);
+}
+
 float qk_scale_of(const float*, int d) {
   return (float)(1.0 / sqrt(sqrt((double)d)));
 }
@@ -468,11 +421,7 @@ int run(const T* x, const T* ct, const float* gs, const float* gb,
   if (S % BT || C % 32 || C % G || C / G > 64 || C % nh || d % 4 || d > 64)
     return (int)cudaErrorInvalidValue;
   CHECK(stats(x, mean_c, rstd_c, B, S, C, G, eps, s));
-  const long long total = (long long)M * C;
-  const long long blocks = (total + 255) / 256;
-  gn_apply_kernel<T><<<(unsigned)(blocks < 65535 ? blocks : 65535), 256, 0,
-                       s>>>(x, mean_c, rstd_c, gs, gb, h, S, C, total);
-  CHECK(cudaGetLastError());
+  CHECK(apply(x, gs, gb, mean_c, rstd_c, h, B, S, C, s));
   CHECK(launch_qkv_gemm(h, wqkv, bqkv, qkv, M, C, qk_scale_of(x, d), s));
   // da[m, c] = sum_j ct[m, j] W_proj[c, j]
   CHECK(gemm(ct, C, 1, wproj, 1, C, da, M, C, C, 1, s));
@@ -483,14 +432,14 @@ int run(const T* x, const T* ct, const float* gs, const float* gb,
     CHECK(cudaFuncSetAttribute(attn_stats_kernel<T, 32>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes));
-    attn_stats_kernel<T, 32><<<grid, kThreads, bytes, s>>>(qkv, da, lse, di,
+    attn_stats_kernel<T, 32><<<grid, kBwdThreads, bytes, s>>>(qkv, da, lse, di,
                                                            at, S, C, nh);
   } else {
     const int bytes = stats_smem_floats<64>() * (int)sizeof(float);
     CHECK(cudaFuncSetAttribute(attn_stats_kernel<T, 64>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes));
-    attn_stats_kernel<T, 64><<<grid, kThreads, bytes, s>>>(qkv, da, lse, di,
+    attn_stats_kernel<T, 64><<<grid, kBwdThreads, bytes, s>>>(qkv, da, lse, di,
                                                            at, S, C, nh);
   }
   CHECK(cudaGetLastError());

@@ -1,10 +1,13 @@
 // Shared pieces of the port's kernels: the GroupNorm statistics passes that
-// K1 (groupnorm.cu), K3 (conv_fused.cu), K2 (attn_block.cu) and K5
-// (attn_block_i8.cu) start from, the affine and SiLU they apply, bf16
-// rounding, int8 quantisation, the tensor-core helpers (ldmatrix, mma.sync
-// m16n8k16 bf16 and m16n8k32 s8, cp.async) of K2-K5 and K8, and the
-// attention cores that K2 and K5 share: the flash-attention launch
-// (flash_attn.cu, K4's kernel) and K2's fp32 core (attn_block.cu).
+// K1 (groupnorm.cu), K3 (conv_fused.cu), K2 (attn_block.cu), K5
+// (attn_block_i8.cu) and K6 (attn_block_bwd.cu) start from, K1's apply
+// launch that K6 reuses, the affine and SiLU they apply, bf16 rounding,
+// int8 quantisation, the tensor-core helpers (ldmatrix, mma.sync m16n8k16
+// bf16 and m16n8k32 s8, cp.async) of K2-K5 and K8, the attention cores
+// that K2 and K5 share (the flash-attention launch, flash_attn.cu, K4's
+// kernel, and K2's fp32 core, attn_block.cu), and the attention backward
+// that K4-dkv, K4-dq and K6 share: its launches (flash_attn_bwd.cu) and the
+// tile loads and dot products of their kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,6 +30,22 @@ cudaError_t launch_gn_stats(const float* x, float* mean_c, float* rstd_c,
 cudaError_t launch_gn_stats_bf16(const bf16* x, float* mean_c, float* rstd_c,
                                  int B, int HW, int C, int G, float eps,
                                  int onepass, cudaStream_t stream);
+
+// y = ((x - mean) rstd) scale + bias (then SiLU when silu != 0) on a
+// channels-last (B, HW, C) tensor with the statistics per (sample, channel)
+// that launch_gn_stats writes: K1's apply kernels. fp32: C % 4 == 0; bf16
+// (C % 8 == 0): stepwise == 0 takes fp32 arithmetic in the plain version's
+// order, rounded once; stepwise == 1 rounds every operation to bf16
+// (bf16_onepass). 16-byte aligned tensors. Defined in groupnorm.cu.
+cudaError_t launch_gn_apply(const float* x, const float* scale,
+                            const float* bias, const float* mean_c,
+                            const float* rstd_c, float* y, int B, int HW,
+                            int C, int silu, cudaStream_t stream);
+cudaError_t launch_gn_apply(const bf16* x, const float* scale,
+                            const float* bias, const float* mean_c,
+                            const float* rstd_c, bf16* y, int B, int HW,
+                            int C, int silu, int stepwise,
+                            cudaStream_t stream);
 
 // softmax(q k^T * sm_scale) v per (sample, head) for bf16 q, k, v whose
 // rows (one per position) are row_stride elements apart, heads d apart
@@ -217,4 +236,55 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- tiles of the attention backward kernels (K4-dkv, K4-dq, K6) ---------
+// 64-row tiles and 256 threads per block; thread (ty, tx) = (tid / 16,
+// tid % 16) holds rows 4ty..4ty+3 and columns tx + 16j of a 64 x 64 tile.
+constexpr int kBwdTile = 64, kBwdThreads = 256;
+
+// 64 rows of a strided T matrix (d columns, zeros up to D) into fp32
+// shared rows D + 4 floats apart
+template <typename T, int D>
+__device__ __forceinline__ void tile_in(float* dst, const T* src,
+                                        int row_stride, int d) {
+  constexpr int LD = D + 4, C4 = D / 4;
+  for (int idx = threadIdx.x; idx < kBwdTile * C4; idx += kBwdThreads) {
+    const int r = idx / C4, c = (idx - r * C4) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < d) v = load4(src + (size_t)r * row_stride + c);
+    *reinterpret_cast<float4*>(dst + r * LD + c) = v;
+  }
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// s[r][j] = A[4ty + r] . B[tx + 16j] over D columns of two shared tiles
+template <int D>
+__device__ __forceinline__ void tile_dots(float (&s)[4][4], const float* A,
+                                          const float* Bt, int ty, int tx) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < D; c += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[r] = *reinterpret_cast<const float4*>(A + (4 * ty + r) * LD + c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(Bt + (tx + 16 * j) * LD + c);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[r][j] = dot4(a[r], b[j], s[r][j]);
+  }
 }

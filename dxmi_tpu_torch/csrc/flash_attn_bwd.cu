@@ -39,7 +39,7 @@
 
 namespace {
 
-constexpr int BT = 64, kBwdThreads = 256, LDS = BT + 4;
+constexpr int BT = kBwdTile, LDS = BT + 4;
 
 template <int D>
 __host__ __device__ constexpr int dkv_smem_floats() {
@@ -48,52 +48,6 @@ __host__ __device__ constexpr int dkv_smem_floats() {
 template <int D>
 __host__ __device__ constexpr int dq_smem_floats() {
   return 4 * BT * (D + 4) + BT * LDS;
-}
-
-// 64 rows of a strided T matrix (d columns, zeros up to D) into fp32
-// shared rows ld floats apart
-template <typename T, int D>
-__device__ __forceinline__ void tile_in(float* dst, const T* src,
-                                        int row_stride, int d) {
-  constexpr int LD = D + 4, C4 = D / 4;
-  for (int idx = threadIdx.x; idx < BT * C4; idx += kBwdThreads) {
-    const int r = idx / C4, c = (idx - r * C4) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c < d) v = load4(src + (size_t)r * row_stride + c);
-    *reinterpret_cast<float4*>(dst + r * LD + c) = v;
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// s[r][j] = A[4ty + r] . B[tx + 16j] over D columns of two shared tiles
-template <int D>
-__device__ __forceinline__ void tile_dots(float (&s)[4][4], const float* A,
-                                          const float* Bt, int ty, int tx) {
-  constexpr int LD = D + 4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < D; c += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[r] = *reinterpret_cast<const float4*>(A + (4 * ty + r) * LD + c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(Bt + (tx + 16 * j) * LD + c);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[r][j] = dot4(a[r], b[j], s[r][j]);
-  }
 }
 
 template <typename T>

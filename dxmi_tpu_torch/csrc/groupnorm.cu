@@ -228,6 +228,29 @@ cudaError_t launch_gn_stats_bf16(const bf16* x, float* mean_c, float* rstd_c,
                             stream);
 }
 
+cudaError_t launch_gn_apply(const float* x, const float* scale,
+                            const float* bias, const float* mean_c,
+                            const float* rstd_c, float* y, int B, int HW,
+                            int C, int silu, cudaStream_t stream) {
+  if (C % 4) return cudaErrorInvalidValue;
+  const long long n4 = (long long)B * HW * C / 4;
+  gn_apply_kernel<<<apply_blocks(n4), kApplyThreads, 0, stream>>>(
+      x, scale, bias, mean_c, rstd_c, y, n4, HW, C, silu);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_gn_apply(const bf16* x, const float* scale,
+                            const float* bias, const float* mean_c,
+                            const float* rstd_c, bf16* y, int B, int HW,
+                            int C, int silu, int stepwise,
+                            cudaStream_t stream) {
+  if (C % 8) return cudaErrorInvalidValue;
+  const long long n8 = (long long)B * HW * C / 8;
+  gn_apply_bf16_kernel<<<apply_blocks(n8), kApplyThreads, 0, stream>>>(
+      x, scale, bias, mean_c, rstd_c, y, n8, HW, C, silu, stepwise);
+  return cudaGetLastError();
+}
+
 // x, y: (B, HW, C) fp32 (is_bf16 == 0) or bf16; scale, bias: (C,) fp32;
 // mean_c, rstd_c: (B, C) scratch; onepass selects the bf16_onepass
 // statistics (for fp32 x: one-pass fp32 statistics).
@@ -237,22 +260,19 @@ extern "C" int dxmi_gn_forward(const void* x, const float* scale,
                                float eps, int silu, int is_bf16, int onepass,
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const long long n = (long long)B * HW * C;
   if (!is_bf16) {
-    cudaError_t err = launch_stats<float>(static_cast<const float*>(x), mean_c,
-                                          rstd_c, B, HW, C, G, eps, onepass, s);
+    const float* xf = static_cast<const float*>(x);
+    cudaError_t err = launch_stats<float>(xf, mean_c, rstd_c, B, HW, C, G,
+                                          eps, onepass, s);
     if (err != cudaSuccess) return (int)err;
-    gn_apply_kernel<<<apply_blocks(n / 4), kApplyThreads, 0, s>>>(
-        static_cast<const float*>(x), scale, bias, mean_c, rstd_c,
-        static_cast<float*>(y), n / 4, HW, C, silu);
-    return (int)cudaGetLastError();
+    return (int)launch_gn_apply(xf, scale, bias, mean_c, rstd_c,
+                                static_cast<float*>(y), B, HW, C, silu, s);
   }
   const bf16* xb = static_cast<const bf16*>(x);
   cudaError_t err =
       launch_stats<bf16>(xb, mean_c, rstd_c, B, HW, C, G, eps, onepass, s);
   if (err != cudaSuccess) return (int)err;
-  gn_apply_bf16_kernel<<<apply_blocks(n / 8), kApplyThreads, 0, s>>>(
-      xb, scale, bias, mean_c, rstd_c, static_cast<bf16*>(y), n / 8, HW, C,
-      silu, onepass);
-  return (int)cudaGetLastError();
+  return (int)launch_gn_apply(xb, scale, bias, mean_c, rstd_c,
+                              static_cast<bf16*>(y), B, HW, C, silu, onepass,
+                              s);
 }

@@ -10,7 +10,12 @@ fails the same replica with a fault planted (a dropped 64-key tile, a q/k
 scale a few percent off, uniform attention weights; for K5 the neighbouring
 column's dequantisation scale and a missing clip; for the backward kernels
 dk and dv swapped, di left out, dgs and dgb swapped, a missing GroupNorm
-backward term)."""
+backward term). K4's logsumexp gate fails a logsumexp off by log 2, in
+log2 units or shifted by a row, and the chained backward gate (kernel
+forward and backward against the plain ones) fails the first of these, which
+the backward's own gate lets pass. The E3 wiring gate
+(chip_smoke.wiring_check) fails cotangents of the autograd Functions wired
+to the wrong input or dropped."""
 import math
 
 import numpy as np
@@ -96,6 +101,11 @@ def _flash_replica(q, k, v, sm_scale, fault=None):
     """K4's arithmetic: fp32 logits, an online softmax over 64-key tiles,
     unnormalised p rounded to bf16 before p v, one division by the row sum
     and one bf16 rounding at the end."""
+    return _flash_replica_fwd(q, k, v, sm_scale, fault)[0]
+
+
+def _flash_replica_fwd(q, k, v, sm_scale, fault=None):
+    """``_flash_replica`` with its logsumexp m + log(l), (B, nh, S)."""
     B, S, nh, d = q.shape
     sm = sm_scale * (0.99 if fault == "scale" else 1.0)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm
@@ -113,7 +123,7 @@ def _flash_replica(q, k, v, sm_scale, fault=None):
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + p.to(BF16).float() @ vt[:, :, t:t + 64]
         m = m_new
-    return (acc / l[..., None]).to(BF16).permute(0, 2, 1, 3)
+    return (acc / l[..., None]).to(BF16).permute(0, 2, 1, 3), m + torch.log(l)
 
 
 @pytest.mark.parametrize("fault", [None, "drop", "scale"])
@@ -270,6 +280,66 @@ def test_flash_bwd_check(fault):
             check()
 
 
+@pytest.mark.parametrize("fault", [None, "log2", "ln_log2", "row"])
+def test_flash_lse_check(fault):
+    """K4's logsumexp as the kernel forms it passes its gate; off by log 2,
+    in log2 units, or another row's (the kernel's second row of eight
+    written to the wrong place) it fails."""
+    from chip_smoke import flash_lse_check
+    from dxmi_tpu_torch.ops.attention import flash_mha_reference_fwd
+
+    qkv, _, _, _, sm = _flash_bwd_case(11)
+    _, lse = _flash_replica_fwd(*qkv.unbind(2), sm)
+    ref = flash_mha_reference_fwd(*qkv.unbind(2), sm)[1]
+    if fault == "log2":
+        lse = lse + math.log(2)
+    elif fault == "ln_log2":
+        lse = lse / math.log(2)
+    elif fault == "row":
+        lse = lse.roll(8, dims=-1)
+    if fault is None:
+        assert flash_lse_check(lse, ref, "replica") < 1e-5
+    else:
+        with pytest.raises(AssertionError, match="logsumexp"):
+            flash_lse_check(lse, ref, "replica")
+
+
+@pytest.mark.parametrize("fault", [None, "log2"])
+def test_flash_bwd_chain_check(fault):
+    """The chain, K4's forward and backward (replicas) against the plain
+    forward and backward, passes the chain's gate; with the logsumexp off
+    by log 2 it fails, though the backward's own gate, fed the same wrong
+    logsumexp on both sides, passes."""
+    from chip_smoke import FLASH_CHAIN_MEAN_REL, flash_bwd_check
+    from dxmi_tpu_torch.ops.attention import (flash_mha_reference_bwd,
+                                              flash_mha_reference_fwd)
+
+    g = torch.Generator().manual_seed(3)
+    qkv = torch.randn(2, 1024, 3, 6, 64, generator=g).to(BF16)
+    do = torch.randn(2, 1024, 6, 64, generator=g).to(BF16)
+    sm = 64 ** -0.5
+    o, lse = _flash_replica_fwd(*qkv.unbind(2), sm)
+    if fault == "log2":
+        lse = lse + math.log(2)
+    got = _flash_bwd_replica(qkv, o, lse, do, sm)
+    chain = flash_mha_reference_bwd(qkv, *flash_mha_reference_fwd(
+        *qkv.unbind(2), sm), do, sm)
+    same = flash_mha_reference_bwd(qkv, o, lse, do, sm)
+    for i in range(3):
+        flash_bwd_check(got[:, :, i], same[:, :, i], f"grad {i}")
+    rels = []
+    for i in range(3):
+        try:
+            rels.append(flash_bwd_check(
+                got[:, :, i], chain[:, :, i], f"grad {i} chained",
+                mean_rel=FLASH_CHAIN_MEAN_REL, elementwise=False)[0])
+        except AssertionError:
+            assert fault is not None
+            return
+    print(rels)
+    assert fault is None
+
+
 def _attn_bwd_replica(x, ct, gs, gb, wq, bq, wp, nh, fault=None, eps=1e-5):
     """K6 as the kernel computes it: two-pass GroupNorm statistics (the
     plain version's are one-pass), float64 sums, rounding to the element
@@ -348,3 +418,77 @@ def test_attn_bwd_check(dtype, fault):
     else:
         with pytest.raises(AssertionError):
             attn_bwd_check(outs, refs, dtype, "replica")
+
+
+# ---- the E3 wiring gates: chip_smoke.wiring_check ------------------------
+
+# configs/imagenet64/T10.yaml at a shrunken width: a 32x32 map (S = 1024,
+# so the flash path runs there) and attention at every map, as E3 has it
+WIRING_ARGS = [
+    "--diffusion.image_size", "32", "--diffusion.num_channels", "32",
+    "--diffusion.num_res_blocks", "1", "--diffusion.attention_resolutions",
+    "32,16,8", "--diffusion.channel_mult", "1,2,2",
+    "--diffusion.num_head_channels", "16", "--diffusion.num_classes", "4",
+    "--sampler.sample_shape", "[3,32,32]", "--sampler.num_classes", "4",
+    "--value.net.nh", "16"]
+
+
+def _swap(i, j):
+    def fault(grads):
+        grads = list(grads)
+        grads[i], grads[j] = grads[j], grads[i]
+        return tuple(grads)
+    return fault
+
+
+def _drop(i):
+    def fault(grads):
+        grads = list(grads)
+        grads[i] = torch.zeros_like(grads[i])
+        return tuple(grads)
+    return fault
+
+
+# fault -> (autograd Function, how its backward's outputs are miswired)
+WIRING_FAULTS = {
+    "swap_dk_dv": ("FlashAttention", _swap(1, 2)),
+    "swap_dgs_dgb": ("FusedAttnBlockTrain", _swap(1, 2)),
+    "drop_db_proj": ("FusedAttnBlockTrain", _drop(6)),
+}
+
+
+@pytest.mark.parametrize("fault", [None, *WIRING_FAULTS])
+def test_wiring_check(monkeypatch, fault):
+    """The first sampler minibatch's gradient by einsum, flash and
+    fused_train (the plain versions here) at a shrunken width in fp32 passes
+    the E3 wiring gates; with a cotangent of FlashAttention or
+    FusedAttnBlockTrain wired to the wrong input or dropped, the worst
+    attention group moves by its whole norm and the gate fails (the whole
+    gradient, diluted, can stay under its own limit)."""
+    import chip_smoke
+    from dxmi_tpu_torch.config import (merge, parse_nested_args,
+                                       parse_unknown_args)
+    from dxmi_tpu_torch.ops import attention, attn_block
+
+    if fault is not None:
+        name, miswire = WIRING_FAULTS[fault]
+        fn = getattr(attention, name, None) or getattr(attn_block, name)
+        backward = fn.backward
+        monkeypatch.setattr(fn, "backward", staticmethod(
+            lambda ctx, ct: miswire(backward(ctx, ct))))
+    cfg = merge(chip_smoke.imagenet64_train_config(), parse_nested_args(
+        parse_unknown_args(WIRING_ARGS + ["--diffusion.use_fp16", "False"])))
+    torch.manual_seed(0)  # the value net's initialisation
+    grads, groups = chip_smoke.e3_grads(cfg, 8, 8, device="cpu")
+    if fault is None:
+        lines = chip_smoke.wiring_check(grads, groups)
+        print("\n".join(lines))
+        return
+    with pytest.raises(AssertionError, match="E3 wiring"):
+        chip_smoke.wiring_check(grads, groups)
+    readings = [chip_smoke.wiring_readings(grads[a], grads[b], groups)
+                for a, b in chip_smoke.E3_PAIRS]
+    whole = max(r[0] for r in readings)
+    worst = max(readings, key=lambda r: r[1])
+    print(fault, whole, worst)
+    assert worst[1] >= 0.99, readings

@@ -267,18 +267,25 @@ def test_int8_forms_raise(card):
 @pytest.mark.parametrize("B,S,nh,d", [(4, 1024, 6, 64), (2, 512, 2, 64),
                                       (2, 512, 4, 32)])
 def test_flash_backward(card, B, S, nh, d):
-    from chip_smoke import flash_bwd_check
+    from chip_smoke import (FLASH_CHAIN_MEAN_REL, flash_bwd_check,
+                            flash_lse_check)
     from dxmi_tpu_torch.ops.attention import (flash_mha_bwd, flash_mha_fwd,
-                                              flash_mha_reference_bwd)
+                                              flash_mha_reference_bwd,
+                                              flash_mha_reference_fwd)
 
     g = torch.Generator(device=card).manual_seed(0)
     qkv = torch.randn(B, S, 3, nh, d, generator=g, device=card).bfloat16()
     do = torch.randn(B, S, nh, d, generator=g, device=card).bfloat16()
     o, lse = flash_mha_fwd(qkv, d ** -0.5)
+    o_p, lse_p = flash_mha_reference_fwd(*qkv.unbind(2), d ** -0.5)
+    flash_lse_check(lse, lse_p, "lse")
     got = flash_mha_bwd(qkv, o, lse, do, d ** -0.5)
     ref = flash_mha_reference_bwd(qkv, o, lse, do, d ** -0.5)
+    chain = flash_mha_reference_bwd(qkv, o_p, lse_p, do, d ** -0.5)
     for i in range(3):
         flash_bwd_check(got[:, :, i], ref[:, :, i], f"grad {i}")
+        flash_bwd_check(got[:, :, i], chain[:, :, i], f"grad {i} chained",
+                        mean_rel=FLASH_CHAIN_MEAN_REL, elementwise=False)
     assert torch.equal(got, flash_mha_bwd(qkv, o, lse, do, d ** -0.5))
     assert _lib.LAUNCHES["flash_attn_bwd_dkv"] == 2
     assert _lib.LAUNCHES["flash_attn_bwd_dq"] == 2
