@@ -15,9 +15,10 @@ failure exits non-zero naming the phase:
      CIFAR-10 and ImageNet64 shapes (K5 also at LSUN's C=1024 maps; K4's
      logsumexp, the backward kernels K4-dkv, K4-dq and K6 at the ImageNet64
      maps at E3's batch 128, K4-dkv/dq also chained from the plain forward,
-     and K6 also at the ADM fixture's fp32 shape);
+     and K6 also at the ADM fixture's fp32 shape; K7 fp32 at E4's shape at
+     bb 2 and 4, bf16 at ImageNet64's 16x16 map);
   T  time each kernel, its plain version and one PyTorch library call with
-     CUDA events;
+     CUDA events (K7 at bb 2 and 4 beside K2 on the same inputs);
   G  replay the trained reference fixture (tests/fixtures/torch_rundir_t10)
      with its injected noise through the kernels, unfused and fused;
   E  generate 2 batches of 100 CIFAR-10 samples at T=10 at the full width of
@@ -43,11 +44,22 @@ failure exits non-zero naming the phase:
      checking the launches per step, finite metrics and no skipped update,
      and the first minibatch's gradient by einsum, flash and fused_train,
      whole and per group of the attention blocks' parameters;
+  G4 one DxMITrainer iteration on the CIFAR fixture with the JAX trainer's
+     trajectory, permutation, noise and dropout masks, einsum and fused
+     attention at bb 2 (K7), with and without K3, against the JAX package's
+     (tests/torch_fixtures/cifar_train_golden.npz);
+  E4 DxMI training at the full width of configs/cifar10/T10.yaml (fp32,
+     batch 128, seeded weights, fake_cifar): 3 steps with fused attention at
+     bb 1 (K2) and 3 at DXMI_FUSED_ATTN_BB=4 (K7), checking the launches per
+     step, finite metrics and the first minibatch's gradient by einsum,
+     fused bb 1 and fused bb 4, whole and per group of the attention
+     blocks' parameters;
   C  run the generation CLIs (generate_cifar10, generate_large with and
      without --int8) as subprocesses on the fixture run dirs with
      --save_npz, and hold each npz to the in-process samples; then
      train_image_large for 2 steps on a shrunken config and generate_large
-     on the run dir it wrote.
+     on the run dir it wrote, and the same with train_cifar10 and
+     generate_cifar10.
 
 The line before the last line is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record, and the last line is
@@ -68,7 +80,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dxmi_tpu_torch import generate_large, train_image_large
+from dxmi_tpu_torch import generate_large, train_cifar10, train_image_large
 from dxmi_tpu_torch.config import instantiate, load_yaml, merge
 from dxmi_tpu_torch.generate_cifar10 import (generate, load_sampler,
                                              sample_batches, to_uint8)
@@ -82,15 +94,20 @@ from dxmi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
                                           flash_mha_reference_fwd,
                                           flash_reference_dkv,
                                           flash_reference_dq)
+from dxmi_tpu_torch.data.cifar10 import EpochLoader, fake_cifar
+from dxmi_tpu_torch.models.unet_small import AttnBlock
 from dxmi_tpu_torch.ops.attn_block import (BWD_MAX_SLICES,
                                            BWD_ROWS_PER_CHUNK,
                                            BWD_ROWS_PER_SLICE, attn_block,
+                                           attn_block_bb,
+                                           attn_block_bb_reference,
                                            attn_block_bwd,
                                            attn_block_bwd_reference,
                                            attn_block_int8,
                                            attn_block_int8_plain,
                                            attn_block_reference,
-                                           prep_int8_mats)
+                                           prep_int8_mats,
+                                           resolve_block_b)
 from dxmi_tpu_torch.ops.conv_fused import gn_silu_conv, gn_silu_conv_reference
 from dxmi_tpu_torch.ops.groupnorm import group_norm, group_norm_silu_reference
 from dxmi_tpu_torch.ops.quant import (SAME_3X3, calib_channel_scale,
@@ -98,6 +115,7 @@ from dxmi_tpu_torch.ops.quant import (SAME_3X3, calib_channel_scale,
                                       prepare_conv_static)
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.trainers.buffer import from_d_sample
+from dxmi_tpu_torch.trainers.dxmi import DxMITrainer, train_step
 from dxmi_tpu_torch.trainers.dxmi_cond import DxMITrainerCond
 from dxmi_tpu_torch.utils.checkpoint import (load_sampler_state,
                                              load_value_state)
@@ -187,7 +205,8 @@ INT8_OPS = 1979e12
 # five ulps (2^-8 relative) at the outputs' scale, inside the JAX package's
 # 3e-2 * max|ref| for its bf16 statistics modes (tests/test_groupnorm.py).
 TOL = {"gn_silu": (2e-5, 2e-5), "gn_silu_conv3x3": (5e-3, 5e-3),
-       "attn_block": (2e-5, 2e-5), "gn_silu_bf16": (2e-2, 2e-2)}
+       "attn_block": (2e-5, 2e-5), "gn_silu_bf16": (2e-2, 2e-2),
+       "attn_block_bb": (2e-5, 2e-5)}
 # K2 on bf16, two gates. (1) The JAX package's own criterion for its bf16
 # kernel, mean |kernel - reference| / mean |reference| < 2e-2 (tests/
 # test_attn_block.py:103). (2) Element by element on the attention part
@@ -353,6 +372,8 @@ INFO = {
         "(jax.grad of dxmi_tpu/ops/attention.py:53)"),
     "attn_block_bwd_bf16": ("dxmi_tpu_torch/csrc/attn_block_bwd.cu",
                             "dxmi_tpu/ops/attn_block.py:406"),
+    "attn_block_bb": ("dxmi_tpu_torch/csrc/attn_block_bb.cu",
+                      "dxmi_tpu/ops/attn_block.py:261"),
 }
 
 
@@ -417,6 +438,81 @@ def adm_train_replay(golden, device, attn_impl="einsum"):
     m = trainer.update_f_v(t("img"), buf, y=t("y"))
     m.update(trainer.update_sampler(buf, perm=t("perm"),
                                     noise=list(t("noise"))))
+    out = {f"metric/{k}": v.float().cpu().numpy() for k, v in m.items()}
+    out["log_betas"] = sampler.log_betas.detach().cpu().numpy()
+    after = params()
+    for key, b in before.items():
+        tag, name = ("s", key[2:]) if key.startswith("s:") else ("v", key)
+        delta = (after[key] - b).numpy()
+        out[f"{tag}norm/{name}"] = np.float64(np.linalg.norm(delta))
+        out[f"{tag}proj/{name}"] = np.float64(
+            (delta * direction(name, delta.shape)).sum())
+    out["nan_guard_skips"] = trainer.nan_guard_skips
+    return out
+
+
+CIFAR_TRAIN_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
+                                  "cifar_train_golden.npz")
+
+
+def golden_dropout_masks(golden, device):
+    """The golden's dropout keep masks (bool, NCHW) in call order."""
+    out = []
+    for i in range(len([k for k in golden if k.startswith("dropout/")])):
+        shape = tuple(int(n) for n in golden[f"dropout_shape/{i:02d}"])
+        bits = np.unpackbits(golden[f"dropout/{i:02d}"])[:int(np.prod(shape))]
+        out.append(torch.from_numpy(bits.reshape(shape).astype(bool)).to(
+            device))
+    return out
+
+
+def cifar_train_replay(golden, device, attn_impl="einsum", fuse=False,
+                       block_b=None):
+    """One DxMITrainer iteration of the port on the CIFAR fixture with the
+    case, data, trajectory and draws of ``golden`` (CIFAR_TRAIN_GOLDEN's
+    arrays, dropout masks included): update_f_v, then update_sampler with
+    the golden's permutation, noise and masks. ``attn_impl``, ``fuse``
+    (fuse_gn_conv) and ``block_b`` choose the net's paths. Returns the
+    arrays the golden keeps, computed the same way."""
+    cfg = fixture_config()
+    state = load_sampler_state(os.path.join(FIXTURE_DIR, "sampler_best.pth"))
+    sampler = load_sampler(cfg, state, device, fuse_gn_conv=fuse,
+                           attn_impl=attn_impl, block_b=block_b)
+    value = instantiate(cfg["value"]).to(device)
+    value.load_state_dict(load_value_state(os.path.join(FIXTURE_DIR,
+                                                        "value_best.pth")))
+    tcfg = {k: v for k, v in cfg["trainer"].items() if k != "_target_"}
+    trainer = DxMITrainer(**{**tcfg, "batchsize": int(golden["case/batchsize"]),
+                             "n_timesteps": sampler.n_timesteps})
+    trainer.set_models(sampler, value, lr=float(golden["case/lr"]),
+                       v_lr=float(golden["case/v_lr"]),
+                       beta_lr=float(golden["case/beta_lr"]))
+
+    def t(name):
+        return torch.from_numpy(np.asarray(golden[name])).to(device)
+
+    # the trainer reads no policy means: the golden does not keep them
+    l_sample = t("l_sample")
+    buf = from_d_sample({"l_sample": l_sample,
+                         "mean": torch.zeros_like(l_sample[1:]),
+                         "sigma": t("sigma"), "logp": t("logp"),
+                         "entropy": t("entropy")})
+
+    def params():
+        return {k: v.detach().double().cpu().clone() for k, v in
+                [*value.state_dict().items(),
+                 *(("s:net." + k, v)
+                   for k, v in sampler.net.state_dict().items())]}
+
+    before = params()
+    m = trainer.update_f_v(t("img"), buf)
+    sampler.net.inject_dropout_masks(golden_dropout_masks(golden, device))
+    m.update(trainer.update_sampler(buf, perm=t("perm"),
+                                    noise=list(t("noise"))))
+    left = len(sampler.net.dropout_masks.queue)
+    sampler.net.inject_dropout_masks(None)
+    if left:
+        raise AssertionError(f"{left} injected dropout masks not used")
     out = {f"metric/{k}": v.float().cpu().numpy() for k, v in m.items()}
     out["log_betas"] = sampler.log_betas.detach().cpu().numpy()
     after = params()
@@ -1036,16 +1132,16 @@ def wiring_readings(ga, gb, groups):
     return rel(range(len(ga))), worst[0], worst[1]
 
 
-def wiring_check(grads, groups):
-    """The E3 wiring gates over ``E3_PAIRS``; returns a line per pair."""
+def wiring_check(grads, groups, pairs=E3_PAIRS, what="E3"):
+    """The wiring gates over ``pairs``; returns a line per pair."""
     lines = []
-    for a, b in E3_PAIRS:
+    for a, b in pairs:
         whole, worst, group = wiring_readings(grads[a], grads[b], groups)
         lines.append(f"|g_{a} - g_{b}| / |g_{b}| = {whole:.4f} (tol "
                      f"{E3_GRAD_REL:g}), worst attention group {group} "
                      f"{worst:.4f} (tol {E3_GROUP_REL:g})")
         if not (whole < E3_GRAD_REL and worst < E3_GROUP_REL):
-            raise AssertionError(f"E3 wiring: {lines[-1]}")
+            raise AssertionError(f"{what} wiring: {lines[-1]}")
     return lines
 
 
@@ -1109,6 +1205,234 @@ def phase_train():
         torch.cuda.empty_cache()
     for line in wiring_check(*e3_grads(cfg, B, E3_GRAD_ROWS)):
         print(f"  E3 wiring: {line}")
+    return out
+
+
+# G4: one DxMITrainer iteration on the CIFAR fixture (fp32, batch 8, lr
+# 1e-4, beta_lr 1e-3, v_lr 1e-3) against CIFAR_TRAIN_GOLDEN, the JAX
+# iteration with its trajectory, permutation, step noise and dropout masks.
+# Two forms of the net. (1) Convolutions unfused (cuDNN in fp32) with
+# einsum attention, and with fused attention at bb 2 (K7): G3's gates; on
+# the CPU the port reads 6.9e-6 on the metrics, 7.1e-6 on the value update
+# and 0.028 of the sampler limit. (2) Fused attention at bb 2 with K3: K3's
+# forward rounds its conv operands to bf16 where JAX's CPU run keeps fp32
+# (its fused_gn_silu_conv is the fp32 reference off the TPU), and Adam's
+# first step turns that into sign flips of small gradient elements, so the
+# update's projections move: on the CPU the metrics read 5.7e-4, the
+# sampler update's norms 1e-4 and its projections 0.056 relative (L2 over
+# all tensors). Gates: metrics 2e-3, each of the two sampler vectors 0.2
+# relative, the value update and log_betas as G3.
+G4_CASES = (("einsum", False, None), ("fused", False, 2), ("fused", True, 2))
+G4_K3_METRIC_REL = 2e-3
+G4_K3_SAMPLER_REL = 0.2
+
+
+def k3_golden_check(port, golden, what):
+    """G4's gates for the K3 form; returns (worst metric rel err, worst
+    sampler vector rel err)."""
+    worst_m = 0.0
+    for k in golden:
+        if k.startswith("metric/"):
+            a, b = (np.asarray(x, np.float64) for x in (port[k], golden[k]))
+            rel = np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)
+            if not np.isfinite(a).all() or rel > G4_K3_METRIC_REL:
+                raise AssertionError(f"{what} {k}: {a} vs JAX {b}")
+            worst_m = max(worst_m, rel)
+    if np.abs(port["log_betas"] - golden["log_betas"]).max() > G3_BETAS_ABS:
+        raise AssertionError(f"{what}: log_betas off JAX's")
+    worst_s = 0.0
+    for kind, lim in (("vnorm/", G3_VALUE_REL), ("vproj/", G3_VALUE_REL),
+                      ("snorm/", G4_K3_SAMPLER_REL),
+                      ("sproj/", G4_K3_SAMPLER_REL)):
+        ks = [k for k in golden if k.startswith(kind)]
+        a = np.array([port[k] for k in ks])
+        b = np.array([golden[k] for k in ks])
+        rel = np.linalg.norm(a - b) / np.linalg.norm(b)
+        if not np.isfinite(a).all() or rel > lim:
+            raise AssertionError(f"{what}: {kind} update {rel:.3e} from "
+                                 f"JAX's (tol {lim:g})")
+        if kind.startswith("s"):
+            worst_s = max(worst_s, rel)
+    return worst_m, worst_s
+
+
+def g4_kernels(attn_impl, fuse, block_b):
+    """The kernels a G4 case launches."""
+    return ({"gn_silu"} | ({"gn_silu_conv3x3"} if fuse else set())
+            | ({"attn_block_bb" if (block_b or 1) > 1 else "attn_block"}
+               if attn_impl == "fused" else set()))
+
+
+def phase_cifar_train_replay():
+    golden = dict(np.load(CIFAR_TRAIN_GOLDEN))
+    for impl, fuse, bb in G4_CASES:
+        what = f"G4 {impl} bb {bb} fuse_gn_conv={fuse}"
+        _lib.reset_launches()
+        port = cifar_train_replay(golden, "cuda", impl, fuse, bb)
+        used = {k for k, v in _lib.LAUNCHES.items() if v}
+        if used != g4_kernels(impl, fuse, bb):
+            raise AssertionError(f"{what}: launched {used}, expected "
+                                 f"{g4_kernels(impl, fuse, bb)}")
+        if fuse:
+            m, srel = k3_golden_check(port, golden, what)
+            line = (f"metrics within {m:.3e} (tol {G4_K3_METRIC_REL:g}), "
+                    f"sampler update {srel:.3e} (tol {G4_K3_SAMPLER_REL:g})")
+        else:
+            m, v, sh = train_golden_check(port, golden, what)
+            line = (f"metrics within {m:.3e} (tol {G3_METRIC_REL:g}), value "
+                    f"update {v:.3e} (tol {G3_VALUE_REL:g}), sampler updates "
+                    f"at {sh:.3f} of their limit")
+        print(f"  {what}: {line}; d_loss "
+              f"{float(port['metric/ebm/d_loss_']):.5f}, sampler_loss "
+              f"{float(port['metric/sampler/sampler_loss_']):.5f}; kernels "
+              f"{dict(_lib.LAUNCHES)}")
+
+
+# E4 launches per training step at configs/cifar10/T10.yaml (batch 128,
+# trajectory sampling in 4 chunks of 32): 40 forwards of the net in eval
+# mode (K1 at norm_out and the 4x4 mid attention's norm, K3 at both convs of
+# the 22 ResnetBlocks, K2 or K7 at the 5 attention blocks at 16x16) and one
+# minibatch forward in training mode (dropout unfuses each block's second
+# GN+conv: K1 also at the 22 norm2, K3 at the 22 conv1). The backward runs
+# the plain versions' vjps. tests/test_torch_cifar_train.py counts these
+# from the net on the CPU.
+E4_STEPS, E4_SAMPLE_FORWARDS = 3, 40
+E4_LAUNCHES_PER_STEP = {
+    bb: {"gn_silu": 2 * E4_SAMPLE_FORWARDS + 24,
+         "gn_silu_conv3x3": 44 * E4_SAMPLE_FORWARDS + 22,
+         ("attn_block" if bb == 1 else "attn_block_bb"):
+             5 * (E4_SAMPLE_FORWARDS + 1)}
+    for bb in (1, 4)}
+# Wiring, as E3's: the first minibatch's gradient (128 rows, one set of
+# dropout masks) by einsum, fused bb 1 and fused bb 4 pairwise within
+# E3_GRAD_REL of its norm, and each group of the attention blocks'
+# parameters (a leaf over the 16x16 blocks, or the 4x4 mid block) within
+# E3_GROUP_REL of its own: K2 and K7 share the fp32 reference's backward, so
+# the three differ by fp32 orders and K3's bf16 roundings on inputs moved by
+# them; a cotangent returned to the wrong input moves its group by its norm.
+E4_PAIRS = (("fused_bb1", "einsum"), ("fused_bb4", "einsum"),
+            ("fused_bb4", "fused_bb1"))
+
+
+def cifar10_train_config():
+    """configs/cifar10/T10.yaml with its dataset config merged."""
+    return merge(load_yaml(CIFAR10_CONFIG), load_yaml(os.path.join(
+        REPO, "configs", "cifar10", "cifar10.yaml")))
+
+
+def cifar_attention_groups(net):
+    """Parameter index -> group of the attention blocks' leaves: the leaf
+    and the map ("qkv.weight 16x16", "proj_out.bias 4x4"). The q, k and v
+    convs form one group, as the ADM nets' qkv conv does: k's bias alone
+    has no gradient in exact arithmetic (the softmax ignores a shift of a
+    row's logits), so its own group would hold rounding noise only."""
+    groups = {}
+    for i, (name, _) in enumerate(net.named_parameters()):
+        for mod_name, m in net.named_modules():
+            if isinstance(m, AttnBlock) and name.startswith(mod_name + "."):
+                where = "4x4" if mod_name.startswith("mid.") else "16x16"
+                leaf = name[len(mod_name) + 1:]
+                if leaf.split(".")[0] in ("q", "k", "v"):
+                    leaf = "qkv." + leaf.split(".")[1]
+                groups[i] = f"{leaf} {where}"
+    return groups
+
+
+def e4_grads(cfg, device="cuda"):
+    """The first sampler minibatch's gradient under each attention path from
+    one state, buffer rows, step noise and dropout masks."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    sampler, _, trainer = train_cifar10.build(cfg, torch.device(device),
+                                              int(cfg["training"]["seed"]))
+    B = trainer.batchsize
+    with torch.no_grad():
+        d = sampler.sample(B, generator=gen)
+    flat = from_d_sample(d).flat()
+    idx = torch.randperm(flat["state"].shape[0], generator=gen,
+                         device=device)[:B]
+    noise = torch.randn(flat["state"][idx].shape, generator=gen,
+                        device=device)
+    grads, masks = {}, None
+    for name, impl, bb in (("einsum", "einsum", None),
+                           ("fused_bb1", "fused", 1),
+                           ("fused_bb4", "fused", 4)):
+        for m in sampler.net.modules():
+            if isinstance(m, AttnBlock):
+                m.attn_impl, m.block_b = impl, bb
+        if masks is None:
+            sampler.net.record_dropout_masks(True)
+        else:
+            sampler.net.inject_dropout_masks(masks)
+        loss = trainer.minibatch_loss(flat, idx, noise)[0]
+        grads[name] = [g.float() for g in trainer.sampler_grads(loss)]
+        if masks is None:
+            masks = sampler.net.record_dropout_masks(False)
+        sampler.net.inject_dropout_masks(None)
+    groups = cifar_attention_groups(sampler.net)
+    del trainer, sampler
+    torch.cuda.empty_cache()
+    return grads, groups
+
+
+def phase_cifar_train():
+    """E4 (see the module docstring)."""
+    cfg = cifar10_train_config()
+    seed = int(cfg["training"]["seed"])
+    out = {}
+    for bb in (1, 4):
+        os.environ["DXMI_FUSED_ATTN_BB"] = str(bb)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sampler, _, trainer = train_cifar10.build(cfg, torch.device("cuda"),
+                                                  seed)
+        n_params = sum(p.numel() for p in sampler.parameters())
+        loader = EpochLoader(fake_cifar(1024, seed), trainer.batchsize, seed)
+        batches = loader.epoch(0)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        want = E4_LAUNCHES_PER_STEP[bb]
+        steps = []
+        for i in range(E4_STEPS):
+            x = train_cifar10.to_device_batch(next(batches)[0], "cuda")
+            _lib.reset_launches()
+            t0 = time.perf_counter()
+            m = train_step(trainer, x, None, gen, n_generator=1)
+            wall = time.perf_counter() - t0
+            got = dict(_lib.LAUNCHES)
+            if got != want:
+                raise AssertionError(f"E4 bb {bb} step {i}: launches {got}, "
+                                     f"expected {want}")
+            bad = [k for k, v in m.items() if not k.startswith("time/")
+                   and not torch.isfinite(torch.as_tensor(v)).all()]
+            if bad:
+                raise AssertionError(f"E4 bb {bb} step {i}: non-finite {bad}")
+            steps.append((wall, m))
+            print(f"  E4 bb {bb} step {i}: {wall:.3f} s (sample "
+                  f"{m['time/sample']:.3f}, update_f_v "
+                  f"{m['time/update_f_v']:.3f}, update_sampler "
+                  f"{m['time/update_sampler']:.3f}); d_loss "
+                  f"{float(m['ebm/d_loss_']):.4f}, v_loss "
+                  f"{float(m['ebm/v_loss_']):.4f}, sampler_loss "
+                  f"{float(m['sampler/sampler_loss_']):.4f}", flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        later = [w for w, _ in steps[1:]]
+        phases = {k: np.mean([m[f"time/{k}"] for _, m in steps[1:]])
+                  for k in ("sample", "update_f_v", "update_sampler")}
+        print(f"  E4 bb {bb}: {n_params} sampler parameters, batch "
+              f"{trainer.batchsize} in {trainer.sample_chunks} sampling "
+              f"chunks; {np.mean(later):.3f} s/step over steps 1-"
+              f"{E4_STEPS - 1} (sample {phases['sample']:.3f}, update_f_v "
+              f"{phases['update_f_v']:.3f}, update_sampler "
+              f"{phases['update_sampler']:.3f}); launches per step {want} as "
+              f"on the CPU; peak allocated {peak / 2**30:.2f} GiB",
+              flush=True)
+        x = train_cifar10.to_device_batch(next(batches)[0], "cuda")
+        profile_run(lambda: train_step(trainer, x, None, gen, n_generator=1),
+                    f"E4 bb {bb} profile, one training step", top=12)
+        out[bb] = want
+        del trainer, sampler
+    os.environ.pop("DXMI_FUSED_ATTN_BB", None)
+    for line in wiring_check(*e4_grads(cfg), pairs=E4_PAIRS, what="E4"):
+        print(f"  E4 wiring: {line}")
     return out
 
 
@@ -1185,7 +1509,45 @@ def phase_kernels(gen):
         if err != 0:
             raise AssertionError(f"int8_conv {shape}: max abs err {err}")
     phase_kernels_train(gen, errs)
+    phase_kernels_bb(gen, errs)
     return errs
+
+
+# K7 (the batch-blocked attention block): fp32 at E4's shape (the 16x16
+# blocks of the full-width CIFAR-10 net at batch 128) at the batch blocks
+# E4 and T use, K2 fp32's limit; bf16 at ImageNet64's 16x16 map, where the
+# clamp gives bb 2, at K2 bf16's gates. A replay is bit-equal (no atomics).
+E4_BATCH = 128  # training.batchsize of configs/cifar10/T10.yaml
+BB_SHAPES = [(E4_BATCH, 256, 256, 1, 2), (E4_BATCH, 256, 256, 1, 4)]
+BB_BF16_SHAPES = [(BATCH, 256, 576, 9)]
+
+
+def phase_kernels_bb(gen, errs):
+    errs["attn_block_bb"] = 0.0
+    for B, S, C, nh, bb in BB_SHAPES:
+        a = attn_case(gen, B, S, C)
+        out = attn_block_bb(*a, num_heads=nh, eps=1e-6, bb=bb)
+        err = max_err(out, attn_block_bb_reference(*a, num_heads=nh, eps=1e-6,
+                                                   bb=bb), "attn_block_bb")
+        same = torch.equal(out, attn_block_bb(*a, num_heads=nh, eps=1e-6,
+                                              bb=bb))
+        if not same:
+            raise AssertionError(f"attn_block_bb {(B, S, C, nh, bb)}: a "
+                                 "replay differs")
+        print(f"  K attn_block_bb {(B, S, C, nh)} bb {bb}: max abs err vs "
+              f"plain {err:.3e} (tol {TOL['attn_block_bb'][0]:g} + "
+              f"{TOL['attn_block_bb'][1]:g}*|plain|); replay bit-equal")
+        errs["attn_block_bb"] = max(errs["attn_block_bb"], err)
+    for B, S, C, nh in BB_BF16_SHAPES:
+        bb = resolve_block_b(B, S, C, 4)
+        a = attn_bf16_case(gen, B, S, C)
+        what = f"attn_block_bb_bf16 {(B, S, C, nh)} bb {bb}"
+        rel, err, share = attn_bf16_check(
+            attn_block_bb(*a, num_heads=nh, bb=bb),
+            attn_block_bb_reference(*a, num_heads=nh, bb=bb), a[0], what)
+        print(f"  K {what}: mean rel err {rel:.3e} (tol "
+              f"{ATTN_BF16_MEAN_REL:g}), max abs err {err:.3e}, worst element "
+              f"beyond one ulp at {share:.3f} of its limit")
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -1258,6 +1620,7 @@ def phase_times(gen):
     rows.update(adm_time_rows(gen))
     rows.update(int8_time_rows(gen))
     rows.update(train_time_rows(gen))
+    rows.update(bb_time_rows(gen))
     peaks = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS, "int8": INT8_OPS}
     for name, r in rows.items():
         t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
@@ -1269,6 +1632,35 @@ def phase_times(gen):
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}: bytes "
               f"{t_bytes:.4f} ms, ops {t_ops:.4f} ms)")
     return rows
+
+
+def bb_time_rows(gen):
+    """K7 at E4's shape, fp32: its row at bb 4 (E4's setting), bb 2 and K2
+    (bb 1) on the same inputs beside it. The bound counts the block's
+    products (the same work whatever the batch block)."""
+    B, S, C, nh, _ = BB_SHAPES[0]
+    a = attn_case(gen, B, S, C)
+    x, gs, gb, wqkv, bqkv, wp, bp = a
+
+    def library_attn():
+        g = F.group_norm(x.transpose(1, 2), 32, gs, gb, 1e-6).transpose(1, 2)
+        q, k, v = (g @ wqkv + bqkv).split(C, dim=-1)
+        o = F.scaled_dot_product_attention(q, k, v)
+        return x + o @ wp + bp
+
+    k2 = time_ms(lambda: attn_block(*a, num_heads=nh, eps=1e-6, block_b=1))
+    bb2 = time_ms(lambda: attn_block_bb(*a, num_heads=nh, eps=1e-6, bb=2))
+    bb4 = time_ms(lambda: attn_block_bb(*a, num_heads=nh, eps=1e-6, bb=4))
+    print(f"  T attn_block_bb {(B, S, C, nh)}: K7 bb 2 {bb2:.4f} ms, bb 4 "
+          f"{bb4:.4f} ms, K2 (bb 1) {k2:.4f} ms on the same inputs")
+    return {"attn_block_bb": dict(
+        ms=bb4, bb2_ms=bb2, k2_ms=k2,
+        plain_ms=time_ms(lambda: attn_block_bb_reference(
+            *a, num_heads=nh, eps=1e-6, bb=4), iters=3, warmup=1),
+        library_ms=time_ms(library_attn),
+        bytes=(2 * B * S * C + 4 * C * C + 5 * C) * 4,
+        ops={"fp32": 2 * B * S * C * 3 * C + 4 * B * S * S * C
+             + 2 * B * S * C * C + 5 * B * S * S})}
 
 
 def adm_time_rows(gen):
@@ -1707,6 +2099,55 @@ def phase_cli():
               f" s, npz {got['arr_0'].shape} {got['arr_0'].dtype} within "
               f"{diff} uint8 level of in-process; {' | '.join(last)}")
     train_cli(out_dir)
+    cifar_train_cli(out_dir)
+
+
+# train_cifar10 on a shrunken config (32 channels, mult (1, 2), one res
+# block, attention at 16x16 with C=64, value nh 16, batch 8): fused
+# attention through K2, K3 where dropout is inactive.
+SHRUNK_CIFAR_ARGS = [
+    "--sampler_net.ch", "32", "--sampler_net.ch_mult", "[1,2]",
+    "--sampler_net.num_res_blocks", "1", "--sampler_net.attn_resolutions",
+    "[16]", "--value.net.nh", "16", "--training.batchsize", "8",
+    "--training.log_every", "1"]
+
+
+def cifar_train_cli_commands(run, device="cuda"):
+    """train_cifar10 (2 steps, fake data) and generate_cifar10 on the run
+    dir it writes, relative to the working directory of both."""
+    train = [sys.executable, "-m", "dxmi_tpu_torch.train_cifar10",
+             "--config", CIFAR10_CONFIG, "--dataset",
+             os.path.join(REPO, "configs", "cifar10", "cifar10.yaml"),
+             "--run", run, "--fake_data", "--max_steps", "2", "--device",
+             device, *SHRUNK_CIFAR_ARGS]
+    log_dir = os.path.join("results", "cifar10", "T10", run)
+    gen = [sys.executable, "-m", "dxmi_tpu_torch.generate_cifar10",
+           "--log_dir", log_dir, "--sampler", "last", "--n_generate", "8",
+           "--batchsize", "8", "--device", device, "--save_npz",
+           os.path.join(log_dir, "samples.npz")]
+    return train, gen, log_dir
+
+
+def cifar_train_cli(out_dir):
+    """train_cifar10 for 2 steps in a subprocess, then generate_cifar10 on
+    its run dir: the training log and samples of the run's shape."""
+    train, gen, log_dir = cifar_train_cli_commands("chip_smoke")
+    for cmd in (train, gen):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=out_dir, capture_output=True,
+                              text=True, timeout=300,
+                              env=dict(os.environ, PYTHONPATH=REPO))
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd[2:4])} failed:\n"
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        print(f"  C {cmd[2]}: {time.perf_counter() - t0:.1f} s; "
+              f"{' | '.join(l for l in lines if l.startswith(('iter', 'epoch')))}"
+              f" {' | '.join(lines[-2:])}")
+    got = np.load(os.path.join(out_dir, log_dir, "samples.npz"))
+    if got["arr_0"].shape != (8, 32, 32, 3):
+        raise AssertionError(f"generate_cifar10 on the trained run dir: npz "
+                             f"{got['arr_0'].shape}")
 
 
 # train_image_large on a shrunken ImageNet64 config (16x16, 32 channels, one
@@ -1924,6 +2365,8 @@ def main() -> int:
         int8 = run_phase("E2-int8", lambda: phase_generate_adm_int8(fused))
         run_phase("G3", phase_train_replay)
         train = run_phase("E3", phase_train)
+        run_phase("G4", phase_cifar_train_replay)
+        cifar = run_phase("E4", phase_cifar_train)
         run_phase("C", phase_cli)
         smi = nvidia_smi()
     except PhaseError as e:
@@ -1937,7 +2380,8 @@ def main() -> int:
                     **{k: train["flash"][k] for k in
                        ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")},
                     attn_block_bwd_bf16=train["fused_train"][
-                        "attn_block_bwd_bf16"])
+                        "attn_block_bwd_bf16"],
+                    attn_block_bb=cifar[4]["attn_block_bb"])
     kernels = []
     for name, (src, replaces) in INFO.items():
         r = times[name]

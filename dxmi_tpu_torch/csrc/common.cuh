@@ -1,6 +1,7 @@
 // Shared pieces of the port's kernels: the GroupNorm statistics passes that
 // K1 (groupnorm.cu), K3 (conv_fused.cu), K2 (attn_block.cu), K5
-// (attn_block_i8.cu) and K6 (attn_block_bwd.cu) start from, K1's apply
+// (attn_block_i8.cu) and K6 (attn_block_bwd.cu) start from, the element
+// helpers and dot products that K7 (attn_block_bb.cu) uses too, K1's apply
 // launch that K6 reuses, the affine and SiLU they apply, bf16 rounding,
 // int8 quantisation, the tensor-core helpers (ldmatrix, mma.sync m16n8k16
 // bf16 and m16n8k32 s8, cp.async) of K2-K5 and K8, the attention cores

@@ -9,14 +9,21 @@ without a copy.
 
 The kernels carry the default configuration: ``fuse_gn_conv=True`` sends
 every ResnetBlock's GN+SiLU+conv3x3 through K3, ``attn_impl='fused'`` sends
-each attention block whose shape K2 admits through K2, and every other
+each attention block whose shape K2 admits through K2 (through K7 when the
+batch block ``block_b`` or ``DXMI_FUSED_ATTN_BB`` is above 1), and every other
 GroupNorm goes through K1. On CPU tensors the same calls run the kernels'
 plain versions.
+
+In training mode (``net.train()``) dropout acts after each ResnetBlock's
+second GroupNorm+SiLU, as the JAX ``ResnetBlock`` does, and that GN+conv pair
+is then not fused. ``inject_dropout_masks`` replays given keep masks in call
+order instead of drawing them (the tests replay the JAX package's).
 """
 from __future__ import annotations
 
+import collections
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -77,15 +84,52 @@ class GroupNorm32(nn.GroupNorm):
                                 self.num_groups, self.eps, silu))
 
 
+class DropoutMasks:
+    """Keep masks to replay in call order: ``queue`` is None while dropout
+    draws its own masks; those are appended to ``record`` when it is a
+    list."""
+
+    def __init__(self):
+        self.queue: Optional[collections.deque] = None
+        self.record: Optional[list] = None
+
+
+class Dropout(nn.Dropout):
+    """Dropout that replays the next injected keep mask, when ``masks`` holds
+    any, as flax's ``nn.Dropout`` applies it: where(mask, h / keep, 0)."""
+
+    def __init__(self, p: float, masks: DropoutMasks):
+        super().__init__(p)
+        self.masks = masks
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0:
+            return h
+        if self.masks.queue is None:
+            if self.masks.record is None:
+                return F.dropout(h, self.p, True)
+            mask = torch.rand(h.shape, device=h.device) >= self.p
+            self.masks.record.append(mask)
+        elif not self.masks.queue:
+            raise RuntimeError("dropout: no injected mask left")
+        else:
+            mask = self.masks.queue.popleft().to(h.device)
+        if mask.shape != h.shape:
+            raise ValueError(f"dropout: injected mask {tuple(mask.shape)} "
+                             f"for activations {tuple(h.shape)}")
+        return torch.where(mask, h / (1.0 - self.p), torch.zeros_like(h))
+
+
 class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
-                 dropout: float, fuse_gn_conv: bool):
+                 dropout: float, fuse_gn_conv: bool,
+                 masks: Optional[DropoutMasks] = None):
         super().__init__()
         self.norm1 = GroupNorm32(in_channels)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.temb_proj = nn.Linear(temb_channels, out_channels)
         self.norm2 = GroupNorm32(out_channels)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout, masks or DropoutMasks())
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
             self.nin_shortcut = nn.Conv2d(in_channels, out_channels, 1)
@@ -114,10 +158,13 @@ class ResnetBlock(nn.Module):
 class AttnBlock(nn.Module):
     """Single-head self-attention over the flattened map. ``attn_impl``
     'fused' runs the whole block through K2 where ``fused_attn_available``
-    admits the shape; elsewhere (and for 'einsum') GN goes through K1 and
-    the products through torch.matmul, as the JAX einsum path does."""
+    admits the shape (K7 when the batch block ``block_b``, or
+    ``DXMI_FUSED_ATTN_BB`` when None, clamps above 1); elsewhere (and for
+    'einsum') GN goes through K1 and the products through torch.matmul, as
+    the JAX einsum path does."""
 
-    def __init__(self, channels: int, attn_impl: str = "fused"):
+    def __init__(self, channels: int, attn_impl: str = "fused",
+                 block_b: Optional[int] = None):
         super().__init__()
         if attn_impl not in ("fused", "einsum"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
@@ -127,6 +174,7 @@ class AttnBlock(nn.Module):
         self.v = nn.Conv2d(channels, channels, 1)
         self.proj_out = nn.Conv2d(channels, channels, 1)
         self.attn_impl = attn_impl
+        self.block_b = block_b
 
     @staticmethod
     def _mat(conv: nn.Conv2d) -> torch.Tensor:
@@ -143,7 +191,8 @@ class AttnBlock(nn.Module):
             y = attn_block(_nhwc(x).reshape(B, S, C), self.norm.weight,
                            self.norm.bias, w_qkv, b_qkv,
                            self._mat(self.proj_out).contiguous(),
-                           self.proj_out.bias, num_heads=1, eps=GN_EPS)
+                           self.proj_out.bias, num_heads=1, eps=GN_EPS,
+                           block_b=self.block_b)
             return _nchw(y.reshape(B, H, W, C))
         h = _nhwc(self.norm(x)).reshape(B, S, C)
         q = h @ self._mat(self.q) + self.q.bias
@@ -179,7 +228,8 @@ class UNetSmall(nn.Module):
 
     Constructor arguments follow the reference (and ``dxmi_tpu``) config:
     ch, out_ch, ch_mult, num_res_blocks, attn_resolutions, dropout,
-    in_channels, resolution (resampling always with a conv)."""
+    in_channels, resolution (resampling always with a conv). ``block_b`` is
+    the attention blocks' batch block (``AttnBlock``)."""
 
     def __init__(self, ch: int = 128, out_ch: int = 3,
                  ch_mult: Sequence[int] = (1, 2, 2, 2),
@@ -187,15 +237,16 @@ class UNetSmall(nn.Module):
                  attn_resolutions: Sequence[int] = (16,),
                  dropout: float = 0.0, in_channels: int = 3,
                  resolution: int = 32, fuse_gn_conv: bool = True,
-                 attn_impl: str = "fused"):
+                 attn_impl: str = "fused", block_b: Optional[int] = None):
         super().__init__()
+        self.dropout_masks = DropoutMasks()
         self.ch = ch
         self.resolution = resolution
         self.num_resolutions = len(ch_mult)
         self.num_res_blocks = num_res_blocks
         temb_ch = ch * 4
         blk = dict(temb_channels=temb_ch, dropout=dropout,
-                   fuse_gn_conv=fuse_gn_conv)
+                   fuse_gn_conv=fuse_gn_conv, masks=self.dropout_masks)
 
         self.temb = nn.Module()
         self.temb.dense = nn.ModuleList([nn.Linear(ch, temb_ch),
@@ -212,7 +263,7 @@ class UNetSmall(nn.Module):
                 level.block.append(ResnetBlock(cur, ch * mult, **blk))
                 cur = ch * mult
                 if res in attn_resolutions:
-                    level.attn.append(AttnBlock(cur, attn_impl))
+                    level.attn.append(AttnBlock(cur, attn_impl, block_b))
                 skips.append(cur)
             if i_level != self.num_resolutions - 1:
                 level.downsample = Downsample(cur)
@@ -222,7 +273,7 @@ class UNetSmall(nn.Module):
 
         self.mid = nn.Module()
         self.mid.block_1 = ResnetBlock(cur, cur, **blk)
-        self.mid.attn_1 = AttnBlock(cur, attn_impl)
+        self.mid.attn_1 = AttnBlock(cur, attn_impl, block_b)
         self.mid.block_2 = ResnetBlock(cur, cur, **blk)
 
         up_levels = []
@@ -234,7 +285,7 @@ class UNetSmall(nn.Module):
                                                ch * ch_mult[i_level], **blk))
                 cur = ch * ch_mult[i_level]
                 if res in attn_resolutions:
-                    level.attn.append(AttnBlock(cur, attn_impl))
+                    level.attn.append(AttnBlock(cur, attn_impl, block_b))
             if i_level != 0:
                 level.upsample = Upsample(cur)
                 res *= 2
@@ -243,6 +294,21 @@ class UNetSmall(nn.Module):
 
         self.norm_out = GroupNorm32(cur)
         self.conv_out = nn.Conv2d(cur, out_ch, 3, padding=1)
+
+    def inject_dropout_masks(self, masks: Optional[Sequence[torch.Tensor]]
+                             ) -> None:
+        """Replay ``masks`` (bool keep masks, NCHW, one per ResnetBlock in
+        call order: encoder, middle, decoder) in the training-mode forwards
+        that follow; None draws masks again."""
+        self.dropout_masks.queue = (None if masks is None
+                                    else collections.deque(masks))
+
+    def record_dropout_masks(self, on: bool = True) -> list:
+        """Keep the masks that dropout draws from now on (``on``) in the
+        list returned, in call order; ``on=False`` stops and returns them."""
+        got = self.dropout_masks.record
+        self.dropout_masks.record = [] if on else None
+        return self.dropout_masks.record if on else (got or [])
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         if x.shape[2] != self.resolution or x.shape[3] != self.resolution:

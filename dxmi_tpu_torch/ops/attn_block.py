@@ -1,12 +1,17 @@
 """The attention block GN + q/k/v 1x1 + attention + proj 1x1 + residual:
-kernel K2 and its plain version, and its int8 (W8A8) form, kernel K5, with
-its plain version and the JAX package's oracle.
+kernel K2 and its plain version, its batch-blocked form, kernel K7, with
+its plain version, and its int8 (W8A8) form, kernel K5, with its plain
+version and the JAX package's oracle.
 
-``attn_block`` mirrors ``dxmi_tpu.ops.attn_block.fused_attn_block`` (the
-forward at one batch element per program): on a CPU tensor it runs the plain
-version, on a CUDA tensor it launches the hand-written kernels in
-``csrc/attn_block.cu`` (or raises). It takes fp32 (CIFAR's single-head
-blocks) or bf16 (the ADM nets' multi-head blocks) activations.
+``attn_block`` mirrors ``dxmi_tpu.ops.attn_block.fused_attn_block``: the
+batch block (``block_b`` or ``DXMI_FUSED_ATTN_BB``, clamped as JAX clamps
+it) selects K2 (one element per program, ``csrc/attn_block.cu``) or K7
+(blocks of bb elements, ``csrc/attn_block_bb.cu``); on a CPU tensor it runs
+their plain versions, on a CUDA tensor it launches the hand-written kernels
+(or raises). It takes fp32 (CIFAR's single-head blocks) or bf16 (the ADM
+nets' multi-head blocks) activations, and is differentiable
+(``AttnBlockFn``): the backward is the vjp of the reference, as
+``_make_op.bwd`` is.
 
 The bf16 form follows the arithmetic of the TPU kernel's body
 (``attn_block.py:225-258``): GN statistics in fp32, h rounded to bf16; q, k, v
@@ -35,7 +40,8 @@ bias before rounding to the compute dtype.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+import os
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -134,33 +140,18 @@ def _attn_block_reference_bf16(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj,
     return x + y
 
 
-def attn_block(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
-               num_heads: int, eps: float = 1e-5) -> torch.Tensor:
-    """The attention block on fp32 or bf16 ``x`` (B, S, C), fp32 GN
-    parameters, weights and biases in ``x``'s dtype. On the card: K2, for
-    shapes that ``fused_attn_available`` admits, in the forms that
-    ``kernel_takes`` names (others raise); it counts as ``attn_block``
-    (fp32) or ``attn_block_bf16``."""
+def _attn_block_k2(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
+                   num_heads: int, eps: float) -> torch.Tensor:
+    """K2's forward (bb = 1): the plain version on a CPU tensor, the kernel
+    on a CUDA tensor."""
     if x.device.type == "cpu":
         return attn_block_reference(x, gn_scale, gn_bias, w_qkv, b_qkv,
                                     w_proj, b_proj, num_heads, eps)
     B, S, C = x.shape
     dt = x.dtype
-    if not fused_attn_available(S, C, num_heads):
-        raise ValueError(f"attn_block kernel: S={S}, C={C}, nh={num_heads} "
-                         "outside fused_attn_available")
-    if not kernel_takes(C, num_heads, dt):
-        raise NotImplementedError(
-            f"attn_block kernel: d={C // num_heads} in {dt} not ported yet "
-            "(fp32 at d % 16 == 0, bf16 at d % 8 == 0 and d <= 128)")
+    _check_kernel_form("attn_block", S, C, num_heads, dt)
     dev = x.device
-    _lib.require(x, "x", (B, S, C), dtype=dt)
-    _lib.require(gn_scale, "gn_scale", (C,), device=dev)
-    _lib.require(gn_bias, "gn_bias", (C,), device=dev)
-    _lib.require(w_qkv, "w_qkv", (C, 3 * C), dtype=dt, device=dev)
-    _lib.require(b_qkv, "b_qkv", (3 * C,), dtype=dt, device=dev)
-    _lib.require(w_proj, "w_proj", (C, C), dtype=dt, device=dev)
-    _lib.require(b_proj, "b_proj", (C,), dtype=dt, device=dev)
+    _require_block_args(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj)
     y = torch.empty_like(x)
     stats = torch.empty((2, B * C), device=dev, dtype=torch.float32)
     qkv = torch.empty((B, S, 3 * C), device=dev, dtype=dt)
@@ -175,6 +166,187 @@ def attn_block(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
     _lib.check(code, f"dxmi_{form}")
     _lib.LAUNCHES[form] += 1
     return y
+
+
+def _check_kernel_form(name, S, C, num_heads, dt) -> None:
+    if not fused_attn_available(S, C, num_heads):
+        raise ValueError(f"{name} kernel: S={S}, C={C}, nh={num_heads} "
+                         "outside fused_attn_available")
+    if not kernel_takes(C, num_heads, dt):
+        raise NotImplementedError(
+            f"{name} kernel: d={C // num_heads} in {dt} not ported yet "
+            "(fp32 at d % 16 == 0, bf16 at d % 8 == 0 and d <= 128)")
+
+
+def _require_block_args(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj):
+    B, S, C = x.shape
+    dt, dev = x.dtype, x.device
+    _lib.require(x, "x", (B, S, C), dtype=dt)
+    _lib.require(gn_scale, "gn_scale", (C,), device=dev)
+    _lib.require(gn_bias, "gn_bias", (C,), device=dev)
+    _lib.require(w_qkv, "w_qkv", (C, 3 * C), dtype=dt, device=dev)
+    _lib.require(b_qkv, "b_qkv", (3 * C,), dtype=dt, device=dev)
+    _lib.require(w_proj, "w_proj", (C, C), dtype=dt, device=dev)
+    _lib.require(b_proj, "b_proj", (C,), dtype=dt, device=dev)
+
+
+# ---- the batch-blocked forward: K7 ----------------------------------------
+
+# the activation bound of the batch-blocked kernel: bb S C <= 1024 * 384
+# (``attn_block.py:898-904``)
+BB_SC_CAP = 1024 * 384
+
+
+def resolve_block_b(B: int, S: int, C: int,
+                    block_b: Optional[int] = None) -> int:
+    """The batch block that ``fused_attn_block`` runs (``attn_block.py:
+    873-906``): ``block_b``, or ``DXMI_FUSED_ATTN_BB`` (default 1) when
+    None; above 1 clamped to ``max(1, BB_SC_CAP // (S C))`` and to B, then
+    lowered until it divides B."""
+    if block_b is None:
+        block_b = int(os.environ.get("DXMI_FUSED_ATTN_BB", "1"))
+    bb = int(block_b)
+    if bb > 1:
+        bb = min(bb, max(1, BB_SC_CAP // (S * C)), B)
+        while bb > 1 and B % bb:
+            bb -= 1
+    return max(bb, 1)
+
+
+def attn_block_bb_reference(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj,
+                            b_proj, num_heads: int, eps: float = 1e-5,
+                            bb: int = 2) -> torch.Tensor:
+    """Plain K7, the arithmetic of ``_kernel_bb`` (``attn_block.py:261-
+    317``), block by block of ``bb`` elements: per-element GroupNorm
+    statistics from one-pass fp32 sums over the block's flattened rows
+    (var = E[x^2] - mean^2); h = dt(x s + t) with s = gn_scale rstd and t =
+    gn_bias - mean s; qkv = dt(h W_qkv) + dt(b_qkv) over the block's bb S
+    rows, q and k times dt(d^-1/4) in dt; per element and head the fp32
+    softmax of the fp32 logits rounded to dt, AV summed in fp32 and rounded;
+    proj as qkv, then the residual in dt. ``dt`` is x's dtype (fp32 or
+    bf16)."""
+    B, S, C = x.shape
+    if B % bb:
+        raise ValueError(f"B={B} is not a multiple of bb={bb}")
+    nh = num_heads
+    d = C // nh
+    cg = C // GROUPS
+    dt = x.dtype
+    scale = torch.tensor(1.0 / math.sqrt(math.sqrt(d)), dtype=dt)
+    outs = []
+    for b0 in range(0, B, bb):
+        xb = x[b0:b0 + bb]
+        xf = xb.float()
+        g = xf.reshape(bb, S, GROUPS, cg)
+        mean = g.mean(dim=(1, 3))
+        var = (g * g).mean(dim=(1, 3)) - mean * mean
+        rstd = torch.rsqrt(var + eps)
+        s_c = gn_scale.float() * rstd.repeat_interleave(cg, dim=1)
+        t_c = gn_bias.float() - mean.repeat_interleave(cg, dim=1) * s_c
+        h = (xf * s_c[:, None] + t_c[:, None]).to(dt)
+        qkv = ((h.reshape(bb * S, C).float() @ w_qkv.float()).to(dt)
+               + b_qkv.to(dt)).reshape(bb, S, 3, nh, d)
+        q, k, v = qkv[:, :, 0] * scale, qkv[:, :, 1] * scale, qkv[:, :, 2]
+        lg = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        w = torch.softmax(lg, dim=-1).to(dt)
+        a = torch.einsum("bhqk,bkhd->bqhd", w.float(), v.float()).to(dt)
+        y = ((a.reshape(bb * S, C).float() @ w_proj.float()).to(dt)
+             + b_proj.to(dt))
+        outs.append(xb + y.reshape(bb, S, C))
+    return torch.cat(outs)
+
+
+def attn_block_bb(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
+                  num_heads: int, eps: float = 1e-5,
+                  bb: int = 2) -> torch.Tensor:
+    """The attention block over blocks of ``bb`` batch elements on fp32 or
+    bf16 ``x`` (B, S, C), B a multiple of bb: the plain version on a CPU
+    tensor; on a CUDA tensor K7 (``csrc/attn_block_bb.cu``), for shapes that
+    ``fused_attn_available`` admits, in the forms that ``kernel_takes``
+    names (others raise); it counts as ``attn_block_bb`` (fp32) or
+    ``attn_block_bb_bf16``."""
+    if x.device.type == "cpu":
+        return attn_block_bb_reference(x, gn_scale, gn_bias, w_qkv, b_qkv,
+                                       w_proj, b_proj, num_heads, eps, bb)
+    B, S, C = x.shape
+    dt = x.dtype
+    if bb < 2 or B % bb:
+        raise ValueError(f"attn_block_bb kernel: bb={bb} must be >= 2 and "
+                         f"divide B={B}")
+    _check_kernel_form("attn_block_bb", S, C, num_heads, dt)
+    _require_block_args(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj)
+    dev = x.device
+    y = torch.empty_like(x)
+    stats = torch.empty((B * GROUPS * 2,), device=dev, dtype=torch.float32)
+    qkv = torch.empty((B, S, 3 * C), device=dev, dtype=dt)
+    attn = torch.empty((B, S, C), device=dev, dtype=dt)
+    form = "attn_block_bb_bf16" if dt == torch.bfloat16 else "attn_block_bb"
+    code = getattr(_lib.lib(), f"dxmi_{form}")(
+        x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(),
+        w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(),
+        b_proj.data_ptr(), y.data_ptr(), stats.data_ptr(), qkv.data_ptr(),
+        attn.data_ptr(), B, S, C, num_heads, GROUPS, bb, float(eps),
+        _lib.stream())
+    _lib.check(code, f"dxmi_{form}")
+    _lib.LAUNCHES[form] += 1
+    return y
+
+
+def _attn_block_forward(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
+                        num_heads, eps, bb):
+    if bb > 1:
+        return attn_block_bb(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj,
+                             b_proj, num_heads, eps, bb)
+    return _attn_block_k2(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
+                          num_heads, eps)
+
+
+class AttnBlockFn(torch.autograd.Function):
+    """The block with the K2 / K7 forward and, as ``_make_op.bwd``
+    (``attn_block.py:862-865``), the vjp of ``attn_block_reference`` on the
+    saved inputs: fp32 for fp32 ``x``, whatever the forward's batch
+    block."""
+
+    @staticmethod
+    def forward(ctx, x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
+                num_heads, eps, bb):
+        ctx.save_for_backward(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj,
+                              b_proj)
+        ctx.num_heads, ctx.eps = num_heads, eps
+        return _attn_block_forward(x, gn_scale, gn_bias, w_qkv, b_qkv,
+                                   w_proj, b_proj, num_heads, eps, bb)
+
+    @staticmethod
+    def backward(ctx, ct):
+        need = ctx.needs_input_grad[:7]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            y = attn_block_reference(*ins, ctx.num_heads, ctx.eps)
+            grads = iter(torch.autograd.grad(
+                y, [t for t in ins if t.requires_grad], ct))
+        return (*(next(grads) if n else None for n in need), None, None,
+                None)
+
+
+def attn_block(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
+               num_heads: int, eps: float = 1e-5,
+               block_b: Optional[int] = None) -> torch.Tensor:
+    """The attention block on fp32 or bf16 ``x`` (B, S, C), fp32 GN
+    parameters, weights and biases in ``x``'s dtype, as
+    ``fused_attn_block``: ``block_b`` (or ``DXMI_FUSED_ATTN_BB``) is clamped
+    by ``resolve_block_b``; a batch block of 1 runs K2, a larger one K7
+    (``attn_block_bb``). On the card the kernels take the shapes that
+    ``fused_attn_available`` admits, in the forms that ``kernel_takes``
+    names (others raise); K2 counts as ``attn_block`` (fp32) or
+    ``attn_block_bf16``. Differentiable (``AttnBlockFn``) when an input
+    requires a gradient."""
+    B, S, C = x.shape
+    bb = resolve_block_b(B, S, C, block_b)
+    args = (x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return AttnBlockFn.apply(*args, num_heads, eps, bb)
+    return _attn_block_forward(*args, num_heads, eps, bb)
 
 
 # ---- the backward: K6 ----------------------------------------------------
@@ -309,9 +481,9 @@ class FusedAttnBlockTrain(torch.autograd.Function):
     def forward(ctx, x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
                 num_heads, eps):
         dt = x.dtype
-        y = attn_block(x, gn_scale, gn_bias, w_qkv.to(dt).contiguous(),
-                       b_qkv.to(dt), w_proj.to(dt).contiguous(),
-                       b_proj.to(dt), num_heads, eps)
+        y = _attn_block_k2(x, gn_scale, gn_bias, w_qkv.to(dt).contiguous(),
+                           b_qkv.to(dt), w_proj.to(dt).contiguous(),
+                           b_proj.to(dt), num_heads, eps)
         ctx.save_for_backward(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj,
                               b_proj)
         ctx.num_heads, ctx.eps = num_heads, eps

@@ -5,6 +5,11 @@ its plain version.
 CPU tensor it runs the plain version, on a CUDA tensor it launches the
 hand-written kernel in ``csrc/conv_fused.cu`` (or raises). Both round the
 conv operands to bf16 and accumulate in fp32, as the TPU kernel does.
+
+It is differentiable (``GnSiluConvFn``): as ``_fgsc_bwd``
+(``conv_fused.py:102-113``), the backward is the vjp of
+``gn_silu_conv_reference`` at fp32 operands, recomputed from the saved
+inputs. So the forward rounds to bf16 and the backward does not.
 """
 from __future__ import annotations
 
@@ -46,13 +51,46 @@ def gn_silu_conv_reference(x: torch.Tensor, gn_scale: torch.Tensor,
     return out.permute(0, 2, 3, 1).contiguous()
 
 
+class GnSiluConvFn(torch.autograd.Function):
+    """K3 (or its plain version on the CPU) forward; the vjp of the fp32
+    ``gn_silu_conv_reference`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, gn_scale, gn_bias, kernel, bias, num_groups, eps):
+        ctx.save_for_backward(x, gn_scale, gn_bias, kernel, bias)
+        ctx.num_groups, ctx.eps = num_groups, eps
+        return _gn_silu_conv_forward(x, gn_scale, gn_bias, kernel, bias,
+                                     num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, ct):
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            y = gn_silu_conv_reference(*ins, ctx.num_groups, ctx.eps,
+                                       operand_dtype=torch.float32)
+            grads = iter(torch.autograd.grad(
+                y, [t for t in ins if t.requires_grad], ct.float()))
+        return (*(next(grads) if n else None for n in need), None, None)
+
+
 def gn_silu_conv(x: torch.Tensor, gn_scale: torch.Tensor,
                  gn_bias: torch.Tensor, kernel: torch.Tensor,
                  bias: torch.Tensor, num_groups: int = 32,
                  eps: float = 1e-6) -> torch.Tensor:
     """Fused GN+SiLU+conv3x3 of a channels-last fp32 ``x`` (B, H, W, Cin)
     with an HWIO ``kernel`` (3, 3, Cin, Cout); returns (B, H, W, Cout) fp32.
-    On the card: K3, for shapes that ``fused_conv_available`` admits."""
+    On the card: K3, for shapes that ``fused_conv_available`` admits.
+    Differentiable (``GnSiluConvFn``) when an input requires a gradient."""
+    args = (x, gn_scale, gn_bias, kernel, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return GnSiluConvFn.apply(*args, num_groups, eps)
+    return _gn_silu_conv_forward(*args, num_groups, eps)
+
+
+def _gn_silu_conv_forward(x, gn_scale, gn_bias, kernel, bias, num_groups,
+                          eps):
     if x.device.type == "cpu":
         return gn_silu_conv_reference(x, gn_scale, gn_bias, kernel, bias,
                                       num_groups, eps)

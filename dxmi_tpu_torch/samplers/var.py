@@ -51,7 +51,8 @@ class VARSampler(nn.Module):
         self.sample_shape = tuple(int(s) for s in sample_shape)
         self.trainable_beta = trainable_beta
         sch = var_schedule(self.n_timesteps)
-        for name in ("tau", "x_mult", "eps_mult", "sigma_q"):
+        for name in ("tau", "x_mult", "eps_mult", "sigma_q", "init_sigma",
+                     "eta"):
             self.register_buffer(name, torch.from_numpy(getattr(sch, name)),
                                  persistent=False)
         self.log_betas = nn.Parameter(
@@ -65,38 +66,79 @@ class VARSampler(nn.Module):
                else self.sigma_q)
         return torch.cat([sig[:-1], sig.new_full((1,), 1e-3)])
 
-    def sample_step(self, x: torch.Tensor, t: int,
+    @property
+    def user_defined_eta(self) -> torch.Tensor:
+        """The q-process betas (T,) that the trainer's ``use_sampler_beta``
+        reads (``var.py:76-83``)."""
+        return self.eta
+
+    def sample_step(self, x: torch.Tensor, t: Union[int, torch.Tensor],
                     noise: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> Dict[str, torch.Tensor]:
-        """One ancestral step at sampling step ``t``: sample, mean, control
-        (B, C, H, W) and sigma (B,)."""
+                    y: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None,
+                    train: bool = False) -> Dict[str, torch.Tensor]:
+        """One ancestral step at sampling step ``t`` (an int, or one step per
+        row as a (B,) tensor) with ``noise`` (drawn from ``generator`` when
+        None); ``y`` is ignored (an unconditional policy). ``train`` puts the
+        net in training mode (dropout) for the call, as the JAX package's
+        ``train=True``. Returns the d_step contract (``var.py:111-149``):
+        sample, mean, control (B, C, H, W); sigma, logp, logp_terminal,
+        entropy (B,). Differentiable in the net and in ``log_betas``."""
+        del y
         B = x.shape[0]
-        eps = self.net(x, self.tau[t].expand(B))
-        control = self.eps_mult[t] * eps
-        mean = x * self.x_mult[t] + control
+        t = torch.as_tensor(t, device=self.tau.device).expand(B)
+        self.net.train(train)
+        eps = self.net(x, self.tau[t])
+        bshape = (-1,) + (1,) * (x.dim() - 1)
+        control = self.eps_mult[t].reshape(bshape) * eps
+        mean = x * self.x_mult[t].reshape(bshape) + control
         sigma = self.sigmas_all()[t]
         if noise is None:
             noise = torch.randn(x.shape, generator=generator, device=x.device)
-        return {"sample": mean + sigma * noise, "mean": mean,
-                "sigma": sigma.expand(B), "control": control}
+        sample = mean + sigma.reshape(bshape) * noise
+        return {"sample": sample, "mean": mean, "sigma": sigma,
+                "logp": gaussian_logp_mean(sample, mean,
+                                           sigma.reshape(bshape)),
+                "logp_terminal": x.new_zeros(B),
+                "entropy": torch.log(sigma), "control": control}
 
     def sample(self, n_sample: int, generator: Optional[torch.Generator] = None,
                x0: Optional[torch.Tensor] = None,
                eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Full T-step trajectory from ``x0`` (drawn when None) with per-step
-        noise ``eps[t]`` (drawn when None). Returns sample (B, C, H, W),
-        l_sample (T+1, B, C, H, W), mean (T, B, C, H, W) and sigma (T, B)."""
+        noise ``eps[t]`` (drawn when None), the net in eval mode. Returns the
+        d_sample contract (``var.py:161-225``): sample (B, C, H, W), l_sample
+        (T+1, B, C, H, W), mean and control (T, B, C, H, W), sigma, logp and
+        entropy (T, B), logp_terminal (B,)."""
         device = self.log_betas.device
         if x0 is None:
             x0 = torch.randn((n_sample, *self.sample_shape),
                              generator=generator, device=device)
-        xs, means, sigmas = [x0], [], []
+        xs = [x0]
+        keys = ("mean", "sigma", "logp", "entropy", "control")
+        traj = {k: [] for k in keys}
         for t in range(self.n_timesteps):
             out = self.sample_step(xs[-1], t,
-                                   None if eps is None else eps[t], generator)
+                                   None if eps is None else eps[t],
+                                   generator=generator)
             xs.append(out["sample"])
-            means.append(out["mean"])
-            sigmas.append(out["sigma"])
+            for k in keys:
+                traj[k].append(out[k])
         return {"sample": xs[-1], "l_sample": torch.stack(xs),
-                "mean": torch.stack(means), "sigma": torch.stack(sigmas)}
+                **{k: torch.stack(v) for k, v in traj.items()},
+                "logp_terminal": x0.new_zeros(x0.shape[0])}
+
+    def log_prob_step(self, x_prev: torch.Tensor, x_next: torch.Tensor,
+                      t: Union[int, torch.Tensor]) -> torch.Tensor:
+        """log p(x_next | x_prev, t) (B,) under the current policy mean with
+        the schedule's initial std, the net in eval mode
+        (``var.py:257-271``)."""
+        B = x_prev.shape[0]
+        t = torch.as_tensor(t, device=self.tau.device).expand(B)
+        self.net.train(False)
+        eps = self.net(x_prev, self.tau[t])
+        bshape = (-1,) + (1,) * (x_prev.dim() - 1)
+        mean = (x_prev * self.x_mult[t].reshape(bshape)
+                + self.eps_mult[t].reshape(bshape) * eps)
+        return gaussian_logp_mean(x_next, mean,
+                                  self.init_sigma[t].reshape(bshape))

@@ -1,0 +1,216 @@
+"""DxMI training for CIFAR-10 with the port (``train_cifar10.py:130-379``):
+UNetSmall + VARSampler + ``DxMITrainer``, one iteration being
+
+    sample -> update_f_v -> update_sampler
+
+    python -m dxmi_tpu_torch.train_cifar10 --config configs/cifar10/T10.yaml \
+        --dataset configs/cifar10/cifar10.yaml --run myrun [--fake_data] \
+        [--max_steps N] [--attn_impl fused|einsum] [--fuse_gn_conv true|false] \
+        [--device cuda|cpu] [--any.dot.key value ...]
+
+The sampler net runs fp32 through the generation defaults: fused attention
+(K2, or K7 under ``DXMI_FUSED_ATTN_BB`` > 1) and K3 for each GN+SiLU+conv
+whose dropout is inactive. Without ``training.sampler_ckpt`` on disk the
+weights are PyTorch's initialisation drawn from ``training.seed`` (DxMI
+fine-tunes a pretrained sampler: the run warns). The trajectory is sampled
+in chunks of 32 when the config does not set ``trainer.sample_chunks`` (the
+JAX entry's rule at fp32). Each epoch prints ``sample_norm_`` of 64 samples;
+FID runs as ``maybe_compute_fid`` gates it: skipped while the Inception
+weights are absent, not ported yet where the JAX entry would compute it. The
+run directory ``results/<data.name>/<config name>/<run>`` gets ``config.yaml``
+and, at the end, ``sampler_last.pth`` and ``value_last.pth`` in the
+reference's format, which ``generate_cifar10 --sampler last`` reads. Not
+ported yet (they raise): ``--fast_levers``, ``--resume``, ``--wandb``,
+``training.n_critic`` other than 1 and msgpack checkpoints.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from dxmi_tpu_torch.config import (instantiate, load_yaml, merge,
+                                   parse_nested_args, parse_unknown_args,
+                                   save_yaml, to_yaml)
+from dxmi_tpu_torch.data.cifar10 import EpochLoader, fake_cifar, get_dataset
+from dxmi_tpu_torch.runtime import select_device
+from dxmi_tpu_torch.trainers.dxmi import DxMITrainer, train_step
+from dxmi_tpu_torch.utils.checkpoint import (load_sampler_state,
+                                             load_value_state,
+                                             save_run_checkpoint)
+
+# the Inception weights and CIFAR-10 statistics that maybe_compute_fid looks
+# for (dxmi_tpu/fid/runner.py:26-32)
+FID_WEIGHTS = ("datasets/pt_inception-2015-12-05.npz",
+               "pretrained/pt_inception-2015-12-05.npz",
+               "datasets/pt_inception-2015-12-05.pth",
+               "pretrained/pt_inception-2015-12-05.pth")
+FID_STATS = ("datasets/cifar10_train_fid_stats.pt",
+             "datasets/cifar10_train_fid_stats.npz",
+             "datasets/fid_stats_cifar10_train.npz")
+# the per-chunk batch of the trajectory sampling at fp32 (train_cifar10.py:
+# 61-72)
+SAMPLE_CHUNK = 32
+
+
+def build(cfg: Dict[str, Any], device: torch.device, seed: int,
+          attn_impl: str = "fused", fuse_gn_conv: bool = True
+          ) -> Tuple[torch.nn.Module, torch.nn.Module, DxMITrainer]:
+    """The config's sampler, value and trainer on ``device`` (the JAX entry's
+    ``build`` and ``init_state``): the checkpoints when they exist, else
+    weights drawn from ``seed``; the optimizers; the auto-chunk rule."""
+    tr = cfg["training"]
+    torch.manual_seed(seed)
+    net = instantiate(cfg["sampler_net"], attn_impl=attn_impl,
+                      fuse_gn_conv=fuse_gn_conv)
+    sampler = instantiate(cfg["sampler"], net=net)
+    path = tr.get("sampler_ckpt")
+    if path and os.path.exists(path):
+        if path.endswith(".msgpack"):
+            raise NotImplementedError("sampler_ckpt: msgpack checkpoints are "
+                                      "not readable by the port yet")
+        sampler.load_state_dict(load_sampler_state(path), strict=False)
+        print(f"Sampler checkpoint loaded from {path}", flush=True)
+    elif path:
+        print(f"WARNING: sampler ckpt {path} not found; training from "
+              f"weights drawn from seed {seed} (DxMI fine-tunes a pretrained "
+              "sampler)", flush=True)
+    value = instantiate(cfg["value"])
+    v_path = tr.get("value_ckpt")
+    if v_path and os.path.exists(v_path):
+        value.load_state_dict(load_value_state(v_path))
+        print(f"value checkpoint loaded from {v_path}", flush=True)
+    sampler.to(device)
+    value.to(device)
+    trainer = instantiate(cfg["trainer"], batchsize=int(tr["batchsize"]),
+                          n_timesteps=cfg["sampler"]["n_timesteps"])
+    trainer.set_models(sampler, value, lr=float(tr["lr"]),
+                       v_lr=float(tr["v_lr"]),
+                       beta_lr=float(tr.get("beta_lr") or tr["lr"]))
+    if trainer.sample_chunks == 1 and "sample_chunks" not in cfg["trainer"]:
+        b = trainer.batchsize
+        if b > SAMPLE_CHUNK and b % SAMPLE_CHUNK == 0:
+            trainer.sample_chunks = b // SAMPLE_CHUNK
+    return sampler, value, trainer
+
+
+def fid_ready(cfg: Dict[str, Any]) -> bool:
+    """Whether ``maybe_compute_fid`` would compute FID: the Inception weights
+    are on disk and so are the statistics (or, for CIFAR-10, the raw batches
+    it would build them from)."""
+    if not any(os.path.exists(p) for p in FID_WEIGHTS):
+        return False
+    return (any(os.path.exists(p) for p in FID_STATS)
+            or cfg.get("data", {}).get("name") == "cifar10")
+
+
+def maybe_fid(cfg: Dict[str, Any]) -> None:
+    if fid_ready(cfg):
+        raise NotImplementedError("FID during training: not ported yet "
+                                  "(ROADMAP.md); set training.fid_epoch "
+                                  "None")
+    print("FID skipped: no Inception weights on disk", flush=True)
+
+
+def to_device_batch(images: np.ndarray, device: torch.device) -> torch.Tensor:
+    """NHWC [0, 1] numpy -> NCHW [-1, 1] fp32 on ``device``."""
+    x = torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2)))
+    return x.to(device) * 2.0 - 1.0
+
+
+def main() -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--config", required=True)
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--run", default="run")
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--fake_data", action="store_true")
+    p.add_argument("--fake_data_size", type=int, default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--wandb", action="store_true")
+    p.add_argument("--fast_levers", action="store_true")
+    p.add_argument("--attn_impl", default="fused", choices=["fused", "einsum"])
+    p.add_argument("--fuse_gn_conv", default="true", choices=["true", "false"])
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args, unknown = p.parse_known_args()
+    for flag, on in (("--fast_levers", args.fast_levers),
+                     ("--resume", args.resume), ("--wandb", args.wandb)):
+        if on:
+            raise NotImplementedError(f"{flag}: not ported yet (ROADMAP.md)")
+
+    cfg = merge(load_yaml(args.config), load_yaml(args.dataset),
+                parse_nested_args(parse_unknown_args(unknown)))
+    print(to_yaml(cfg), flush=True)
+    tr = cfg["training"]
+    seed = int(tr["seed"])
+    n_critic, n_generator = int(tr["n_critic"]), int(tr["n_generator"])
+    if n_critic != 1:
+        raise NotImplementedError("training.n_critic > 1: not ported yet "
+                                  "(ROADMAP.md)")
+    fid_epoch, fid_every = tr.get("fid_epoch"), tr.get("fid_every")
+    if fid_epoch is not None and fid_every is not None:
+        raise ValueError("cannot set both fid_epoch and fid_every")
+    dev = select_device(args.device)
+    batchsize = int(tr["batchsize"])
+    sampler, value, trainer = build(cfg, dev, seed, args.attn_impl,
+                                    args.fuse_gn_conv == "true")
+    print(f"trajectory sampling in {trainer.sample_chunks} chunk(s)",
+          flush=True)
+
+    if args.fake_data:
+        n_fake = args.fake_data_size or max(batchsize * 4, 256)
+        train_set = fake_cifar(n_fake, seed)
+        print(f"using fake data stand-in ({n_fake} images)", flush=True)
+    else:
+        train_set = get_dataset(cfg["data"]["name"],
+                                cfg["data"].get("data_dir", "datasets"))
+    loader = EpochLoader(train_set, batch_size=batchsize, seed=seed)
+
+    model_cfg_name = os.path.basename(args.config).split(".")[0]
+    logdir = os.path.join(f"results/{cfg['data']['name']}/{model_cfg_name}",
+                          args.run)
+    os.makedirs(logdir, exist_ok=True)
+    save_yaml(cfg, os.path.join(logdir, "config.yaml"))
+    print(f"run dir: {logdir}", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log_every = int(tr["log_every"])
+    i_iter, epoch, t0 = 0, 0, time.time()
+    done = False
+    for epoch in range(int(tr["n_epochs"])):
+        with torch.no_grad():
+            xi = sampler.sample(64, generator=gen)["sample"]
+        norm = float(xi.reshape(xi.shape[0], -1).norm(dim=1).mean())
+        print(f"epoch {epoch} sample_norm_={norm:.4f}", flush=True)
+        if fid_epoch is not None and epoch % int(fid_epoch) == 0:
+            maybe_fid(cfg)
+        for step, (images, _) in enumerate(loader.epoch(epoch)):
+            if fid_every is not None and i_iter % int(fid_every) == 0:
+                maybe_fid(cfg)
+            x = to_device_batch(images, dev)
+            m = train_step(trainer, x, None, gen, n_generator=n_generator)
+            if (step + 1) % log_every == 0 or i_iter == 0:
+                its = (i_iter + 1) / (time.time() - t0)
+                print(f"iter {i_iter} d_loss={float(m['ebm/d_loss_']):.4f} "
+                      f"sampler_loss={float(m['sampler/sampler_loss_']):.4f} "
+                      f"({its:.3f} it/s) sample={m['time/sample']:.3f}s "
+                      f"update_f_v={m['time/update_f_v']:.3f}s "
+                      f"update_sampler={m['time/update_sampler']:.3f}s",
+                      flush=True)
+            i_iter += 1
+            done = args.max_steps is not None and i_iter >= args.max_steps
+            if done:
+                break
+        if done:
+            break
+    save_run_checkpoint(logdir, "last", sampler, value,
+                        meta={"epoch": epoch, "iter": i_iter})
+    print(f"done: {i_iter} iters", flush=True)
+
+
+if __name__ == "__main__":
+    main()

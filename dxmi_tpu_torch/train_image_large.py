@@ -37,9 +37,8 @@ from dxmi_tpu_torch.config import (instantiate, load_yaml, merge,
 from dxmi_tpu_torch.data.synthetic import structured_class_images
 from dxmi_tpu_torch.models.unet_adm import create_unet_adm, seeded_normal_
 from dxmi_tpu_torch.runtime import select_device
-from dxmi_tpu_torch.samplers import sample_chunked
 from dxmi_tpu_torch.samplers.edm import EDMSampler, KarrasDenoiser
-from dxmi_tpu_torch.trainers import buffer as buflib
+from dxmi_tpu_torch.trainers.dxmi import train_step
 from dxmi_tpu_torch.utils.checkpoint import (load_sampler_state,
                                              save_run_checkpoint)
 
@@ -94,29 +93,6 @@ def fake_data(cfg: Dict[str, Any], sampler: EDMSampler, size: int,
         idx = torch.from_numpy(rng.randint(0, len(pool_x), batchsize)).to(
             device)
         yield pool_x[idx], (pool_y[idx] if class_cond else None)
-
-
-def train_step(trainer, x: torch.Tensor, y: Optional[torch.Tensor],
-               generator: torch.Generator) -> Dict[str, Any]:
-    """One DxMI iteration; returns the metrics of both phases and each
-    phase's host seconds (after a device synchronize) under ``time/``."""
-    sync = (torch.cuda.synchronize if x.device.type == "cuda"
-            else (lambda: None))
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        d_sample = sample_chunked(trainer.sampler, trainer.batchsize,
-                                  trainer.sample_chunks, generator)
-    traj = buflib.from_d_sample(d_sample)
-    sync()
-    t1 = time.perf_counter()
-    m_energy = trainer.update_f_v(x, traj, y=y)
-    sync()
-    t2 = time.perf_counter()
-    m_sampler = trainer.update_sampler(traj, generator=generator)
-    sync()
-    t3 = time.perf_counter()
-    return {**m_energy, **m_sampler, "time/sample": t1 - t0,
-            "time/update_f_v": t2 - t1, "time/update_sampler": t3 - t2}
 
 
 def main() -> None:

@@ -9,6 +9,10 @@ backward in time, one optimizer step per timestep, in order: the sweep stays
 sequential, as the reference's semantics need (``dxmi.py:6-10``), with the
 ``value_grad_clip`` scaling to global norm 0.1.
 
+``train_step`` composes one iteration as ``_train_step_impl`` does
+(``dxmi.py:303-336``): sample a trajectory (``sample_chunked``), the buffer,
+``update_f_v``, ``update_sampler``.
+
 ``update_sampler`` (``dxmi.py:587-670``): a permutation of the flat buffer, G
 minibatches of B rows; each re-runs one policy step with gradients and
 descends V(x_{t+1}) + (tau2 cost - tau1 log sigma) [t < T - skip_sampler_tau]
@@ -26,12 +30,14 @@ set raise ``NotImplementedError`` (see ROADMAP.md): a separate energy ``f``,
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import time
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from dxmi_tpu_torch.samplers import sample_chunked
 from dxmi_tpu_torch.schedules import make_beta_schedule
-from dxmi_tpu_torch.trainers.buffer import TrajectoryBuffer
+from dxmi_tpu_torch.trainers.buffer import TrajectoryBuffer, from_d_sample
 from dxmi_tpu_torch.trainers.optim import (Adam, ApplyIfFinite, RAdam,
                                            clip_by_global_norm, global_norm)
 
@@ -125,7 +131,12 @@ class DxMITrainer:
         self.betas_for_q = self.init_betas_for_q()
 
     def init_betas_for_q(self) -> torch.Tensor:
+        """``dxmi.py:204-219``: with ``use_sampler_beta`` the sampler's
+        q-process betas (``user_defined_eta``, VARSampler), else the exp of
+        its current ``log_betas``; otherwise the configured schedule."""
         if self.use_sampler_beta:
+            if hasattr(self.sampler, "user_defined_eta"):
+                return self.sampler.user_defined_eta.detach().float().clone()
             if hasattr(self.sampler, "log_betas"):
                 return torch.exp(self.sampler.log_betas.detach().float())
             raise ValueError("use_sampler_beta requires a sampler schedule "
@@ -314,3 +325,33 @@ class DxMITrainer:
     def nan_guard_skips(self) -> int:
         """Sampler updates the non-finite guard has skipped so far."""
         return 0 if self.guard is None else self.guard.total_notfinite
+
+
+def train_step(trainer: DxMITrainer, x: torch.Tensor,
+               y: Optional[torch.Tensor], generator: torch.Generator,
+               n_generator: Optional[int] = None) -> Dict[str, Any]:
+    """One DxMI iteration (``dxmi.py:303-336``): a trajectory of
+    ``trainer.batchsize`` samples in ``trainer.sample_chunks`` chunks, the
+    buffer, ``update_f_v`` on the data batch ``x`` (labels ``y`` or None),
+    then ``update_sampler`` with ``n_generator`` minibatches (None: the
+    trainer's own default, one for ``DxMITrainer``, the full buffer for
+    ``DxMITrainerCond``). Returns the metrics of both phases and each phase's
+    host seconds (after a device synchronize) under ``time/``."""
+    sync = (torch.cuda.synchronize if x.device.type == "cuda"
+            else (lambda: None))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        d_sample = sample_chunked(trainer.sampler, trainer.batchsize,
+                                  trainer.sample_chunks, generator)
+    traj = from_d_sample(d_sample)
+    sync()
+    t1 = time.perf_counter()
+    m_energy = trainer.update_f_v(x, traj, y=y)
+    sync()
+    t2 = time.perf_counter()
+    kw = {} if n_generator is None else {"n_generator": n_generator}
+    m_sampler = trainer.update_sampler(traj, generator=generator, **kw)
+    sync()
+    t3 = time.perf_counter()
+    return {**m_energy, **m_sampler, "time/sample": t1 - t0,
+            "time/update_f_v": t2 - t1, "time/update_sampler": t3 - t2}

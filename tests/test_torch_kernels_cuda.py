@@ -26,7 +26,9 @@ from chip_smoke import (TOL, attn_bf16_check, attn_i8_check,
 from dxmi_tpu_torch.ops import _lib
 from dxmi_tpu_torch.ops.attention import flash_mha, flash_mha_reference
 from dxmi_tpu_torch.ops import quant
-from dxmi_tpu_torch.ops.attn_block import (attn_block, attn_block_int8,
+from dxmi_tpu_torch.ops.attn_block import (attn_block, attn_block_bb,
+                                           attn_block_bb_reference,
+                                           attn_block_int8,
                                            attn_block_int8_plain,
                                            attn_block_reference,
                                            prep_int8_mats)
@@ -94,6 +96,67 @@ def test_attn_block(card, B, S, C, nh):
                     ((C, C), C ** -0.5, 0.0), ((C,), 0.1, 0.0))
     _check(attn_block(*args, num_heads=nh, eps=1e-6),
            attn_block_reference(*args, num_heads=nh, eps=1e-6), "attn_block")
+
+
+@pytest.mark.parametrize("B,S,C,nh,bb", [(128, 256, 256, 1, 2),
+                                         (128, 256, 256, 1, 4),
+                                         (8, 64, 64, 1, 2), (6, 128, 128, 2, 3),
+                                         (4, 192, 96, 1, 2)])
+def test_attn_block_bb(card, B, S, C, nh, bb):
+    """K7 (fp32) against its plain version at K2's limit, a replay
+    bit-equal, and attn_block routing the same batch block to it."""
+    args = _tensors(np.random.RandomState(8), card, ((B, S, C), 2.0, 0.5),
+                    ((C,), 0.1, 1.0), ((C,), 0.1, 0.0),
+                    ((C, 3 * C), C ** -0.5, 0.0), ((3 * C,), 0.1, 0.0),
+                    ((C, C), C ** -0.5, 0.0), ((C,), 0.1, 0.0))
+    out = attn_block_bb(*args, num_heads=nh, eps=1e-6, bb=bb)
+    ref = attn_block_bb_reference(*args, num_heads=nh, eps=1e-6, bb=bb)
+    atol, rtol = TOL["attn_block_bb"]
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+    assert torch.equal(out, attn_block_bb(*args, num_heads=nh, eps=1e-6,
+                                          bb=bb))
+    assert torch.equal(out, attn_block(*args, num_heads=nh, eps=1e-6,
+                                       block_b=bb))
+    assert _lib.LAUNCHES["attn_block_bb"] == 3 and not _lib.LAUNCHES[
+        "attn_block"]
+
+
+@pytest.mark.parametrize("B,S,C,nh,bb", [(100, 256, 576, 9, 2),
+                                         (8, 1024, 96, 3, 2),
+                                         (4, 256, 128, 1, 4)])
+def test_attn_block_bb_bf16(card, B, S, C, nh, bb):
+    rs = np.random.RandomState(9)
+    x = _bf16(rs, card, (B, S, C), 1.0, 0.0)
+    gs, gb = _tensors(rs, card, ((C,), 0.1, 1.0), ((C,), 0.1, 0.0))
+    w = [_bf16(rs, card, shape, scale, 0.0)
+         for shape, scale in (((C, 3 * C), C ** -0.5), ((3 * C,), 0.02),
+                              ((C, C), C ** -0.5), ((C,), 0.02))]
+    out = attn_block_bb(x, gs, gb, *w, num_heads=nh, bb=bb)
+    attn_bf16_check(out, attn_block_bb_reference(x, gs, gb, *w,
+                                                 num_heads=nh, bb=bb),
+                    x, "attn_block_bb_bf16")
+    assert torch.equal(out, attn_block_bb(x, gs, gb, *w, num_heads=nh,
+                                          bb=bb))
+    assert _lib.LAUNCHES["attn_block_bb_bf16"] == 2
+
+
+def test_attn_block_autograd_matches_plain_autograd(card):
+    """attn_block's gradient with the K7 forward: the vjp of the fp32
+    reference, which autograd through attn_block_reference equals."""
+    rs = np.random.RandomState(10)
+    C = 64
+    args = _tensors(rs, card, ((8, 64, C), 1.0, 0.0), ((C,), 0.1, 1.0),
+                    ((C,), 0.1, 0.0), ((C, 3 * C), C ** -0.5, 0.0),
+                    ((3 * C,), 0.1, 0.0), ((C, C), C ** -0.5, 0.0),
+                    ((C,), 0.1, 0.0))
+    ct = torch.randn(8, 64, C, device=card)
+    got = [a.clone().requires_grad_() for a in args]
+    attn_block(*got, num_heads=1, eps=1e-6, block_b=2).backward(ct)
+    want = [a.clone().requires_grad_() for a in args]
+    attn_block_reference(*want, num_heads=1, eps=1e-6).backward(ct)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.grad, w.grad, rtol=0, atol=0)
+    assert _lib.LAUNCHES["attn_block_bb"] == 1
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
