@@ -15,10 +15,14 @@ failure exits non-zero naming the phase:
      CIFAR-10 and ImageNet64 shapes (K5 also at LSUN's C=1024 maps; K4's
      logsumexp, the backward kernels K4-dkv, K4-dq and K6 at the ImageNet64
      maps at E3's batch 128, K4-dkv/dq also chained from the plain forward,
-     and K6 also at the ADM fixture's fp32 shape; K7 fp32 at E4's shape at
+     K6 also at the ADM fixture's fp32 shape, and both at the tensor-core
+     kernels' edges (S = 64; head dims 24, 32, 36, 40); K7 fp32 at E4's shape at
      bb 2 and 4, bf16 at ImageNet64's 16x16 map);
   T  time each kernel, its plain version and one PyTorch library call with
-     CUDA events (K7 at bb 2 and 4 beside K2 on the same inputs);
+     CUDA events (K7 at bb 2 and 4 beside K2 on the same inputs; K6's fp32
+     form at G3's shape);
+  T-bwd the device time of each launch of one K6 bf16 call and one K4-dkv
+     call at the 32x32 map at batch 128 (torch.profiler);
   G  replay the trained reference fixture (tests/fixtures/torch_rundir_t10)
      with its injected noise through the kernels, unfused and fused;
   E  generate 2 batches of 100 CIFAR-10 samples at T=10 at the full width of
@@ -42,7 +46,8 @@ failure exits non-zero naming the phase:
      seeded random weights, the structured fake pool): 3 steps with flash
      attention (K4 forward, K4-dkv, K4-dq) and 3 with fused_train (K2, K6),
      checking the launches per step, finite metrics and no skipped update,
-     and the first minibatch's gradient by einsum, flash and fused_train,
+     the backward kernels' share of a profiled step, and the first
+     minibatch's gradient by einsum, flash and fused_train,
      whole and per group of the attention blocks' parameters;
   G4 one DxMITrainer iteration on the CIFAR fixture with the JAX trainer's
      trajectory, permutation, noise and dropout masks, einsum and fused
@@ -60,6 +65,8 @@ failure exits non-zero naming the phase:
      train_image_large for 2 steps on a shrunken config and generate_large
      on the run dir it wrote, and the same with train_cifar10 and
      generate_cifar10.
+
+`python3 chip_smoke.py --bwd-profile` runs phases B and T-bwd alone.
 
 The line before the last line is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record, and the last line is
@@ -719,11 +726,20 @@ ATTN_BWD_BF16_DX_MEAN_REL = 1e-3
 ATTN_BWD_BF16_MAX_REL = 2.0 ** -4
 ATTN_BWD_FP32_TOL = 5e-4
 ATTN_BWD_NAMES = ("dx", "dgs", "dgb", "dw_qkv", "db_qkv", "dw_proj", "db_proj")
-FLASH_BWD_SHAPES = [(TRAIN_BATCH, 1024, 6, 64)]
+# The main path's shapes, then the tensor-core kernels' edges: K4-dkv at
+# d = 32 and at d = 40 (zero-padded to 64 in shared memory) inside the flash
+# gate; K6 at a single 64-row tile with d = 32, at d = 40 and d = 24 (padded
+# head dims), and at d = 36, whose heads start off 16 bytes (8-byte loads).
+FLASH_BWD_SHAPES = [(TRAIN_BATCH, 1024, 6, 64), (16, 512, 4, 32),
+                    (16, 512, 3, 40)]
 ATTN_BWD_SHAPES = [(TRAIN_BATCH, 1024, 384, 6, torch.bfloat16),
                    (TRAIN_BATCH, 256, 576, 9, torch.bfloat16),
                    (TRAIN_BATCH, 64, 768, 12, torch.bfloat16),
-                   (8, 64, 64, 2, torch.float32)]
+                   (8, 64, 64, 2, torch.float32),
+                   (16, 64, 256, 8, torch.bfloat16),
+                   (16, 128, 320, 8, torch.bfloat16),
+                   (16, 256, 192, 8, torch.bfloat16),
+                   (16, 64, 288, 8, torch.bfloat16)]
 
 
 def flash_lse_check(lse, ref, what):
@@ -928,7 +944,58 @@ def train_time_rows(gen):
                  * S * d, "fp32": 8 * TRAIN_BATCH * nh * S * S + 20 * M * C})
         del a, x, ct, xl, pl, y
         torch.cuda.empty_cache()
+    rows["attn_block_bwd"] = k6_fp32_time_row(gen)
     return rows
+
+
+def k6_fp32_time_row(gen):
+    """T row of K6's fp32 form (SIMT) at G3's shape, the ADM fixture's 8x8
+    map at batch 8 (8, 64, 64, nh 2). Library yardstick: the backward alone
+    of autograd through F.group_norm, the matmuls and SDPA in fp32."""
+    B, S, C, nh = 8, 64, 64, 2
+    a = attn_bwd_case(gen, B, S, C, torch.float32)
+    x, ct, gs, gb, wq, bq, wp = a
+    d = C // nh
+    xl = x.detach().clone().requires_grad_(True)
+    pl = [t.detach().clone().requires_grad_(True)
+          for t in (gs, gb, wq, bq, wp)]
+    g = F.group_norm(xl.transpose(1, 2), 32, pl[0], pl[1],
+                     1e-5).transpose(1, 2)
+    q, k, v = (g @ pl[2] + pl[3]).reshape(B, S, 3, nh, d).permute(
+        2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)
+    y = xl + o.transpose(1, 2).reshape(B, S, C) @ pl[4]
+    M = B * S
+    return dict(
+        ms=time_ms(lambda: attn_block_bwd(*a, nh)),
+        plain_ms=time_ms(lambda: attn_block_bwd_reference(*a, nh)),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            y, [xl, *pl], ct, retain_graph=True)),
+        # x, ct read and dx written; weights read; the fp32 cotangents of
+        # every parameter written
+        bytes=3 * M * C * 4 + 4 * C * C * 4 + (4 * C * C + 6 * C) * 4,
+        # the products of the bf16 row, on the fp32 units
+        ops={"fp32": 2 * 11 * M * C * C + 2 * 6 * B * nh * S * S * d
+             + 8 * B * nh * S * S + 20 * M * C})
+
+
+def bwd_breakdown(gen):
+    """Device time of each launch of one K6 bf16 call at the 32x32 map
+    (batch 128) and of one K4-dkv call at the same map, after a warm-up
+    call: the split that PERF.md's K6 breakdown records."""
+    a = attn_bwd_case(gen, TRAIN_BATCH, 1024, 384, torch.bfloat16)
+    attn_block_bwd(*a, 6)
+    torch.cuda.synchronize()
+    profile_run(lambda: attn_block_bwd(*a, 6),
+                f"K6 bf16 {(TRAIN_BATCH, 1024, 384, 6)}, one call", top=20,
+                width=150)
+    del a
+    qkv, o, lse, do, sm = flash_bwd_case(gen, TRAIN_BATCH, 1024, 6, 64)
+    flash_bwd_dkv(qkv, o, lse, do, sm)
+    torch.cuda.synchronize()
+    profile_run(lambda: flash_bwd_dkv(qkv, o, lse, do, sm),
+                f"K4-dkv {(TRAIN_BATCH, 6, 1024, 64)}, one call", width=150)
+    torch.cuda.empty_cache()
 
 
 # G3: the port's DxMITrainerCond iteration on the ADM fixture against the
@@ -1025,6 +1092,20 @@ TRAIN_LAUNCHES_PER_STEP = {
     "fused_train": {"gn_silu_bf16": 73 * TRAIN_FORWARDS,
                     "attn_block_bf16": 22 * TRAIN_FORWARDS,
                     "attn_block_bwd_bf16": 22 * TRAIN_BACKWARDS},
+}
+# The device time of the backward kernels in E3's profiled step, by kernel
+# name: K4-dkv (its tensor-core kernel and di) and K4-dq on the flash path;
+# K6's launches on fused_train but for K1's GroupNorm statistics and apply,
+# which K6 shares with K1's forward launches (two of K6's launches, ~0.4 of
+# 17 ms at the 32x32 map).
+E3_SHARES = {
+    "flash": {"K4-dkv": ("attn_bwd_dkv_tc_kernel", "di_kernel"),
+              "K4-dq": ("attn_bwd_dq_kernel",)},
+    "fused_train": {"K6 (less K1's GroupNorm launches)": (
+        "attn_stats_tc_kernel", "attn_bwd_dkv_tc_kernel",
+        "attn_bwd_dq_kernel", "hgemm_kernel<0, 0,", "hgemm_kernel<0, 2,",
+        "hgemm_kernel<0, 3,", "gn_bwd_kernel", "colsum_kernel",
+        "sum_parts_kernel")},
 }
 # Wiring: from one state, batch and noise, the first sampler minibatch's
 # gradient by einsum (bf16 softmax at every map), flash and fused_train.
@@ -1199,7 +1280,8 @@ def phase_train():
               f"skips 0; peak allocated {peak / 2**30:.2f} GiB", flush=True)
         x, y = next(data)
         profile_run(lambda: train_image_large.train_step(trainer, x, y, gen),
-                    f"E3 {impl} profile, one training step", top=16)
+                    f"E3 {impl} profile, one training step", top=16,
+                    shares=E3_SHARES[impl])
         out[impl] = TRAIN_LAUNCHES_PER_STEP[impl]
         del trainer, data
         torch.cuda.empty_cache()
@@ -1858,9 +1940,12 @@ def phase_generate():
     return launches
 
 
-def profile_run(fn, label, top=12):
+def profile_run(fn, label, top=12, width=90, shares=None):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
-    the device's idle share of the wall time."""
+    the device's idle share of the wall time; kernel names cut to
+    ``width`` characters. ``shares`` maps a label to the substrings of the
+    kernel names it sums (the device time of one of the port's kernels
+    over all its launches)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1881,7 +1966,11 @@ def profile_run(fn, label, top=12):
     print(f"  {label}: device busy {total:.2f} ms of {wall_ms:.2f} ms wall "
           f"(idle {1 - total / wall_ms:.1%})")
     for ms, count, key in sorted(rows, reverse=True)[:top]:
-        print(f"    {ms:9.3f} ms {ms / total:6.1%} x{count:<5d} {key[:90]}")
+        print(f"    {ms:9.3f} ms {ms / total:6.1%} x{count:<5d} {key[:width]}")
+    for name, keys in (shares or {}).items():
+        ms = sum(r[0] for r in rows if any(k in r[2] for k in keys))
+        print(f"    {name}: {ms:.3f} ms, {ms / total:.1%} of the device's "
+              f"busy time, {ms / wall_ms:.1%} of the wall time")
 
 
 def phase_replay_adm():
@@ -2353,10 +2442,21 @@ def main() -> int:
           flush=True)
     select_device("cuda")  # fp32 products in the plain versions (no TF32)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if sys.argv[1:] == ["--bwd-profile"]:
+        # only the build and the backward kernels' per-launch breakdown
+        try:
+            run_phase("B", phase_build)
+            run_phase("T-bwd", lambda: bwd_breakdown(gen))
+        except PhaseError as e:
+            print(str(e), file=sys.stderr, flush=True)
+            return 1
+        print(nvidia_smi())
+        return 0
     try:
         run_phase("B", phase_build)
         errs = run_phase("K", lambda: phase_kernels(gen))
         times = run_phase("T", lambda: phase_times(gen))
+        run_phase("T-bwd", lambda: bwd_breakdown(gen))
         run_phase("G", phase_replay)
         launches = run_phase("E", phase_generate)
         run_phase("G2", phase_replay_adm)

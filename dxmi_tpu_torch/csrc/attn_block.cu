@@ -289,72 +289,105 @@ attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S,
 constexpr int HBM = 128, HBN = 128, HBK = 32, kHThreads = 256;
 constexpr int LDA = HBK + 8;  // bf16 per A row: 80 B, ldmatrix conflict-free
 constexpr int LDBH = HBN + 8;  // bf16 per B row: 272 B
+// the plain epilogues of K6's GEMMs (attn_block_bwd.cu)
+enum { kStoreF32 = 2, kStoreBF16 = 3 };
 
-// A: (M, K) bf16 rows; Bm: (K, N) bf16; Cm: (M, N) bf16. PRO == kGroupNormA
-// normalises A on load with per-(sample, channel) statistics; EPI ==
-// kBiasScaleQK rounds, adds the bias and scales columns < qk_cols by the
-// bf16 qk_scale; EPI == kBiasResidual rounds, adds the bias, then resid.
-template <int PRO, int EPI>
+// A: (M, K) bf16 rows, or (K, M) when AT (A read transposed); Bm: (K, N)
+// bf16, or (N, K) when BT; Cm: (M, N) bf16, Cf: (M, N) fp32. PRO ==
+// kGroupNormA normalises A on load with per-(sample, channel) statistics;
+// EPI == kBiasScaleQK rounds, adds the bias and scales columns < qk_cols by
+// the bf16 qk_scale; EPI == kBiasResidual rounds, adds the bias, then
+// resid; kStoreF32 writes the fp32 sums to Cf, kStoreBF16 rounds them into
+// Cm. Block z of the grid sums k in [z k_chunk, (z + 1) k_chunk) and
+// writes at Cf + z M N (kStoreF32). A tile is loaded along its unit stride
+// and its fragments come from ldmatrix, with .trans where the stored
+// layout is the fragment's transpose; the k order of the sums is the same
+// in every layout.
+template <int PRO, int EPI, bool AT = false, bool BT = false>
 __global__ void __launch_bounds__(kHThreads)
 hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
-             bf16* __restrict__ Cm, int M, int N, int K,
-             const bf16* __restrict__ bias, const bf16* __restrict__ resid,
-             float qk_scale, int qk_cols, const float* __restrict__ mean_c,
+             bf16* __restrict__ Cm, float* __restrict__ Cf, int M, int N,
+             int K, int k_chunk, const bf16* __restrict__ bias,
+             const bf16* __restrict__ resid, float qk_scale, int qk_cols,
+             const float* __restrict__ mean_c,
              const float* __restrict__ rstd_c, const float* __restrict__ gs,
              const float* __restrict__ gb, int rows_per_sample) {
-  __shared__ __align__(128) bf16 As[2][HBM * LDA];
-  __shared__ __align__(128) bf16 Bs[2][HBK * LDBH];
+  // A stage: [m][k] rows LDA apart, or [k][m] rows LDBH apart (AT); B
+  // stage: [k][n] rows LDBH apart, or [n][k] rows LDA apart (BT)
+  constexpr int AST = AT ? HBK * LDBH : HBM * LDA;
+  constexpr int BST = BT ? HBN * LDA : HBK * LDBH;
+  __shared__ __align__(128) bf16 As[2][AST];
+  __shared__ __align__(128) bf16 Bs[2][BST];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int m0 = blockIdx.y * HBM, n0 = blockIdx.x * HBN;
-  // this thread's two 8-element chunks of each A tile and of each B tile
-  int a_r[2], a_c[2], b_r[2], b_c[2];
+  const int kb = blockIdx.z * k_chunk, ke = min(K, kb + k_chunk);
+  // this thread's two 8-element chunks of each tile of 128 rows x 32
+  // columns (r4, c4) and of 32 rows x 128 columns (r16, c16)
+  int r4[2], c4[2], r16[2], c16[2];
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
     const int idx = tid + u * kHThreads;
-    a_r[u] = idx >> 2;
-    a_c[u] = (idx & 3) * 8;
-    b_r[u] = idx >> 4;
-    b_c[u] = (idx & 15) * 8;
+    r4[u] = idx >> 2;
+    c4[u] = (idx & 3) * 8;
+    r16[u] = idx >> 4;
+    c16[u] = (idx & 15) * 8;
   }
   uint4 ra[2];
 
   auto copy_b_async = [&](int k0, int st) {
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const bool ok = n0 + b_c[u] < N;
-      const bf16* src = ok ? Bm + (size_t)(k0 + b_r[u]) * N + n0 + b_c[u] : Bm;
-      cp_async16(smem_u32(&Bs[st][b_r[u] * LDBH + b_c[u]]), src, ok ? 16 : 0);
+      if constexpr (BT) {
+        const bool ok = n0 + r4[u] < N;
+        const bf16* src = ok ? Bm + (size_t)(n0 + r4[u]) * K + k0 + c4[u] : Bm;
+        cp_async16(smem_u32(&Bs[st][r4[u] * LDA + c4[u]]), src, ok ? 16 : 0);
+      } else {
+        const bool ok = n0 + c16[u] < N;
+        const bf16* src =
+            ok ? Bm + (size_t)(k0 + r16[u]) * N + n0 + c16[u] : Bm;
+        cp_async16(smem_u32(&Bs[st][r16[u] * LDBH + c16[u]]), src,
+                   ok ? 16 : 0);
+      }
     }
     if (PRO != kGroupNormA) {
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const int m = m0 + a_r[u];
-        const bool ok = m < M;
-        const bf16* src = ok ? A + (size_t)m * K + k0 + a_c[u] : A;
-        cp_async16(smem_u32(&As[st][a_r[u] * LDA + a_c[u]]), src, ok ? 16 : 0);
+        if constexpr (AT) {
+          const bool ok = m0 + c16[u] < M;
+          const bf16* src =
+              ok ? A + (size_t)(k0 + r16[u]) * M + m0 + c16[u] : A;
+          cp_async16(smem_u32(&As[st][r16[u] * LDBH + c16[u]]), src,
+                     ok ? 16 : 0);
+        } else {
+          const int m = m0 + r4[u];
+          const bool ok = m < M;
+          const bf16* src = ok ? A + (size_t)m * K + k0 + c4[u] : A;
+          cp_async16(smem_u32(&As[st][r4[u] * LDA + c4[u]]), src,
+                     ok ? 16 : 0);
+        }
       }
     }
     cp_async_commit();
   };
-  auto load_a = [&](int k0) {  // GN path: global -> registers
+  auto load_a = [&](int k0) {  // GN path (A not transposed): global -> registers
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const int m = m0 + a_r[u];
+      const int m = m0 + r4[u];
       ra[u] = m < M ? __ldg(reinterpret_cast<const uint4*>(
-                          A + (size_t)m * K + k0 + a_c[u]))
+                          A + (size_t)m * K + k0 + c4[u]))
                     : make_uint4(0u, 0u, 0u, 0u);
     }
   };
   auto store_a = [&](int k0, int st) {  // GN path: normalise, round, store
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const int m = m0 + a_r[u];
+      const int m = m0 + r4[u];
       uint4 packed = make_uint4(0u, 0u, 0u, 0u);
       if (m < M) {
         const bf16* xv = reinterpret_cast<const bf16*>(&ra[u]);
         unsigned* out = reinterpret_cast<unsigned*>(&packed);
-        const int k = k0 + a_c[u];
+        const int k = k0 + c4[u];
         const size_t bk = (size_t)(m / rows_per_sample) * K + k;
 #pragma unroll
         for (int j = 0; j < 8; j += 2) {
@@ -369,7 +402,7 @@ hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
           out[j / 2] = pack_bf16(hv[0], hv[1]);
         }
       }
-      *reinterpret_cast<uint4*>(&As[st][a_r[u] * LDA + a_c[u]]) = packed;
+      *reinterpret_cast<uint4*>(&As[st][r4[u] * LDA + c4[u]]) = packed;
     }
   };
 
@@ -381,36 +414,50 @@ hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  copy_b_async(0, 0);
+  copy_b_async(kb, 0);
   if (PRO == kGroupNormA) {
-    load_a(0);
-    store_a(0, 0);
+    load_a(kb);
+    store_a(kb, 0);
   }
   cp_async_wait<0>();
   __syncthreads();
 
-  const int n_k = K / HBK;
+  const int n_k = (ke - kb) / HBK;
   for (int kt = 0; kt < n_k; ++kt) {
     const int st = kt & 1;
     const bool more = kt + 1 < n_k;
+    const int k_next = kb + (kt + 1) * HBK;
     if (more) {  // stage st^1 was last read before the last barrier
-      copy_b_async((kt + 1) * HBK, st ^ 1);
-      if (PRO == kGroupNormA) load_a((kt + 1) * HBK);
+      copy_b_async(k_next, st ^ 1);
+      if (PRO == kGroupNormA) load_a(k_next);
     }
 #pragma unroll
     for (int kk = 0; kk < HBK; kk += 16) {
       unsigned a[4][4], b[4][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldsm_x4(a[i], smem_u32(&As[st][(wm * 64 + i * 16 + (lane & 15)) * LDA +
-                                       kk + (lane >> 4) * 8]));
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (AT)  // stored [k][m]: the 8x8 blocks transposed
+          ldsm_x4_trans(a[i], smem_u32(&As[st][(kk + (lane & 7) +
+                                                (lane >> 4) * 8) * LDBH +
+                                               wm * 64 + i * 16 +
+                                               ((lane >> 3) & 1) * 8]));
+        else
+          ldsm_x4(a[i], smem_u32(&As[st][(wm * 64 + i * 16 + (lane & 15)) *
+                                             LDA +
+                                         kk + (lane >> 4) * 8]));
+      }
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
         unsigned r[4];
-        ldsm_x4_trans(r, smem_u32(&Bs[st][(kk + (lane & 7) +
-                                           ((lane >> 3) & 1) * 8) * LDBH +
-                                          wn * 32 + jj * 16 +
-                                          (lane >> 4) * 8]));
+        if constexpr (BT)  // stored [n][k]: the fragments' own layout
+          ldsm_x4(r, smem_u32(&Bs[st][(wn * 32 + jj * 16 + (lane & 7) +
+                                       (lane >> 4) * 8) * LDA +
+                                      kk + ((lane >> 3) & 1) * 8]));
+        else
+          ldsm_x4_trans(r, smem_u32(&Bs[st][(kk + (lane & 7) +
+                                             ((lane >> 3) & 1) * 8) * LDBH +
+                                            wn * 32 + jj * 16 +
+                                            (lane >> 4) * 8]));
         b[2 * jj][0] = r[0];
         b[2 * jj][1] = r[1];
         b[2 * jj + 1][0] = r[2];
@@ -422,13 +469,14 @@ hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
         for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
     }
     if (more) {
-      if (PRO == kGroupNormA) store_a((kt + 1) * HBK, st ^ 1);
+      if (PRO == kGroupNormA) store_a(k_next, st ^ 1);
       cp_async_wait<0>();
     }
     __syncthreads();
   }
 
   const int g = lane >> 2, t = lane & 3;
+  if constexpr (EPI == kStoreF32) Cf += (size_t)blockIdx.z * M * N;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -439,20 +487,29 @@ hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
       for (int j = 0; j < 4; ++j) {
         const int n = n0 + wn * 32 + j * 8 + 2 * t;
         if (n >= N) continue;
-        float v[2];
+        const float* c = acc[i][j] + 2 * half;
+        if constexpr (EPI == kStoreF32) {
+          *reinterpret_cast<float2*>(Cf + (size_t)m * N + n) =
+              make_float2(c[0], c[1]);
+        } else if constexpr (EPI == kStoreBF16) {
+          *reinterpret_cast<unsigned*>(Cm + (size_t)m * N + n) =
+              pack_bf16(c[0], c[1]);
+        } else {
+          float v[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float u = rb(rb(acc[i][j][2 * half + e]) +
-                       __bfloat162float(bias[n + e]));
-          if (EPI == kBiasScaleQK) {
-            if (n + e < qk_cols) u = rb(u * qk_scale);
-          } else {
-            u = rb(__bfloat162float(resid[(size_t)m * N + n + e]) + u);
+          for (int e = 0; e < 2; ++e) {
+            float u = rb(rb(acc[i][j][2 * half + e]) +
+                         __bfloat162float(bias[n + e]));
+            if (EPI == kBiasScaleQK) {
+              if (n + e < qk_cols) u = rb(u * qk_scale);
+            } else {
+              u = rb(__bfloat162float(resid[(size_t)m * N + n + e]) + u);
+            }
+            v[e] = u;
           }
-          v[e] = u;
+          *reinterpret_cast<unsigned*>(Cm + (size_t)m * N + n) =
+              pack_bf16(v[0], v[1]);
         }
-        *reinterpret_cast<unsigned*>(Cm + (size_t)m * N + n) =
-            pack_bf16(v[0], v[1]);
       }
     }
   }
@@ -477,8 +534,33 @@ cudaError_t launch_qkv_gemm(const bf16* h, const bf16* w, const bf16* b,
   if (C % HBK) return cudaErrorInvalidValue;
   dim3 g((3 * C + HBN - 1) / HBN, (M + HBM - 1) / HBM);
   hgemm_kernel<kPlainA, kBiasScaleQK><<<g, kHThreads, 0, s>>>(
-      h, w, qkv, M, 3 * C, C, b, nullptr, qk_scale, 2 * C, nullptr, nullptr,
-      nullptr, nullptr, 1);
+      h, w, qkv, nullptr, M, 3 * C, C, C, b, nullptr, qk_scale, 2 * C,
+      nullptr, nullptr, nullptr, nullptr, 1);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_hgemm(const bf16* A, const bf16* B, float* c_f, bf16* c_t,
+                         int M, int N, int K, int k_chunk, bool a_trans,
+                         bool b_trans, cudaStream_t s) {
+  if (K % HBK || k_chunk % HBK || k_chunk <= 0 || N % 8 || M % 8 ||
+      (c_f == nullptr) == (c_t == nullptr))
+    return cudaErrorInvalidValue;
+  const dim3 g((N + HBN - 1) / HBN, (M + HBM - 1) / HBM,
+               (K + k_chunk - 1) / k_chunk);
+  if (!a_trans && b_trans && c_f != nullptr)
+    hgemm_kernel<kPlainA, kStoreF32, false, true><<<g, kHThreads, 0, s>>>(
+        A, B, nullptr, c_f, M, N, K, k_chunk, nullptr, nullptr, 1.f, 0,
+        nullptr, nullptr, nullptr, nullptr, 1);
+  else if (!a_trans && b_trans)
+    hgemm_kernel<kPlainA, kStoreBF16, false, true><<<g, kHThreads, 0, s>>>(
+        A, B, c_t, nullptr, M, N, K, k_chunk, nullptr, nullptr, 1.f, 0,
+        nullptr, nullptr, nullptr, nullptr, 1);
+  else if (a_trans && !b_trans && c_f != nullptr)
+    hgemm_kernel<kPlainA, kStoreF32, true, false><<<g, kHThreads, 0, s>>>(
+        A, B, nullptr, c_f, M, N, K, k_chunk, nullptr, nullptr, 1.f, 0,
+        nullptr, nullptr, nullptr, nullptr, 1);
+  else
+    return cudaErrorInvalidValue;  // a layout K6 does not use
   return cudaGetLastError();
 }
 
@@ -521,7 +603,7 @@ extern "C" int dxmi_attn_block_bf16(const void* x, const float* gs,
       __bfloat162float(__float2bfloat16_rn((float)(1.0 / sqrt(sqrt((double)d)))));
   dim3 g_qkv((3 * C + HBN - 1) / HBN, (M + HBM - 1) / HBM);
   hgemm_kernel<kGroupNormA, kBiasScaleQK><<<g_qkv, kHThreads, 0, s>>>(
-      xb, static_cast<const bf16*>(w_qkv), qkvb, M, 3 * C, C,
+      xb, static_cast<const bf16*>(w_qkv), qkvb, nullptr, M, 3 * C, C, C,
       static_cast<const bf16*>(b_qkv), nullptr, qk_scale, 2 * C, mean_c,
       rstd_c, gs, gb, S);
   err = cudaGetLastError();
@@ -533,9 +615,9 @@ extern "C" int dxmi_attn_block_bf16(const void* x, const float* gs,
 
   dim3 g_proj((C + HBN - 1) / HBN, (M + HBM - 1) / HBM);
   hgemm_kernel<kPlainA, kBiasResidual><<<g_proj, kHThreads, 0, s>>>(
-      attnb, static_cast<const bf16*>(w_proj), static_cast<bf16*>(y), M, C, C,
-      static_cast<const bf16*>(b_proj), xb, 1.f, 0, nullptr, nullptr, nullptr,
-      nullptr, S);
+      attnb, static_cast<const bf16*>(w_proj), static_cast<bf16*>(y), nullptr,
+      M, C, C, C, static_cast<const bf16*>(b_proj), xb, 1.f, 0, nullptr,
+      nullptr, nullptr, nullptr, S);
   return (int)cudaGetLastError();
 }
 

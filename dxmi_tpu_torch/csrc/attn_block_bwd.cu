@@ -36,22 +36,33 @@
 //   2. h = T(hp gs + gb), materialised (M, C) by K1's apply kernel;
 //   3. qkv, q and k pre-scaled: K2's own qkv GEMM (launch (b), tensor cores
 //      in bf16) on h;
-//   4. da = T(ct W_proj^T): a SIMT fp32 GEMM on strided operands;
+//   4. da = T(ct W_proj^T);
 //   5. per (sample, head, 64 query rows): lse of the fp32 logits, then
-//      a = T(sum T(w) v) and di = da . (sum w v) (the exact rowsum of
-//      dw * w);
+//      a = T(sum T(w) v) and di = rowsum(w (da v^T)) (bf16), or
+//      di = da . (sum w v) (fp32), the same exact rowsum of dw * w;
 //   6-7. K4's backward kernels (flash_attn_bwd.cu) with sm_scale 1: dk and
 //      dv, then dq, each fp32 and rounded to T into (M, 3C) buffers, dq and
 //      dk times d^-1/4;
 //   8. dh = T(dqkv) W_qkv^T (fp32 out);
-//   9-10. dW_qkv = h^T T(dqkv) and dW_proj = a^T ct: the same GEMM, split
-//      over M into fixed slices whose fp32 partials are summed in order;
+//   9-10. dW_qkv = h^T T(dqkv) and dW_proj = a^T ct, split over M into
+//      fixed slices whose fp32 partials are summed in order;
 //   11-12. db_qkv and db_proj: column sums in row chunks, then in order;
 //   13. per (sample, group): the GroupNorm backward, dx and the per-sample
 //      dgs, dgb; then their sum over the samples in order.
-// The SIMT GEMMs and the attention kernels are a first, simple form: the
-// tensor cores (mma.sync or wgmma) are the next step.
+// In bf16 the products run on the tensor cores (mma.sync m16n8k16, bf16
+// operands, fp32 sums), routed by the element type at compile time: 4, 8,
+// 9 and 10 on K2's tensor-core GEMM (attn_block.cu) in the layouts they
+// need (B read transposed for da and dh, A read transposed for the weight
+// cotangents), 5 on K4's forward core (attn_stats_tc_kernel below), 6 on
+// K4-dkv's tensor-core kernel. Only 7, K4-dq, stays SIMT fp32 (a later
+// redesign). Every bf16 operand of the TPU body enters an fp32 sum, which
+// is what mma.sync does, so only the order of the fp32 sums changes. The
+// fp32 form keeps the first, simple design throughout (SIMT fp32 GEMMs,
+// statistics and attention kernels): bf16 tensor cores would change its
+// precision, which the JAX package holds to 5e-4.
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -127,10 +138,15 @@ gemm_kernel(const TA* __restrict__ A, long long sam, long long sak,
   }
 }
 
-// the number of K slices that gemm(..., splits) runs: slices are whole
-// multiples of GK
+// the length of each of the K slices that a GEMM split `splits` ways
+// takes: whole multiples of unit (GK here, 32 for the tensor-core GEMM)
+int slice_rows(int K, int splits, int unit) {
+  return ((K + splits - 1) / splits + unit - 1) / unit * unit;
+}
+
+// the number of K slices that gemm(..., splits) runs
 int n_slices(int K, int splits) {
-  const int chunk = ((K + splits - 1) / splits + GK - 1) / GK * GK;
+  const int chunk = slice_rows(K, splits, GK);
   return (K + chunk - 1) / chunk;
 }
 
@@ -138,7 +154,7 @@ template <typename TA, typename TB, typename TC>
 cudaError_t gemm(const TA* A, long long sam, long long sak, const TB* Bm,
                  long long sbk, long long sbn, TC* Cm, int M, int N, int K,
                  int splits, cudaStream_t s) {
-  const int chunk = ((K + splits - 1) / splits + GK - 1) / GK * GK;
+  const int chunk = slice_rows(K, splits, GK);
   splits = n_slices(K, splits);
   const dim3 grid((N + GN - 1) / GN, (M + GM - 1) / GM, splits);
   gemm_kernel<TA, TB, TC><<<grid, kGThreads, 0, s>>>(A, sam, sak, Bm, sbk,
@@ -308,6 +324,187 @@ attn_stats_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
   }
 }
 
+// ---- 5 in bf16: the same on the tensor cores ----------------------------
+constexpr int kTcThreads = 128;
+
+template <int D>
+__host__ __device__ constexpr int stats_tc_smem_bytes() {
+  return 6 * BT * (D + 8) * 2;  // q, da; two stages of K and of V (bf16)
+}
+
+// Per (sample, head, 64 query rows), 4 warps of 16 rows, on mma.sync
+// m16n8k16 with fp32 accumulators (K4's forward core, flash_attn.cu): the q
+// and da rows are held as A fragments; pass 1 streams the key tiles, forms
+// the logits q k^T and keeps each row's running max and sum, which give
+// lse; pass 2 forms the logits again, w = exp(s - lse) in fp32, a += T(w) v
+// (w packed to bf16 A fragments, v by ldmatrix.trans) and dp = da v^T (v by
+// ldmatrix), and di = rowsum(w dp) in fp32: the TPU body's dwt = da v^T and
+// sum(dwt w) (attn_block.py:482-485). K and V tiles are double-buffered
+// with cp.async across both passes; head dims below D are zero-padded.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+attn_stats_tc_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ da,
+                     float* __restrict__ lse, float* __restrict__ di,
+                     bf16* __restrict__ a_out, int S, int C, int nh,
+                     int v16) {
+  constexpr int LD = D + 8, NK = D / 16, NN = D / 8;
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* Das = Qs + BT * LD;
+  bf16* Ks = Das + BT * LD;     // [2][BT][LD]
+  bf16* Vs = Ks + 2 * BT * LD;  // [2][BT][LD]
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int d = C / nh, row3 = 3 * C;
+  const bf16* base = qkv + (size_t)b * S * row3 + (size_t)h * d;
+
+  rows_in_bf16<D>(Qs, base + (size_t)q0 * row3, row3, d, v16);
+  rows_in_bf16<D>(Das, da + ((size_t)b * S + q0) * C + (size_t)h * d, C, d,
+                  v16);
+  rows_in_bf16<D>(Ks, base + C, row3, d, v16);
+  cp_async_commit();
+
+  unsigned qa[NK][4], daa[NK][4];
+  float acc[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // rows g (r = 0) and g + 8 (r = 1) of the warp's 16; l and t are this
+  // thread's shares, m is the quad's
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  float L[2] = {0.f, 0.f}, t_r[2] = {0.f, 0.f};
+
+  const int n_tiles = S / BT;
+  for (int it = 0; it < 2 * n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < 2 * n_tiles) {  // stage st^1 was last read before the last
+                                 // barrier
+      const bf16* src = base + (size_t)((it + 1) % n_tiles) * BT * row3;
+      rows_in_bf16<D>(Ks + (st ^ 1) * BT * LD, src + C, row3, d, v16);
+      if (it + 1 >= n_tiles)
+        rows_in_bf16<D>(Vs + (st ^ 1) * BT * LD, src + 2 * C, row3, d, v16);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's group has landed
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        const int off = (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                        (lane >> 4) * 8;
+        ldsm_x4(qa[kk], smem_u32(Qs + off));
+        ldsm_x4(daa[kk], smem_u32(Das + off));
+      }
+    }
+
+    // logits: this warp's 16 rows x 64 keys, 8 n-tiles of 8 keys
+    const bf16* Kt = Ks + st * BT * LD;
+    const bf16* Vt = Vs + st * BT * LD;
+    const bool pass2 = it >= n_tiles;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int off = (jj * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                        kk * 16 + ((lane >> 3) & 1) * 8;
+        unsigned r[4];
+        ldsm_x4(r, smem_u32(Kt + off));
+        mma_bf16(s[2 * jj], qa[kk], r[0], r[1]);
+        mma_bf16(s[2 * jj + 1], qa[kk], r[2], r[3]);
+        if (pass2) {  // dp = da v^T
+          ldsm_x4(r, smem_u32(Vt + off));
+          mma_bf16(dp[2 * jj], daa[kk], r[0], r[1]);
+          mma_bf16(dp[2 * jj + 1], daa[kk], r[2], r[3]);
+        }
+      }
+    }
+
+    if (!pass2) {  // running max and sum of exp(s - max), fp32
+      float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        l_r[r] *= expf(m_r[r] - mx[r]);
+        m_r[r] = mx[r];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          l_r[e >> 1] += expf(s[j][e] - m_r[e >> 1]);
+    } else {
+      if (it == n_tiles) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float tot = l_r[r];
+          tot += __shfl_xor_sync(0xffffffffu, tot, 1);
+          tot += __shfl_xor_sync(0xffffffffu, tot, 2);
+          L[r] = m_r[r] + logf(tot);
+        }
+      }
+      // w = exp(s - lse) in fp32; di += w dp
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float w = expf(s[j][e] - L[e >> 1]);
+          s[j][e] = w;
+          t_r[e >> 1] = fmaf(w, dp[j][e], t_r[e >> 1]);
+        }
+      // a += T(w) v: w's accumulator layout is the A fragment layout
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const unsigned wa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int nn = 0; nn < NK; ++nn) {
+          unsigned r[4];
+          ldsm_x4_trans(r, smem_u32(Vt + (kk * 16 + (lane & 7) +
+                                          ((lane >> 3) & 1) * 8) * LD +
+                                    nn * 16 + (lane >> 4) * 8));
+          mma_bf16(acc[2 * nn], wa, r[0], r[1]);
+          mma_bf16(acc[2 * nn + 1], wa, r[2], r[3]);
+        }
+      }
+    }
+    __syncthreads();  // the next loads overwrite the stage just read
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    t_r[r] += __shfl_xor_sync(0xffffffffu, t_r[r], 1);
+    t_r[r] += __shfl_xor_sync(0xffffffffu, t_r[r], 2);
+    const int q = q0 + warp * 16 + g + 8 * r;
+    if (t == 0) {
+      const size_t sti = ((size_t)b * nh + h) * S + q;
+      lse[sti] = L[r];
+      di[sti] = t_r[r];
+    }
+    bf16* arow = a_out + ((size_t)b * S + q) * C + (size_t)h * d;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const int c = 8 * n + 2 * t;  // d is even: c < d takes c + 1 too
+      if (c < d)
+        *reinterpret_cast<unsigned*>(arow + c) =
+            pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+  }
+}
+
 // ---- 13: GroupNorm backward per (sample, group) -------------------------
 constexpr int kGnThreads = 256;
 
@@ -410,6 +607,60 @@ float qk_scale_of(const bf16*, int d) {
   } while (0)
 
 template <typename T>
+cudaError_t stats_launch(const T* qkv, const T* da, float* lse, float* di,
+                         T* at, int B, int S, int C, int nh, cudaStream_t s) {
+  const int d = C / nh;
+  const dim3 grid(S / BT, nh, B);
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    // bf16: the tensor-core pass; 16-byte copies where heads start on 16
+    // bytes (C % 32 == 0 keeps every row there)
+    const int v16 = d % 8 == 0;
+    if (d <= 32) {
+      const int bytes = stats_tc_smem_bytes<32>();
+      if ((err = cudaFuncSetAttribute(
+               attn_stats_tc_kernel<32>,
+               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) !=
+          cudaSuccess)
+        return err;
+      attn_stats_tc_kernel<32><<<grid, kTcThreads, bytes, s>>>(
+          qkv, da, lse, di, at, S, C, nh, v16);
+    } else {
+      const int bytes = stats_tc_smem_bytes<64>();
+      if ((err = cudaFuncSetAttribute(
+               attn_stats_tc_kernel<64>,
+               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) !=
+          cudaSuccess)
+        return err;
+      attn_stats_tc_kernel<64><<<grid, kTcThreads, bytes, s>>>(
+          qkv, da, lse, di, at, S, C, nh, v16);
+    }
+  } else {
+    // fp32: the SIMT pass (its precision is the fp32 form's)
+    if (d <= 32) {
+      const int bytes = stats_smem_floats<32>() * (int)sizeof(float);
+      if ((err = cudaFuncSetAttribute(
+               attn_stats_kernel<T, 32>,
+               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) !=
+          cudaSuccess)
+        return err;
+      attn_stats_kernel<T, 32><<<grid, kBwdThreads, bytes, s>>>(
+          qkv, da, lse, di, at, S, C, nh);
+    } else {
+      const int bytes = stats_smem_floats<64>() * (int)sizeof(float);
+      if ((err = cudaFuncSetAttribute(
+               attn_stats_kernel<T, 64>,
+               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) !=
+          cudaSuccess)
+        return err;
+      attn_stats_kernel<T, 64><<<grid, kBwdThreads, bytes, s>>>(
+          qkv, da, lse, di, at, S, C, nh);
+    }
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
 int run(const T* x, const T* ct, const float* gs, const float* gb,
         const T* wqkv, const T* bqkv, const T* wproj, T* dx, float* dgs,
         float* dgb, float* dwqkv, float* dbqkv, float* dwproj, float* dbproj,
@@ -417,6 +668,7 @@ int run(const T* x, const T* ct, const float* gs, const float* gb,
         float* di, float* dqkv_f, T* dqkv_t, float* dh, float* part, int B,
         int S, int C, int nh, int G, float eps, int splits, int chunks,
         cudaStream_t s) {
+  constexpr bool kTc = std::is_same<T, bf16>::value;  // tensor cores
   const int d = C / nh, M = B * S;
   if (S % BT || C % 32 || C % G || C / G > 64 || C % nh || d % 4 || d > 64)
     return (int)cudaErrorInvalidValue;
@@ -424,25 +676,11 @@ int run(const T* x, const T* ct, const float* gs, const float* gb,
   CHECK(apply(x, gs, gb, mean_c, rstd_c, h, B, S, C, s));
   CHECK(launch_qkv_gemm(h, wqkv, bqkv, qkv, M, C, qk_scale_of(x, d), s));
   // da[m, c] = sum_j ct[m, j] W_proj[c, j]
-  CHECK(gemm(ct, C, 1, wproj, 1, C, da, M, C, C, 1, s));
-
-  const dim3 grid(S / BT, nh, B);
-  if (d <= 32) {
-    const int bytes = stats_smem_floats<32>() * (int)sizeof(float);
-    CHECK(cudaFuncSetAttribute(attn_stats_kernel<T, 32>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes));
-    attn_stats_kernel<T, 32><<<grid, kBwdThreads, bytes, s>>>(qkv, da, lse, di,
-                                                           at, S, C, nh);
-  } else {
-    const int bytes = stats_smem_floats<64>() * (int)sizeof(float);
-    CHECK(cudaFuncSetAttribute(attn_stats_kernel<T, 64>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes));
-    attn_stats_kernel<T, 64><<<grid, kBwdThreads, bytes, s>>>(qkv, da, lse, di,
-                                                           at, S, C, nh);
-  }
-  CHECK(cudaGetLastError());
+  if constexpr (kTc)
+    CHECK(launch_hgemm(ct, wproj, nullptr, da, M, C, C, C, false, true, s));
+  else
+    CHECK(gemm(ct, C, 1, wproj, 1, C, da, M, C, C, 1, s));
+  CHECK(stats_launch(qkv, da, lse, di, at, B, S, C, nh, s));
 
   AttnBwdArgs<T> a{};
   a.q = qkv;
@@ -468,13 +706,26 @@ int run(const T* x, const T* ct, const float* gs, const float* gb,
   CHECK(launch_attn_bwd_dkv<T>(a, B, s));
   CHECK(launch_attn_bwd_dq<T>(a, B, s));
 
-  // dh[m, c] = sum_j dqkv[m, j] W_qkv[c, j]
-  CHECK(gemm(dqkv_t, 3 * C, 1, wqkv, 1, 3 * C, dh, M, C, 3 * C, 1, s));
-  // dW_qkv[c, j] = sum_m h[m, c] dqkv[m, j]; dW_proj[c, j] = sum_m a ct
-  const int ns = n_slices(M, splits);
-  CHECK(gemm(h, 1, C, dqkv_t, 3 * C, 1, part, C, 3 * C, M, splits, s));
-  CHECK(sum_parts(part, ns, 3LL * C * C, dwqkv, s));
-  CHECK(gemm(at, 1, C, ct, C, 1, part, C, C, M, splits, s));
+  // dh[m, c] = sum_j dqkv[m, j] W_qkv[c, j]; dW_qkv[c, j] = sum_m h[m, c]
+  // dqkv[m, j] and dW_proj[c, j] = sum_m a ct, each over fixed slices of
+  // the M rows whose fp32 partials are then summed in order
+  int ns;
+  if constexpr (kTc) {
+    CHECK(launch_hgemm(dqkv_t, wqkv, dh, nullptr, M, C, 3 * C, 3 * C, false,
+                       true, s));
+    const int rows = slice_rows(M, splits, 32);
+    ns = (M + rows - 1) / rows;
+    CHECK(launch_hgemm(h, dqkv_t, part, nullptr, C, 3 * C, M, rows, true,
+                       false, s));
+    CHECK(sum_parts(part, ns, 3LL * C * C, dwqkv, s));
+    CHECK(launch_hgemm(at, ct, part, nullptr, C, C, M, rows, true, false, s));
+  } else {
+    CHECK(gemm(dqkv_t, 3 * C, 1, wqkv, 1, 3 * C, dh, M, C, 3 * C, 1, s));
+    ns = n_slices(M, splits);
+    CHECK(gemm(h, 1, C, dqkv_t, 3 * C, 1, part, C, 3 * C, M, splits, s));
+    CHECK(sum_parts(part, ns, 3LL * C * C, dwqkv, s));
+    CHECK(gemm(at, 1, C, ct, C, 1, part, C, C, M, splits, s));
+  }
   CHECK(sum_parts(part, ns, (long long)C * C, dwproj, s));
   CHECK(colsum(dqkv_f, M, 3 * C, chunks, part, dbqkv, s));
   CHECK(colsum(ct, M, C, chunks, part, dbproj, s));

@@ -4,7 +4,8 @@
 // helpers and dot products that K7 (attn_block_bb.cu) uses too, K1's apply
 // launch that K6 reuses, the affine and SiLU they apply, bf16 rounding,
 // int8 quantisation, the tensor-core helpers (ldmatrix, mma.sync m16n8k16
-// bf16 and m16n8k32 s8, cp.async) of K2-K5 and K8, the attention cores
+// bf16 and m16n8k32 s8, cp.async) of K2-K6 and K8, K2's tensor-core GEMM
+// that K6 reuses in other layouts, the attention cores
 // that K2 and K5 share (the flash-attention launch, flash_attn.cu, K4's
 // kernel, and K2's fp32 core, attn_block.cu), and the attention backward
 // that K4-dkv, K4-dq and K6 share: its launches (flash_attn_bwd.cu) and the
@@ -105,12 +106,25 @@ struct AttnBwdArgs {
 
 // dk and dv (one block per 64 keys) and dq (one block per 64 query rows).
 // Need S % 64 == 0, d % 4 == 0, d <= 64 and strides that are multiples of 4.
+// The bf16 dk/dv launch runs on the tensor cores; the fp32 one and dq are
+// SIMT fp32.
 template <typename T>
 cudaError_t launch_attn_bwd_dkv(const AttnBwdArgs<T>& a, int B,
                                 cudaStream_t stream);
 template <typename T>
 cudaError_t launch_attn_bwd_dq(const AttnBwdArgs<T>& a, int B,
                                cudaStream_t stream);
+
+// C = op(A) op(B) on the tensor cores (K2's bf16 GEMM, attn_block.cu), bf16
+// operands and fp32 sums: A (M, K) rows, or (K, M) when a_trans; B (K, N)
+// rows, or (N, K) when b_trans. The K rows are taken in slices of k_chunk,
+// slice z written at c_f + z M N; the sums go to c_f in fp32, or to c_t
+// rounded to bf16 (exactly one of the two non-null). Layouts: (A, B^T)
+// into either, (A^T, B) into fp32. Needs K % 32 == 0, k_chunk % 32 == 0,
+// M % 8 == 0, N % 8 == 0 and 16-byte aligned operands.
+cudaError_t launch_hgemm(const bf16* A, const bf16* B, float* c_f, bf16* c_t,
+                         int M, int N, int K, int k_chunk, bool a_trans,
+                         bool b_trans, cudaStream_t stream);
 
 // ((x - mean) * rstd) * scale + bias, the plain version's order.
 __device__ __forceinline__ float4 gn_affine4(float4 v, float4 m, float4 r,
@@ -237,6 +251,30 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 64 rows of a strided bf16 matrix (d columns) into shared rows D + 8 bf16
+// apart (ldmatrix conflict-free), zeros in columns d..D-1: cp.async 16-byte
+// copies when v16 (d, the row stride and the head offset on 16 bytes),
+// else 8-byte loads (d % 4 == 0) stored at once. The tensor-core attention
+// backward kernels (K4-dkv, K6's statistics pass) load their tiles so.
+template <int D>
+__device__ __forceinline__ void rows_in_bf16(bf16* dst, const bf16* src,
+                                             int row_stride, int d, int v16) {
+  constexpr int LD = D + 8, CH = D / 8;
+  for (int idx = threadIdx.x; idx < 64 * CH; idx += blockDim.x) {
+    const int r = idx / CH, c = (idx - r * CH) * 8;
+    const bf16* gp = src + (size_t)r * row_stride + c;
+    bf16* sp = dst + r * LD + c;
+    if (v16) {
+      cp_async16(smem_u32(sp), c < d ? gp : src, c < d ? 16 : 0);
+    } else {
+      uint2 lo = make_uint2(0u, 0u), hi = lo;
+      if (c < d) lo = *reinterpret_cast<const uint2*>(gp);
+      if (c + 4 < d) hi = *reinterpret_cast<const uint2*>(gp + 4);
+      *reinterpret_cast<uint4*>(sp) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
+  }
 }
 
 // ---- tiles of the attention backward kernels (K4-dkv, K4-dq, K6) ---------

@@ -16,10 +16,32 @@
 // nh=6, S=1024, d=64) the backward's five S x S x d products (s, dp, dv,
 // dk, dq; the two kernels each form s and dp) are 5 * 2 B nh S^2 d =
 // 0.52 TFLOP, 0.52 ms at the 989 TFLOP/s bf16 tensor-core peak, against
-// 0.81 GB of q, k, v, o, do and dq, dk, dv (0.24 ms at 3.35 TB/s).
+// 0.81 GB of q, k, v, o, do and dq, dk, dv (0.24 ms at 3.35 TB/s). K4-dkv
+// alone does four of them (0.41 TFLOP, 0.42 ms).
 //
-// Design (a first, simple form: fp32 SIMT arithmetic, no tensor cores):
-//   di: one thread per (sample, position, head) row.
+// Design of K4-dkv in bf16 (attn_bwd_dkv_tc_kernel, tensor cores): a block
+// of 4 warps owns 64 keys of one (sample, head), each warp 16 of them. K
+// and V are copied once into shared memory (rows D + 8 bf16 apart, so that
+// ldmatrix is free of bank conflicts; head dims below D are zero-padded),
+// and the block walks over the queries in tiles of 64, q, do, lse and di
+// double-buffered with cp.async. Per warp and query tile, on mma.sync
+// m16n8k16 (bf16 operands, fp32 accumulators):
+//   s^T = K q^T          (q's B fragments by ldmatrix),
+//   p = exp(s^T sm_scale - lse) in fp32, packed to bf16 straight from the
+//       accumulator registers into A fragments,
+//   dv += p^T do         (do's B fragments by ldmatrix.trans),
+//   dp^T = V do^T        (do by ldmatrix),
+//   ds = p (dp - di) sm_scale in fp32 on the unrounded p, packed to bf16,
+//   dk += ds^T q         (q by ldmatrix.trans).
+// dk and dv stay in fp32 registers until the epilogue. Every rounding of
+// the TPU body is a bf16 operand entering an fp32 sum, which is what
+// mma.sync does, so only the order of the fp32 sums differs from the SIMT
+// form. Each sum is owned by one warp and taken in a fixed order, with no
+// atomics: replays reproduce themselves bit for bit.
+//
+// The fp32 instantiation (K6's fp32 form) and K4-dq keep the first, simple
+// design: fp32 SIMT arithmetic (bf16 tensor cores would change the fp32
+// form's precision; K4-dq waits for a later redesign).
 //   dkv: a block of 256 threads owns 64 keys of one (sample, head) and
 //     keeps its K and V tiles and its dk, dv accumulators on chip; it walks
 //     over the query rows in tiles of 64 (q, do, lse and di into shared
@@ -27,13 +49,15 @@
 //     ds in fp32 and, rounded to the element type, adds p^T do and ds^T q.
 //   dq: a block owns 64 query rows and walks over the keys in tiles of 64
 //     the same way, adding ds k.
-// Every sum is owned by one thread and taken in a fixed order: there are no
-// atomics, so replays reproduce themselves bit for bit. Each thread holds 4
-// rows x 4 columns of a 64 x 64 tile (rows 4ty.., columns tx + 16j) and 4
-// rows x d/16 columns of its accumulators. K6 runs the same kernels with
+// Each thread holds 4 rows x 4 columns of a 64 x 64 tile (rows 4ty..,
+// columns tx + 16j) and 4 rows x d/16 columns of its accumulators.
+// di (K4-dkv's first launch): 8 lanes per (sample, position, head) row,
+// 16 bytes each, summed by shuffles. K6 runs the same kernels with
 // sm_scale 1 on q and k pre-scaled by d^-1/4, fp32 outputs beside the
 // rounded ones, and dq, dk times d^-1/4.
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -56,6 +80,168 @@ __device__ __forceinline__ void put(float* f, T* t, size_t idx, float v) {
   if (t != nullptr) store_as(t + idx, v);
 }
 
+// ---- K4-dkv on the tensor cores (bf16) ----------------------------------
+constexpr int TBK = 64, TBQ = 64, kTcThreads = 128;
+
+template <int D>
+__host__ __device__ constexpr int dkv_tc_smem_bytes() {
+  // K, V; two stages of q and do (bf16); two stages of lse and di (fp32)
+  return (2 * TBK + 4 * TBQ) * (D + 8) * 2 + 4 * TBQ * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+attn_bwd_dkv_tc_kernel(AttnBwdArgs<bf16> a, int v16) {
+  constexpr int LD = D + 8, NK = D / 16, NN = D / 8;
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_tc);
+  bf16* Vs = Ks + TBK * LD;
+  bf16* Qs = Vs + TBK * LD;      // [2][TBQ][LD]
+  bf16* Os = Qs + 2 * TBQ * LD;  // [2][TBQ][LD]: the output's cotangent
+  float* Ls = reinterpret_cast<float*>(Os + 2 * TBQ * LD);  // [2][TBQ]
+  float* Ds = Ls + 2 * TBQ;                                  // [2][TBQ]
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * TBK;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int S = a.S, d = a.d;
+  const size_t in_base = (size_t)b * S * a.in_stride + (size_t)h * d;
+  const size_t do_base = (size_t)b * S * a.dout_stride + (size_t)h * d;
+  const size_t st_base = ((size_t)b * a.nh + h) * S;
+
+  auto load_q = [&](int q0, int st) {
+    rows_in_bf16<D>(Qs + st * TBQ * LD,
+                    a.q + in_base + (size_t)q0 * a.in_stride, a.in_stride, d,
+                    v16);
+    rows_in_bf16<D>(Os + st * TBQ * LD,
+                    a.dout + do_base + (size_t)q0 * a.dout_stride,
+                    a.dout_stride, d, v16);
+    if (tid < TBQ / 4)
+      cp_async16(smem_u32(Ls + st * TBQ + 4 * tid),
+                 a.lse + st_base + q0 + 4 * tid, 16);
+    else if (tid < TBQ / 2)
+      cp_async16(smem_u32(Ds + st * TBQ + 4 * tid - TBQ),
+                 a.di + st_base + q0 + 4 * tid - TBQ, 16);
+  };
+
+  rows_in_bf16<D>(Ks, a.k + in_base + (size_t)k0 * a.in_stride, a.in_stride,
+                  d, v16);
+  rows_in_bf16<D>(Vs, a.v + in_base + (size_t)k0 * a.in_stride, a.in_stride,
+                  d, v16);
+  load_q(0, 0);
+  cp_async_commit();
+
+  float dk[NN][4], dv[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const bf16* Kw = Ks + warp * 16 * LD;  // this warp's 16 keys
+  const bf16* Vw = Vs + warp * 16 * LD;
+
+  const int n_tiles = S / TBQ;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_tiles)  // stage st^1 was last read before the last barrier
+      load_q((it + 1) * TBQ, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's group has landed
+    __syncthreads();
+    const bf16* Qt = Qs + st * TBQ * LD;
+    const bf16* Ot = Os + st * TBQ * LD;
+    const float* Lt = Ls + st * TBQ;
+    const float* Dt = Ds + st * TBQ;
+
+    // s^T = K q^T: this warp's 16 keys x 64 queries, 8 n-tiles of 8
+    // queries; the thread holds keys g (e = 0, 1) and g + 8 (e = 2, 3) and
+    // queries 8j + 2t + (e & 1)
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      unsigned ka[4], va[4];
+      ldsm_x4(ka, smem_u32(Kw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8));
+      ldsm_x4(va, smem_u32(Vw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int row = (jj * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                        kk * 16 + ((lane >> 3) & 1) * 8;
+        unsigned r[4];
+        ldsm_x4(r, smem_u32(Qt + row));
+        mma_bf16(s[2 * jj], ka, r[0], r[1]);
+        mma_bf16(s[2 * jj + 1], ka, r[2], r[3]);
+        // dp^T = V do^T
+        ldsm_x4(r, smem_u32(Ot + row));
+        mma_bf16(dp[2 * jj], va, r[0], r[1]);
+        mma_bf16(dp[2 * jj + 1], va, r[2], r[3]);
+      }
+    }
+    // p = exp(s sm_scale - lse) and ds = p (dp - di) sm_scale in fp32
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = 8 * j + 2 * t + (e & 1);
+        const float p =
+            expf(__fsub_rn(__fmul_rn(s[j][e], a.sm_scale), Lt[q]));
+        s[j][e] = p;
+        dp[j][e] =
+            __fmul_rn(__fmul_rn(__fsub_rn(dp[j][e], Dt[q]), p), a.sm_scale);
+      }
+    // dv += bf16(p)^T do and dk += bf16(ds)^T q over the tile's 64 queries:
+    // the accumulator layout of p and ds is the A fragment layout
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const unsigned sa[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int nn = 0; nn < NK; ++nn) {
+        const int row = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                        nn * 16 + (lane >> 4) * 8;
+        unsigned r[4];
+        ldsm_x4_trans(r, smem_u32(Ot + row));
+        mma_bf16(dv[2 * nn], pa, r[0], r[1]);
+        mma_bf16(dv[2 * nn + 1], pa, r[2], r[3]);
+        ldsm_x4_trans(r, smem_u32(Qt + row));
+        mma_bf16(dk[2 * nn], sa, r[0], r[1]);
+        mma_bf16(dk[2 * nn + 1], sa, r[2], r[3]);
+      }
+    }
+    __syncthreads();  // the next loads overwrite the stage just read
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const size_t row = ((size_t)b * S + k0 + warp * 16 + g + 8 * half) *
+                           a.out_stride + (size_t)h * d;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const int c = 8 * n + 2 * t;  // d is even: c < d takes c + 1 too
+      if (c >= d) continue;
+      const float k0v = dk[n][2 * half] * a.out_scale_qk;
+      const float k1v = dk[n][2 * half + 1] * a.out_scale_qk;
+      const float v0 = dv[n][2 * half], v1 = dv[n][2 * half + 1];
+      if (a.dk_f != nullptr)
+        *reinterpret_cast<float2*>(a.dk_f + row + c) = make_float2(k0v, k1v);
+      if (a.dv_f != nullptr)
+        *reinterpret_cast<float2*>(a.dv_f + row + c) = make_float2(v0, v1);
+      if (a.dk_t != nullptr)
+        *reinterpret_cast<unsigned*>(a.dk_t + row + c) = pack_bf16(k0v, k1v);
+      if (a.dv_t != nullptr)
+        *reinterpret_cast<unsigned*>(a.dv_t + row + c) = pack_bf16(v0, v1);
+    }
+  }
+}
+
+// ---- the SIMT forms: fp32 K4-dkv (K6's fp32 form) and K4-dq -------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kBwdThreads)
 attn_bwd_dkv_kernel(AttnBwdArgs<T> a) {
@@ -224,20 +410,29 @@ attn_bwd_dq_kernel(AttnBwdArgs<T> a) {
 }
 
 // di[b, h, s] = sum_c o[b, s, h, c] * do[b, s, h, c] in fp32 (o and do
-// (B, S, nh, d) contiguous)
+// (B, S, nh, d) contiguous, d % 8 == 0, d <= 64): 8 lanes per row, lane l
+// takes columns 8l..8l+7, then the 8 partial sums meet by shuffles
 __global__ void di_kernel(const bf16* __restrict__ o,
                           const bf16* __restrict__ dout, float* __restrict__ di,
                           int B, int S, int nh, int d) {
-  const size_t row = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= (size_t)B * S * nh) return;
+  const size_t row = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) >> 3;
+  const int c = (threadIdx.x & 7) * 8;
+  const bool live = row < (size_t)B * S * nh;
+  float acc = 0.f;
+  if (live && c < d) {
+    float ov[8], dv[8];
+    load8(o + row * d + c, ov);
+    load8(dout + row * d + c, dv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc = fmaf(ov[j], dv[j], acc);
+  }
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (!live || c != 0) return;
   const int h = (int)(row % nh);
   const size_t bs = row / nh;
   const int s = (int)(bs % S), b = (int)(bs / S);
-  const bf16* op = o + row * d;
-  const bf16* dp = dout + row * d;
-  float acc = 0.f;
-  for (int c = 0; c < d; ++c)
-    acc = fmaf(__bfloat162float(op[c]), __bfloat162float(dp[c]), acc);
   di[((size_t)b * nh + h) * S + s] = acc;
 }
 
@@ -259,18 +454,38 @@ cudaError_t launch_attn_bwd_dkv(const AttnBwdArgs<T>& a, int B,
                                 cudaStream_t stream) {
   if (!bwd_shape_ok(a.S, a.d, a.in_stride, a.dout_stride, a.out_stride))
     return cudaErrorInvalidValue;
-  const dim3 grid(a.S / BT, a.nh, B);
   cudaError_t err;
-  if (a.d <= 32) {
-    const int bytes = dkv_smem_floats<32>() * (int)sizeof(float);
-    if ((err = set_smem(attn_bwd_dkv_kernel<T, 32>, bytes)) != cudaSuccess)
-      return err;
-    attn_bwd_dkv_kernel<T, 32><<<grid, kBwdThreads, bytes, stream>>>(a);
+  if constexpr (std::is_same<T, bf16>::value) {
+    // bf16: the tensor-core kernel; 16-byte copies where every row and
+    // head starts on 16 bytes, 8-byte loads otherwise
+    const int v16 = a.d % 8 == 0 && a.in_stride % 8 == 0 &&
+                    a.dout_stride % 8 == 0;
+    const dim3 grid(a.S / TBK, a.nh, B);
+    if (a.d <= 32) {
+      const int bytes = dkv_tc_smem_bytes<32>();
+      if ((err = set_smem(attn_bwd_dkv_tc_kernel<32>, bytes)) != cudaSuccess)
+        return err;
+      attn_bwd_dkv_tc_kernel<32><<<grid, kTcThreads, bytes, stream>>>(a, v16);
+    } else {
+      const int bytes = dkv_tc_smem_bytes<64>();
+      if ((err = set_smem(attn_bwd_dkv_tc_kernel<64>, bytes)) != cudaSuccess)
+        return err;
+      attn_bwd_dkv_tc_kernel<64><<<grid, kTcThreads, bytes, stream>>>(a, v16);
+    }
   } else {
-    const int bytes = dkv_smem_floats<64>() * (int)sizeof(float);
-    if ((err = set_smem(attn_bwd_dkv_kernel<T, 64>, bytes)) != cudaSuccess)
-      return err;
-    attn_bwd_dkv_kernel<T, 64><<<grid, kBwdThreads, bytes, stream>>>(a);
+    // fp32: the SIMT kernel (its precision is the fp32 form's)
+    const dim3 grid(a.S / BT, a.nh, B);
+    if (a.d <= 32) {
+      const int bytes = dkv_smem_floats<32>() * (int)sizeof(float);
+      if ((err = set_smem(attn_bwd_dkv_kernel<T, 32>, bytes)) != cudaSuccess)
+        return err;
+      attn_bwd_dkv_kernel<T, 32><<<grid, kBwdThreads, bytes, stream>>>(a);
+    } else {
+      const int bytes = dkv_smem_floats<64>() * (int)sizeof(float);
+      if ((err = set_smem(attn_bwd_dkv_kernel<T, 64>, bytes)) != cudaSuccess)
+        return err;
+      attn_bwd_dkv_kernel<T, 64><<<grid, kBwdThreads, bytes, stream>>>(a);
+    }
   }
   return cudaGetLastError();
 }
@@ -347,7 +562,7 @@ extern "C" int dxmi_flash_attn_bwd_dkv(const void* qkv, const void* o,
                                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const size_t rows = (size_t)B * S * nh;
-  di_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(
+  di_kernel<<<(unsigned)((rows * 8 + 255) / 256), 256, 0, s>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), di, B, S,
       nh, d);
   cudaError_t err = cudaGetLastError();

@@ -23,7 +23,8 @@ of ``jax.grad`` through ``_flash_bnsd``: di = rowsum(o do) in fp32
 dk = bf16(ds)^T q with ds = (do v^T - di) p sm_scale (``_flash_attention_dkv
 _kernel``, ``:796``), then dq = bf16(ds) k (``_flash_attention_dq_kernel``,
 ``:1146``); sums in fp32, each gradient cast to bf16. On the card these are
-the hand-written kernels in ``csrc/flash_attn_bwd.cu``. q, k and v arrive as
+the hand-written kernels in ``csrc/flash_attn_bwd.cu``: K4-dkv on the
+tensor cores (mma.sync, fp32 sums), K4-dq in SIMT fp32. q, k and v arrive as
 views of one (B, S, 3, nh, d) qkv tensor, and their gradients leave in one
 buffer of that shape.
 """

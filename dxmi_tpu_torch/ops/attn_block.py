@@ -26,7 +26,9 @@ math); the port keeps one max-subtracting softmax.
 (``attn_block.py:652``): the forward is K2 (``_pallas_forward``,
 ``:630-631``) and the backward is K6 (``_kernel_bwd``, ``:406``, in
 ``csrc/attn_block_bwd.cu``), which recomputes every intermediate from x and
-the parameters, as ``_make_op_train`` saves only those (``:633-646``). Its
+the parameters, as ``_make_op_train`` saves only those (``:633-646``); in
+bf16 its products run on the tensor cores but for the dq pass (K4-dq's SIMT
+core), in fp32 all are SIMT. Its
 plain version ``attn_block_bwd_reference`` repeats the TPU body's arithmetic
 and roundings step by step (``:406-556``). The parameter cotangents come back
 in fp32.

@@ -10,7 +10,10 @@ fails the same replica with a fault planted (a dropped 64-key tile, a q/k
 scale a few percent off, uniform attention weights; for K5 the neighbouring
 column's dequantisation scale and a missing clip; for the backward kernels
 dk and dv swapped, di left out, dgs and dgb swapped, a missing GroupNorm
-backward term). K4's logsumexp gate fails a logsumexp off by log 2, in
+backward term; for the tensor-core kernels one warp's 16 keys of dk and dv
+left out, a 16-wide k-step of the head dim dropped, p or w not normalised;
+di from the bf16-rounded w stays inside the gates, a measured blind
+spot). K4's logsumexp gate fails a logsumexp off by log 2, in
 log2 units or shifted by a row, and the chained backward gate (kernel
 forward and backward against the plain ones) fails the first of these, which
 the backward's own gate lets pass. The E3 wiring gate
@@ -223,17 +226,37 @@ def test_attn_i8_check_fails_planted_fault(S, C, nh, dtype, fault):
 # chip_smoke.attn_bwd_check (K6) -------------------------------------------
 
 
+def _kstep_dropped(t):
+    """t (..., d) with the head dim's second 16-wide k-step (columns 16-31)
+    zeroed: a tensor-core product that skipped one m16n8k16 step."""
+    t = t.clone()
+    t[..., 16:32] = 0
+    return t
+
+
 def _flash_bwd_replica(qkv, o, lse, do, sm, fault=None):
     """K4's backward with float64 sums (another order than the plain
-    version's fp32), rounding p and ds to bf16 where the kernels do."""
+    version's fp32), rounding p and ds to bf16 where the kernels do.
+    Faults: dk and dv swapped, a dropped 64-key tile, di left out; and those
+    a fragment-level kernel can make: one warp's 16 keys of dk and dv left
+    out, one 16-wide k-step of the head dim dropped from s and dp, p not
+    normalised by lse (exp(s - rowmax)), di taken from the bf16-rounded p
+    (rowsum(bf16(p) dp))."""
     q, k, v = (t.double() for t in qkv.unbind(2))
     dof = do.double()
     di = (o.double() * dof).sum(-1).permute(0, 2, 1)
     if fault == "no_di":
         di = torch.zeros_like(di)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm
-    p = torch.exp(logits - lse.double()[..., None])
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v)
+    qs, dos = (_kstep_dropped(q), _kstep_dropped(dof)) if fault == "kstep" \
+        else (q, dof)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qs, k) * sm
+    if fault == "unnormalised":
+        p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    else:
+        p = torch.exp(logits - lse.double()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dos, v)
+    if fault == "di_rounded":
+        di = (p.to(BF16).double() * dp).sum(-1)
     ds = ((dp - di[..., None]) * p * sm).to(BF16).double()
     pb = p.to(BF16).double()
     if fault == "drop":
@@ -244,6 +267,9 @@ def _flash_bwd_replica(qkv, o, lse, do, sm, fault=None):
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
     if fault == "swap":
         dk, dv = dv, dk
+    if fault == "warp_rows":  # the second warp of the first key block
+        dk[:, 16:32] = 0
+        dv[:, 16:32] = 0
     return torch.stack([dq, dk, dv], dim=2).to(BF16)
 
 
@@ -257,11 +283,13 @@ def _flash_bwd_case(seed, S=512, nh=2, d=64):
         d ** -0.5
 
 
-@pytest.mark.parametrize("fault", [None, "swap", "drop", "no_di"])
+@pytest.mark.parametrize("fault", [None, "swap", "drop", "no_di",
+                                   "warp_rows", "kstep", "unnormalised"])
 def test_flash_bwd_check(fault):
     """The float64-order replica passes every gradient's gate; with dk and
-    dv swapped, a dropped 64-key tile or di left out, some gradient
-    fails."""
+    dv swapped, a dropped 64-key tile, di left out, one warp's 16 keys of dk
+    and dv left out, a 16-wide k-step of the head dim dropped or p not
+    normalised by lse, some gradient fails."""
     from chip_smoke import flash_bwd_check
     from dxmi_tpu_torch.ops.attention import flash_mha_reference_bwd
 
@@ -364,16 +392,26 @@ def _attn_bwd_replica(x, ct, gs, gb, wq, bq, wp, nh, fault=None, eps=1e-5):
     qs, ks, vh = ((qkv[:, :, 0] * scale).double(),
                   (qkv[:, :, 1] * scale).double(), qkv[:, :, 2].double())
     dah = da.reshape(B, S, nh, d)
-    w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qs, ks), dim=-1)
+    qk, dak = (_kstep_dropped(qs), _kstep_dropped(dah)) if fault == "kstep" \
+        else (qs, dah)
+    lg = torch.einsum("bqhd,bkhd->bhqk", qk, ks)
+    if fault == "unnormalised":
+        w = torch.exp(lg - lg.amax(-1, keepdim=True))
+    else:
+        w = torch.softmax(lg, dim=-1)
     if fault == "drop":
         w[..., 64:128] = 0
     wb = w.to(dt).double()
     a = torch.einsum("bhqk,bkhd->bqhd", wb, vh).to(dt).double()
     dv = torch.einsum("bhqk,bqhd->bkhd", wb, dah)
-    dwt = torch.einsum("bqhd,bkhd->bhqk", dah, vh)
-    dlg = (w * (dwt - (dwt * w).sum(-1, keepdim=True))).to(dt).double()
+    dwt = torch.einsum("bqhd,bkhd->bhqk", dak, vh)
+    di = ((wb if fault == "di_rounded" else w) * dwt).sum(-1, keepdim=True)
+    dlg = (w * (dwt - di)).to(dt).double()
     dq = torch.einsum("bhqk,bkhd->bqhd", dlg, ks) * sf
     dk = torch.einsum("bhqk,bqhd->bkhd", dlg, qs) * sf
+    if fault == "warp_rows":  # the second warp of the first key block
+        dk[:, 16:32] = 0
+        dv[:, 16:32] = 0
     gq = torch.stack([dq, dk, dv], dim=2).reshape(B, S, 3 * C)
     gqb = gq.to(dt).double()
     dh = gqb @ wq.double().t()
@@ -399,11 +437,14 @@ def _attn_bwd_replica(x, ct, gs, gb, wq, bq, wp, nh, fault=None, eps=1e-5):
 
 @pytest.mark.parametrize("dtype", [BF16, torch.float32])
 @pytest.mark.parametrize("fault", [None, "swap_gs_gb", "no_gn_term",
-                                   "no_gn_mean", "drop"])
+                                   "no_gn_mean", "drop", "warp_rows",
+                                   "kstep", "unnormalised"])
 def test_attn_bwd_check(dtype, fault):
     """The kernel-order replica passes K6's gate in bf16 and fp32; with dgs
     and dgb swapped, either term of the GroupNorm backward missing (hp
-    mean(dhp hp), mean(dhp)) or a dropped 64-key tile, it fails."""
+    mean(dhp hp), mean(dhp)), a dropped 64-key tile, one warp's 16 keys of
+    dk and dv left out, a 16-wide k-step of the head dim dropped from the
+    logits and da v^T, or w not normalised (exp(s - rowmax)), it fails."""
     from chip_smoke import attn_bwd_check
     from dxmi_tpu_torch.ops.attn_block import attn_block_bwd_reference
 
@@ -418,6 +459,50 @@ def test_attn_bwd_check(dtype, fault):
     else:
         with pytest.raises(AssertionError):
             attn_bwd_check(outs, refs, dtype, "replica")
+
+
+def _mean_rels(outs, refs):
+    return [((a.float() - b.float()).abs().mean()
+             / b.float().abs().mean()).item() for a, b in zip(outs, refs)]
+
+
+@pytest.mark.parametrize("kernel", ["flash", "k6_bf16"])
+def test_bwd_checks_blind_to_di_from_rounded_w(kernel):
+    """A limit of the gates, measured: di = rowsum(bf16(w) dp) in place of
+    the fp32 w moves dq and dk by 5.0e-4 and 5.4e-4 of their mean in K4's
+    backward (the replica's own errors: 1e-6) and K6's cotangents by up to
+    7.0e-4 (about twice the replica's own), yet stays inside
+    FLASH_BWD_MEAN_REL (2^-10) and ATTN_BWD_BF16_MEAN_REL (5e-3), which
+    allow for bf16 rounding flips: the card's gates cannot refuse this
+    fault. The kernels take di from the fp32 w (K6's statistics pass) or
+    from o (K4-dkv's di launch)."""
+    from chip_smoke import (ATTN_BWD_BF16_MEAN_REL, FLASH_BWD_MEAN_REL,
+                            attn_bwd_check, flash_bwd_check)
+    from dxmi_tpu_torch.ops.attention import flash_mha_reference_bwd
+    from dxmi_tpu_torch.ops.attn_block import attn_block_bwd_reference
+
+    if kernel == "flash":
+        qkv, o, lse, do, sm = _flash_bwd_case(11)
+        ref = flash_mha_reference_bwd(qkv, o, lse, do, sm).unbind(2)
+        good, bad = (_flash_bwd_replica(qkv, o, lse, do, sm, f).unbind(2)
+                     for f in (None, "di_rounded"))
+        for i in range(3):
+            flash_bwd_check(bad[i], ref[i], f"grad {i}")
+        limit, moved = FLASH_BWD_MEAN_REL, (0, 1)  # dq, dk
+    else:
+        x, gs, gb, wq, bq, wp, _ = _attn_inputs(256, 128, 12)
+        x, wq, bq, wp = (t.to(BF16) for t in (x, wq, bq, wp))
+        g = torch.Generator().manual_seed(13)
+        ct = (torch.randn(x.shape, generator=g) + 0.5).to(BF16)
+        args = (x, ct, gs, gb, wq, bq, wp, 2)
+        ref = attn_block_bwd_reference(*args)
+        good, bad = (_attn_bwd_replica(*args, f) for f in (None, "di_rounded"))
+        attn_bwd_check(bad, ref, BF16, "replica")
+        limit, moved = ATTN_BWD_BF16_MEAN_REL, (0, 1, 3)  # dx, dgs, dw_qkv
+    rel_good, rel_bad = _mean_rels(good, ref), _mean_rels(bad, ref)
+    print(kernel, rel_good, rel_bad)
+    assert max(rel_bad) < limit
+    assert all(rel_bad[i] > 1.5 * rel_good[i] for i in moved)
 
 
 # ---- the E3 wiring gates: chip_smoke.wiring_check ------------------------

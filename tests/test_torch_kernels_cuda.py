@@ -328,7 +328,7 @@ def test_int8_forms_raise(card):
 
 
 @pytest.mark.parametrize("B,S,nh,d", [(4, 1024, 6, 64), (2, 512, 2, 64),
-                                      (2, 512, 4, 32)])
+                                      (2, 512, 4, 32), (2, 512, 3, 40)])
 def test_flash_backward(card, B, S, nh, d):
     from chip_smoke import (FLASH_CHAIN_MEAN_REL, flash_bwd_check,
                             flash_lse_check)
@@ -376,7 +376,12 @@ def test_flash_autograd_matches_plain_autograd(card):
 @pytest.mark.parametrize("B,S,C,nh,dtype", [
     (4, 1024, 384, 6, torch.bfloat16), (8, 256, 576, 9, torch.bfloat16),
     (8, 64, 768, 12, torch.bfloat16), (8, 64, 64, 2, torch.float32),
-    (2, 128, 96, 3, torch.float32)])
+    (2, 128, 96, 3, torch.float32),
+    # the tensor-core kernels' edges: one 64-row tile at d = 32; head dims
+    # zero-padded to 64 (d = 40) and to 32 (d = 24); heads off 16 bytes
+    # (d = 36: 8-byte loads)
+    (4, 64, 256, 8, torch.bfloat16), (2, 128, 320, 8, torch.bfloat16),
+    (2, 256, 192, 8, torch.bfloat16), (2, 64, 288, 8, torch.bfloat16)])
 def test_attn_block_backward(card, B, S, C, nh, dtype):
     from chip_smoke import attn_bwd_check
     from dxmi_tpu_torch.ops.attn_block import (attn_block_bwd,
@@ -393,6 +398,38 @@ def test_attn_block_backward(card, B, S, C, nh, dtype):
     attn_bwd_check(outs, attn_block_bwd_reference(*args, nh), dtype, "K6")
     assert all(torch.equal(a, b) for a, b in zip(outs,
                                                   attn_block_bwd(*args, nh)))
+
+
+def test_tensor_core_backward_replays_bit_equal(card):
+    """K4-dkv alone (di, dk and dv) and K6 in bf16 at the 32x32 map's
+    widths: each replay equals the first call bit for bit (every sum is
+    owned by one warp in a fixed order, with no atomics)."""
+    from dxmi_tpu_torch.ops.attention import flash_bwd_dkv, flash_mha_fwd
+    from dxmi_tpu_torch.ops.attn_block import attn_block_bwd
+
+    g = torch.Generator(device=card).manual_seed(5)
+    qkv = torch.randn(8, 1024, 3, 6, 64, generator=g, device=card).bfloat16()
+    do = torch.randn(8, 1024, 6, 64, generator=g, device=card).bfloat16()
+    o, lse = flash_mha_fwd(qkv, 0.125)
+    di, dqkv = flash_bwd_dkv(qkv, o, lse, do, 0.125)
+    for _ in range(2):
+        di2, dqkv2 = flash_bwd_dkv(qkv, o, lse, do, 0.125)
+        assert torch.equal(di, di2)
+        assert torch.equal(dqkv[:, :, 1:], dqkv2[:, :, 1:])
+    assert _lib.LAUNCHES["flash_attn_bwd_dkv"] == 3
+    rs = np.random.RandomState(6)
+    B, S, C, nh = 8, 1024, 384, 6
+    x, ct, gs, gb, wq, bq, wp = _tensors(
+        rs, card, ((B, S, C), 2.0, 0.5), ((B, S, C), 1.0, 0.5),
+        ((C,), 0.1, 1.0), ((C,), 0.1, 0.0), ((C, 3 * C), C ** -0.5, 0.0),
+        ((3 * C,), 0.1, 0.0), ((C, C), C ** -0.5, 0.0))
+    args = (x.bfloat16(), ct.bfloat16(), gs, gb, wq.bfloat16(), bq.bfloat16(),
+            wp.bfloat16())
+    first = attn_block_bwd(*args, nh)
+    for _ in range(2):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(first, attn_block_bwd(*args, nh)))
+    assert _lib.LAUNCHES["attn_block_bwd_bf16"] == 3
 
 
 def test_fused_train_autograd_matches_plain_autograd(card):
