@@ -37,7 +37,8 @@ failure exits non-zero naming the phase:
      of configs/imagenet64/T10.yaml (bf16) with seeded random weights, with
      fused and with flash attention, checking the launches of each path;
   E2-int8 the same under --int8 (W8A8 static, calibrated first as the CLI
-     does), through K5 and K8;
+     does), through K5 and K8, with K8's share of a profiled trajectory and
+     K8's time by shape, and E2's img/s beside its own;
   G3 one DxMITrainerCond iteration (update_f_v + update_sampler) on the
      ADM fixture with injected draws, einsum and fused_train (K2 forward, K6
      backward, fp32), against the JAX package's (tests/torch_fixtures/
@@ -66,7 +67,9 @@ failure exits non-zero naming the phase:
      on the run dir it wrote, and the same with train_cifar10 and
      generate_cifar10.
 
-`python3 chip_smoke.py --bwd-profile` runs phases B and T-bwd alone.
+`python3 chip_smoke.py --phases B,T-bwd` runs the phases named (here the
+build and the backward kernels' breakdown) and prints no kernels record and
+no last line.
 
 The line before the last line is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record, and the last line is
@@ -537,6 +540,10 @@ class PhaseError(Exception):
     pass
 
 
+PHASES = ("B", "K", "T", "T-bwd", "G", "E", "G2", "G2-int8", "E2", "E2-int8",
+          "G3", "E3", "G4", "E4", "C")
+
+
 def run_phase(name, fn):
     t0 = time.perf_counter()
     try:
@@ -610,7 +617,9 @@ FLASH_SHAPES = [(BATCH, 1024, 6, 64)]
 # 8), bf16 at ImageNet64's three maps and at LSUN's C=1024 maps, which only
 # the int8 gate admits. K8 (int8 conv): the widest ImageNet64 3x3 conv
 # (8x8, 1536 -> 768), the 32x32 up-block's four 2x2 phase convs, a 64x64
-# conv, and fixture convs in fp32 (static, and dynamic: a scalar scale).
+# conv, fixture convs in fp32 (static, and dynamic: a scalar scale), the
+# commonest 64x64 and 16x16 convs, and Cin = 96 in bf16 (half of the last
+# 64-channel chunk).
 I8_ATTN_SHAPES = [(8, 64, 64, 2, torch.float32),
                   (BATCH, 1024, 384, 6, torch.bfloat16),
                   (BATCH, 256, 576, 9, torch.bfloat16),
@@ -623,7 +632,10 @@ I8_CONV_SHAPES = ([(BATCH, 8, 1536, 768, SAME_3X3, torch.bfloat16, False)]
                      for pad in PHASE_PADS]
                   + [(BATCH, 64, 384, 192, SAME_3X3, torch.bfloat16, False),
                      (8, 16, 96, 32, SAME_3X3, torch.float32, False),
-                     (8, 16, 96, 32, SAME_3X3, torch.float32, True)])
+                     (8, 16, 96, 32, SAME_3X3, torch.float32, True),
+                     (BATCH, 64, 192, 192, SAME_3X3, torch.bfloat16, False),
+                     (BATCH, 16, 576, 576, SAME_3X3, torch.bfloat16, False),
+                     (8, 16, 96, 64, SAME_3X3, torch.bfloat16, False)])
 
 
 def attn_i8_case(gen, B, S, C, nh, dtype):
@@ -726,12 +738,13 @@ ATTN_BWD_BF16_DX_MEAN_REL = 1e-3
 ATTN_BWD_BF16_MAX_REL = 2.0 ** -4
 ATTN_BWD_FP32_TOL = 5e-4
 ATTN_BWD_NAMES = ("dx", "dgs", "dgb", "dw_qkv", "db_qkv", "dw_proj", "db_proj")
-# The main path's shapes, then the tensor-core kernels' edges: K4-dkv at
-# d = 32 and at d = 40 (zero-padded to 64 in shared memory) inside the flash
-# gate; K6 at a single 64-row tile with d = 32, at d = 40 and d = 24 (padded
-# head dims), and at d = 36, whose heads start off 16 bytes (8-byte loads).
+# The main path's shapes, then the tensor-core kernels' edges: K4-dkv and
+# K4-dq at d = 32, d = 40 and d = 24 (zero-padded to 64 and 32 in shared
+# memory) inside the flash gate; K6 (whose dq pass is K4-dq) at a single
+# 64-row tile with d = 32, at d = 40 and d = 24 (padded head dims), and at
+# d = 36, whose heads start off 16 bytes (8-byte loads).
 FLASH_BWD_SHAPES = [(TRAIN_BATCH, 1024, 6, 64), (16, 512, 4, 32),
-                    (16, 512, 3, 40)]
+                    (16, 512, 3, 40), (16, 512, 4, 24)]
 ATTN_BWD_SHAPES = [(TRAIN_BATCH, 1024, 384, 6, torch.bfloat16),
                    (TRAIN_BATCH, 256, 576, 9, torch.bfloat16),
                    (TRAIN_BATCH, 64, 768, 12, torch.bfloat16),
@@ -1097,13 +1110,13 @@ TRAIN_LAUNCHES_PER_STEP = {
 # name: K4-dkv (its tensor-core kernel and di) and K4-dq on the flash path;
 # K6's launches on fused_train but for K1's GroupNorm statistics and apply,
 # which K6 shares with K1's forward launches (two of K6's launches, ~0.4 of
-# 17 ms at the 32x32 map).
+# 8.9 ms at the 32x32 map).
 E3_SHARES = {
     "flash": {"K4-dkv": ("attn_bwd_dkv_tc_kernel", "di_kernel"),
-              "K4-dq": ("attn_bwd_dq_kernel",)},
+              "K4-dq": ("attn_bwd_dq_tc_kernel",)},
     "fused_train": {"K6 (less K1's GroupNorm launches)": (
         "attn_stats_tc_kernel", "attn_bwd_dkv_tc_kernel",
-        "attn_bwd_dq_kernel", "hgemm_kernel<0, 0,", "hgemm_kernel<0, 2,",
+        "attn_bwd_dq_tc_kernel", "hgemm_kernel<0, 0,", "hgemm_kernel<0, 2,",
         "hgemm_kernel<0, 3,", "gn_bwd_kernel", "colsum_kernel",
         "sum_parts_kernel")},
 }
@@ -2301,9 +2314,10 @@ def phase_generate_adm():
     card from a seed), fused and flash attention: a warm-up batch, then
     2 batches through generate() (setup included) with the launches counted,
     then 2 batches of sampling alone, then a profiled trajectory. Returns
-    the launches of each path and the fused path's samples."""
+    the launches of each path, the fused path's samples and each path's
+    img/s of sampling alone."""
     cfg = imagenet64_t10()
-    launches, samples = {}, {}
+    launches, samples, rates = {}, {}, {}
     for impl in ("fused", "flash"):
         generate_large.generate(cfg, None, BATCH, BATCH, "cuda", seed=1,
                                 attn_impl=impl)
@@ -2326,6 +2340,7 @@ def phase_generate_adm():
         sampler = generate_large.load_sampler(cfg, None, "cuda", seed=0,
                                               attn_impl=impl)
         steady = time_sampling(sampler)
+        rates[impl] = BATCH * N_BATCHES / steady
         n_params = sum(p.numel() for p in sampler.net.parameters())
         print(f"  E2 {impl}: launches {got} (expected {want})")
         print(f"  E2 {impl}: generate(): {x.shape[0]} samples in {wall:.3f} s"
@@ -2346,7 +2361,7 @@ def phase_generate_adm():
           f"{samples['fused'].std().item():.3f})")
     if not d < E2_FUSED_FLASH_MEAN:
         raise AssertionError(f"E2: fused and flash samples {d:.4f} apart")
-    return launches, samples["fused"]
+    return launches, samples["fused"], rates
 
 
 def check_adm_samples(x, y, what):
@@ -2369,13 +2384,15 @@ def time_sampling(sampler):
     return time.perf_counter() - t0
 
 
-def phase_generate_adm_int8(fused):
+def phase_generate_adm_int8(fused, rates):
     """E2 under --int8 (W8A8 static, fused attention): a warm-up through
     generate(); then load_sampler, which draws the seed-0 weights and
     calibrates on 2 x 10 full-precision steps at 8 samples as the CLI does
     (setup), and 2 batches of 100 with the launches counted; then sampling
-    alone and a profiled trajectory. ``fused``: E2's fused samples of the
-    same seeds."""
+    alone, a profiled trajectory with K8's share of its device time, and
+    K8's time per shape over one more trajectory. ``fused`` and ``rates``:
+    E2's fused samples of the same seeds and its img/s (None when E2 did
+    not run)."""
     cfg = imagenet64_t10()
     generate_large.generate(cfg, None, BATCH, BATCH, "cuda", seed=1,
                             int8=True)
@@ -2405,21 +2422,71 @@ def phase_generate_adm_int8(fused):
         raise AssertionError(f"int8 calibration: launches {calib}, expected "
                              f"{ADM_CALIB_LAUNCHES}")
     steady = time_sampling(sampler)
-    d = (x - fused).abs().mean().item()
     print(f"  E2-int8: calibration launches {calib} (expected "
           f"{ADM_CALIB_LAUNCHES}); sampling launches {got} (expected {want})")
+    near = ("" if fused is None else "; mean |int8 - fused bf16| over the "
+            f"same seeds {(x - fused).abs().mean().item():.4f}")
+    beside = ("" if rates is None else f" (E2 in this run: fused "
+              f"{rates['fused']:.2f}, flash {rates['flash']:.2f} img/s)")
     print(f"  E2-int8: load + calibration {setup:.3f} s; {x.shape[0]} samples"
           f" in {wall:.3f} s with setup ({x.shape[0] / wall:.2f} img/s); "
-          f"sampling alone {BATCH * N_BATCHES / steady:.2f} img/s; samples "
-          f"in [{x.min().item():.3f}, {x.max().item():.3f}], std "
-          f"{x.std().item():.3f}; peak allocated {peak / 2**20:.1f} MiB; "
-          f"mean |int8 - fused bf16| over the same seeds {d:.4f}")
+          f"sampling alone {BATCH * N_BATCHES / steady:.2f} img/s{beside}; "
+          f"samples in [{x.min().item():.3f}, {x.max().item():.3f}], std "
+          f"{x.std().item():.3f}; peak allocated {peak / 2**20:.1f} MiB"
+          f"{near}")
     profile_run(lambda: generate_large.sample_batches(sampler, BATCH, BATCH,
                                                       seed=4),
-                f"E2-int8 profile, one trajectory of {BATCH}", top=16)
+                f"E2-int8 profile, one trajectory of {BATCH}", top=16,
+                shares={"K8": ("int8_conv_kernel",)})
+    k8_shape_times(sampler)
     del sampler
     torch.cuda.empty_cache()
     return got
+
+
+def k8_shape_times(sampler):
+    """K8's device time per shape over one trajectory of BATCH: CUDA events
+    around each launch (the shape read from the C call's arguments), summed
+    per (map, Cin -> Cout, kernel size), with the launches and the bound of
+    each shape (int8 operations at INT8_OPS or bytes at HBM_BYTES_S, the
+    larger)."""
+    lib = _lib.lib()
+    launch = lib.dxmi_int8_conv
+    calls = []
+
+    def timed(*args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        code = launch(*args)
+        end.record()
+        # x_bf16, y_bf16, B, H, W, Cin, Cout, kh, kw
+        calls.append(((args[1], args[8], *args[9:16]), start, end))
+        return code
+
+    lib.dxmi_int8_conv = timed
+    try:
+        generate_large.sample_batches(sampler, BATCH, BATCH, seed=5)
+        torch.cuda.synchronize()
+    finally:
+        lib.dxmi_int8_conv = launch
+    shapes = {}
+    for key, start, end in calls:
+        n, ms = shapes.get(key, (0, 0.0))
+        shapes[key] = (n + 1, ms + start.elapsed_time(end))
+    total = sum(ms for _, ms in shapes.values())
+    print(f"  E2-int8 K8 by shape, one trajectory of {BATCH} (CUDA events "
+          f"around each launch): {len(calls)} launches, {total:.3f} ms")
+    for (xb, yb, B, H, W, Cin, Cout, kh, kw), (n, ms) in sorted(
+            shapes.items(), key=lambda kv: -kv[1][1]):
+        M, K = B * H * W, kh * kw * Cin
+        t_ops = 2 * M * Cout * K / INT8_OPS * 1e3
+        t_bytes = (M * Cin * (2 if xb else 4) + M * Cout * (2 if yb else 4)
+                   + Cout * K) / HBM_BYTES_S * 1e3
+        print(f"    ({B}, {H}x{W}, {Cin}->{Cout}) {kh}x{kw}: {n} launches, "
+              f"{ms:.3f} ms ({ms / total:.1%}), {ms / n:.4f} ms each, bound "
+              f"{max(t_ops, t_bytes):.4f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
+              f"{ms / n / max(t_ops, t_bytes):.1f}x it")
 
 
 def nvidia_smi():
@@ -2436,42 +2503,55 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
+    only = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--phases":
+        only = sys.argv[2].split(",")
+        if not set(only) <= set(PHASES):
+            print(f"chip_smoke: phases {only}, known {PHASES}",
+                  file=sys.stderr)
+            return 2
+    elif sys.argv[1:]:
+        print("usage: chip_smoke.py [--phases B,T,...]", file=sys.stderr)
+        return 2
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}",
           flush=True)
     select_device("cuda")  # fp32 products in the plain versions (no TF32)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if sys.argv[1:] == ["--bwd-profile"]:
-        # only the build and the backward kernels' per-launch breakdown
-        try:
-            run_phase("B", phase_build)
-            run_phase("T-bwd", lambda: bwd_breakdown(gen))
-        except PhaseError as e:
-            print(str(e), file=sys.stderr, flush=True)
-            return 1
-        print(nvidia_smi())
-        return 0
+    res = {}
+
+    def step(name, fn):
+        if only is None or name in only:
+            res[name] = run_phase(name, fn)
+
     try:
-        run_phase("B", phase_build)
-        errs = run_phase("K", lambda: phase_kernels(gen))
-        times = run_phase("T", lambda: phase_times(gen))
-        run_phase("T-bwd", lambda: bwd_breakdown(gen))
-        run_phase("G", phase_replay)
-        launches = run_phase("E", phase_generate)
-        run_phase("G2", phase_replay_adm)
-        run_phase("G2-int8", phase_replay_adm_int8)
-        adm, fused = run_phase("E2", phase_generate_adm)
-        int8 = run_phase("E2-int8", lambda: phase_generate_adm_int8(fused))
-        run_phase("G3", phase_train_replay)
-        train = run_phase("E3", phase_train)
-        run_phase("G4", phase_cifar_train_replay)
-        cifar = run_phase("E4", phase_cifar_train)
-        run_phase("C", phase_cli)
+        step("B", phase_build)
+        step("K", lambda: phase_kernels(gen))
+        step("T", lambda: phase_times(gen))
+        step("T-bwd", lambda: bwd_breakdown(gen))
+        step("G", phase_replay)
+        step("E", phase_generate)
+        step("G2", phase_replay_adm)
+        step("G2-int8", phase_replay_adm_int8)
+        step("E2", phase_generate_adm)
+        e2 = res.get("E2", (None, None, None))
+        step("E2-int8", lambda: phase_generate_adm_int8(e2[1], e2[2]))
+        step("G3", phase_train_replay)
+        step("E3", phase_train)
+        step("G4", phase_cifar_train_replay)
+        step("E4", phase_cifar_train)
+        step("C", phase_cli)
         smi = nvidia_smi()
     except PhaseError as e:
         print(str(e), file=sys.stderr, flush=True)
         return 1
+    if only is not None:  # a partial run: no record of the kernels
+        print(smi)
+        return 0
+    errs, times, train, cifar = res["K"], res["T"], res["E3"], res["E4"]
+    launches, int8 = res["E"], res["E2-int8"]
+    adm = res["E2"][0]
     launches.update(gn_silu_bf16=adm["fused"]["gn_silu_bf16"],
                     attn_block_bf16=adm["fused"]["attn_block_bf16"],
                     flash_attn=adm["flash"]["flash_attn"],

@@ -106,8 +106,7 @@ struct AttnBwdArgs {
 
 // dk and dv (one block per 64 keys) and dq (one block per 64 query rows).
 // Need S % 64 == 0, d % 4 == 0, d <= 64 and strides that are multiples of 4.
-// The bf16 dk/dv launch runs on the tensor cores; the fp32 one and dq are
-// SIMT fp32.
+// The bf16 launches run on the tensor cores, the fp32 ones SIMT fp32.
 template <typename T>
 cudaError_t launch_attn_bwd_dkv(const AttnBwdArgs<T>& a, int B,
                                 cudaStream_t stream);

@@ -39,9 +39,25 @@
 // form. Each sum is owned by one warp and taken in a fixed order, with no
 // atomics: replays reproduce themselves bit for bit.
 //
-// The fp32 instantiation (K6's fp32 form) and K4-dq keep the first, simple
-// design: fp32 SIMT arithmetic (bf16 tensor cores would change the fp32
-// form's precision; K4-dq waits for a later redesign).
+// Design of K4-dq in bf16 (attn_bwd_dq_tc_kernel, tensor cores), K4-dkv's
+// mirror image: query-stationary. A block of 4 warps owns 64 query rows of
+// one (sample, head), each warp 16 of them; q and do are copied once and
+// each warp keeps their A fragments in registers; K and V stream in tiles
+// of 64 keys through two cp.async stages. Per warp and key tile:
+//   s = q K^T and dp = do V^T  (K and V B fragments by ldmatrix),
+//   p = exp(s sm_scale - lse), ds = p (dp - di) sm_scale in fp32 on the
+//       unrounded p, packed to bf16 from the accumulator registers into A
+//       fragments,
+//   dq += ds K                 (K by ldmatrix.trans).
+// dq stays in fp32 registers until the epilogue, which multiplies by
+// out_scale_qk and writes the fp32 and/or the bf16 form. Its three
+// products are 3 * 2 B nh S^2 d = 0.31 TFLOP at the 32x32 maps, 0.31 ms at
+// the bf16 peak; K6's dq pass is the same launch (sm_scale 1, q and k
+// pre-scaled, both output forms).
+//
+// The fp32 instantiations (K6's fp32 form, G3's shape, on no main path)
+// keep the first, simple design: fp32 SIMT arithmetic (bf16 tensor cores
+// would change the fp32 form's precision).
 //   dkv: a block of 256 threads owns 64 keys of one (sample, head) and
 //     keeps its K and V tiles and its dk, dv accumulators on chip; it walks
 //     over the query rows in tiles of 64 (q, do, lse and di into shared
@@ -241,7 +257,150 @@ attn_bwd_dkv_tc_kernel(AttnBwdArgs<bf16> a, int v16) {
   }
 }
 
-// ---- the SIMT forms: fp32 K4-dkv (K6's fp32 form) and K4-dq -------------
+// ---- K4-dq on the tensor cores (bf16) -----------------------------------
+template <int D>
+__host__ __device__ constexpr int dq_tc_smem_bytes() {
+  // q, do; two stages of K and V (bf16)
+  return (2 * TBQ + 4 * TBK) * (D + 8) * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+attn_bwd_dq_tc_kernel(AttnBwdArgs<bf16> a, int v16) {
+  constexpr int LD = D + 8, NK = D / 16, NN = D / 8;
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* Os = Qs + TBQ * LD;      // the output's cotangent
+  bf16* Ks = Os + TBQ * LD;      // [2][TBK][LD]
+  bf16* Vs = Ks + 2 * TBK * LD;  // [2][TBK][LD]
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TBQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int S = a.S, d = a.d;
+  const size_t in_base = (size_t)b * S * a.in_stride + (size_t)h * d;
+  const size_t do_base = (size_t)b * S * a.dout_stride + (size_t)h * d;
+  const size_t st_row = ((size_t)b * a.nh + h) * S + q0 + warp * 16 + g;
+
+  auto load_kv = [&](int k0, int st) {
+    rows_in_bf16<D>(Ks + st * TBK * LD,
+                    a.k + in_base + (size_t)k0 * a.in_stride, a.in_stride, d,
+                    v16);
+    rows_in_bf16<D>(Vs + st * TBK * LD,
+                    a.v + in_base + (size_t)k0 * a.in_stride, a.in_stride, d,
+                    v16);
+  };
+
+  rows_in_bf16<D>(Qs, a.q + in_base + (size_t)q0 * a.in_stride, a.in_stride,
+                  d, v16);
+  rows_in_bf16<D>(Os, a.dout + do_base + (size_t)q0 * a.dout_stride,
+                  a.dout_stride, d, v16);
+  load_kv(0, 0);
+  cp_async_commit();
+  // the thread's two rows of the warp's 16: g (e = 0, 1) and g + 8 (e = 2, 3)
+  const float lse[2] = {a.lse[st_row], a.lse[st_row + 8]};
+  const float di[2] = {a.di[st_row], a.di[st_row + 8]};
+
+  float dq[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  unsigned qa[NK][4], oa[NK][4];  // this warp's q and do A fragments
+
+  const int n_tiles = S / TBK;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_tiles)  // stage st^1 was last read before the last barrier
+      load_kv((it + 1) * TBK, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's group (and q, do with the first) landed
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        const int off = (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                        (lane >> 4) * 8;
+        ldsm_x4(qa[kk], smem_u32(Qs + off));
+        ldsm_x4(oa[kk], smem_u32(Os + off));
+      }
+    }
+    const bf16* Kt = Ks + st * TBK * LD;
+    const bf16* Vt = Vs + st * TBK * LD;
+
+    // s = q K^T and dp = do V^T: this warp's 16 queries x 64 keys, 8
+    // n-tiles of 8 keys; the thread holds queries g (e = 0, 1) and g + 8
+    // (e = 2, 3) and keys 8j + 2t + (e & 1)
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int row = (jj * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                        kk * 16 + ((lane >> 3) & 1) * 8;
+        unsigned r[4];
+        ldsm_x4(r, smem_u32(Kt + row));
+        mma_bf16(s[2 * jj], qa[kk], r[0], r[1]);
+        mma_bf16(s[2 * jj + 1], qa[kk], r[2], r[3]);
+        ldsm_x4(r, smem_u32(Vt + row));
+        mma_bf16(dp[2 * jj], oa[kk], r[0], r[1]);
+        mma_bf16(dp[2 * jj + 1], oa[kk], r[2], r[3]);
+      }
+    }
+    // p = exp(s sm_scale - lse) and ds = p (dp - di) sm_scale in fp32, on
+    // the unrounded p
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            expf(__fsub_rn(__fmul_rn(s[j][e], a.sm_scale), lse[e >> 1]));
+        dp[j][e] = __fmul_rn(__fmul_rn(__fsub_rn(dp[j][e], di[e >> 1]), p),
+                             a.sm_scale);
+      }
+    // dq += bf16(ds) K over the tile's 64 keys: ds's accumulator layout is
+    // the A fragment layout; K's B fragments by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const unsigned sa[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int nn = 0; nn < NK; ++nn) {
+        const int row = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                        nn * 16 + (lane >> 4) * 8;
+        unsigned r[4];
+        ldsm_x4_trans(r, smem_u32(Kt + row));
+        mma_bf16(dq[2 * nn], sa, r[0], r[1]);
+        mma_bf16(dq[2 * nn + 1], sa, r[2], r[3]);
+      }
+    }
+    __syncthreads();  // the next loads overwrite the stage just read
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const size_t row = ((size_t)b * S + q0 + warp * 16 + g + 8 * half) *
+                           a.out_stride + (size_t)h * d;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const int c = 8 * n + 2 * t;  // d is even: c < d takes c + 1 too
+      if (c >= d) continue;
+      const float v0 = dq[n][2 * half] * a.out_scale_qk;
+      const float v1 = dq[n][2 * half + 1] * a.out_scale_qk;
+      if (a.dq_f != nullptr)
+        *reinterpret_cast<float2*>(a.dq_f + row + c) = make_float2(v0, v1);
+      if (a.dq_t != nullptr)
+        *reinterpret_cast<unsigned*>(a.dq_t + row + c) = pack_bf16(v0, v1);
+    }
+  }
+}
+
+// ---- the SIMT forms: fp32 K4-dkv and K4-dq (K6's fp32 form) -------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kBwdThreads)
 attn_bwd_dkv_kernel(AttnBwdArgs<T> a) {
@@ -495,18 +654,37 @@ cudaError_t launch_attn_bwd_dq(const AttnBwdArgs<T>& a, int B,
                                cudaStream_t stream) {
   if (!bwd_shape_ok(a.S, a.d, a.in_stride, a.dout_stride, a.out_stride))
     return cudaErrorInvalidValue;
-  const dim3 grid(a.S / BT, a.nh, B);
   cudaError_t err;
-  if (a.d <= 32) {
-    const int bytes = dq_smem_floats<32>() * (int)sizeof(float);
-    if ((err = set_smem(attn_bwd_dq_kernel<T, 32>, bytes)) != cudaSuccess)
-      return err;
-    attn_bwd_dq_kernel<T, 32><<<grid, kBwdThreads, bytes, stream>>>(a);
+  if constexpr (std::is_same<T, bf16>::value) {
+    // bf16: the tensor-core kernel, loads as K4-dkv's
+    const int v16 = a.d % 8 == 0 && a.in_stride % 8 == 0 &&
+                    a.dout_stride % 8 == 0;
+    const dim3 grid(a.S / TBQ, a.nh, B);
+    if (a.d <= 32) {
+      const int bytes = dq_tc_smem_bytes<32>();
+      if ((err = set_smem(attn_bwd_dq_tc_kernel<32>, bytes)) != cudaSuccess)
+        return err;
+      attn_bwd_dq_tc_kernel<32><<<grid, kTcThreads, bytes, stream>>>(a, v16);
+    } else {
+      const int bytes = dq_tc_smem_bytes<64>();
+      if ((err = set_smem(attn_bwd_dq_tc_kernel<64>, bytes)) != cudaSuccess)
+        return err;
+      attn_bwd_dq_tc_kernel<64><<<grid, kTcThreads, bytes, stream>>>(a, v16);
+    }
   } else {
-    const int bytes = dq_smem_floats<64>() * (int)sizeof(float);
-    if ((err = set_smem(attn_bwd_dq_kernel<T, 64>, bytes)) != cudaSuccess)
-      return err;
-    attn_bwd_dq_kernel<T, 64><<<grid, kBwdThreads, bytes, stream>>>(a);
+    // fp32: the SIMT kernel (its precision is the fp32 form's)
+    const dim3 grid(a.S / BT, a.nh, B);
+    if (a.d <= 32) {
+      const int bytes = dq_smem_floats<32>() * (int)sizeof(float);
+      if ((err = set_smem(attn_bwd_dq_kernel<T, 32>, bytes)) != cudaSuccess)
+        return err;
+      attn_bwd_dq_kernel<T, 32><<<grid, kBwdThreads, bytes, stream>>>(a);
+    } else {
+      const int bytes = dq_smem_floats<64>() * (int)sizeof(float);
+      if ((err = set_smem(attn_bwd_dq_kernel<T, 64>, bytes)) != cudaSuccess)
+        return err;
+      attn_bwd_dq_kernel<T, 64><<<grid, kBwdThreads, bytes, stream>>>(a);
+    }
   }
   return cudaGetLastError();
 }

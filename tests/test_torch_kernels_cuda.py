@@ -288,7 +288,19 @@ def test_attn_block_int8(card, B, S, C, nh, dtype):
     (2, 32, 384, 384, 2, ((0, 1), (1, 0)), torch.bfloat16, False),
     (2, 64, 192, 192, 3, quant.SAME_3X3, torch.bfloat16, True),
     (4, 16, 96, 64, 3, quant.SAME_3X3, torch.float32, False),
-    (3, 5, 64, 40, 1, ((0, 0), (0, 0)), torch.float32, False)])
+    (3, 5, 64, 40, 1, ((0, 0), (0, 0)), torch.float32, False),
+    # the tiles' edges: the other two phase pads; Cout = 192 (one N tile)
+    # and 576 (three); M off the 128-pixel tile with Cin = 96 (half of the
+    # last 64-channel chunk); fp32 x with a dynamic scale; the widest
+    # windows (bf16 in 32-channel chunks past W = 382, fp32 at W = 512)
+    (2, 32, 384, 384, 2, ((1, 0), (1, 0)), torch.bfloat16, False),
+    (2, 32, 384, 384, 2, ((0, 1), (0, 1)), torch.bfloat16, False),
+    (3, 64, 384, 192, 3, quant.SAME_3X3, torch.bfloat16, False),
+    (2, 16, 576, 576, 3, quant.SAME_3X3, torch.bfloat16, False),
+    (3, 10, 96, 576, 3, quant.SAME_3X3, torch.bfloat16, False),
+    (4, 16, 96, 64, 3, quant.SAME_3X3, torch.float32, True),
+    (1, 400, 32, 16, 3, quant.SAME_3X3, torch.bfloat16, False),
+    (1, 512, 32, 16, 3, quant.SAME_3X3, torch.float32, False)])
 def test_int8_conv(card, B, R, Cin, Cout, k, pad, dtype, dynamic):
     rs = np.random.RandomState(10)
     x, w, b = _tensors(rs, card, ((B, R, R, Cin), 2.0, 0.3),
@@ -304,6 +316,23 @@ def test_int8_conv(card, B, R, Cin, Cout, k, pad, dtype, dynamic):
                                      out_dtype=dtype)
     ref = quant.int8_conv_reference(x, quant.prepare_conv_static(w, a), b,
                                     pad, dtype)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert _lib.LAUNCHES["int8_conv"] == 1
+
+
+@pytest.mark.parametrize("rows,Cin,Cout", [(300, 384, 1152), (64, 96, 8)])
+def test_int8_matmul(card, rows, Cin, Cout):
+    """int8_matmul_static, K8 on a W = 1 image (1x1 taps): exact."""
+    rs = np.random.RandomState(12)
+    x, w, b = _tensors(rs, card, ((rows, Cin), 2.0, 0.3),
+                       ((Cin, Cout), Cin ** -0.5, 0.0), ((Cout,), 0.1, 0.0))
+    x = x.bfloat16()
+    a = quant.calib_channel_scale(x)
+    out = quant.int8_matmul_static(x, w, b, a)
+    ref = quant.int8_conv_reference(
+        x.reshape(rows, 1, 1, Cin),
+        quant.prepare_conv_static(w.reshape(1, 1, Cin, Cout), a), b,
+        ((0, 0), (0, 0)), torch.bfloat16).reshape(rows, Cout)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert _lib.LAUNCHES["int8_conv"] == 1
 
@@ -328,7 +357,8 @@ def test_int8_forms_raise(card):
 
 
 @pytest.mark.parametrize("B,S,nh,d", [(4, 1024, 6, 64), (2, 512, 2, 64),
-                                      (2, 512, 4, 32), (2, 512, 3, 40)])
+                                      (2, 512, 4, 32), (2, 512, 3, 40),
+                                      (2, 512, 4, 24)])
 def test_flash_backward(card, B, S, nh, d):
     from chip_smoke import (FLASH_CHAIN_MEAN_REL, flash_bwd_check,
                             flash_lse_check)
@@ -401,10 +431,11 @@ def test_attn_block_backward(card, B, S, C, nh, dtype):
 
 
 def test_tensor_core_backward_replays_bit_equal(card):
-    """K4-dkv alone (di, dk and dv) and K6 in bf16 at the 32x32 map's
-    widths: each replay equals the first call bit for bit (every sum is
-    owned by one warp in a fixed order, with no atomics)."""
-    from dxmi_tpu_torch.ops.attention import flash_bwd_dkv, flash_mha_fwd
+    """K4-dkv (di, dk and dv), K4-dq (dq) and K6 in bf16 at the 32x32
+    map's widths: each replay equals the first call bit for bit (every sum
+    is owned by one warp in a fixed order, with no atomics)."""
+    from dxmi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                              flash_mha_fwd)
     from dxmi_tpu_torch.ops.attn_block import attn_block_bwd
 
     g = torch.Generator(device=card).manual_seed(5)
@@ -412,11 +443,14 @@ def test_tensor_core_backward_replays_bit_equal(card):
     do = torch.randn(8, 1024, 6, 64, generator=g, device=card).bfloat16()
     o, lse = flash_mha_fwd(qkv, 0.125)
     di, dqkv = flash_bwd_dkv(qkv, o, lse, do, 0.125)
+    flash_bwd_dq(qkv, do, lse, di, dqkv, 0.125)
     for _ in range(2):
         di2, dqkv2 = flash_bwd_dkv(qkv, o, lse, do, 0.125)
+        flash_bwd_dq(qkv, do, lse, di2, dqkv2, 0.125)
         assert torch.equal(di, di2)
-        assert torch.equal(dqkv[:, :, 1:], dqkv2[:, :, 1:])
+        assert torch.equal(dqkv, dqkv2)
     assert _lib.LAUNCHES["flash_attn_bwd_dkv"] == 3
+    assert _lib.LAUNCHES["flash_attn_bwd_dq"] == 3
     rs = np.random.RandomState(6)
     B, S, C, nh = 8, 1024, 384, 6
     x, ct, gs, gb, wq, bq, wp = _tensors(
@@ -483,6 +517,11 @@ def test_backward_forms_raise(card):
         flash_mha_fwd(torch.zeros(1, 512, 3, 2, 64, device=card), 0.125)
     with pytest.raises(NotImplementedError):
         flash_mha_fwd(torch.zeros(1, 512, 3, 1, 128, device=card,
+                                  dtype=torch.bfloat16), 0.125)
+    # heads off 16 bytes (d = 36) reach K4-dq through K6 only: the flash
+    # backward's di launch loads 16 bytes at a time
+    with pytest.raises(NotImplementedError):
+        flash_mha_fwd(torch.zeros(1, 512, 3, 2, 36, device=card,
                                   dtype=torch.bfloat16), 0.125)
     x = torch.zeros(1, 64, 256, device=card)
     with pytest.raises(NotImplementedError):
