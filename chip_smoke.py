@@ -16,10 +16,14 @@ failure exits non-zero naming the phase:
      logsumexp, the backward kernels K4-dkv, K4-dq and K6 at the ImageNet64
      maps at E3's batch 128, K4-dkv/dq also chained from the plain forward,
      K6 also at the ADM fixture's fp32 shape, and both at the tensor-core
-     kernels' edges (S = 64; head dims 24, 32, 36, 40); K7 fp32 at E4's shape at
-     bb 2 and 4, bf16 at ImageNet64's 16x16 map);
+     kernels' edges (S = 64; head dims 24, 32, 36, 40); K4 at its wgmma
+     kernel's edges (S = 64, 256, 1024; d = 24, 32, 40, 64, 128; views of one
+     qkv buffer and three tensors; with lse); K7 fp32 at E4's shape at batch
+     128 and 32, bb 2 and 4, bf16 at ImageNet64's 16x16 map and at E4's
+     shape with two heads);
   T  time each kernel, its plain version and one PyTorch library call with
-     CUDA events (K7 at bb 2 and 4 beside K2 on the same inputs; K6's fp32
+     CUDA events (K4 at each shape the main paths launch it at; K7 at bb 2
+     and 4 beside K2 on the same inputs, at batch 128 and 32; K6's fp32
      form at G3's shape);
   T-bwd the device time of each launch of one K6 bf16 call and one K4-dkv
      call at the 32x32 map at batch 128 (torch.profiler);
@@ -97,6 +101,7 @@ from dxmi_tpu_torch.generate_cifar10 import (generate, load_sampler,
 from dxmi_tpu_torch.models.unet_adm import AttentionBlockADM
 from dxmi_tpu_torch.ops import _lib
 from dxmi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                          flash_fwd_kernel,
                                           flash_mha, flash_mha_bwd,
                                           flash_mha_fwd,
                                           flash_mha_reference,
@@ -611,6 +616,10 @@ GN_MODES = ("bf16_onepass", "fp32")
 ADM_ATTN_SHAPES = [(BATCH, 1024, 384, 6), (BATCH, 256, 576, 9),
                    (BATCH, 64, 768, 12)]
 FLASH_SHAPES = [(BATCH, 1024, 6, 64)]
+# K4's other launches on the main paths: the cores of K2 bf16 and K5 at the
+# 16x16 and 8x8 maps, and E3's training forward at batch 128
+FLASH_TIME_SHAPES = [(BATCH, 256, 9, 64), (BATCH, 64, 12, 64),
+                     (128, 1024, 6, 64)]
 
 
 # K5 (int8 attention block): fp32 at the trained ADM fixture's 8x8 map (batch
@@ -1603,18 +1612,62 @@ def phase_kernels(gen):
               "(must be 0: exact int32 sums, elementwise epilogue)")
         if err != 0:
             raise AssertionError(f"int8_conv {shape}: max abs err {err}")
+    phase_kernels_flash_edges(gen, errs)
     phase_kernels_train(gen, errs)
     phase_kernels_bb(gen, errs)
     return errs
 
 
+# K4 at the edges of its wgmma kernel, under flash_check and its logsumexp
+# gate: both tile forms (S = 64: one consumer warpgroup and 64-key tiles;
+# S % 128 == 0: two warpgroups taking turns, 128-key tiles), every padded
+# head width (d = 24, 32 in D = 32 with the 64-byte swizzle; 40, 64 in
+# D = 64; 128 in two 64-column blocks), q, k and v as views of one
+# (B, S, 3, nh, d) buffer (flash training; K2's and K5's (B, S, 3C) qkv has
+# the same strides) and as three tensors of their own.
+FLASH_EDGE_SHAPES = [(8, S, 3, d) for S in (64, 256, 1024)
+                     for d in (24, 32, 40, 64, 128)]
+
+
+def flash_views(gen, B, S, nh, d, layout):
+    if layout == "qkv":
+        return randn(gen, B, S, 3, nh, d).bfloat16().unbind(2)
+    return tuple(randn(gen, B, S, nh, d).bfloat16() for _ in range(3))
+
+
+def phase_kernels_flash_edges(gen, errs):
+    for B, S, nh, d in FLASH_EDGE_SHAPES:
+        worst = [0.0, 0.0, 0.0]
+        for layout in ("qkv", "separate"):
+            q, k, v = flash_views(gen, B, S, nh, d, layout)
+            sm = d ** -0.5
+            what = f"flash_attn {(B, S, nh, d)} {layout}"
+            lse = torch.empty((B, nh, S), device="cuda", dtype=torch.float32)
+            out = flash_fwd_kernel(q, k, v, sm, lse)
+            ref, ref_lse = flash_mha_reference_fwd(q, k, v, sm)
+            err, share = flash_check(out, ref, q, k, v, sm, what)
+            lerr = flash_lse_check(lse, ref_lse, what)
+            worst = [max(a, b) for a, b in zip(worst, (err, share, lerr))]
+        errs["flash_attn"] = max(errs["flash_attn"], worst[0])
+        print(f"  K flash_attn {(B, S, nh, d)} qkv views and separate, with "
+              f"lse: max abs err {worst[0]:.3e}, worst element at "
+              f"{worst[1]:.3f} of its row's limit, lse {worst[2]:.2e} (tol "
+              f"{FLASH_LSE_ATOL:g})")
+
+
 # K7 (the batch-blocked attention block): fp32 at E4's shape (the 16x16
-# blocks of the full-width CIFAR-10 net at batch 128) at the batch blocks
-# E4 and T use, K2 fp32's limit; bf16 at ImageNet64's 16x16 map, where the
-# clamp gives bb 2, at K2 bf16's gates. A replay is bit-equal (no atomics).
+# blocks of the full-width CIFAR-10 net) at E4's batch 128 and its sampling
+# chunk of 32, at the batch blocks E4 and T use, K2 fp32's limit; bf16 at
+# ImageNet64's 16x16 map, where the clamp gives bb 2, and at E4's shape
+# with two heads (d = 128), at K2 bf16's gates. A replay is bit-equal (no
+# atomics).
 E4_BATCH = 128  # training.batchsize of configs/cifar10/T10.yaml
-BB_SHAPES = [(E4_BATCH, 256, 256, 1, 2), (E4_BATCH, 256, 256, 1, 4)]
-BB_BF16_SHAPES = [(BATCH, 256, 576, 9)]
+E4_CHUNK = 32  # its trajectory is sampled in chunks of 32
+BB_SHAPES = [(B, 256, 256, 1, bb) for B in (E4_BATCH, E4_CHUNK)
+             for bb in (2, 4)]
+BB_BF16_SHAPES = ([(BATCH, 256, 576, 9, resolve_block_b(BATCH, 256, 576, 4))]
+                  + [(B, 256, 256, 2, bb) for B in (E4_BATCH, E4_CHUNK)
+                     for bb in (2, 4)])
 
 
 def phase_kernels_bb(gen, errs):
@@ -1633,8 +1686,7 @@ def phase_kernels_bb(gen, errs):
               f"plain {err:.3e} (tol {TOL['attn_block_bb'][0]:g} + "
               f"{TOL['attn_block_bb'][1]:g}*|plain|); replay bit-equal")
         errs["attn_block_bb"] = max(errs["attn_block_bb"], err)
-    for B, S, C, nh in BB_BF16_SHAPES:
-        bb = resolve_block_b(B, S, C, 4)
+    for B, S, C, nh, bb in BB_BF16_SHAPES:
         a = attn_bf16_case(gen, B, S, C)
         what = f"attn_block_bb_bf16 {(B, S, C, nh)} bb {bb}"
         rel, err, share = attn_bf16_check(
@@ -1748,8 +1800,17 @@ def bb_time_rows(gen):
     bb4 = time_ms(lambda: attn_block_bb(*a, num_heads=nh, eps=1e-6, bb=4))
     print(f"  T attn_block_bb {(B, S, C, nh)}: K7 bb 2 {bb2:.4f} ms, bb 4 "
           f"{bb4:.4f} ms, K2 (bb 1) {k2:.4f} ms on the same inputs")
+    c = tuple(t[:E4_CHUNK] if t.dim() == 3 else t for t in a)
+    chunk = dict(
+        bb2=time_ms(lambda: attn_block_bb(*c, num_heads=nh, eps=1e-6, bb=2)),
+        bb4=time_ms(lambda: attn_block_bb(*c, num_heads=nh, eps=1e-6, bb=4)),
+        k2=time_ms(lambda: attn_block(*c, num_heads=nh, eps=1e-6,
+                                      block_b=1)))
+    print(f"  T attn_block_bb {(E4_CHUNK, S, C, nh)} (E4's sampling chunk): "
+          f"K7 bb 2 {chunk['bb2']:.4f} ms, bb 4 {chunk['bb4']:.4f} ms, K2 "
+          f"(bb 1) {chunk['k2']:.4f} ms on the same inputs")
     return {"attn_block_bb": dict(
-        ms=bb4, bb2_ms=bb2, k2_ms=k2,
+        ms=bb4, bb2_ms=bb2, k2_ms=k2, chunk_ms=chunk,
         plain_ms=time_ms(lambda: attn_block_bb_reference(
             *a, num_heads=nh, eps=1e-6, bb=4), iters=3, warmup=1),
         library_ms=time_ms(library_attn),
@@ -1801,12 +1862,17 @@ def adm_time_rows(gen):
             # qkv, logits, AV and proj products; ~5 flops of softmax per logit
             ops={"bf16": 2 * B * S * C * 3 * C + 4 * B * S * S * C
                  + 2 * B * S * C * C, "fp32": 5 * B * nh * S * S})
-    for i, (B, S, nh, d) in enumerate(FLASH_SHAPES):
-        q, k, v, sm = flash_case(gen, B, S, nh, d)
+    for i, (B, S, nh, d) in enumerate(FLASH_SHAPES + FLASH_TIME_SHAPES):
+        if i == 0:  # flash_mha on three tensors, the E2 flash path's call
+            q, k, v, sm = flash_case(gen, B, S, nh, d)
+            name = "flash_attn"
+        else:  # views of one qkv buffer, as K2 bf16, K5 and training
+            q, k, v = flash_views(gen, B, S, nh, d, "qkv")
+            sm = d ** -0.5
+            name = f"flash_attn {(B, S, nh, d)}"
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        name = "flash_attn" if i == 0 else f"flash_attn {(B, S, nh, d)}"
         rows[name] = dict(
-            ms=time_ms(lambda: flash_mha(q, k, v, sm)),
+            ms=time_ms(lambda: flash_fwd_kernel(q, k, v, sm)),
             plain_ms=time_ms(lambda: flash_mha_reference(q, k, v, sm)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, scale=sm)),

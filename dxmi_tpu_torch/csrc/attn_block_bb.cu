@@ -6,46 +6,49 @@
 // DXMI_FUSED_ATTN_BB), the Pallas TPU kernel whose one program normalises
 // and projects BB elements at once, so that its qkv and proj products run
 // over BB * S rows: per-element GroupNorm statistics from one-pass fp32 sums
-// over the flattened rows, h rounded to the compute dtype, one qkv product,
-// per element and head an fp32 softmax over whole key rows (q tiles of up to
-// 256 rows), AV rounded, one proj product, the residual.
+// over the flattened rows (var = E[x^2] - mean^2), h rounded to the compute
+// dtype, one qkv product, per element and head an fp32 softmax over whole
+// key rows, normalised before p is rounded, AV rounded, one proj product,
+// the residual. The batch block only groups the TPU's work: each element's
+// result depends on that element alone.
 //
 // Bound on the H100: operations. At the CIFAR-10 training shape (B=128,
 // S=256, C=256, one head, fp32) the block does 25.8 GFLOP of fp32 products
 // (qkv 12.9, logits 4.3, AV 4.3, proj 4.3), 0.385 ms at the 67 TFLOP/s fp32
-// peak, against 67 MB of input and output (0.020 ms at 3.35 TB/s). fp32 is
-// the reference's precision, so the tensor cores are not used; the bf16 form
-// computes in fp32 too (bf16 products are exact in fp32) and rounds where
-// the TPU body rounds.
+// peak, against 67 MB of input and output (0.020 ms at 3.35 TB/s).
 //
-// Design: the TPU program's unit of work, one block of BB elements, is one
-// thread-block cluster of kCluster CTAs here (Hopper schedules a cluster's
-// CTAs together, so they may wait for each other); its 227 KB-per-CTA shared
-// memory cannot hold the program's VMEM set, so the block's intermediates
-// (statistics, qkv, attention output) go through device memory, where they
-// stay in L2, between four phases that the cluster separates with its
-// hardware barrier (barrier.cluster release / acquire, after a fence):
+// Design: four launches over the whole batch, so that every SM has work at
+// any B (E4's sampling chunks are 32 elements):
 //   (1) statistics: one warp per (element, group) sums x and x*x in fp32;
-//   (2) qkv: 128x128 SIMT GEMM tiles over the block's BB * S rows, the
-//       GroupNorm affine applied while loading x, rounded to the element
-//       type; the epilogue adds the bias and scales q and k by d^-1/4;
-//   (3) attention: one tile per (element, head, 64 query rows), softmax in
-//       two passes over the keys: the row maximum and sum, then p =
-//       exp(s - max) / sum rounded to the element type (normalised before
-//       rounding, as the TPU body) and AV summed in fp32;
-//   (4) proj: the GEMM tiles again, bias and residual in the epilogue.
-// Each phase's tiles are dealt round-robin to the cluster's CTAs. Data
-// written in an earlier phase is read with ld.global.cg (L2, never the
-// non-coherent read-only path).
+//   (2) qkv: one GEMM over all B * S rows, 128 x 128 tiles of 8 warps, the
+//       GroupNorm affine applied while loading x (h rounded to the element
+//       type); the epilogue adds the bias and scales q and k by d^-1/4;
+//   (3) attention: one block of 16 warps per (element, head, 64 query
+//       rows), each warp 16 rows by a quarter of the keys and of the output
+//       columns; softmax in two passes over the keys (the row maximum and
+//       sum, then p = exp(s - max) / sum rounded to the element type,
+//       normalised before rounding as the TPU body) and AV summed in fp32;
+//   (4) proj: the GEMM again, bias and residual in the epilogue.
+// Every product runs on the tensor cores with mma.sync and fp32
+// accumulators. bf16 operands are exact in fp32 sums (m16n8k16). fp32 ones
+// take the 3xTF32 split (m16n8k8): a = a_hi + a_lo with a_hi = tf32(a) and
+// a_lo = a - a_hi, a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi, which keeps
+// about 21 of the 24 mantissa bits of each product (one-pass TF32 keeps 11
+// and fails the fp32 gate). Each k-step's three products are summed from
+// zero and added to the fp32 sums outside the tensor core: its own
+// accumulation truncates, which over E4's 256-deep sums cost 3e-5 and
+// failed the gate. Tiles sit in shared memory as fp32 in both forms; each
+// product's fragments are built from them (splitting once per element when
+// a tile is stored measured slower: twice the shared-memory traffic).
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kCluster = 8, kThreads = 256, kWarps = kThreads / 32;
-constexpr int TM = 128, TN = 128, TK = 8, LDT = TM + 4;  // GEMM tiles
-constexpr int QT = 64, KT = 64, LDP = QT + 4;             // attention tiles
+constexpr int GM = 128, GN = 128, GK = 32;  // GEMM tiles: 8 warps of 64 x 32
+constexpr int GB_LD = GN + 8;                // W tile row pitch (floats)
+constexpr int QT = 64, KT = 64;              // attention: q rows, keys a tile
 
 template <typename T>
 struct BBArgs {
@@ -57,178 +60,261 @@ struct BBArgs {
   const T* w_proj;
   const T* b_proj;
   T* y;
-  float* stats;  // (B, G, 2): mean, rstd
+  float* stats;  // (B, 2, C): the GroupNorm scale s_c, then shift t_c
   T* qkv;        // (B, S, 3C)
   T* attn;       // (B, S, C)
-  int S, C, nh, G, bb;
+  int S, C, nh, G;
   float eps, qk_scale;
 };
 
-__host__ __device__ constexpr int gemm_smem_floats() { return 4 * TK * LDT; }
-__host__ __device__ constexpr int attn_smem_floats(int d) {
-  return (QT + 2 * KT) * (d + 4) + KT * LDP;
-}
-
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ unsigned cluster_index() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
-  return r;
-}
-
-// every CTA of the cluster has finished the phase and its global writes are
-// visible to the others
-__device__ __forceinline__ void cluster_barrier() {
-  __threadfence();
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// four consecutive elements as fp32: inputs of the kernel (read-only path)
-__device__ __forceinline__ float4 ld4_in(const float* p) { return ldg4(p); }
-__device__ __forceinline__ float4 ld4_in(const bf16* p) {
-  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-// ... and data an earlier phase of this launch wrote (through L2)
-__device__ __forceinline__ float4 ld4_cg(const float* p) {
-  return __ldcg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 ld4_cg(const bf16* p) {
-  const uint2 r = __ldcg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void st4(bf16* p, float4 v) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y),
-                                            pack_bf16(v.z, v.w));
-}
-
-// (1) one-pass fp32 sums per (element, group) of the block's rows
+// ---- tensor-core fragments from fp32 shared tiles ------------------------
+// thread (g, t) = (lane / 4, lane % 4) of a warp's mma.sync. T = float:
+// m16n8k8 tf32 as hi and lo parts; T = bf16: m16n8k16 bf16.
 template <typename T>
-__device__ void stats_phase(const BBArgs<T>& a, int e0, int rank) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int cg = a.C / a.G, n = a.S * cg;
-  for (int u = rank * kWarps + warp; u < a.bb * a.G; u += kCluster * kWarps) {
-    const int e = u / a.G, g = u - e * a.G;
-    const T* xe = a.x + (size_t)(e0 + e) * a.S * a.C + g * cg;
-    float s1 = 0.f, s2 = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const int r = i / cg;
-      const float v = to_f(xe[(size_t)r * a.C + (i - r * cg)]);
-      s1 += v;
-      s2 = fmaf(v, v, s2);
-    }
+struct AFrag;
+template <>
+struct AFrag<float> {
+  unsigned hi[4], lo[4];
+};
+template <>
+struct AFrag<bf16> {
+  unsigned r[4];
+};
+template <typename T>
+struct BFrag;
+template <>
+struct BFrag<float> {
+  unsigned hi[2], lo[2];
+};
+template <>
+struct BFrag<bf16> {
+  unsigned r[2];
+};
+
+template <typename T>
+constexpr int kStep = sizeof(T) == 4 ? 8 : 16;  // k columns an mma takes
+
+// a_hi: a rounded to TF32's 10 mantissa bits (to nearest, ties away, as
+// cvt.rna) in integer arithmetic; a_lo = a - a_hi, exact, of which the
+// tensor core reads the top 19 bits
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// rows 0..15 of a row-major tile at A (lda floats a row), k columns from 0
+__device__ __forceinline__ void load_a(AFrag<float>& f, const float* A,
+                                       int lda, int g, int t) {
+  const float v[4] = {A[g * lda + t], A[(g + 8) * lda + t],
+                      A[g * lda + t + 4], A[(g + 8) * lda + t + 4]};
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-    }
-    if (lane == 0) {
-      const float mean = s1 / (float)n;
-      const float var = s2 / (float)n - mean * mean;
-      float* st = a.stats + ((size_t)(e0 + e) * a.G + g) * 2;
-      st[0] = mean;
-      st[1] = rsqrtf(var + a.eps);
-    }
+  for (int i = 0; i < 4; ++i) split(v[i], f.hi[i], f.lo[i]);
+}
+__device__ __forceinline__ void load_a(AFrag<bf16>& f, const float* A,
+                                       int lda, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = *reinterpret_cast<const float2*>(
+        A + (g + 8 * (i & 1)) * lda + 2 * t + 8 * (i >> 1));
+    f.r[i] = pack_bf16(v.x, v.y);
   }
 }
 
-// (2), (4): the (m0, n0) tile of out[M, N] = A[M, K] W[K, N] over the rows
-// starting at row0. QKV: A is x with the GroupNorm affine applied on load,
-// the epilogue adds the bias and scales columns < 2C by qk_scale. Else A is
-// the attention output, the epilogue adds the bias and the residual x.
+// columns 0..7 of B (k x 8) from 0: NK = true reads element (k, n) at
+// B[n * ld + k] (a key-major K tile), else at B[k * ld + n]
+template <bool NK>
+__device__ __forceinline__ float b_at(const float* B, int ld, int k, int n) {
+  return NK ? B[n * ld + k] : B[k * ld + n];
+}
+template <bool NK>
+__device__ __forceinline__ void load_b(BFrag<float>& f, const float* B,
+                                       int ld, int g, int t) {
+  split(b_at<NK>(B, ld, t, g), f.hi[0], f.lo[0]);
+  split(b_at<NK>(B, ld, t + 4, g), f.hi[1], f.lo[1]);
+}
+template <bool NK>
+__device__ __forceinline__ void load_b(BFrag<bf16>& f, const float* B,
+                                       int ld, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    f.r[i] = pack_bf16(b_at<NK>(B, ld, 2 * t + 8 * i, g),
+                       b_at<NK>(B, ld, 2 * t + 8 * i + 1, g));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d = a b, the sums from zero
+__device__ __forceinline__ void mma_tf32_0(float (&d)[4],
+                                           const unsigned (&a)[4],
+                                           unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+// d += a b: 3xTF32, the small terms first, summed from zero in the tensor
+// core and added to d in fp32 (round to nearest)
+__device__ __forceinline__ void mma(float (&d)[4], const AFrag<float>& a,
+                                    const BFrag<float>& b) {
+  float t[4];
+  mma_tf32_0(t, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(t, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(t, a.hi, b.hi[0], b.hi[1]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += t[i];
+}
+__device__ __forceinline__ void mma(float (&d)[4], const AFrag<bf16>& a,
+                                    const BFrag<bf16>& b) {
+  mma_bf16(d, a.r, b.r[0], b.r[1]);
+}
+
+// row pitch (floats) of tiles read as A or key-major B (float2 reads in
+// bf16), and of tiles read k-major (V): conflict-free fragment loads
+template <typename T>
+constexpr int kPadA = sizeof(T) == 4 ? 4 : 8;
+template <typename T>
+constexpr int kPadV = sizeof(T) == 4 ? 8 : 4;
+
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(bf16* p, float a, float b) {
+  *reinterpret_cast<unsigned*>(p) = pack_bf16(a, b);
+}
+
+// ---- (1) one-pass fp32 sums per (element, group) ------------------------
+// then the GroupNorm affine per (element, channel): s_c = gs_c rstd and
+// t_c = gb_c - mean s_c, each rounded once, into stats (B, 2, C)
+template <typename T>
+__global__ void __launch_bounds__(256) bb_stats_kernel(const BBArgs<T> a,
+                                                       int B) {
+  const int u = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (u >= B * a.G) return;
+  const int e = u / a.G, g = u - e * a.G;
+  const int cg = a.C / a.G, n = a.S * cg;
+  const T* xe = a.x + (size_t)e * a.S * a.C + g * cg;
+  float s1 = 0.f, s2 = 0.f;
+  for (int i = lane; i < n; i += 32) {
+    const int r = i / cg;
+    const float v = to_f(xe[(size_t)r * a.C + (i - r * cg)]);
+    s1 += v;
+    s2 = fmaf(v, v, s2);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  const float mean = s1 / (float)n;
+  const float rstd = rsqrtf(s2 / (float)n - mean * mean + a.eps);
+  float* st = a.stats + (size_t)e * 2 * a.C + g * cg;
+  for (int c = lane; c < cg; c += 32) {
+    const float sc = __fmul_rn(a.gs[g * cg + c], rstd);
+    st[c] = sc;
+    st[a.C + c] = __fsub_rn(a.gb[g * cg + c], __fmul_rn(mean, sc));
+  }
+}
+
+// ---- (2), (4) out[M, N] = A[M, K] W[K, N] --------------------------------
+// QKV: A is x with the GroupNorm affine applied on load, the epilogue adds
+// the bias and scales columns < 2C by qk_scale. Else A is the attention
+// output, the epilogue adds the bias and the residual x.
+template <typename T>
+__host__ __device__ constexpr int gemm_smem_bytes() {
+  return 2 * (GM * (GK + kPadA<T>) + GK * GB_LD) * 4;
+}
+
 template <typename T, bool QKV>
-__device__ void gemm_tile(const BBArgs<T>& a, float* smem, size_t row0,
-                          int M, int N, int K, int m0, int n0) {
-  float* As = smem;             // [2][TK][LDT], A transposed
-  float* Bs = smem + 2 * TK * LDT;  // [2][TK][LDT]
+__global__ void __launch_bounds__(256) bb_gemm_kernel(const BBArgs<T> a,
+                                                      int M, int N, int K) {
+  constexpr int LDA = GK + kPadA<T>;
+  extern __shared__ __align__(16) float gsm[];
+  float* As = gsm;                 // [2][GM][LDA]
+  float* Bs = gsm + 2 * GM * LDA;  // [2][GK][GB_LD]
   const T* A = QKV ? a.x : a.attn;
   const T* W = QKV ? a.w_qkv : a.w_proj;
   const T* bias = QKV ? a.b_qkv : a.b_proj;
   T* out = QKV ? a.qkv : a.y;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int a_r = tid >> 1, a_k = (tid & 1) * 4, a_m = m0 + a_r;
-  const int b_k = tid >> 5, b_n = (tid & 31) * 4;
-  const int cg = a.C / a.G;
-  float4 ra = make_float4(0.f, 0.f, 0.f, 0.f), rw = ra;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wm = warp >> 2, wn = warp & 3;
+  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
+  float4 ra[4], rw[4];
 
   auto load = [&](int k0) {
-    ra = make_float4(0.f, 0.f, 0.f, 0.f);
-    rw = ra;
-    if (a_m < M) {
-      const T* p = A + (row0 + a_m) * K + k0 + a_k;
-      if (QKV) {
-        const float4 v = ld4_in(p);
-        const size_t e = (row0 + a_m) / a.S;
-        float xv[4] = {v.x, v.y, v.z, v.w}, h[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = k0 + a_k + j;
-          const float2 st = __ldcg(reinterpret_cast<const float2*>(
-              a.stats + (e * a.G + k / cg) * 2));
-          const float s = __fmul_rn(a.gs[k], st.y);
-          const float t = __fsub_rn(a.gb[k], __fmul_rn(st.x, s));
-          h[j] = round_t<T>(__fadd_rn(__fmul_rn(xv[j], s), t));
+    for (int i = 0; i < 4; ++i) {
+      const int r = (tid >> 3) + 32 * i, c = k0 + (tid & 7) * 4, m = m0 + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (m < M) {
+        v = load4(A + (size_t)m * K + c);
+        if (QKV) {
+          const float* st = a.stats + (size_t)(m / a.S) * 2 * K + c;
+          const float4 sc = *reinterpret_cast<const float4*>(st);
+          const float4 sh = *reinterpret_cast<const float4*>(st + K);
+          v = make_float4(
+              round_t<T>(__fadd_rn(__fmul_rn(v.x, sc.x), sh.x)),
+              round_t<T>(__fadd_rn(__fmul_rn(v.y, sc.y), sh.y)),
+              round_t<T>(__fadd_rn(__fmul_rn(v.z, sc.z), sh.z)),
+              round_t<T>(__fadd_rn(__fmul_rn(v.w, sc.w), sh.w)));
         }
-        ra = make_float4(h[0], h[1], h[2], h[3]);
-      } else {
-        ra = ld4_cg(p);
       }
+      ra[i] = v;
+      const int kr = (tid >> 5) + 8 * i, n = n0 + (tid & 31) * 4;
+      rw[i] = n < N ? load4(W + (size_t)(k0 + kr) * N + n)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    if (n0 + b_n < N) rw = ld4_in(W + (size_t)(k0 + b_k) * N + n0 + b_n);
   };
   auto store = [&](int st) {
-    float* as = As + st * TK * LDT;
-    as[a_k * LDT + a_r] = ra.x;
-    as[(a_k + 1) * LDT + a_r] = ra.y;
-    as[(a_k + 2) * LDT + a_r] = ra.z;
-    as[(a_k + 3) * LDT + a_r] = ra.w;
-    *reinterpret_cast<float4*>(Bs + st * TK * LDT + b_k * LDT + b_n) = rw;
+    float* as = As + st * GM * LDA;
+    float* bs = Bs + st * GK * GB_LD;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      *reinterpret_cast<float4*>(as + ((tid >> 3) + 32 * i) * LDA +
+                                 (tid & 7) * 4) = ra[i];
+      *reinterpret_cast<float4*>(bs + ((tid >> 5) + 8 * i) * GB_LD +
+                                 (tid & 31) * 4) = rw[i];
+    }
   };
 
-  float acc[8][8];
+  float acc[4][4][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  __syncthreads();  // the shared tiles of the previous unit are read
   load(0);
   store(0);
   __syncthreads();
   int st = 0;
-  for (int k0 = 0; k0 < K; k0 += TK, st ^= 1) {
-    const bool more = k0 + TK < K;
-    if (more) load(k0 + TK);
-    const float* as = As + st * TK * LDT;
-    const float* bs = Bs + st * TK * LDT;
+  for (int k0 = 0; k0 < K; k0 += GK, st ^= 1) {
+    const bool more = k0 + GK < K;
+    if (more) load(k0 + GK);
+    const float* as = As + st * GM * LDA + wm * 64 * LDA;
+    const float* bs = Bs + st * GK * GB_LD + wn * 32;
 #pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(as + kk * LDT + ty * 4);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(as + kk * LDT + 64 + ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * LDT + tx * 4);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(bs + kk * LDT + 64 + tx * 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int kk = 0; kk < GK; kk += kStep<T>) {
+      AFrag<T> fa[4];
+      BFrag<T> fb[4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 4; ++i)
+        load_a(fa[i], as + i * 16 * LDA + kk, LDA, g, t);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < 4; ++j)
+        load_b<false>(fb[j], bs + kk * GB_LD + j * 8, GB_LD, g, t);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma(acc[i][j], fa[i], fb[j]);
     }
     // the other stage was last read before the previous barrier
     if (more) store(st ^ 1);
@@ -236,227 +322,235 @@ __device__ void gemm_tile(const BBArgs<T>& a, float* smem, size_t row0,
   }
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
-    const size_t row = (row0 + m) * N;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int jh = 0; jh < 2; ++jh) {
-      const int n = n0 + jh * 64 + tx * 4;
-      if (n >= N) continue;
-      float v[4];
-      const float4 bv = ld4_in(bias + n);
-      const float bb4[4] = {bv.x, bv.y, bv.z, bv.w};
-      float4 r4 = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (!QKV) r4 = ld4_in(a.x + row + n);
-      const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm * 64 + i * 16 + g + 8 * half;
+      if (m >= M) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        // dt(acc) + dt(bias) in dt, then q, k times dt(d^-1/4) in dt, or
-        // the residual added in dt (each a no-op rounding for fp32)
-        float u = round_t<T>(round_t<T>(acc[i][jh * 4 + j]) + bb4[j]);
-        if (QKV) {
-          if (n + j < 2 * a.C) u = round_t<T>(u * a.qk_scale);
-        } else {
-          u = round_t<T>(rr[j] + u);
+        const int n = n0 + wn * 32 + j * 8 + 2 * t;
+        if (n >= N) continue;
+        float u[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // dt(acc) + dt(bias) in dt, then q, k times dt(d^-1/4) in dt, or
+          // the residual added in dt (each a no-op rounding for fp32)
+          u[e] = round_t<T>(round_t<T>(acc[i][j][2 * half + e]) +
+                            to_f(bias[n + e]));
+          if (QKV) {
+            if (n + e < 2 * a.C) u[e] = round_t<T>(u[e] * a.qk_scale);
+          } else {
+            u[e] = round_t<T>(to_f(a.x[(size_t)m * N + n + e]) + u[e]);
+          }
         }
-        v[j] = u;
+        st2(out + (size_t)m * N + n, u[0], u[1]);
       }
-      st4(out + row + n, make_float4(v[0], v[1], v[2], v[3]));
     }
-  }
 }
 
-// (3) softmax(q k^T) v for 64 query rows of one (element, head); q and k
-// are pre-scaled. Thread (ty, tx) = (tid / 16, tid % 16) holds rows
-// 4ty..4ty+3, the keys tx + 16j of each key tile and the output columns
-// 64i + 4tx..+3; a row's 16 threads are 16 lanes of one warp.
-template <typename T>
-__device__ void attn_tile(const BBArgs<T>& a, float* smem, int e, int h,
-                          int q0) {
-  const int S = a.S, C = a.C, d = C / a.nh, ld = d + 4, d4 = d / 4;
-  float* Qs = smem;           // [QT][ld]
-  float* Ks = Qs + QT * ld;   // [KT][ld]
-  float* Vs = Ks + KT * ld;   // [KT][ld]
-  float* Pt = Vs + KT * ld;   // [KT][LDP]: probabilities, key-major
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+// ---- (3) softmax(q k^T) v, 64 query rows of one (element, head) ---------
+// q and k are pre-scaled. 16 warps: warp (wr, wc) = (w / 4, w % 4) forms
+// the logits of rows 16 wr .. + 15 against keys 16 wc .. + 15 of each
+// 64-key tile, and the output of the same rows in columns wc D / 4 ..; the
+// row statistics of the four key quarters meet in shared memory. D is the
+// head width d padded to 64, 128 or 256 (zeros past d).
+constexpr int kAttnThreads = 512;
+
+template <typename T, int D>
+__host__ __device__ constexpr int attn_smem_bytes() {
+  return ((QT + KT) * (D + kPadA<T>) + KT * (D + kPadV<T>) +
+          QT * (KT + kPadA<T>) + 2 * 4 * QT) * 4;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kAttnThreads) bb_attn_kernel(
+    const BBArgs<T> a) {
+  constexpr int LQ = D + kPadA<T>, LV = D + kPadV<T>, LP = KT + kPadA<T>;
+  constexpr int DW = D / 4;  // output columns of a warp
+  extern __shared__ __align__(16) float asm_[];
+  float* Qs = asm_;            // [QT][LQ]
+  float* Ks = Qs + QT * LQ;    // [KT][LQ]
+  float* Vs = Ks + KT * LQ;    // [KT][LV]
+  float* Ps = Vs + KT * LV;    // [QT][LP]: probabilities
+  float* red = Ps + QT * LP;   // [2][4][QT]: each quarter's max, sum
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wr = warp >> 2, wc = warp & 3;
+  const int S = a.S, C = a.C, d = C / a.nh;
+  const int q0 = blockIdx.x * QT, h = blockIdx.y, e = blockIdx.z;
   const size_t row3 = 3 * (size_t)C;
   const T* base = a.qkv + (size_t)e * S * row3 + (size_t)h * d;
 
-  __syncthreads();  // the shared tiles of the previous unit are read
-  for (int idx = tid; idx < QT * d4; idx += kThreads) {
-    const int i = idx / d4, c4 = (idx - i * d4) * 4;
-    *reinterpret_cast<float4*>(Qs + i * ld + c4) =
-        ld4_cg(base + (size_t)(q0 + i) * row3 + c4);
-  }
-
-  auto load_kv = [&](int k0, bool with_v) {
-    for (int idx = tid; idx < KT * d4; idx += kThreads) {
-      const int j = idx / d4, c4 = (idx - j * d4) * 4;
-      const T* src = base + (size_t)(k0 + j) * row3 + c4;
-      *reinterpret_cast<float4*>(Ks + j * ld + c4) = ld4_cg(src + C);
-      if (with_v)
-        *reinterpret_cast<float4*>(Vs + j * ld + c4) = ld4_cg(src + 2 * C);
+  // 64 rows of d columns (zeros up to D) from src into dst
+  auto tile_in = [&](float* dst, int ld, const T* src, int r0) {
+    for (int idx = tid; idx < 64 * (D / 4); idx += kAttnThreads) {
+      const int r = idx / (D / 4), c = (idx - r * (D / 4)) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c < d) v = load4(src + (size_t)(r0 + r) * row3 + c);
+      *reinterpret_cast<float4*>(dst + r * ld + c) = v;
     }
   };
-  auto scores = [&](float (&s)[4][4]) {
+  // s (16 x 16): this warp's rows against its 16 keys of the tile
+  auto scores = [&](float (&s)[2][4]) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
-    for (int c = 0; c < d; c += 4) {
-      float4 q[4], k[4];
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+    const float* qw = Qs + wr * 16 * LQ;
+    const float* kw = Ks + wc * 16 * LQ;
+#pragma unroll 4
+    for (int kk = 0; kk < D; kk += kStep<T>) {
+      AFrag<T> fa;
+      load_a(fa, qw + kk, LQ, g, t);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        q[r] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + r) * ld + c);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        k[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * ld + c);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[r][j] = dot4(q[r], k[j], s[r][j]);
+      for (int j = 0; j < 2; ++j) {
+        BFrag<T> fb;
+        load_b<true>(fb, kw + j * 8 * LQ + kk, LQ, g, t);
+        mma(s[j], fa, fb);
+      }
     }
   };
 
-  // pass 1: each row's maximum and sum of exp(s - max) over all keys
-  float m_i[4], l_i[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m_i[r] = -INFINITY;
-    l_i[r] = 0.f;
-  }
+  tile_in(Qs, LQ, base, q0);
+  // pass 1: each row's maximum and sum of exp(s - max) over this warp's
+  // keys; this thread holds rows g (r = 0) and g + 8 (r = 1) of the warp's,
+  // a row's 16 keys spread over a quad of lanes
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
   for (int k0 = 0; k0 < S; k0 += KT) {
     __syncthreads();  // the previous key tile is read
-    load_kv(k0, false);
+    tile_in(Ks, LQ, base + C, k0);
     __syncthreads();
-    float s[4][4];
+    float s[2][4];
     scores(s);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                       fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m_i[r], mx);
       float psum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) psum += expf(s[r][j] - m_new);
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
+      for (int j = 0; j < 2; ++j)
+        psum += expf(s[j][2 * r] - m_new) + expf(s[j][2 * r + 1] - m_new);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
       l_i[r] = l_i[r] * expf(m_i[r] - m_new) + psum;
       m_i[r] = m_new;
     }
   }
+  // the four quarters' statistics into each row's
+  if (t == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wr * 16 + g + 8 * r;
+      red[wc * QT + row] = m_i[r];
+      red[(4 + wc) * QT + row] = l_i[r];
+    }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wr * 16 + g + 8 * r;
+    float m = red[row];
+#pragma unroll
+    for (int c = 1; c < 4; ++c) m = fmaxf(m, red[c * QT + row]);
+    float l = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      l += red[(4 + c) * QT + row] * expf(red[c * QT + row] - m);
+    m_i[r] = m;
+    l_i[r] = l;
+  }
 
-  // pass 2: p = dt(exp(s - max) / sum), o += p v
-  float4 o[4][4];
+  // pass 2: p = dt(exp(s - max) / sum) through the P tile, o += p v
+  float o[DW / 8][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int j = 0; j < DW / 8; ++j)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) o[r][i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
   for (int k0 = 0; k0 < S; k0 += KT) {
     __syncthreads();  // the previous K, V and P tiles are read
-    load_kv(k0, true);
+    tile_in(Ks, LQ, base + C, k0);
+    tile_in(Vs, LV, base + 2 * C, k0);
     __syncthreads();
-    float s[4][4];
+    float s[2][4];
     scores(s);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Pt[(tx + 16 * j) * LDP + ty * 4 + r] =
-            round_t<T>(expf(s[r][j] - m_i[r]) / l_i[r]);
-    __syncwarp();  // a row's probabilities come from 16 lanes of this warp
-    for (int j = 0; j < KT; ++j) {
-      const float4 p = *reinterpret_cast<const float4*>(Pt + j * LDP + ty * 4);
-      const float pr[4] = {p.x, p.y, p.z, p.w};
+      for (int r = 0; r < 2; ++r)
+        st2(Ps + (wr * 16 + g + 8 * r) * LP + wc * 16 + j * 8 + 2 * t,
+            round_t<T>(expf(s[j][2 * r] - m_i[r]) / l_i[r]),
+            round_t<T>(expf(s[j][2 * r + 1] - m_i[r]) / l_i[r]));
+    __syncthreads();  // the rows' P is whole
+    const float* pw = Ps + wr * 16 * LP;
+    const float* vw = Vs + wc * DW;
+#pragma unroll 2
+    for (int kk = 0; kk < KT; kk += kStep<T>) {
+      AFrag<T> fa;
+      load_a(fa, pw + kk, LP, g, t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (64 * i + tx * 4 < d) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(Vs + j * ld + 64 * i + tx * 4);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            o[r][i].x = fmaf(pr[r], v.x, o[r][i].x);
-            o[r][i].y = fmaf(pr[r], v.y, o[r][i].y);
-            o[r][i].z = fmaf(pr[r], v.z, o[r][i].z);
-            o[r][i].w = fmaf(pr[r], v.w, o[r][i].w);
-          }
-        }
+      for (int j = 0; j < DW / 8; ++j) {
+        BFrag<T> fb;
+        load_b<false>(fb, vw + kk * LV + j * 8, LV, g, t);
+        mma(o[j], fa, fb);
       }
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    T* orow = a.attn + ((size_t)e * S + q0 + ty * 4 + r) * C + (size_t)h * d;
+  for (int r = 0; r < 2; ++r) {
+    T* orow = a.attn + ((size_t)e * S + q0 + wr * 16 + g + 8 * r) * C +
+              (size_t)h * d;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (64 * i + tx * 4 < d) st4(orow + 64 * i + tx * 4, o[r][i]);
+    for (int j = 0; j < DW / 8; ++j) {
+      const int c = wc * DW + j * 8 + 2 * t;
+      if (c < d)
+        st2(orow + c, round_t<T>(o[j][2 * r]), round_t<T>(o[j][2 * r + 1]));
+    }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-attn_bb_kernel(const BBArgs<T> a) {
-  extern __shared__ __align__(16) float smem[];
-  const int rank = (int)cluster_rank();
-  const int e0 = (int)cluster_index() * a.bb;  // the block's first element
-  const int M = a.bb * a.S, C = a.C;
-  const size_t row0 = (size_t)e0 * a.S;
+template <typename T, int D>
+cudaError_t launch_attn(const BBArgs<T>& a, int B, cudaStream_t stream) {
+  const int smem = attn_smem_bytes<T, D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      bb_attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  bb_attn_kernel<T, D>
+      <<<dim3(a.S / QT, a.nh, B), kAttnThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
 
-  stats_phase(a, e0, rank);
-  cluster_barrier();
-
-  const int tm = (M + TM - 1) / TM;
-  const int tn_qkv = (3 * C + TN - 1) / TN;
-  for (int u = rank; u < tm * tn_qkv; u += kCluster)
-    gemm_tile<T, true>(a, smem, row0, M, 3 * C, C, (u / tn_qkv) * TM,
-                       (u % tn_qkv) * TN);
-  cluster_barrier();
-
-  const int qt = a.S / QT;
-  for (int u = rank; u < a.bb * a.nh * qt; u += kCluster) {
-    const int e = u / (a.nh * qt), rest = u - e * a.nh * qt;
-    attn_tile(a, smem, e0 + e, rest / qt, (rest % qt) * QT);
-  }
-  cluster_barrier();
-
-  const int tn_proj = (C + TN - 1) / TN;
-  for (int u = rank; u < tm * tn_proj; u += kCluster)
-    gemm_tile<T, false>(a, smem, row0, M, C, C, (u / tn_proj) * TM,
-                        (u % tn_proj) * TN);
+template <typename T, bool QKV>
+cudaError_t launch_gemm(const BBArgs<T>& a, int M, int N,
+                        cudaStream_t stream) {
+  const int smem = gemm_smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      bb_gemm_kernel<T, QKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  bb_gemm_kernel<T, QKV><<<dim3((N + GN - 1) / GN, (M + GM - 1) / GM), 256,
+                           smem, stream>>>(a, M, N, a.C);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_bb(const BBArgs<T>& a, int B, cudaStream_t stream) {
+cudaError_t launch_bb(const BBArgs<T>& a, int B, int bb, cudaStream_t stream) {
   const int d = a.C / a.nh;
-  if (a.bb < 2 || B % a.bb || a.S % QT || a.C % a.G || a.C % 32 || d % 4 ||
+  if (bb < 2 || B % bb || a.S % QT || a.C % a.G || a.C % GK || d % 4 ||
       d > 256)
     return cudaErrorInvalidValue;
-  const int floats = attn_smem_floats(d) > gemm_smem_floats()
-                         ? attn_smem_floats(d) : gemm_smem_floats();
-  const int smem = (int)sizeof(float) * floats;
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bb_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((B / a.bb) * kCluster, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, attn_bb_kernel<T>, a);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  const int M = B * a.S;
+  bb_stats_kernel<T><<<(B * a.G + 7) / 8, 256, 0, stream>>>(a, B);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) err = launch_gemm<T, true>(a, M, 3 * a.C, stream);
+  if (err == cudaSuccess)
+    err = d <= 64    ? launch_attn<T, 64>(a, B, stream)
+          : d <= 128 ? launch_attn<T, 128>(a, B, stream)
+                     : launch_attn<T, 256>(a, B, stream);
+  if (err == cudaSuccess) err = launch_gemm<T, false>(a, M, a.C, stream);
+  return err;
 }
 
 template <typename T>
@@ -480,18 +574,18 @@ int run(const void* x, const float* gs, const float* gb, const void* w_qkv,
   a.C = C;
   a.nh = nh;
   a.G = G;
-  a.bb = bb;
   a.eps = eps;
   a.qk_scale = qk_scale;
-  return (int)launch_bb(a, B, (cudaStream_t)stream);
+  return (int)launch_bb(a, B, bb, (cudaStream_t)stream);
 }
 
 }  // namespace
 
 // x, y: (B, S, C) fp32; w_qkv: (C, 3C) with [3, nh, d] output columns;
-// b_qkv (3C,); w_proj (C, C); b_proj (C,); gs, gb (C,); stats: (B, G, 2)
-// scratch; qkv: (B, S, 3C) and attn: (B, S, C) scratch. Needs B % bb == 0,
-// bb >= 2, S % 64 == 0, C % 32 == 0 and d = C / nh with d % 4 == 0, d <= 256.
+// b_qkv (3C,); w_proj (C, C); b_proj (C,); gs, gb (C,); stats: (B, 2, C)
+// fp32 scratch; qkv: (B, S, 3C) and attn: (B, S, C) scratch. Needs B % bb == 0,
+// bb >= 2, S % 64 == 0, C % 32 == 0 and d = C / nh with d % 4 == 0,
+// d <= 256.
 extern "C" int dxmi_attn_block_bb(const void* x, const float* gs,
                                   const float* gb, const void* w_qkv,
                                   const void* b_qkv, const void* w_proj,
@@ -506,7 +600,7 @@ extern "C" int dxmi_attn_block_bb(const void* x, const float* gs,
 }
 
 // The same arguments with bf16 x, y, weights, biases and scratch (GN
-// parameters and statistics fp32); d <= 128 as K2's bf16 form.
+// parameters and statistics fp32).
 extern "C" int dxmi_attn_block_bb_bf16(const void* x, const float* gs,
                                        const float* gb, const void* w_qkv,
                                        const void* b_qkv, const void* w_proj,

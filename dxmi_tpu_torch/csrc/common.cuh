@@ -1,19 +1,20 @@
 // Shared pieces of the port's kernels: the GroupNorm statistics passes that
 // K1 (groupnorm.cu), K3 (conv_fused.cu), K2 (attn_block.cu), K5
 // (attn_block_i8.cu) and K6 (attn_block_bwd.cu) start from, the element
-// helpers and dot products that K7 (attn_block_bb.cu) uses too, K1's apply
-// launch that K6 reuses, the affine and SiLU they apply, bf16 rounding,
-// int8 quantisation, the tensor-core helpers (ldmatrix, mma.sync m16n8k16
-// bf16 and m16n8k32 s8, cp.async) of K2-K6 and K8, K2's tensor-core GEMM
-// that K6 reuses in other layouts, the attention cores
-// that K2 and K5 share (the flash-attention launch, flash_attn.cu, K4's
-// kernel, and K2's fp32 core, attn_block.cu), and the attention backward
+// helpers that K7 (attn_block_bb.cu) uses too, K1's apply launch that K6
+// reuses, the affine and SiLU they apply, bf16 rounding, int8
+// quantisation, the tensor-core helpers (ldmatrix, mma.sync m16n8k16 bf16
+// and m16n8k32 s8, cp.async) of K2-K7 and K8, the wgmma helpers of K4 and
+// K8, K2's tensor-core GEMM that K6 reuses in other layouts, the attention
+// cores that K2 and K5 share (the flash-attention launch, flash_attn.cu,
+// K4's kernel, and K2's fp32 core, attn_block.cu), and the attention backward
 // that K4-dkv, K4-dq and K6 share: its launches (flash_attn_bwd.cu) and the
 // tile loads and dot products of their kernels.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 typedef __nv_bfloat16 bf16;
 
@@ -250,6 +251,43 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- wgmma (K4, K8) ------------------------------------------------------
+// A wgmma matrix descriptor: start address, lbo and sbo in bytes, and the
+// swizzle (0: none, 1: 128-byte, 2: 64-byte). Without swizzle the operand
+// is K-major core matrices of 8 rows x 16 bytes, stored as 128 contiguous
+// bytes: lbo = bytes between the two 16-byte halves of a 32-byte k-step,
+// sbo = bytes between 8-row groups. With swizzle, sbo = bytes between 8-row
+// (K-major) or 8-k-row (MN-major) groups, lbo = bytes between the swizzle
+// spans of an MN-major operand (unused K-major).
+__device__ __forceinline__ uint64_t gmma_desc(unsigned addr, unsigned lbo,
+                                              unsigned sbo,
+                                              uint64_t swizzle = 0) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (swizzle << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// this thread's shared-memory writes (st.shared, cp.async) made visible to
+// the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// pins a register's value after the last wgmma.wait_group
+__device__ __forceinline__ void fence_operand(int& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
 }
 
 // 64 rows of a strided bf16 matrix (d columns) into shared rows D + 8 bf16

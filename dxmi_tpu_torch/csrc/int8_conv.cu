@@ -97,34 +97,6 @@ __device__ __forceinline__ void smem8(const bf16* p, float (&v)[8]) {
   for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(e[j]);
 }
 
-// A wgmma matrix descriptor: K-major, no swizzle (core matrices of 8 rows
-// x 16 bytes, stored as 128 contiguous bytes); lbo = bytes between the two
-// 16-byte halves of a 32-byte k-step, sbo = bytes between 8-row groups
-__device__ __forceinline__ uint64_t gmma_desc(unsigned addr, unsigned lbo,
-                                              unsigned sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// this thread's shared-memory writes (st.shared, cp.async) made visible to
-// the async proxy that wgmma reads through
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// pins a register's value after the last wgmma.wait_group
-__device__ __forceinline__ void fence_operand(int& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-
 // d (the warpgroup's 64 x 192 s32 tile) += A (64 x 32 s8) B^T (192 x 32 s8)
 __device__ __forceinline__ void wgmma_s8_m64n192k32(int (&d)[96], uint64_t da,
                                                    uint64_t db) {

@@ -24,7 +24,8 @@ from torch import nn
 from dxmi_tpu_torch.config import instantiate, load_yaml
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.samplers.var import VARSampler
-from dxmi_tpu_torch.utils.checkpoint import (load_sampler_state,
+from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
+                                             load_sampler_state,
                                              resolve_run_checkpoint)
 from dxmi_tpu_torch.utils.npz_stream import NpzStreamWriter
 
@@ -41,10 +42,7 @@ def load_sampler(cfg: Dict[str, Any],
     net = instantiate(cfg["sampler_net"], **net_overrides)
     sampler = instantiate(cfg["sampler"], net=net)
     if state_dict is not None:
-        missing, unexpected = sampler.load_state_dict(state_dict, strict=False)
-        if unexpected or set(missing) - {"log_betas"}:
-            raise KeyError(f"state dict mismatch: missing {missing}, "
-                           f"unexpected {unexpected}")
+        load_sampler_into(sampler, state_dict)
     return sampler.to(dev).eval()
 
 

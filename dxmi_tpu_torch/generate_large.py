@@ -33,7 +33,8 @@ from dxmi_tpu_torch.models.unet_adm import (QUANT_SCALE_NAMES,
                                             create_unet_adm, seeded_normal_)
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.samplers.edm import EDMSampler, KarrasDenoiser
-from dxmi_tpu_torch.utils.checkpoint import (load_sampler_state,
+from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
+                                             load_sampler_state,
                                              resolve_run_checkpoint)
 
 # calibration of --int8, as generate_large.py's JAX entry runs it
@@ -71,12 +72,7 @@ def load_sampler(cfg: Dict[str, Any],
     if state_dict is None:
         seeded_normal_(net, seed)
     else:
-        missing, unexpected = sampler.load_state_dict(state_dict, strict=False)
-        missing = {k for k in missing if k != "log_betas"
-                   and not k.endswith(QUANT_SCALE_NAMES)}
-        if unexpected or missing:
-            raise KeyError(f"state dict mismatch: missing {sorted(missing)}, "
-                           f"unexpected {unexpected}")
+        load_sampler_into(sampler, state_dict, QUANT_SCALE_NAMES)
     net.cast_weights()
     sampler.eval()
     if int8:

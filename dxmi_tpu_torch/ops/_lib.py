@@ -51,8 +51,9 @@ _SIGNATURES = {
     # the same arguments, bf16 tensors (GN parameters and statistics fp32)
     "dxmi_attn_block_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _F, _P],
-    # x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj, y, stats scratch,
-    # qkv scratch, attn scratch, B, S, C, nh, G, bb, eps, stream (fp32; bf16)
+    # x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj, y, stats scratch
+    # (B, 2, C), qkv scratch, attn scratch, B, S, C, nh, G, bb, eps, stream
+    # (fp32; bf16)
     "dxmi_attn_block_bb": [_P] * 11 + [_I, _I, _I, _I, _I, _I, _F, _P],
     "dxmi_attn_block_bb_bf16": [_P] * 11 + [_I, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, o, lse (or null), B, S, nh, d, row_stride, out_row_stride,

@@ -4,9 +4,12 @@
 ``flash_mha`` mirrors ``dxmi_tpu.ops.attention.flash_mha``: q, k, v in the
 ADM nets' (B, S, nh, d) layout, softmax(q k^T * sm_scale) v per head. On a
 CPU tensor it runs the plain version, on a CUDA tensor it launches the
-hand-written kernel in ``csrc/flash_attn.cu`` (or raises). The kernel takes
+hand-written kernel in ``csrc/flash_attn.cu`` (or raises): wgmma products,
+K/V tiles streamed by TMA through a producer warpgroup. The kernel takes
 bf16, the dtype of the ADM nets' flash path; q, k and v may be strided views
-of one (B, S, 3, nh, d) qkv tensor, which saves three copies.
+of one (B, S, 3, nh, d) qkv tensor, which saves three copies. The tensor
+maps need 16-byte aligned bases and row strides that are multiples of 8
+elements (``_check_operand`` raises otherwise; nothing is copied).
 
 The TPU kernel it replaces (JAX's bundled Pallas flash attention with one kv
 block, ``dxmi_tpu/ops/attention.py:53`` ``_flash_bnsd``) forms fp32 logits,
@@ -23,8 +26,8 @@ of ``jax.grad`` through ``_flash_bnsd``: di = rowsum(o do) in fp32
 dk = bf16(ds)^T q with ds = (do v^T - di) p sm_scale (``_flash_attention_dkv
 _kernel``, ``:796``), then dq = bf16(ds) k (``_flash_attention_dq_kernel``,
 ``:1146``); sums in fp32, each gradient cast to bf16. On the card these are
-the hand-written kernels in ``csrc/flash_attn_bwd.cu``: K4-dkv on the
-tensor cores (mma.sync, fp32 sums), K4-dq in SIMT fp32. q, k and v arrive as
+the hand-written kernels in ``csrc/flash_attn_bwd.cu``: K4-dkv and K4-dq,
+both on the tensor cores (mma.sync, fp32 sums). q, k and v arrive as
 views of one (B, S, 3, nh, d) qkv tensor, and their gradients leave in one
 buffer of that shape.
 """
@@ -138,15 +141,26 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pad = 8 - d % 8
         out = flash_mha(*(F.pad(t, (0, pad)) for t in (q, k, v)), sm_scale)
         return out[..., :d].contiguous()
+    return flash_fwd_kernel(q, k, v, sm_scale)
+
+
+def flash_fwd_kernel(q, k, v, sm_scale, lse=None):
+    """K4 on bf16 CUDA views q, k, v (B, S, nh, d) with one row stride, at
+    any S % 64 == 0 and d % 8 == 0, d <= 128 (``_check_operand``'s layout);
+    writes each row's logsumexp into ``lse`` (B, nh, S) fp32 when given.
+    Returns o (B, S, nh, d) contiguous; counts as ``flash_attn``."""
+    B, S, nh, d = q.shape
+    if S % 64 or d % 8 or d > 128:
+        raise ValueError(f"flash_attn kernel: S={S}, d={d} (needs S % 64 == "
+                         "0, d % 8 == 0, d <= 128)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(t, name, (B, S, nh, d), q.device)
     if not q.stride(1) == k.stride(1) == v.stride(1):
-        raise ValueError("flash_mha kernel: q, k and v need one row stride")
-    return _flash_fwd_kernel(q, k, v, sm_scale, None)
-
-
-def _flash_fwd_kernel(q, k, v, sm_scale, lse):
-    B, S, nh, d = q.shape
+        raise ValueError("flash_attn kernel: q, k and v need one row stride")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attn kernel: on {q.device}, needs CUDA")
+    if lse is not None:
+        _lib.require(lse, "lse", (B, nh, S), device=q.device)
     out = torch.empty((B, S, nh, d), device=q.device, dtype=torch.bfloat16)
     code = _lib.lib().dxmi_flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -177,11 +191,9 @@ def flash_mha_fwd(qkv: torch.Tensor, sm_scale: float):
     if qkv.device.type == "cpu":
         return flash_mha_reference_fwd(q, k, v, sm_scale)
     _check_train_shape(qkv)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(t, name, q.shape, qkv.device)
     B, S, _, nh, _ = qkv.shape
     lse = torch.empty((B, nh, S), device=qkv.device, dtype=torch.float32)
-    return _flash_fwd_kernel(q, k, v, sm_scale, lse), lse
+    return flash_fwd_kernel(q, k, v, sm_scale, lse), lse
 
 
 def flash_mha_bwd(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,

@@ -27,8 +27,8 @@ math); the port keeps one max-subtracting softmax.
 ``:630-631``) and the backward is K6 (``_kernel_bwd``, ``:406``, in
 ``csrc/attn_block_bwd.cu``), which recomputes every intermediate from x and
 the parameters, as ``_make_op_train`` saves only those (``:633-646``); in
-bf16 its products run on the tensor cores but for the dq pass (K4-dq's SIMT
-core), in fp32 all are SIMT. Its
+bf16 its products run on the tensor cores (its dq pass is K4-dq's kernel),
+in fp32 all are SIMT. Its
 plain version ``attn_block_bwd_reference`` repeats the TPU body's arithmetic
 and roundings step by step (``:406-556``). The parameter cotangents come back
 in fp32.
@@ -279,7 +279,7 @@ def attn_block_bb(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
     _require_block_args(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj)
     dev = x.device
     y = torch.empty_like(x)
-    stats = torch.empty((B * GROUPS * 2,), device=dev, dtype=torch.float32)
+    stats = torch.empty((B, 2, C), device=dev, dtype=torch.float32)
     qkv = torch.empty((B, S, 3 * C), device=dev, dtype=dt)
     attn = torch.empty((B, S, C), device=dev, dtype=dt)
     form = "attn_block_bb_bf16" if dt == torch.bfloat16 else "attn_block_bb"

@@ -39,7 +39,8 @@ from dxmi_tpu_torch.config import (instantiate, load_yaml, merge,
 from dxmi_tpu_torch.data.cifar10 import EpochLoader, fake_cifar, get_dataset
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.trainers.dxmi import DxMITrainer, train_step
-from dxmi_tpu_torch.utils.checkpoint import (load_sampler_state,
+from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
+                                             load_sampler_state,
                                              load_value_state,
                                              save_run_checkpoint)
 
@@ -73,7 +74,7 @@ def build(cfg: Dict[str, Any], device: torch.device, seed: int,
         if path.endswith(".msgpack"):
             raise NotImplementedError("sampler_ckpt: msgpack checkpoints are "
                                       "not readable by the port yet")
-        sampler.load_state_dict(load_sampler_state(path), strict=False)
+        load_sampler_into(sampler, load_sampler_state(path))
         print(f"Sampler checkpoint loaded from {path}", flush=True)
     elif path:
         print(f"WARNING: sampler ckpt {path} not found; training from "

@@ -39,7 +39,8 @@ from dxmi_tpu_torch.models.unet_adm import create_unet_adm, seeded_normal_
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.samplers.edm import EDMSampler, KarrasDenoiser
 from dxmi_tpu_torch.trainers.dxmi import train_step
-from dxmi_tpu_torch.utils.checkpoint import (load_sampler_state,
+from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
+                                             load_sampler_state,
                                              save_run_checkpoint)
 
 
@@ -65,7 +66,7 @@ def build_sampler(cfg: Dict[str, Any], device: torch.device, seed: int,
     sampler.to(device)
     path = cfg["training"].get("pretrained_path")
     if path and os.path.exists(path):
-        sampler.load_state_dict(load_sampler_state(path), strict=False)
+        load_sampler_into(sampler, load_sampler_state(path))
         print(f"pretrained EDM loaded from {path}", flush=True)
     else:
         if path:

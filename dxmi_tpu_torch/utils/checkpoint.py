@@ -10,7 +10,7 @@ train state (optimizers, resume) is not ported yet.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -70,3 +70,18 @@ def load_sampler_state(path: str) -> Dict[str, torch.Tensor]:
             continue
         out[key if key == "log_betas" else f"net.{key}"] = val
     return out
+
+
+def load_sampler_into(sampler: torch.nn.Module, state: Dict[str, torch.Tensor],
+                      optional_suffixes: Tuple[str, ...] = ()) -> None:
+    """Load a sampler state dict, allowing only ``log_betas`` (the schedule's
+    initial sigmas stay) and keys ending in ``optional_suffixes`` (the int8
+    scale buffers, calibrated later) to be missing; any other missing or
+    unexpected key raises ``KeyError``, as the JAX entries fail at their
+    first forward on such a checkpoint."""
+    missing, unexpected = sampler.load_state_dict(state, strict=False)
+    missing = sorted(k for k in missing if k != "log_betas"
+                     and not k.endswith(optional_suffixes))
+    if unexpected or missing:
+        raise KeyError(f"state dict mismatch: missing {missing}, "
+                       f"unexpected {sorted(unexpected)}")

@@ -7,7 +7,9 @@ kernels' arithmetic: each check passes a replica that sums in another order
 kernel's online softmax over 64-key tiles, p rounded before it is
 normalised; K5: float64 GN statistics and K4's core or a float64 one) and
 fails the same replica with a fault planted (a dropped 64-key tile, a q/k
-scale a few percent off, uniform attention weights; for K5 the neighbouring
+scale a few percent off, uniform attention weights; for K4's wgmma kernel
+also a dropped 128-key tile, one consumer warpgroup's 64 rows left out and
+p normalised by the running sum; for K5 the neighbouring
 column's dequantisation scale and a missing clip; for the backward kernels
 dk and dv swapped, di left out, dgs and dgb swapped, a missing GroupNorm
 backward term; for the tensor-core kernels one warp's 16 keys of dk and dv
@@ -20,7 +22,9 @@ log2 units or shifted by a row, and the chained backward gate (kernel
 forward and backward against the plain ones) fails the first of these, which
 the backward's own gate lets pass. The E3 wiring gate
 (chip_smoke.wiring_check) fails cotangents of the autograd Functions wired
-to the wrong input or dropped."""
+to the wrong input or dropped. K4's kernel entry refuses operands its TMA
+tensor maps cannot describe, and K7's fp32 gate passes an emulation of its
+3xTF32 products and fails one-pass TF32."""
 import math
 
 import numpy as np
@@ -28,9 +32,10 @@ import pytest
 import torch
 
 from chip_smoke import (ATTN_I8_FLIP_SHARE, attn_bf16_check, attn_i8_check,
-                        calibrated_attn_scales, flash_check)
-from dxmi_tpu_torch.ops.attention import flash_mha_reference
-from dxmi_tpu_torch.ops.attn_block import (GROUPS, attn_block_int8_plain,
+                        calibrated_attn_scales, flash_check, max_err)
+from dxmi_tpu_torch.ops.attention import flash_fwd_kernel, flash_mha_reference
+from dxmi_tpu_torch.ops.attn_block import (GROUPS, attn_block_bb_reference,
+                                           attn_block_int8_plain,
                                            attn_block_reference,
                                            prep_int8_mats)
 
@@ -109,29 +114,42 @@ def _flash_replica(q, k, v, sm_scale, fault=None):
     return _flash_replica_fwd(q, k, v, sm_scale, fault)[0]
 
 
-def _flash_replica_fwd(q, k, v, sm_scale, fault=None):
-    """``_flash_replica`` with its logsumexp m + log(l), (B, nh, S)."""
+def _flash_replica_fwd(q, k, v, sm_scale, fault=None, tile=128):
+    """``_flash_replica`` with its logsumexp m + log(l), (B, nh, S), over
+    key tiles of ``tile`` (the wgmma kernel's 128 at S % 128 == 0). Faults:
+    64 keys or one whole tile dropped, sm_scale 1% off, one consumer
+    warpgroup's 64 query rows left out (rows 64-127), p normalised by the
+    running sum before p v instead of once at the end."""
     B, S, nh, d = q.shape
     sm = sm_scale * (0.99 if fault == "scale" else 1.0)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm
     if fault == "drop":
         s[..., 64:128] = -math.inf
+    if fault == "drop_tile":
+        s[..., tile:2 * tile] = -math.inf
     vt = v.float().permute(0, 2, 1, 3)
     m = torch.full(s.shape[:-1], -math.inf)
     l = torch.zeros(s.shape[:-1])
     acc = torch.zeros(B, nh, S, d)
-    for t in range(0, S, 64):
-        st = s[..., t:t + 64]
+    for t in range(0, S, tile):
+        st = s[..., t:t + tile]
         m_new = torch.maximum(m, st.amax(-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(st - m_new[..., None])
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + p.to(BF16).float() @ vt[:, :, t:t + 64]
+        if fault == "norm_early":
+            p = p / l[..., None]
+        pv = p.to(BF16).float() @ vt[:, :, t:t + tile]
+        acc = acc * alpha[..., None] + pv
         m = m_new
-    return (acc / l[..., None]).to(BF16).permute(0, 2, 1, 3), m + torch.log(l)
+    o = acc if fault == "norm_early" else acc / l[..., None]
+    if fault == "wg_rows":
+        o[:, :, 64:128] = 0
+    return o.to(BF16).permute(0, 2, 1, 3), m + torch.log(l)
 
 
-@pytest.mark.parametrize("fault", [None, "drop", "scale"])
+@pytest.mark.parametrize("fault", [None, "drop", "scale", "drop_tile",
+                                   "wg_rows", "norm_early"])
 def test_flash_check(fault):
     rs = np.random.RandomState(9)
     q, k, v = (torch.from_numpy(rs.randn(1, 1024, 6, 64).astype(np.float32))
@@ -630,3 +648,100 @@ def test_wiring_check(monkeypatch, fault):
     worst = max(readings, key=lambda r: r[1])
     print(fault, whole, worst)
     assert worst[1] >= 0.99, readings
+
+
+# ---- K4's wrapper refusals (the TMA tensor maps' layout) -----------------
+
+def _qkv_views(B=1, S=64, nh=2, d=64, offset=0):
+    buf = torch.zeros(B * S * 3 * nh * d + offset, dtype=BF16)
+    qkv = buf[offset:].view(B, S, 3, nh, d)
+    return qkv.unbind(2)
+
+
+@pytest.mark.parametrize("fault", ["misaligned", "row_stride", "S", "d",
+                                   "strides_differ", "cpu"])
+def test_flash_kernel_refuses(fault):
+    """flash_fwd_kernel raises before building anything on operands the
+    tensor maps cannot describe (bases off 16 bytes, row strides that are
+    not multiples of 8 elements, S % 64, d past 128, q, k and v with
+    different row strides), and on CPU tensors."""
+    q, k, v = _qkv_views()
+    if fault == "misaligned":  # one bf16 element off a 16-byte boundary
+        q, k, v = _qkv_views(offset=1)
+    elif fault == "row_stride":  # rows 3 nh d + 4 elements apart
+        buf = torch.zeros(64, 3 * 2 * 64 + 4, dtype=BF16)
+        q = buf[:, :128].view(1, 64, 2, 64)
+        k = buf[:, 128:256].view(1, 64, 2, 64)
+        v = buf[:, 256:384].view(1, 64, 2, 64)
+    elif fault == "S":
+        q, k, v = _qkv_views(S=96)
+    elif fault == "d":
+        q, k, v = _qkv_views(d=136)
+    elif fault == "strides_differ":
+        k = k.contiguous()
+    with pytest.raises(ValueError):
+        flash_fwd_kernel(q, k, v, 0.125)
+
+
+# ---- K7's fp32 gate against the 3xTF32 products --------------------------
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits; nearest, ties away: cvt.rna)."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """x cut to TF32, as the tensor core reads an fp32 operand."""
+    return (x.float().contiguous().view(torch.int32) & -0x2000).view(
+        torch.float32)
+
+
+def _mm(a, b, mode):
+    """a @ b as K7 forms it on the card: 3xTF32 (hi hi + hi lo + lo hi, the
+    lo parts cut to TF32 by the tensor core) or, planted, one-pass TF32."""
+    ah, bh = _tf32(a), _tf32(b)
+    if mode == "tf32":
+        return ah @ bh
+    return (_tf32_trunc(a - ah) @ bh + ah @ _tf32_trunc(b - bh)) + ah @ bh
+
+
+def _bb_replica(x, gs, gb, wq, bq, wp, bp, nh, mode, eps):
+    """K7's fp32 block with its four products emulated in ``mode``."""
+    B, S, C = x.shape
+    d, cg = C // nh, C // GROUPS
+    g = x.reshape(B, S, GROUPS, cg)
+    mean = g.mean(dim=(1, 3))
+    rstd = torch.rsqrt((g * g).mean(dim=(1, 3)) - mean * mean + eps)
+    s_c = gs * rstd.repeat_interleave(cg, dim=1)
+    t_c = gb - mean.repeat_interleave(cg, dim=1) * s_c
+    h = x * s_c[:, None] + t_c[:, None]
+    qkv = (_mm(h.reshape(B * S, C), wq, mode) + bq).reshape(B, S, 3, nh, d)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    sc = d ** -0.25
+    w = torch.softmax(_mm(q * sc, (k * sc).transpose(-1, -2), mode), dim=-1)
+    a = _mm(w, v, mode).permute(0, 2, 1, 3).reshape(B * S, C)
+    return x + (_mm(a, wp, mode) + bp).reshape(B, S, C)
+
+
+@pytest.mark.parametrize("mode", ["3xtf32", "tf32"])
+def test_bb_fp32_gate_tells_3xtf32_from_tf32(mode):
+    """TOL["attn_block_bb"] at E4's C = 256 and d = 256 reduction depth
+    (batch 2): the 3xTF32 products reach 0.04 of the limit, one-pass TF32
+    24 times it."""
+    g = torch.Generator().manual_seed(0)
+
+    def n(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=g) * scale + shift
+
+    C = 256
+    a = (n(2, 256, C, scale=2.0, shift=0.5), n(C, scale=0.1, shift=1.0),
+         n(C, scale=0.1), n(C, 3 * C, scale=C ** -0.5), n(3 * C, scale=0.1),
+         n(C, C, scale=C ** -0.5), n(C, scale=0.1))
+    ref = attn_block_bb_reference(*a, num_heads=1, eps=1e-6, bb=2)
+    out = _bb_replica(*a, 1, mode, 1e-6)
+    if mode == "3xtf32":
+        assert max_err(out, ref, "attn_block_bb") < 5e-6
+    else:
+        with pytest.raises(AssertionError, match="elements off"):
+            max_err(out, ref, "attn_block_bb")

@@ -22,9 +22,11 @@ import pytest
 import torch
 
 from chip_smoke import (TOL, attn_bf16_check, attn_i8_check,
-                        calibrated_attn_scales, flash_check)
+                        calibrated_attn_scales, flash_check, flash_lse_check)
 from dxmi_tpu_torch.ops import _lib
-from dxmi_tpu_torch.ops.attention import flash_mha, flash_mha_reference
+from dxmi_tpu_torch.ops.attention import (flash_fwd_kernel, flash_mha,
+                                          flash_mha_reference,
+                                          flash_mha_reference_fwd)
 from dxmi_tpu_torch.ops import quant
 from dxmi_tpu_torch.ops.attn_block import (attn_block, attn_block_bb,
                                            attn_block_bb_reference,
@@ -100,6 +102,8 @@ def test_attn_block(card, B, S, C, nh):
 
 @pytest.mark.parametrize("B,S,C,nh,bb", [(128, 256, 256, 1, 2),
                                          (128, 256, 256, 1, 4),
+                                         (32, 256, 256, 1, 2),
+                                         (32, 256, 256, 1, 4),
                                          (8, 64, 64, 1, 2), (6, 128, 128, 2, 3),
                                          (4, 192, 96, 1, 2)])
 def test_attn_block_bb(card, B, S, C, nh, bb):
@@ -123,7 +127,11 @@ def test_attn_block_bb(card, B, S, C, nh, bb):
 
 @pytest.mark.parametrize("B,S,C,nh,bb", [(100, 256, 576, 9, 2),
                                          (8, 1024, 96, 3, 2),
-                                         (4, 256, 128, 1, 4)])
+                                         (4, 256, 128, 1, 4),
+                                         (128, 256, 256, 2, 2),
+                                         (128, 256, 256, 2, 4),
+                                         (32, 256, 256, 2, 2),
+                                         (32, 256, 256, 2, 4)])
 def test_attn_block_bb_bf16(card, B, S, C, nh, bb):
     rs = np.random.RandomState(9)
     x = _bf16(rs, card, (B, S, C), 1.0, 0.0)
@@ -233,6 +241,28 @@ def test_flash_mha(card, B, S, nh, d):
     flash_check(flash_mha(q, k, v, d ** -0.5),
                 flash_mha_reference(q, k, v, d ** -0.5), q, k, v, d ** -0.5,
                 "flash_attn")
+    assert _lib.LAUNCHES["flash_attn"] == 1
+
+
+@pytest.mark.parametrize("layout", ["qkv", "separate"])
+@pytest.mark.parametrize("d", [24, 32, 40, 64, 128])
+@pytest.mark.parametrize("S", [64, 256, 1024])
+def test_flash_kernel_edges(card, S, d, layout):
+    """K4's wgmma kernel at its tile forms (S = 64: one consumer warpgroup;
+    S % 128 == 0: two), every padded head width, on views of one qkv buffer
+    and on three tensors, with its logsumexp."""
+    rs = np.random.RandomState(S + d)
+    B, nh = 2, 3
+    if layout == "qkv":
+        q, k, v = _bf16(rs, card, (B, S, 3, nh, d), 1.0, 0.0).unbind(2)
+    else:
+        q, k, v = (_bf16(rs, card, (B, S, nh, d), 1.0, 0.0)
+                   for _ in range(3))
+    lse = torch.empty((B, nh, S), device=card)
+    out = flash_fwd_kernel(q, k, v, d ** -0.5, lse)
+    ref, ref_lse = flash_mha_reference_fwd(q, k, v, d ** -0.5)
+    flash_check(out, ref, q, k, v, d ** -0.5, "flash_attn")
+    flash_lse_check(lse, ref_lse, "flash_attn")
     assert _lib.LAUNCHES["flash_attn"] == 1
 
 
@@ -388,7 +418,9 @@ def test_flash_autograd_matches_plain_autograd(card):
     """FlashAttention's gradients against autograd through the plain forward
     (whose backward is PyTorch's own): the same function, differing by
     the roundings of p, ds and the bf16 gradients."""
-    from dxmi_tpu_torch.ops.attention import flash_mha, flash_mha_reference
+    from dxmi_tpu_torch.ops.attention import (flash_fwd_kernel, flash_mha,
+                                          flash_mha_reference,
+                                          flash_mha_reference_fwd)
 
     g = torch.Generator(device=card).manual_seed(1)
     qkv = torch.randn(2, 1024, 3, 6, 64, generator=g, device=card).bfloat16()

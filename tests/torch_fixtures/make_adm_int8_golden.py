@@ -64,9 +64,12 @@ def _nchw(a):
     return np.moveaxis(np.asarray(a), -1, -3)
 
 
-def build() -> dict:
+def build(teacher: dict | None = None) -> dict:
     """The golden arrays (see the module docstring), computed with JAX on
-    the CPU."""
+    the CPU. With ``teacher`` (a golden), step i starts from the teacher's
+    state ``teacher["means"][i - 1] + sigma_i eps_i`` instead of this
+    build's own, so that a rounding flip in one step does not carry into
+    the next (on the host that wrote the golden the two are the same)."""
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     from chip_smoke import adm_int8_calib_draws
@@ -74,7 +77,8 @@ def build() -> dict:
     from dxmi_tpu.models.unet_adm import create_unet_adm
     from dxmi_tpu.samplers.edm import EDMSampler, KarrasDenoiser
     from dxmi_tpu.utils import checkpoint as ckptlib
-    from dxmi_tpu_torch.utils.convert import adm_quant_scales_from_flax
+    from dxmi_tpu_torch.utils.convert import (_adm_module_path,
+                                              adm_quant_scales_from_flax)
 
     with _env(ENV):
         cfg = cfglib.load_yaml(os.path.join(FIXTURE, "config.yaml"))
@@ -123,7 +127,15 @@ def build() -> dict:
                                        jnp.full((n,), i, jnp.int32), y,
                                        _nhwc(eps[r, i]))
 
-        qparams = dict(params, quant_scales=scales)
+        def teacher_scale(path, leaf):
+            *mods, name = [p.key for p in path]
+            key = ".".join([*(_adm_module_path(m) for m in mods), name])
+            return jnp.asarray(teacher[f"scale/{key}"],
+                               leaf.dtype).reshape(leaf.shape)
+
+        qparams = dict(params, quant_scales=scales if teacher is None else
+                       jax.tree_util.tree_map_with_path(teacher_scale,
+                                                        scales))
         step = jax.jit(lambda p, x, t, y: sampler.sample_step(
             p, x, t, jax.random.key(0), y=y)["mean"])
         y = jnp.asarray(golden["y"], jnp.int32)
@@ -133,9 +145,11 @@ def build() -> dict:
             mean = _nchw(step(qparams, _nhwc(x),
                               jnp.full((len(y),), i, jnp.int32), y))
             means.append(mean.astype(np.float32))
-            x = means[-1] + golden["sigmas"][i] * golden["eps"][i]
+            state = means[-1] if teacher is None else teacher["means"][i]
+            x = state + golden["sigmas"][i] * golden["eps"][i]
+        final = means[-1] + golden["sigmas"][-1] * golden["eps"][-1]
         out = {"calib_seed": np.int64(CALIB_SEED),
-               "means": np.stack(means), "final": x.astype(np.float32)}
+               "means": np.stack(means), "final": final.astype(np.float32)}
         for k, v in adm_quant_scales_from_flax(
                 jax.tree.map(np.asarray, scales)).items():
             out[f"scale/{k}"] = v.numpy()
