@@ -12,7 +12,10 @@ failure exits non-zero naming the phase:
      per source, all started together) and print -Xptxas -v (registers,
      shared memory, spills);
   K  hold each kernel against its plain PyTorch version at the full-width
-     CIFAR-10 and ImageNet64 shapes (K5 also at LSUN's C=1024 maps; K4's
+     CIFAR-10 and ImageNet64 shapes (K1 also on either side of its route
+     gate at 6, 12, 24 and 48 channels a group, bf16 in both statistics
+     modes and fp32, replayed bit-equal; K2 fp32 at batch 100, 128 and 32,
+     replayed bit-equal; K5 also at LSUN's C=1024 maps; K4's
      logsumexp, the backward kernels K4-dkv, K4-dq and K6 at the ImageNet64
      maps at E3's batch 128, K4-dkv/dq also chained from the plain forward,
      K6 also at the ADM fixture's fp32 shape, and both at the tensor-core
@@ -22,9 +25,9 @@ failure exits non-zero naming the phase:
      128 and 32, bb 2 and 4, bf16 at ImageNet64's 16x16 map and at E4's
      shape with two heads);
   T  time each kernel, its plain version and one PyTorch library call with
-     CUDA events (K4 at each shape the main paths launch it at; K7 at bb 2
-     and 4 beside K2 on the same inputs, at batch 128 and 32; K6's fp32
-     form at G3's shape);
+     CUDA events, device time (K4 at each shape the main paths launch it
+     at; K2 fp32 beside K7 at bb 2 and 4 on the same inputs at batch 100,
+     128 and 32; K6's fp32 form at G3's shape);
   T-bwd the device time of each launch of one K6 bf16 call and one K4-dkv
      call at the 32x32 map at batch 128 (torch.profiler);
   G  replay the trained reference fixture (tests/fixtures/torch_rundir_t10)
@@ -64,6 +67,9 @@ failure exits non-zero naming the phase:
      step, finite metrics and the first minibatch's gradient by einsum,
      fused bb 1 and fused bb 4, whole and per group of the attention
      blocks' parameters;
+  T-K1 K1's time at each shape that E2 (fused, flash), E3 (flash,
+     fused_train) and E4 launched it at, with its launches per trajectory or
+     step (counted in those phases), its route and its bound;
   C  run the generation CLIs (generate_cifar10, generate_large with and
      without --int8) as subprocesses on the fixture run dirs with
      --save_npz, and hold each npz to the in-process samples; then
@@ -81,6 +87,8 @@ nvidia-smi, the one before it the kernels' JSON record, and the last line is
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import faulthandler
 import json
 import os
@@ -124,7 +132,8 @@ from dxmi_tpu_torch.ops.attn_block import (BWD_MAX_SLICES,
                                            prep_int8_mats,
                                            resolve_block_b)
 from dxmi_tpu_torch.ops.conv_fused import gn_silu_conv, gn_silu_conv_reference
-from dxmi_tpu_torch.ops.groupnorm import group_norm, group_norm_silu_reference
+from dxmi_tpu_torch.ops.groupnorm import (group_norm,
+                                          group_norm_silu_reference, route)
 from dxmi_tpu_torch.ops.quant import (SAME_3X3, calib_channel_scale,
                                       int8_conv_apply, int8_conv_reference,
                                       prepare_conv_static)
@@ -197,11 +206,15 @@ ADM_CALIB_LAUNCHES = {"gn_silu_bf16": 95 * 20, "flash_attn": 7 * 20}
 LAUNCHES_PER_FORWARD = {"gn_silu": 2, "gn_silu_conv3x3": 44, "attn_block": 5}
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, fp32 outside the
-# tensor cores, bf16 and int8 tensor cores.
+# tensor cores, bf16 and int8 tensor cores. An fp32-accurate product on the
+# tensor cores is three TF32 products (the 3xTF32 split of K2 fp32 and K7)
+# at 495 TFLOP/s, faster than fp32 outside them: such products are bounded
+# at 495 / 3 TFLOP/s.
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+TF32X3_FLOPS = 495e12 / 3
 
 # Stated tolerances |kernel - plain| <= ATOL + RTOL * |plain|. K1 and K2 are
 # fp32 with another summation order (the JAX package's fp32 kernel test
@@ -546,7 +559,7 @@ class PhaseError(Exception):
 
 
 PHASES = ("B", "K", "T", "T-bwd", "G", "E", "G2", "G2-int8", "E2", "E2-int8",
-          "G3", "E3", "G4", "E4", "C")
+          "G3", "E3", "G4", "E4", "T-K1", "C")
 
 
 def run_phase(name, fn):
@@ -607,7 +620,9 @@ CONV_SHAPES = [(BATCH, 32, 128, 128), (BATCH, 32, 384, 128),
                (BATCH, 16, 384, 256), (BATCH, 8, 256, 256),
                (BATCH, 8, 512, 256), (BATCH, 4, 256, 256),
                (BATCH, 4, 512, 256)]
-ATTN_SHAPES = [(BATCH, 256, 256)]
+# K2 fp32 at generation's batch and at E4's training batch and sampling
+# chunk (the timed row is the first)
+ATTN_SHAPES = [(BATCH, 256, 256), (128, 256, 256), (32, 256, 256)]
 # ImageNet64 (bf16): K1 at the widest decoder input (8x8, C=1536, 48 channels
 # per group) and the 64x64 maps (C=192), both statistics modes; K2 at the
 # three attention maps; K4 at the 32x32 maps.
@@ -1248,7 +1263,7 @@ def wiring_check(grads, groups, pairs=E3_PAIRS, what="E3"):
     return lines
 
 
-def phase_train():
+def phase_train(k1_log):
     """E3 (see the module docstring)."""
     cfg = imagenet64_train_config()
     B = TRAIN_BATCH
@@ -1267,7 +1282,9 @@ def phase_train():
             x, y = next(data)
             _lib.reset_launches()
             t0 = time.perf_counter()
-            m = train_image_large.train_step(trainer, x, y, gen)
+            with k1_shapes(k1_log, f"E3 {impl}", 1, "step") if i == 0 else \
+                    contextlib.nullcontext():
+                m = train_image_large.train_step(trainer, x, y, gen)
             wall = time.perf_counter() - t0
             got = dict(_lib.LAUNCHES)
             if got != TRAIN_LAUNCHES_PER_STEP[impl]:
@@ -1478,7 +1495,7 @@ def e4_grads(cfg, device="cuda"):
     return grads, groups
 
 
-def phase_cifar_train():
+def phase_cifar_train(k1_log):
     """E4 (see the module docstring)."""
     cfg = cifar10_train_config()
     seed = int(cfg["training"]["seed"])
@@ -1499,7 +1516,9 @@ def phase_cifar_train():
             x = train_cifar10.to_device_batch(next(batches)[0], "cuda")
             _lib.reset_launches()
             t0 = time.perf_counter()
-            m = train_step(trainer, x, None, gen, n_generator=1)
+            with k1_shapes(k1_log, "E4", 1, "step") if i == 0 and bb == 1 \
+                    else contextlib.nullcontext():
+                m = train_step(trainer, x, None, gen, n_generator=1)
             wall = time.perf_counter() - t0
             got = dict(_lib.LAUNCHES)
             if got != want:
@@ -1558,10 +1577,17 @@ def phase_kernels(gen):
         max_err(gn_silu_conv(*a), gn_silu_conv_reference(*a),
                 "gn_silu_conv3x3")
         for a in (conv_case(gen, *s) for s in CONV_SHAPES))
-    errs["attn_block"] = max(
-        max_err(attn_block(*a, num_heads=1, eps=1e-6),
-                attn_block_reference(*a, num_heads=1, eps=1e-6), "attn_block")
-        for a in (attn_case(gen, *s) for s in ATTN_SHAPES))
+    errs["attn_block"] = 0.0
+    for shape in ATTN_SHAPES:
+        a = attn_case(gen, *shape)
+        out = attn_block(*a, num_heads=1, eps=1e-6)
+        err = max_err(out, attn_block_reference(*a, num_heads=1, eps=1e-6),
+                      "attn_block")
+        if not torch.equal(out, attn_block(*a, num_heads=1, eps=1e-6)):
+            raise AssertionError(f"attn_block {shape}: a replay differs")
+        print(f"  K attn_block {shape}: max abs err vs plain {err:.3e}; "
+              "replay bit-equal")
+        errs["attn_block"] = max(errs["attn_block"], err)
     errs["gn_silu_bf16"] = max(
         max_err(group_norm(*a).float(), group_norm_silu_reference(*a).float(),
                 "gn_silu_bf16")
@@ -1612,10 +1638,57 @@ def phase_kernels(gen):
               "(must be 0: exact int32 sums, elementwise epilogue)")
         if err != 0:
             raise AssertionError(f"int8_conv {shape}: max abs err {err}")
+    phase_kernels_gn_routes(gen, errs)
     phase_kernels_flash_edges(gen, errs)
     phase_kernels_train(gen, errs)
     phase_kernels_bb(gen, errs)
     return errs
+
+
+# K1 on either side of its route gate (gn_plan in csrc/groupnorm.cu): for
+# 6, 12, 24 and 48 channels a group, the largest map (a power of two of
+# pixels) that the on-chip route takes and the next, which takes the split
+# route, in bf16 (both statistics modes) and fp32, each against its plain
+# version and replayed bit-equal.
+GN_ROUTE_BATCH = 4
+GN_ROUTE_GROUP_WIDTHS = (6, 12, 24, 48)
+
+
+def gn_route_edges(C, dtype):
+    """(HW on-chip, HW split): the largest on-chip map and the next one."""
+    hw = 64
+    while route(2 * hw, C, 32, dtype).on_chip:
+        hw *= 2
+    return hw, 2 * hw
+
+
+def phase_kernels_gn_routes(gen, errs):
+    for cg in GN_ROUTE_GROUP_WIDTHS:
+        C = 32 * cg
+        for dt, name, modes in ((torch.bfloat16, "gn_silu_bf16", GN_MODES),
+                                (torch.float32, "gn_silu", ("fp32",))):
+            if C % (16 // torch.tensor([], dtype=dt).element_size()):
+                continue
+            for hw, on_chip in zip(gn_route_edges(C, dt), (True, False)):
+                r = route(hw, C, 32, dt)
+                if r.on_chip != on_chip:
+                    raise AssertionError(f"K1 {(hw, C)}: route {r}")
+                for mode in modes:
+                    a = (randn(gen, GN_ROUTE_BATCH, hw, C, scale=2.0,
+                               shift=0.5).to(dt),
+                         randn(gen, C, scale=0.1, shift=1.0),
+                         randn(gen, C, scale=0.1), 32, 1e-5, True, mode)
+                    out = group_norm(*a)
+                    err = max_err(out.float(),
+                                  group_norm_silu_reference(*a).float(), name)
+                    if not torch.equal(out, group_norm(*a)):
+                        raise AssertionError(f"{name} {(hw, C)} {mode}: a "
+                                             "replay differs")
+                    errs[name] = max(errs[name], err)
+                    print(f"  K {name} {(GN_ROUTE_BATCH, hw, C)} {mode}, "
+                          f"{'on-chip' if on_chip else 'split'} ({r.slabs} "
+                          f"slabs, clusters of {r.cluster}): max abs err "
+                          f"{err:.3e}; replay bit-equal")
 
 
 # K4 at the edges of its wgmma kernel, under flash_check and its logsumexp
@@ -1697,12 +1770,20 @@ def phase_kernels_bb(gen, errs):
               f"beyond one ulp at {share:.3f} of its limit")
 
 
+# time_ms measures device time: the card first spins for ~20 ms
+# (torch.cuda._sleep) while the host queues the timed launches, so that a
+# wrapper's host time between launches, which at the smallest shapes
+# exceeds the kernel's, does not count as the kernel's.
+SPIN_CYCLES = 40_000_000
+
+
 def time_ms(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -1744,31 +1825,12 @@ def phase_times(gen):
         bytes=(M * Cin + 9 * Cin * Cout + M * Cout + 2 * Cin + Cout) * 4,
         ops={"bf16": 2 * M * Cout * 9 * Cin, "fp32": 11 * M * Cin})
 
-    B, S, C = ATTN_SHAPES[0]
-    a = attn_case(gen, B, S, C)
-    x, gs, gb, wqkv, bqkv, wp, bp = a
-
-    def library_attn():
-        g = F.group_norm(x.transpose(1, 2), 32, gs, gb, 1e-6).transpose(1, 2)
-        q, k, v = (g @ wqkv + bqkv).split(C, dim=-1)
-        o = F.scaled_dot_product_attention(q, k, v)
-        return x + o @ wp + bp
-
-    rows["attn_block"] = dict(
-        ms=time_ms(lambda: attn_block(*a, num_heads=1, eps=1e-6)),
-        plain_ms=time_ms(lambda: attn_block_reference(*a, num_heads=1,
-                                                      eps=1e-6)),
-        library_ms=time_ms(library_attn),
-        bytes=(2 * B * S * C + 4 * C * C + 5 * C) * 4,
-        # qkv, logits, AV and proj products; ~5 flops of softmax per logit
-        ops={"fp32": 2 * B * S * C * 3 * C + 4 * B * S * S * C
-             + 2 * B * S * C * C + 5 * B * S * S})
-
+    rows.update(attn_fp32_time_rows(gen))
     rows.update(adm_time_rows(gen))
     rows.update(int8_time_rows(gen))
     rows.update(train_time_rows(gen))
-    rows.update(bb_time_rows(gen))
-    peaks = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS, "int8": INT8_OPS}
+    peaks = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS, "int8": INT8_OPS,
+             "tf32x3": TF32X3_FLOPS}
     for name, r in rows.items():
         t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
         t_ops = sum(v / peaks[k] for k, v in r.pop("ops").items()) * 1e3
@@ -1781,42 +1843,56 @@ def phase_times(gen):
     return rows
 
 
-def bb_time_rows(gen):
-    """K7 at E4's shape, fp32: its row at bb 4 (E4's setting), bb 2 and K2
-    (bb 1) on the same inputs beside it. The bound counts the block's
-    products (the same work whatever the batch block)."""
-    B, S, C, nh, _ = BB_SHAPES[0]
-    a = attn_case(gen, B, S, C)
-    x, gs, gb, wqkv, bqkv, wp, bp = a
+def library_attn_block(x, gs, gb, wqkv, bqkv, wp, bp):
+    """The fp32 single-head block from PyTorch calls (F.group_norm, matmuls,
+    SDPA), the yardstick of K2 fp32 and K7."""
+    C = x.shape[-1]
+    g = F.group_norm(x.transpose(1, 2), 32, gs, gb, 1e-6).transpose(1, 2)
+    q, k, v = (g @ wqkv + bqkv).split(C, dim=-1)
+    o = F.scaled_dot_product_attention(q, k, v)
+    return x + o @ wp + bp
 
-    def library_attn():
-        g = F.group_norm(x.transpose(1, 2), 32, gs, gb, 1e-6).transpose(1, 2)
-        q, k, v = (g @ wqkv + bqkv).split(C, dim=-1)
-        o = F.scaled_dot_product_attention(q, k, v)
-        return x + o @ wp + bp
 
-    k2 = time_ms(lambda: attn_block(*a, num_heads=nh, eps=1e-6, block_b=1))
-    bb2 = time_ms(lambda: attn_block_bb(*a, num_heads=nh, eps=1e-6, bb=2))
-    bb4 = time_ms(lambda: attn_block_bb(*a, num_heads=nh, eps=1e-6, bb=4))
-    print(f"  T attn_block_bb {(B, S, C, nh)}: K7 bb 2 {bb2:.4f} ms, bb 4 "
-          f"{bb4:.4f} ms, K2 (bb 1) {k2:.4f} ms on the same inputs")
-    c = tuple(t[:E4_CHUNK] if t.dim() == 3 else t for t in a)
-    chunk = dict(
-        bb2=time_ms(lambda: attn_block_bb(*c, num_heads=nh, eps=1e-6, bb=2)),
-        bb4=time_ms(lambda: attn_block_bb(*c, num_heads=nh, eps=1e-6, bb=4)),
-        k2=time_ms(lambda: attn_block(*c, num_heads=nh, eps=1e-6,
-                                      block_b=1)))
-    print(f"  T attn_block_bb {(E4_CHUNK, S, C, nh)} (E4's sampling chunk): "
-          f"K7 bb 2 {chunk['bb2']:.4f} ms, bb 4 {chunk['bb4']:.4f} ms, K2 "
-          f"(bb 1) {chunk['k2']:.4f} ms on the same inputs")
-    return {"attn_block_bb": dict(
-        ms=bb4, bb2_ms=bb2, k2_ms=k2, chunk_ms=chunk,
-        plain_ms=time_ms(lambda: attn_block_bb_reference(
-            *a, num_heads=nh, eps=1e-6, bb=4), iters=3, warmup=1),
-        library_ms=time_ms(library_attn),
-        bytes=(2 * B * S * C + 4 * C * C + 5 * C) * 4,
-        ops={"fp32": 2 * B * S * C * 3 * C + 4 * B * S * S * C
-             + 2 * B * S * C * C + 5 * B * S * S})}
+def attn_fp32_work(B, S, C):
+    """Bytes and operations of the fp32 single-head block: x read, y
+    written, the weights; the qkv, logits, AV and proj products as 3xTF32
+    tensor-core products; ~5 flops of softmax per logit."""
+    return dict(bytes=(2 * B * S * C + 4 * C * C + 5 * C) * 4,
+                ops={"tf32x3": 2 * B * S * C * 3 * C + 4 * B * S * S * C
+                     + 2 * B * S * C * C, "fp32": 5 * B * S * S})
+
+
+def attn_fp32_time_rows(gen):
+    """K2 fp32 (bb 1) and K7 (bb 2 and 4) on the same inputs at each of
+    ATTN_SHAPES, beside K2's plain version and the library. The record
+    keeps K2's row at the first shape and K7's (bb 4, E4's setting, against
+    its own plain version) at E4's batch; the bound counts the block's
+    products, the same work whatever the batch block."""
+    rows = {}
+    for B, S, C in ATTN_SHAPES:
+        a = attn_case(gen, B, S, C)
+        t = {name: time_ms(fn) for name, fn in (
+            ("K2", lambda: attn_block(*a, num_heads=1, eps=1e-6, block_b=1)),
+            ("K7 bb 2", lambda: attn_block_bb(*a, num_heads=1, eps=1e-6,
+                                              bb=2)),
+            ("K7 bb 4", lambda: attn_block_bb(*a, num_heads=1, eps=1e-6,
+                                              bb=4)),
+            ("plain", lambda: attn_block_reference(*a, num_heads=1,
+                                                   eps=1e-6)),
+            ("library", lambda: library_attn_block(*a)))}
+        print(f"  T attn_block {(B, S, C)}: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+              + " on the same inputs")
+        rows.setdefault("attn_block", dict(
+            ms=t["K2"], plain_ms=t["plain"], library_ms=t["library"],
+            **attn_fp32_work(B, S, C)))
+        if B == E4_BATCH:
+            rows["attn_block_bb"] = dict(
+                ms=t["K7 bb 4"], library_ms=t["library"],
+                plain_ms=time_ms(lambda: attn_block_bb_reference(
+                    *a, num_heads=1, eps=1e-6, bb=4), iters=3, warmup=1),
+                **attn_fp32_work(B, S, C))
+    return rows
 
 
 def adm_time_rows(gen):
@@ -2375,7 +2451,7 @@ def train_cli(out_dir):
                              f"{got['arr_0'].shape}")
 
 
-def phase_generate_adm():
+def phase_generate_adm(k1_log):
     """ImageNet64 T=10 at full width (bf16, ~296M parameters drawn on the
     card from a seed), fused and flash attention: a warm-up batch, then
     2 batches through generate() (setup included) with the launches counted,
@@ -2392,8 +2468,11 @@ def phase_generate_adm():
         torch.cuda.reset_peak_memory_stats()
         _lib.reset_launches()
         t0 = time.perf_counter()
-        x, y = generate_large.generate(cfg, None, BATCH * N_BATCHES, BATCH,
-                                       "cuda", seed=0, attn_impl=impl)
+        with k1_shapes(k1_log, f"E2 {impl}", N_BATCHES,
+                       "trajectory of 100"):
+            x, y = generate_large.generate(cfg, None, BATCH * N_BATCHES,
+                                           BATCH, "cuda", seed=0,
+                                           attn_impl=impl)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = dict(_lib.LAUNCHES)
@@ -2555,6 +2634,72 @@ def k8_shape_times(sampler):
               f"{ms / n / max(t_ops, t_bytes):.1f}x it")
 
 
+# ---- K1 by shape on the main paths ---------------------------------------
+
+@contextlib.contextmanager
+def k1_shapes(log, label, runs, unit):
+    """Count K1's launches by shape (read from the C call's arguments) into
+    ``log[label]`` = (launches by (B, HW, C, bf16, onepass, silu), runs,
+    unit) while the block runs ``runs`` times one ``unit``."""
+    lib = _lib.lib()
+    launch = lib.dxmi_gn_forward
+    seen = collections.Counter()
+
+    def counted(*args):
+        # x, scale, bias, y, mean_c, rstd_c, B, HW, C, G, eps, silu,
+        # is_bf16, onepass, stream
+        seen[(args[6], args[7], args[8], args[12], args[13], args[11])] += 1
+        return launch(*args)
+
+    lib.dxmi_gn_forward = counted
+    try:
+        yield
+    finally:
+        lib.dxmi_gn_forward = launch
+    log[label] = (seen, runs, unit)
+
+
+def k1_shape_table(gen, log):
+    """T-K1: K1's time at each shape E2, E3 and E4 launched it at (recorded
+    into ``log`` by k1_shapes in those phases), with its launches per
+    trajectory or step, its route, its bound (one read and one write of x
+    at HBM_BYTES_S) and the K1 time per trajectory or step that these
+    give."""
+    if not log:
+        print("  T-K1: no shapes recorded (E2, E3, E4 did not run)")
+        return
+    times = {}
+    for label, (seen, runs, unit) in log.items():
+        n_all = sum(seen.values()) / runs
+        total = 0.0
+        lines = []
+        for key, n in sorted(seen.items()):
+            B, HW, C, bf16, onepass, silu = key
+            dt = torch.bfloat16 if bf16 else torch.float32
+            mode = GN_MODES[0] if onepass else "fp32"
+            if key not in times:
+                a = (randn(gen, B, HW, C, scale=2.0, shift=0.5).to(dt),
+                     randn(gen, C, scale=0.1, shift=1.0),
+                     randn(gen, C, scale=0.1), 32, 1e-5, bool(silu), mode)
+                times[key] = time_ms(lambda: group_norm(*a))
+                del a
+            ms = times[key]
+            bound = 2 * B * HW * C * (2 if bf16 else 4) / HBM_BYTES_S * 1e3
+            r = route(HW, C, 32, dt)
+            total += n / runs * ms
+            lines.append(
+                f"    ({B}, {HW}, {C}) {'bf16' if bf16 else 'fp32'} {mode}"
+                f"{' +SiLU' if silu else ''}: {n / runs:g} launches, "
+                f"{'on-chip' if r.on_chip else 'split'} ({r.slabs} slabs, "
+                f"clusters of {r.cluster}), {ms:.4f} ms each, bound "
+                f"{bound:.4f} ms (bytes), {ms / bound:.2f}x it, "
+                f"{n / runs * ms:.3f} ms a {unit}")
+        print(f"  T-K1 {label}: {n_all:g} launches a {unit}, K1 "
+              f"{total:.3f} ms a {unit} at these times")
+        for line in lines:
+            print(line)
+
+
 def nvidia_smi():
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -2586,6 +2731,7 @@ def main() -> int:
     select_device("cuda")  # fp32 products in the plain versions (no TF32)
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = {}
+    k1_log = {}  # K1's launches by shape in E2, E3 and E4, for T-K1
 
     def step(name, fn):
         if only is None or name in only:
@@ -2600,13 +2746,14 @@ def main() -> int:
         step("E", phase_generate)
         step("G2", phase_replay_adm)
         step("G2-int8", phase_replay_adm_int8)
-        step("E2", phase_generate_adm)
+        step("E2", lambda: phase_generate_adm(k1_log))
         e2 = res.get("E2", (None, None, None))
         step("E2-int8", lambda: phase_generate_adm_int8(e2[1], e2[2]))
         step("G3", phase_train_replay)
-        step("E3", phase_train)
+        step("E3", lambda: phase_train(k1_log))
         step("G4", phase_cifar_train_replay)
-        step("E4", phase_cifar_train)
+        step("E4", lambda: phase_cifar_train(k1_log))
+        step("T-K1", lambda: k1_shape_table(gen, k1_log))
         step("C", phase_cli)
         smi = nvidia_smi()
     except PhaseError as e:

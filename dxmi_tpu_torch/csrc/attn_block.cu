@@ -1,70 +1,53 @@
-// K2: the whole attention block, fp32:
+// K2: the whole attention block, bf16 (the ADM nets' multi-head blocks):
 //   y = x + proj(attention(qkv(GroupNorm(x)))) on (B, S, C).
+// K2's fp32 form (dxmi_attn_block) runs on K7's tensor-core launches and
+// lives in attn_block_bb.cu; this file keeps the fp32 SIMT pieces that K6's
+// and K5's fp32 forms still call (launch_qkv_gemm, launch_attn_core_f32).
 //
 // Replaces: dxmi_tpu/ops/attn_block.py:_kernel (run by _pallas_forward with
 // bb=1, public entry fused_attn_block), the Pallas TPU kernel that holds a
 // whole (S, C) element, its q/k/v, the logits of 256-row q tiles and the
 // four weight matrices in ~16 MB of VMEM.
 //
-// Bound on the H100: operations. At the main path's shape (B=100, S=256,
-// C=256, one head) the block does 20 GFLOP of fp32 products (qkv 10.1,
-// logits 3.4, AV 3.4, proj 3.4) against 52 MB of input and output: 0.30 ms
-// at the 67 TFLOP/s fp32 peak against 0.016 ms of memory time. fp32 is the
-// reference's precision here, so the tensor cores (bf16/TF32) are not used.
-//
 // Design: Hopper has 227 KB of shared memory per block, not 16 MB, so the
-// block is tiled into four launches, all hand-written:
-//   (a) K1's per-(sample, group) statistics, written per channel;
-//   (b) a SIMT fp32 GEMM (128x128 tiles, 8x8 outputs per thread, two
-//       shared-memory stages) that applies GN while loading x and computes
-//       qkv = h W_qkv + b_qkv, scaling the q and k columns by d^-1/4 in its
-//       epilogue (attn_block.py:253-254);
-//   (c) a flash-style attention kernel: one block per (sample, head,
-//       64-row q tile) keeps the q tile in shared memory, streams K/V in
-//       64-row tiles, carries an online fp32 softmax (running max and sum
-//       per row), and gives each thread 4x4 scores and 4 rows x 16 columns
-//       of the output in registers;
-//   (d) the same GEMM for proj, with a bias-plus-residual epilogue.
-// The qkv and attention-output intermediates go through device memory
-// (the TPU kernel keeps them in VMEM); fusing them is later work.
-//
-// bf16 form (the ADM nets' multi-head blocks, dxmi_attn_block_bf16): the same
-// four launches with the rounding of the TPU kernel's bf16 body
-// (attn_block.py:225-258). Bound: operations on the bf16 tensor cores; at
-// ImageNet64's 32x32 maps (B=100, S=1024, C=384, nh=6) the block does
-// 91 + 30 GFLOP of qkv and proj products and 161 GFLOP of attention, 0.29 ms
-// at 989 TFLOP/s, against 157 MB of input and output. (a) takes fp32
-// two-pass statistics of the bf16 x; (b) and (d) are a tensor-core GEMM
-// (128x128 block tiles of 8 warps, each 64x32 with mma.sync m16n8k16 bf16,
-// fp32 accumulators, ldmatrix, two shared stages, weights by cp.async) whose
-// A loads apply h = x * (gn_scale * rstd) + (gn_bias - mean * gn_scale *
-// rstd) in fp32 and round h to bf16 (b), or copy the attention output (d);
-// their epilogues round the accumulator to bf16, add the bf16 bias in bf16,
-// and scale q and k by the bf16 d^-1/4 in bf16 (b) or add the residual in
-// bf16 (d); (c) is K4's flash-attention kernel (flash_attn.cu) with
-// sm_scale 1, reading q, k and v through the qkv buffer's row stride.
+// block is tiled into four launches, all hand-written, with the rounding of
+// the TPU kernel's bf16 body (attn_block.py:225-258). Bound: operations on
+// the bf16 tensor cores; at ImageNet64's 32x32 maps (B=100, S=1024, C=384,
+// nh=6) the block does 91 + 30 GFLOP of qkv and proj products and 161 GFLOP
+// of attention, 0.29 ms at 989 TFLOP/s, against 157 MB of input and output.
+//   (a) K1's fp32 two-pass statistics of the bf16 x (groupnorm.cu);
+//   (b), (d) a tensor-core GEMM (128x128 block tiles of 8 warps, each 64x32
+//       with mma.sync m16n8k16 bf16, fp32 accumulators, ldmatrix, two
+//       shared stages, weights by cp.async) whose A loads apply h = x *
+//       (gn_scale * rstd) + (gn_bias - mean * gn_scale * rstd) in fp32 and
+//       round h to bf16 (b), or copy the attention output (d); their
+//       epilogues round the accumulator to bf16, add the bf16 bias in bf16,
+//       and scale q and k by the bf16 d^-1/4 in bf16 (b) or add the
+//       residual in bf16 (d);
+//   (c) K4's flash-attention kernel (flash_attn.cu) with sm_scale 1, reading
+//       q, k and v through the qkv buffer's row stride.
+// The fp32 SIMT pieces: a GEMM (128x128 tiles, 8x8 outputs per thread, two
+// shared-memory stages) computing qkv = h W_qkv + b_qkv with the q and k
+// columns scaled by d^-1/4 (attn_block.py:253-254), and a flash-style
+// attention (one block per (sample, head, 64-row q tile), K/V streamed in
+// 64-row tiles, an online fp32 softmax, 4x4 scores and 4 rows x 16 columns
+// of the output a thread).
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-// ---- (b), (d): fp32 SIMT GEMM C[M,N] = A[M,K] B[K,N] + epilogue --------
+// ---- fp32 SIMT GEMM: qkv[M,N] = A[M,K] B[K,N] + bias, q/k scaled -------
 constexpr int GBM = 128, GBN = 128, GBK = 8, kGemmThreads = 256;
 
-enum Prologue { kPlainA = 0, kGroupNormA = 1 };
-enum Epilogue { kBiasScaleQK = 0, kBiasResidual = 1 };
-
 // Thread (ty, tx) = (tid / 16, tid % 16) owns rows {4ty..4ty+3, 64+4ty..}
-// and columns {4tx..4tx+3, 64+4tx..} of the 128x128 tile.
-template <int PRO, int EPI>
+// and columns {4tx..4tx+3, 64+4tx..} of the 128x128 tile; the columns below
+// qk_cols are scaled by qk_scale after the bias.
 __global__ void __launch_bounds__(kGemmThreads)
 sgemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
              float* __restrict__ Cm, int M, int N, int K,
-             const float* __restrict__ bias, const float* __restrict__ resid,
-             float qk_scale, int qk_cols, const float* __restrict__ mean_c,
-             const float* __restrict__ rstd_c, const float* __restrict__ gs,
-             const float* __restrict__ gb, int rows_per_sample) {
+             const float* __restrict__ bias, float qk_scale, int qk_cols) {
   __shared__ __align__(16) float As[2][GBK][GBM + 4];  // transposed A tiles
   __shared__ __align__(16) float Bs[2][GBK][GBN + 4];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -80,18 +63,11 @@ sgemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
     if (a_m < M) ra = ldg4(A + (size_t)a_m * K + k0 + a_k);
     if (n0 + b_n < N) rb = ldg4(Bm + (size_t)(k0 + b_k) * N + n0 + b_n);
   };
-  auto store = [&](int k0, int st) {
-    float4 v = ra;
-    if (PRO == kGroupNormA && a_m < M) {
-      const int k = k0 + a_k;
-      const size_t bk = (size_t)(a_m / rows_per_sample) * K + k;
-      v = gn_affine4(v, ldg4(mean_c + bk), ldg4(rstd_c + bk), ldg4(gs + k),
-                     ldg4(gb + k));
-    }
-    As[st][a_k][a_r] = v.x;
-    As[st][a_k + 1][a_r] = v.y;
-    As[st][a_k + 2][a_r] = v.z;
-    As[st][a_k + 3][a_r] = v.w;
+  auto store = [&](int st) {
+    As[st][a_k][a_r] = ra.x;
+    As[st][a_k + 1][a_r] = ra.y;
+    As[st][a_k + 2][a_r] = ra.z;
+    As[st][a_k + 3][a_r] = ra.w;
     *reinterpret_cast<float4*>(&Bs[st][b_k][b_n]) = rb;
   };
 
@@ -102,7 +78,7 @@ sgemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   load(0);
-  store(0, 0);
+  store(0);
   __syncthreads();
   int st = 0;
   for (int k0 = 0; k0 < K; k0 += GBK, st ^= 1) {
@@ -124,7 +100,7 @@ sgemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
     // the other stage was last read before the previous barrier
-    if (more) store(k0 + GBK, st ^ 1);
+    if (more) store(st ^ 1);
     __syncthreads();
   }
 
@@ -137,11 +113,7 @@ sgemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
       const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
       if (n >= N) continue;
       float v = acc[i][j] + bias[n];
-      if (EPI == kBiasScaleQK) {
-        if (n < qk_cols) v *= qk_scale;
-      } else {
-        v = resid[(size_t)m * N + n] + v;
-      }
+      if (n < qk_cols) v *= qk_scale;
       Cm[(size_t)m * N + n] = v;
     }
   }
@@ -284,6 +256,9 @@ attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S,
     }
   }
 }
+
+enum Prologue { kPlainA = 0, kGroupNormA = 1 };
+enum Epilogue { kBiasScaleQK = 0, kBiasResidual = 1 };
 
 // ---- bf16 form: tensor-core GEMM C[M,N] = A[M,K] B[K,N] + epilogue -------
 constexpr int HBM = 128, HBN = 128, HBK = 32, kHThreads = 256;
@@ -522,9 +497,8 @@ cudaError_t launch_qkv_gemm(const float* h, const float* w, const float* b,
                             cudaStream_t s) {
   if (C % GBK) return cudaErrorInvalidValue;
   dim3 g((3 * C + GBN - 1) / GBN, (M + GBM - 1) / GBM);
-  sgemm_kernel<kPlainA, kBiasScaleQK><<<g, kGemmThreads, 0, s>>>(
-      h, w, qkv, M, 3 * C, C, b, nullptr, qk_scale, 2 * C, nullptr, nullptr,
-      nullptr, nullptr, 1);
+  sgemm_kernel<<<g, kGemmThreads, 0, s>>>(h, w, qkv, M, 3 * C, C, b,
+                                          qk_scale, 2 * C);
   return cudaGetLastError();
 }
 
@@ -618,39 +592,5 @@ extern "C" int dxmi_attn_block_bf16(const void* x, const float* gs,
       attnb, static_cast<const bf16*>(w_proj), static_cast<bf16*>(y), nullptr,
       M, C, C, C, static_cast<const bf16*>(b_proj), xb, 1.f, 0, nullptr,
       nullptr, nullptr, nullptr, S);
-  return (int)cudaGetLastError();
-}
-
-// x, y: (B, S, C); w_qkv: (C, 3C) with [3, nh, d] output columns; b_qkv:
-// (3C,); w_proj: (C, C); mean_c/rstd_c: (B, C); qkv: (B, S, 3C) and attn:
-// (B, S, C) scratch. Needs S % 64 == 0, C % 32 == 0, d = C/nh with
-// d % 16 == 0 and d <= 256.
-extern "C" int dxmi_attn_block(const float* x, const float* gs,
-                               const float* gb, const float* w_qkv,
-                               const float* b_qkv, const float* w_proj,
-                               const float* b_proj, float* y, float* mean_c,
-                               float* rstd_c, float* qkv, float* attn, int B,
-                               int S, int C, int nh, int G, float eps,
-                               void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = launch_gn_stats(x, mean_c, rstd_c, B, S, C, G, eps, s);
-  if (err != cudaSuccess) return (int)err;
-
-  const int M = B * S, d = C / nh;
-  const float qk_scale = (float)(1.0 / sqrt(sqrt((double)d)));
-  dim3 g_qkv((3 * C + GBN - 1) / GBN, (M + GBM - 1) / GBM);
-  sgemm_kernel<kGroupNormA, kBiasScaleQK><<<g_qkv, kGemmThreads, 0, s>>>(
-      x, w_qkv, qkv, M, 3 * C, C, b_qkv, nullptr, qk_scale, 2 * C, mean_c,
-      rstd_c, gs, gb, S);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  err = launch_attn_core_f32(qkv, attn, B, S, C, nh, s);
-  if (err != cudaSuccess) return (int)err;
-
-  dim3 g_proj((C + GBN - 1) / GBN, (M + GBM - 1) / GBM);
-  sgemm_kernel<kPlainA, kBiasResidual><<<g_proj, kGemmThreads, 0, s>>>(
-      attn, w_proj, y, M, C, C, b_proj, x, 1.f, 0, nullptr, nullptr, nullptr,
-      nullptr, S);
   return (int)cudaGetLastError();
 }

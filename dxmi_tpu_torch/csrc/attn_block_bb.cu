@@ -1,4 +1,5 @@
-// K7: the attention block over blocks of BB batch elements, fp32 or bf16:
+// K7: the attention block over blocks of BB batch elements, fp32 or bf16,
+// and K2's fp32 form (bb = 1) on the same launches:
 //   y = x + proj(attention(qkv(GroupNorm(x)))) on (B, S, C).
 //
 // Replaces: dxmi_tpu/ops/attn_block.py:_kernel_bb (run by _pallas_forward
@@ -11,15 +12,23 @@
 // key rows, normalised before p is rounded, AV rounded, one proj product,
 // the residual. The batch block only groups the TPU's work: each element's
 // result depends on that element alone.
+// dxmi_attn_block also replaces dxmi_tpu/ops/attn_block.py:_kernel (bb = 1,
+// fp32; the CIFAR-10 nets' blocks): GroupNorm with two-pass statistics (K1's
+// statistics pass, groupnorm.cu) in the plain version's order
+// ((x - mean) rstd) gs + gb, then the same qkv, attention and proj
+// launches over the whole batch.
 //
 // Bound on the H100: operations. At the CIFAR-10 training shape (B=128,
 // S=256, C=256, one head, fp32) the block does 25.8 GFLOP of fp32 products
 // (qkv 12.9, logits 4.3, AV 4.3, proj 4.3), 0.385 ms at the 67 TFLOP/s fp32
-// peak, against 67 MB of input and output (0.020 ms at 3.35 TB/s).
+// peak, or 0.156 ms as three TF32 products each at 495 TFLOP/s (the
+// 3xTF32 split below), against 67 MB of input and output (0.020 ms at
+// 3.35 TB/s). K2 at generation's B=100: 20.2 GFLOP, 0.122 ms.
 //
 // Design: four launches over the whole batch, so that every SM has work at
 // any B (E4's sampling chunks are 32 elements):
-//   (1) statistics: one warp per (element, group) sums x and x*x in fp32;
+//   (1) statistics: K7, one warp per (element, group) sums x and x*x in
+//       fp32; K2, K1's two-pass statistics pass;
 //   (2) qkv: one GEMM over all B * S rows, 128 x 128 tiles of 8 warps, the
 //       GroupNorm affine applied while loading x (h rounded to the element
 //       type); the epilogue adds the bias and scales q and k by d^-1/4;
@@ -60,7 +69,9 @@ struct BBArgs {
   const T* w_proj;
   const T* b_proj;
   T* y;
-  float* stats;  // (B, 2, C): the GroupNorm scale s_c, then shift t_c
+  float* stats;   // K7 (B, 2, C): the GroupNorm scale s_c, then shift t_c
+  float* mean_c;  // K2 (B, C): K1's per-channel mean and rstd
+  float* rstd_c;
   T* qkv;        // (B, S, 3C)
   T* attn;       // (B, S, C)
   int S, C, nh, G;
@@ -224,17 +235,21 @@ __global__ void __launch_bounds__(256) bb_stats_kernel(const BBArgs<T> a,
 }
 
 // ---- (2), (4) out[M, N] = A[M, K] W[K, N] --------------------------------
-// QKV: A is x with the GroupNorm affine applied on load, the epilogue adds
-// the bias and scales columns < 2C by qk_scale. Else A is the attention
-// output, the epilogue adds the bias and the residual x.
+// kQkv*: A is x with the GroupNorm affine applied on load (kQkvScaleShift:
+// x s_c + t_c from stats, K7; kQkvMeanRstd: ((x - mean) rstd) gs + gb, K2),
+// the epilogue adds the bias and scales columns < 2C by qk_scale. kProj: A
+// is the attention output, the epilogue adds the bias and the residual x.
+enum Gemm { kQkvScaleShift = 0, kQkvMeanRstd = 1, kProj = 2 };
+
 template <typename T>
 __host__ __device__ constexpr int gemm_smem_bytes() {
   return 2 * (GM * (GK + kPadA<T>) + GK * GB_LD) * 4;
 }
 
-template <typename T, bool QKV>
+template <typename T, int GEMM>
 __global__ void __launch_bounds__(256) bb_gemm_kernel(const BBArgs<T> a,
                                                       int M, int N, int K) {
+  constexpr bool QKV = GEMM != kProj;
   constexpr int LDA = GK + kPadA<T>;
   extern __shared__ __align__(16) float gsm[];
   float* As = gsm;                 // [2][GM][LDA]
@@ -255,7 +270,14 @@ __global__ void __launch_bounds__(256) bb_gemm_kernel(const BBArgs<T> a,
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (m < M) {
         v = load4(A + (size_t)m * K + c);
-        if (QKV) {
+        if (GEMM == kQkvMeanRstd) {
+          const size_t bc = (size_t)(m / a.S) * K + c;
+          const float4 h = gn_affine4(v, ldg4(a.mean_c + bc),
+                                      ldg4(a.rstd_c + bc), ldg4(a.gs + c),
+                                      ldg4(a.gb + c));
+          v = make_float4(round_t<T>(h.x), round_t<T>(h.y), round_t<T>(h.z),
+                          round_t<T>(h.w));
+        } else if (GEMM == kQkvScaleShift) {
           const float* st = a.stats + (size_t)(m / a.S) * 2 * K + c;
           const float4 sc = *reinterpret_cast<const float4*>(st);
           const float4 sh = *reinterpret_cast<const float4*>(st + K);
@@ -363,6 +385,107 @@ __host__ __device__ constexpr int attn_smem_bytes() {
           QT * (KT + kPadA<T>) + 2 * 4 * QT) * 4;
 }
 
+// fp32 (no rounding of p to wait for): one pass over the keys with an
+// online softmax. Per key tile the four key quarters' row maxima meet in
+// shared memory; p = exp(s - running max) goes through the P tile
+// unnormalised; each warp rescales its output columns and its quarter's
+// row sums when the maximum grows, and the quarters' sums meet at the end,
+// where o is divided by them. Half the logits of the two-pass form.
+template <int D, typename TileIn, typename Scores>
+__device__ __forceinline__ void attn_online_f32(
+    const BBArgs<float>& a, float* Qs, float* Ks, float* Vs, float* Ps,
+    float* red, const float* base, int q0, int e, int h, TileIn& tile_in,
+    Scores& scores) {
+  constexpr int LQ = D + kPadA<float>, LV = D + kPadV<float>;
+  constexpr int LP = KT + kPadA<float>, DW = D / 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wr = warp >> 2, wc = warp & 3;
+  const int S = a.S, C = a.C, d = C / a.nh;
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+  float o[DW / 8][4];
+#pragma unroll
+  for (int j = 0; j < DW / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+  for (int k0 = 0; k0 < S; k0 += KT) {
+    __syncthreads();  // the previous K, V, P tiles and maxima are read
+    tile_in(Ks, LQ, base + C, k0);
+    tile_in(Vs, LV, base + 2 * C, k0);
+    __syncthreads();
+    float s[2][4];
+    scores(s);
+    // this warp's row maxima over its 16 keys, then the tile's
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                       fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      if (t == 0) red[wc * QT + wr * 16 + g + 8 * r] = mx;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wr * 16 + g + 8 * r;
+      float m_new = m_i[r];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) m_new = fmaxf(m_new, red[c * QT + row]);
+      const float alpha = expf(m_i[r] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float p0 = expf(s[j][2 * r] - m_new);
+        const float p1 = expf(s[j][2 * r + 1] - m_new);
+        st2(Ps + row * LP + wc * 16 + j * 8 + 2 * t, p0, p1);
+        psum += p0 + p1;
+      }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      l_i[r] = l_i[r] * alpha + psum;
+      m_i[r] = m_new;
+#pragma unroll
+      for (int j = 0; j < DW / 8; ++j) {
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
+    }
+    __syncthreads();  // the rows' P is whole
+    const float* pw = Ps + wr * 16 * LP;
+    const float* vw = Vs + wc * DW;
+#pragma unroll 2
+    for (int kk = 0; kk < KT; kk += kStep<float>) {
+      AFrag<float> fa;
+      load_a(fa, pw + kk, LP, g, t);
+#pragma unroll
+      for (int j = 0; j < DW / 8; ++j) {
+        BFrag<float> fb;
+        load_b<false>(fb, vw + kk * LV + j * 8, LV, g, t);
+        mma(o[j], fa, fb);
+      }
+    }
+  }
+  // the four quarters' row sums
+  __syncthreads();
+  if (t == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      red[(4 + wc) * QT + wr * 16 + g + 8 * r] = l_i[r];
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wr * 16 + g + 8 * r;
+    float l = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) l += red[(4 + c) * QT + row];
+    float* orow = a.attn + ((size_t)e * S + q0 + row) * C + (size_t)h * d;
+#pragma unroll
+    for (int j = 0; j < DW / 8; ++j) {
+      const int c = wc * DW + j * 8 + 2 * t;
+      if (c < d) st2(orow + c, o[j][2 * r] / l, o[j][2 * r + 1] / l);
+    }
+  }
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kAttnThreads) bb_attn_kernel(
     const BBArgs<T> a) {
@@ -412,7 +535,12 @@ __global__ void __launch_bounds__(kAttnThreads) bb_attn_kernel(
   };
 
   tile_in(Qs, LQ, base, q0);
-  // pass 1: each row's maximum and sum of exp(s - max) over this warp's
+  if constexpr (sizeof(T) == 4) {
+    attn_online_f32<D>(a, Qs, Ks, Vs, Ps, red, base, q0, e, h, tile_in,
+                       scores);
+    return;
+  }
+  // bf16, pass 1: each row's maximum and sum of exp(s - max) over this warp's
   // keys; this thread holds rows g (r = 0) and g + 8 (r = 1) of the warp's,
   // a row's 16 keys spread over a quad of lanes
   float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
@@ -511,54 +639,78 @@ __global__ void __launch_bounds__(kAttnThreads) bb_attn_kernel(
   }
 }
 
+// each kernel's shared-memory limit is raised once a process (the
+// attribute call costs host time on every launch otherwise)
 template <typename T, int D>
 cudaError_t launch_attn(const BBArgs<T>& a, int B, cudaStream_t stream) {
   const int smem = attn_smem_bytes<T, D>();
-  cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t allowed = cudaFuncSetAttribute(
       bb_attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
+  if (allowed != cudaSuccess) return allowed;
   bb_attn_kernel<T, D>
       <<<dim3(a.S / QT, a.nh, B), kAttnThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, bool QKV>
+template <typename T, int GEMM>
 cudaError_t launch_gemm(const BBArgs<T>& a, int M, int N,
                         cudaStream_t stream) {
   const int smem = gemm_smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      bb_gemm_kernel<T, QKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      bb_gemm_kernel<T, GEMM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
-  if (err != cudaSuccess) return err;
-  bb_gemm_kernel<T, QKV><<<dim3((N + GN - 1) / GN, (M + GM - 1) / GM), 256,
-                           smem, stream>>>(a, M, N, a.C);
+  if (allowed != cudaSuccess) return allowed;
+  bb_gemm_kernel<T, GEMM><<<dim3((N + GN - 1) / GN, (M + GM - 1) / GM), 256,
+                            smem, stream>>>(a, M, N, a.C);
   return cudaGetLastError();
 }
 
+// the shapes launches (2)-(4) take
 template <typename T>
-cudaError_t launch_bb(const BBArgs<T>& a, int B, int bb, cudaStream_t stream) {
+bool takes(const BBArgs<T>& a) {
   const int d = a.C / a.nh;
-  if (bb < 2 || B % bb || a.S % QT || a.C % a.G || a.C % GK || d % 4 ||
-      d > 256)
-    return cudaErrorInvalidValue;
-  const int M = B * a.S;
-  bb_stats_kernel<T><<<(B * a.G + 7) / 8, 256, 0, stream>>>(a, B);
-  cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) err = launch_gemm<T, true>(a, M, 3 * a.C, stream);
+  return a.S % QT == 0 && a.C % a.G == 0 && a.C % GK == 0 && d % 4 == 0 &&
+         d <= 256;
+}
+
+// launches (2)-(4), the qkv GEMM normalising as QKV_GEMM says
+template <typename T, int QKV_GEMM>
+cudaError_t launch_block(const BBArgs<T>& a, int B, cudaStream_t stream) {
+  const int M = B * a.S, d = a.C / a.nh;
+  cudaError_t err = launch_gemm<T, QKV_GEMM>(a, M, 3 * a.C, stream);
   if (err == cudaSuccess)
     err = d <= 64    ? launch_attn<T, 64>(a, B, stream)
           : d <= 128 ? launch_attn<T, 128>(a, B, stream)
                      : launch_attn<T, 256>(a, B, stream);
-  if (err == cudaSuccess) err = launch_gemm<T, false>(a, M, a.C, stream);
+  if (err == cudaSuccess) err = launch_gemm<T, kProj>(a, M, a.C, stream);
   return err;
 }
 
+// K7: its one-pass statistics, then the block
 template <typename T>
-int run(const void* x, const float* gs, const float* gb, const void* w_qkv,
-        const void* b_qkv, const void* w_proj, const void* b_proj, void* y,
-        float* stats, void* qkv, void* attn, int B, int S, int C, int nh,
-        int G, int bb, float eps, float qk_scale, void* stream) {
-  BBArgs<T> a;
+cudaError_t launch_bb(const BBArgs<T>& a, int B, int bb, cudaStream_t stream) {
+  if (bb < 2 || B % bb || !takes(a)) return cudaErrorInvalidValue;
+  bb_stats_kernel<T><<<(B * a.G + 7) / 8, 256, 0, stream>>>(a, B);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_block<T, kQkvScaleShift>(a, B, stream);
+}
+
+// K2 fp32: K1's two-pass statistics, then the block
+cudaError_t launch_k2(const BBArgs<float>& a, int B, cudaStream_t stream) {
+  if (!takes(a)) return cudaErrorInvalidValue;
+  cudaError_t err = launch_gn_stats(a.x, a.mean_c, a.rstd_c, B, a.S, a.C,
+                                    a.G, a.eps, stream);
+  if (err != cudaSuccess) return err;
+  return launch_block<float, kQkvMeanRstd>(a, B, stream);
+}
+
+template <typename T>
+BBArgs<T> args(const void* x, const float* gs, const float* gb,
+               const void* w_qkv, const void* b_qkv, const void* w_proj,
+               const void* b_proj, void* y, void* qkv, void* attn, int S,
+               int C, int nh, int G, float eps, float qk_scale) {
+  BBArgs<T> a = {};
   a.x = static_cast<const T*>(x);
   a.gs = gs;
   a.gb = gb;
@@ -567,7 +719,6 @@ int run(const void* x, const float* gs, const float* gb, const void* w_qkv,
   a.w_proj = static_cast<const T*>(w_proj);
   a.b_proj = static_cast<const T*>(b_proj);
   a.y = static_cast<T*>(y);
-  a.stats = stats;
   a.qkv = static_cast<T*>(qkv);
   a.attn = static_cast<T*>(attn);
   a.S = S;
@@ -576,16 +727,20 @@ int run(const void* x, const float* gs, const float* gb, const void* w_qkv,
   a.G = G;
   a.eps = eps;
   a.qk_scale = qk_scale;
-  return (int)launch_bb(a, B, bb, (cudaStream_t)stream);
+  return a;
+}
+
+float qk_scale_f32(int C, int nh) {
+  return (float)(1.0 / sqrt(sqrt((double)(C / nh))));
 }
 
 }  // namespace
 
 // x, y: (B, S, C) fp32; w_qkv: (C, 3C) with [3, nh, d] output columns;
 // b_qkv (3C,); w_proj (C, C); b_proj (C,); gs, gb (C,); stats: (B, 2, C)
-// fp32 scratch; qkv: (B, S, 3C) and attn: (B, S, C) scratch. Needs B % bb == 0,
-// bb >= 2, S % 64 == 0, C % 32 == 0 and d = C / nh with d % 4 == 0,
-// d <= 256.
+// fp32 scratch; qkv: (B, S, 3C) and attn: (B, S, C) scratch. Needs
+// B % bb == 0, bb >= 2, S % 64 == 0, C % 32 == 0 and d = C / nh with
+// d % 4 == 0, d <= 256.
 extern "C" int dxmi_attn_block_bb(const void* x, const float* gs,
                                   const float* gb, const void* w_qkv,
                                   const void* b_qkv, const void* w_proj,
@@ -593,10 +748,11 @@ extern "C" int dxmi_attn_block_bb(const void* x, const float* gs,
                                   void* qkv, void* attn, int B, int S, int C,
                                   int nh, int G, int bb, float eps,
                                   void* stream) {
-  const double d = (double)(C / nh);
-  return run<float>(x, gs, gb, w_qkv, b_qkv, w_proj, b_proj, y, stats, qkv,
-                    attn, B, S, C, nh, G, bb, eps,
-                    (float)(1.0 / sqrt(sqrt(d))), stream);
+  BBArgs<float> a = args<float>(x, gs, gb, w_qkv, b_qkv, w_proj, b_proj, y,
+                                qkv, attn, S, C, nh, G, eps,
+                                qk_scale_f32(C, nh));
+  a.stats = stats;
+  return (int)launch_bb(a, B, bb, (cudaStream_t)stream);
 }
 
 // The same arguments with bf16 x, y, weights, biases and scratch (GN
@@ -608,10 +764,30 @@ extern "C" int dxmi_attn_block_bb_bf16(const void* x, const float* gs,
                                        float* stats, void* qkv, void* attn,
                                        int B, int S, int C, int nh, int G,
                                        int bb, float eps, void* stream) {
-  const double d = (double)(C / nh);
   // the TPU body scales by jnp.asarray(d ** -0.25, bf16)
-  const float qk = __bfloat162float(
-      __float2bfloat16_rn((float)(1.0 / sqrt(sqrt(d)))));
-  return run<bf16>(x, gs, gb, w_qkv, b_qkv, w_proj, b_proj, y, stats, qkv,
-                   attn, B, S, C, nh, G, bb, eps, qk, stream);
+  const float qk = __bfloat162float(__float2bfloat16_rn(qk_scale_f32(C, nh)));
+  BBArgs<bf16> a = args<bf16>(x, gs, gb, w_qkv, b_qkv, w_proj, b_proj, y, qkv,
+                              attn, S, C, nh, G, eps, qk);
+  a.stats = stats;
+  return (int)launch_bb(a, B, bb, (cudaStream_t)stream);
+}
+
+// K2 fp32 (bb = 1): x, y: (B, S, C); w_qkv: (C, 3C) with [3, nh, d] output
+// columns; b_qkv (3C,); w_proj (C, C); b_proj (C,); gs, gb (C,); mean_c,
+// rstd_c: (B, C) fp32 scratch; qkv: (B, S, 3C) and attn: (B, S, C) scratch.
+// Needs S % 64 == 0, C % 32 == 0, a shape K1's statistics take and
+// d = C / nh with d % 4 == 0, d <= 256.
+extern "C" int dxmi_attn_block(const float* x, const float* gs,
+                               const float* gb, const float* w_qkv,
+                               const float* b_qkv, const float* w_proj,
+                               const float* b_proj, float* y, float* mean_c,
+                               float* rstd_c, float* qkv, float* attn, int B,
+                               int S, int C, int nh, int G, float eps,
+                               void* stream) {
+  BBArgs<float> a = args<float>(x, gs, gb, w_qkv, b_qkv, w_proj, b_proj, y,
+                                qkv, attn, S, C, nh, G, eps,
+                                qk_scale_f32(C, nh));
+  a.mean_c = mean_c;
+  a.rstd_c = rstd_c;
+  return (int)launch_k2(a, B, (cudaStream_t)stream);
 }

@@ -1,15 +1,16 @@
 // Shared pieces of the port's kernels: the GroupNorm statistics passes that
-// K1 (groupnorm.cu), K3 (conv_fused.cu), K2 (attn_block.cu), K5
-// (attn_block_i8.cu) and K6 (attn_block_bwd.cu) start from, the element
-// helpers that K7 (attn_block_bb.cu) uses too, K1's apply launch that K6
-// reuses, the affine and SiLU they apply, bf16 rounding, int8
-// quantisation, the tensor-core helpers (ldmatrix, mma.sync m16n8k16 bf16
-// and m16n8k32 s8, cp.async) of K2-K7 and K8, the wgmma helpers of K4 and
-// K8, K2's tensor-core GEMM that K6 reuses in other layouts, the attention
-// cores that K2 and K5 share (the flash-attention launch, flash_attn.cu,
-// K4's kernel, and K2's fp32 core, attn_block.cu), and the attention backward
-// that K4-dkv, K4-dq and K6 share: its launches (flash_attn_bwd.cu) and the
-// tile loads and dot products of their kernels.
+// K1 (groupnorm.cu), K3 (conv_fused.cu), K2 (attn_block.cu and, fp32,
+// attn_block_bb.cu), K5 (attn_block_i8.cu) and K6 (attn_block_bwd.cu) start
+// from, the element helpers that K7 (attn_block_bb.cu) uses too, K1's apply
+// launch that K6 reuses, the affine and SiLU they apply, bf16 rounding,
+// int8 quantisation, the tensor-core helpers (ldmatrix, mma.sync m16n8k16
+// bf16 and m16n8k32 s8, cp.async) of K2-K7 and K8, the wgmma helpers of K4
+// and K8, K2's tensor-core GEMM that K6 reuses in other layouts, the
+// attention cores that K2 and K5 share (the flash-attention launch,
+// flash_attn.cu, K4's kernel, and the fp32 SIMT core of K5's fp32 form,
+// attn_block.cu), and the attention backward that K4-dkv, K4-dq and K6
+// share: its launches (flash_attn_bwd.cu) and the tile loads and dot
+// products of their kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,7 +23,9 @@ typedef __nv_bfloat16 bf16;
 // (B, HW, C) fp32 tensor, two-pass in fp32 (the JAX package's default
 // group_norm_silu_reference), written out per channel: mean_c and rstd_c
 // are (B, C), so that a consumer reads them with the same 16-byte loads as
-// x. Needs C / G <= 64. Defined in groupnorm.cu.
+// x. K1's statistics pass on the route gn_plan chooses (a slice held in a
+// cluster's shared memory, x read once, or streamed); cudaErrorInvalidValue
+// for a shape neither route takes. Defined in groupnorm.cu.
 cudaError_t launch_gn_stats(const float* x, float* mean_c, float* rstd_c,
                             int B, int HW, int C, int G, float eps,
                             cudaStream_t stream);
@@ -61,17 +64,17 @@ cudaError_t launch_flash_attn(const bf16* q, const bf16* k, const bf16* v,
                               int row_stride, int out_row_stride,
                               float sm_scale, cudaStream_t stream);
 
-// The fp32 attention core of K2: out = softmax(q k^T) v per (sample, head)
-// on a (B, S, 3C) qkv buffer whose q and k are pre-scaled, into (B, S, C).
-// Needs S % 64 == 0 and d = C / nh with d % 16 == 0, d <= 256. Defined in
-// attn_block.cu.
+// The fp32 SIMT attention core of K5's fp32 form: out = softmax(q k^T) v
+// per (sample, head) on a (B, S, 3C) qkv buffer whose q and k are
+// pre-scaled, into (B, S, C). Needs S % 64 == 0 and d = C / nh with
+// d % 16 == 0, d <= 256. Defined in attn_block.cu.
 cudaError_t launch_attn_core_f32(const float* qkv, float* out, int B, int S,
                                  int C, int nh, cudaStream_t stream);
 
 // qkv = h W_qkv + b_qkv with the q and k columns (the first 2C) scaled by
-// qk_scale: launch (b) of K2 on an already normalised h (M, C), rounded as
-// K2 rounds in each dtype. K6 recomputes the forward with it. Needs
-// C % 32 == 0. Defined in attn_block.cu.
+// qk_scale on an already normalised h (M, C), rounded as K2 rounds in each
+// dtype (fp32: a SIMT GEMM; bf16: K2's tensor-core GEMM). K6 recomputes the
+// forward with it. Needs C % 32 == 0. Defined in attn_block.cu.
 cudaError_t launch_qkv_gemm(const float* h, const float* w, const float* b,
                             float* qkv, int M, int C, float qk_scale,
                             cudaStream_t stream);

@@ -40,6 +40,9 @@ _SIGNATURES = {
     # onepass, stream
     "dxmi_gn_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                         _I, _P],
+    # HW, C, G, element bytes, out int[3]: K1's route (on-chip, slabs, CTAs
+    # a cluster)
+    "dxmi_gn_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     # x, gn_scale, gn_bias, w(9,Cin,Cout) bf16, bias, y, mean_c, rstd_c,
     # B, H, W, Cin, Cout, G, eps, stream
     "dxmi_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P,

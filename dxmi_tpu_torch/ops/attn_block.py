@@ -5,11 +5,12 @@ version and the JAX package's oracle.
 
 ``attn_block`` mirrors ``dxmi_tpu.ops.attn_block.fused_attn_block``: the
 batch block (``block_b`` or ``DXMI_FUSED_ATTN_BB``, clamped as JAX clamps
-it) selects K2 (one element per program, ``csrc/attn_block.cu``) or K7
-(blocks of bb elements, ``csrc/attn_block_bb.cu``); on a CPU tensor it runs
-their plain versions, on a CUDA tensor it launches the hand-written kernels
-(or raises). It takes fp32 (CIFAR's single-head blocks) or bf16 (the ADM
-nets' multi-head blocks) activations, and is differentiable
+it) selects K2 (one element per program: bf16 in ``csrc/attn_block.cu``,
+fp32 on K7's tensor-core launches after K1's two-pass statistics,
+``csrc/attn_block_bb.cu``) or K7 (blocks of bb elements); on a CPU tensor it
+runs their plain versions, on a CUDA tensor it launches the hand-written
+kernels (or raises). It takes fp32 (CIFAR's single-head blocks) or bf16 (the
+ADM nets' multi-head blocks) activations, and is differentiable
 (``AttnBlockFn``): the backward is the vjp of the reference, as
 ``_make_op.bwd`` is.
 
@@ -76,9 +77,10 @@ def fused_attn_bwd_available(seq_len: int, channels: int,
 
 
 def kernel_takes(channels: int, num_heads: int, dtype: torch.dtype) -> bool:
-    """The forms K2 is written for, inside the gate: fp32 at d % 16 == 0 (its
-    16-column lanes), bf16 at d % 8 == 0 and d <= 128 (its attention core is
-    the flash kernel's)."""
+    """The forms K2, K5 and K7 are written for, inside the gate: fp32 at
+    d % 16 == 0 (the 16-column lanes of K5's fp32 SIMT core), bf16 at
+    d % 8 == 0 and d <= 128 (K2's and K5's attention core is the flash
+    kernel's)."""
     d = channels // num_heads
     if dtype == torch.bfloat16:
         return d % 8 == 0 and d <= 128

@@ -15,6 +15,13 @@ as the ``stats`` argument:
   each operation as XLA does (``groupnorm.py:66-90``). For fp32 input this
   is one-pass fp32 statistics.
 
+On the card K1 takes one of two routes, chosen by shape in one place
+(``gn_plan`` in ``csrc/groupnorm.cu``; ``route`` reports it): on-chip, where
+a (sample, slab of whole groups) slice fits the shared memory of a
+thread-block cluster, x is read once and y written once; split, where it
+does not, a statistics pass streams x (twice for two-pass statistics) and
+an apply pass normalises.
+
 ``group_norm`` is differentiable (``GroupNormFn``): the forward is K1, the
 backward differentiates the plain version recomputed from the saved x, scale
 and bias, as the JAX package's ``_bwd`` does (``groupnorm.py:252-264``).
@@ -25,13 +32,14 @@ sigmoid rounds once, and differs in about 3% of bf16 inputs).
 """
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from dxmi_tpu_torch.ops import _lib
 
 STATS_MODES = ("fp32", "bf16_onepass")
-# channels per group the kernel's statistics pass takes (two warps of lanes)
-MAX_GROUP_WIDTH = 64
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -78,9 +86,10 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     (B, ..., C) with fp32 ``scale`` and ``bias``; differentiable
     (``GroupNormFn``) when a gradient is wanted.
 
-    On the card: K1, which needs ``C % num_groups == 0``, at most 64
-    channels per group, and ``C`` a multiple of 4 (fp32) or 8 (bf16) for its
-    16-byte loads. It counts as ``gn_silu`` (fp32) or ``gn_silu_bf16``.
+    On the card: K1, which needs ``C % num_groups == 0`` and ``C`` a
+    multiple of 4 (fp32) or 8 (bf16) for its 16-byte loads, on the route
+    ``route`` names (a shape neither route takes raises). It counts as
+    ``gn_silu`` (fp32) or ``gn_silu_bf16``.
     """
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
                                     or bias.requires_grad):
@@ -122,10 +131,9 @@ def _group_norm_forward(x, scale, bias, num_groups, eps, silu, stats):
     B, C = x.shape[0], x.shape[-1]
     HW = x.numel() // (B * C)
     vec = 8 if bf16 else 4
-    if C % num_groups or C % vec or C > MAX_GROUP_WIDTH * num_groups:
+    if C % num_groups or C % vec:
         raise ValueError(f"group_norm kernel: C={C} must be a multiple of "
-                         f"num_groups={num_groups} and of {vec}, with at most "
-                         f"{MAX_GROUP_WIDTH} channels per group")
+                         f"num_groups={num_groups} and of {vec}")
     _lib.require(x, "x", x.shape, dtype=x.dtype)
     _lib.require(scale, "scale", (C,), device=x.device)
     _lib.require(bias, "bias", (C,), device=x.device)
@@ -139,3 +147,22 @@ def _group_norm_forward(x, scale, bias, num_groups, eps, silu, stats):
     _lib.LAUNCHES["gn_silu_bf16" if bf16 else "gn_silu"] += 1
     return y
 
+
+class Route(NamedTuple):
+    on_chip: bool  # the slice held in a cluster's shared memory
+    slabs: int     # slabs of whole groups a sample is cut into
+    cluster: int   # CTAs of a cluster, each HW / cluster rows of a slab
+
+
+def route(hw: int, channels: int, num_groups: int,
+          dtype: torch.dtype) -> Route:
+    """K1's route on the card for (B, hw, channels) of ``dtype`` with
+    ``num_groups`` groups, as ``gn_plan`` chooses it (the statistics pass
+    of K2, K3, K5 and K6 takes the same one); raises ValueError for a shape
+    neither route takes. Needs the kernel library (the card)."""
+    out = (ctypes.c_int * 3)()
+    esize = torch.tensor([], dtype=dtype).element_size()
+    if _lib.lib().dxmi_gn_plan(hw, channels, num_groups, esize, out):
+        raise ValueError(f"group_norm kernel: no route for hw={hw}, "
+                         f"C={channels}, G={num_groups}, {dtype}")
+    return Route(bool(out[0]), out[1], out[2])

@@ -23,17 +23,24 @@ forward and backward against the plain ones) fails the first of these, which
 the backward's own gate lets pass. The E3 wiring gate
 (chip_smoke.wiring_check) fails cotangents of the autograd Functions wired
 to the wrong input or dropped. K4's kernel entry refuses operands its TMA
-tensor maps cannot describe, and K7's fp32 gate passes an emulation of its
-3xTF32 products and fails one-pass TF32."""
+tensor maps cannot describe, and the fp32 gate of K7 and of K2 (on K7's
+launches, after K1's two-pass statistics) passes an emulation of their
+3xTF32 products and fails one-pass TF32. K1's gates pass an emulation of
+its order of sums (per-thread rows, row lanes, channels, the cluster's
+CTAs) and fail it with a CTA's partial sums dropped, a slab's statistics
+taken one group over, one-pass sums where two-pass are due, or the squares
+of the bf16 one-pass sums left unrounded."""
 import math
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (ATTN_I8_FLIP_SHARE, attn_bf16_check, attn_i8_check,
-                        calibrated_attn_scales, flash_check, max_err)
+from chip_smoke import (ATTN_I8_FLIP_SHARE, TOL, attn_bf16_check,
+                        attn_i8_check, calibrated_attn_scales, flash_check,
+                        max_err)
 from dxmi_tpu_torch.ops.attention import flash_fwd_kernel, flash_mha_reference
+from dxmi_tpu_torch.ops.groupnorm import group_norm_silu_reference
 from dxmi_tpu_torch.ops.attn_block import (GROUPS, attn_block_bb_reference,
                                            attn_block_int8_plain,
                                            attn_block_reference,
@@ -706,29 +713,43 @@ def _mm(a, b, mode):
     return (_tf32_trunc(a - ah) @ bh + ah @ _tf32_trunc(b - bh)) + ah @ bh
 
 
-def _bb_replica(x, gs, gb, wq, bq, wp, bp, nh, mode, eps):
-    """K7's fp32 block with its four products emulated in ``mode``."""
+def _bb_replica(x, gs, gb, wq, bq, wp, bp, nh, mode, eps, kernel="K7"):
+    """The fp32 block with its four products emulated in ``mode``: K7's
+    one-pass statistics and x s + t, or K2's (bb 1) two-pass statistics
+    from K1 and ((x - mean) rstd) gs + gb."""
     B, S, C = x.shape
     d, cg = C // nh, C // GROUPS
     g = x.reshape(B, S, GROUPS, cg)
     mean = g.mean(dim=(1, 3))
-    rstd = torch.rsqrt((g * g).mean(dim=(1, 3)) - mean * mean + eps)
-    s_c = gs * rstd.repeat_interleave(cg, dim=1)
-    t_c = gb - mean.repeat_interleave(cg, dim=1) * s_c
-    h = x * s_c[:, None] + t_c[:, None]
+    if kernel == "K2":
+        var = (g - mean[:, None, :, None]).square().mean(dim=(1, 3))
+        rstd = (1.0 / torch.sqrt(var + eps)).repeat_interleave(cg, dim=1)
+        mean = mean.repeat_interleave(cg, dim=1)
+        h = (x - mean[:, None]) * rstd[:, None] * gs + gb
+    else:
+        rstd = torch.rsqrt((g * g).mean(dim=(1, 3)) - mean * mean + eps)
+        s_c = gs * rstd.repeat_interleave(cg, dim=1)
+        t_c = gb - mean.repeat_interleave(cg, dim=1) * s_c
+        h = x * s_c[:, None] + t_c[:, None]
     qkv = (_mm(h.reshape(B * S, C), wq, mode) + bq).reshape(B, S, 3, nh, d)
     q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
     sc = d ** -0.25
-    w = torch.softmax(_mm(q * sc, (k * sc).transpose(-1, -2), mode), dim=-1)
-    a = _mm(w, v, mode).permute(0, 2, 1, 3).reshape(B * S, C)
+    # the fp32 attention's online softmax: exp(s - max) unnormalised into
+    # the AV product, divided by the row sums after it
+    lg = _mm(q * sc, (k * sc).transpose(-1, -2), mode)
+    w = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    a = _mm(w, v, mode) / w.sum(dim=-1, keepdim=True)
+    a = a.permute(0, 2, 1, 3).reshape(B * S, C)
     return x + (_mm(a, wp, mode) + bp).reshape(B, S, C)
 
 
+@pytest.mark.parametrize("kernel", ["K7", "K2"])
 @pytest.mark.parametrize("mode", ["3xtf32", "tf32"])
-def test_bb_fp32_gate_tells_3xtf32_from_tf32(mode):
-    """TOL["attn_block_bb"] at E4's C = 256 and d = 256 reduction depth
-    (batch 2): the 3xTF32 products reach 0.04 of the limit, one-pass TF32
-    24 times it."""
+def test_bb_fp32_gate_tells_3xtf32_from_tf32(mode, kernel):
+    """TOL["attn_block_bb"] (K7, batch block 2, against its plain version)
+    and TOL["attn_block"] (K2, bb 1, against attn_block_reference) at E4's
+    C = 256 and d = 256 reduction depth (batch 2): the 3xTF32 products
+    reach 0.07 of the limit in both, one-pass TF32 25 times it."""
     g = torch.Generator().manual_seed(0)
 
     def n(*shape, scale=1.0, shift=0.0):
@@ -738,10 +759,150 @@ def test_bb_fp32_gate_tells_3xtf32_from_tf32(mode):
     a = (n(2, 256, C, scale=2.0, shift=0.5), n(C, scale=0.1, shift=1.0),
          n(C, scale=0.1), n(C, 3 * C, scale=C ** -0.5), n(3 * C, scale=0.1),
          n(C, C, scale=C ** -0.5), n(C, scale=0.1))
-    ref = attn_block_bb_reference(*a, num_heads=1, eps=1e-6, bb=2)
-    out = _bb_replica(*a, 1, mode, 1e-6)
+    if kernel == "K7":
+        name = "attn_block_bb"
+        ref = attn_block_bb_reference(*a, num_heads=1, eps=1e-6, bb=2)
+    else:
+        name = "attn_block"
+        ref = attn_block_reference(*a, num_heads=1, eps=1e-6)
+    out = _bb_replica(*a, 1, mode, 1e-6, kernel)
     if mode == "3xtf32":
-        assert max_err(out, ref, "attn_block_bb") < 5e-6
+        assert max_err(out, ref, name) < 5e-6
     else:
         with pytest.raises(AssertionError, match="elements off"):
-            max_err(out, ref, "attn_block_bb")
+            max_err(out, ref, name)
+
+
+# ---- K1's gates against its order of sums ---------------------------------
+# csrc/groupnorm.cu: 256 threads a CTA; thread (rr, v) sums the v-th 16-byte
+# vector of rows rr, rr + RP, ... (RP = 256 // vectors a slab row) of its
+# CTA's HW / cs rows in order, per channel in fp32; the CTA adds its RP row
+# lanes per channel in order, then the channels of each group; the cluster
+# adds its cs CTAs' group sums in rank order. Two-pass: the sum of x, then
+# of fmaf(x - mean, x - mean, .); bf16_onepass: x and x*x rounded to the
+# element type. The apply: fmaf(x - mean, rstd * scale, bias) and SiLU in
+# fp32, rounded once, or (bf16_onepass on bf16) every step in bf16.
+K1_THREADS = 256
+# (slabs, cs) plans the emulation takes: whole rows in a cluster of 2, and
+# slabs of whole groups in clusters of 4 and 8
+K1_PLANS = [(1, 2), (2, 4), (4, 8)]
+K1_FORMS = [(torch.bfloat16, "fp32", "gn_silu_bf16"),
+            (torch.bfloat16, "bf16_onepass", "gn_silu_bf16"),
+            (torch.float32, "fp32", "gn_silu")]
+
+
+def _k1_replica(x, scale, bias, G, eps, silu, stats, slabs, cs, fault=None):
+    """K1 on the CPU in the kernel's order of sums (above), with ``fault``
+    planted: 'dropped_cta' (the last CTA's partial sums left out of the
+    cluster's), 'slab_shift' (each slab's statistics taken one group over),
+    'one_pass' (fp32 E[x^2] - mean^2 where two-pass is due) or
+    'square_unrounded' (the bf16 one-pass sums of x*x in fp32)."""
+    B, HW, C = x.shape
+    dt = x.dtype
+    bf16 = dt == torch.bfloat16
+    cg = C // G
+    RP = K1_THREADS // (C // slabs // (16 // x.element_size()))
+    R, n = HW // cs, float(HW * cg)
+    steps = -(-R // RP)
+
+    def rt(t):  # rounded to the element type
+        return t.to(dt).float() if bf16 else t
+
+    def lanes(t):  # (B, HW, C) -> (B, cs, steps, RP, C), zeros past row R
+        t = t.reshape(B, cs, R, C)
+        t = torch.cat([t, t.new_zeros(B, cs, steps * RP - R, C)], dim=2)
+        return t.reshape(B, cs, steps, RP, C)
+
+    def row_sums(terms):  # each thread's rows in order
+        p = torch.zeros(B, cs, RP, C)
+        for j in range(steps):
+            p = p + terms[:, :, j]
+        return p
+
+    def group_sums(p):  # row lanes, then channels, then the cluster's CTAs
+        c = torch.zeros(B, cs, C)
+        for lane in range(RP):
+            c = c + p[:, :, lane]
+        c = c.reshape(B, cs, G, cg)
+        g = torch.zeros(B, cs, G)
+        for k in range(cg):
+            g = g + c[..., k]
+        t = torch.zeros(B, G)
+        for k in range(cs - (fault == "dropped_cta")):
+            t = t + g[:, k]
+        return t
+
+    xs = x.float()
+    if fault == "slab_shift":
+        xs = xs.roll(-cg, dims=-1)
+    L = lanes(xs)
+    if stats == "fp32" and fault != "one_pass":
+        mean = group_sums(row_sums(L)) / n
+        d = (L - mean.repeat_interleave(cg, 1)[:, None, None, None]) * lanes(
+            torch.ones(B, HW, C))
+        p = torch.zeros(B, cs, RP, C)
+        for j in range(steps):  # fmaf: one rounding (exact in float64)
+            p = (p.double() + d[:, :, j].double() ** 2).float()
+        rstd = 1.0 / torch.sqrt(group_sums(p) / n + eps)
+    else:
+        sq = L * L if fault == "square_unrounded" else rt(L * L)
+        m = group_sums(row_sums(L)) / n
+        # s2 / n - m * m contracted into one fma
+        var = torch.clamp((group_sums(row_sums(sq)) / n).double()
+                          - m.double() ** 2, min=0).float()
+        if stats == "fp32":
+            mean, rstd = m, 1.0 / torch.sqrt(var + eps)
+        else:
+            mean = rt(m)
+            rstd = rt(1.0 / torch.sqrt(rt(rt(var) + rt(torch.tensor(eps)))))
+    m_c = mean.repeat_interleave(cg, 1)[:, None]
+    r_c = rstd.repeat_interleave(cg, 1)[:, None]
+    if bf16 and stats == "bf16_onepass":
+        b16 = torch.bfloat16
+        u = ((x - m_c.to(b16)) * r_c.to(b16)) * scale.to(b16) + bias.to(b16)
+        return u * torch.reciprocal(1 + torch.exp(-u)) if silu else u
+    u = ((x.float() - m_c).double() * (r_c * scale).double()
+         + bias.double()).float().double()
+    if silu:
+        u = u / (1 + torch.exp(-u))
+    return u.float().to(dt)
+
+
+def _k1_inputs(dtype, C, HW=256):
+    """Two samples around 32 (std 1, per-channel offsets 0.5): a one-pass
+    fp32 variance loses ~10 bits to cancellation there, and the bf16 one-pass
+    variance reads the rounding of every x*x."""
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randn(2, HW, C, generator=g) + 32
+         + 0.5 * torch.randn(C, generator=g))
+    return (x.to(dtype), 1 + 0.1 * torch.randn(C, generator=g),
+            0.1 * torch.randn(C, generator=g))
+
+
+@pytest.mark.parametrize("fault", [None, "dropped_cta", "slab_shift",
+                                   "stats_fault"])
+@pytest.mark.parametrize("plan", K1_PLANS)
+@pytest.mark.parametrize("form", K1_FORMS, ids=["bf16", "bf16_onepass",
+                                                "fp32"])
+def test_k1_gate_against_its_order_of_sums(form, plan, fault):
+    """chip_smoke's K1 gates (2e-5 + 2e-5 |plain| in fp32, 2e-2 + 2e-2
+    |plain| in bf16) pass the kernel's order of sums (0.61 of the limit in
+    fp32, bit-equal in bf16, on these inputs) and fail each planted fault
+    (5.3 times the limit or more): a dropped CTA, a slab shifted by one
+    group, and the statistics fault of the form, one-pass fp32 sums (fp32
+    statistics) or unrounded squares (bf16_onepass)."""
+    dtype, stats, name = form
+    if fault == "stats_fault":
+        fault = "one_pass" if stats == "fp32" else "square_unrounded"
+    x, s, b = _k1_inputs(dtype, 384)
+    ref = group_norm_silu_reference(x, s, b, 32, 1e-5, True, stats).float()
+    out = _k1_replica(x, s, b, 32, 1e-5, True, stats, *plan, fault).float()
+    atol, rtol = TOL[name]
+    share = ((out - ref).abs() / (atol + rtol * ref.abs())).max().item()
+    if fault is None:
+        assert share < 0.7
+        max_err(out, ref, name)
+    else:
+        assert share > 2
+        with pytest.raises(AssertionError, match="elements off"):
+            max_err(out, ref, name)

@@ -52,8 +52,10 @@ def test_cpu_tensor_takes_plain_version():
 # relative, 2^-7 where a flipped mean or rstd moves a whole group) at the
 # rare values where torch's and XLA's fp32 libm results straddle a bf16
 # rounding boundary; fp32 input agrees to 1e-5 as above.
+# The last two: the widest ADM map, 64x64 at C = 384 (K1's on-chip route
+# cuts it into four slabs of eight groups), and 48 channels a group at 8x8.
 WIDE = [(2, 4, 4, 192), (2, 4, 4, 384), (2, 2, 2, 1344), (2, 2, 2, 1536),
-        (2, 8, 8, 960), (2, 3, 3, 576)]
+        (2, 8, 8, 960), (2, 3, 3, 576), (1, 64, 64, 384), (2, 8, 8, 1536)]
 
 
 @pytest.mark.parametrize("stats", ["fp32", "bf16_onepass"])

@@ -22,7 +22,8 @@ import pytest
 import torch
 
 from chip_smoke import (TOL, attn_bf16_check, attn_i8_check,
-                        calibrated_attn_scales, flash_check, flash_lse_check)
+                        calibrated_attn_scales, flash_check, flash_lse_check,
+                        gn_route_edges)
 from dxmi_tpu_torch.ops import _lib
 from dxmi_tpu_torch.ops.attention import (flash_fwd_kernel, flash_mha,
                                           flash_mha_reference,
@@ -35,7 +36,8 @@ from dxmi_tpu_torch.ops.attn_block import (attn_block, attn_block_bb,
                                            attn_block_reference,
                                            prep_int8_mats)
 from dxmi_tpu_torch.ops.conv_fused import gn_silu_conv, gn_silu_conv_reference
-from dxmi_tpu_torch.ops.groupnorm import group_norm, group_norm_silu_reference
+from dxmi_tpu_torch.ops.groupnorm import (group_norm,
+                                          group_norm_silu_reference, route)
 
 pytestmark = pytest.mark.cuda
 
@@ -89,15 +91,21 @@ def test_gn_silu_conv(card, B, R, Cin, Cout):
            "gn_silu_conv3x3")
 
 
-@pytest.mark.parametrize("B,S,C,nh", [(100, 256, 256, 1), (8, 64, 64, 1),
+@pytest.mark.parametrize("B,S,C,nh", [(100, 256, 256, 1), (128, 256, 256, 1),
+                                      (32, 256, 256, 1), (8, 64, 64, 1),
                                       (2, 128, 128, 2), (2, 192, 96, 1)])
 def test_attn_block(card, B, S, C, nh):
+    """K2 fp32 (K1's two-pass statistics, then K7's tensor-core launches)
+    against its plain version, at E's batch 100 and E4's 128 and 32 among
+    others; a replay bit-equal."""
     args = _tensors(np.random.RandomState(2), card, ((B, S, C), 2.0, 0.5),
                     ((C,), 0.1, 1.0), ((C,), 0.1, 0.0),
                     ((C, 3 * C), C ** -0.5, 0.0), ((3 * C,), 0.1, 0.0),
                     ((C, C), C ** -0.5, 0.0), ((C,), 0.1, 0.0))
-    _check(attn_block(*args, num_heads=nh, eps=1e-6),
-           attn_block_reference(*args, num_heads=nh, eps=1e-6), "attn_block")
+    out = attn_block(*args, num_heads=nh, eps=1e-6)
+    _check(out, attn_block_reference(*args, num_heads=nh, eps=1e-6),
+           "attn_block")
+    assert torch.equal(out, attn_block(*args, num_heads=nh, eps=1e-6))
 
 
 @pytest.mark.parametrize("B,S,C,nh,bb", [(128, 256, 256, 1, 2),
@@ -205,6 +213,33 @@ def test_group_norm_bf16(card, shape, silu, stats):
         group_norm_silu_reference(x, s, b, 32, 1e-5, silu, stats).float(),
         rtol=rtol, atol=atol)
     assert _lib.LAUNCHES["gn_silu_bf16"] == 1
+
+
+@pytest.mark.parametrize("side", ["on_chip", "split"])
+@pytest.mark.parametrize("form", [("bf16", "fp32"), ("bf16", "bf16_onepass"),
+                                  ("fp32", "fp32")])
+@pytest.mark.parametrize("cg", [6, 12, 24, 48])
+def test_group_norm_route_edges(card, cg, form, side):
+    """K1 on either side of its route gate: the largest map the on-chip
+    route takes at this width and the next one (split), against its plain
+    version, a replay bit-equal."""
+    dtype = torch.bfloat16 if form[0] == "bf16" else torch.float32
+    name = "gn_silu_bf16" if form[0] == "bf16" else "gn_silu"
+    C = 32 * cg
+    hw = gn_route_edges(C, dtype)[side == "split"]
+    assert route(hw, C, 32, dtype).on_chip == (side == "on_chip")
+    rs = np.random.RandomState(11)
+    x, s, b = _tensors(rs, card, ((4, hw, C), 2.0, 0.5), ((C,), 0.1, 1.0),
+                       ((C,), 0.1, 0.0))
+    x = x.to(dtype)
+    out = group_norm(x, s, b, 32, 1e-5, True, form[1])
+    atol, rtol = TOL[name]
+    torch.testing.assert_close(
+        out.float(),
+        group_norm_silu_reference(x, s, b, 32, 1e-5, True, form[1]).float(),
+        rtol=rtol, atol=atol)
+    assert torch.equal(out, group_norm(x, s, b, 32, 1e-5, True, form[1]))
+    assert _lib.LAUNCHES[name] == 2
 
 
 @pytest.mark.parametrize("shape", [(8, 1024, 96), (4, 64, 1536)])
