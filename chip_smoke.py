@@ -15,7 +15,8 @@ failure exits non-zero naming the phase:
      CIFAR-10 and ImageNet64 shapes (K1 also on either side of its route
      gate at 6, 12, 24 and 48 channels a group, bf16 in both statistics
      modes and fp32, replayed bit-equal; K2 fp32 at batch 100, 128 and 32,
-     replayed bit-equal; K5 also at LSUN's C=1024 maps; K4's
+     K2 bf16 at the ImageNet64 maps and at E3's batch 128, K5 at the
+     ImageNet64 and LSUN's C=1024 maps, each replayed bit-equal; K4's
      logsumexp, the backward kernels K4-dkv, K4-dq and K6 at the ImageNet64
      maps at E3's batch 128, K4-dkv/dq also chained from the plain forward,
      K6 also at the ADM fixture's fp32 shape, and both at the tensor-core
@@ -27,7 +28,10 @@ failure exits non-zero naming the phase:
   T  time each kernel, its plain version and one PyTorch library call with
      CUDA events, device time (K4 at each shape the main paths launch it
      at; K2 fp32 beside K7 at bb 2 and 4 on the same inputs at batch 100,
-     128 and 32; K6's fp32 form at G3's shape);
+     128 and 32; K6's fp32 form at G3's shape); and K2 bf16 and K5 at each
+     of their main-path maps split by launch (torch.profiler: statistics,
+     GN apply or quantise, qkv GEMM, core, proj GEMM), each beside its
+     bound;
   T-bwd the device time of each launch of one K6 bf16 call and one K4-dkv
      call at the 32x32 map at batch 128 (torch.profiler);
   G  replay the trained reference fixture (tests/fixtures/torch_rundir_t10)
@@ -630,6 +634,8 @@ ADM_GN_SHAPES = [(BATCH, 4096, 192, True), (BATCH, 64, 1536, True)]
 GN_MODES = ("bf16_onepass", "fp32")
 ADM_ATTN_SHAPES = [(BATCH, 1024, 384, 6), (BATCH, 256, 576, 9),
                    (BATCH, 64, 768, 12)]
+# K2 bf16 also at E3 fused_train's forward (training.batchsize 128, 32x32)
+E3_ATTN_SHAPE = (128, 1024, 384, 6)
 FLASH_SHAPES = [(BATCH, 1024, 6, 64)]
 # K4's other launches on the main paths: the cores of K2 bf16 and K5 at the
 # 16x16 and 8x8 maps, and E3's training forward at batch 128
@@ -1597,15 +1603,20 @@ def phase_kernels(gen):
         print(f"  K {k}: max abs err vs plain {errs[k]:.3e} "
               f"(tol {TOL[k][0]:g} + {TOL[k][1]:g}*|plain|)")
     worst = 0.0
-    for B, S, C, nh in ADM_ATTN_SHAPES:
+    for B, S, C, nh in ADM_ATTN_SHAPES + [E3_ATTN_SHAPE]:
         a = attn_bf16_case(gen, B, S, C)
         out = attn_block(*a, num_heads=nh)
         ref = attn_block_reference(*a, num_heads=nh)
         rel, err, share = attn_bf16_check(out, ref, a[0],
                                           f"attn_block_bf16 {(B, S, C, nh)}")
+        del ref
+        if not torch.equal(out, attn_block(*a, num_heads=nh)):
+            raise AssertionError(f"attn_block_bf16 {(B, S, C, nh)}: a replay "
+                                 "differs")
         print(f"  K attn_block_bf16 {(B, S, C, nh)}: mean rel err {rel:.3e} "
               f"(tol {ATTN_BF16_MEAN_REL:g}), max abs err {err:.3e}, worst "
-              f"element beyond one ulp at {share:.3f} of its limit")
+              f"element beyond one ulp at {share:.3f} of its limit; replay "
+              "bit-equal")
         worst = max(worst, err)
     errs["attn_block_bf16"] = worst
     for shape in FLASH_SHAPES:
@@ -1620,12 +1631,15 @@ def phase_kernels(gen):
     for B, S, C, nh, dt in I8_ATTN_SHAPES:
         x, gs, gb, mats, bq, bp = attn_i8_case(gen, B, S, C, nh, dt)
         what = f"attn_block_i8 {(B, S, C, nh)} {str(dt)[6:]}"
+        out = attn_block_int8(x, gs, gb, mats, bq, bp, nh)
         err, share, worst = attn_i8_check(
-            attn_block_int8(x, gs, gb, mats, bq, bp, nh),
-            attn_block_int8_plain(x, gs, gb, mats, bq, bp, nh), x, mats, what)
+            out, attn_block_int8_plain(x, gs, gb, mats, bq, bp, nh), x, mats,
+            what)
+        if not torch.equal(out, attn_block_int8(x, gs, gb, mats, bq, bp, nh)):
+            raise AssertionError(f"{what}: a replay differs")
         print(f"  K {what}: max abs err {err:.3e}, {share:.3%} of elements "
               f"over their base limit (tol {ATTN_I8_FLIP_SHARE:.0%}), worst "
-              f"{worst:.3f} int8 levels beyond it (tol 1)")
+              f"{worst:.3f} int8 levels beyond it (tol 1); replay bit-equal")
         errs["attn_block_i8"] = max(errs["attn_block_i8"], err)
     errs["int8_conv"] = 0.0
     for shape in I8_CONV_SHAPES:
@@ -1828,6 +1842,7 @@ def phase_times(gen):
     rows.update(attn_fp32_time_rows(gen))
     rows.update(adm_time_rows(gen))
     rows.update(int8_time_rows(gen))
+    attn_block_splits(gen)
     rows.update(train_time_rows(gen))
     peaks = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS, "int8": INT8_OPS,
              "tf32x3": TF32X3_FLOPS}
@@ -2017,6 +2032,94 @@ def int8_time_rows(gen):
             ops={"int8": 2 * M * Cout * K, "fp32": 2 * M * Cin + 3 * M * Cout})
         del cols
     return rows
+
+
+# The launches of one K2 bf16 or K5 (bf16) call after K1's statistics, in
+# order, as (label, kernel name part, bytes, ops) given (B, S, C, nh) and
+# the GEMMs' operand size (2: bf16, 1: int8). Bytes: each input read once,
+# each output written once; the GEMMs' weights with their inputs.
+def attn_block_launches(B, S, C, nh, es):
+    M = B * S
+    core = ("core (K4)", "flash_fwd_kernel", 4 * M * C * 2,
+            {"bf16": 4 * B * S * S * C, "fp32": 5 * B * nh * S * S})
+    gemm = "int8" if es == 1 else "bf16"
+    qkv = ("qkv GEMM", "gemm_kernel", M * C * es + 3 * C * C * es + M * 3 * C * 2,
+           {gemm: 2 * M * C * 3 * C})
+    proj = ("proj GEMM", "gemm_kernel", M * C * es + C * C * es + 2 * M * C * 2,
+            {gemm: 2 * M * C * C})
+    if es == 2:
+        return [("GN apply", "prep_kernel", 2 * M * C * 2, {}), qkv, core,
+                proj]
+    return [("GN + quantise", "prep_kernel", M * C * 3, {}), qkv, core,
+            ("quantise", "prep_kernel", M * C * 3, {}), proj]
+
+
+def launch_split(fn, n_launches, reps=5):
+    """Device time of each launch of one ``fn`` call after K1's statistics,
+    averaged over the calls of ``reps`` whose launches the trace holds
+    (torch.profiler), and the statistics' total: (statistics ms, [(kernel,
+    ms) per launch]), or None when it holds no call whole."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    calls, cur = [], None
+    for e in evs:  # a call starts with K1's statistics kernels
+        stats = e.name.startswith("void (anonymous namespace)::gn_")
+        if stats and (cur is None or cur[1]):
+            cur = [[], []]
+            calls.append(cur)
+        if cur is not None:
+            cur[1 if cur[1] or not stats else 0].append(
+                (e.name, e.time_range.elapsed_us() / 1e3))
+    calls = [c for c in calls if len(c[1]) == n_launches]
+    if not calls:
+        return None
+    st = sum(sum(ms for _, ms in c[0]) for c in calls) / len(calls)
+    return st, [(calls[0][1][i][0],
+                 sum(c[1][i][1] for c in calls) / len(calls))
+                for i in range(n_launches)]
+
+
+def attn_block_splits(gen):
+    """T: K2 bf16 at the three ImageNet64 maps and K5 (bf16) at those and
+    LSUN's C = 1024 map, split by launch, each beside its bound."""
+    peaks = {"bf16": BF16_FLOPS, "int8": INT8_OPS, "fp32": FP32_FLOPS}
+    cases = [("K2 bf16", (B, S, C, nh), 2) for B, S, C, nh in ADM_ATTN_SHAPES]
+    cases += [("K5", sh[:4], 1) for sh in I8_ATTN_SHAPES[1:]]
+    for label, (B, S, C, nh), es in cases:
+        if es == 2:
+            a = attn_bf16_case(gen, B, S, C)
+            fn = lambda: attn_block(*a, num_heads=nh)  # noqa: E731
+        else:
+            a = attn_i8_case(gen, B, S, C, nh, torch.bfloat16)
+            fn = lambda: attn_block_int8(*a, nh)  # noqa: E731
+        parts = attn_block_launches(B, S, C, nh, es)
+        split = launch_split(fn, len(parts))
+        if split is None:
+            print(f"  T split {label} {(B, S, C, nh)}: not measured (the "
+                  "trace lost launches)")
+            continue
+        st, times = split
+        out = [f"statistics {st:.4f} (bound "
+               f"{B * S * C * 2 / HBM_BYTES_S * 1e3:.4f} bytes)"]
+        for (name, part, nbytes, ops), (kernel, ms) in zip(parts, times):
+            if part not in kernel:
+                raise AssertionError(f"{label}: launch {name} ran {kernel}")
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            t_ops = sum(v / peaks[k] for k, v in ops.items()) * 1e3
+            bound = max(t_bytes, t_ops)
+            out.append(f"{name} {ms:.4f} (bound {bound:.4f} "
+                       f"{'bytes' if t_bytes >= t_ops else 'ops'}; ops "
+                       f"{t_ops:.4f}, {bound / ms:.0%} of bound)")
+        print(f"  T split {label} {(B, S, C, nh)}, ms: " + " | ".join(out))
+        del a
 
 
 def phase_replay():

@@ -1,31 +1,56 @@
 // K2: the whole attention block, bf16 (the ADM nets' multi-head blocks):
 //   y = x + proj(attention(qkv(GroupNorm(x)))) on (B, S, C).
 // K2's fp32 form (dxmi_attn_block) runs on K7's tensor-core launches and
-// lives in attn_block_bb.cu; this file keeps the fp32 SIMT pieces that K6's
-// and K5's fp32 forms still call (launch_qkv_gemm, launch_attn_core_f32).
+// lives in attn_block_bb.cu; this file also keeps the pieces that K6 and
+// K5's fp32 form call: the mma.sync GEMM (hgemm_kernel: launch_qkv_gemm,
+// launch_hgemm) and the fp32 SIMT GEMM and attention core.
 //
 // Replaces: dxmi_tpu/ops/attn_block.py:_kernel (run by _pallas_forward with
 // bb=1, public entry fused_attn_block), the Pallas TPU kernel that holds a
 // whole (S, C) element, its q/k/v, the logits of 256-row q tiles and the
 // four weight matrices in ~16 MB of VMEM.
 //
+// Bound: operations on the bf16 tensor cores. At ImageNet64's 32x32 maps
+// (B=100, S=1024, C=384, nh=6) the block does 91 + 30 GFLOP of qkv and proj
+// products and 161 GFLOP of attention, 0.29 ms at 989 TFLOP/s, against 157
+// MB of input and output; the qkv GEMM alone 0.092 ms of operations against
+// 315 MB of h read and qkv written (0.094 ms at 3.35 TB/s), the proj GEMM
+// 0.031 ms against 157 MB of a, x and y (0.047 ms).
+//
 // Design: Hopper has 227 KB of shared memory per block, not 16 MB, so the
-// block is tiled into four launches, all hand-written, with the rounding of
-// the TPU kernel's bf16 body (attn_block.py:225-258). Bound: operations on
-// the bf16 tensor cores; at ImageNet64's 32x32 maps (B=100, S=1024, C=384,
-// nh=6) the block does 91 + 30 GFLOP of qkv and proj products and 161 GFLOP
-// of attention, 0.29 ms at 989 TFLOP/s, against 157 MB of input and output.
+// block runs as five launches, all hand-written, with the rounding of the
+// TPU kernel's bf16 body (attn_block.py:225-258):
 //   (a) K1's fp32 two-pass statistics of the bf16 x (groupnorm.cu);
-//   (b), (d) a tensor-core GEMM (128x128 block tiles of 8 warps, each 64x32
-//       with mma.sync m16n8k16 bf16, fp32 accumulators, ldmatrix, two
-//       shared stages, weights by cp.async) whose A loads apply h = x *
-//       (gn_scale * rstd) + (gn_bias - mean * gn_scale * rstd) in fp32 and
-//       round h to bf16 (b), or copy the attention output (d); their
-//       epilogues round the accumulator to bf16, add the bf16 bias in bf16,
-//       and scale q and k by the bf16 d^-1/4 in bf16 (b) or add the
-//       residual in bf16 (d);
-//   (c) K4's flash-attention kernel (flash_attn.cu) with sm_scale 1, reading
-//       q, k and v through the qkv buffer's row stride.
+//   (b) h = x * (gn_scale * rstd) + (gn_bias - mean * gn_scale * rstd) in
+//       fp32, rounded to bf16 once (exact: the TPU body rounds h to bf16
+//       before its product), written to the attention output's buffer,
+//       which is free until (d) (tma_gemm.cuh launch_prep);
+//   (c) the qkv GEMM, h W_qkv on wgmma with both operands by TMA and the
+//       output stored by TMA (tma_gemm.cuh): the accumulator rounded to
+//       bf16, the bf16 bias added in bf16, the q and k columns scaled by
+//       the bf16 d^-1/4 in bf16;
+//   (d) K4's flash-attention kernel (flash_attn.cu) with sm_scale 1,
+//       reading q, k and v through the qkv buffer's row stride;
+//   (e) the proj GEMM, the same kernel: rounded, the bias added, then the
+//       residual (by TMA) added in bf16.
+// The GroupNorm is applied once per element in (b), not once per N tile of
+// the qkv GEMM as the earlier mma.sync GEMM did when it normalised its
+// A loads (9, 14 or 18 times at 3C = 1152, 1728, 2304). That is design (a)
+// of the two considered, kept: it costs one read of x and one write of h
+// (0.0538 ms at the 32x32 maps, 87% of its bytes bound) and lets A reach
+// the GEMM by TMA; the other, normalising each A tile once into swizzled
+// shared memory inside a 256-wide N tile, would still do it 3C / 256 times
+// and keep A off TMA. Split by launch at the 32x32 maps (B=100, S=1024,
+// C=384, nh=6; chip_smoke.py phase T, NVIDIA H100 80GB HBM3, 700.00 W):
+// statistics 0.0615 ms, (b) 0.0538, (c) 0.2284 (bound 0.094 ms of bytes,
+// 0.092 of products), (d) 0.3802, (e) 0.0947 (bound 0.071 of bytes): 0.82
+// ms against 1.46 with the earlier GEMMs and the library's 1.55.
+//
+// K6 (attn_block_bwd.cu) keeps hgemm_kernel below: 128x128 block tiles of 8
+// warps on mma.sync m16n8k16, two shared stages by cp.async, in the layouts
+// its weight-gradient GEMMs need (A or B read transposed, k split over the
+// grid into fp32 slices), which the wgmma GEMM does not take; it is
+// redesigned with K6.
 // The fp32 SIMT pieces: a GEMM (128x128 tiles, 8x8 outputs per thread, two
 // shared-memory stages) computing qkv = h W_qkv + b_qkv with the q and k
 // columns scaled by d^-1/4 (attn_block.py:253-254), and a flash-style
@@ -34,7 +59,7 @@
 // of the output a thread).
 #include <math.h>
 
-#include "common.cuh"
+#include "tma_gemm.cuh"
 
 namespace {
 
@@ -257,36 +282,29 @@ attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S,
   }
 }
 
-enum Prologue { kPlainA = 0, kGroupNormA = 1 };
-enum Epilogue { kBiasScaleQK = 0, kBiasResidual = 1 };
-
-// ---- bf16 form: tensor-core GEMM C[M,N] = A[M,K] B[K,N] + epilogue -------
+// ---- K6's tensor-core GEMM C[M,N] = A[M,K] B[K,N] + epilogue ------------
 constexpr int HBM = 128, HBN = 128, HBK = 32, kHThreads = 256;
 constexpr int LDA = HBK + 8;  // bf16 per A row: 80 B, ldmatrix conflict-free
 constexpr int LDBH = HBN + 8;  // bf16 per B row: 272 B
-// the plain epilogues of K6's GEMMs (attn_block_bwd.cu)
-enum { kStoreF32 = 2, kStoreBF16 = 3 };
+// kBiasScaleQK: K6's forward recompute of qkv; the plain stores of its
+// weight GEMMs (attn_block_bwd.cu)
+enum Epilogue { kBiasScaleQK = 0, kStoreF32 = 2, kStoreBF16 = 3 };
 
 // A: (M, K) bf16 rows, or (K, M) when AT (A read transposed); Bm: (K, N)
-// bf16, or (N, K) when BT; Cm: (M, N) bf16, Cf: (M, N) fp32. PRO ==
-// kGroupNormA normalises A on load with per-(sample, channel) statistics;
-// EPI == kBiasScaleQK rounds, adds the bias and scales columns < qk_cols by
-// the bf16 qk_scale; EPI == kBiasResidual rounds, adds the bias, then
-// resid; kStoreF32 writes the fp32 sums to Cf, kStoreBF16 rounds them into
-// Cm. Block z of the grid sums k in [z k_chunk, (z + 1) k_chunk) and
-// writes at Cf + z M N (kStoreF32). A tile is loaded along its unit stride
-// and its fragments come from ldmatrix, with .trans where the stored
+// bf16, or (N, K) when BT; Cm: (M, N) bf16, Cf: (M, N) fp32. EPI ==
+// kBiasScaleQK rounds, adds the bias and scales columns < qk_cols by the
+// bf16 qk_scale; kStoreF32 writes the fp32 sums to Cf, kStoreBF16 rounds
+// them into Cm. Block z of the grid sums k in [z k_chunk, (z + 1) k_chunk)
+// and writes at Cf + z M N (kStoreF32). A tile is loaded along its unit
+// stride and its fragments come from ldmatrix, with .trans where the stored
 // layout is the fragment's transpose; the k order of the sums is the same
 // in every layout.
-template <int PRO, int EPI, bool AT = false, bool BT = false>
+template <int EPI, bool AT = false, bool BT = false>
 __global__ void __launch_bounds__(kHThreads)
 hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
              bf16* __restrict__ Cm, float* __restrict__ Cf, int M, int N,
              int K, int k_chunk, const bf16* __restrict__ bias,
-             const bf16* __restrict__ resid, float qk_scale, int qk_cols,
-             const float* __restrict__ mean_c,
-             const float* __restrict__ rstd_c, const float* __restrict__ gs,
-             const float* __restrict__ gb, int rows_per_sample) {
+             float qk_scale, int qk_cols) {
   // A stage: [m][k] rows LDA apart, or [k][m] rows LDBH apart (AT); B
   // stage: [k][n] rows LDBH apart, or [n][k] rows LDA apart (BT)
   constexpr int AST = AT ? HBK * LDBH : HBM * LDA;
@@ -308,9 +326,8 @@ hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
     r16[u] = idx >> 4;
     c16[u] = (idx & 15) * 8;
   }
-  uint4 ra[2];
 
-  auto copy_b_async = [&](int k0, int st) {
+  auto copy_async = [&](int k0, int st) {
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       if constexpr (BT) {
@@ -325,60 +342,21 @@ hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
                    ok ? 16 : 0);
       }
     }
-    if (PRO != kGroupNormA) {
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        if constexpr (AT) {
-          const bool ok = m0 + c16[u] < M;
-          const bf16* src =
-              ok ? A + (size_t)(k0 + r16[u]) * M + m0 + c16[u] : A;
-          cp_async16(smem_u32(&As[st][r16[u] * LDBH + c16[u]]), src,
-                     ok ? 16 : 0);
-        } else {
-          const int m = m0 + r4[u];
-          const bool ok = m < M;
-          const bf16* src = ok ? A + (size_t)m * K + k0 + c4[u] : A;
-          cp_async16(smem_u32(&As[st][r4[u] * LDA + c4[u]]), src,
-                     ok ? 16 : 0);
-        }
+    for (int u = 0; u < 2; ++u) {
+      if constexpr (AT) {
+        const bool ok = m0 + c16[u] < M;
+        const bf16* src = ok ? A + (size_t)(k0 + r16[u]) * M + m0 + c16[u] : A;
+        cp_async16(smem_u32(&As[st][r16[u] * LDBH + c16[u]]), src,
+                   ok ? 16 : 0);
+      } else {
+        const int m = m0 + r4[u];
+        const bool ok = m < M;
+        const bf16* src = ok ? A + (size_t)m * K + k0 + c4[u] : A;
+        cp_async16(smem_u32(&As[st][r4[u] * LDA + c4[u]]), src, ok ? 16 : 0);
       }
     }
     cp_async_commit();
-  };
-  auto load_a = [&](int k0) {  // GN path (A not transposed): global -> registers
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int m = m0 + r4[u];
-      ra[u] = m < M ? __ldg(reinterpret_cast<const uint4*>(
-                          A + (size_t)m * K + k0 + c4[u]))
-                    : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-  auto store_a = [&](int k0, int st) {  // GN path: normalise, round, store
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int m = m0 + r4[u];
-      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M) {
-        const bf16* xv = reinterpret_cast<const bf16*>(&ra[u]);
-        unsigned* out = reinterpret_cast<unsigned*>(&packed);
-        const int k = k0 + c4[u];
-        const size_t bk = (size_t)(m / rows_per_sample) * K + k;
-#pragma unroll
-        for (int j = 0; j < 8; j += 2) {
-          float hv[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float sc = __fmul_rn(gs[k + j + e], rstd_c[bk + j + e]);
-            const float sh = __fsub_rn(gb[k + j + e],
-                                       __fmul_rn(mean_c[bk + j + e], sc));
-            hv[e] = __fadd_rn(__fmul_rn(__bfloat162float(xv[j + e]), sc), sh);
-          }
-          out[j / 2] = pack_bf16(hv[0], hv[1]);
-        }
-      }
-      *reinterpret_cast<uint4*>(&As[st][r4[u] * LDA + c4[u]]) = packed;
-    }
   };
 
   float acc[4][4][4];
@@ -389,11 +367,7 @@ hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  copy_b_async(kb, 0);
-  if (PRO == kGroupNormA) {
-    load_a(kb);
-    store_a(kb, 0);
-  }
+  copy_async(kb, 0);
   cp_async_wait<0>();
   __syncthreads();
 
@@ -401,11 +375,8 @@ hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
   for (int kt = 0; kt < n_k; ++kt) {
     const int st = kt & 1;
     const bool more = kt + 1 < n_k;
-    const int k_next = kb + (kt + 1) * HBK;
-    if (more) {  // stage st^1 was last read before the last barrier
-      copy_b_async(k_next, st ^ 1);
-      if (PRO == kGroupNormA) load_a(k_next);
-    }
+    // stage st^1 was last read before the last barrier
+    if (more) copy_async(kb + (kt + 1) * HBK, st ^ 1);
 #pragma unroll
     for (int kk = 0; kk < HBK; kk += 16) {
       unsigned a[4][4], b[4][2];
@@ -443,10 +414,7 @@ hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
 #pragma unroll
         for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
     }
-    if (more) {
-      if (PRO == kGroupNormA) store_a(k_next, st ^ 1);
-      cp_async_wait<0>();
-    }
+    if (more) cp_async_wait<0>();
     __syncthreads();
   }
 
@@ -473,14 +441,8 @@ hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
           float v[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            float u = rb(rb(acc[i][j][2 * half + e]) +
-                         __bfloat162float(bias[n + e]));
-            if (EPI == kBiasScaleQK) {
-              if (n + e < qk_cols) u = rb(u * qk_scale);
-            } else {
-              u = rb(__bfloat162float(resid[(size_t)m * N + n + e]) + u);
-            }
-            v[e] = u;
+            v[e] = rb(rb(c[e]) + __bfloat162float(bias[n + e]));
+            if (n + e < qk_cols) v[e] = rb(v[e] * qk_scale);
           }
           *reinterpret_cast<unsigned*>(Cm + (size_t)m * N + n) =
               pack_bf16(v[0], v[1]);
@@ -489,6 +451,35 @@ hgemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
     }
   }
 }
+
+// The epilogue of K2's wgmma GEMMs, in the TPU body's roundings, a
+// pair of columns n, n + 1 of one row: v = bf16(bf16(acc) + bias); then
+// the q and k columns (n < qk_cols) bf16(v qk_scale) (qkv), or
+// bf16(resid + v) (proj, resid); returned packed. Its roundings are paired
+// conversions (rb2); a column's parameter is its bias.
+struct BlockEpi {
+  const bf16* bias;
+  float qk_scale;
+  int qk_cols;
+  bool resid;
+  __device__ __forceinline__ float2 col(int n) const {
+    return make_float2(__bfloat162float(bias[n]), 0.f);
+  }
+  __device__ __forceinline__ unsigned operator()(int n, float2 c0, float2 c1,
+                                                 float v0, float v1,
+                                                 unsigned r) const {
+    rb2(v0, v1);
+    v0 += c0.x;
+    v1 += c1.x;
+    const unsigned u = rb2(v0, v1);
+    if (resid)
+      return pack_bf16(__uint_as_float(r << 16) + v0,
+                       __uint_as_float(r & 0xffff0000u) + v1);
+    // n even and qk_cols a multiple of 8: both columns on the same side
+    if (n < qk_cols) return pack_bf16(v0 * qk_scale, v1 * qk_scale);
+    return u;
+  }
+};
 
 }  // namespace
 
@@ -507,9 +498,8 @@ cudaError_t launch_qkv_gemm(const bf16* h, const bf16* w, const bf16* b,
                             cudaStream_t s) {
   if (C % HBK) return cudaErrorInvalidValue;
   dim3 g((3 * C + HBN - 1) / HBN, (M + HBM - 1) / HBM);
-  hgemm_kernel<kPlainA, kBiasScaleQK><<<g, kHThreads, 0, s>>>(
-      h, w, qkv, nullptr, M, 3 * C, C, C, b, nullptr, qk_scale, 2 * C,
-      nullptr, nullptr, nullptr, nullptr, 1);
+  hgemm_kernel<kBiasScaleQK><<<g, kHThreads, 0, s>>>(
+      h, w, qkv, nullptr, M, 3 * C, C, C, b, qk_scale, 2 * C);
   return cudaGetLastError();
 }
 
@@ -522,17 +512,14 @@ cudaError_t launch_hgemm(const bf16* A, const bf16* B, float* c_f, bf16* c_t,
   const dim3 g((N + HBN - 1) / HBN, (M + HBM - 1) / HBM,
                (K + k_chunk - 1) / k_chunk);
   if (!a_trans && b_trans && c_f != nullptr)
-    hgemm_kernel<kPlainA, kStoreF32, false, true><<<g, kHThreads, 0, s>>>(
-        A, B, nullptr, c_f, M, N, K, k_chunk, nullptr, nullptr, 1.f, 0,
-        nullptr, nullptr, nullptr, nullptr, 1);
+    hgemm_kernel<kStoreF32, false, true><<<g, kHThreads, 0, s>>>(
+        A, B, nullptr, c_f, M, N, K, k_chunk, nullptr, 1.f, 0);
   else if (!a_trans && b_trans)
-    hgemm_kernel<kPlainA, kStoreBF16, false, true><<<g, kHThreads, 0, s>>>(
-        A, B, c_t, nullptr, M, N, K, k_chunk, nullptr, nullptr, 1.f, 0,
-        nullptr, nullptr, nullptr, nullptr, 1);
+    hgemm_kernel<kStoreBF16, false, true><<<g, kHThreads, 0, s>>>(
+        A, B, c_t, nullptr, M, N, K, k_chunk, nullptr, 1.f, 0);
   else if (a_trans && !b_trans && c_f != nullptr)
-    hgemm_kernel<kPlainA, kStoreF32, true, false><<<g, kHThreads, 0, s>>>(
-        A, B, nullptr, c_f, M, N, K, k_chunk, nullptr, nullptr, 1.f, 0,
-        nullptr, nullptr, nullptr, nullptr, 1);
+    hgemm_kernel<kStoreF32, true, false><<<g, kHThreads, 0, s>>>(
+        A, B, nullptr, c_f, M, N, K, k_chunk, nullptr, 1.f, 0);
   else
     return cudaErrorInvalidValue;  // a layout K6 does not use
   return cudaGetLastError();
@@ -552,9 +539,9 @@ cudaError_t launch_attn_core_f32(const float* qkv, float* out, int B, int S,
 
 // bf16 x, y: (B, S, C); w_qkv: (C, 3C) with [3, nh, d] output columns, b_qkv
 // (3C,), w_proj (C, C), b_proj (C,) bf16; gs, gb fp32; mean_c/rstd_c: (B, C)
-// fp32 scratch; qkv: (B, S, 3C) and attn: (B, S, C) bf16 scratch. Needs
-// S % 64 == 0, C % 32 == 0, C / G <= 64 and d = C/nh with d % 8 == 0 and
-// d <= 128.
+// fp32 scratch; qkv: (B, S, 3C) and attn: (B, S, C) bf16 scratch (attn holds
+// h until the attention core writes it). Needs S % 64 == 0, C % 32 == 0,
+// C / G <= 64 and d = C/nh with d % 8 == 0 and d <= 128.
 extern "C" int dxmi_attn_block_bf16(const void* x, const float* gs,
                                     const float* gb, const void* w_qkv,
                                     const void* b_qkv, const void* w_proj,
@@ -566,31 +553,26 @@ extern "C" int dxmi_attn_block_bf16(const void* x, const float* gs,
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* qkvb = static_cast<bf16*>(qkv);
   bf16* attnb = static_cast<bf16*>(attn);
-  if (C % HBK) return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      launch_gn_stats_bf16(xb, mean_c, rstd_c, B, S, C, G, eps, 0, s);
-  if (err != cudaSuccess) return (int)err;
-
+  if (C % 32) return (int)cudaErrorInvalidValue;
   const int M = B * S, d = C / nh;
   // the TPU body scales by jnp.asarray(d ** -0.25, bf16)
   const float qk_scale =
       __bfloat162float(__float2bfloat16_rn((float)(1.0 / sqrt(sqrt((double)d)))));
-  dim3 g_qkv((3 * C + HBN - 1) / HBN, (M + HBM - 1) / HBM);
-  hgemm_kernel<kGroupNormA, kBiasScaleQK><<<g_qkv, kHThreads, 0, s>>>(
-      xb, static_cast<const bf16*>(w_qkv), qkvb, nullptr, M, 3 * C, C, C,
-      static_cast<const bf16*>(b_qkv), nullptr, qk_scale, 2 * C, mean_c,
-      rstd_c, gs, gb, S);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  err = launch_flash_attn(qkvb, qkvb + C, qkvb + 2 * C, attnb, nullptr, B, S,
-                          nh, d, 3 * C, C, 1.f, s);
-  if (err != cudaSuccess) return (int)err;
-
-  dim3 g_proj((C + HBN - 1) / HBN, (M + HBM - 1) / HBM);
-  hgemm_kernel<kPlainA, kBiasResidual><<<g_proj, kHThreads, 0, s>>>(
-      attnb, static_cast<const bf16*>(w_proj), static_cast<bf16*>(y), nullptr,
-      M, C, C, C, static_cast<const bf16*>(b_proj), xb, 1.f, 0, nullptr,
-      nullptr, nullptr, nullptr, S);
-  return (int)cudaGetLastError();
+  cudaError_t err =
+      launch_gn_stats_bf16(xb, mean_c, rstd_c, B, S, C, G, eps, 0, s);
+  if (err == cudaSuccess)
+    err = tma_gemm::launch_prep<true, false>(xb, attnb, mean_c, rstd_c, gs,
+                                             gb, nullptr, B, S, C, s);
+  if (err == cudaSuccess)
+    err = tma_gemm::launch<false>(
+        attnb, w_qkv, qkvb, nullptr, M, 3 * C, C,
+        BlockEpi{static_cast<const bf16*>(b_qkv), qk_scale, 2 * C, false}, s);
+  if (err == cudaSuccess)
+    err = launch_flash_attn(qkvb, qkvb + C, qkvb + 2 * C, attnb, nullptr, B,
+                            S, nh, d, 3 * C, C, 1.f, s);
+  if (err == cudaSuccess)
+    err = tma_gemm::launch<false>(
+        attnb, w_proj, y, xb, M, C, C,
+        BlockEpi{static_cast<const bf16*>(b_proj), 1.f, 0, true}, s);
+  return (int)err;
 }

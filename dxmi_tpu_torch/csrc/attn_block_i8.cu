@@ -16,33 +16,44 @@
 // Bound on the H100: operations. At ImageNet64's 32x32 maps (B=100, S=1024,
 // C=384, nh=6) the qkv and proj products are 121 G int8 operations (0.061
 // ms at 1,979 TOPS) and the bf16 attention core 161 GFLOP (0.163 ms at 989
-// TFLOP/s), against 157 MB of bf16 input and output.
+// TFLOP/s), against 157 MB of bf16 input and output. Alone, the qkv GEMM is
+// bounded by its bytes: 275 MB of int8 h read and bf16 qkv written (0.082
+// ms at 3.35 TB/s) against 0.046 ms of products; the proj GEMM 197 MB
+// (0.059 ms) against 0.015 ms.
 //
-// Design: the four launches of K2 (attn_block.cu), since Hopper's 227 KB of
-// shared memory per block cannot hold the TPU body's VMEM working set:
+// Design, bf16 form (the ImageNet64 and LSUN main paths): six launches,
+// since Hopper's 227 KB of shared memory per block cannot hold the TPU
+// body's VMEM working set:
 //   (a) K1's per-(sample, group) statistics, two-pass fp32, per channel;
-//   (b) an int8 tensor-core GEMM (128x128 block tiles of 8 warps, each
-//       64x32 with mma.sync m16n8k32 s8 -> s32, ldmatrix, two shared stages,
-//       weights by cp.async) whose A loads apply GN in fp32 and quantise to
-//       s8 in shared memory, so h never reaches device memory; its epilogue
-//       dequantises, adds the fp32 bias, rounds to the compute dtype and
-//       scales the q and k columns by the rounded d^-1/4 (rounded again);
-//   (c) the attention core of K2: K4's flash kernel with sm_scale 1 in bf16
-//       (it reads q, k and v through the qkv buffer's row stride), K2's fp32
-//       core in fp32;
-//   (d) the same GEMM for proj, quantising the attention output while
-//       loading, with the residual added in the compute dtype in its
-//       epilogue.
-// Every rounding step is explicit (__fmul_rn, __fadd_rn, rintf), so no
-// fused multiply-add moves a rounding against the plain version; the int8
-// products are exact, so the two differ only by the order of the GN sums and
-// the attention core's arithmetic, and the int8 rounding flips those cause.
-// The qkv and attention-output intermediates go through device memory (the
-// TPU kernel keeps them in VMEM).
+//   (b) h quantised once, straight from fp32, into int8 (tma_gemm.cuh
+//       launch_prep), written to the attention output's buffer, which is
+//       free until (d);
+//   (c) the qkv GEMM on wgmma m64nNk32 s8 -> s32 with both operands K-major
+//       by TMA (tma_gemm.cuh; int8 wgmma takes no transpose, and wq is
+//       (3C, C) output-major): the epilogue dequantises, adds the fp32 bias,
+//       rounds to bf16 and scales the q and k columns by the rounded d^-1/4
+//       (rounded again);
+//   (d) K4's flash kernel with sm_scale 1 (it reads q, k and v through the
+//       qkv buffer's row stride);
+//   (e) the attention output quantised with isa_p into the qkv buffer, free
+//       once (d) is done;
+//   (f) the proj GEMM, the same kernel, with the residual added in bf16.
+// The earlier design quantised A in the GEMM's loads, once per 128-wide N
+// tile (9, 14 or 18 times at 3C = 1152, 1728, 2304); (b) and (e) quantise
+// each element once (design (a) of the two considered, as in attn_block.cu)
+// and write int8, half the bytes of the bf16 they read. Split by launch at
+// the 32x32 maps (chip_smoke.py phase T, NVIDIA H100 80GB HBM3, 700.00 W):
+// statistics 0.0620 ms, (b) 0.0543, (c) 0.1550, (d) 0.3815, (e) 0.0425,
+// (f) 0.0780 (those of the earlier design, 1.64 ms in all, were not
+// split): 0.77 ms. The fp32 form (the trained ADM fixture's 8x8 maps, on no
+// main path) keeps the earlier design: K2's fp32 SIMT attention core and
+// an int8 mma.sync GEMM (128x128 tiles of 8 warps, m16n8k32 s8, two shared
+// stages) that quantises its A loads, which the TMA GEMM cannot do for an
+// fp32 A.
 #include <math.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "tma_gemm.cuh"
 
 namespace {
 
@@ -52,28 +63,18 @@ constexpr int LDR = IBK + 16;  // bytes per shared row: 48, ldmatrix conflict-fr
 enum Prologue { kGroupNormA = 0, kPlainA = 1 };
 enum Epilogue { kBiasScaleQK = 0, kBiasResidual = 1 };
 
-// round to the compute dtype and back (to_f is common.cuh's)
-__device__ __forceinline__ float round_to(float v, float) { return v; }
-__device__ __forceinline__ float round_to(float v, bf16) { return rb(v); }
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<unsigned*>(p) = pack_bf16(a, b);
-}
-
-// C[M, N] = epilogue(quant(A)[M, K] W^T): A (M, K) in T, rows of sample
-// m / rows_per_sample; W (N, K) int8; ws, bias (N,) fp32; isa (K,) fp32.
-// kGroupNormA quantises (a * (gs * rstd) + (gb - mean * gs * rstd)) * isa,
-// kPlainA quantises a * isa. kBiasScaleQK: c = T(acc * ws + bias), then
-// T(c * qk_scale) for n < qk_cols; kBiasResidual: T(resid + T(acc * ws +
-// bias)).
-template <typename T, int PRO, int EPI>
+// The fp32 form's GEMM: C[M, N] = epilogue(quant(A)[M, K] W^T): A (M, K)
+// fp32, rows of sample m / rows_per_sample; W (N, K) int8; ws, bias (N,)
+// fp32; isa (K,) fp32. kGroupNormA quantises (a * (gs * rstd) + (gb - mean *
+// gs * rstd)) * isa, kPlainA quantises a * isa. kBiasScaleQK: c = acc * ws +
+// bias, then c * qk_scale for n < qk_cols; kBiasResidual: resid + (acc * ws
+// + bias).
+template <int PRO, int EPI>
 __global__ void __launch_bounds__(kIThreads)
-igemm_kernel(const T* __restrict__ A, const int8_t* __restrict__ Wt,
-             T* __restrict__ Cm, int M, int N, int K,
+igemm_kernel(const float* __restrict__ A, const int8_t* __restrict__ Wt,
+             float* __restrict__ Cm, int M, int N, int K,
              const float* __restrict__ isa, const float* __restrict__ ws,
-             const float* __restrict__ bias, const T* __restrict__ resid,
+             const float* __restrict__ bias, const float* __restrict__ resid,
              float qk_scale, int qk_cols, const float* __restrict__ mean_c,
              const float* __restrict__ rstd_c, const float* __restrict__ gs,
              const float* __restrict__ gb, int rows_per_sample) {
@@ -181,7 +182,6 @@ igemm_kernel(const T* __restrict__ A, const int8_t* __restrict__ Wt,
   }
 
   const int g = lane >> 2, t = lane & 3;
-  const T tag{};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -195,68 +195,107 @@ igemm_kernel(const T* __restrict__ A, const int8_t* __restrict__ Wt,
         float v[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float u = round_to(
-              __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * half + e]),
-                                  ws[n + e]),
-                        bias[n + e]),
-              tag);
+          float u = __fadd_rn(
+              __fmul_rn(__int2float_rn(acc[i][j][2 * half + e]), ws[n + e]),
+              bias[n + e]);
           if (EPI == kBiasScaleQK) {
-            if (n + e < qk_cols) u = round_to(__fmul_rn(u, qk_scale), tag);
+            if (n + e < qk_cols) u = __fmul_rn(u, qk_scale);
           } else {
-            u = round_to(__fadd_rn(to_f(resid[(size_t)m * N + n + e]), u), tag);
+            u = __fadd_rn(resid[(size_t)m * N + n + e], u);
           }
           v[e] = u;
         }
-        store2(Cm + (size_t)m * N + n, v[0], v[1]);
+        *reinterpret_cast<float2*>(Cm + (size_t)m * N + n) =
+            make_float2(v[0], v[1]);
       }
     }
   }
 }
 
-template <typename T>
-cudaError_t stats(const T* x, float* mean_c, float* rstd_c, int B, int S,
-                  int C, int G, float eps, cudaStream_t s);
-template <>
-cudaError_t stats(const float* x, float* mean_c, float* rstd_c, int B, int S,
-                  int C, int G, float eps, cudaStream_t s) {
-  return launch_gn_stats(x, mean_c, rstd_c, B, S, C, G, eps, s);
-}
-template <>
-cudaError_t stats(const bf16* x, float* mean_c, float* rstd_c, int B, int S,
-                  int C, int G, float eps, cudaStream_t s) {
-  return launch_gn_stats_bf16(x, mean_c, rstd_c, B, S, C, G, eps, 0, s);
+// The epilogue of the bf16 form's wgmma GEMMs, a pair of columns n, n + 1
+// of one row: v = bf16(acc * ws + bias) in fp32, each operation rounded;
+// then the q and k columns (n < qk_cols) bf16(v qk_scale) (qkv), or
+// bf16(resid + v) (proj, resid); returned packed. Its roundings are paired
+// conversions (rb2); a column's parameters are (ws, bias).
+struct I8Epi {
+  const float* ws;
+  const float* bias;
+  float qk_scale;
+  int qk_cols;
+  bool resid;
+  __device__ __forceinline__ float2 col(int n) const {
+    return make_float2(ws[n], bias[n]);
+  }
+  __device__ __forceinline__ unsigned operator()(int n, float2 c0, float2 c1,
+                                                 int a0, int a1,
+                                                 unsigned r) const {
+    float v0 = __fadd_rn(__fmul_rn(__int2float_rn(a0), c0.x), c0.y);
+    float v1 = __fadd_rn(__fmul_rn(__int2float_rn(a1), c1.x), c1.y);
+    const unsigned u = rb2(v0, v1);
+    if (resid)
+      return pack_bf16(__fadd_rn(__uint_as_float(r << 16), v0),
+                       __fadd_rn(__uint_as_float(r & 0xffff0000u), v1));
+    // n even and qk_cols a multiple of 8: both columns on the same side
+    if (n < qk_cols)
+      return pack_bf16(__fmul_rn(v0, qk_scale), __fmul_rn(v1, qk_scale));
+    return u;
+  }
+};
+
+cudaError_t run_bf16(const bf16* x, const float* gs, const float* gb,
+                     const int8_t* wq, const float* swq, const float* isa_q,
+                     const float* bq, const int8_t* wp, const float* swp,
+                     const float* isa_p, const float* bp, bf16* y,
+                     float* mean_c, float* rstd_c, bf16* qkv, bf16* attn,
+                     int B, int S, int C, int nh, int G, float eps,
+                     float qk_scale, cudaStream_t s) {
+  const int M = B * S;
+  // int8 h in the attention output's buffer, the int8 attention output in
+  // the qkv buffer: each is free while it is used so
+  int8_t* h_i8 = reinterpret_cast<int8_t*>(attn);
+  int8_t* a_i8 = reinterpret_cast<int8_t*>(qkv);
+  cudaError_t err =
+      launch_gn_stats_bf16(x, mean_c, rstd_c, B, S, C, G, eps, 0, s);
+  if (err == cudaSuccess)
+    err = tma_gemm::launch_prep<true, true>(x, h_i8, mean_c, rstd_c, gs, gb,
+                                            isa_q, B, S, C, s);
+  if (err == cudaSuccess)
+    err = tma_gemm::launch<true>(h_i8, wq, qkv, nullptr, M, 3 * C, C,
+                                 I8Epi{swq, bq, qk_scale, 2 * C, false}, s);
+  if (err == cudaSuccess)
+    err = launch_flash_attn(qkv, qkv + C, qkv + 2 * C, attn, nullptr, B, S,
+                            nh, C / nh, 3 * C, C, 1.f, s);
+  if (err == cudaSuccess)
+    err = tma_gemm::launch_prep<false, true>(attn, a_i8, nullptr, nullptr,
+                                             nullptr, nullptr, isa_p, B, S, C,
+                                             s);
+  if (err == cudaSuccess)
+    err = tma_gemm::launch<true>(a_i8, wp, y, x, M, C, C,
+                                 I8Epi{swp, bp, 1.f, 0, true}, s);
+  return err;
 }
 
-cudaError_t core(const float* qkv, float* attn, int B, int S, int C, int nh,
-                 cudaStream_t s) {
-  return launch_attn_core_f32(qkv, attn, B, S, C, nh, s);
-}
-cudaError_t core(const bf16* qkv, bf16* attn, int B, int S, int C, int nh,
-                 cudaStream_t s) {
-  return launch_flash_attn(qkv, qkv + C, qkv + 2 * C, attn, nullptr, B, S,
-                           nh, C / nh, 3 * C, C, 1.f, s);
-}
-
-template <typename T>
-cudaError_t run(const T* x, const float* gs, const float* gb,
-                const int8_t* wq, const float* swq, const float* isa_q,
-                const float* bq, const int8_t* wp, const float* swp,
-                const float* isa_p, const float* bp, T* y, float* mean_c,
-                float* rstd_c, T* qkv, T* attn, int B, int S, int C, int nh,
-                int G, float eps, float qk_scale, cudaStream_t s) {
-  cudaError_t err = stats(x, mean_c, rstd_c, B, S, C, G, eps, s);
+cudaError_t run_f32(const float* x, const float* gs, const float* gb,
+                    const int8_t* wq, const float* swq, const float* isa_q,
+                    const float* bq, const int8_t* wp, const float* swp,
+                    const float* isa_p, const float* bp, float* y,
+                    float* mean_c, float* rstd_c, float* qkv, float* attn,
+                    int B, int S, int C, int nh, int G, float eps,
+                    float qk_scale, cudaStream_t s) {
+  if (C % IBK) return cudaErrorInvalidValue;
+  cudaError_t err = launch_gn_stats(x, mean_c, rstd_c, B, S, C, G, eps, s);
   if (err != cudaSuccess) return err;
   const int M = B * S;
   dim3 g_qkv((3 * C + IBN - 1) / IBN, (M + IBM - 1) / IBM);
-  igemm_kernel<T, kGroupNormA, kBiasScaleQK><<<g_qkv, kIThreads, 0, s>>>(
+  igemm_kernel<kGroupNormA, kBiasScaleQK><<<g_qkv, kIThreads, 0, s>>>(
       x, wq, qkv, M, 3 * C, C, isa_q, swq, bq, nullptr, qk_scale, 2 * C,
       mean_c, rstd_c, gs, gb, S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = core(qkv, attn, B, S, C, nh, s);
+  err = launch_attn_core_f32(qkv, attn, B, S, C, nh, s);
   if (err != cudaSuccess) return err;
   dim3 g_proj((C + IBN - 1) / IBN, (M + IBM - 1) / IBM);
-  igemm_kernel<T, kPlainA, kBiasResidual><<<g_proj, kIThreads, 0, s>>>(
+  igemm_kernel<kPlainA, kBiasResidual><<<g_proj, kIThreads, 0, s>>>(
       attn, wp, y, M, C, C, isa_p, swp, bp, x, 1.f, 0, nullptr, nullptr,
       nullptr, nullptr, S);
   return cudaGetLastError();
@@ -281,7 +320,7 @@ extern "C" int dxmi_attn_block_i8(const void* x, int is_bf16, const float* gs,
                                   float* rstd_c, void* qkv, void* attn, int B,
                                   int S, int C, int nh, int G, float eps,
                                   void* stream) {
-  if (C % IBK || S % 64 || C % nh) return (int)cudaErrorInvalidValue;
+  if (C % 32 || S % 64 || C % nh) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int d = C / nh;
   const double scale = 1.0 / sqrt(sqrt((double)d));
@@ -290,13 +329,14 @@ extern "C" int dxmi_attn_block_i8(const void* x, int is_bf16, const float* gs,
   if (is_bf16) {
     // the TPU body scales by jnp.asarray(d ** -0.25, bf16)
     const float qk = __bfloat162float(__float2bfloat16_rn((float)scale));
-    return (int)run(static_cast<const bf16*>(x), gs, gb, wqi, swq, isa_q, bq,
-                    wpi, swp, isa_p, bp, static_cast<bf16*>(y), mean_c,
-                    rstd_c, static_cast<bf16*>(qkv), static_cast<bf16*>(attn),
-                    B, S, C, nh, G, eps, qk, s);
+    return (int)run_bf16(static_cast<const bf16*>(x), gs, gb, wqi, swq, isa_q,
+                         bq, wpi, swp, isa_p, bp, static_cast<bf16*>(y),
+                         mean_c, rstd_c, static_cast<bf16*>(qkv),
+                         static_cast<bf16*>(attn), B, S, C, nh, G, eps, qk, s);
   }
-  return (int)run(static_cast<const float*>(x), gs, gb, wqi, swq, isa_q, bq,
-                  wpi, swp, isa_p, bp, static_cast<float*>(y), mean_c, rstd_c,
-                  static_cast<float*>(qkv), static_cast<float*>(attn), B, S,
-                  C, nh, G, eps, (float)scale, s);
+  return (int)run_f32(static_cast<const float*>(x), gs, gb, wqi, swq, isa_q,
+                      bq, wpi, swp, isa_p, bp, static_cast<float*>(y), mean_c,
+                      rstd_c, static_cast<float*>(qkv),
+                      static_cast<float*>(attn), B, S, C, nh, G, eps,
+                      (float)scale, s);
 }

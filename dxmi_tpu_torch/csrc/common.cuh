@@ -4,13 +4,13 @@
 // from, the element helpers that K7 (attn_block_bb.cu) uses too, K1's apply
 // launch that K6 reuses, the affine and SiLU they apply, bf16 rounding,
 // int8 quantisation, the tensor-core helpers (ldmatrix, mma.sync m16n8k16
-// bf16 and m16n8k32 s8, cp.async) of K2-K7 and K8, the wgmma helpers of K4
-// and K8, K2's tensor-core GEMM that K6 reuses in other layouts, the
-// attention cores that K2 and K5 share (the flash-attention launch,
-// flash_attn.cu, K4's kernel, and the fp32 SIMT core of K5's fp32 form,
-// attn_block.cu), and the attention backward that K4-dkv, K4-dq and K6
-// share: its launches (flash_attn_bwd.cu) and the tile loads and dot
-// products of their kernels.
+// bf16 and m16n8k32 s8, cp.async) of K3-K7 and K8, the wgmma helpers of K4,
+// K8 and the GEMMs of K2 bf16 and K5 (tma_gemm.cuh), K6's mma.sync GEMM
+// (attn_block.cu), the attention cores that K2 and K5 share (the
+// flash-attention launch, flash_attn.cu, K4's kernel, and the fp32 SIMT
+// core of K5's fp32 form, attn_block.cu), and the attention backward that
+// K4-dkv, K4-dq and K6 share: its launches (flash_attn_bwd.cu) and the tile
+// loads and dot products of their kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -73,7 +73,7 @@ cudaError_t launch_attn_core_f32(const float* qkv, float* out, int B, int S,
 
 // qkv = h W_qkv + b_qkv with the q and k columns (the first 2C) scaled by
 // qk_scale on an already normalised h (M, C), rounded as K2 rounds in each
-// dtype (fp32: a SIMT GEMM; bf16: K2's tensor-core GEMM). K6 recomputes the
+// dtype (fp32: a SIMT GEMM; bf16: K6's mma.sync GEMM). K6 recomputes the
 // forward with it. Needs C % 32 == 0. Defined in attn_block.cu.
 cudaError_t launch_qkv_gemm(const float* h, const float* w, const float* b,
                             float* qkv, int M, int C, float qk_scale,
@@ -118,7 +118,7 @@ template <typename T>
 cudaError_t launch_attn_bwd_dq(const AttnBwdArgs<T>& a, int B,
                                cudaStream_t stream);
 
-// C = op(A) op(B) on the tensor cores (K2's bf16 GEMM, attn_block.cu), bf16
+// C = op(A) op(B) on the tensor cores (K6's mma.sync GEMM, attn_block.cu), bf16
 // operands and fp32 sums: A (M, K) rows, or (K, M) when a_trans; B (K, N)
 // rows, or (N, K) when b_trans. The K rows are taken in slices of k_chunk,
 // slice z written at c_f + z M N; the sums go to c_f in fp32, or to c_t
@@ -152,6 +152,15 @@ __device__ __forceinline__ float rb(float x) {
 __device__ __forceinline__ unsigned int pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned int*>(&v);
+}
+
+// lo and hi rounded to bf16 and back with one paired conversion (the
+// single conversions run at a quarter of the rate); returns them packed
+__device__ __forceinline__ unsigned rb2(float& lo, float& hi) {
+  const unsigned u = pack_bf16(lo, hi);
+  lo = __uint_as_float(u << 16);
+  hi = __uint_as_float(u & 0xffff0000u);
+  return u;
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -256,7 +265,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// ---- wgmma (K4, K8) ------------------------------------------------------
+// ---- wgmma (K4, K8, tma_gemm.cuh) ------------------------------------
 // A wgmma matrix descriptor: start address, lbo and sbo in bytes, and the
 // swizzle (0: none, 1: 128-byte, 2: 64-byte). Without swizzle the operand
 // is K-major core matrices of 8 rows x 16 bytes, stored as 128 contiguous

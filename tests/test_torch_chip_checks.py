@@ -5,9 +5,13 @@ chip_smoke.attn_bwd_check for K6), held on the CPU against replicas of the
 kernels' arithmetic: each check passes a replica that sums in another order
 (K2: float64 sums; K4: the
 kernel's online softmax over 64-key tiles, p rounded before it is
-normalised; K5: float64 GN statistics and K4's core or a float64 one) and
-fails the same replica with a fault planted (a dropped 64-key tile, a q/k
-scale a few percent off, uniform attention weights; for K4's wgmma kernel
+normalised; K5: float64 GN statistics and K4's core or a float64 one; K2
+also the wgmma GEMMs' sums over 64-wide k-blocks) and fails the same
+replica with a fault planted (a dropped 64-key tile, a q/k scale a few
+percent off, uniform attention weights; for the wgmma GEMMs of K2 bf16 and
+K5 a 64-wide k-block of the qkv or proj product dropped, two 16-byte chunks
+of every A row swapped, the q/k scale missing on one head; for K4's wgmma
+kernel
 also a dropped 128-key tile, one consumer warpgroup's 64 rows left out and
 p normalised by the running sum; for K5 the neighbouring
 column's dequantisation scale and a missing clip; for the backward kernels
@@ -63,11 +67,48 @@ def _attn_inputs(S, C, seed):
             n(C, scale=0.1).to(BF16))
 
 
-def _attn_replica(x, gs, gb, wq, bq, wp, bp, nh, fault=None, eps=1e-5):
+# Faults of a wgmma GEMM fed by TMA (K2 bf16's and K5's), on the
+# A operand of the qkv product (h) or of the proj product (the attention
+# output a), or on the q/k scale: one 64-wide k-block dropped, the first two
+# 16-byte chunks of every A row swapped (a wrong swizzle), the scale missing
+# on the q and k columns of head 0
+GEMM_FAULTS = ("kdrop_qkv", "kdrop_proj", "swizzle", "headscale")
+
+
+def _gemm_a(t, fault, product, chunk):
+    """The A operand ``t`` (..., K) of ``product`` ("qkv" or "proj") as a
+    faulty GEMM reads it: k in [64, 128) zeroed (kdrop_<product>), or the
+    first two chunks of ``chunk`` elements (16 bytes) of each row swapped
+    (swizzle, the qkv product)."""
+    if fault == f"kdrop_{product}":
+        t = t.clone()
+        t[..., 64:128] = 0
+    if fault == "swizzle" and product == "qkv":
+        t = torch.cat([t[..., chunk:2 * chunk], t[..., :chunk],
+                       t[..., 2 * chunk:]], dim=-1)
+    return t
+
+
+def _kblock_mm(a, b):
+    """a @ b as the wgmma GEMMs sum it: each 64-wide block of k in float64,
+    rounded to fp32 and added in fp32 in order (another order than the plain
+    version's)."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], 64):
+        acc = acc + (a[..., k0:k0 + 64].double()
+                     @ b[k0:k0 + 64].double()).float()
+    return acc
+
+
+def _attn_replica(x, gs, gb, wq, bq, wp, bp, nh, fault=None, eps=1e-5,
+                  order="float64"):
     """The bf16 block with its sums in float64 (another order than the
-    plain version's fp32), rounding where the kernel rounds."""
+    plain version's fp32; or, order="kblocks", the GEMMs' sums over 64-wide
+    k-blocks), rounding where the kernel rounds."""
     B, S, C = x.shape
     d = C // nh
+    mm = ((lambda a, b: a.double() @ b.double()) if order == "float64"
+          else _kblock_mm)
     xf = x.double()
     g = xf.reshape(B, S, GROUPS, C // GROUPS)
     mean = g.mean(dim=(1, 3))
@@ -75,10 +116,12 @@ def _attn_replica(x, gs, gb, wq, bq, wp, bp, nh, fault=None, eps=1e-5):
                        + eps)
     s_c = gs.double() * rstd.repeat_interleave(C // GROUPS, 1)
     t_c = gb.double() - mean.repeat_interleave(C // GROUPS, 1) * s_c
-    h = (xf * s_c[:, None] + t_c[:, None]).to(BF16)
-    qkv = ((h.double() @ wq.double()).to(BF16) + bq).reshape(B, S, 3, nh, d)
+    h = _gemm_a((xf * s_c[:, None] + t_c[:, None]).to(BF16), fault, "qkv", 8)
+    qkv = (mm(h, wq).to(BF16) + bq).reshape(B, S, 3, nh, d)
     sc = 1.0 / math.sqrt(math.sqrt(d)) * (0.97 if fault == "scale" else 1.0)
-    sc = torch.tensor(sc, dtype=BF16)
+    sc = torch.full((nh, 1), sc, dtype=BF16)
+    if fault == "headscale":
+        sc[0] = 1.0
     q, k, v = qkv[:, :, 0] * sc, qkv[:, :, 1] * sc, qkv[:, :, 2]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double())
     if fault == "drop":
@@ -87,7 +130,8 @@ def _attn_replica(x, gs, gb, wq, bq, wp, bp, nh, fault=None, eps=1e-5):
         logits = torch.zeros_like(logits)
     w = torch.softmax(logits, dim=-1).to(BF16)
     a = torch.einsum("bhqk,bkhd->bqhd", w.double(), v.double()).to(BF16)
-    return x + ((a.reshape(B, S, C).double() @ wp.double()).to(BF16) + bp)
+    a = _gemm_a(a.reshape(B, S, C), fault, "proj", 8)
+    return x + (mm(a, wp).to(BF16) + bp)
 
 
 ATTN_SHAPES = [(1024, 384, 6), (256, 576, 9), (64, 768, 12)]
@@ -102,10 +146,21 @@ def test_attn_bf16_check_passes_another_order(S, C, nh):
     assert rel < 1e-3 and share < 0.5, (rel, share)
 
 
+@pytest.mark.parametrize("S,C,nh", ATTN_SHAPES)
+def test_attn_bf16_check_passes_kblock_order(S, C, nh):
+    """The wgmma GEMMs' order of sums (64-wide k-blocks in fp32) passes."""
+    a = _attn_inputs(S, C, seed=S)
+    rel, _, share = attn_bf16_check(_attn_replica(*a, nh, order="kblocks"),
+                                    attn_block_reference(*a, num_heads=nh),
+                                    a[0], "replica")
+    assert rel < 1e-3 and share < 0.5, (rel, share)
+
+
 # (a map of 64 keys is one tile: it has none to drop)
 @pytest.mark.parametrize("S,C,nh,fault", [
     (S, C, nh, fault) for S, C, nh in ATTN_SHAPES
-    for fault in ("drop", "scale", "uniform") if S > 64 or fault != "drop"])
+    for fault in ("drop", "scale", "uniform") + GEMM_FAULTS
+    if S > 64 or fault != "drop"])
 def test_attn_bf16_check_fails_planted_fault(S, C, nh, fault):
     a = _attn_inputs(S, C, seed=S)
     with pytest.raises(AssertionError, match="over the limit"):
@@ -187,7 +242,8 @@ def _i8_replica(x, gs, gb, mats, bq, bp, nh, fault=None, eps=1e-5):
     online softmax over 64-key tiles, p rounded before it is normalised).
     Faults: the proj dequantised with its neighbouring column's scale, no
     clip before the int8 cast (an int8 cast wraps around), a dropped 64-key
-    tile."""
+    tile, and GEMM_FAULTS on the int8 operands (16-byte chunks of 16
+    values)."""
     B, S, C = x.shape
     d = C // nh
     dt = x.dtype
@@ -205,10 +261,13 @@ def _i8_replica(x, gs, gb, mats, bq, bp, nh, fault=None, eps=1e-5):
             return (r.to(torch.int32).to(torch.int8)).double()
         return torch.clamp(r, -127, 127).double()
 
-    h = quant(x.float() * s_c[:, None] + t_c[:, None], mats.isa_q)
+    h = _gemm_a(quant(x.float() * s_c[:, None] + t_c[:, None], mats.isa_q),
+                fault, "qkv", 16)
     acc = (h @ mats.wq.double().t()).to(torch.int32).float()
     qkv = (acc * mats.swq + bq).to(dt).reshape(B, S, 3, nh, d)
-    sc = torch.tensor(1.0 / math.sqrt(math.sqrt(d)), dtype=dt)
+    sc = torch.full((nh, 1), 1.0 / math.sqrt(math.sqrt(d)), dtype=dt)
+    if fault == "headscale":
+        sc[0] = 1.0
     q, k, v = qkv[:, :, 0] * sc, qkv[:, :, 1] * sc, qkv[:, :, 2]
     if dt == BF16:
         a = _flash_replica(q, k, v, 1.0, "drop" if fault == "drop" else None)
@@ -219,7 +278,8 @@ def _i8_replica(x, gs, gb, mats, bq, bp, nh, fault=None, eps=1e-5):
         a = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(lg, dim=-1),
                          v.double()).float()
     swp = mats.swp.roll(1) if fault == "scale" else mats.swp
-    acc = (quant(a.reshape(B, S, C).float(), mats.isa_p)
+    acc = (_gemm_a(quant(a.reshape(B, S, C).float(), mats.isa_p), fault,
+                   "proj", 16)
            @ mats.wp.double().t()).to(torch.int32).float()
     return x + (acc * swp + bp).to(dt)
 
@@ -243,6 +303,18 @@ def test_attn_i8_check_passes_another_order(S, C, nh, dtype):
     for fault in ("scale", "clip", "drop") if S > 64 or fault != "drop"])
 def test_attn_i8_check_fails_planted_fault(S, C, nh, dtype, fault):
     a = _i8_inputs(S, C, nh, dtype, seed=S + C)
+    with pytest.raises(AssertionError, match="over the limit"):
+        attn_i8_check(_i8_replica(*a, nh, fault),
+                      attn_block_int8_plain(*a, num_heads=nh), a[0], a[3],
+                      "replica")
+
+
+@pytest.mark.parametrize("S,C,nh,fault", [
+    (S, C, nh, fault) for S, C, nh in ATTN_SHAPES for fault in GEMM_FAULTS])
+def test_attn_i8_check_fails_gemm_fault(S, C, nh, fault):
+    """K5's gate (bf16, the ImageNet64 maps) refuses the faults of a wgmma
+    GEMM fed by TMA; its int8 sums are exact in any order of k."""
+    a = _i8_inputs(S, C, nh, BF16, seed=S + C)
     with pytest.raises(AssertionError, match="over the limit"):
         attn_i8_check(_i8_replica(*a, nh, fault),
                       attn_block_int8_plain(*a, num_heads=nh), a[0], a[3],

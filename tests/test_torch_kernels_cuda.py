@@ -252,18 +252,26 @@ def test_group_norm_fp32_onepass(card, shape):
            "gn_silu")
 
 
-@pytest.mark.parametrize("B,S,C,nh", [(8, 1024, 384, 6), (8, 256, 576, 9),
-                                      (8, 64, 768, 12), (2, 64, 64, 2),
-                                      (2, 128, 96, 3)])
-def test_attn_block_bf16(card, B, S, C, nh):
-    rs = np.random.RandomState(5)
-    x = _bf16(rs, card, (B, S, C), 1.0, 0.0)
-    gs, gb = _tensors(rs, card, ((C,), 0.1, 1.0), ((C,), 0.1, 0.0))
-    w = [_bf16(rs, card, shape, scale, 0.0)
+def _bf16_block(rs, device, B, S, C):
+    x = _bf16(rs, device, (B, S, C), 1.0, 0.0)
+    gs, gb = _tensors(rs, device, ((C,), 0.1, 1.0), ((C,), 0.1, 0.0))
+    w = [_bf16(rs, device, shape, scale, 0.0)
          for shape, scale in (((C, 3 * C), C ** -0.5), ((3 * C,), 0.02),
                               ((C, C), C ** -0.5), ((C,), 0.02))]
-    attn_bf16_check(attn_block(x, gs, gb, *w, num_heads=nh),
-                    attn_block_reference(x, gs, gb, *w, num_heads=nh), x,
+    return x, gs, gb, *w
+
+
+# the ImageNet64 maps; E3 fused_train's forward (batch 128); the wgmma
+# GEMMs' edges: M = 192 (half of the last 128-row tile), C = 64 and 96
+# (N tiles and 64-column boxes past N, one k-block zero-filled past K)
+@pytest.mark.parametrize("B,S,C,nh", [(8, 1024, 384, 6), (8, 256, 576, 9),
+                                      (8, 64, 768, 12), (2, 64, 64, 2),
+                                      (2, 128, 96, 3), (128, 1024, 384, 6),
+                                      (3, 64, 768, 12)])
+def test_attn_block_bf16(card, B, S, C, nh):
+    a = _bf16_block(np.random.RandomState(5), card, B, S, C)
+    attn_bf16_check(attn_block(*a, num_heads=nh),
+                    attn_block_reference(*a, num_heads=nh), a[0],
                     "attn_block_bf16")
     assert _lib.LAUNCHES["attn_block_bf16"] == 1
 
@@ -326,25 +334,46 @@ def test_unported_forms_raise(card):
     assert not _lib.LAUNCHES
 
 
-@pytest.mark.parametrize("B,S,C,nh,dtype", [
-    (8, 64, 64, 2, torch.float32), (2, 256, 128, 2, torch.float32),
-    (8, 1024, 384, 6, torch.bfloat16), (8, 256, 576, 9, torch.bfloat16),
-    (8, 64, 768, 12, torch.bfloat16), (4, 256, 1024, 16, torch.bfloat16),
-    (2, 128, 96, 3, torch.bfloat16)])
-def test_attn_block_int8(card, B, S, C, nh, dtype):
-    rs = np.random.RandomState(9)
-    x, gs, gb = _tensors(rs, card, ((B, S, C), 1.0, 0.0), ((C,), 0.1, 1.0),
+def _i8_block(rs, device, B, S, C, nh, dtype):
+    x, gs, gb = _tensors(rs, device, ((B, S, C), 1.0, 0.0), ((C,), 0.1, 1.0),
                          ((C,), 0.1, 0.0))
-    wq, bq, wp, bp = _tensors(rs, card, ((C, 3 * C), C ** -0.5, 0.0),
+    wq, bq, wp, bp = _tensors(rs, device, ((C, 3 * C), C ** -0.5, 0.0),
                               ((3 * C,), 0.02, 0.0), ((C, C), C ** -0.5, 0.0),
                               ((C,), 0.02, 0.0))
     mats = prep_int8_mats(wq, wp, *calibrated_attn_scales(x, gs, gb, wq, bq,
                                                           nh))
-    x = x.to(dtype)
-    attn_i8_check(attn_block_int8(x, gs, gb, mats, bq, bp, nh),
-                  attn_block_int8_plain(x, gs, gb, mats, bq, bp, nh), x,
-                  mats, "attn_block_i8")
+    return x.to(dtype), gs, gb, mats, bq, bp
+
+
+# bf16 also at the wgmma GEMMs' edges: M = 192 (half of the last 128-row
+# tile) at LSUN's C = 1024 (eight 128-byte k-blocks), C = 96 (a k-block
+# zero-filled past K)
+@pytest.mark.parametrize("B,S,C,nh,dtype", [
+    (8, 64, 64, 2, torch.float32), (2, 256, 128, 2, torch.float32),
+    (8, 1024, 384, 6, torch.bfloat16), (8, 256, 576, 9, torch.bfloat16),
+    (8, 64, 768, 12, torch.bfloat16), (4, 256, 1024, 16, torch.bfloat16),
+    (2, 128, 96, 3, torch.bfloat16), (3, 64, 1024, 16, torch.bfloat16)])
+def test_attn_block_int8(card, B, S, C, nh, dtype):
+    a = _i8_block(np.random.RandomState(9), card, B, S, C, nh, dtype)
+    attn_i8_check(attn_block_int8(*a, nh), attn_block_int8_plain(*a, nh),
+                  a[0], a[3], "attn_block_i8")
     assert _lib.LAUNCHES["attn_block_i8"] == 1
+
+
+@pytest.mark.parametrize("form", ["bf16", "i8"])
+@pytest.mark.parametrize("B,S,C,nh", [(8, 1024, 384, 6), (8, 256, 576, 9),
+                                      (8, 64, 768, 12), (3, 64, 768, 12)])
+def test_attn_blocks_replay_bit_equal(card, form, B, S, C, nh):
+    """K2 bf16 and K5 (bf16) sum in fixed orders (no split-k, no
+    atomics): a replay is bit-equal."""
+    rs = np.random.RandomState(13)
+    if form == "bf16":
+        a = _bf16_block(rs, card, B, S, C)
+        run = lambda: attn_block(*a, num_heads=nh)  # noqa: E731
+    else:
+        a = _i8_block(rs, card, B, S, C, nh, torch.bfloat16)
+        run = lambda: attn_block_int8(*a, nh)  # noqa: E731
+    assert torch.equal(run(), run())
 
 
 @pytest.mark.parametrize("B,R,Cin,Cout,k,pad,dtype,dynamic", [
