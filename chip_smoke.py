@@ -12,7 +12,9 @@ failure exits non-zero naming the phase:
      per source, all started together) and print -Xptxas -v (registers,
      shared memory, spills);
   K  hold each kernel against its plain PyTorch version at the full-width
-     CIFAR-10 and ImageNet64 shapes (K1 also on either side of its route
+     CIFAR-10 and ImageNet64 shapes (K3 at every conv shape of the CIFAR-10
+     net and at E4's batches 128 and 32, each replayed bit-equal; K1 also
+     on either side of its route
      gate at 6, 12, 24 and 48 channels a group, bf16 in both statistics
      modes and fp32, replayed bit-equal; K2 fp32 at batch 100, 128 and 32,
      K2 bf16 at the ImageNet64 maps and at E3's batch 128, K5 at the
@@ -30,8 +32,9 @@ failure exits non-zero naming the phase:
      at; K2 fp32 beside K7 at bb 2 and 4 on the same inputs at batch 100,
      128 and 32; K6's fp32 form at G3's shape); and K2 bf16 and K5 at each
      of their main-path maps split by launch (torch.profiler: statistics,
-     GN apply or quantise, qkv GEMM, core, proj GEMM), each beside its
-     bound;
+     GN apply or quantise, qkv GEMM, core, proj GEMM), and K3 at one shape
+     of each map size (weight cast, statistics, conv, the sum of split
+     slices), each beside its bound;
   T-bwd the device time of each launch of one K6 bf16 call and one K4-dkv
      call at the 32x32 map at batch 128 (torch.profiler);
   G  replay the trained reference fixture (tests/fixtures/torch_rundir_t10)
@@ -74,6 +77,10 @@ failure exits non-zero naming the phase:
   T-K1 K1's time at each shape that E2 (fused, flash), E3 (flash,
      fused_train) and E4 launched it at, with its launches per trajectory or
      step (counted in those phases), its route and its bound;
+  T-K3 K3's time at each shape that E and E4 launched it at, with its
+     launches per trajectory or step (counted in those phases), its bound,
+     its library and its plain time (without E and E4 in the run: at every
+     conv shape of the CIFAR-10 net at batch 100, 32 and 128, no launches);
   C  run the generation CLIs (generate_cifar10, generate_large with and
      without --int8) as subprocesses on the fixture run dirs with
      --save_npz, and hold each npz to the in-process samples; then
@@ -111,7 +118,7 @@ from dxmi_tpu_torch.config import instantiate, load_yaml, merge
 from dxmi_tpu_torch.generate_cifar10 import (generate, load_sampler,
                                              sample_batches, to_uint8)
 from dxmi_tpu_torch.models.unet_adm import AttentionBlockADM
-from dxmi_tpu_torch.ops import _lib
+from dxmi_tpu_torch.ops import _lib, conv_fused
 from dxmi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
                                           flash_fwd_kernel,
                                           flash_mha, flash_mha_bwd,
@@ -563,7 +570,7 @@ class PhaseError(Exception):
 
 
 PHASES = ("B", "K", "T", "T-bwd", "G", "E", "G2", "G2-int8", "E2", "E2-int8",
-          "G3", "E3", "G4", "E4", "T-K1", "C")
+          "G3", "E3", "G4", "E4", "T-K1", "T-K3", "C")
 
 
 def run_phase(name, fn):
@@ -600,11 +607,43 @@ def gn_case(gen, B, HW, C, silu):
             32, 1e-6, silu)
 
 
-def conv_case(gen, B, R, Cin, Cout):
-    return (randn(gen, B, R, R, Cin, scale=2.0, shift=0.5),
+def conv_case(gen, B, R, Cin, Cout, W=None):
+    """K3's arguments for a (B, R, W or R, Cin) input."""
+    return (randn(gen, B, R, W or R, Cin, scale=2.0, shift=0.5),
             randn(gen, Cin, scale=0.1, shift=1.0), randn(gen, Cin, scale=0.1),
             randn(gen, 3, 3, Cin, Cout, scale=(9 * Cin) ** -0.5),
             randn(gen, Cout, scale=0.1), 32, 1e-6)
+
+
+def conv_check(out, ref, what):
+    """Hold K3 to its plain version at TOL["gn_silu_conv3x3"] (reasoned
+    there); returns the max abs err."""
+    try:
+        return max_err(out, ref, "gn_silu_conv3x3")
+    except AssertionError as e:
+        raise AssertionError(f"{what}: {e}") from None
+
+
+def conv_work(B, H, W, Cin, Cout):
+    """(bytes, ops) of one K3 call: x read once, the fp32 kernel and the
+    GroupNorm and bias parameters read once, y written once; the conv's
+    bf16 products and ~11 fp32 operations of GN and SiLU an input
+    element."""
+    M = B * H * W
+    return ((M * Cin + 9 * Cin * Cout + M * Cout + 2 * Cin + Cout) * 4,
+            {"bf16": 2 * M * Cout * 9 * Cin, "fp32": 11 * M * Cin})
+
+
+def conv_library(a):
+    """One PyTorch call chain for K3's function on the same inputs
+    (F.group_norm, F.silu, a cuDNN bf16 conv), K3's library yardstick."""
+    x_nchw = a[0].permute(0, 3, 1, 2)
+    w_lib = a[3].permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    b_lib = a[4].to(torch.bfloat16)
+    return lambda: F.conv2d(  # noqa: E731
+        F.silu(F.group_norm(x_nchw, 32, a[1], a[2], 1e-6)).bfloat16(),
+        w_lib, b_lib, padding=1)
 
 
 def attn_case(gen, B, S, C):
@@ -1501,7 +1540,7 @@ def e4_grads(cfg, device="cuda"):
     return grads, groups
 
 
-def phase_cifar_train(k1_log):
+def phase_cifar_train(k1_log, k3_log):
     """E4 (see the module docstring)."""
     cfg = cifar10_train_config()
     seed = int(cfg["training"]["seed"])
@@ -1522,8 +1561,11 @@ def phase_cifar_train(k1_log):
             x = train_cifar10.to_device_batch(next(batches)[0], "cuda")
             _lib.reset_launches()
             t0 = time.perf_counter()
-            with k1_shapes(k1_log, "E4", 1, "step") if i == 0 and bb == 1 \
-                    else contextlib.nullcontext():
+            logged = i == 0 and bb == 1
+            with (k1_shapes(k1_log, "E4", 1, "step") if logged
+                  else contextlib.nullcontext()), \
+                    (k3_shapes(k3_log, "E4", 1, "step") if logged
+                     else contextlib.nullcontext()):
                 m = train_step(trainer, x, None, gen, n_generator=1)
             wall = time.perf_counter() - t0
             got = dict(_lib.LAUNCHES)
@@ -1579,10 +1621,7 @@ def phase_kernels(gen):
     errs["gn_silu"] = max(
         max_err(group_norm(*a), group_norm_silu_reference(*a), "gn_silu")
         for a in (gn_case(gen, *s) for s in GN_SHAPES))
-    errs["gn_silu_conv3x3"] = max(
-        max_err(gn_silu_conv(*a), gn_silu_conv_reference(*a),
-                "gn_silu_conv3x3")
-        for a in (conv_case(gen, *s) for s in CONV_SHAPES))
+    errs["gn_silu_conv3x3"] = phase_kernels_conv(gen)
     errs["attn_block"] = 0.0
     for shape in ATTN_SHAPES:
         a = attn_case(gen, *shape)
@@ -1657,6 +1696,29 @@ def phase_kernels(gen):
     phase_kernels_train(gen, errs)
     phase_kernels_bb(gen, errs)
     return errs
+
+
+# K3 at every main-path shape of E (batch 100) and at E4's training batch
+# 128 and sampling chunk 32 at the 32x32 and 4x4 maps (at 4x4 the conv
+# splits its reduction into slices), each replayed bit-equal.
+K3_CHECK_SHAPES = CONV_SHAPES + [(128, 32, 128, 128), (32, 32, 128, 128),
+                                 (128, 4, 512, 256), (32, 4, 512, 256)]
+
+
+def phase_kernels_conv(gen):
+    worst = 0.0
+    for shape in K3_CHECK_SHAPES:
+        a = conv_case(gen, *shape)
+        out = gn_silu_conv(*a)
+        err = conv_check(out, gn_silu_conv_reference(*a),
+                         f"gn_silu_conv3x3 {shape}")
+        if not torch.equal(out, gn_silu_conv(*a)):
+            raise AssertionError(f"gn_silu_conv3x3 {shape}: a replay "
+                                 "differs")
+        print(f"  K gn_silu_conv3x3 {shape}: max abs err vs plain {err:.3e};"
+              " replay bit-equal")
+        worst = max(worst, err)
+    return worst
 
 
 # K1 on either side of its route gate (gn_plan in csrc/groupnorm.cu): for
@@ -1825,24 +1887,18 @@ def phase_times(gen):
 
     B, R, Cin, Cout = CONV_SHAPES[0]
     a = conv_case(gen, B, R, Cin, Cout)
-    x_nchw = a[0].permute(0, 3, 1, 2)
-    w_lib = a[3].permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
-        memory_format=torch.channels_last)
-    b_lib = a[4].to(torch.bfloat16)
-    M = B * R * R
+    nbytes, ops = conv_work(B, R, R, Cin, Cout)
     rows["gn_silu_conv3x3"] = dict(
         ms=time_ms(lambda: gn_silu_conv(*a)),
         plain_ms=time_ms(lambda: gn_silu_conv_reference(*a)),
-        library_ms=time_ms(lambda: F.conv2d(
-            F.silu(F.group_norm(x_nchw, 32, a[1], a[2], 1e-6)).bfloat16(),
-            w_lib, b_lib, padding=1)),
-        bytes=(M * Cin + 9 * Cin * Cout + M * Cout + 2 * Cin + Cout) * 4,
-        ops={"bf16": 2 * M * Cout * 9 * Cin, "fp32": 11 * M * Cin})
+        library_ms=time_ms(conv_library(a)), bytes=nbytes, ops=ops)
+    del a
 
     rows.update(attn_fp32_time_rows(gen))
     rows.update(adm_time_rows(gen))
     rows.update(int8_time_rows(gen))
     attn_block_splits(gen)
+    conv_splits(gen)
     rows.update(train_time_rows(gen))
     peaks = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS, "int8": INT8_OPS,
              "tf32x3": TF32X3_FLOPS}
@@ -2122,6 +2178,71 @@ def attn_block_splits(gen):
         del a
 
 
+# K3's launches (profiler kernel-name substrings, checked in this order) and
+# (bytes, ops) of each: the bf16 copy of the weights, K1's statistics pass,
+# the conv, and the sum of its split slices when it splits
+K3_PARTS = (("reduce", "conv3x3_reduce"), ("conv", "conv3x3"),
+            ("statistics", "::gn_"), ("weight cast", ""))
+K3_SPLIT_SHAPES = [(BATCH, 32, 128, 128), (BATCH, 16, 256, 256),
+                   (BATCH, 8, 256, 256), (BATCH, 4, 256, 256)]
+
+
+def k3_launch_work(part, B, R, Cin, Cout, slices):
+    M = B * R * R
+    if part == "weight cast":
+        return 9 * Cin * Cout * 6, {}
+    if part == "statistics":
+        return M * Cin * 4, {}
+    if part == "reduce":
+        return (slices + 1) * M * Cout * 4, {}
+    return ((M * Cin + slices * M * Cout + 2 * B * Cin) * 4
+            + 9 * Cin * Cout * 2, {"bf16": 2 * M * Cout * 9 * Cin,
+                                   "fp32": 11 * M * Cin})
+
+
+def conv_splits(gen, reps=5):
+    """T: K3 at one shape of each map size split by launch (torch.profiler
+    device time, a call's launches of each kind summed and averaged over
+    ``reps`` calls), each beside its bound."""
+    peaks = {"bf16": BF16_FLOPS, "fp32": FP32_FLOPS}
+    for shape in K3_SPLIT_SHAPES:
+        a = conv_case(gen, *shape)
+        gn_silu_conv(*a)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                gn_silu_conv(*a)
+            torch.cuda.synchronize()
+        ms, n = collections.Counter(), collections.Counter()
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            part = next(p for p, key in K3_PARTS if key in e.name)
+            ms[part] += e.time_range.elapsed_us() / 1e3 / reps
+            n[part] += 1
+        if not ms["conv"]:
+            print(f"  T split K3 {shape}: not measured (the trace holds no "
+                  "conv launch)")
+            continue
+        slices = (conv_fused.plan(shape[0], shape[1], shape[1], *shape[2:])
+                  .slices if n["reduce"] else 1)
+        out = []
+        for part, _ in reversed(K3_PARTS):
+            if not n[part]:
+                continue
+            nbytes, ops = k3_launch_work(part, *shape, slices)
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            t_ops = sum(v / peaks[k] for k, v in ops.items()) * 1e3
+            bound = max(t_bytes, t_ops)
+            out.append(f"{part} {ms[part]:.4f} x{n[part] / reps:g} (bound "
+                       f"{bound:.4f} {'bytes' if t_bytes >= t_ops else 'ops'};"
+                       f" {bound / ms[part]:.0%} of bound)")
+        print(f"  T split K3 {shape}, ms: " + " | ".join(out)
+              + f"; sum {sum(ms.values()):.4f}")
+        del a
+
+
 def phase_replay():
     golden = np.load(os.path.join(FIXTURE_DIR, "golden.npz"))
     state = load_sampler_state(os.path.join(FIXTURE_DIR, "sampler_best.pth"))
@@ -2159,7 +2280,7 @@ def phase_replay():
     return errs
 
 
-def phase_generate():
+def phase_generate(k3_log):
     # warm-up outside the counted run (cuDNN plans, allocator)
     cfg = cifar10_t10()
     generate(cfg, None, BATCH, BATCH, "cuda", seed=1)
@@ -2167,7 +2288,8 @@ def phase_generate():
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
     t0 = time.perf_counter()
-    x = generate(cfg, None, BATCH * N_BATCHES, BATCH, "cuda", seed=0)
+    with k3_shapes(k3_log, "E", N_BATCHES, "trajectory"):
+        x = generate(cfg, None, BATCH * N_BATCHES, BATCH, "cuda", seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_lib.LAUNCHES)
@@ -2803,6 +2925,75 @@ def k1_shape_table(gen, log):
             print(line)
 
 
+# ---- K3 by shape on the main paths ---------------------------------------
+
+@contextlib.contextmanager
+def k3_shapes(log, label, runs, unit):
+    """Count K3's launches by (B, H, W, Cin, Cout) (read from the wrapper's
+    arguments) into ``log[label]`` = (launches by shape, runs, unit) while
+    the block runs ``runs`` times one ``unit``."""
+    fwd = conv_fused._gn_silu_conv_forward
+    seen = collections.Counter()
+
+    def counted(x, gn_scale, gn_bias, kernel, *rest):
+        if x.is_cuda:
+            seen[(*x.shape, kernel.shape[-1])] += 1
+        return fwd(x, gn_scale, gn_bias, kernel, *rest)
+
+    conv_fused._gn_silu_conv_forward = counted
+    try:
+        yield
+    finally:
+        conv_fused._gn_silu_conv_forward = fwd
+    log[label] = (seen, runs, unit)
+
+
+# T-K3's shapes when E and E4 did not run in the same call: every conv shape
+# of the CIFAR-10 net at E's batch 100 and E4's 32 (sampling) and 128
+# (training)
+K3_TIME_SHAPES = [(B, R, R, Cin, Cout) for B in (BATCH, E4_CHUNK, E4_BATCH)
+                  for _, R, Cin, Cout in CONV_SHAPES]
+
+
+def k3_shape_table(gen, log):
+    """T-K3: K3's time at each shape E and E4 launched it at (recorded into
+    ``log`` by k3_shapes), with its launches per trajectory or step, its
+    bound (bytes or operations, conv_work), its library and plain times and
+    the K3 time per trajectory or step that these give; without E and E4,
+    the same at K3_TIME_SHAPES with no launches."""
+    peaks = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS}
+    if not log:
+        log = {"(E and E4 not run)": (
+            collections.Counter({s: 0 for s in K3_TIME_SHAPES}), 1, "call")}
+    times = {}
+    for label, (seen, runs, unit) in log.items():
+        total, lines = 0.0, []
+        for key, n in sorted(seen.items()):
+            B, H, W, Cin, Cout = key
+            if key not in times:
+                a = conv_case(gen, B, H, Cin, Cout, W)
+                times[key] = (time_ms(lambda: gn_silu_conv(*a)),
+                              time_ms(conv_library(a)),
+                              time_ms(lambda: gn_silu_conv_reference(*a)))
+                del a
+            ms, lib_ms, plain_ms = times[key]
+            nbytes, ops = conv_work(B, H, W, Cin, Cout)
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            t_ops = sum(v / peaks[k] for k, v in ops.items()) * 1e3
+            bound = max(t_bytes, t_ops)
+            total += n / runs * ms
+            lines.append(
+                f"    ({B}, {H}, {W}, {Cin}->{Cout}): {n / runs:g} launches, "
+                f"{ms:.4f} ms each, library {lib_ms:.4f}, plain "
+                f"{plain_ms:.4f}, bound {bound:.4f} ms "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
+                f"{ms / bound:.2f}x it, {n / runs * ms:.3f} ms a {unit}")
+        print(f"  T-K3 {label}: {sum(seen.values()) / runs:g} launches a "
+              f"{unit}, K3 {total:.3f} ms a {unit} at these times")
+        for line in lines:
+            print(line)
+
+
 def nvidia_smi():
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -2835,6 +3026,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = {}
     k1_log = {}  # K1's launches by shape in E2, E3 and E4, for T-K1
+    k3_log = {}  # K3's launches by shape in E and E4, for T-K3
 
     def step(name, fn):
         if only is None or name in only:
@@ -2846,7 +3038,7 @@ def main() -> int:
         step("T", lambda: phase_times(gen))
         step("T-bwd", lambda: bwd_breakdown(gen))
         step("G", phase_replay)
-        step("E", phase_generate)
+        step("E", lambda: phase_generate(k3_log))
         step("G2", phase_replay_adm)
         step("G2-int8", phase_replay_adm_int8)
         step("E2", lambda: phase_generate_adm(k1_log))
@@ -2855,8 +3047,9 @@ def main() -> int:
         step("G3", phase_train_replay)
         step("E3", lambda: phase_train(k1_log))
         step("G4", phase_cifar_train_replay)
-        step("E4", lambda: phase_cifar_train(k1_log))
+        step("E4", lambda: phase_cifar_train(k1_log, k3_log))
         step("T-K1", lambda: k1_shape_table(gen, k1_log))
+        step("T-K3", lambda: k3_shape_table(gen, k3_log))
         step("C", phase_cli)
         smi = nvidia_smi()
     except PhaseError as e:

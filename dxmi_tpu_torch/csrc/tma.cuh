@@ -1,6 +1,6 @@
 // mbarriers and TMA (cp.async.bulk.tensor) for the kernels that stream their
-// tiles from a producer thread: K4 (flash_attn.cu) and the wgmma GEMMs of K2
-// bf16 and K5 (tma_gemm.cuh).
+// tiles from a producer thread: K4 (flash_attn.cu), the wgmma GEMMs of K2
+// bf16 and K5 (tma_gemm.cuh) and K3's conv (conv_fused.cu).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (no link against libcuda)
@@ -31,13 +31,24 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
       "r"(parity)
       : "memory");
 }
-// one box of a 2-d or 4-d tensor map into shared memory, completing on bar
+// one box of a 2-d, 3-d or 4-d tensor map into shared memory, completing on
+// bar
 __device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map,
                                             unsigned bar, int c0, int c1) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map,
+                                            unsigned bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void tma_load_4d(unsigned dst, const CUtensorMap* map,

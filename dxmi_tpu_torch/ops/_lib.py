@@ -44,9 +44,11 @@ _SIGNATURES = {
     # a cluster)
     "dxmi_gn_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     # x, gn_scale, gn_bias, w(9,Cin,Cout) bf16, bias, y, mean_c, rstd_c,
-    # B, H, W, Cin, Cout, G, eps, stream
-    "dxmi_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _F, _P],
+    # partials scratch (or null), B, H, W, Cin, Cout, G, eps, slices, stream
+    "dxmi_gn_silu_conv3x3": [_P] * 9 + [_I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # B, H, W, Cin, Cout, out int[3]: K3's plan (chunk channels, positions
+    # a tile, slices)
+    "dxmi_conv_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     # x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj, y, mean_c, rstd_c,
     # qkv scratch, attn scratch, B, S, C, nh, G, eps, stream
     "dxmi_attn_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

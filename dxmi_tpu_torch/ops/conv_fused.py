@@ -4,7 +4,9 @@ its plain version.
 ``gn_silu_conv`` mirrors ``dxmi_tpu.ops.conv_fused.fused_gn_silu_conv``: on a
 CPU tensor it runs the plain version, on a CUDA tensor it launches the
 hand-written kernel in ``csrc/conv_fused.cu`` (or raises). Both round the
-conv operands to bf16 and accumulate in fp32, as the TPU kernel does.
+conv operands to bf16 and accumulate in fp32, as the TPU kernel does. On the
+card the conv is a wgmma implicit GEMM whose reduction ``plan`` may split
+into slices (small maps); the wrapper allocates their fp32 partials.
 
 It is differentiable (``GnSiluConvFn``): as ``_fgsc_bwd``
 (``conv_fused.py:102-113``), the backward is the vjp of
@@ -12,6 +14,10 @@ It is differentiable (``GnSiluConvFn``): as ``_fgsc_bwd``
 inputs. So the forward rounds to bf16 and the backward does not.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +34,24 @@ def fused_conv_available(c_in: int, c_out: int, width: int,
     memory)."""
     return (c_in % num_groups == 0 and c_in <= 32 * num_groups
             and c_in % 32 == 0 and c_out % 8 == 0 and width <= 512)
+
+
+class ConvPlan(NamedTuple):
+    chunk: int   # input channels a step of the conv's reduction
+    rows: int    # padded positions a tile (BM)
+    slices: int  # slices of the reduction (a second launch sums them)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, H: int, W: int, c_in: int, c_out: int) -> ConvPlan:
+    """K3's plan on the card for a (B, H, W, c_in) -> c_out call, as
+    ``conv_plan`` in ``csrc/conv_fused.cu`` chooses it; raises ValueError
+    for a shape it does not take. Needs the kernel library (the card)."""
+    out = (ctypes.c_int * 3)()
+    if _lib.lib().dxmi_conv_plan(B, H, W, c_in, c_out, out):
+        raise ValueError(f"gn_silu_conv kernel: no plan for {(B, H, W)}, "
+                         f"Cin={c_in}, Cout={c_out}")
+    return ConvPlan(*out)
 
 
 def gn_silu_conv_reference(x: torch.Tensor, gn_scale: torch.Tensor,
@@ -111,11 +135,14 @@ def _gn_silu_conv_forward(x, gn_scale, gn_bias, kernel, bias, num_groups,
     w.copy_(kernel)
     y = torch.empty((B, H, W, C_out), device=x.device, dtype=torch.float32)
     stats = torch.empty((2, B * C), device=x.device, dtype=torch.float32)
+    slices = plan(B, H, W, C, C_out).slices
+    part = (torch.empty((slices, B, H, W, C_out), device=x.device,
+                        dtype=torch.float32) if slices > 1 else None)
     code = _lib.lib().dxmi_gn_silu_conv3x3(
         x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(), w.data_ptr(),
         bias.data_ptr(), y.data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), B, H, W, C, C_out, num_groups, float(eps),
-        _lib.stream())
+        stats[1].data_ptr(), None if part is None else part.data_ptr(), B, H,
+        W, C, C_out, num_groups, float(eps), slices, _lib.stream())
     _lib.check(code, "dxmi_gn_silu_conv3x3")
     _lib.LAUNCHES["gn_silu_conv3x3"] += 1
     return y

@@ -33,7 +33,13 @@ launches, after K1's two-pass statistics) passes an emulation of their
 its order of sums (per-thread rows, row lanes, channels, the cluster's
 CTAs) and fail it with a CTA's partial sums dropped, a slab's statistics
 taken one group over, one-pass sums where two-pass are due, or the squares
-of the bf16 one-pass sums left unrounded."""
+of the bf16 one-pass sums left unrounded. K3's gate (chip_smoke.conv_check)
+passes a replica of its wgmma implicit GEMM (the window rounded once to
+bf16, fp32 sums per k-step, tap and chunk, slices added in order) at the
+four map sizes and fails it with one tap's 64-channel k-block dropped,
+border outputs reading the neighbouring row's pixel, the window's border
+not zeroed, the bias left out, one consumer warpgroup's rows left out, a
+slice dropped or added twice, or the neighbouring group's statistics."""
 import math
 
 import numpy as np
@@ -978,3 +984,131 @@ def test_k1_gate_against_its_order_of_sums(form, plan, fault):
         assert share > 2
         with pytest.raises(AssertionError, match="elements off"):
             max_err(out, ref, name)
+
+
+# ---- K3's gate: chip_smoke.conv_check ------------------------------------
+
+# The four map sizes of CONV_SHAPES at batch 2 (4 at the 4x4 map, whose 36
+# padded positions a sample would leave the second warpgroup of a 128-row
+# tile only border rows at batch 2), each with the plan the card takes there
+# at batch 100: (chunk channels, padded positions a tile, slices of the
+# reduction).
+K3_MAPS = [((2, 32, 128, 128), (64, 256, 1)), ((2, 16, 256, 256), (64, 128, 1)),
+           ((2, 8, 256, 256), (64, 128, 1)), ((4, 4, 512, 256), (64, 128, 4))]
+K3_FAULTS = ("kblock_dropped", "tap_shifted", "border_not_zeroed",
+             "no_bias", "warpgroup_rows", "slice_dropped", "slice_twice",
+             "group_stats")
+
+
+def _k3_inputs(B, R, Cin, Cout, seed):
+    """chip_smoke.conv_case's distributions on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+
+    def n(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=g) * scale + shift
+
+    return (n(B, R, R, Cin, scale=2.0, shift=0.5), n(Cin, scale=0.1, shift=1.0),
+            n(Cin, scale=0.1), n(3, 3, Cin, Cout, scale=(9 * Cin) ** -0.5),
+            n(Cout, scale=0.1))
+
+
+def _k3_replica(x, gs, gb, kernel, bias, plan, fault=None, G=32, eps=1e-6):
+    """K3 on the CPU in the card's order: GN statistics (float64, then fp32),
+    GN + SiLU in fp32 rounded once to bf16 into the zero-padded window; for
+    each slice of the chunks, each chunk, each tap and each 16-channel
+    k-step of a wgmma, the k-step's products (float64, rounded to fp32)
+    added in fp32; the slices' partials added in order, then the bias.
+    ``fault`` plants one of K3_FAULTS: one tap's 64-channel k-block
+    dropped; column-border outputs reading the neighbouring image row's
+    pixel where the padding is due; the window's border rows holding GN +
+    SiLU of x = 0 instead of zeros; the bias left out; the second consumer
+    warpgroup's 64 rows of every tile left out; the last slice dropped or
+    the first added twice; each group normalised with the next group's
+    statistics."""
+    B, H, W, Cin = x.shape
+    Cout = kernel.shape[-1]
+    chunk, rows, slices = plan
+    xd = x.double().reshape(B, H * W, G, Cin // G)
+    mean = xd.mean(dim=(1, 3))
+    rstd = 1 / torch.sqrt((xd - mean[:, None, :, None]).square()
+                          .mean(dim=(1, 3)) + eps)
+    if fault == "group_stats":
+        mean, rstd = mean.roll(-1, dims=1), rstd.roll(-1, dims=1)
+    m_c = mean.float().repeat_interleave(Cin // G, 1)[:, None, None]
+    r_c = rstd.float().repeat_interleave(Cin // G, 1)[:, None, None]
+
+    def gn_silu(v):
+        u = ((v - m_c) * r_c) * gs + gb
+        return (u / (1 + torch.exp(-u))).to(BF16).float()
+
+    hp = torch.nn.functional.pad(gn_silu(x), (0, 0, 1, 1, 1, 1))
+    if fault == "border_not_zeroed":
+        border = torch.ones(H + 2, W + 2, dtype=torch.bool)
+        border[1:-1, 1:-1] = False
+        hp[:, border] = gn_silu(torch.zeros_like(x))[:, :1, :1].reshape(
+            B, 1, Cin)
+    if fault == "tap_shifted":  # the rows wrap: no column padding
+        hp[:, 1:-1, 0] = hp[:, :-2, -2]
+        hp[:, 1:-1, -1] = hp[:, 2:, 1]
+    w = kernel.to(BF16).double().reshape(9, Cin, Cout)
+    n_chunks = -(-Cin // chunk)
+    parts = []
+    for z in range(slices):
+        acc = torch.zeros(B, H, W, Cout)
+        for c in range(z * n_chunks // slices, (z + 1) * n_chunks // slices):
+            for tap in range(9):
+                dy, dx = divmod(tap, 3)
+                for k0 in range(c * chunk, min((c + 1) * chunk, Cin), 16):
+                    if fault == "kblock_dropped" and tap == 4 and \
+                            k0 // 64 == 0:
+                        continue
+                    a = hp[:, dy:dy + H, dx:dx + W, k0:k0 + 16].double()
+                    acc = acc + (a @ w[tap, k0:k0 + 16]).float()
+        parts.append(acc)
+    if fault == "slice_dropped":
+        parts = parts[:-1]
+    if fault == "slice_twice":
+        parts = [parts[0]] + parts
+    y = torch.zeros(B, H, W, Cout)
+    for p in parts:
+        y = y + p
+    if fault != "no_bias":
+        y = y + bias
+    if fault == "warpgroup_rows":
+        Wp = W + 2
+        pos = (torch.arange(B)[:, None, None] * (H + 2) * Wp
+               + torch.arange(H)[None, :, None] * Wp
+               + torch.arange(W)[None, None, :])
+        y[(pos % rows) // 64 == 1] = 0
+    return y
+
+
+@pytest.mark.parametrize("shape,plan", K3_MAPS)
+def test_k3_gate_passes_its_order_of_sums(shape, plan):
+    """chip_smoke.conv_check (5e-3 + 5e-3 |plain|) passes K3's arithmetic:
+    the window rounded once to bf16, fp32 sums per wgmma k-step, tap and
+    chunk, slices added in order, at each map size."""
+    from chip_smoke import conv_check
+    from dxmi_tpu_torch.ops.conv_fused import gn_silu_conv_reference
+
+    a = _k3_inputs(*shape, seed=shape[1])
+    ref = gn_silu_conv_reference(*a)
+    out = _k3_replica(*a, plan)
+    share = ((out - ref).abs() / (5e-3 + 5e-3 * ref.abs())).max().item()
+    assert share < 0.5, share
+    conv_check(out, ref, "replica")
+
+
+@pytest.mark.parametrize("fault", K3_FAULTS)
+@pytest.mark.parametrize("shape,plan", K3_MAPS)
+def test_k3_gate_refuses_planted_fault(shape, plan, fault):
+    """Each fault of K3_FAULTS at each map size moves some output 12.9 (the
+    neighbouring group's statistics at 32x32) to 238 times its limit: no
+    blind spot."""
+    from chip_smoke import conv_check
+    from dxmi_tpu_torch.ops.conv_fused import gn_silu_conv_reference
+
+    a = _k3_inputs(*shape, seed=shape[1])
+    out = _k3_replica(*a, plan, fault)
+    with pytest.raises(AssertionError, match="elements off"):
+        conv_check(out, gn_silu_conv_reference(*a), "replica")

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (TOL, attn_bf16_check, attn_i8_check,
+from chip_smoke import (CONV_SHAPES, TOL, attn_bf16_check, attn_i8_check,
                         calibrated_attn_scales, flash_check, flash_lse_check,
                         gn_route_edges)
 from dxmi_tpu_torch.ops import _lib
@@ -77,18 +77,25 @@ def test_group_norm(card, shape, silu):
            group_norm_silu_reference(x, s, b, 32, 1e-6, silu), "gn_silu")
 
 
-@pytest.mark.parametrize("B,R,Cin,Cout", [(100, 32, 128, 128),
-                                          (100, 16, 512, 256),
-                                          (100, 4, 256, 256), (8, 16, 32, 32),
-                                          (8, 8, 96, 64), (8, 8, 192, 64),
-                                          (3, 5, 64, 40)])
-def test_gn_silu_conv(card, B, R, Cin, Cout):
-    args = _tensors(np.random.RandomState(1), card, ((B, R, R, Cin), 2.0, 0.5),
+@pytest.mark.parametrize("B,R,Cin,Cout,W", [
+    *((B, R, Cin, Cout, R) for B, R, Cin, Cout in CONV_SHAPES),
+    *((B, R, Cin, Cout, R) for B in (128, 32)
+      for R, Cin, Cout in ((32, 128, 128), (32, 384, 128), (32, 256, 128))),
+    (8, 16, 32, 32, 16), (8, 8, 96, 64, 8), (8, 8, 192, 64, 8),
+    (3, 5, 64, 40, 5), (2, 16, 64, 320, 16), (1, 40, 32, 64, 300),
+    (1, 128, 64, 64, 128), (1, 512, 32, 32, 512)])
+def test_gn_silu_conv(card, B, R, Cin, Cout, W):
+    """K3 at every main-path shape of E (batch 100) and at E4's batches 128
+    and 32 at 32x32, at small and ragged widths (Cin = 96 in 64-channel
+    chunks, Cout = 40, 320), and at widths that take the 32- and 16-channel
+    chunks of wide images; a replay bit-equal."""
+    args = _tensors(np.random.RandomState(1), card, ((B, R, W, Cin), 2.0, 0.5),
                     ((Cin,), 0.1, 1.0), ((Cin,), 0.1, 0.0),
                     ((3, 3, Cin, Cout), (9 * Cin) ** -0.5, 0.0),
                     ((Cout,), 0.1, 0.0))
-    _check(gn_silu_conv(*args), gn_silu_conv_reference(*args),
-           "gn_silu_conv3x3")
+    out = gn_silu_conv(*args)
+    _check(out, gn_silu_conv_reference(*args), "gn_silu_conv3x3")
+    assert torch.equal(out, gn_silu_conv(*args))
 
 
 @pytest.mark.parametrize("B,S,C,nh", [(100, 256, 256, 1), (128, 256, 256, 1),
