@@ -26,7 +26,11 @@ failure exits non-zero naming the phase:
      kernel's edges (S = 64, 256, 1024; d = 24, 32, 40, 64, 128; views of one
      qkv buffer and three tensors; with lse); K7 fp32 at E4's shape at batch
      128 and 32, bb 2 and 4, bf16 at ImageNet64's 16x16 map and at E4's
-     shape with two heads);
+     shape with two heads; K8 at the CIFAR-10 net's int8 shapes, its
+     stride-2 form at the three Downsample maps in fp32 and bf16, exact and
+     replayed bit-equal; K1 at the CIFAR-10 net's bf16 shapes, 4 to 16
+     channels a group, both statistics modes, replayed bit-equal, with its
+     route);
   T  time each kernel, its plain version and one PyTorch library call with
      CUDA events, device time (K4 at each shape the main paths launch it
      at; K2 fp32 beside K7 at bb 2 and 4 on the same inputs at batch 100,
@@ -34,14 +38,26 @@ failure exits non-zero naming the phase:
      of their main-path maps split by launch (torch.profiler: statistics,
      GN apply or quantise, qkv GEMM, core, proj GEMM), and K3 at one shape
      of each map size (weight cast, statistics, conv, the sum of split
-     slices), each beside its bound;
+     slices), each beside its bound; K8 (both forms) at the CIFAR-10
+     net's int8 shapes beside torch._int_mm on the im2col matrix;
   T-bwd the device time of each launch of one K6 bf16 call and one K4-dkv
      call at the 32x32 map at batch 128 (torch.profiler);
   G  replay the trained reference fixture (tests/fixtures/torch_rundir_t10)
      with its injected noise through the kernels, unfused and fused;
+  G-int8 the CIFAR fixture under --int8: calibration from injected draws
+     and the int8 step means, against the JAX package's (tests/
+     torch_fixtures/cifar_int8_golden.npz), gated as G2-int8;
   E  generate 2 batches of 100 CIFAR-10 samples at T=10 at the full width of
      configs/cifar10/T10.yaml with seeded random weights, and check that the
      main path launched each kernel the expected number of times;
+  E-int8 the same net under int8: (a) generate_cifar10 --int8 with an fp32
+     and a bf16 torso (calibrated on 2 x 64 trajectories), 2 batches of 100,
+     and (b) bench.py's configuration (bf16, the attention 1x1s in bf16,
+     merged qkv, max-free softmax, phase upsample, bf16_onepass statistics;
+     calibrated on 1 x 8) through sample_many, 2 batches of 96; the launches
+     of K1 and of both K8 forms checked, img/s beside E's, K8's and K1's
+     shares of a profiled trajectory and K8's time by shape beside its
+     bound and torch._int_mm on an im2col matrix of the shape;
   G2 replay the trained ADM fixture (tests/fixtures/torch_rundir_adm_t10)
      with its injected noise and labels, einsum and fused attention;
   G2-int8 the ADM fixture under --int8: calibration from injected draws and
@@ -74,15 +90,15 @@ failure exits non-zero naming the phase:
      step, finite metrics and the first minibatch's gradient by einsum,
      fused bb 1 and fused bb 4, whole and per group of the attention
      blocks' parameters;
-  T-K1 K1's time at each shape that E2 (fused, flash), E3 (flash,
+  T-K1 K1's time at each shape that E-int8, E2 (fused, flash), E3 (flash,
      fused_train) and E4 launched it at, with its launches per trajectory or
      step (counted in those phases), its route and its bound;
   T-K3 K3's time at each shape that E and E4 launched it at, with its
      launches per trajectory or step (counted in those phases), its bound,
      its library and its plain time (without E and E4 in the run: at every
      conv shape of the CIFAR-10 net at batch 100, 32 and 128, no launches);
-  C  run the generation CLIs (generate_cifar10, generate_large with and
-     without --int8) as subprocesses on the fixture run dirs with
+  C  run the generation CLIs (generate_cifar10 and generate_large, each
+     with and without --int8) as subprocesses on the fixture run dirs with
      --save_npz, and hold each npz to the in-process samples; then
      train_image_large for 2 steps on a shrunken config and generate_large
      on the run dir it wrote, and the same with train_cifar10 and
@@ -113,7 +129,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dxmi_tpu_torch import generate_large, train_cifar10, train_image_large
+from dxmi_tpu_torch import (generate_cifar10, generate_large, train_cifar10,
+                            train_image_large)
 from dxmi_tpu_torch.config import instantiate, load_yaml, merge
 from dxmi_tpu_torch.generate_cifar10 import (generate, load_sampler,
                                              sample_batches, to_uint8)
@@ -147,8 +164,9 @@ from dxmi_tpu_torch.ops.groupnorm import (group_norm,
                                           group_norm_silu_reference, route)
 from dxmi_tpu_torch.ops.quant import (SAME_3X3, calib_channel_scale,
                                       int8_conv_apply, int8_conv_reference,
-                                      prepare_conv_static)
+                                      out_size, prepare_conv_static)
 from dxmi_tpu_torch.runtime import select_device
+from dxmi_tpu_torch.samplers import sample_many
 from dxmi_tpu_torch.trainers.buffer import from_d_sample
 from dxmi_tpu_torch.trainers.dxmi import DxMITrainer, train_step
 from dxmi_tpu_torch.trainers.dxmi_cond import DxMITrainerCond
@@ -165,6 +183,8 @@ CIFAR10_CONFIG = os.path.join(REPO, "configs", "cifar10", "T10.yaml")
 IMAGENET64_CONFIG = os.path.join(REPO, "configs", "imagenet64", "T10.yaml")
 INT8_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
                            "adm_int8_golden.npz")
+CIFAR_INT8_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
+                                 "cifar_int8_golden.npz")
 TRAIN_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
                             "adm_train_golden.npz")
 BATCH, N_BATCHES, T = 100, 2, 10
@@ -215,6 +235,16 @@ ADM_CALIB_LAUNCHES = {"gn_silu_bf16": 95 * 20, "flash_attn": 7 * 20}
 # attn_impl='fused'): K1 = norm_out + the 4x4 mid block's norm, K3 = conv1
 # and conv2 of 22 ResnetBlocks, K2 = the 5 attention blocks at 16x16.
 LAUNCHES_PER_FORWARD = {"gn_silu": 2, "gn_silu_conv3x3": 44, "attn_block": 5}
+# E-int8's launches a forward of the full-width CIFAR-10 net: (a) --int8
+# (fp32 or bf16 torso; K1 at all 51 GroupNorms, K8 at the 57 ResnetBlock
+# convs, the 3 Upsample convs and the 24 attention 1x1s, and its stride-2
+# form at the 3 Downsample convs) and (b) bench.py's configuration (the
+# attention 1x1s in bf16, each phase Upsample as 4 K8 launches)
+CIFAR_INT8_LAUNCHES_PER_FORWARD = {
+    "a_fp32": {"gn_silu": 51, "int8_conv": 84, "int8_conv_s2": 3},
+    "a_bf16": {"gn_silu_bf16": 51, "int8_conv": 84, "int8_conv_s2": 3},
+    "b": {"gn_silu_bf16": 51, "int8_conv": 69, "int8_conv_s2": 3},
+}
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, fp32 outside the
 # tensor cores, bf16 and int8 tensor cores. An fp32-accurate product on the
@@ -401,6 +431,9 @@ INFO = {
                       "dxmi_tpu/ops/attn_block.py:353"),
     "int8_conv": ("dxmi_tpu_torch/csrc/int8_conv.cu",
                   "dxmi_tpu/ops/quant.py:68"),
+    "int8_conv_s2": ("dxmi_tpu_torch/csrc/int8_conv.cu",
+                     "dxmi_tpu/ops/quant.py:68 (stride 2, the Downsample "
+                     "of dxmi_tpu/models/unet_small.py:456)"),
     "flash_attn_bwd_dkv": (
         "dxmi_tpu_torch/csrc/flash_attn_bwd.cu",
         "jax/experimental/pallas/ops/tpu/flash_attention.py:796 "
@@ -425,6 +458,16 @@ def adm_int8_calib_draws(seed):
     x0 = rs.randn(2, 8, 3, 16, 16).astype(np.float32) * np.float32(80.0)
     eps = rs.randn(2, 10, 8, 3, 16, 16).astype(np.float32)
     return x0, eps, rs.randint(0, 4, size=(2, 8)).astype(np.int64)
+
+
+def cifar_int8_calib_draws(seed):
+    """The injected draws of the CIFAR fixture's int8 calibration (two
+    rounds of 16 samples, T=10), NCHW float32, from a numpy seed: x0 (2, 16,
+    3, 16, 16) and eps (2, 10, 16, 3, 16, 16).
+    tests/torch_fixtures/make_cifar_int8_golden.py feeds JAX the same."""
+    rs = np.random.RandomState(seed)
+    return (rs.randn(2, 16, 3, 16, 16).astype(np.float32),
+            rs.randn(2, 10, 16, 3, 16, 16).astype(np.float32))
 
 
 def direction(name, shape):
@@ -569,8 +612,9 @@ class PhaseError(Exception):
     pass
 
 
-PHASES = ("B", "K", "T", "T-bwd", "G", "E", "G2", "G2-int8", "E2", "E2-int8",
-          "G3", "E3", "G4", "E4", "T-K1", "T-K3", "C")
+PHASES = ("B", "K", "T", "T-bwd", "G", "G-int8", "E", "E-int8", "G2",
+          "G2-int8", "E2", "E2-int8", "G3", "E3", "G4", "E4", "T-K1", "T-K3",
+          "C")
 
 
 def run_phase(name, fn):
@@ -706,6 +750,37 @@ I8_CONV_SHAPES = ([(BATCH, 8, 1536, 768, SAME_3X3, torch.bfloat16, False)]
                      (BATCH, 16, 576, 576, SAME_3X3, torch.bfloat16, False),
                      (8, 16, 96, 64, SAME_3X3, torch.bfloat16, False)])
 
+# K8 at the CIFAR-10 net's int8 shapes (E-int8), as conv_i8_case's
+# arguments with the kernel size and stride: the stride-2 Downsample convs
+# on the (0, 1)-padded maps (33, 17, 9 -> 16, 8, 4) in fp32 ((a)'s torso)
+# and bf16 ((b) at batch 96), the first the kernels record's row; then
+# stride-1 convs: 3x3 at 32x32 (the widest decoder input, 384) and 4x4, the
+# attention 1x1s at 16x16, a nin_shortcut 1x1 and a 2x2 phase conv of (b)'s
+# 16x16 -> 32x32 Upsample.
+VALID = ((0, 0), (0, 0))
+CIFAR_I8_CONV_SHAPES = (
+    [(BATCH, R, C, C, VALID, torch.float32, False, 3, 2)
+     for R, C in ((33, 128), (17, 256), (9, 256))]
+    + [(96, R, C, C, VALID, torch.bfloat16, False, 3, 2)
+       for R, C in ((33, 128), (17, 256), (9, 256))]
+    + [(BATCH, 32, 128, 128, SAME_3X3, torch.float32, False, 3, 1),
+       (BATCH, 32, 384, 128, SAME_3X3, torch.float32, False, 3, 1),
+       (BATCH, 16, 256, 256, VALID, torch.float32, False, 1, 1),
+       (BATCH, 4, 512, 256, SAME_3X3, torch.float32, False, 3, 1),
+       (96, 32, 128, 128, SAME_3X3, torch.bfloat16, False, 3, 1),
+       (96, 32, 384, 128, VALID, torch.bfloat16, False, 1, 1),
+       (96, 16, 256, 256, PHASE_PADS[0], torch.bfloat16, False, 2, 1)])
+# K1 at the CIFAR-10 net's bf16 shapes (E-int8's (a) bf16 and (b)): every
+# (HW, C) of its GroupNorms, 4, 8, 12 and 16 channels a group, at batch 100
+# and 96, both statistics modes
+CIFAR_GN_BF16_SHAPES = [
+    (B, HW, C, silu) for B in (BATCH, 96)
+    for HW, C, silu in ((1024, 128, True), (1024, 256, True),
+                        (1024, 384, True), (1024, 128, False),
+                        (256, 256, True), (256, 384, True), (256, 512, True),
+                        (256, 256, False), (64, 256, True), (64, 512, True),
+                        (16, 256, True), (16, 512, True))]
+
 
 def attn_i8_case(gen, B, S, C, nh, dtype):
     """attn_case's distributions in ``dtype`` with the activation scales
@@ -715,18 +790,50 @@ def attn_i8_case(gen, B, S, C, nh, dtype):
     return (x.to(dtype), gs, gb, prep_int8_mats(wq, wp, sa_q, sa_p), bq, bp)
 
 
-def conv_i8_case(gen, B, R, Cin, Cout, pad, dtype, dynamic):
-    """An NHWC input and prepared int8 weights: per-channel activation
-    scales at the input's 0.995 quantile, or (dynamic) a scalar max / 127."""
+def conv_i8_case(gen, B, R, Cin, Cout, pad, dtype, dynamic, k=None,
+                 stride=1):
+    """An NHWC input and prepared int8 weights of a k x k conv (3x3 at SAME
+    padding, else 2x2, unless ``k`` is given): per-channel activation
+    scales at the input's 0.995 quantile, or (dynamic) a scalar max / 127;
+    ``stride`` is passed on."""
     x = randn(gen, B, R, R, Cin, scale=2.0, shift=0.3).to(dtype)
-    kh = 3 if pad == SAME_3X3 else 2
-    k = randn(gen, kh, kh, Cin, Cout, scale=(kh * kh * Cin) ** -0.5)
+    kh = k or (3 if pad == SAME_3X3 else 2)
+    w = randn(gen, kh, kh, Cin, Cout, scale=(kh * kh * Cin) ** -0.5)
     if dynamic:
         a = torch.clamp(x.float().abs().amax(), min=1e-8) / 127.0
     else:
         a = calib_channel_scale(x.reshape(-1, Cin))
     b = randn(gen, Cout, scale=0.1)
-    return x, prepare_conv_static(k, a), b, pad, dtype
+    return x, prepare_conv_static(w, a), b, pad, dtype, stride
+
+
+def k8_library(x, q, pad, stride=1):
+    """K8's library call: torch._int_mm on the int8 im2col matrix (built
+    here, outside the timed call) and the int8 weights; returns the call."""
+    B, H, W, Cin = x.shape
+    Cout, kh, kw, _ = q.w_i8.shape
+    (pt, pb), (pl, pr) = pad
+    Ho, Wo = out_size(H, W, kh, kw, pad, stride)
+    xq = x.float() / q.xscale if q.divide else x.float() * q.xscale
+    xi = torch.clamp(torch.round(xq), -127, 127)
+    cols = F.pad(xi.permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    cols = torch.stack([cols[:, :, ty:ty + stride * (Ho - 1) + 1:stride,
+                             tx:tx + stride * (Wo - 1) + 1:stride]
+                        for ty in range(kh) for tx in range(kw)], -1)
+    cols = cols.permute(0, 2, 3, 4, 1).reshape(B * Ho * Wo, -1).to(torch.int8)
+    w = q.w_i8.reshape(Cout, -1).t()
+    return lambda: torch._int_mm(cols, w)
+
+
+def k8_work(B, Ho, Wo, Cin, Cout, kh, kw, H, W, esize_x, esize_y):
+    """(bytes, ops) of one K8 call: x read once, y written once, the int8
+    weights and the fp32 scales and bias; the int8 products over the output
+    positions, the quantising and the epilogue in fp32."""
+    M, K = B * Ho * Wo, kh * kw * Cin
+    nbytes = (B * H * W * Cin * esize_x + M * Cout * esize_y + Cout * K
+              + (Cin + 2 * Cout) * 4)
+    return nbytes, {"int8": 2 * M * Cout * K,
+                    "fp32": 2 * B * H * W * Cin + 3 * M * Cout}
 
 
 def gn_bf16_case(gen, B, HW, C, silu, stats):
@@ -1682,7 +1789,7 @@ def phase_kernels(gen):
         errs["attn_block_i8"] = max(errs["attn_block_i8"], err)
     errs["int8_conv"] = 0.0
     for shape in I8_CONV_SHAPES:
-        x, q, b, pad, dt = conv_i8_case(gen, *shape)
+        x, q, b, pad, dt, _ = conv_i8_case(gen, *shape)
         err = (int8_conv_apply(x, q, b, pad, dt).float()
                - int8_conv_reference(x, q, b, pad, dt).float()).abs().max()
         err = err.item()
@@ -1691,11 +1798,53 @@ def phase_kernels(gen):
               "(must be 0: exact int32 sums, elementwise epilogue)")
         if err != 0:
             raise AssertionError(f"int8_conv {shape}: max abs err {err}")
+    phase_kernels_cifar_int8(gen, errs)
     phase_kernels_gn_routes(gen, errs)
     phase_kernels_flash_edges(gen, errs)
     phase_kernels_train(gen, errs)
     phase_kernels_bb(gen, errs)
     return errs
+
+
+def phase_kernels_cifar_int8(gen, errs):
+    """K8 at the CIFAR-10 net's int8 shapes, stride 1 and 2 (exact: max abs
+    err 0) and K1 at its bf16 shapes in both statistics modes (TOL), each
+    replayed bit-equal; K1's route at each shape (gn_plan, which raises for
+    a shape neither route takes)."""
+    errs["int8_conv_s2"] = 0.0
+    for shape in CIFAR_I8_CONV_SHAPES:
+        x, q, b, pad, dt, stride = conv_i8_case(gen, *shape)
+        out = int8_conv_apply(x, q, b, pad, dt, stride=stride)
+        err = (out.float() - int8_conv_reference(
+            x, q, b, pad, dt, stride).float()).abs().max().item()
+        what = (f"int8_conv{'_s2' if stride == 2 else ''} {shape[:4]} "
+                f"{shape[7]}x{shape[7]} pad {pad} {str(dt)[6:]}")
+        if err != 0:
+            raise AssertionError(f"{what}: max abs err {err}")
+        if not torch.equal(out, int8_conv_apply(x, q, b, pad, dt,
+                                                stride=stride)):
+            raise AssertionError(f"{what}: a replay differs")
+        print(f"  K {what}: out {tuple(out.shape)}, max abs err {err:g} "
+              "(must be 0); replay bit-equal")
+        del x, out
+    worst = 0.0
+    for B, HW, C, silu in CIFAR_GN_BF16_SHAPES:
+        err = 0.0
+        for mode in GN_MODES:
+            a = gn_bf16_case(gen, B, HW, C, silu, mode)
+            out = group_norm(*a)
+            err = max(err, max_err(out.float(), group_norm_silu_reference(
+                *a).float(), "gn_silu_bf16"))
+            if not torch.equal(out, group_norm(*a)):
+                raise AssertionError(f"gn_silu_bf16 {(B, HW, C)} {mode}: a "
+                                     "replay differs")
+        worst = max(worst, err)
+        r = route(HW, C, 32, torch.bfloat16)
+        print(f"  K gn_silu_bf16 {(B, HW, C)}{' +SiLU' if silu else ''} "
+              f"({C // 32} channels a group), both modes: max abs err "
+              f"{err:.3e}; {'on-chip' if r.on_chip else 'split'} ({r.slabs} "
+              f"slabs, clusters of {r.cluster}); replay bit-equal")
+    errs["gn_silu_bf16"] = max(errs["gn_silu_bf16"], worst)
 
 
 # K3 at every main-path shape of E (batch 100) and at E4's training batch
@@ -1897,6 +2046,7 @@ def phase_times(gen):
     rows.update(attn_fp32_time_rows(gen))
     rows.update(adm_time_rows(gen))
     rows.update(int8_time_rows(gen))
+    rows.update(cifar_int8_time_rows(gen))
     attn_block_splits(gen)
     conv_splits(gen)
     rows.update(train_time_rows(gen))
@@ -2065,28 +2215,57 @@ def int8_time_rows(gen):
             ops={"int8": 2 * B * S * C * 4 * C, "bf16": 4 * B * S * S * C,
                  "fp32": 5 * B * nh * S * S + 8 * B * S * C})
     for i, shape in enumerate(I8_CONV_SHAPES[:2] + I8_CONV_SHAPES[5:6]):
-        x, q, b, pad, dt = conv_i8_case(gen, *shape)
+        x, q, b, pad, dt, _ = conv_i8_case(gen, *shape)
         B, R, Cin, Cout = shape[:4]
         kh = q.w_i8.shape[1]
-        M, K = B * R * R, kh * kh * Cin
-        (pt, pb), (pl, pr) = pad
-        xi = torch.clamp(torch.round(x.float() * q.xscale), -127,
-                         127).to(torch.int8)
-        cols = F.pad(xi.permute(0, 3, 1, 2).float(), (pl, pr, pt, pb))
-        cols = torch.stack([cols[:, :, ty:ty + R, tx:tx + R]
-                            for ty in range(kh) for tx in range(kh)], -1)
-        cols = cols.permute(0, 2, 3, 4, 1).reshape(M, K).to(torch.int8)
-        w = q.w_i8.reshape(Cout, K).t()
+        nbytes, ops = k8_work(B, R, R, Cin, Cout, kh, kh, R, R,
+                              x.element_size(), x.element_size())
         name = "int8_conv" if i == 0 else f"int8_conv {shape[:4]} pad {pad}"
         rows[name] = dict(
             ms=time_ms(lambda: int8_conv_apply(x, q, b, pad, dt)),
             plain_ms=time_ms(lambda: int8_conv_reference(x, q, b, pad, dt),
                              iters=3, warmup=1),
-            library_ms=time_ms(lambda: torch._int_mm(cols, w)),
-            bytes=(M * Cin + M * Cout) * x.element_size() + Cout * K
-            + (Cin + 2 * Cout) * 4,
-            ops={"int8": 2 * M * Cout * K, "fp32": 2 * M * Cin + 3 * M * Cout})
-        del cols
+            library_ms=time_ms(k8_library(x, q, pad)), bytes=nbytes, ops=ops)
+    return rows
+
+
+def cifar_int8_time_rows(gen):
+    """T rows of K8 at the CIFAR-10 net's int8 shapes (the stride-2 form's
+    record row first), each beside its plain version and torch._int_mm on
+    the im2col matrix; and of K1 at the widest CIFAR-10 bf16 map in E-int8
+    (a)'s fp32 statistics and (b)'s bf16_onepass, beside its plain version
+    and F.group_norm + F.silu."""
+    rows = {}
+    for B, mode in ((BATCH, "fp32"), (96, "bf16_onepass")):
+        a = gn_bf16_case(gen, B, 1024, 128, True, mode)
+        x_nchw = a[0].reshape(B, 32, 32, 128).permute(0, 3, 1, 2)
+        s16, b16 = a[1].bfloat16(), a[2].bfloat16()
+        n = B * 1024 * 128
+        rows[f"gn_silu_bf16 CIFAR {(B, 1024, 128)} {mode}"] = dict(
+            ms=time_ms(lambda: group_norm(*a)),
+            plain_ms=time_ms(lambda: group_norm_silu_reference(*a)),
+            library_ms=time_ms(lambda: F.silu(F.group_norm(
+                x_nchw, 32, s16, b16, 1e-5))),
+            bytes=2 * n * 2 + 2 * 128 * 4, ops={"fp32": 11 * n})
+    for i, shape in enumerate(CIFAR_I8_CONV_SHAPES):
+        x, q, b, pad, dt, stride = conv_i8_case(gen, *shape)
+        B, R, Cin, Cout = shape[:4]
+        k = shape[7]
+        Ho, Wo = out_size(R, R, k, k, pad, stride)
+        name = ("int8_conv_s2" if i == 0
+                else f"int8_conv{'_s2' if stride == 2 else ''} CIFAR "
+                f"{(B, R, Cin, Cout)} {k}x{k} pad {pad} {str(dt)[6:]}")
+        nbytes, ops = k8_work(B, Ho, Wo, Cin, Cout, k, k, R, R,
+                              x.element_size(), x.element_size())
+        rows[name] = dict(
+            ms=time_ms(lambda: int8_conv_apply(x, q, b, pad, dt,
+                                               stride=stride)),
+            plain_ms=time_ms(lambda: int8_conv_reference(x, q, b, pad, dt,
+                                                         stride),
+                             iters=3, warmup=1),
+            library_ms=time_ms(k8_library(x, q, pad, stride)),
+            bytes=nbytes, ops=ops)
+        del x
     return rows
 
 
@@ -2280,7 +2459,7 @@ def phase_replay():
     return errs
 
 
-def phase_generate(k3_log):
+def phase_generate(k3_log, rates):
     # warm-up outside the counted run (cuDNN plans, allocator)
     cfg = cifar10_t10()
     generate(cfg, None, BATCH, BATCH, "cuda", seed=1)
@@ -2309,6 +2488,7 @@ def phase_generate(k3_log):
     sample_batches(sampler, BATCH * N_BATCHES, BATCH, seed=3)
     torch.cuda.synchronize()
     steady = time.perf_counter() - t0
+    rates["E"] = BATCH * N_BATCHES / steady
     print(f"  E launches {launches} (expected {want})")
     print(f"  E generate(): {x.shape[0]} samples in {wall:.3f} s with setup "
           f"({x.shape[0] / wall:.1f} img/s); sampling alone "
@@ -2351,6 +2531,154 @@ def profile_run(fn, label, top=12, width=90, shares=None):
         ms = sum(r[0] for r in rows if any(k in r[2] for k in keys))
         print(f"    {name}: {ms:.3f} ms, {ms / total:.1%} of the device's "
               f"busy time, {ms / wall_ms:.1%} of the wall time")
+
+
+# E-int8: the CIFAR-10 net at full width under int8, (a) generate_cifar10
+# --int8 with an fp32 and a bf16 torso (calibrated on 2 x 64 trajectories)
+# and (b) bench.py's configuration at batch 96 through sample_many
+E_INT8_PATHS = ("a_fp32", "a_bf16", "b")
+
+
+def cifar_int8_sampler(path, seed=0):
+    """E-int8's sampler for ``path``, seed-``seed`` weights, calibrated as
+    its entry does."""
+    if path == "b":
+        return generate_cifar10.bench_sampler("cuda", seed)
+    return load_sampler(cifar10_t10(), None, "cuda", seed, int8=True,
+                        dtype=path[2:])
+
+
+def phase_generate_int8(k1_log, rates):
+    """E-int8 for each path: the sampler built and calibrated (setup, its
+    launches counted: K1 alone, the int8 layers run full precision), a
+    warm-up trajectory, then N_BATCHES trajectories with the launches
+    counted (and K1's shapes for T-K1), then sampling alone, a profiled
+    trajectory with K8's and K1's shares of its device time, and K8's time
+    by shape over one more. Returns the launches of each path."""
+    out, samples = {}, {}
+    for path in E_INT8_PATHS:
+        B = generate_cifar10.BENCH_BATCH if path == "b" else BATCH
+        calib_forwards = T * (generate_cifar10.BENCH_CALIB["n_rounds"]
+                              if path == "b" else
+                              generate_cifar10.CALIB_N_ROUNDS)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        sampler = cifar_int8_sampler(path)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        calib = dict(_lib.LAUNCHES)
+
+        def run(n, seed):
+            if path == "b":
+                gen = torch.Generator(device="cuda").manual_seed(seed)
+                return sample_many(sampler, n, B, gen).reshape(n * B, 3, 32,
+                                                               32)
+            return sample_batches(sampler, n * B, B, seed)
+
+        run(1, 1)
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        with k1_shapes(k1_log, f"E-int8 {path}", N_BATCHES,
+                       f"trajectory of {B}"):
+            x = run(N_BATCHES, 0)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(_lib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        gn = "gn_silu" if path == "a_fp32" else "gn_silu_bf16"
+        want_calib = {gn: CIFAR_INT8_LAUNCHES_PER_FORWARD[path][gn]
+                      * calib_forwards}
+        want = {k: v * T * N_BATCHES
+                for k, v in CIFAR_INT8_LAUNCHES_PER_FORWARD[path].items()}
+        if tuple(x.shape) != (B * N_BATCHES, 3, 32, 32):
+            raise AssertionError(f"E-int8 {path}: samples of shape "
+                                 f"{tuple(x.shape)}")
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"E-int8 {path}: non-finite samples")
+        if got != want or calib != want_calib:
+            raise AssertionError(f"E-int8 {path}: launches {got} (calibration"
+                                 f" {calib}), expected {want} ({want_calib})")
+        t0 = time.perf_counter()
+        run(N_BATCHES, 3)
+        torch.cuda.synchronize()
+        rates[f"E-int8 {path}"] = B * N_BATCHES / (time.perf_counter() - t0)
+        samples[path] = x.cpu()
+        print(f"  E-int8 {path}: calibration launches {calib} (expected "
+              f"{want_calib}); sampling launches {got} (expected {want})")
+        print(f"  E-int8 {path}: load + calibration {setup:.3f} s; "
+              f"{x.shape[0]} samples in {wall:.3f} s ({x.shape[0] / wall:.2f}"
+              f" img/s, warm); sampling alone {rates[f'E-int8 {path}']:.2f} "
+              f"img/s; samples in [{x.min().item():.3f}, "
+              f"{x.max().item():.3f}], std {x.std().item():.3f}; peak "
+              f"allocated {peak / 2**20:.1f} MiB")
+        profile_run(lambda: run(1, 4),
+                    f"E-int8 {path} profile, one trajectory of {B}", top=12,
+                    shares={"K8": ("int8_conv_kernel",),
+                            "K1": ("gn_kernel", "gn_apply_kernel")})
+        k8_shape_times(lambda: run(1, 5), f"E-int8 {path}, batch {B},",
+                       library=True)
+        del sampler
+        torch.cuda.empty_cache()
+        out[path] = got
+    d = (samples["a_bf16"] - samples["a_fp32"]).abs().mean().item()
+    e = rates.get("E")
+    print(f"  E-int8 img/s (sampling alone): (a) fp32 "
+          f"{rates['E-int8 a_fp32']:.2f}, (a) bf16 "
+          f"{rates['E-int8 a_bf16']:.2f}, (b) at batch "
+          f"{generate_cifar10.BENCH_BATCH} {rates['E-int8 b']:.2f}; E (fp32, "
+          f"fused) in this run {'not run' if e is None else f'{e:.2f}'}; "
+          f"mean |(a) bf16 - (a) fp32| over the same seeds {d:.4f} (sample "
+          f"std {samples['a_fp32'].std().item():.3f})")
+    return out
+
+
+def phase_replay_int8():
+    """G-int8: the trained CIFAR fixture under --int8 (fp32 net: K8 at every
+    ResnetBlock conv, attention 1x1 and Upsample conv, its stride-2 form at
+    the Downsample, K1 at every GroupNorm): calibration from the golden's
+    injected draws against JAX's scales, then the int8 step means with
+    JAX's scales against JAX's (G2-int8's gates), the full-precision step
+    from the same state the unfused fp32 net (JAX's arithmetic)."""
+    golden = dict(np.load(CIFAR_INT8_GOLDEN))
+    gold = dict(np.load(os.path.join(FIXTURE_DIR, "golden.npz")))
+    state = load_sampler_state(os.path.join(FIXTURE_DIR, "sampler_best.pth"))
+    cfg = fixture_config()
+    sampler = load_sampler(cfg, state, "cuda", quant_int8="static")
+    fp_sampler = load_sampler(cfg, state, "cuda", fuse_gn_conv=False,
+                              attn_impl="einsum")
+    x0, eps = cifar_int8_calib_draws(int(golden["calib_seed"]))
+    sampler.calibrate_quant(n_sample=x0.shape[1], n_rounds=x0.shape[0],
+                            x0=torch.from_numpy(x0).cuda(),
+                            eps=torch.from_numpy(eps).cuda())
+    ours = {k: v.clone() for k, v in sampler.net.state_dict().items()}
+    want = load_int8_golden_scales(sampler.net, golden)
+    worst_scale = max(float((ours[k].cpu() - v).abs().max() / v.abs().max())
+                      for k, v in want.items())
+    if not worst_scale <= INT8_SCALE_REL:
+        raise AssertionError(f"calibrated scales {worst_scale:.3e} from "
+                             "JAX's")
+    _lib.reset_launches()
+    steps, final = replay_int8(sampler, fp_sampler, golden, gold, "cuda")
+    used = {k for k, v in _lib.LAUNCHES.items() if v}
+    print(f"  G-int8: {len(want)} calibrated scales within {worst_scale:.3e}"
+          f" of JAX's (tol {INT8_SCALE_REL:g})")
+    print("  G-int8: per-step mean err / int8 effect "
+          + " ".join(f"{r:.3f}" for r, _, _ in steps)
+          + f" (tol {INT8_STEP_RATIO:g}); median err / int8 effect "
+          + " ".join(f"{m:.3f}" for _, m, _ in steps)
+          + f" (average tol {INT8_MEDIAN_RATIO:g}); max abs err "
+          + " ".join(f"{e:.2e}" for _, _, e in steps)
+          + f"; final {final:.3e}; kernels {sorted(used)}")
+    worst, median = check_int8_replay(steps)
+    print(f"  G-int8: worst mean ratio {worst:.3f}, median ratio averaged "
+          f"over the steps {median:.4f}")
+    if used != {"gn_silu", "int8_conv", "int8_conv_s2"}:
+        raise AssertionError(f"launched {used}")
+    return worst
 
 
 def phase_replay_adm():
@@ -2425,13 +2753,16 @@ INT8_MEDIAN_RATIO = 0.1
 INT8_SCALE_REL = 1e-4
 
 
-def replay_adm_int8(sampler, fp_sampler, golden, gold, device):
+def replay_int8(sampler, fp_sampler, golden, gold, device):
     """Per-step (mean ratio, median ratio, max abs err) of an int8 sampler
-    against the golden int8 step means, each step from the golden state;
+    against the golden int8 step means, each step from the golden state
+    (``gold``: a fixture's golden.npz, ADM with labels or CIFAR without);
     the ratios are the error's mean (median) over the elements over the
     mean (median) distance of the full-precision step."""
-    y = torch.from_numpy(gold["y"]).long().to(device)
-    x = torch.from_numpy(gold["x_init"]).to(device)
+    y = (torch.from_numpy(gold["y"]).long().to(device) if "y" in gold
+         else None)
+    x = torch.from_numpy(gold["x_init"] if "x_init" in gold
+                         else gold["x0"]).to(device)
     out = []
     with torch.no_grad():
         for t in range(sampler.n_timesteps):
@@ -2501,7 +2832,7 @@ def phase_replay_adm_int8():
         raise AssertionError(f"calibrated scales {worst_scale:.3e} from "
                              "JAX's")
     _lib.reset_launches()
-    steps, final = replay_adm_int8(sampler, fp_sampler, golden, gold, "cuda")
+    steps, final = replay_int8(sampler, fp_sampler, golden, gold, "cuda")
     used = {k for k, v in _lib.LAUNCHES.items() if v}
     print(f"  G2-int8: {len(want)} calibrated scales within {worst_scale:.3e}"
           f" of JAX's (tol {INT8_SCALE_REL:g})")
@@ -2530,6 +2861,7 @@ def phase_cli():
     out_dir = os.path.join(REPO, "build", "chip_smoke_cli")
     os.makedirs(out_dir, exist_ok=True)
     runs = [("generate_cifar10", FIXTURE_DIR, (), 4),
+            ("generate_cifar10", FIXTURE_DIR, ("--int8",), 4),
             ("generate_large", ADM_FIXTURE_DIR, (), 8),
             ("generate_large", ADM_FIXTURE_DIR, ("--int8",), 8)]
     for module, run_dir, extra, bs in runs:
@@ -2551,7 +2883,8 @@ def phase_cli():
             run_dir, "sampler_best.pth" if module == "generate_cifar10"
             else "sampler.pth"))
         if module == "generate_cifar10":
-            x, y = generate(fixture_config(), state, 8, bs, "cuda"), None
+            x, y = generate(fixture_config(), state, 8, bs, "cuda",
+                            int8=bool(extra)), None
         else:
             x, y = generate_large.generate(adm_fixture_config(), state, 8,
                                            bs, "cuda", int8=bool(extra))
@@ -2808,55 +3141,81 @@ def phase_generate_adm_int8(fused, rates):
                                                       seed=4),
                 f"E2-int8 profile, one trajectory of {BATCH}", top=16,
                 shares={"K8": ("int8_conv_kernel",)})
-    k8_shape_times(sampler)
+    k8_shape_times(lambda: generate_large.sample_batches(
+        sampler, BATCH, BATCH, seed=5), f"E2-int8, batch {BATCH},")
     del sampler
     torch.cuda.empty_cache()
     return got
 
 
-def k8_shape_times(sampler):
-    """K8's device time per shape over one trajectory of BATCH: CUDA events
-    around each launch (the shape read from the C call's arguments), summed
-    per (map, Cin -> Cout, kernel size), with the launches and the bound of
-    each shape (int8 operations at INT8_OPS or bytes at HBM_BYTES_S, the
-    larger)."""
+def k8_shape_times(run, label, library=False):
+    """K8's device time per shape over ``run()`` (one trajectory): CUDA
+    events around each launch of either form (the shape read from the C
+    call's arguments), summed per (stride, map, Cin -> Cout, kernel size),
+    with the launches and the bound of each shape (int8 operations at
+    INT8_OPS or bytes at HBM_BYTES_S, the larger, ``k8_work``); with
+    ``library``, also torch._int_mm's time on an int8 im2col matrix of
+    the shape (time_ms)."""
     lib = _lib.lib()
-    launch = lib.dxmi_int8_conv
     calls = []
 
-    def timed(*args):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        code = launch(*args)
-        end.record()
-        # x_bf16, y_bf16, B, H, W, Cin, Cout, kh, kw
-        calls.append(((args[1], args[8], *args[9:16]), start, end))
-        return code
+    def timed(name, stride):
+        launch = getattr(lib, name)
 
-    lib.dxmi_int8_conv = timed
+        def fn(*args):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            code = launch(*args)
+            end.record()
+            # x_bf16, y_bf16, B, H, W, Cin, Cout, kh, kw, pt, pl (, pb, pr)
+            pads = (args[16], args[18], args[17], args[19]) if stride == 2 \
+                else (args[16], args[14] - 1 - args[16], args[17],
+                      args[15] - 1 - args[17])
+            calls.append(((stride, args[1], args[8], *args[9:16], *pads),
+                          start, end))
+            return code
+        return launch, fn
+
+    hooks = {"dxmi_int8_conv": timed("dxmi_int8_conv", 1),
+             "dxmi_int8_conv_s2": timed("dxmi_int8_conv_s2", 2)}
+    for name, (_, fn) in hooks.items():
+        setattr(lib, name, fn)
     try:
-        generate_large.sample_batches(sampler, BATCH, BATCH, seed=5)
+        run()
         torch.cuda.synchronize()
     finally:
-        lib.dxmi_int8_conv = launch
+        for name, (launch, _) in hooks.items():
+            setattr(lib, name, launch)
     shapes = {}
     for key, start, end in calls:
         n, ms = shapes.get(key, (0, 0.0))
         shapes[key] = (n + 1, ms + start.elapsed_time(end))
     total = sum(ms for _, ms in shapes.values())
-    print(f"  E2-int8 K8 by shape, one trajectory of {BATCH} (CUDA events "
-          f"around each launch): {len(calls)} launches, {total:.3f} ms")
-    for (xb, yb, B, H, W, Cin, Cout, kh, kw), (n, ms) in sorted(
-            shapes.items(), key=lambda kv: -kv[1][1]):
-        M, K = B * H * W, kh * kw * Cin
-        t_ops = 2 * M * Cout * K / INT8_OPS * 1e3
-        t_bytes = (M * Cin * (2 if xb else 4) + M * Cout * (2 if yb else 4)
-                   + Cout * K) / HBM_BYTES_S * 1e3
-        print(f"    ({B}, {H}x{W}, {Cin}->{Cout}) {kh}x{kw}: {n} launches, "
-              f"{ms:.3f} ms ({ms / total:.1%}), {ms / n:.4f} ms each, bound "
+    print(f"  {label} K8 by shape, one trajectory (CUDA events around each "
+          f"launch): {len(calls)} launches, {total:.3f} ms")
+    for key, (n, ms) in sorted(shapes.items(), key=lambda kv: -kv[1][1]):
+        stride, xb, yb, B, H, W, Cin, Cout, kh, kw, pt, pb, pl, pr = key
+        Ho, Wo = out_size(H, W, kh, kw, ((pt, pb), (pl, pr)), stride)
+        nbytes, ops = k8_work(B, Ho, Wo, Cin, Cout, kh, kw, H, W,
+                              2 if xb else 4, 2 if yb else 4)
+        t_ops = ops["int8"] / INT8_OPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        lib_txt = ""
+        if library:
+            cols = torch.randint(-127, 128, (B * Ho * Wo, kh * kw * Cin),
+                                 dtype=torch.int8, device="cuda")
+            w = torch.randint(-127, 128, (Cout, kh * kw * Cin),
+                              dtype=torch.int8, device="cuda").t()
+            lib_ms = time_ms(lambda: torch._int_mm(cols, w))
+            lib_txt = f", library {lib_ms:.4f} ms ({ms / n / lib_ms:.1f}x it)"
+            del cols, w
+        print(f"    ({B}, {H}x{W}, {Cin}->{Cout}) {kh}x{kw} stride {stride}"
+              f"{' bf16' if xb else ' fp32'}: {n} launches, {ms:.3f} ms "
+              f"({ms / total:.1%}), {ms / n:.4f} ms each, bound "
               f"{max(t_ops, t_bytes):.4f} ms "
               f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
-              f"{ms / n / max(t_ops, t_bytes):.1f}x it")
+              f"{ms / n / max(t_ops, t_bytes):.1f}x it{lib_txt}")
 
 
 # ---- K1 by shape on the main paths ---------------------------------------
@@ -3025,7 +3384,8 @@ def main() -> int:
     select_device("cuda")  # fp32 products in the plain versions (no TF32)
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = {}
-    k1_log = {}  # K1's launches by shape in E2, E3 and E4, for T-K1
+    k1_log = {}  # K1's launches by shape in E-int8, E2, E3, E4, for T-K1
+    rates = {}  # img/s of E and E-int8's paths
     k3_log = {}  # K3's launches by shape in E and E4, for T-K3
 
     def step(name, fn):
@@ -3038,7 +3398,9 @@ def main() -> int:
         step("T", lambda: phase_times(gen))
         step("T-bwd", lambda: bwd_breakdown(gen))
         step("G", phase_replay)
-        step("E", lambda: phase_generate(k3_log))
+        step("G-int8", phase_replay_int8)
+        step("E", lambda: phase_generate(k3_log, rates))
+        step("E-int8", lambda: phase_generate_int8(k1_log, rates))
         step("G2", phase_replay_adm)
         step("G2-int8", phase_replay_adm_int8)
         step("E2", lambda: phase_generate_adm(k1_log))
@@ -3070,7 +3432,8 @@ def main() -> int:
                        ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")},
                     attn_block_bwd_bf16=train["fused_train"][
                         "attn_block_bwd_bf16"],
-                    attn_block_bb=cifar[4]["attn_block_bb"])
+                    attn_block_bb=cifar[4]["attn_block_bb"],
+                    int8_conv_s2=res["E-int8"]["a_fp32"]["int8_conv_s2"])
     kernels = []
     for name, (src, replaces) in INFO.items():
         r = times[name]

@@ -2,13 +2,30 @@
 
     python -m dxmi_tpu_torch.generate_cifar10 --log_dir <run> \
         [--sampler best|last] [--n_generate N] [--batchsize B] \
-        [--save_npz samples.npz] [--seed S] [--device cuda|cpu]
+        [--save_npz samples.npz] [--seed S] [--int8] [--dtype fp32|bf16] \
+        [--device cuda|cpu]
 
 Reads ``config.yaml`` and ``sampler_{best,last}.pth`` from the run directory
 (the reference's run-dir contract; the YAML is read without PyYAML) and
 draws ``N`` samples in batches of ``B``. ``--save_npz`` streams them batch by
 batch as uint8 NHWC into ``arr_0``, the evaluator's format, so the host never
-holds all N. PNG writing, FID and ``--int8`` are not ported yet.
+holds all N.
+
+``--int8`` samples with W8A8 static int8 convs (K8: every ResnetBlock conv,
+the stride-2 Downsample convs, the Upsample convs and the attention 1x1s)
+after calibrating their activation scales on two rounds of 64
+full-precision trajectories from a generator seeded with ``seed + 123``, as
+the JAX entry does (``generate_cifar10.py:149-187``). ``--dtype bf16`` runs
+the net in bf16 (parameters stay fp32); without ``--int8`` it raises, since
+the port's fused layers have no bf16 form at this width yet (K3 with bf16
+activations, K2 in bf16 at d = 256). GroupNorm statistics are the JAX
+entry's default (two-pass fp32). Not ported yet: PNG writing, FID and
+``--guidance_scale``.
+
+``bench_sampler`` builds ``bench.py``'s configuration of the same net (bf16,
+static int8 with the attention 1x1s in bf16, the merged qkv product, the
+max-free softmax, the phase upsample, ``bf16_onepass`` statistics),
+calibrated as ``bench.py`` does; ``samplers.sample_many`` draws from it.
 """
 from __future__ import annotations
 
@@ -22,6 +39,7 @@ import torch
 from torch import nn
 
 from dxmi_tpu_torch.config import instantiate, load_yaml
+from dxmi_tpu_torch.models.unet_small import QUANT_SCALE_NAMES, UNetSmall
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.samplers.var import VARSampler
 from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
@@ -30,20 +48,69 @@ from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
 from dxmi_tpu_torch.utils.npz_stream import NpzStreamWriter
 
 
+# calibration of --int8, as the JAX entry runs it (VARSampler's defaults)
+CALIB_SEED_OFFSET, CALIB_N_SAMPLE, CALIB_N_ROUNDS = 123, 64, 2
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
 def load_sampler(cfg: Dict[str, Any],
                  state_dict: Optional[Dict[str, torch.Tensor]],
-                 device: str = "cuda", seed: int = 0,
-                 **net_overrides: Any) -> VARSampler:
+                 device: str = "cuda", seed: int = 0, int8: bool = False,
+                 dtype: str = "fp32", **net_overrides: Any) -> VARSampler:
     """The config's sampler on ``device`` in eval mode. ``state_dict`` is a
-    ``VARSampler`` state dict (``log_betas`` may be missing: the schedule's
-    initial sigmas stay); None keeps random weights drawn from ``seed``."""
+    ``VARSampler`` state dict (``log_betas`` and the activation scales of
+    int8 layers may be missing: the schedule's initial sigmas stay); None
+    keeps random weights drawn from ``seed``. ``dtype`` ('fp32' or 'bf16')
+    is the network's compute dtype; ``int8`` builds it with
+    ``quant_int8='static'`` and calibrates it (``CALIB_*``, from a generator
+    seeded with ``seed + CALIB_SEED_OFFSET``), as the JAX entry's
+    ``--int8``."""
     dev = select_device(device)
     torch.manual_seed(seed)
-    net = instantiate(cfg["sampler_net"], **net_overrides)
+    net_kw = dict(dtype=DTYPES[dtype])
+    if int8:
+        net_kw["quant_int8"] = "static"
+    net = instantiate(cfg["sampler_net"], **net_kw, **net_overrides)
     sampler = instantiate(cfg["sampler"], net=net)
     if state_dict is not None:
-        load_sampler_into(sampler, state_dict)
-    return sampler.to(dev).eval()
+        load_sampler_into(sampler, state_dict, QUANT_SCALE_NAMES)
+    sampler.to(dev).eval()
+    if int8:
+        gen = torch.Generator(device=dev).manual_seed(seed + CALIB_SEED_OFFSET)
+        sampler.calibrate_quant(gen, CALIB_N_SAMPLE, CALIB_N_ROUNDS)
+    return sampler
+
+
+# bench.py's configuration of the CIFAR-10 net (bench.py:56-70): full width,
+# bf16 compute without the fp32 softmax, static W8A8 with the attention
+# 1x1s in bf16, the merged (C, 3C) qkv product, the max-free softmax, the
+# phase upsample and bf16_onepass GroupNorm statistics (bench.py:43);
+# calibrated on one round of 8 trajectories, sampled at batch 96
+BENCH_NET = dict(ch=128, out_ch=3, ch_mult=(1, 2, 2, 2), num_res_blocks=2,
+                 attn_resolutions=(16,), dropout=0.0, in_channels=3,
+                 resolution=32, dtype=torch.bfloat16, softmax_f32=False,
+                 quant_int8="static", quant_skip_attn=True,
+                 attn_impl="einsum_merged", softmax_nomax=True,
+                 up_impl="phase", gn_stats="bf16_onepass",
+                 fuse_gn_conv=False)
+BENCH_CALIB = dict(n_sample=8, n_rounds=1)
+BENCH_CALIB_SEED = 3
+BENCH_BATCH = 96
+
+
+def bench_sampler(device: str = "cuda", seed: int = 0) -> VARSampler:
+    """``bench.py``'s sampler (``BENCH_NET``, T = 10, ``fix_last``) with
+    random weights drawn from ``seed``, calibrated as ``bench.py`` does
+    (``BENCH_CALIB``, a generator seeded with ``BENCH_CALIB_SEED``), in
+    eval mode on ``device``."""
+    dev = select_device(device)
+    torch.manual_seed(seed)
+    sampler = VARSampler(UNetSmall(**BENCH_NET), n_timesteps=10,
+                         sample_shape=(3, 32, 32), trainable_beta="fix_last")
+    sampler.to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(BENCH_CALIB_SEED)
+    sampler.calibrate_quant(gen, **BENCH_CALIB)
+    return sampler
 
 
 def iter_batches(sampler: nn.Module, n: int, batchsize: int,
@@ -98,12 +165,14 @@ def stream_samples(sampler: nn.Module, n: int, batchsize: int, seed: int,
 def generate(cfg: Dict[str, Any],
              state_dict: Optional[Dict[str, torch.Tensor]], n: int,
              batchsize: int, device: str = "cuda", seed: int = 0,
+             int8: bool = False, dtype: str = "fp32",
              **net_overrides: Any) -> torch.Tensor:
     """Build the config's sampler, load ``state_dict`` (None: random weights
-    from ``seed``) and return ``n`` samples (n, C, H, W) float32 on the CPU.
-    ``net_overrides`` go to the network's constructor (e.g.
-    ``fuse_gn_conv=False``)."""
-    sampler = load_sampler(cfg, state_dict, device, seed, **net_overrides)
+    from ``seed``), calibrate it when ``int8``, and return ``n`` samples
+    (n, C, H, W) float32 on the CPU. ``net_overrides`` go to the network's
+    constructor (e.g. ``fuse_gn_conv=False``)."""
+    sampler = load_sampler(cfg, state_dict, device, seed, int8, dtype,
+                           **net_overrides)
     return sample_batches(sampler, n, batchsize, seed)
 
 
@@ -123,16 +192,17 @@ def main() -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--int8", action="store_true")
+    p.add_argument("--dtype", default="fp32", choices=sorted(DTYPES))
     args = p.parse_args()
-    if args.int8:
-        raise NotImplementedError("--int8: not ported yet for UNetSmall")
 
     cfg = load_yaml(os.path.join(args.log_dir, "config.yaml"))
     path = resolve_run_checkpoint(args.log_dir, "sampler", args.sampler)
     print(f"sampler loaded from {path}", flush=True)
     t0 = time.perf_counter()
     sampler = load_sampler(cfg, load_sampler_state(path), args.device,
-                           args.seed)
+                           args.seed, args.int8, args.dtype)
+    if args.int8:
+        print("int8: static activation scales calibrated", flush=True)
     n = stream_samples(sampler, args.n_generate, args.batchsize, args.seed,
                        args.save_npz)
     dt = time.perf_counter() - t0

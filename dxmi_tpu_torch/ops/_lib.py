@@ -83,6 +83,9 @@ _SIGNATURES = {
     # Cout, kh, kw, pad_top, pad_left, stream
     "dxmi_int8_conv": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _P],
+    # the same at stride 2, then pad_bottom, pad_right, stream
+    "dxmi_int8_conv_s2": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -13,9 +13,10 @@ cast to the output dtype. Every step keeps the JAX package's operation order
 half to even, then clip to +-127), so the int8 values come out identical.
 
 ``int8_conv_apply`` is K8's wrapper: on a CPU tensor it runs the plain
-version, on a CUDA tensor it launches ``csrc/int8_conv.cu`` (or raises). The
-plain version is exact: the int8 products summed in float64 are integers
-below 2^53, so any order gives the int32 sum the kernel computes.
+version, on a CUDA tensor it launches ``csrc/int8_conv.cu`` (or raises), at
+stride 1 or 2 (the U-Net Downsample's conv; a form of its own on the card).
+The plain version is exact: the int8 products summed in float64 are
+integers below 2^53, so any order gives the int32 sum the kernel computes.
 
 Layouts follow the JAX functions at the public entries (NHWC activations,
 HWIO kernels); prepared int8 weights are (Cout, kh, kw, Cin), one row of
@@ -97,12 +98,32 @@ def record_act_scale(scale: torch.Tensor, x_nchw: torch.Tensor) -> None:
         x_nchw.permute(0, 2, 3, 1).reshape(-1, C))))
 
 
-def _check_padding(padding: Padding, kh: int, kw: int) -> Padding:
+def _check_padding(padding: Padding, kh: int, kw: int,
+                   stride: int = 1) -> Padding:
     (pt, pb), (pl, pr) = padding
-    if pt + pb != kh - 1 or pl + pr != kw - 1 or min(pt, pb, pl, pr) < 0:
+    if min(pt, pb, pl, pr) < 0:
+        raise ValueError(f"padding {padding}: pads must be >= 0")
+    if stride == 1 and (pt + pb != kh - 1 or pl + pr != kw - 1):
         raise ValueError(f"padding {padding} with a {kh}x{kw} kernel: only "
                          "stride-1 convs whose output keeps the input's size")
     return (int(pt), int(pb)), (int(pl), int(pr))
+
+
+def _stride(strides: Sequence[int]) -> int:
+    """The stride of both axes, 1 or 2 (the strides K8 takes)."""
+    s = tuple(int(v) for v in strides)
+    if s not in ((1, 1), (2, 2)):
+        raise NotImplementedError(f"int8 conv strides {s}: K8 takes stride 1"
+                                  " or 2, equal on both axes")
+    return s[0]
+
+
+def out_size(H: int, W: int, kh: int, kw: int, padding: Padding,
+             stride: int) -> Tuple[int, int]:
+    """(Ho, Wo) of a VALID conv over the padded map at ``stride``."""
+    (pt, pb), (pl, pr) = padding
+    return ((H + pt + pb - kh) // stride + 1,
+            (W + pl + pr - kw) // stride + 1)
 
 
 def prepare_conv_static(kernel: torch.Tensor,
@@ -127,46 +148,56 @@ def prepare_conv_static(kernel: torch.Tensor,
 
 def int8_conv_reference(x: torch.Tensor, q: QuantWeights,
                         bias: Optional[torch.Tensor], padding: Padding,
-                        out_dtype: torch.dtype) -> torch.Tensor:
+                        out_dtype: torch.dtype, stride: int = 1
+                        ) -> torch.Tensor:
     """Plain K8: quantise NHWC ``x`` elementwise, sum the int8 products of
     each tap in float64 (exact), cast to int32, dequantise in fp32, add the
-    fp32 bias, cast to ``out_dtype``. Returns (B, H, W, Cout)."""
+    fp32 bias, cast to ``out_dtype``. Returns (B, Ho, Wo, Cout): the input's
+    size at stride 1, ``out_size`` at stride 2."""
     B, H, W, _ = x.shape
     O, kh, kw, I = q.w_i8.shape
-    (pt, pb), (pl, pr) = _check_padding(padding, kh, kw)
+    (pt, pb), (pl, pr) = _check_padding(padding, kh, kw, stride)
+    Ho, Wo = out_size(H, W, kh, kw, padding, stride)
     xf = x.float()
     xq = xf / q.xscale if q.divide else xf * q.xscale
     xi = torch.clamp(torch.round(xq), -127, 127).double()
     xp = F.pad(xi, (0, 0, pl, pr, pt, pb))
     wd = q.w_i8.double()
-    acc = torch.zeros(B * H * W, O, dtype=torch.float64, device=x.device)
+    acc = torch.zeros(B * Ho * Wo, O, dtype=torch.float64, device=x.device)
     for ty in range(kh):
         for tx in range(kw):
-            acc += xp[:, ty:ty + H, tx:tx + W].reshape(-1, I) @ wd[:, ty, tx].t()
+            win = xp[:, ty:ty + stride * (Ho - 1) + 1:stride,
+                     tx:tx + stride * (Wo - 1) + 1:stride]
+            acc += win.reshape(-1, I) @ wd[:, ty, tx].t()
     out = acc.to(torch.int32).float() * q.dq
     if bias is not None:
         out = out + bias.float()
-    return out.to(out_dtype).reshape(B, H, W, O)
+    return out.to(out_dtype).reshape(B, Ho, Wo, O)
 
 
 def int8_conv_apply(x: torch.Tensor, q: QuantWeights,
                     bias: Optional[torch.Tensor], padding: Padding = SAME_3X3,
-                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                    out_dtype: torch.dtype = torch.bfloat16,
+                    stride: int = 1) -> torch.Tensor:
     """The W8A8 conv of a channels-last ``x`` (B, H, W, Cin), fp32 or bf16,
-    with prepared weights; returns (B, H, W, Cout) in ``out_dtype``. On the
-    card: K8, which takes stride-1 kernels up to 3x3 whose output keeps the
-    input's size (pads of at most 1), Cin a multiple of 32, Cout of 8 and
-    images at most 512 wide (others raise); it counts as ``int8_conv``."""
+    with prepared weights; returns (B, Ho, Wo, Cout) in ``out_dtype``. On
+    the card: K8, which takes kernels up to 3x3 with pads of at most 1,
+    Cin a multiple of 32 and Cout of 8; at stride 1 ("int8_conv") the output
+    keeps the input's size and images are at most 512 wide, at stride 2
+    ("int8_conv_s2", the parity-plane form) at most 128 (others raise)."""
     if x.device.type == "cpu":
-        return int8_conv_reference(x, q, bias, padding, out_dtype)
+        return int8_conv_reference(x, q, bias, padding, out_dtype, stride)
     B, H, W, C = x.shape
     O, kh, kw, I = q.w_i8.shape
-    (pt, pb), (pl, pr) = _check_padding(padding, kh, kw)
-    if I != C or C % 32 or O % 8 or max(pt, pb, pl, pr) > 1 or W > 512:
+    (pt, pb), (pl, pr) = _check_padding(padding, kh, kw, stride)
+    Ho, Wo = out_size(H, W, kh, kw, padding, stride)
+    w_max = 512 if stride == 1 else 128
+    if (I != C or C % 32 or O % 8 or max(pt, pb, pl, pr) > 1 or W > w_max
+            or min(Ho, Wo) < 1 or stride not in (1, 2)):
         raise ValueError(f"int8_conv kernel: Cin={C} (weights {I}), Cout={O},"
-                         f" {kh}x{kw} padded {padding}, W={W}: needs Cin % 32"
-                         " == 0, Cout % 8 == 0, pads of at most 1 and W <= "
-                         "512")
+                         f" {kh}x{kw} padded {padding}, stride {stride}, "
+                         f"W={W}: needs Cin % 32 == 0, Cout % 8 == 0, pads "
+                         f"of at most 1 and W <= {w_max}")
     for dt in (x.dtype, out_dtype):
         if dt not in (torch.float32, torch.bfloat16):
             raise ValueError(f"int8_conv kernel: dtype {dt} (fp32 or bf16)")
@@ -177,22 +208,20 @@ def int8_conv_apply(x: torch.Tensor, q: QuantWeights,
     _lib.require(q.xscale, "xscale", (1,) if q.divide else (C,), device=dev)
     if bias is not None:
         _lib.require(bias, "bias", (O,), device=dev)
-    y = torch.empty((B, H, W, O), device=dev, dtype=out_dtype)
-    code = _lib.lib().dxmi_int8_conv(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), q.xscale.data_ptr(),
-        int(q.divide), q.w_i8.data_ptr(), q.dq.data_ptr(),
-        None if bias is None else bias.data_ptr(), y.data_ptr(),
-        int(out_dtype == torch.bfloat16), B, H, W, C, O, kh, kw, pt, pl,
-        _lib.stream())
-    _lib.check(code, "dxmi_int8_conv")
-    _lib.LAUNCHES["int8_conv"] += 1
+    y = torch.empty((B, Ho, Wo, O), device=dev, dtype=out_dtype)
+    args = (x.data_ptr(), int(x.dtype == torch.bfloat16), q.xscale.data_ptr(),
+            int(q.divide), q.w_i8.data_ptr(), q.dq.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(),
+            int(out_dtype == torch.bfloat16), B, H, W, C, O, kh, kw, pt, pl)
+    if stride == 1:
+        name = "int8_conv"
+        code = _lib.lib().dxmi_int8_conv(*args, _lib.stream())
+    else:
+        name = "int8_conv_s2"
+        code = _lib.lib().dxmi_int8_conv_s2(*args, pb, pr, _lib.stream())
+    _lib.check(code, f"dxmi_{name}")
+    _lib.LAUNCHES[name] += 1
     return y
-
-
-def _stride_one(strides: Sequence[int]) -> None:
-    if tuple(strides) != (1, 1):
-        raise NotImplementedError(f"int8 conv strides {tuple(strides)}: only "
-                                  "stride 1 is ported")
 
 
 def int8_conv(x: torch.Tensor, kernel: torch.Tensor,
@@ -200,15 +229,15 @@ def int8_conv(x: torch.Tensor, kernel: torch.Tensor,
               padding: Padding = SAME_3X3,
               out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """W8A8 conv with a dynamic per-tensor activation scale (max |x| / 127
-    of this call's x); x NHWC, kernel HWIO fp."""
-    _stride_one(strides)
+    of this call's x); x NHWC, kernel HWIO fp; stride 1 or 2."""
+    stride = _stride(strides)
     w_i8, wscale = quantize_per_channel(kernel.float(), axis=-1)
     ascale = torch.clamp(x.float().abs().amax(), min=1e-8) / 127.0
     q = QuantWeights(w_i8.permute(3, 0, 1, 2).contiguous(),
                      (ascale * wscale.reshape(-1)).contiguous(),
                      ascale.reshape(1), True)
     return int8_conv_apply(x, q, None if bias is None else bias.float(),
-                           padding, out_dtype)
+                           padding, out_dtype, stride)
 
 
 def int8_conv_static(x: torch.Tensor, kernel: torch.Tensor,
@@ -216,12 +245,13 @@ def int8_conv_static(x: torch.Tensor, kernel: torch.Tensor,
                      strides=(1, 1), padding: Padding = SAME_3X3,
                      out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """W8A8 conv with calibrated activation scales (a (Cin,) vector folded
-    into the kernel's input axis, or a scalar); x NHWC, kernel HWIO fp."""
-    _stride_one(strides)
+    into the kernel's input axis, or a scalar); x NHWC, kernel HWIO fp;
+    stride 1 or 2."""
+    stride = _stride(strides)
     q = prepare_conv_static(kernel, torch.as_tensor(act_scale,
                                                     device=kernel.device))
     return int8_conv_apply(x, q, None if bias is None else bias.float(),
-                           padding, out_dtype)
+                           padding, out_dtype, stride)
 
 
 def int8_matmul_static(x: torch.Tensor, w: torch.Tensor,
@@ -279,7 +309,9 @@ class Int8Layer:
 
 
 class QConv(Int8Layer, nn.Conv2d):
-    """A 3x3 SAME ``nn.Conv2d`` (same parameter names) that runs W8A8.
+    """An ``nn.Conv2d`` (same parameter names) that runs W8A8: 3x3 SAME by
+    default, or any ``kernel_size`` up to 3 at ``stride`` 1 or 2 with
+    ``padding`` (an int, or ((top, bottom), (left, right))).
 
     ``static_act=True``: uses the calibrated ``act_scale`` buffer (Cin,),
     zeros until calibrated. While ``calibrating`` is set, each call records
@@ -294,8 +326,13 @@ class QConv(Int8Layer, nn.Conv2d):
 
     def __init__(self, in_channels: int, out_channels: int,
                  static_act: bool = True,
-                 out_dtype: torch.dtype = torch.bfloat16):
-        super().__init__(in_channels, out_channels, 3, padding=1)
+                 out_dtype: torch.dtype = torch.bfloat16,
+                 kernel_size: int = 3, stride: int = 1, padding=1):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride)
+        if isinstance(padding, int):
+            padding = ((padding, padding), (padding, padding))
+        self.pads: Padding = tuple(tuple(int(v) for v in p) for p in padding)
         self.static_act = static_act
         self.out_dtype = out_dtype
         self.register_buffer("act_scale", torch.zeros(in_channels))
@@ -310,15 +347,20 @@ class QConv(Int8Layer, nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.calibrating and self.static_act:
             record_act_scale(self.act_scale, x)
+            (pt, pb), (pl, pr) = self.pads
+            if (pt, pl) != (pb, pr):
+                x, pt, pl = F.pad(x, (pl, pr, pt, pb)), 0, 0
             return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                            padding=1)
+                            self.stride, (pt, pl))
         nhwc = x.contiguous(memory_format=torch.channels_last).permute(
             0, 2, 3, 1)
         bias = self.bias.float()
         if self.static_act:
-            y = int8_conv_apply(nhwc, self.int8_operands(), bias, SAME_3X3,
-                                self.out_dtype)
+            # K8's stride-2 form is a launch of its own ("int8_conv_s2")
+            kw = {} if self.stride[0] == 1 else {"stride": self.stride[0]}
+            y = int8_conv_apply(nhwc, self.int8_operands(), bias, self.pads,
+                                self.out_dtype, **kw)
         else:
-            y = int8_conv(nhwc, self._hwio(), bias, padding=SAME_3X3,
-                          out_dtype=self.out_dtype)
+            y = int8_conv(nhwc, self._hwio(), bias, self.stride, self.pads,
+                          self.out_dtype)
         return y.permute(0, 3, 1, 2)

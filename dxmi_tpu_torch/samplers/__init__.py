@@ -11,6 +11,19 @@ import torch
 BATCH_AXIS0 = ("sample", "logp_terminal", "y")
 
 
+def sample_many(sampler, n_batches: int, batch: int,
+                generator: Optional[torch.Generator] = None,
+                **kw) -> torch.Tensor:
+    """The final samples of ``n_batches`` whole trajectories of ``batch``,
+    drawn one after another from one ``generator``, stacked:
+    (n_batches, batch, C, H, W) (``dxmi_tpu/samplers/__init__.py:21``, a
+    lax.scan over whole ``sample`` calls there). ``kw`` go to
+    ``sampler.sample``."""
+    return torch.stack([sampler.sample(batch, generator=generator,
+                                       **kw)["sample"]
+                        for _ in range(n_batches)])
+
+
 def sample_chunked(sampler, n_sample: int, n_chunks: int,
                    generator: Optional[torch.Generator] = None,
                    y: Optional[torch.Tensor] = None

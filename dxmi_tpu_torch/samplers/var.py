@@ -128,6 +128,37 @@ class VARSampler(nn.Module):
                 **{k: torch.stack(v) for k, v in traj.items()},
                 "logp_terminal": x0.new_zeros(x0.shape[0])}
 
+    @torch.no_grad()
+    def calibrate_quant(self, generator: Optional[torch.Generator] = None,
+                        n_sample: int = 64, n_rounds: int = 2,
+                        x0: Optional[torch.Tensor] = None,
+                        eps: Optional[torch.Tensor] = None) -> None:
+        """Calibrate the static activation scales of a ``quant_int8='static'``
+        net (``dxmi_tpu.samplers.var.VARSampler.calibrate_quant``): zero them,
+        run ``n_rounds`` full-precision trajectories of T steps at
+        ``n_sample`` from fresh x ~ N(0, I), keeping each int8 layer's
+        running maximum of ``calib_channel_scale``; then quantise the
+        weights once (``prepare_int8``). ``x0`` (rounds, n, C, H, W) and
+        ``eps`` (rounds, T, n, C, H, W) inject the draws, which the JAX
+        package takes from threefry keys. JAX starts the maxima from the
+        scales its ``net.init`` records; the port starts from zero."""
+        device = self.log_betas.device
+        net = self.net
+        net.reset_quant_scales()
+        net.set_calibrating(True)
+        try:
+            for r in range(n_rounds):
+                x = (x0[r] if x0 is not None else torch.randn(
+                    (n_sample, *self.sample_shape), generator=generator,
+                    device=device))
+                for t in range(self.n_timesteps):
+                    x = self.sample_step(x, t, None if eps is None
+                                         else eps[r][t],
+                                         generator=generator)["sample"]
+        finally:
+            net.set_calibrating(False)
+        net.prepare_int8()
+
     def log_prob_step(self, x_prev: torch.Tensor, x_next: torch.Tensor,
                       t: Union[int, torch.Tensor]) -> torch.Tensor:
         """log p(x_next | x_prev, t) (B,) under the current policy mean with

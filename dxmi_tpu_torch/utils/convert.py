@@ -5,8 +5,9 @@
 module names go back to the reference's dotted paths, GroupNorm
 ``gn/{scale,bias}`` back to ``weight``/``bias``, conv kernels (kh, kw, I, O)
 back to (O, I, kh, kw), dense kernels (I, O) back to (O, I) and embedding
-tables to ``weight``. ``adm_quant_scales_from_flax`` carries the JAX net's
-calibrated ``quant_scales`` collection into the port's scale buffers.
+tables to ``weight``. ``unet_small_quant_scales_from_flax`` and
+``adm_quant_scales_from_flax`` carry the JAX net's calibrated
+``quant_scales`` collection into the port's scale buffers.
 ``igebm_from_flax`` and ``value_from_flax`` invert ``convert_igebm`` and
 ``wrap_value_params`` (``dxmi_tpu/utils/convert.py:168-275``); the port's
 value state dicts are the reference ``value.pth`` layout.
@@ -29,6 +30,15 @@ _RENAMES = [
     (re.compile(r"^up_(\d+)_upsample$"), r"up.\1.upsample"),
     (re.compile(r"^mid_(block_1|attn_1|block_2)$"), r"mid.\1"),
 ]
+
+
+def _unet_small_path(mods) -> str:
+    """flax module path of a UNetSmall leaf -> reference dotted path:
+    ``down_1_attn_0/q`` -> ``down.1.attn.0.q``."""
+    top = mods[0]
+    for pat, repl in _RENAMES:
+        top = pat.sub(repl, top)
+    return ".".join([top, *mods[1:]])
 
 
 def _leaves(tree: Dict[str, Any], path: Tuple[str, ...] = ()
@@ -56,11 +66,28 @@ def unet_small_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             name = "bias"
         else:
             raise ValueError(f"unhandled flax leaf {'/'.join(path)}")
-        top = mods[0]
-        for pat, repl in _RENAMES:
-            top = pat.sub(repl, top)
-        key = ".".join([top, *mods[1:], name])
+        key = f"{_unet_small_path(mods)}.{name}"
         out[key] = torch.from_numpy(np.ascontiguousarray(val))
+    return out
+
+
+def unet_small_quant_scales_from_flax(scales: Dict[str, Any]
+                                      ) -> Dict[str, torch.Tensor]:
+    """State-dict entries of the port's ``UNetSmall`` scale buffers from the
+    JAX ``quant_scales`` collection (a ``{'quant_scales': ...}`` wrapper is
+    accepted), for every placement JAX uses: the ``act_scale`` of each
+    ``QConv`` (``down_0_block_0/conv1`` -> ``down.0.block.0.conv1``), of an
+    ``einsum_merged`` attention block (``mid_attn_1`` -> ``mid.attn_1``) and
+    of a phase ``Upsample`` (``up_1_upsample`` -> ``up.1.upsample``). Load
+    them with ``load_state_dict(..., strict=False)``."""
+    scales = scales.get("quant_scales", scales)
+    out: Dict[str, torch.Tensor] = {}
+    for path, val in _leaves(scales):
+        *mods, leaf = path
+        if leaf != "act_scale" or not mods:
+            raise ValueError(f"unhandled quant_scales leaf {'/'.join(path)}")
+        out[f"{_unet_small_path(mods)}.{leaf}"] = torch.from_numpy(
+            np.array(val, dtype=np.float32))
     return out
 
 

@@ -96,7 +96,7 @@ def test_int8_replay_matches_golden(golden, samplers):
     sampler, fp_sampler = samplers
     chip_smoke.load_int8_golden_scales(sampler.net, golden)
     gold = np.load(os.path.join(FIXTURE, "golden.npz"))
-    steps, _ = chip_smoke.replay_adm_int8(sampler, fp_sampler, golden, gold,
+    steps, _ = chip_smoke.replay_int8(sampler, fp_sampler, golden, gold,
                                           "cpu")
     chip_smoke.check_int8_replay(steps)
 
@@ -146,7 +146,7 @@ def test_int8_replay_gates_catch_wiring_faults(golden, fault):
         with torch.no_grad():
             WIRING_FAULTS[fault](sampler.net)
     gold = np.load(os.path.join(FIXTURE, "golden.npz"))
-    steps, _ = chip_smoke.replay_adm_int8(sampler, fp_sampler, golden, gold,
+    steps, _ = chip_smoke.replay_int8(sampler, fp_sampler, golden, gold,
                                           "cpu")
     median = np.mean([m for _, m, _ in steps])
     assert median >= 2.5 * chip_smoke.INT8_MEDIAN_RATIO, median

@@ -163,6 +163,10 @@ def test_generate_cli_streams_the_in_process_samples(tmp_path):
 
 
 def test_generate_cli_int8_not_ported():
-    proc = _cifar_cli("--int8")
+    """--int8 is ported (tests/test_torch_cifar_int8_golden.py); what the
+    CLI still lacks, a bf16 torso without --int8 (the fused layers' bf16
+    forms), raises before any sampling."""
+    proc = _cifar_cli("--dtype", "bf16")
     assert proc.returncode != 0
     assert "not ported yet" in proc.stderr
+    assert "K3 (GN+SiLU+conv3x3) with bf16 activations" in proc.stderr

@@ -421,6 +421,64 @@ def test_int8_conv(card, B, R, Cin, Cout, k, pad, dtype, dynamic):
     assert _lib.LAUNCHES["int8_conv"] == 1
 
 
+@pytest.mark.parametrize("B,R,Cin,Cout,k,pad,dtype,dynamic", [
+    # the CIFAR-10 Downsample convs on their (0, 1)-padded maps (33, 17, 9)
+    (4, 33, 128, 128, 3, ((0, 0), (0, 0)), torch.float32, False),
+    (4, 17, 256, 256, 3, ((0, 0), (0, 0)), torch.bfloat16, False),
+    (5, 9, 256, 256, 3, ((0, 0), (0, 0)), torch.float32, True),
+    # the same pads inside the conv, SAME at an odd map, 1x1 and 2x2 taps,
+    # Cout past one 192-channel tile, Cin = 96, the widest map (W = 128)
+    (4, 32, 128, 128, 3, ((0, 1), (0, 1)), torch.bfloat16, False),
+    (3, 9, 64, 40, 3, ((1, 1), (1, 1)), torch.float32, False),
+    (2, 16, 64, 32, 1, ((0, 0), (0, 0)), torch.bfloat16, True),
+    (2, 16, 96, 320, 2, ((1, 0), (0, 1)), torch.bfloat16, False),
+    (1, 128, 32, 16, 3, ((0, 1), (0, 1)), torch.float32, False),
+    (1, 128, 32, 16, 3, ((1, 1), (1, 1)), torch.bfloat16, False)])
+def test_int8_conv_stride2(card, B, R, Cin, Cout, k, pad, dtype, dynamic):
+    """K8's stride-2 form (four parity planes) against its plain version:
+    exact, and a replay bit-equal."""
+    rs = np.random.RandomState(13)
+    x, w, b = _tensors(rs, card, ((B, R, R, Cin), 2.0, 0.3),
+                       ((k, k, Cin, Cout), (k * k * Cin) ** -0.5, 0.0),
+                       ((Cout,), 0.1, 0.0))
+    x = x.to(dtype)
+    if dynamic:
+        def run():
+            return quant.int8_conv(x, w, b, (2, 2), pad, out_dtype=dtype)
+        a = torch.clamp(x.float().abs().amax(), min=1e-8) / 127.0
+    else:
+        a = quant.calib_channel_scale(x.reshape(-1, Cin))
+
+        def run():
+            return quant.int8_conv_static(x, w, b, a, (2, 2), pad,
+                                          out_dtype=dtype)
+    out = run()
+    ref = quant.int8_conv_reference(x, quant.prepare_conv_static(w, a), b,
+                                    pad, dtype, stride=2)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert _lib.LAUNCHES["int8_conv_s2"] == 1 and not _lib.LAUNCHES[
+        "int8_conv"]
+    assert torch.equal(out, run())
+
+
+@pytest.mark.parametrize("stats", ["bf16_onepass", "fp32"])
+@pytest.mark.parametrize("shape", [(100, 1024, 128), (100, 1024, 384),
+                                   (96, 256, 512), (96, 16, 256)])
+def test_group_norm_cifar_bf16(card, shape, stats):
+    """K1 at the CIFAR-10 net's bf16 widths (4, 12, 16 and 8 channels a
+    group) against its plain version, and a replay bit-equal."""
+    C = shape[-1]
+    x, s, b = _tensors(np.random.RandomState(14), card, (shape, 2.0, 0.5),
+                       ((C,), 0.1, 1.0), ((C,), 0.1, 0.0))
+    x = x.bfloat16()
+    out = group_norm(x, s, b, 32, 1e-6, True, stats)
+    ref = group_norm_silu_reference(x, s, b, 32, 1e-6, True, stats)
+    atol, rtol = TOL["gn_silu_bf16"]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+    assert torch.equal(out, group_norm(x, s, b, 32, 1e-6, True, stats))
+
+
 @pytest.mark.parametrize("rows,Cin,Cout", [(300, 384, 1152), (64, 96, 8)])
 def test_int8_matmul(card, rows, Cin, Cout):
     """int8_matmul_static, K8 on a W = 1 image (1x1 taps): exact."""

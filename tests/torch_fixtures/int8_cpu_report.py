@@ -6,7 +6,7 @@ int8 trajectory amplifies fp32 noise.
 
 1. the ADM fixture (adm_int8_golden.npz): calibrated scales against JAX's,
    and per step the mean error over the int8 effect and the max abs error
-   (chip_smoke.replay_adm_int8, as tests/test_torch_adm_int8_golden.py
+   (chip_smoke.replay_int8, as tests/test_torch_adm_int8_golden.py
    gates it);
 2. the same replay with the port's own input perturbed by 1e-7 (relative):
    the step means' max and mean change, and for six perturbations the
@@ -19,7 +19,15 @@ int8 trajectory amplifies fp32 noise.
    max abs output difference per route, and in bf16 (seeds 6 and 7) the
    distance between JAX's own bf16 and fp32 int8 outputs;
 5. the planted wiring faults of tests/test_torch_adm_int8_golden.py: both
-   G2-int8 readings of each.
+   G2-int8 readings of each;
+6. the CIFAR fixture (cifar_int8_golden.npz): G-int8's readings of the
+   port (chip_smoke.replay_int8, as tests/test_torch_cifar_int8_golden.py
+   gates it) and of that test's planted wiring faults;
+7. JAX's VARSampler.calibrate_quant starts from the scales of net.init on
+   a zero input with the CLI's key (seed 0 + 123): the channels where
+   those exceed the calibrated scales, on the CIFAR fixture (against the
+   golden's) and on tests/test_torch_unet_small_int8.py's calibration
+   cases.
 """
 from __future__ import annotations
 
@@ -58,8 +66,7 @@ def fixture_report():
     worst = max(float((ours[k] - v).abs().max() / v.abs().max())
                 for k, v in want.items())
     print(f"1. {len(want)} calibrated scales within {worst:.2e} of JAX's")
-    steps, final = chip_smoke.replay_adm_int8(sampler, fp, golden, gold,
-                                              "cpu")
+    steps, final = chip_smoke.replay_int8(sampler, fp, golden, gold, "cpu")
     print("   per-step mean err / int8 effect "
           + " ".join(f"{r:.3f}" for r, _, _ in steps)
           + "; median err / int8 effect "
@@ -122,8 +129,7 @@ def wiring_fault_report(fp, golden, gold):
         chip_smoke.load_int8_golden_scales(sampler.net, golden)
         with torch.no_grad():
             plant(sampler.net)
-        steps, _ = chip_smoke.replay_adm_int8(sampler, fp, golden, gold,
-                                              "cpu")
+        steps, _ = chip_smoke.replay_int8(sampler, fp, golden, gold, "cpu")
         print(f"5. {name}: worst mean ratio "
               f"{max(r for r, _, _ in steps):.3f}, median ratio averaged "
               f"{np.mean([m for _, m, _ in steps]):.4f}")
@@ -183,8 +189,54 @@ def net_report():
               f"{T._rel(ref, ref32):.4f} (mean rel)")
 
 
+def cifar_report():
+    import chip_smoke
+    import test_torch_cifar_int8_golden as G
+    import test_torch_unet_small_int8 as U
+    from dxmi_tpu import config as cfglib
+    from dxmi_tpu.config import instantiate
+    from dxmi_tpu_torch.utils.convert import unet_small_quant_scales_from_flax
+
+    golden = dict(np.load(chip_smoke.CIFAR_INT8_GOLDEN))
+    gold = dict(np.load(os.path.join(G.FIXTURE, "golden.npz")))
+    fp = G._sampler(int8=False)
+    for name in ["port", *G.WIRING_FAULTS, "all_full_precision"]:
+        if name == "all_full_precision":
+            sampler = fp
+        else:
+            sampler = G._sampler()
+            chip_smoke.load_int8_golden_scales(sampler.net, golden)
+            if name != "port":
+                with torch.no_grad():
+                    G.WIRING_FAULTS[name](sampler.net)
+        steps, _ = chip_smoke.replay_int8(sampler, fp, golden, gold, "cpu")
+        print(f"6. {name}: worst mean ratio "
+              f"{max(r for r, _, _ in steps):.3f}, median ratio averaged "
+              f"{np.mean([m for _, m, _ in steps]):.4f}")
+
+    def wins(init, want):
+        n = sum(int((init[k] > v).sum()) for k, v in want.items())
+        return n, sum(v.numel() for v in want.values())
+
+    cfg = cfglib.load_yaml(os.path.join(G.FIXTURE, "config.yaml"))
+    net = instantiate(cfg["sampler_net"], quant_int8="static")
+    init = unet_small_quant_scales_from_flax(jax.tree.map(
+        np.asarray, net.init(jax.random.fold_in(jax.random.key(123), 999),
+                             jnp.zeros((1, 16, 16, 3)),
+                             jnp.zeros((1,)))["quant_scales"]))
+    want = {k[len("scale/"):]: torch.from_numpy(v)
+            for k, v in golden.items() if k.startswith("scale/")}
+    print("7. CIFAR fixture: init scales exceed the calibrated ones in "
+          "%d of %d channels" % wins(init, want))
+    x0, eps = U._calib_draws(7)
+    for case, kw in U.CALIB_CASES.items():
+        want, init = U.jax_calibration(kw, x0, eps)
+        print(f"   test net, {case}: %d of %d channels" % wins(init, want))
+
+
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     wiring_fault_report(*fixture_report())
     init_seed_report()
     net_report()
+    cifar_report()
