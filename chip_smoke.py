@@ -30,7 +30,11 @@ failure exits non-zero naming the phase:
      stride-2 form at the three Downsample maps in fp32 and bf16, exact and
      replayed bit-equal; K1 at the CIFAR-10 net's bf16 shapes, 4 to 16
      channels a group, both statistics modes, replayed bit-equal, with its
-     route);
+     route; K3 on bf16 x at every conv shape of E-bf16 and at E4-levers'
+     batches 128 and 64 at the 32x32 and 4x4 maps (the small maps in
+     slices), K2 bf16 at the 16x16 blocks' one head of d = 256 at batch
+     100, 128 and 64 and K7 bf16 there at batch 128 and 64, bb 4, each
+     against its plain version and replayed bit-equal);
   T  time each kernel, its plain version and one PyTorch library call with
      CUDA events, device time (K4 at each shape the main paths launch it
      at; K2 fp32 beside K7 at bb 2 and 4 on the same inputs at batch 100,
@@ -39,7 +43,9 @@ failure exits non-zero naming the phase:
      GN apply or quantise, qkv GEMM, core, proj GEMM), and K3 at one shape
      of each map size (weight cast, statistics, conv, the sum of split
      slices), each beside its bound; K8 (both forms) at the CIFAR-10
-     net's int8 shapes beside torch._int_mm on the im2col matrix;
+     net's int8 shapes beside torch._int_mm on the im2col matrix; K3 on
+     bf16 x, K2 bf16 and K7 bf16 at d = 256 beside their library
+     compositions (cuDNN's bf16 conv; GN + matmul + SDPA);
   T-bwd the device time of each launch of one K6 bf16 call and one K4-dkv
      call at the 32x32 map at batch 128 (torch.profiler);
   G  replay the trained reference fixture (tests/fixtures/torch_rundir_t10)
@@ -47,6 +53,10 @@ failure exits non-zero naming the phase:
   G-int8 the CIFAR fixture under --int8: calibration from injected draws
      and the int8 step means, against the JAX package's (tests/
      torch_fixtures/cifar_int8_golden.npz), gated as G2-int8;
+  G-bf16 the CIFAR fixture in bf16 (generate_cifar10 --dtype bf16), fused
+     and unfused, each step's mean against the JAX package's bf16 ones
+     (tests/torch_fixtures/cifar_bf16_golden.npz) within twice JAX's own
+     bf16 effect;
   E  generate 2 batches of 100 CIFAR-10 samples at T=10 at the full width of
      configs/cifar10/T10.yaml with seeded random weights, and check that the
      main path launched each kernel the expected number of times;
@@ -58,6 +68,10 @@ failure exits non-zero naming the phase:
      of K1 and of both K8 forms checked, img/s beside E's, K8's and K1's
      shares of a profiled trajectory and K8's time by shape beside its
      bound and torch._int_mm on an im2col matrix of the shape;
+  E-bf16 the same net in bf16 without int8 (generate_cifar10 --dtype
+     bf16: K3 bf16, K2 bf16 at d = 256, K1 bf16), 2 batches of 100, the
+     launches checked, img/s, a profiled trajectory's device time, idle
+     share and K3's and K2's shares beside E's;
   G2 replay the trained ADM fixture (tests/fixtures/torch_rundir_adm_t10)
      with its injected noise and labels, einsum and fused attention;
   G2-int8 the ADM fixture under --int8: calibration from injected draws and
@@ -90,6 +104,11 @@ failure exits non-zero naming the phase:
      step, finite metrics and the first minibatch's gradient by einsum,
      fused bb 1 and fused bb 4, whole and per group of the attention
      blocks' parameters;
+  E4-levers train_cifar10 --fast_levers at the same config (bf16 sampler
+     and value torso, batch 128 sampled in 2 chunks of 64): 3 steps at bb 1
+     (K2 bf16 at d = 256) and 2 at bb 4 (K7 bf16), the launches per step,
+     finite metrics, s/step with its phase split, peak memory and a
+     profiled step's idle share;
   T-K1 K1's time at each shape that E-int8, E2 (fused, flash), E3 (flash,
      fused_train) and E4 launched it at, with its launches per trajectory or
      step (counted in those phases), its route and its bound;
@@ -98,8 +117,9 @@ failure exits non-zero naming the phase:
      its library and its plain time (without E and E4 in the run: at every
      conv shape of the CIFAR-10 net at batch 100, 32 and 128, no launches);
   C  run the generation CLIs (generate_cifar10 and generate_large, each
-     with and without --int8) as subprocesses on the fixture run dirs with
-     --save_npz, and hold each npz to the in-process samples; then
+     with and without --int8; generate_cifar10 --dtype bf16) as
+     subprocesses on the fixture run dirs with --save_npz, and hold each
+     npz to the in-process samples; then
      train_image_large for 2 steps on a shrunken config and generate_large
      on the run dir it wrote, and the same with train_cifar10 and
      generate_cifar10.
@@ -235,6 +255,11 @@ ADM_CALIB_LAUNCHES = {"gn_silu_bf16": 95 * 20, "flash_attn": 7 * 20}
 # attn_impl='fused'): K1 = norm_out + the 4x4 mid block's norm, K3 = conv1
 # and conv2 of 22 ResnetBlocks, K2 = the 5 attention blocks at 16x16.
 LAUNCHES_PER_FORWARD = {"gn_silu": 2, "gn_silu_conv3x3": 44, "attn_block": 5}
+# The same net in bf16 without int8 (generate_cifar10 --dtype bf16, E-bf16):
+# the same layers, K3 on bf16 activations, K2 bf16 at the 16x16 blocks' one
+# head of d = 256 (K7's attention launch).
+BF16_LAUNCHES_PER_FORWARD = {"gn_silu_bf16": 2, "gn_silu_conv3x3_bf16": 44,
+                             "attn_block_bf16_d256": 5}
 # E-int8's launches a forward of the full-width CIFAR-10 net: (a) --int8
 # (fp32 or bf16 torso; K1 at all 51 GroupNorms, K8 at the 57 ResnetBlock
 # convs, the 3 Upsample convs and the 24 attention 1x1s, and its stride-2
@@ -446,6 +471,13 @@ INFO = {
                             "dxmi_tpu/ops/attn_block.py:406"),
     "attn_block_bb": ("dxmi_tpu_torch/csrc/attn_block_bb.cu",
                       "dxmi_tpu/ops/attn_block.py:261"),
+    "gn_silu_conv3x3_bf16": ("dxmi_tpu_torch/csrc/conv_fused.cu",
+                             "dxmi_tpu/ops/conv_fused.py:36 (bf16 x)"),
+    "attn_block_bf16_d256": ("dxmi_tpu_torch/csrc/attn_block.cu",
+                             "dxmi_tpu/ops/attn_block.py:225 (bf16, one "
+                             "head of d = 256)"),
+    "attn_block_bb_bf16": ("dxmi_tpu_torch/csrc/attn_block_bb.cu",
+                           "dxmi_tpu/ops/attn_block.py:261 (bf16, d = 256)"),
 }
 
 
@@ -549,18 +581,26 @@ def golden_dropout_masks(golden, device):
 
 
 def cifar_train_replay(golden, device, attn_impl="einsum", fuse=False,
-                       block_b=None):
+                       block_b=None, levers=False):
     """One DxMITrainer iteration of the port on the CIFAR fixture with the
     case, data, trajectory and draws of ``golden`` (CIFAR_TRAIN_GOLDEN's
     arrays, dropout masks included): update_f_v, then update_sampler with
     the golden's permutation, noise and masks. ``attn_impl``, ``fuse``
-    (fuse_gn_conv) and ``block_b`` choose the net's paths. Returns the
+    (fuse_gn_conv) and ``block_b`` choose the net's paths; ``levers``
+    builds the nets as ``train_cifar10 --fast_levers`` does. Returns the
     arrays the golden keeps, computed the same way."""
     cfg = fixture_config()
     state = load_sampler_state(os.path.join(FIXTURE_DIR, "sampler_best.pth"))
-    sampler = load_sampler(cfg, state, device, fuse_gn_conv=fuse,
-                           attn_impl=attn_impl, block_b=block_b)
-    value = instantiate(cfg["value"]).to(device)
+    lever = ({k: v for k, v in train_cifar10.LEVER_NET.items()
+              if k != "dtype"} if levers else {})
+    sampler = load_sampler(cfg, state, device, dtype="bf16" if levers
+                           else "fp32", fuse_gn_conv=fuse,
+                           attn_impl=attn_impl, block_b=block_b, **lever)
+    vcfg = cfg["value"]
+    if levers:
+        vcfg = {**vcfg, "net": {**vcfg["net"],
+                                **train_cifar10.LEVER_VALUE_NET}}
+    value = instantiate(vcfg).to(device)
     value.load_state_dict(load_value_state(os.path.join(FIXTURE_DIR,
                                                         "value_best.pth")))
     tcfg = {k: v for k, v in cfg["trainer"].items() if k != "_target_"}
@@ -612,9 +652,9 @@ class PhaseError(Exception):
     pass
 
 
-PHASES = ("B", "K", "T", "T-bwd", "G", "G-int8", "E", "E-int8", "G2",
-          "G2-int8", "E2", "E2-int8", "G3", "E3", "G4", "E4", "T-K1", "T-K3",
-          "C")
+PHASES = ("B", "K", "T", "T-bwd", "G", "G-int8", "G-bf16", "E", "E-int8",
+          "E-bf16", "G2", "G2-int8", "E2", "E2-int8", "G3", "E3", "G4", "E4",
+          "E4-levers", "T-K1", "T-K3", "C")
 
 
 def run_phase(name, fn):
@@ -659,6 +699,23 @@ def conv_case(gen, B, R, Cin, Cout, W=None):
             randn(gen, Cout, scale=0.1), 32, 1e-6)
 
 
+def conv_bf16_check(out, ref, what):
+    """Hold K3 on bf16 x to its plain version: TOL["gn_silu_conv3x3"] (the
+    operand flips of the fp32 form) plus one bf16 ulp of |y|, since such a
+    flip or another fp32 sum order can move y's one rounding across a
+    boundary (1.5e-3 beyond the ulp at most on an H100 80GB HBM3 at
+    700 W, PERF.md); returns the max abs err."""
+    atol, rtol = TOL["gn_silu_conv3x3"]
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    lim = bf16_ulp(torch.maximum(out.abs(), ref.abs())) + atol + rtol * ref.abs()
+    bad = err > lim
+    if not torch.isfinite(out).all() or bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} elements off, max abs "
+                             f"err {err.max().item():.3e}")
+    return err.max().item()
+
+
 def conv_check(out, ref, what):
     """Hold K3 to its plain version at TOL["gn_silu_conv3x3"] (reasoned
     there); returns the max abs err."""
@@ -668,13 +725,14 @@ def conv_check(out, ref, what):
         raise AssertionError(f"{what}: {e}") from None
 
 
-def conv_work(B, H, W, Cin, Cout):
+def conv_work(B, H, W, Cin, Cout, esize=4):
     """(bytes, ops) of one K3 call: x read once, the fp32 kernel and the
-    GroupNorm and bias parameters read once, y written once; the conv's
-    bf16 products and ~11 fp32 operations of GN and SiLU an input
-    element."""
+    GroupNorm and bias parameters read once, y written once (x and y of
+    ``esize`` bytes); the conv's bf16 products and ~11 fp32 operations of
+    GN and SiLU an input element."""
     M = B * H * W
-    return ((M * Cin + 9 * Cin * Cout + M * Cout + 2 * Cin + Cout) * 4,
+    return ((M * Cin + M * Cout) * esize
+            + (9 * Cin * Cout + 2 * Cin + Cout) * 4,
             {"bf16": 2 * M * Cout * 9 * Cin, "fp32": 11 * M * Cin})
 
 
@@ -685,8 +743,9 @@ def conv_library(a):
     w_lib = a[3].permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
     b_lib = a[4].to(torch.bfloat16)
+    gs, gb = a[1].to(x_nchw.dtype), a[2].to(x_nchw.dtype)
     return lambda: F.conv2d(  # noqa: E731
-        F.silu(F.group_norm(x_nchw, 32, a[1], a[2], 1e-6)).bfloat16(),
+        F.silu(F.group_norm(x_nchw, 32, gs, gb, 1e-6)).bfloat16(),
         w_lib, b_lib, padding=1)
 
 
@@ -1714,6 +1773,90 @@ def phase_cifar_train(k1_log, k3_log):
     return out
 
 
+# E4-levers: train_cifar10 --fast_levers at configs/cifar10/T10.yaml (batch
+# 128, the trajectory in 2 chunks of 64): 20 sampling forwards and one
+# training forward a step, as E4's, in bf16: K1 bf16 at norm_out and the 4x4
+# attention norm (and the 22 norm2 in training, where dropout unfuses the
+# second pair), K3 bf16 at both convs of the 22 ResnetBlocks (conv1 only in
+# training), K2 bf16 at d = 256 (bb 1) or K7 bf16 (DXMI_FUSED_ATTN_BB=4) at
+# the 5 blocks at 16x16. tests/test_torch_cifar_levers.py counts these from
+# the net on the CPU.
+E4_LEVERS_SAMPLE_FORWARDS = 20
+E4_LEVERS_STEPS = {1: 3, 4: 2}
+E4_LEVERS_LAUNCHES_PER_STEP = {
+    bb: {"gn_silu_bf16": 2 * E4_LEVERS_SAMPLE_FORWARDS + 24,
+         "gn_silu_conv3x3_bf16": 44 * E4_LEVERS_SAMPLE_FORWARDS + 22,
+         ("attn_block_bf16_d256" if bb == 1 else "attn_block_bb_bf16"):
+             5 * (E4_LEVERS_SAMPLE_FORWARDS + 1)}
+    for bb in (1, 4)}
+
+
+def phase_cifar_train_levers():
+    """E4-levers (see above): 3 steps at bb 1 (s/step over steps 1-2 with
+    its phase split, peak memory, a profiled step's idle share) and 2 at
+    bb 4, each step's launches and finite metrics checked."""
+    cfg = cifar10_train_config()
+    seed = int(cfg["training"]["seed"])
+    out = {}
+    for bb, n_steps in E4_LEVERS_STEPS.items():
+        os.environ["DXMI_FUSED_ATTN_BB"] = str(bb)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sampler, _, trainer = train_cifar10.build(
+            cfg, torch.device("cuda"), seed, levers=True)
+        if trainer.sample_chunks != E4_BATCH // LEVERS_CHUNK:
+            raise AssertionError(f"E4-levers: {trainer.sample_chunks} "
+                                 "sampling chunks")
+        loader = EpochLoader(fake_cifar(1024, seed), trainer.batchsize, seed)
+        batches = loader.epoch(0)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        want = E4_LEVERS_LAUNCHES_PER_STEP[bb]
+        steps = []
+        for i in range(n_steps):
+            x = train_cifar10.to_device_batch(next(batches)[0], "cuda")
+            _lib.reset_launches()
+            t0 = time.perf_counter()
+            m = train_step(trainer, x, None, gen, n_generator=1)
+            wall = time.perf_counter() - t0
+            got = dict(_lib.LAUNCHES)
+            if got != want:
+                raise AssertionError(f"E4-levers bb {bb} step {i}: launches "
+                                     f"{got}, expected {want}")
+            bad = [k for k, v in m.items() if not k.startswith("time/")
+                   and not torch.isfinite(torch.as_tensor(v)).all()]
+            if bad or trainer.nan_guard_skips:
+                raise AssertionError(f"E4-levers bb {bb} step {i}: non-finite"
+                                     f" {bad}")
+            steps.append((wall, m))
+            print(f"  E4-levers bb {bb} step {i}: {wall:.3f} s (sample "
+                  f"{m['time/sample']:.3f}, update_f_v "
+                  f"{m['time/update_f_v']:.3f}, update_sampler "
+                  f"{m['time/update_sampler']:.3f}); d_loss "
+                  f"{float(m['ebm/d_loss_']):.4f}, v_loss "
+                  f"{float(m['ebm/v_loss_']):.4f}, sampler_loss "
+                  f"{float(m['sampler/sampler_loss_']):.4f}", flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        later = [w for w, _ in steps[1:]]
+        phases = {k: np.mean([m[f"time/{k}"] for _, m in steps[1:]])
+                  for k in ("sample", "update_f_v", "update_sampler")}
+        print(f"  E4-levers bb {bb}: batch {trainer.batchsize} in "
+              f"{trainer.sample_chunks} sampling chunks; {np.mean(later):.3f} "
+              f"s/step over steps 1-{n_steps - 1} (sample "
+              f"{phases['sample']:.3f}, update_f_v {phases['update_f_v']:.3f},"
+              f" update_sampler {phases['update_sampler']:.3f}); launches per "
+              f"step {want} as on the CPU; peak allocated "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        if bb == 1:
+            x = train_cifar10.to_device_batch(next(batches)[0], "cuda")
+            profile_run(lambda: train_step(trainer, x, None, gen,
+                                           n_generator=1),
+                        "E4-levers bb 1 profile, one training step", top=12)
+        out[bb] = want
+        del trainer, sampler
+    os.environ.pop("DXMI_FUSED_ATTN_BB", None)
+    return out
+
+
 def phase_build():
     proc = _lib.build(verbose=True)
     for line in (proc.stdout + proc.stderr).splitlines():
@@ -1803,7 +1946,69 @@ def phase_kernels(gen):
     phase_kernels_flash_edges(gen, errs)
     phase_kernels_train(gen, errs)
     phase_kernels_bb(gen, errs)
+    phase_kernels_bf16(gen, errs)
     return errs
+
+
+# The CIFAR-10 bf16 forms: K3 on bf16 x at every conv shape of E-bf16
+# (batch 100) and at E4-levers' training batch 128 and sampling chunk 64 at
+# the 32x32 and 4x4 maps (the small maps sum their reduction's slices
+# before the one rounding); K2 bf16 at the 16x16 blocks' one head of d =
+# 256 at batch 100, at E4's 128 and at E4-levers' chunk 64; K7 bf16 at d =
+# 256 at E4-levers' batch 128 and chunk 64, bb 4; each replayed bit-equal.
+K3_BF16_SHAPES = CONV_SHAPES + [(128, 32, 128, 128), (64, 32, 128, 128),
+                                (128, 4, 512, 256), (64, 4, 512, 256)]
+
+
+def phase_kernels_bf16(gen, errs):
+    errs["gn_silu_conv3x3_bf16"] = 0.0
+    for B, R, Cin, Cout in K3_BF16_SHAPES:
+        a = list(conv_case(gen, B, R, Cin, Cout))
+        a[0] = a[0].bfloat16()
+        out = gn_silu_conv(*a)
+        what = f"gn_silu_conv3x3_bf16 {(B, R, Cin, Cout)}"
+        if out.dtype != torch.bfloat16:
+            raise AssertionError(f"{what}: output {out.dtype}")
+        err = conv_bf16_check(out, gn_silu_conv_reference(*a), what)
+        if not torch.equal(out, gn_silu_conv(*a)):
+            raise AssertionError(f"{what}: a replay differs")
+        slices = conv_fused.plan(B, R, R, Cin, Cout).slices
+        print(f"  K {what} ({slices} slice{'s' if slices > 1 else ''}): max "
+              f"abs err vs plain {err:.3e} (tol {TOL['gn_silu_conv3x3'][0]:g}"
+              f" + {TOL['gn_silu_conv3x3'][1]:g}*|plain| + one bf16 ulp); "
+              "replay bit-equal")
+        errs["gn_silu_conv3x3_bf16"] = max(errs["gn_silu_conv3x3_bf16"], err)
+        del a, out
+    for name, shapes in (("attn_block_bf16_d256", K2_D256_SHAPES),
+                         ("attn_block_bb_bf16", BB_D256_SHAPES)):
+        errs[name] = 0.0
+        for shape in shapes:
+            B, S, C = shape[:3]
+            bb = shape[3] if len(shape) > 3 else 1
+            a = attn_bf16_case(gen, B, S, C)
+            _lib.reset_launches()
+            if bb == 1:
+                run = lambda: attn_block(*a, num_heads=1, eps=1e-6)  # noqa
+                ref = attn_block_reference(*a, num_heads=1, eps=1e-6)
+            else:
+                run = lambda: attn_block_bb(*a, num_heads=1, eps=1e-6,  # noqa
+                                            bb=bb)
+                ref = attn_block_bb_reference(*a, num_heads=1, eps=1e-6,
+                                              bb=bb)
+            out = run()
+            if dict(_lib.LAUNCHES) != {name: 1}:
+                raise AssertionError(f"{name} {shape}: launched "
+                                     f"{dict(_lib.LAUNCHES)}")
+            what = f"{name} {(B, S, C)} nh 1 bb {bb}"
+            rel, err, share = attn_bf16_check(out, ref, a[0], what)
+            if not torch.equal(out, run()):
+                raise AssertionError(f"{what}: a replay differs")
+            print(f"  K {what}: mean rel err {rel:.3e} (tol "
+                  f"{ATTN_BF16_MEAN_REL:g}), max abs err {err:.3e}, worst "
+                  f"element beyond one ulp at {share:.3f} of its limit; "
+                  "replay bit-equal")
+            errs[name] = max(errs[name], err)
+            del a, out, ref
 
 
 def phase_kernels_cifar_int8(gen, errs):
@@ -1961,6 +2166,10 @@ def phase_kernels_flash_edges(gen, errs):
 # atomics).
 E4_BATCH = 128  # training.batchsize of configs/cifar10/T10.yaml
 E4_CHUNK = 32  # its trajectory is sampled in chunks of 32
+LEVERS_CHUNK = 64  # E4-levers samples its trajectory in chunks of 64
+K2_D256_SHAPES = [(BATCH, 256, 256), (E4_BATCH, 256, 256),
+                  (LEVERS_CHUNK, 256, 256)]
+BB_D256_SHAPES = [(E4_BATCH, 256, 256, 4), (LEVERS_CHUNK, 256, 256, 4)]
 BB_SHAPES = [(B, 256, 256, 1, bb) for B in (E4_BATCH, E4_CHUNK)
              for bb in (2, 4)]
 BB_BF16_SHAPES = ([(BATCH, 256, 576, 9, resolve_block_b(BATCH, 256, 576, 4))]
@@ -2050,6 +2259,7 @@ def phase_times(gen):
     attn_block_splits(gen)
     conv_splits(gen)
     rows.update(train_time_rows(gen))
+    rows.update(bf16_time_rows(gen))
     peaks = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS, "int8": INT8_OPS,
              "tf32x3": TF32X3_FLOPS}
     for name, r in rows.items():
@@ -2061,6 +2271,53 @@ def phase_times(gen):
               f" ms, library {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}: bytes "
               f"{t_bytes:.4f} ms, ops {t_ops:.4f} ms)")
+    return rows
+
+
+def bf16_time_rows(gen):
+    """T rows of the CIFAR-10 bf16 forms at their widest main-path shapes:
+    K3 on bf16 x (100, 32x32, 128->128) beside F.group_norm + F.silu +
+    cuDNN's bf16 conv; K2 bf16 at (100, 256, 256), one head of d = 256, and
+    K7 bf16 at E4's (128, 256, 256) bb 4, beside GN + torch.matmul + SDPA
+    at d = 256 in bf16."""
+    rows = {}
+    B, R, Cin, Cout = K3_BF16_SHAPES[0]
+    a = list(conv_case(gen, B, R, Cin, Cout))
+    a[0] = a[0].bfloat16()
+    nbytes, ops = conv_work(B, R, R, Cin, Cout, esize=2)
+    rows["gn_silu_conv3x3_bf16"] = dict(
+        ms=time_ms(lambda: gn_silu_conv(*a)),
+        plain_ms=time_ms(lambda: gn_silu_conv_reference(*a)),
+        library_ms=time_ms(conv_library(a)), bytes=nbytes, ops=ops)
+    del a
+    for name, (B, S, C), bb in (("attn_block_bf16_d256", K2_D256_SHAPES[0],
+                                 1),
+                                ("attn_block_bb_bf16", BB_D256_SHAPES[0][:3],
+                                 BB_D256_SHAPES[0][3])):
+        a = attn_bf16_case(gen, B, S, C)
+        x, gs, gb, wqkv, bqkv, wp, bp = a
+
+        def library_attn():
+            g = F.group_norm(x.transpose(1, 2), 32, gs.bfloat16(),
+                             gb.bfloat16(), 1e-6).transpose(1, 2)
+            q, k, v = (g @ wqkv + bqkv).split(C, dim=-1)
+            return x + F.scaled_dot_product_attention(q, k, v) @ wp + bp
+
+        if bb == 1:
+            ms = time_ms(lambda: attn_block(*a, num_heads=1, eps=1e-6))
+            plain = time_ms(lambda: attn_block_reference(*a, num_heads=1,
+                                                         eps=1e-6))
+        else:
+            ms = time_ms(lambda: attn_block_bb(*a, num_heads=1, eps=1e-6,
+                                               bb=bb))
+            plain = time_ms(lambda: attn_block_bb_reference(
+                *a, num_heads=1, eps=1e-6, bb=bb), iters=3, warmup=1)
+        rows[name] = dict(
+            ms=ms, plain_ms=plain, library_ms=time_ms(library_attn),
+            bytes=(2 * B * S * C + 4 * C * C + 4 * C) * 2 + 2 * C * 4,
+            ops={"bf16": 2 * B * S * C * 3 * C + 4 * B * S * S * C
+                 + 2 * B * S * C * C, "fp32": 5 * B * S * S})
+        del a, x
     return rows
 
 
@@ -2495,8 +2752,71 @@ def phase_generate(k3_log, rates):
           f"{BATCH * N_BATCHES / steady:.1f} img/s; samples in "
           f"[{x.min().item():.3f}, {x.max().item():.3f}], std "
           f"{x.std().item():.3f}; peak allocated {peak / 2**20:.1f} MiB")
-    profile_run(lambda: sample_batches(sampler, BATCH, BATCH, seed=4),
-                f"E profile, one trajectory of {BATCH}")
+    rates["E profile"] = profile_run(
+        lambda: sample_batches(sampler, BATCH, BATCH, seed=4),
+        f"E profile, one trajectory of {BATCH}")
+    return launches
+
+
+def phase_generate_bf16(rates):
+    """E-bf16: generate_cifar10 --dtype bf16's net (configs/cifar10/T10.yaml
+    at full width, bf16 without int8, the port's fused defaults, random
+    weights from a seed): 2 batches of 100 at T=10 with the launches of each
+    kernel checked, img/s, a profiled trajectory's device time, idle share
+    and K3's and K2's shares, beside E's fp32 figures from the same run."""
+    cfg = cifar10_t10()
+    generate(cfg, None, BATCH, BATCH, "cuda", seed=1, dtype="bf16")  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    x = generate(cfg, None, BATCH * N_BATCHES, BATCH, "cuda", seed=0,
+                 dtype="bf16")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    want = {k: v * T * N_BATCHES for k, v in BF16_LAUNCHES_PER_FORWARD.items()}
+    if tuple(x.shape) != (BATCH * N_BATCHES, 3, 32, 32):
+        raise AssertionError(f"E-bf16: samples of shape {tuple(x.shape)}")
+    if not torch.isfinite(x).all():
+        raise AssertionError("E-bf16: non-finite samples")
+    if launches != want:
+        raise AssertionError(f"E-bf16: launches {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    x32 = generate(cfg, None, BATCH * N_BATCHES, BATCH, "cuda", seed=0)
+    sampler = load_sampler(cfg, None, "cuda", seed=0, dtype="bf16")
+    sample_batches(sampler, BATCH, BATCH, seed=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample_batches(sampler, BATCH * N_BATCHES, BATCH, seed=3)
+    torch.cuda.synchronize()
+    rates["E-bf16"] = BATCH * N_BATCHES / (time.perf_counter() - t0)
+    print(f"  E-bf16 launches a forward {BF16_LAUNCHES_PER_FORWARD}; "
+          f"{launches} in 2 trajectories (expected {want})")
+    print(f"  E-bf16 generate(): {x.shape[0]} samples in {wall:.3f} s with "
+          f"setup ({x.shape[0] / wall:.1f} img/s); sampling alone "
+          f"{rates['E-bf16']:.2f} img/s; samples in [{x.min().item():.3f}, "
+          f"{x.max().item():.3f}], std {x.std().item():.3f}, mean |bf16 - "
+          f"fp32| over the same seeds and weights "
+          f"{(x - x32).abs().mean().item():.4f}; peak allocated "
+          f"{peak / 2**20:.1f} MiB")
+    prof = profile_run(
+        lambda: sample_batches(sampler, BATCH, BATCH, seed=4),
+        f"E-bf16 profile, one trajectory of {BATCH}", top=12,
+        shares={"K3 (its conv launches)": ("conv3x3_",),
+                "K2 (less K1's statistics)": ("prep_kernel", "gemm_kernel",
+                                              "bb_attn_kernel"),
+                "K1 (and K3's and K2's statistics)": ("gn_",)})
+    e, e_prof = rates.get("E"), rates.get("E profile")
+    if prof is not None:
+        print(f"  E-bf16: {prof[0]:.2f} ms of device time a trajectory, idle "
+              f"{1 - prof[0] / prof[1]:.1%}, {rates['E-bf16']:.2f} img/s; E "
+              "(fp32) in this run: "
+              + ("not run" if e is None or e_prof is None else
+                 f"{e_prof[0]:.2f} ms, idle {1 - e_prof[0] / e_prof[1]:.1%}, "
+                 f"{e:.2f} img/s"))
+    del sampler
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2522,7 +2842,7 @@ def profile_run(fn, label, top=12, width=90, shares=None):
     total = sum(r[0] for r in rows)
     if total == 0:
         print(f"  {label}: device time not measured (no CUDA events)")
-        return
+        return None
     print(f"  {label}: device busy {total:.2f} ms of {wall_ms:.2f} ms wall "
           f"(idle {1 - total / wall_ms:.1%})")
     for ms, count, key in sorted(rows, reverse=True)[:top]:
@@ -2531,6 +2851,7 @@ def profile_run(fn, label, top=12, width=90, shares=None):
         ms = sum(r[0] for r in rows if any(k in r[2] for k in keys))
         print(f"    {name}: {ms:.3f} ms, {ms / total:.1%} of the device's "
               f"busy time, {ms / wall_ms:.1%} of the wall time")
+    return total, wall_ms
 
 
 # E-int8: the CIFAR-10 net at full width under int8, (a) generate_cifar10
@@ -2633,6 +2954,75 @@ def phase_generate_int8(k1_log, rates):
           f"fused) in this run {'not run' if e is None else f'{e:.2f}'}; "
           f"mean |(a) bf16 - (a) fp32| over the same seeds {d:.4f} (sample "
           f"std {samples['a_fp32'].std().item():.3f})")
+    return out
+
+
+# G-bf16: the trained CIFAR fixture in bf16 (generate_cifar10 --dtype bf16)
+# against the JAX package's bf16 step means (tests/torch_fixtures/
+# cifar_bf16_golden.npz; each step from the golden's own state). A bf16 net
+# amplifies single flipped roundings, so two bf16 arithmetics (and the same
+# one under another fp32 sum order) differ about as much as bf16 differs
+# from fp32: on the CPU the port's means are 1.11-1.13 times JAX's own bf16
+# effect (its bf16 means against its fp32 ones from the same state) away
+# from JAX's, unfused and fused, in the mean and at the largest element
+# (tests/test_torch_cifar_bf16_golden.py). The gate: per step, the mean and
+# the largest error within BF16_REPLAY_SHARE times the mean and the largest
+# effect. A wrong kernel output (a K3 without its bias: 11.5x) lands far
+# beyond.
+CIFAR_BF16_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
+                                 "cifar_bf16_golden.npz")
+BF16_REPLAY_SHARE = 2.0
+
+
+def cifar_bf16_replay(device, fuse=True):
+    """The CIFAR fixture's sampler in bf16 (fused defaults, or with
+    ``fuse`` False unfused and einsum: the JAX entry's arithmetic), each
+    step from CIFAR_BF16_GOLDEN's state with the fixture's noise. Returns
+    the worst per-step (mean error / mean effect, largest error / largest
+    effect) and the kernels launched; raises past BF16_REPLAY_SHARE."""
+    golden = np.load(CIFAR_BF16_GOLDEN)
+    gold = np.load(os.path.join(FIXTURE_DIR, "golden.npz"))
+    state = load_sampler_state(os.path.join(FIXTURE_DIR, "sampler_best.pth"))
+    sampler = load_sampler(fixture_config(), state, device, dtype="bf16",
+                           fuse_gn_conv=fuse,
+                           attn_impl="fused" if fuse else "einsum")
+    _lib.reset_launches()
+    x = torch.from_numpy(gold["x0"]).to(device)
+    worst = [0.0, 0.0]
+    with torch.no_grad():
+        for t in range(sampler.n_timesteps):
+            noise = torch.from_numpy(gold["eps"][t]).to(device)
+            mean = sampler.sample_step(x, t, noise=noise)["mean"]
+            err = np.abs(mean.cpu().numpy() - golden["means"][t])
+            eff = np.abs(golden["means"][t] - golden["means_fp32"][t])
+            ratios = (err.mean() / eff.mean(), err.max() / eff.max())
+            worst = [max(a, float(b)) for a, b in zip(worst, ratios)]
+            if max(ratios) > BF16_REPLAY_SHARE:
+                raise AssertionError(
+                    f"bf16 fuse_gn_conv={fuse} step {t}: error {ratios[0]:.3f}"
+                    f" (mean) and {ratios[1]:.3f} (largest) times the bf16 "
+                    f"effect (tol {BF16_REPLAY_SHARE:g})")
+            x = torch.from_numpy(golden["means"][t] + gold["sigmas"][t]
+                                 * gold["eps"][t]).to(device)
+    return worst, {k for k, v in _lib.LAUNCHES.items() if v}
+
+
+def phase_replay_bf16():
+    """G-bf16 (see CIFAR_BF16_GOLDEN): fused (K3 bf16, K2 bf16 at the
+    fixture's d = 64, K1 bf16) and unfused, each with its kernels."""
+    out = {}
+    for fuse in (True, False):
+        worst, used = cifar_bf16_replay("cuda", fuse)
+        want = ({"gn_silu_bf16", "gn_silu_conv3x3_bf16", "attn_block_bf16"}
+                if fuse else {"gn_silu_bf16"})
+        if used != want:
+            raise AssertionError(f"G-bf16 fuse_gn_conv={fuse}: launched "
+                                 f"{sorted(used)}, expected {sorted(want)}")
+        print(f"  G-bf16 fuse_gn_conv={fuse}: worst step error "
+              f"{worst[0]:.3f} (mean) and {worst[1]:.3f} (largest) times "
+              f"JAX's bf16 effect (tol {BF16_REPLAY_SHARE:g}); kernels "
+              f"{sorted(used)}")
+        out[fuse] = worst
     return out
 
 
@@ -2854,14 +3244,15 @@ def phase_replay_adm_int8():
 def phase_cli():
     """The generation CLIs as a user runs them, in subprocesses on the card,
     on the fixture run dirs (config.yaml through the port's YAML reader,
-    --save_npz streaming): generate_cifar10, generate_large, generate_large
-    --int8. Each npz is held to the in-process samples of the same seed,
+    --save_npz streaming): generate_cifar10 (also --int8 and --dtype bf16),
+    generate_large, generate_large --int8. Each npz is held to the in-process samples of the same seed,
     within one uint8 level (another process may get another cuDNN
     algorithm); the labels equal."""
     out_dir = os.path.join(REPO, "build", "chip_smoke_cli")
     os.makedirs(out_dir, exist_ok=True)
     runs = [("generate_cifar10", FIXTURE_DIR, (), 4),
             ("generate_cifar10", FIXTURE_DIR, ("--int8",), 4),
+            ("generate_cifar10", FIXTURE_DIR, ("--dtype", "bf16"), 4),
             ("generate_large", ADM_FIXTURE_DIR, (), 8),
             ("generate_large", ADM_FIXTURE_DIR, ("--int8",), 8)]
     for module, run_dir, extra, bs in runs:
@@ -2884,7 +3275,8 @@ def phase_cli():
             else "sampler.pth"))
         if module == "generate_cifar10":
             x, y = generate(fixture_config(), state, 8, bs, "cuda",
-                            int8=bool(extra)), None
+                            int8="--int8" in extra,
+                            dtype="bf16" if "bf16" in extra else "fp32"), None
         else:
             x, y = generate_large.generate(adm_fixture_config(), state, 8,
                                            bs, "cuda", int8=bool(extra))
@@ -3399,8 +3791,10 @@ def main() -> int:
         step("T-bwd", lambda: bwd_breakdown(gen))
         step("G", phase_replay)
         step("G-int8", phase_replay_int8)
+        step("G-bf16", phase_replay_bf16)
         step("E", lambda: phase_generate(k3_log, rates))
         step("E-int8", lambda: phase_generate_int8(k1_log, rates))
+        step("E-bf16", lambda: phase_generate_bf16(rates))
         step("G2", phase_replay_adm)
         step("G2-int8", phase_replay_adm_int8)
         step("E2", lambda: phase_generate_adm(k1_log))
@@ -3410,6 +3804,7 @@ def main() -> int:
         step("E3", lambda: phase_train(k1_log))
         step("G4", phase_cifar_train_replay)
         step("E4", lambda: phase_cifar_train(k1_log, k3_log))
+        step("E4-levers", phase_cifar_train_levers)
         step("T-K1", lambda: k1_shape_table(gen, k1_log))
         step("T-K3", lambda: k3_shape_table(gen, k3_log))
         step("C", phase_cli)
@@ -3433,7 +3828,11 @@ def main() -> int:
                     attn_block_bwd_bf16=train["fused_train"][
                         "attn_block_bwd_bf16"],
                     attn_block_bb=cifar[4]["attn_block_bb"],
-                    int8_conv_s2=res["E-int8"]["a_fp32"]["int8_conv_s2"])
+                    int8_conv_s2=res["E-int8"]["a_fp32"]["int8_conv_s2"],
+                    **{k: res["E-bf16"][k] for k in ("gn_silu_conv3x3_bf16",
+                                                    "attn_block_bf16_d256")},
+                    attn_block_bb_bf16=res["E4-levers"][4][
+                        "attn_block_bb_bf16"])
     kernels = []
     for name, (src, replaces) in INFO.items():
         r = times[name]

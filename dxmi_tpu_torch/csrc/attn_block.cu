@@ -30,7 +30,10 @@
 //       bf16, the bf16 bias added in bf16, the q and k columns scaled by
 //       the bf16 d^-1/4 in bf16;
 //   (d) K4's flash-attention kernel (flash_attn.cu) with sm_scale 1,
-//       reading q, k and v through the qkv buffer's row stride;
+//       reading q, k and v through the qkv buffer's row stride; at d > 128
+//       (one head, the CIFAR-10 nets' d = 256 blocks), which K4 does not
+//       take, K7's attention launch (attn_block_bb.cu) on the same buffers,
+//       which normalises p before rounding it, as the TPU body does;
 //   (e) the proj GEMM, the same kernel: rounded, the bias added, then the
 //       residual (by TMA) added in bf16.
 // The GroupNorm is applied once per element in (b), not once per N tile of
@@ -541,7 +544,8 @@ cudaError_t launch_attn_core_f32(const float* qkv, float* out, int B, int S,
 // (3C,), w_proj (C, C), b_proj (C,) bf16; gs, gb fp32; mean_c/rstd_c: (B, C)
 // fp32 scratch; qkv: (B, S, 3C) and attn: (B, S, C) bf16 scratch (attn holds
 // h until the attention core writes it). Needs S % 64 == 0, C % 32 == 0,
-// C / G <= 64 and d = C/nh with d % 8 == 0 and d <= 128.
+// C / G <= 64 and d = C/nh with d % 8 == 0 and d <= 256 (K4's core up to
+// 128, K7's above).
 extern "C" int dxmi_attn_block_bf16(const void* x, const float* gs,
                                     const float* gb, const void* w_qkv,
                                     const void* b_qkv, const void* w_proj,
@@ -568,8 +572,9 @@ extern "C" int dxmi_attn_block_bf16(const void* x, const float* gs,
         attnb, w_qkv, qkvb, nullptr, M, 3 * C, C,
         BlockEpi{static_cast<const bf16*>(b_qkv), qk_scale, 2 * C, false}, s);
   if (err == cudaSuccess)
-    err = launch_flash_attn(qkvb, qkvb + C, qkvb + 2 * C, attnb, nullptr, B,
-                            S, nh, d, 3 * C, C, 1.f, s);
+    err = d <= 128 ? launch_flash_attn(qkvb, qkvb + C, qkvb + 2 * C, attnb,
+                                       nullptr, B, S, nh, d, 3 * C, C, 1.f, s)
+                   : launch_attn_core_bb(qkvb, attnb, B, S, C, nh, s);
   if (err == cudaSuccess)
     err = tma_gemm::launch<false>(
         attnb, w_proj, y, xb, M, C, C,

@@ -12,8 +12,11 @@
 // key rows, normalised before p is rounded, AV rounded, one proj product,
 // the residual. The batch block only groups the TPU's work: each element's
 // result depends on that element alone.
-// dxmi_attn_block also replaces dxmi_tpu/ops/attn_block.py:_kernel (bb = 1,
-// fp32; the CIFAR-10 nets' blocks): GroupNorm with two-pass statistics (K1's
+// Its attention launch is also K2 bf16's core at d > 128 (one head: the
+// CIFAR-10 nets' d = 256 blocks in bf16; launch_attn_core_bb, called from
+// attn_block.cu). dxmi_attn_block also replaces
+// dxmi_tpu/ops/attn_block.py:_kernel (bb = 1, fp32; the CIFAR-10 nets'
+// blocks): GroupNorm with two-pass statistics (K1's
 // statistics pass, groupnorm.cu) in the plain version's order
 // ((x - mean) rstd) gs + gb, then the same qkv, attention and proj
 // launches over the whole batch.
@@ -735,6 +738,22 @@ float qk_scale_f32(int C, int nh) {
 }
 
 }  // namespace
+
+cudaError_t launch_attn_core_bb(const bf16* qkv, bf16* attn, int B, int S,
+                                int C, int nh, cudaStream_t stream) {
+  const int d = nh > 0 ? C / nh : 0;
+  if (B < 1 || S % QT || nh < 1 || C % nh || d % 8 || d > 256)
+    return cudaErrorInvalidValue;
+  BBArgs<bf16> a = {};
+  a.qkv = const_cast<bf16*>(qkv);
+  a.attn = attn;
+  a.S = S;
+  a.C = C;
+  a.nh = nh;
+  return d <= 64    ? launch_attn<bf16, 64>(a, B, stream)
+         : d <= 128 ? launch_attn<bf16, 128>(a, B, stream)
+                    : launch_attn<bf16, 256>(a, B, stream);
+}
 
 // x, y: (B, S, C) fp32; w_qkv: (C, 3C) with [3, nh, d] output columns;
 // b_qkv (3C,); w_proj (C, C); b_proj (C,); gs, gb (C,); stats: (B, 2, C)

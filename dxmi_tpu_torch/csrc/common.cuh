@@ -10,7 +10,8 @@
 // flash-attention launch, flash_attn.cu, K4's kernel, and the fp32 SIMT
 // core of K5's fp32 form, attn_block.cu), and the attention backward that
 // K4-dkv, K4-dq and K6 share: its launches (flash_attn_bwd.cu) and the tile
-// loads and dot products of their kernels.
+// loads and dot products of their kernels; and K7's bf16 attention launch,
+// K2 bf16's core at d > 128 (attn_block_bb.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,7 +33,9 @@ cudaError_t launch_gn_stats(const float* x, float* mean_c, float* rstd_c,
 
 // The same for a bf16 tensor. onepass == 0: two-pass fp32 statistics;
 // onepass == 1: the bf16_onepass mode (s1 and s2 of bf16 x and bf16 x*x in
-// fp32; mean, var + eps and the rsqrt each rounded to bf16).
+// fp32; mean, var + eps and the rsqrt each rounded to bf16); onepass == 2:
+// one-pass fp32 statistics of the widened x (s1 and s2 of x and x*x in fp32,
+// var = s2/n - mean^2, nothing rounded), as K3's TPU body takes them.
 cudaError_t launch_gn_stats_bf16(const bf16* x, float* mean_c, float* rstd_c,
                                  int B, int HW, int C, int G, float eps,
                                  int onepass, cudaStream_t stream);
@@ -63,6 +66,14 @@ cudaError_t launch_flash_attn(const bf16* q, const bf16* k, const bf16* v,
                               bf16* o, float* lse, int B, int S, int nh, int d,
                               int row_stride, int out_row_stride,
                               float sm_scale, cudaStream_t stream);
+
+// K7's bf16 attention launch (attn_block_bb.cu) on a (B, S, 3C) qkv buffer
+// whose q and k are pre-scaled, into (B, S, C): per (sample, head, 64 query
+// rows) an fp32 softmax over whole key rows, p normalised then rounded to
+// bf16, AV summed in fp32 and rounded. K2 bf16 runs it at d > 128. Needs
+// S % 64 == 0 and d = C / nh with d % 8 == 0, d <= 256.
+cudaError_t launch_attn_core_bb(const bf16* qkv, bf16* attn, int B, int S,
+                                int C, int nh, cudaStream_t stream);
 
 // The fp32 SIMT attention core of K5's fp32 form: out = softmax(q k^T) v
 // per (sample, head) on a (B, S, 3C) qkv buffer whose q and k are

@@ -4,7 +4,10 @@
 // fused_gn_silu_conv), the Pallas TPU kernel that normalises a whole
 // (Bblk, H, W, C) block in VMEM, rounds it to bf16 into a zero-padded
 // scratch and runs the conv as nine shifted (M, Cin) x (Cin, Cout) MXU
-// products with fp32 accumulation, plus bias.
+// products with fp32 accumulation, plus bias. It takes x in fp32 or bf16
+// (widened to fp32 for GroupNorm and SiLU) and returns x's dtype; so does
+// this kernel (T = float or bf16): a bf16 y is the fp32 sums plus the fp32
+// bias rounded once, after the slices' partials (fp32) are summed.
 //
 // Bound on the H100: operations. At the main path's widest call (B = 100,
 // 32x32, 128 -> 128) the 30 GFLOP of bf16 products take 0.031 ms at the
@@ -33,12 +36,13 @@
 //     launch (twice where the halo of two blocks overlaps).
 //   - The input channels run in chunks of BK (64; 32 or 16 where a wide
 //     image's window would not fit). The window of chunk c + 1 (GN + SiLU
-//     of the raw fp32 x in the plain version's order with the statistics
-//     of pass 1, rounded once to bf16; zeros outside the image and past
-//     Cin) is filled by the block's threads into the second of two window
-//     buffers while chunk c's products run: each tap step issues its wgmma
-//     group, copies one 8-channel item of x by cp.async into the thread's
-//     32-byte slot in shared memory (not registers, which the 64
+//     of the raw x widened to fp32 in the plain version's order with the
+//     statistics of pass 1, rounded once to bf16; zeros outside the image
+//     and past Cin) is filled by the block's threads into the second of two
+//     window buffers while chunk c's products run: each tap step issues its
+//     wgmma group, copies one 8-channel item of x (32 bytes of fp32 or 16
+//     of bf16) by cp.async into the thread's slot in shared memory (not
+//     registers, which the 64
 //     accumulators and the chunk's GroupNorm scale and bias hold),
 //     normalises the item copied a step before and waits for the previous
 //     group. The normalised map never goes to device memory.
@@ -51,12 +55,17 @@
 //     traffic against 128-position tiles.
 //   - Epilogue: the sums go through a shared-memory staging tile (rows
 //     BN + 8 floats apart, conflict-free) and whole output rows leave by
-//     16-byte stores, border positions skipped, the bias added there.
+//     16-byte (fp32) or 8-byte (bf16) stores, border positions skipped, the
+//     bias added there.
 //   - Where a launch has few tiles for the SMs (the 4x4 and 8x8 maps) the
 //     chunks split into slices (grid.z) by a cost model of waves x steps
 //     (conv_plan), each slice written as an fp32 partial; a second launch
-//     sums the slices in order and adds the bias. No atomics: each output
-//     is one fixed order of sums, so a replay is bit-equal.
+//     sums the slices in order, adds the bias and rounds once to T. No
+//     atomics: each output is one fixed order of sums, so a replay is
+//     bit-equal.
+// Pass 1 on bf16 x is K1's one-pass fp32 statistics of the widened x, the
+// TPU body's (var = E[x^2] - mean^2, whatever DXMI_GN_STATS says); on fp32 x
+// it is K1's two-pass fp32 statistics (the two differ at fp32 rounding).
 #include <stdint.h>
 
 #include <algorithm>
@@ -101,6 +110,82 @@ __device__ __forceinline__ float4 ld_shared4(unsigned addr) {
                : "r"(addr)
                : "memory");
   return v;
+}
+__device__ __forceinline__ uint4 ld_shared16(unsigned addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// One 8-channel item of raw x as it travels (two 16-byte halves of fp32,
+// one 16-byte load of bf16): loaded from global memory, copied by cp.async
+// into a thread's slot and read back, widened to fp32 where it is
+// normalised.
+template <typename T>
+struct Item;
+template <>
+struct Item<float> {
+  float4 lo, hi;
+  __device__ __forceinline__ static Item zero() {
+    return {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  }
+  __device__ __forceinline__ static Item load(const float* p) {
+    return {ldg4(p), ldg4(p + 4)};
+  }
+  __device__ __forceinline__ static Item slot(unsigned addr) {
+    return {ld_shared4(addr), ld_shared4(addr + 16)};
+  }
+  // n = 16: copy; n = 0: zeros
+  __device__ __forceinline__ static void copy(unsigned slot, const float* p,
+                                              int n) {
+    cp_async16(slot, p, n);
+    cp_async16(slot + 16, p + 4, n);
+  }
+  __device__ __forceinline__ void widen(float4& l, float4& h) const {
+    l = lo;
+    h = hi;
+  }
+};
+template <>
+struct Item<bf16> {
+  uint4 v;
+  __device__ __forceinline__ static Item zero() {
+    return {make_uint4(0u, 0u, 0u, 0u)};
+  }
+  __device__ __forceinline__ static Item load(const bf16* p) {
+    return {__ldg(reinterpret_cast<const uint4*>(p))};
+  }
+  __device__ __forceinline__ static Item slot(unsigned addr) {
+    return {ld_shared16(addr)};
+  }
+  __device__ __forceinline__ static void copy(unsigned slot, const bf16* p,
+                                              int n) {
+    cp_async16(slot, p, n);
+  }
+  // bf16 to fp32 is exact: the bf16 bits become the top half (the lower
+  // address is the low half of each word)
+  __device__ __forceinline__ void widen(float4& l, float4& h) const {
+    l = make_float4(__uint_as_float(v.x << 16),
+                    __uint_as_float(v.x & 0xffff0000u),
+                    __uint_as_float(v.y << 16),
+                    __uint_as_float(v.y & 0xffff0000u));
+    h = make_float4(__uint_as_float(v.z << 16),
+                    __uint_as_float(v.z & 0xffff0000u),
+                    __uint_as_float(v.w << 16),
+                    __uint_as_float(v.w & 0xffff0000u));
+  }
+};
+
+// four outputs: 16 bytes of fp32, or rounded to bf16, 8 bytes
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y),
+                                            pack_bf16(v.z, v.w));
 }
 
 // n / d for 0 <= n < 2^31 by a multiply-high and a shift (division by an
@@ -147,23 +232,24 @@ struct Cfg {
   }
 };
 
+template <typename T>
 struct ConvArgs {
-  const float* x;
+  const T* x;
   const float* gs;
   const float* gb;
   const float* bias;
   const float* mean_c;
   const float* rstd_c;
-  float* out;  // y, or the slices' partials (slices > 1)
+  void* out;  // y (T), or the slices' partials (fp32, slices > 1)
   int B, H, W, Cin, Cout, cpi, slices;  // cpi: chunks a slice
   long long slice_elems;                // B H W Cout
   FastDiv hwp, wp;                      // (H + 2) (W + 2), W + 2
 };
 
 // Block (m tile, n tile, slice z) runs the chunks z cpi .. (z + 1) cpi - 1.
-template <int BK, int WM>
+template <typename T, int BK, int WM>
 __global__ void __launch_bounds__(NT, 1)
-conv3x3_kernel(const __grid_constant__ CUtensorMap tw, const ConvArgs a) {
+conv3x3_kernel(const __grid_constant__ CUtensorMap tw, const ConvArgs<T> a) {
   using C = Cfg<BK, WM>;
   constexpr int NS = C::NS;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -212,10 +298,10 @@ conv3x3_kernel(const __grid_constant__ CUtensorMap tw, const ConvArgs a) {
   const int fp = t % C::PL;
   const int n_items = (win * C::PL + NT - 1) / NT;
   auto window = [&](int buf) { return windows + buf * C::PL * PS; };
-  // item j of chunk's window: its 8 raw channels (two 16-byte copies) and
-  // the (sample, channel) index of its statistics, or -1 for a row of
-  // zeros (outside the image, past the batch or past Cin)
-  auto source = [&](int chunk, int j, const float*& src) {
+  // item j of chunk's window: its 8 raw channels and the (sample, channel)
+  // index of its statistics, or -1 for a row of zeros (outside the image,
+  // past the batch or past Cin)
+  auto source = [&](int chunk, int j, const T*& src) {
     const int s = t / C::PL + j * (NT / C::PL), ch = chunk * BK + 8 * fp;
     const int q = m0 + s;
     src = a.x;
@@ -237,13 +323,15 @@ conv3x3_kernel(const __grid_constant__ CUtensorMap tw, const ConvArgs a) {
                   ldg4(a.gb + ch + 4)};
   };
   // item j normalised and rounded into window buffer buf, from its raw
-  // channels lo, hi
-  auto put = [&](int j, int bc, float4 lo, float4 hi, const Affine& f,
+  // channels
+  auto put = [&](int j, int bc, const Item<T>& raw_x, const Affine& f,
                  unsigned buf) {
     const int s = t / C::PL + j * (NT / C::PL);
     if (s >= win) return;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (bc >= 0) {
+      float4 lo, hi;
+      raw_x.widen(lo, hi);
       const float4 m0v = ldg4(a.mean_c + bc), m1v = ldg4(a.mean_c + bc + 4);
       const float4 r0v = ldg4(a.rstd_c + bc), r1v = ldg4(a.rstd_c + bc + 4);
       v.x = pack_bf16(gn_silu1(lo.x, m0v.x, r0v.x, f.s0.x, f.b0.x),
@@ -261,22 +349,18 @@ conv3x3_kernel(const __grid_constant__ CUtensorMap tw, const ConvArgs a) {
   // the first chunk's window, all of a thread's items in flight at once
   {
     const Affine f0 = affine(c0);
-    float4 lo[kMaxItems], hi[kMaxItems];
+    Item<T> raw_x[kMaxItems];
     int bc[kMaxItems];
 #pragma unroll
     for (int j = 0; j < kMaxItems; ++j) {
       if (j >= n_items) continue;
-      const float* src;
+      const T* src;
       bc[j] = source(c0, j, src);
-      lo[j] = hi[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (bc[j] >= 0) {
-        lo[j] = ldg4(src);
-        hi[j] = ldg4(src + 4);
-      }
+      raw_x[j] = bc[j] >= 0 ? Item<T>::load(src) : Item<T>::zero();
     }
 #pragma unroll
     for (int j = 0; j < kMaxItems; ++j)
-      if (j < n_items) put(j, bc[j], lo[j], hi[j], f0, window(0));
+      if (j < n_items) put(j, bc[j], raw_x[j], f0, window(0));
   }
   fence_async_smem();
   __syncthreads();
@@ -309,19 +393,16 @@ conv3x3_kernel(const __grid_constant__ CUtensorMap tw, const ConvArgs a) {
       // item tap - 1 (copied a tap ago) normalised into the window
       if (more) {
         if (tap < kMaxItems && tap < n_items) {
-          const float* src;
+          const T* src;
           bcs[tap & 1] = source(c0 + cc + 1, tap, src);
-          const int n = bcs[tap & 1] >= 0 ? 16 : 0;
-          const unsigned slot = tap & 1 ? slot1 : slot0;
-          cp_async16(slot, src, n);
-          cp_async16(slot + 16, src + 4, n);
+          Item<T>::copy(tap & 1 ? slot1 : slot0, src,
+                        bcs[tap & 1] >= 0 ? 16 : 0);
         }
         cp_async_commit();
         if (tap >= 1 && tap - 1 < n_items) {
           cp_async_wait<1>();
-          const unsigned slot = (tap - 1) & 1 ? slot1 : slot0;
-          put(tap - 1, bcs[(tap - 1) & 1], ld_shared4(slot),
-              ld_shared4(slot + 16), f1, wnext);
+          put(tap - 1, bcs[(tap - 1) & 1],
+              Item<T>::slot((tap - 1) & 1 ? slot1 : slot0), f1, wnext);
         }
       }
       wgmma_wait<1>();  // the previous step's group is done: free its stage
@@ -356,14 +437,16 @@ conv3x3_kernel(const __grid_constant__ CUtensorMap tw, const ConvArgs a) {
     }
   }
   __syncthreads();
-  // whole rows out, 16 bytes a thread, border positions skipped, the bias
-  // added (one slice) or the slice's partial
+  // whole rows out, 4 channels a thread, border positions skipped: y with
+  // the bias added (one slice) or the slice's fp32 partial
   constexpr int C4 = C::BN / 4;
   const int c4 = t % C4, n = n0 + 4 * c4;
   if (n >= a.Cout) return;
   float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
   if (a.slices == 1) bv = ldg4(a.bias + n);
-  float* out = a.out + (size_t)blockIdx.z * a.slice_elems;
+  T* y = static_cast<T*>(a.out);
+  float* part =
+      static_cast<float*>(a.out) + (size_t)blockIdx.z * a.slice_elems;
   for (int r = t / C4; r < C::BM; r += NT / C4) {
     const int p = m0 + r;
     if (p >= Mp) break;
@@ -372,18 +455,21 @@ conv3x3_kernel(const __grid_constant__ CUtensorMap tw, const ConvArgs a) {
     if (oy >= a.H || ox >= a.W) continue;
     const float4 v =
         *reinterpret_cast<const float4*>(stg + r * C::LDS + 4 * c4);
-    *reinterpret_cast<float4*>(
-        out + (((size_t)b * a.H + oy) * a.W + ox) * a.Cout + n) =
-        make_float4(__fadd_rn(v.x, bv.x), __fadd_rn(v.y, bv.y),
-                    __fadd_rn(v.z, bv.z), __fadd_rn(v.w, bv.w));
+    const size_t o = (((size_t)b * a.H + oy) * a.W + ox) * a.Cout + n;
+    if (a.slices == 1)
+      store4(y + o, make_float4(__fadd_rn(v.x, bv.x), __fadd_rn(v.y, bv.y),
+                                __fadd_rn(v.z, bv.z), __fadd_rn(v.w, bv.w)));
+    else
+      store4(part + o, v);
   }
 }
 
-// y = (the slices' partials summed in slice order) + bias, 16 bytes a
-// thread
+// y = (the slices' partials summed in slice order) + bias, rounded once to
+// T, 4 channels a thread
+template <typename T>
 __global__ void __launch_bounds__(256)
 conv3x3_reduce_kernel(const float4* __restrict__ part,
-                      const float4* __restrict__ bias, float4* __restrict__ y,
+                      const float4* __restrict__ bias, T* __restrict__ y,
                       long long n4, int cout4, int slices) {
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4;
        i += (long long)gridDim.x * 256) {
@@ -394,8 +480,8 @@ conv3x3_reduce_kernel(const float4* __restrict__ part,
                       __fadd_rn(v.z, p.z), __fadd_rn(v.w, p.w));
     }
     const float4 b = __ldg(bias + i % cout4);
-    y[i] = make_float4(__fadd_rn(v.x, b.x), __fadd_rn(v.y, b.y),
-                       __fadd_rn(v.z, b.z), __fadd_rn(v.w, b.w));
+    store4(y + 4 * i, make_float4(__fadd_rn(v.x, b.x), __fadd_rn(v.y, b.y),
+                                  __fadd_rn(v.z, b.z), __fadd_rn(v.w, b.w)));
   }
 }
 
@@ -488,29 +574,73 @@ bool encode_weights(CUtensorMap* map, const void* w, int Cin, int Cout,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BK, int WM>
-cudaError_t launch_conv(const CUtensorMap& tw, const ConvArgs& a,
+template <typename T, int BK, int WM>
+cudaError_t launch_conv(const CUtensorMap& tw, const ConvArgs<T>& a,
                         const ConvPlan& p, cudaStream_t s) {
   using C = Cfg<BK, WM>;
   const int smem = C::smem(a.W);
   const cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_kernel<BK, WM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv3x3_kernel<T, BK, WM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  conv3x3_kernel<BK, WM>
+  conv3x3_kernel<T, BK, WM>
       <<<dim3(p.m_tiles, p.n_tiles, a.slices), NT, smem, s>>>(tw, a);
   return cudaGetLastError();
 }
 
-cudaError_t launch_conv(const CUtensorMap& tw, const ConvArgs& a,
+template <typename T>
+cudaError_t launch_conv(const CUtensorMap& tw, const ConvArgs<T>& a,
                         const ConvPlan& p, cudaStream_t s) {
   if (p.wm == 4)
-    return p.bk == 64   ? launch_conv<64, 4>(tw, a, p, s)
-           : p.bk == 32 ? launch_conv<32, 4>(tw, a, p, s)
-                        : launch_conv<16, 4>(tw, a, p, s);
-  return p.bk == 64   ? launch_conv<64, 2>(tw, a, p, s)
-         : p.bk == 32 ? launch_conv<32, 2>(tw, a, p, s)
-                      : launch_conv<16, 2>(tw, a, p, s);
+    return p.bk == 64   ? launch_conv<T, 64, 4>(tw, a, p, s)
+           : p.bk == 32 ? launch_conv<T, 32, 4>(tw, a, p, s)
+                        : launch_conv<T, 16, 4>(tw, a, p, s);
+  return p.bk == 64   ? launch_conv<T, 64, 2>(tw, a, p, s)
+         : p.bk == 32 ? launch_conv<T, 32, 2>(tw, a, p, s)
+                      : launch_conv<T, 16, 2>(tw, a, p, s);
+}
+
+// pass 1: K1's statistics of x: two-pass fp32 for fp32 x; for bf16 x the
+// TPU body's one-pass fp32 statistics of the widened x
+cudaError_t conv_stats(const float* x, float* mean_c, float* rstd_c, int B,
+                       int HW, int C, int G, float eps, cudaStream_t s) {
+  return launch_gn_stats(x, mean_c, rstd_c, B, HW, C, G, eps, s);
+}
+cudaError_t conv_stats(const bf16* x, float* mean_c, float* rstd_c, int B,
+                       int HW, int C, int G, float eps, cudaStream_t s) {
+  return launch_gn_stats_bf16(x, mean_c, rstd_c, B, HW, C, G, eps, 2, s);
+}
+
+template <typename T>
+int gn_silu_conv3x3(const T* x, const float* gs, const float* gb,
+                    const void* w, const float* bias, T* y, float* mean_c,
+                    float* rstd_c, float* part, int B, int H, int W, int Cin,
+                    int Cout, int G, float eps, int slices, cudaStream_t s) {
+  const int sms = sm_count();
+  ConvPlan p;
+  if (!conv_plan(B, H, W, Cin, Cout, sms, &p) || slices < 1 ||
+      p.n_chunks % slices || (slices > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tw;
+  if (!encode_weights(&tw, w, Cin, Cout, p.bk))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = conv_stats(x, mean_c, rstd_c, B, H * W, Cin, G, eps, s);
+  if (err != cudaSuccess) return (int)err;
+  const long long elems = (long long)B * H * W * Cout;
+  void* out = slices > 1 ? static_cast<void*>(part) : static_cast<void*>(y);
+  const ConvArgs<T> a{x,    gs,   gb,   bias, mean_c, rstd_c, out,
+                      B,    H,    W,    Cin,  Cout,   p.n_chunks / slices,
+                      slices, elems, FastDiv((H + 2) * (W + 2)),
+                      FastDiv(W + 2)};
+  err = launch_conv(tw, a, p, s);
+  if (err != cudaSuccess || slices == 1) return (int)err;
+  const long long n4 = elems / 4;
+  const long long blocks =
+      std::min<long long>((n4 + 255) / 256, 8LL * std::max(sms, 1));
+  conv3x3_reduce_kernel<T><<<(unsigned)blocks, 256, 0, s>>>(
+      reinterpret_cast<const float4*>(part),
+      reinterpret_cast<const float4*>(bias), y, n4, Cout / 4, slices);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -527,41 +657,24 @@ extern "C" int dxmi_conv_plan(int B, int H, int W, int Cin, int Cout,
   return 0;
 }
 
-// w: (3, 3, Cin, Cout) bf16; mean_c, rstd_c: (B, Cin) scratch; part:
+// x, y: (B, H, W, Cin / Cout) fp32 (is_bf16 == 0) or bf16; w: (3, 3, Cin,
+// Cout) bf16; gs, gb, bias fp32; mean_c, rstd_c: (B, Cin) scratch; part:
 // (slices, B, H, W, Cout) fp32 scratch when slices > 1 (else unused).
 // slices: the plan's (dxmi_conv_plan; any count that divides the plan's
 // chunks runs). Needs Cin % 32 == 0, Cin % G == 0, Cout % 8 == 0,
 // W <= 512 and 16-byte aligned tensors.
-extern "C" int dxmi_gn_silu_conv3x3(const float* x, const float* gs,
+extern "C" int dxmi_gn_silu_conv3x3(const void* x, const float* gs,
                                     const float* gb, const void* w,
-                                    const float* bias, float* y, float* mean_c,
+                                    const float* bias, void* y, float* mean_c,
                                     float* rstd_c, float* part, int B, int H,
                                     int W, int Cin, int Cout, int G, float eps,
-                                    int slices, void* stream) {
+                                    int slices, int is_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int sms = sm_count();
-  ConvPlan p;
-  if (!conv_plan(B, H, W, Cin, Cout, sms, &p) || slices < 1 ||
-      p.n_chunks % slices || (slices > 1 && part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap tw;
-  if (!encode_weights(&tw, w, Cin, Cout, p.bk))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      launch_gn_stats(x, mean_c, rstd_c, B, H * W, Cin, G, eps, s);
-  if (err != cudaSuccess) return (int)err;
-  const long long elems = (long long)B * H * W * Cout;
-  const ConvArgs a{x,    gs,   gb,   bias, mean_c, rstd_c, slices > 1 ? part : y,
-                   B,    H,    W,    Cin,  Cout,   p.n_chunks / slices,
-                   slices, elems, FastDiv((H + 2) * (W + 2)), FastDiv(W + 2)};
-  err = launch_conv(tw, a, p, s);
-  if (err != cudaSuccess || slices == 1) return (int)err;
-  const long long n4 = elems / 4;
-  const long long blocks =
-      std::min<long long>((n4 + 255) / 256, 8LL * std::max(sms, 1));
-  conv3x3_reduce_kernel<<<(unsigned)blocks, 256, 0, s>>>(
-      reinterpret_cast<const float4*>(part),
-      reinterpret_cast<const float4*>(bias), reinterpret_cast<float4*>(y), n4,
-      Cout / 4, slices);
-  return (int)cudaGetLastError();
+  if (is_bf16)
+    return gn_silu_conv3x3(static_cast<const bf16*>(x), gs, gb, w, bias,
+                           static_cast<bf16*>(y), mean_c, rstd_c, part, B, H,
+                           W, Cin, Cout, G, eps, slices, s);
+  return gn_silu_conv3x3(static_cast<const float*>(x), gs, gb, w, bias,
+                         static_cast<float*>(y), mean_c, rstd_c, part, B, H,
+                         W, Cin, Cout, G, eps, slices, s);
 }

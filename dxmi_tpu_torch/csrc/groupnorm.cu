@@ -343,7 +343,8 @@ __global__ void __launch_bounds__(kThreads) gn_kernel(const GnArgs<T> a) {
                                                 v * VE));
   };
   // per-channel sums over this thread's rows in [lo, hi), in row order:
-  // centred == 0 adds x to p and (onepass) x*x rounded to T to q;
+  // centred == 0 adds x to p and (onepass) x*x, rounded to T unless
+  // onepass == 2, to q;
   // centred == 1 adds (x - mu)^2 to p
   float p[VE], q[VE], mu[VE];
 #pragma unroll
@@ -372,7 +373,10 @@ __global__ void __launch_bounds__(kThreads) gn_kernel(const GnArgs<T> a) {
         } else {
 #pragma unroll
           for (int e = 0; e < VE; ++e) p[e] += f[e];
-          if (a.onepass) {
+          if (a.onepass == 2) {  // x widened: x*x in fp32
+#pragma unroll
+            for (int e = 0; e < VE; ++e) q[e] += f[e] * f[e];
+          } else if (a.onepass) {
             squares(raw[u], f);
 #pragma unroll
             for (int e = 0; e < VE; ++e) q[e] += f[e];
@@ -420,7 +424,13 @@ __global__ void __launch_bounds__(kThreads) gn_kernel(const GnArgs<T> a) {
   if (a.onepass) reduce(q, 1);
   cluster_arrive();
   cluster_wait();
-  if (a.onepass) {
+  if (a.onepass == 2) {
+    for (int gl = tid; gl < GS; gl += kThreads) {
+      const float m = total(0, gl) / n;
+      gmean[gl] = m;
+      grstd[gl] = 1.f / sqrtf(fmaxf(total(1, gl) / n - m * m, 0.f) + a.eps);
+    }
+  } else if (a.onepass) {
     for (int gl = tid; gl < GS; gl += kThreads) {
       const float m = total(0, gl) / n;
       const float var = round_t<T>(fmaxf(total(1, gl) / n - m * m, 0.f));
@@ -456,7 +466,7 @@ __global__ void __launch_bounds__(kThreads) gn_kernel(const GnArgs<T> a) {
         set_consts(kc, e, gmean[cl / cg], grstd[cl / cg], a.scale[c],
                    a.bias[c]);
       }
-      const int stepwise = sizeof(T) == 2 && a.onepass;
+      const int stepwise = sizeof(T) == 2 && a.onepass == 1;
       for (int rw = rr; rw < R; rw += RP)
         *reinterpret_cast<uint4*>(a.y + base + (size_t)rw * a.C + v * VE) =
             kc(row(rw), a.silu, stepwise);

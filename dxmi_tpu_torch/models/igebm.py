@@ -6,7 +6,11 @@ sum (or adaptive-average) pool -> linear head, optional class-embedding FiLM
 and learned affine output scale. Parameter names are the reference
 ``IGEBMEncoderV2``'s (``conv1``, ``blocks.<i>.conv1``, ``blocks.<i>.skip.0``,
 ``linear``, ``out_scale``), so a reference ``value.pth`` loads with
-``load_state_dict``. Inputs are NCHW, fp32. Spectral normalisation is not
+``load_state_dict``. Inputs are NCHW. ``dtype`` is the torso's compute
+dtype, as the JAX module's: the parameters stay fp32, the stem and the
+residual blocks (convs, class FiLM, activations, pooling) run in ``dtype``
+with the weights cast where they are used, and the head (``linear``,
+``out_scale``) runs in fp32 after the ReLU. Spectral normalisation is not
 ported yet (``use_spectral_norm=True`` raises).
 """
 from __future__ import annotations
@@ -17,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dxmi_tpu_torch.models._layers import _conv
+
 OUT_ACTIVATIONS = {
     "linear": lambda x: x, "relu": F.relu, "sigmoid": torch.sigmoid,
     "softplus": F.softplus, "tanh": torch.tanh, "swish": F.silu,
@@ -24,7 +30,21 @@ OUT_ACTIVATIONS = {
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, 0.2)
+    if x.dtype == torch.float32:
+        return F.leaky_relu(x, 0.2)
+    # XLA's bf16 form: the slope enters rounded to bf16, the product rounds
+    return torch.where(x >= 0, x, x * torch.tensor(0.2, dtype=x.dtype))
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average pool, stride 2. In bf16 as XLA on the CPU runs flax's
+    ``avg_pool``: the window summed in row-major order, each add rounded,
+    then divided by 4."""
+    if x.dtype == torch.float32:
+        return F.avg_pool2d(x, 2)
+    s = x[:, :, 0::2, 0::2] + x[:, :, 0::2, 1::2]
+    s = s + x[:, :, 1::2, 0::2]
+    return (s + x[:, :, 1::2, 1::2]) / 4
 
 
 class ResBlockEBM(nn.Module):
@@ -52,28 +72,33 @@ class ResBlockEBM(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        out = self.conv1(x)
+        out = _conv(self.conv1, x)
         if self.n_class is not None:
-            w1, w2, b1, b2 = self.class_embed(y)[:, :, None, None].chunk(4, 1)
+            w1, w2, b1, b2 = self.class_embed(y).to(x.dtype)[
+                :, :, None, None].chunk(4, 1)
             out = w1 * out + b1
-        out = self.conv2(leaky_relu(out))
+        out = _conv(self.conv2, leaky_relu(out))
         if self.n_class is not None:
             out = w2 * out + b2
-        out = out + (self.skip(x) if hasattr(self, "skip") else x)
+        out = out + (_conv(self.skip[0], x) if hasattr(self, "skip") else x)
         if self.downsample:
-            out = F.avg_pool2d(out, 2)
+            out = avg_pool2(out)
         return leaky_relu(out)
 
 
 class IGEBMEncoder(nn.Module):
-    """``forward(x_nchw[, y]) -> (B, out_chan)``."""
+    """``forward(x_nchw[, y]) -> (B, out_chan)`` fp32."""
 
     def __init__(self, in_chan: int = 3, out_chan: int = 1,
                  n_class: Optional[int] = None,
                  use_spectral_norm: bool = False, keepdim: bool = True,
                  out_activation: str = "linear", avg_pool_dim: int = 1,
-                 learn_out_scale: bool = False, nh: int = 128):
+                 learn_out_scale: bool = False, nh: int = 128,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype {dtype}: fp32 or bf16")
+        self.dtype = dtype
         if use_spectral_norm:
             raise NotImplementedError(
                 "IGEBMEncoder use_spectral_norm=True: not ported yet "
@@ -96,10 +121,10 @@ class IGEBMEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        out = leaky_relu(self.conv1(x.float()))
+        out = leaky_relu(_conv(self.conv1, x.to(self.dtype)))
         for block in self.blocks:
             out = block(out, y)
-        out = F.relu(out)
+        out = F.relu(out).float()
         if self.keepdim:
             out = F.adaptive_avg_pool2d(out, self.avg_pool_dim)
             # flattened in the JAX package's (h, w, c) order

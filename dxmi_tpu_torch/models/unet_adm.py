@@ -56,6 +56,7 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
+from dxmi_tpu_torch.models._layers import _conv, _linear
 from dxmi_tpu_torch.ops.attention import flash_available, flash_mha
 from dxmi_tpu_torch.ops.attn_block import (Int8AttnMats, attn_block,
                                            attn_block_int8,
@@ -115,20 +116,6 @@ def _upsample2x(x: torch.Tensor) -> torch.Tensor:
 def _mat(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     """(Cin, Cout) matrix of a 1x1 conv, contiguous, in ``dtype``."""
     return conv.weight[:, :, 0, 0].t().to(dtype).contiguous()
-
-
-def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``conv`` in ``x``'s dtype (its weights may be kept in fp32); an int8
-    ``QConv`` runs its own forward."""
-    if isinstance(conv, QConv):
-        return conv(x)
-    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-                    conv.stride, conv.padding)
-
-
-def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``lin`` in ``x``'s dtype."""
-    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
 
 class GroupNormADM(nn.GroupNorm):

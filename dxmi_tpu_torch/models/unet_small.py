@@ -23,10 +23,13 @@ order instead of drawing them (the tests replay the JAX package's).
 and linear casts its fp32 weights to the compute dtype where it is used,
 GroupNorm statistics follow ``gn_stats``, and each operation rounds its
 result to bf16; ``softmax_f32`` keeps the attention logits and softmax in
-fp32, ``softmax_nomax`` drops the softmax's max subtraction. bf16 runs the
-unfused layers only: K3 takes fp32 activations and K2 in bf16 takes head
-widths up to 128, so a bf16 net that would fuse a GN+conv pair or send a
-d = 256 attention block through K2 raises ``NotImplementedError``.
+fp32, ``softmax_nomax`` drops the softmax's max subtraction. The fused
+layers run in bf16 too, as in the JAX module: K3 takes the bf16 activations
+and returns bf16 (GroupNorm and SiLU in fp32, the sums rounded once), and
+K2 takes the bf16 block at its single head of d = C (d = 256 at full width:
+K7's attention launch) with the weights cast to bf16 where they are used.
+Both keep the TPU kernels' own statistics (fp32), whatever ``gn_stats``
+says, as the Pallas kernels ignore ``DXMI_GN_STATS``.
 
 int8 (``quant_int8``): ``'static'`` runs every ResnetBlock conv (conv1,
 conv2, nin_shortcut), the Downsample's stride-2 conv, the Upsample's conv
@@ -56,9 +59,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dxmi_tpu_torch.models.unet_adm import _conv, _linear
-from dxmi_tpu_torch.ops.attn_block import (attn_block, fused_attn_available,
-                                           kernel_takes)
+from dxmi_tpu_torch.models._layers import _conv, _linear
+from dxmi_tpu_torch.ops.attn_block import attn_block, fused_attn_available
 from dxmi_tpu_torch.ops.conv_fused import fused_conv_available, gn_silu_conv
 from dxmi_tpu_torch.ops.groupnorm import group_norm, sigmoid
 from dxmi_tpu_torch.ops.phase_up import (conv3x3_nearest_up2,
@@ -287,12 +289,13 @@ class AttnBlock(Int8Layer, nn.Module):
         S, dt = H * W, x.dtype
         if (self.attn_impl == "fused" and not self.quant
                 and fused_attn_available(S, C, 1)):
+            # the weights in the compute dtype, as _pallas_forward casts them
             w_qkv, b_qkv = self._qkv_mats()
             y = attn_block(_nhwc(x).reshape(B, S, C), self.norm.weight,
-                           self.norm.bias, w_qkv, b_qkv,
-                           self._mat(self.proj_out).contiguous(),
-                           self.proj_out.bias, num_heads=1, eps=GN_EPS,
-                           block_b=self.block_b)
+                           self.norm.bias, w_qkv.to(dt), b_qkv.to(dt),
+                           self._mat(self.proj_out).to(dt).contiguous(),
+                           self.proj_out.bias.to(dt), num_heads=1,
+                           eps=GN_EPS, block_b=self.block_b)
             return _nchw(y.reshape(B, H, W, C))
         h = _nhwc(self.norm(x)).reshape(B, S, C)
         if self.merged:
@@ -417,9 +420,6 @@ class UNetSmall(nn.Module):
         self.dtype = dtype
         temb_ch = ch * 4
         attn_quant = False if quant_skip_attn else quant_int8
-        self._check_bf16(dtype, fuse_gn_conv, attn_impl, attn_quant,
-                         quant_int8, quant_skip_last_level, ch, ch_mult,
-                         attn_resolutions, resolution)
         blk = dict(temb_channels=temb_ch, dropout=dropout,
                    fuse_gn_conv=fuse_gn_conv, masks=self.dropout_masks,
                    dtype=dtype, gn_stats=gn_stats)
@@ -479,40 +479,6 @@ class UNetSmall(nn.Module):
 
         self.norm_out = GroupNorm32(cur, gn_stats)
         self.conv_out = nn.Conv2d(cur, out_ch, 3, padding=1)
-
-    @staticmethod
-    def _check_bf16(dtype, fuse_gn_conv, attn_impl, attn_quant, quant_int8,
-                    skip_last, ch, ch_mult, attn_resolutions, resolution):
-        """bf16 runs no fused layer the port has no bf16 kernel for: raise,
-        naming the missing kernel forms, where the module would fuse a
-        GN+conv pair (K3 takes fp32 activations) or send an attention block
-        through the fused kernel at a head width K2's bf16 form does not
-        take (d = C = 256 at full width), instead of unfusing without a
-        word."""
-        if dtype != torch.bfloat16:
-            return
-        missing = []
-        if fuse_gn_conv and (not quant_int8 or skip_last):
-            missing.append("K3 (GN+SiLU+conv3x3) with bf16 activations, for "
-                           "fuse_gn_conv on unquantised ResnetBlocks")
-        res = resolution
-        for i_level, mult in enumerate(ch_mult):
-            C = ch * mult
-            if (attn_impl == "fused" and not attn_quant
-                    and (res in attn_resolutions
-                         or i_level == len(ch_mult) - 1)
-                    and fused_attn_available(res * res, C, 1)
-                    and not kernel_takes(C, 1, torch.bfloat16)):
-                missing.append(f"K2 in bf16 at a single head of d = {C} "
-                               f"({res}x{res}; it takes d <= 128), for "
-                               "attn_impl='fused'")
-                break
-            res //= 2
-        if missing:
-            raise NotImplementedError(
-                "UNetSmall in bf16 needs kernel forms not ported yet: "
-                + "; ".join(missing) + ". int8 (quant_int8) turns both "
-                "fusions off, as in the JAX package")
 
     def _int8_layers(self):
         return [m for m in self.modules() if isinstance(m, Int8Layer)]

@@ -44,8 +44,10 @@ _SIGNATURES = {
     # a cluster)
     "dxmi_gn_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     # x, gn_scale, gn_bias, w(9,Cin,Cout) bf16, bias, y, mean_c, rstd_c,
-    # partials scratch (or null), B, H, W, Cin, Cout, G, eps, slices, stream
-    "dxmi_gn_silu_conv3x3": [_P] * 9 + [_I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # partials scratch (or null), B, H, W, Cin, Cout, G, eps, slices,
+    # is_bf16 (x and y bf16), stream
+    "dxmi_gn_silu_conv3x3": [_P] * 9 + [_I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                        _P],
     # B, H, W, Cin, Cout, out int[3]: K3's plan (chunk channels, positions
     # a tile, slices)
     "dxmi_conv_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],

@@ -10,7 +10,8 @@ fp32 on K7's tensor-core launches after K1's two-pass statistics,
 ``csrc/attn_block_bb.cu``) or K7 (blocks of bb elements); on a CPU tensor it
 runs their plain versions, on a CUDA tensor it launches the hand-written
 kernels (or raises). It takes fp32 (CIFAR's single-head blocks) or bf16 (the
-ADM nets' multi-head blocks) activations, and is differentiable
+ADM nets' multi-head blocks, and CIFAR's single-head d = 256 blocks, whose
+attention runs K7's launch) activations, and is differentiable
 (``AttnBlockFn``): the backward is the vjp of the reference, as
 ``_make_op.bwd`` is.
 
@@ -76,14 +77,17 @@ def fused_attn_bwd_available(seq_len: int, channels: int,
             and seq_len * channels <= 1024 * 384)
 
 
-def kernel_takes(channels: int, num_heads: int, dtype: torch.dtype) -> bool:
-    """The forms K2, K5 and K7 are written for, inside the gate: fp32 at
-    d % 16 == 0 (the 16-column lanes of K5's fp32 SIMT core), bf16 at
-    d % 8 == 0 and d <= 128 (K2's and K5's attention core is the flash
-    kernel's)."""
+def kernel_takes(channels: int, num_heads: int, dtype: torch.dtype,
+                 int8: bool = False) -> bool:
+    """The forms K2, K7 and (``int8``) K5 are written for, inside the gate:
+    fp32 at d % 16 == 0 (the 16-column lanes of K5's fp32 SIMT core), bf16
+    at d % 8 == 0 and d <= 128 (the flash kernel's core), and K2 and K7 in
+    bf16 also at a single head of d <= 256 (K2 then runs K7's attention
+    launch, CIFAR-10's d = 256 blocks)."""
     d = channels // num_heads
     if dtype == torch.bfloat16:
-        return d % 8 == 0 and d <= 128
+        return d % 8 == 0 and (d <= 128 or (not int8 and num_heads == 1
+                                            and d <= 256))
     return dtype == torch.float32 and d % 16 == 0
 
 
@@ -168,7 +172,9 @@ def _attn_block_k2(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
         stats[1].data_ptr(), qkv.data_ptr(), attn.data_ptr(), B, S, C,
         num_heads, GROUPS, float(eps), _lib.stream())
     _lib.check(code, f"dxmi_{form}")
-    _lib.LAUNCHES[form] += 1
+    # bf16 at d > 128 (one head) runs K7's attention launch, not K4's
+    wide = dt == torch.bfloat16 and C // num_heads > 128
+    _lib.LAUNCHES["attn_block_bf16_d256" if wide else form] += 1
     return y
 
 
@@ -178,8 +184,9 @@ def _check_kernel_form(name, S, C, num_heads, dt) -> None:
                          "outside fused_attn_available")
     if not kernel_takes(C, num_heads, dt):
         raise NotImplementedError(
-            f"{name} kernel: d={C // num_heads} in {dt} not ported yet "
-            "(fp32 at d % 16 == 0, bf16 at d % 8 == 0 and d <= 128)")
+            f"{name} kernel: d={C // num_heads}, nh={num_heads} in {dt} not "
+            "ported yet (fp32 at d % 16 == 0, bf16 at d % 8 == 0 and d <= "
+            "128, or one head of d <= 256)")
 
 
 def _require_block_args(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj):
@@ -342,8 +349,9 @@ def attn_block(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
     by ``resolve_block_b``; a batch block of 1 runs K2, a larger one K7
     (``attn_block_bb``). On the card the kernels take the shapes that
     ``fused_attn_available`` admits, in the forms that ``kernel_takes``
-    names (others raise); K2 counts as ``attn_block`` (fp32) or
-    ``attn_block_bf16``. Differentiable (``AttnBlockFn``) when an input
+    names (others raise); K2 counts as ``attn_block`` (fp32),
+    ``attn_block_bf16`` or, at one head of d > 128, ``attn_block_bf16_d256``.
+    Differentiable (``AttnBlockFn``) when an input
     requires a gradient."""
     B, S, C = x.shape
     bb = resolve_block_b(B, S, C, block_b)
@@ -634,7 +642,7 @@ def attn_block_int8(x, gn_scale, gn_bias, mats: Int8AttnMats, b_qkv, b_proj,
     if not fused_attn_available(S, C, num_heads, int8=True):
         raise ValueError(f"attn_block_int8 kernel: S={S}, C={C}, "
                          f"nh={num_heads} outside fused_attn_available")
-    if not kernel_takes(C, num_heads, dt):
+    if not kernel_takes(C, num_heads, dt, int8=True):
         raise NotImplementedError(
             f"attn_block_int8 kernel: d={C // num_heads} in {dt} not ported "
             "yet (fp32 at d % 16 == 0, bf16 at d % 8 == 0 and d <= 128)")

@@ -4,14 +4,21 @@ its plain version.
 ``gn_silu_conv`` mirrors ``dxmi_tpu.ops.conv_fused.fused_gn_silu_conv``: on a
 CPU tensor it runs the plain version, on a CUDA tensor it launches the
 hand-written kernel in ``csrc/conv_fused.cu`` (or raises). Both round the
-conv operands to bf16 and accumulate in fp32, as the TPU kernel does. On the
-card the conv is a wgmma implicit GEMM whose reduction ``plan`` may split
-into slices (small maps); the wrapper allocates their fp32 partials.
+conv operands to bf16 and accumulate in fp32, as the TPU kernel does. ``x``
+is fp32 or bf16 and the output keeps its dtype, as the TPU kernel's
+(``conv_fused.py:122``, ``:153``): GroupNorm and SiLU run in fp32 on the
+widened x, and a bf16 output is rounded once from the fp32 sums plus bias.
+On the card the conv is a wgmma implicit GEMM whose reduction ``plan`` may
+split into slices (small maps); the wrapper allocates their fp32 partials,
+which a second launch sums before the one rounding.
 
 It is differentiable (``GnSiluConvFn``): as ``_fgsc_bwd``
-(``conv_fused.py:102-113``), the backward is the vjp of
-``gn_silu_conv_reference`` at fp32 operands, recomputed from the saved
-inputs. So the forward rounds to bf16 and the backward does not.
+(``conv_fused.py:102-113``) means it, the backward is the vjp of
+``gn_silu_conv_reference`` at fp32 operands (x widened) and an fp32
+cotangent, recomputed from the saved inputs; x's gradient returns in x's
+dtype. So the forward rounds to bf16 and the backward does not. (The JAX
+package's own ``_fgsc_bwd`` raises on bf16 x: its reference's output is
+bf16 and the cotangent it hands the vjp fp32.)
 """
 from __future__ import annotations
 
@@ -60,24 +67,32 @@ def gn_silu_conv_reference(x: torch.Tensor, gn_scale: torch.Tensor,
                            eps: float = 1e-6,
                            operand_dtype: torch.dtype = torch.bfloat16
                            ) -> torch.Tensor:
-    """Plain GN (fp32 statistics) -> SiLU -> 3x3 SAME conv -> + bias.
+    """Plain GN -> SiLU -> 3x3 SAME conv -> + bias.
 
-    x: (B, H, W, Cin) fp32; kernel: (3, 3, Cin, Cout) HWIO. The conv
-    operands are rounded to ``operand_dtype`` (bf16, as the kernel does;
-    float32 gives the JAX package's ``gn_silu_conv_reference``) and the
-    products are summed in fp32. Returns (B, H, W, Cout) fp32.
+    x: (B, H, W, Cin) fp32 or bf16, widened to fp32; kernel: (3, 3, Cin,
+    Cout) HWIO. The conv operands are rounded to ``operand_dtype`` (bf16,
+    as the kernel does; float32 with fp32 x gives the JAX package's
+    ``gn_silu_conv_reference``), the products and the fp32 bias are summed
+    in fp32 and the result rounded once to x's dtype. Returns (B, H, W,
+    Cout) in x's dtype. The GroupNorm statistics are fp32: one-pass (var =
+    E[x^2] - mean^2) for bf16 x, as the TPU body takes them and K3 does;
+    two-pass for fp32 x, as the JAX package's reference and K3 do (the two
+    differ at fp32 rounding).
     """
-    h = group_norm_silu_reference(x, gn_scale, gn_bias, num_groups, eps,
-                                  silu=True)
+    # 'bf16_onepass' on the widened (fp32) x is one-pass fp32 statistics
+    stats = "bf16_onepass" if x.dtype == torch.bfloat16 else "fp32"
+    h = group_norm_silu_reference(x.float(), gn_scale, gn_bias, num_groups,
+                                  eps, silu=True, stats=stats)
     h = h.to(operand_dtype).float().permute(0, 3, 1, 2)
     w = kernel.to(operand_dtype).float().permute(3, 2, 0, 1)
     out = F.conv2d(h, w, bias.float(), padding=1)
-    return out.permute(0, 2, 3, 1).contiguous()
+    return out.permute(0, 2, 3, 1).contiguous().to(x.dtype)
 
 
 class GnSiluConvFn(torch.autograd.Function):
     """K3 (or its plain version on the CPU) forward; the vjp of the fp32
-    ``gn_silu_conv_reference`` backward."""
+    ``gn_silu_conv_reference`` (x widened, an fp32 cotangent) backward,
+    x's gradient in x's dtype."""
 
     @staticmethod
     def forward(ctx, x, gn_scale, gn_bias, kernel, bias, num_groups, eps):
@@ -89,23 +104,27 @@ class GnSiluConvFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         need = ctx.needs_input_grad[:5]
+        saved = ctx.saved_tensors
         with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, need)]
+            ins = [t.detach().float().requires_grad_(n)
+                   for t, n in zip(saved, need)]
             y = gn_silu_conv_reference(*ins, ctx.num_groups, ctx.eps,
                                        operand_dtype=torch.float32)
             grads = iter(torch.autograd.grad(
                 y, [t for t in ins if t.requires_grad], ct.float()))
-        return (*(next(grads) if n else None for n in need), None, None)
+        return (*(next(grads).to(t.dtype) if n else None
+                  for t, n in zip(saved, need)), None, None)
 
 
 def gn_silu_conv(x: torch.Tensor, gn_scale: torch.Tensor,
                  gn_bias: torch.Tensor, kernel: torch.Tensor,
                  bias: torch.Tensor, num_groups: int = 32,
                  eps: float = 1e-6) -> torch.Tensor:
-    """Fused GN+SiLU+conv3x3 of a channels-last fp32 ``x`` (B, H, W, Cin)
-    with an HWIO ``kernel`` (3, 3, Cin, Cout); returns (B, H, W, Cout) fp32.
-    On the card: K3, for shapes that ``fused_conv_available`` admits.
+    """Fused GN+SiLU+conv3x3 of a channels-last fp32 or bf16 ``x`` (B, H,
+    W, Cin) with fp32 GroupNorm parameters, an HWIO ``kernel`` (3, 3, Cin,
+    Cout) and an fp32 ``bias``; returns (B, H, W, Cout) in x's dtype. On the
+    card: K3, for shapes that ``fused_conv_available`` admits; it counts as
+    ``gn_silu_conv3x3`` (fp32 x) or ``gn_silu_conv3x3_bf16``.
     Differentiable (``GnSiluConvFn``) when an input requires a gradient."""
     args = (x, gn_scale, gn_bias, kernel, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
@@ -123,7 +142,11 @@ def _gn_silu_conv_forward(x, gn_scale, gn_bias, kernel, bias, num_groups,
     if not fused_conv_available(C, C_out, W, num_groups):
         raise ValueError(f"gn_silu_conv kernel: Cin={C}, Cout={C_out}, W={W} "
                          "not supported (fused_conv_available)")
-    _lib.require(x, "x", (B, H, W, C))
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gn_silu_conv kernel: dtype {x.dtype} not "
+                         "supported")
+    bf16 = x.dtype == torch.bfloat16
+    _lib.require(x, "x", (B, H, W, C), dtype=x.dtype)
     _lib.require(gn_scale, "gn_scale", (C,), device=x.device)
     _lib.require(gn_bias, "gn_bias", (C,), device=x.device)
     _lib.require(bias, "bias", (C_out,), device=x.device)
@@ -133,7 +156,7 @@ def _gn_silu_conv_forward(x, gn_scale, gn_bias, kernel, bias, num_groups,
     # the kernel reads bf16 weights, (tap, Cin, Cout) contiguous
     w = torch.empty((3, 3, C, C_out), device=x.device, dtype=torch.bfloat16)
     w.copy_(kernel)
-    y = torch.empty((B, H, W, C_out), device=x.device, dtype=torch.float32)
+    y = torch.empty((B, H, W, C_out), device=x.device, dtype=x.dtype)
     stats = torch.empty((2, B * C), device=x.device, dtype=torch.float32)
     slices = plan(B, H, W, C, C_out).slices
     part = (torch.empty((slices, B, H, W, C_out), device=x.device,
@@ -142,7 +165,8 @@ def _gn_silu_conv_forward(x, gn_scale, gn_bias, kernel, bias, num_groups,
         x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(), w.data_ptr(),
         bias.data_ptr(), y.data_ptr(), stats[0].data_ptr(),
         stats[1].data_ptr(), None if part is None else part.data_ptr(), B, H,
-        W, C, C_out, num_groups, float(eps), slices, _lib.stream())
+        W, C, C_out, num_groups, float(eps), slices, int(bf16),
+        _lib.stream())
     _lib.check(code, "dxmi_gn_silu_conv3x3")
-    _lib.LAUNCHES["gn_silu_conv3x3"] += 1
+    _lib.LAUNCHES["gn_silu_conv3x3_bf16" if bf16 else "gn_silu_conv3x3"] += 1
     return y

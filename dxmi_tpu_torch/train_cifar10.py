@@ -6,22 +6,29 @@ UNetSmall + VARSampler + ``DxMITrainer``, one iteration being
     python -m dxmi_tpu_torch.train_cifar10 --config configs/cifar10/T10.yaml \
         --dataset configs/cifar10/cifar10.yaml --run myrun [--fake_data] \
         [--max_steps N] [--attn_impl fused|einsum] [--fuse_gn_conv true|false] \
-        [--device cuda|cpu] [--any.dot.key value ...]
+        [--fast_levers] [--device cuda|cpu] [--any.dot.key value ...]
 
 The sampler net runs fp32 through the generation defaults: fused attention
 (K2, or K7 under ``DXMI_FUSED_ATTN_BB`` > 1) and K3 for each GN+SiLU+conv
-whose dropout is inactive. Without ``training.sampler_ckpt`` on disk the
+whose dropout is inactive. ``--fast_levers`` (or ``DXMI_TRAIN_LEVERS=1``)
+applies the JAX entry's overrides (``train_cifar10.py:164-174``,
+``LEVER_NET``, ``LEVER_VALUE_NET``): the sampler net in bf16 with the bf16
+softmax without its max pass, the phase upsample and ``bf16_onepass``
+GroupNorm statistics, the value torso in bf16; parameters and the saved
+config stay fp32. The fused layers keep running there, in bf16 (K3, and
+K2 or K7 at d = 256); ``--fuse_gn_conv false --attn_impl einsum`` is the
+JAX entry's own arithmetic. Without ``training.sampler_ckpt`` on disk the
 weights are PyTorch's initialisation drawn from ``training.seed`` (DxMI
 fine-tunes a pretrained sampler: the run warns). The trajectory is sampled
-in chunks of 32 when the config does not set ``trainer.sample_chunks`` (the
-JAX entry's rule at fp32). Each epoch prints ``sample_norm_`` of 64 samples;
+in chunks of 32 (64 under the levers) when the config does not set
+``trainer.sample_chunks`` (the JAX entry's rule). Each epoch prints ``sample_norm_`` of 64 samples;
 FID runs as ``maybe_compute_fid`` gates it: skipped while the Inception
 weights are absent, not ported yet where the JAX entry would compute it. The
 run directory ``results/<data.name>/<config name>/<run>`` gets ``config.yaml``
 and, at the end, ``sampler_last.pth`` and ``value_last.pth`` in the
 reference's format, which ``generate_cifar10 --sampler last`` reads. Not
-ported yet (they raise): ``--fast_levers``, ``--resume``, ``--wandb``,
-``training.n_critic`` other than 1 and msgpack checkpoints.
+ported yet (they raise): ``--resume``, ``--wandb``, ``training.n_critic``
+other than 1 and msgpack checkpoints.
 """
 from __future__ import annotations
 
@@ -53,21 +60,36 @@ FID_WEIGHTS = ("datasets/pt_inception-2015-12-05.npz",
 FID_STATS = ("datasets/cifar10_train_fid_stats.pt",
              "datasets/cifar10_train_fid_stats.npz",
              "datasets/fid_stats_cifar10_train.npz")
-# the per-chunk batch of the trajectory sampling at fp32 (train_cifar10.py:
-# 61-72)
+# the per-chunk batch of the trajectory sampling at fp32, and under the
+# levers' bf16 torso (train_cifar10.py:61-72)
 SAMPLE_CHUNK = 32
+LEVER_SAMPLE_CHUNK = 64
+# --fast_levers: the sampler net's and the value net's overrides
+# (train_cifar10.py:164-174; JAX sets the statistics by DXMI_GN_STATS)
+LEVER_NET = dict(dtype=torch.bfloat16, softmax_f32=False, softmax_nomax=True,
+                 up_impl="phase", gn_stats="bf16_onepass")
+LEVER_VALUE_NET = dict(dtype=torch.bfloat16)
+
+
+def levers_on(flag: bool) -> bool:
+    """Whether the levers apply: ``--fast_levers`` or DXMI_TRAIN_LEVERS=1,
+    as the JAX entry reads them."""
+    return flag or os.environ.get("DXMI_TRAIN_LEVERS") == "1"
 
 
 def build(cfg: Dict[str, Any], device: torch.device, seed: int,
-          attn_impl: str = "fused", fuse_gn_conv: bool = True
+          attn_impl: str = "fused", fuse_gn_conv: bool = True,
+          levers: bool = False
           ) -> Tuple[torch.nn.Module, torch.nn.Module, DxMITrainer]:
     """The config's sampler, value and trainer on ``device`` (the JAX entry's
     ``build`` and ``init_state``): the checkpoints when they exist, else
-    weights drawn from ``seed``; the optimizers; the auto-chunk rule."""
+    weights drawn from ``seed``; the optimizers; the auto-chunk rule.
+    ``levers``: the nets get ``LEVER_NET`` and ``LEVER_VALUE_NET``."""
     tr = cfg["training"]
     torch.manual_seed(seed)
     net = instantiate(cfg["sampler_net"], attn_impl=attn_impl,
-                      fuse_gn_conv=fuse_gn_conv)
+                      fuse_gn_conv=fuse_gn_conv,
+                      **(LEVER_NET if levers else {}))
     sampler = instantiate(cfg["sampler"], net=net)
     path = tr.get("sampler_ckpt")
     if path and os.path.exists(path):
@@ -80,7 +102,10 @@ def build(cfg: Dict[str, Any], device: torch.device, seed: int,
         print(f"WARNING: sampler ckpt {path} not found; training from "
               f"weights drawn from seed {seed} (DxMI fine-tunes a pretrained "
               "sampler)", flush=True)
-    value = instantiate(cfg["value"])
+    vcfg = cfg["value"]
+    if levers:
+        vcfg = {**vcfg, "net": {**vcfg["net"], **LEVER_VALUE_NET}}
+    value = instantiate(vcfg)
     v_path = tr.get("value_ckpt")
     if v_path and os.path.exists(v_path):
         value.load_state_dict(load_value_state(v_path))
@@ -94,8 +119,9 @@ def build(cfg: Dict[str, Any], device: torch.device, seed: int,
                        beta_lr=float(tr.get("beta_lr") or tr["lr"]))
     if trainer.sample_chunks == 1 and "sample_chunks" not in cfg["trainer"]:
         b = trainer.batchsize
-        if b > SAMPLE_CHUNK and b % SAMPLE_CHUNK == 0:
-            trainer.sample_chunks = b // SAMPLE_CHUNK
+        chunk = LEVER_SAMPLE_CHUNK if levers else SAMPLE_CHUNK
+        if b > chunk and b % chunk == 0:
+            trainer.sample_chunks = b // chunk
     return sampler, value, trainer
 
 
@@ -138,10 +164,14 @@ def main() -> None:
     p.add_argument("--fuse_gn_conv", default="true", choices=["true", "false"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args, unknown = p.parse_known_args()
-    for flag, on in (("--fast_levers", args.fast_levers),
-                     ("--resume", args.resume), ("--wandb", args.wandb)):
+    for flag, on in (("--resume", args.resume), ("--wandb", args.wandb)):
         if on:
             raise NotImplementedError(f"{flag}: not ported yet (ROADMAP.md)")
+    levers = levers_on(args.fast_levers)
+    if levers:
+        print("fast_levers: bf16 sampler and value torso, nomax softmax, "
+              "phase upsample, bf16_onepass GN statistics, 64-sample "
+              "chunks", flush=True)
 
     cfg = merge(load_yaml(args.config), load_yaml(args.dataset),
                 parse_nested_args(parse_unknown_args(unknown)))
@@ -158,7 +188,7 @@ def main() -> None:
     dev = select_device(args.device)
     batchsize = int(tr["batchsize"])
     sampler, value, trainer = build(cfg, dev, seed, args.attn_impl,
-                                    args.fuse_gn_conv == "true")
+                                    args.fuse_gn_conv == "true", levers)
     print(f"trajectory sampling in {trainer.sample_chunks} chunk(s)",
           flush=True)
 

@@ -1,8 +1,9 @@
 """Run-directory checkpoints in the reference's PyTorch format.
 
 The run directory holds ``config.yaml``, ``sampler_{best,last}.pth`` and
-``value_{best,last}.pth`` (``dxmi_tpu.utils.checkpoint.resolve_run_checkpoint``
-also reads flax msgpack files; loading those is not ported yet).
+``value_{best,last}.pth``; ``resolve_run_checkpoint`` looks a checkpoint up in
+the JAX package's order, which puts flax msgpack files first (loading those
+is not ported yet).
 ``save_run_checkpoint`` writes the ``{'state_dict': ...}`` files that the
 reference and ``load_sampler_state`` / ``load_value_state`` read; the full
 train state (optimizers, resume) is not ported yet.
@@ -16,14 +17,26 @@ import torch
 
 
 def resolve_run_checkpoint(log_dir: str, name: str, which: str) -> str:
-    """``{name}_{which}.pth``, then ``{name}.pth``."""
-    for cand in (f"{name}_{which}.pth", f"{name}.pth"):
+    """The first of ``{name}_{which}.msgpack``, ``{name}.msgpack``,
+    ``{name}_{which}.pth``, ``{name}.pth``, ``{name}_{which}.pt`` and
+    ``{name}.pt`` that exists, the order of the JAX package's
+    ``resolve_run_checkpoint``. The port cannot read msgpack yet, so a
+    msgpack file that ranks first raises, naming it, rather than resolving
+    to another checkpoint than the JAX entries would."""
+    names = (f"{name}_{which}.msgpack", f"{name}.msgpack",
+             f"{name}_{which}.pth", f"{name}.pth", f"{name}_{which}.pt",
+             f"{name}.pt")
+    for cand in names:
         path = os.path.join(log_dir, cand)
-        if os.path.exists(path):
-            return path
-    raise FileNotFoundError(
-        f"no {name} checkpoint in {log_dir} (tried {name}_{which}.pth, "
-        f"{name}.pth; msgpack checkpoints are not readable by the port yet)")
+        if not os.path.exists(path):
+            continue
+        if cand.endswith(".msgpack"):
+            raise NotImplementedError(
+                f"{path}: msgpack checkpoints are not readable by the port "
+                "yet (the JAX entries would load this file)")
+        return path
+    raise FileNotFoundError(f"no {name} checkpoint in {log_dir} (tried "
+                            f"{', '.join(names)})")
 
 
 def _state_dict_of(path: str) -> Dict[str, torch.Tensor]:

@@ -90,8 +90,11 @@ def _torch_bf16(args):
 
 
 @pytest.mark.parametrize("nomax", ["0", "1"])
-@pytest.mark.parametrize("C,nh", [(128, 2), (256, 4)])
+@pytest.mark.parametrize("C,nh", [(128, 2), (256, 4), (256, 1)])
 def test_plain_bf16_matches_pallas_kernel_interpret(monkeypatch, C, nh, nomax):
+    """The bf16 plain version against the TPU kernel's body; (256, 1) is
+    the CIFAR-10 nets' single head of d = 256, whose attention runs K7's
+    launch on the card."""
     args = _inputs_bf16(2, 64, C, seed=3)
     monkeypatch.setenv("DXMI_FUSED_NOMAX", nomax)
     ref = np.asarray(fused_attn_block(*(jnp.asarray(a) for a in args),
@@ -122,18 +125,25 @@ def test_gate_bf16(monkeypatch, S, C, nh, ok):
 
 
 @pytest.mark.parametrize("C,nh,dtype,ok", [(384, 6, torch.bfloat16, True),
-                                           (256, 1, torch.bfloat16, False),
+                                           (256, 1, torch.bfloat16, True),
+                                           (512, 2, torch.bfloat16, False),
+                                           (288, 1, torch.bfloat16, False),
                                            (96, 2, torch.bfloat16, True),
                                            (64, 8, torch.bfloat16, True),
                                            (256, 1, torch.float32, True),
                                            (64, 8, torch.float32, False),
                                            (384, 6, torch.float16, False)])
 def test_kernel_takes(C, nh, dtype, ok):
+    """bf16: d <= 128, or one head of d <= 256 (K2 and K7; K5 keeps d <=
+    128, its core is K4's); fp32: d % 16 == 0."""
     assert kernel_takes(C, nh, dtype) is ok
+    if dtype == torch.bfloat16:
+        assert kernel_takes(C, nh, dtype, int8=True) is (ok and C // nh
+                                                         <= 128)
 
 
 @pytest.mark.parametrize("S,C,nh,dtype,exc", [
-    (256, 256, 1, torch.bfloat16, NotImplementedError),
+    (256, 512, 2, torch.bfloat16, NotImplementedError),
     (64, 64, 8, torch.float32, NotImplementedError),
     (16, 256, 1, torch.float32, ValueError)])
 def test_card_tensor_outside_kernel_raises(S, C, nh, dtype, exc):

@@ -78,6 +78,24 @@ def test_plain_matches_kernel_bb_bf16():
         assert np.abs(out - kern).mean() / np.abs(kern).mean() < 2e-3
 
 
+def test_plain_matches_kernel_bb_bf16_d256():
+    """The CIFAR-10 nets' bf16 block, one head of d = 256 (B=2, S=256,
+    C=256) at bb 2, under the limits above: K7's own form and the one K2
+    bf16 runs at d = 256 (its plain version with two-pass statistics)."""
+    args = _inputs(2, 256, 256, seed=5)
+    ref32 = np.asarray(jax_attn.attn_block_reference(
+        *(jnp.asarray(a) for a in args), num_heads=1))
+    kern = _jax_bb(args, 1, 2, jnp.bfloat16)
+    x, *rest = (torch.from_numpy(a) for a in args)
+    xb = x.to(torch.bfloat16)
+    w = [rest[0], rest[1]] + [r.to(torch.bfloat16) for r in rest[2:]]
+    for out in (attn_block(xb, *w, num_heads=1, block_b=2),
+                attn_block(xb, *w, num_heads=1, block_b=1)):
+        out = out.float().numpy()
+        assert np.abs(out - ref32).mean() / np.abs(ref32).mean() < 2e-2
+        assert np.abs(out - kern).mean() / np.abs(kern).mean() < 2e-3
+
+
 @pytest.mark.parametrize("B,S,C,block_b,env", [
     (6, 128, 128, 4, None), (6, 128, 128, 3, None), (8, 256, 256, 8, None),
     (128, 256, 256, 4, None), (32, 256, 256, None, "4"),
@@ -179,6 +197,11 @@ def test_card_tensor_outside_kernel_raises():
           (256,))]
     with pytest.raises(ValueError):
         attn_block_bb(*t, num_heads=1, bb=4)
-    bf = [a.to(torch.bfloat16) for a in t]
-    with pytest.raises(NotImplementedError):  # bf16 at d = 256
-        attn_block_bb(bf[0], *t[1:3], *bf[3:], num_heads=1, bb=2)
+    # bf16 at two heads of d = 256 (one head of d = 256 is K7's CIFAR form)
+    bf = [torch.empty(s, device="meta", dtype=dt) for s, dt in
+          (((6, 256, 512), torch.bfloat16), ((512,), torch.float32),
+           ((512,), torch.float32), ((512, 1536), torch.bfloat16),
+           ((1536,), torch.bfloat16), ((512, 512), torch.bfloat16),
+           ((512,), torch.bfloat16))]
+    with pytest.raises(NotImplementedError):
+        attn_block_bb(*bf, num_heads=2, bb=2)

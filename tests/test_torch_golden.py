@@ -4,6 +4,7 @@ x0, per-step eps, means, sigmas and the final sample): config -> checkpoint
 -> VARSampler -> UNetSmall, at the tolerances of tests/test_golden_fixture.py.
 """
 import os
+import shutil
 import subprocess
 import sys
 
@@ -162,11 +163,22 @@ def test_generate_cli_streams_the_in_process_samples(tmp_path):
     assert np.abs(got.astype(np.int16) - want).max() <= 1
 
 
-def test_generate_cli_int8_not_ported():
-    """--int8 is ported (tests/test_torch_cifar_int8_golden.py); what the
-    CLI still lacks, a bf16 torso without --int8 (the fused layers' bf16
-    forms), raises before any sampling."""
+def test_generate_cli_int8_not_ported(tmp_path):
+    """--int8 is ported (tests/test_torch_cifar_int8_golden.py), and so is a
+    bf16 torso without it (tests/test_torch_cifar_bf16_golden.py): both run.
+    What the CLI still lacks, msgpack checkpoints, raises before any
+    sampling where the JAX entry would load one, naming the file."""
     proc = _cifar_cli("--dtype", "bf16")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "generated 4 samples" in proc.stdout
+    shutil.copy(os.path.join(FIXTURE, "config.yaml"), tmp_path)
+    shutil.copy(os.path.join(FIXTURE, "sampler_best.pth"), tmp_path)
+    (tmp_path / "sampler_best.msgpack").write_bytes(b"")
+    proc = subprocess.run(
+        [sys.executable, "-m", "dxmi_tpu_torch.generate_cifar10",
+         "--log_dir", str(tmp_path), "--n_generate", "4", "--batchsize", "2",
+         "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
     assert proc.returncode != 0
-    assert "not ported yet" in proc.stderr
-    assert "K3 (GN+SiLU+conv3x3) with bf16 activations" in proc.stderr
+    assert "not readable by the port yet" in proc.stderr
+    assert "sampler_best.msgpack" in proc.stderr

@@ -22,8 +22,8 @@ import pytest
 import torch
 
 from chip_smoke import (CONV_SHAPES, TOL, attn_bf16_check, attn_i8_check,
-                        calibrated_attn_scales, flash_check, flash_lse_check,
-                        gn_route_edges)
+                        calibrated_attn_scales, conv_bf16_check, flash_check,
+                        flash_lse_check, gn_route_edges)
 from dxmi_tpu_torch.ops import _lib
 from dxmi_tpu_torch.ops.attention import (flash_fwd_kernel, flash_mha,
                                           flash_mha_reference,
@@ -143,6 +143,9 @@ def test_attn_block_bb(card, B, S, C, nh, bb):
 @pytest.mark.parametrize("B,S,C,nh,bb", [(100, 256, 576, 9, 2),
                                          (8, 1024, 96, 3, 2),
                                          (4, 256, 128, 1, 4),
+                                         (128, 256, 256, 1, 4),
+                                         (128, 256, 256, 1, 2),
+                                         (64, 256, 256, 1, 4),
                                          (128, 256, 256, 2, 2),
                                          (128, 256, 256, 2, 4),
                                          (32, 256, 256, 2, 2),
@@ -161,6 +164,76 @@ def test_attn_block_bb_bf16(card, B, S, C, nh, bb):
     assert torch.equal(out, attn_block_bb(x, gs, gb, *w, num_heads=nh,
                                           bb=bb))
     assert _lib.LAUNCHES["attn_block_bb_bf16"] == 2
+
+
+# K3 on bf16 x: the four CIFAR-10 map sizes at E-bf16's batch 100 (4x4:
+# four slices summed before the one rounding), E4-levers' 64 and 128 at the
+# 32x32 and 4x4 maps, and the small and ragged widths of test_gn_silu_conv
+@pytest.mark.parametrize("B,R,Cin,Cout,W", [
+    (100, 32, 128, 128, 32), (100, 16, 256, 256, 16), (100, 8, 256, 256, 8),
+    (100, 4, 256, 256, 4), (100, 4, 512, 256, 4), (64, 32, 384, 128, 32),
+    (128, 32, 128, 128, 32), (128, 4, 512, 256, 4), (8, 8, 96, 64, 8),
+    (3, 5, 64, 40, 5), (1, 40, 32, 64, 300)])
+def test_gn_silu_conv_bf16(card, B, R, Cin, Cout, W):
+    """K3 on bf16 x against its plain version (chip_smoke.conv_bf16_check:
+    the fp32 form's limit plus one bf16 ulp of y), bf16 out, a replay
+    bit-equal."""
+    x, *rest = _tensors(np.random.RandomState(11), card,
+                        ((B, R, W, Cin), 2.0, 0.5), ((Cin,), 0.1, 1.0),
+                        ((Cin,), 0.1, 0.0),
+                        ((3, 3, Cin, Cout), (9 * Cin) ** -0.5, 0.0),
+                        ((Cout,), 0.1, 0.0))
+    x = x.bfloat16()
+    out = gn_silu_conv(x, *rest)
+    assert out.dtype == torch.bfloat16
+    conv_bf16_check(out, gn_silu_conv_reference(x, *rest), "K3 bf16")
+    assert torch.equal(out, gn_silu_conv(x, *rest))
+    assert _lib.LAUNCHES["gn_silu_conv3x3_bf16"] == 2
+    assert not _lib.LAUNCHES["gn_silu_conv3x3"]
+
+
+def test_gn_silu_conv_bf16_autograd(card):
+    """K3's gradient on bf16 x: the vjp of the fp32 reference at the widened
+    x and an fp32 cotangent, x's gradient rounded to bf16; the same as
+    autograd through the plain version on the widened x."""
+    rs = np.random.RandomState(12)
+    x, *rest = _tensors(rs, card, ((4, 8, 8, 64), 1.0, 0.0), ((64,), 0.1, 1.0),
+                        ((64,), 0.1, 0.0), ((3, 3, 64, 32), 0.05, 0.0),
+                        ((32,), 0.1, 0.0))
+    ct = torch.randn(4, 8, 8, 32, device=card).bfloat16()
+    got = [x.bfloat16().requires_grad_()] + [
+        a.clone().requires_grad_() for a in rest]
+    gn_silu_conv(*got).backward(ct)
+    want = [x.bfloat16().float().requires_grad_()] + [
+        a.clone().requires_grad_() for a in rest]
+    gn_silu_conv_reference(*want, operand_dtype=torch.float32).backward(
+        ct.float())
+    assert got[0].grad.dtype == torch.bfloat16
+    torch.testing.assert_close(got[0].grad, want[0].grad.bfloat16(), rtol=0,
+                               atol=0)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g.grad, w.grad, rtol=0, atol=0)
+    assert _lib.LAUNCHES["gn_silu_conv3x3_bf16"] == 1
+
+
+@pytest.mark.parametrize("B,S,C", [(100, 256, 256), (128, 256, 256),
+                                   (64, 256, 256), (2, 256, 192),
+                                   (4, 64, 160)])
+def test_attn_block_bf16_d256(card, B, S, C):
+    """K2 bf16 at one head of d > 128 (the CIFAR-10 blocks' d = 256: K1's
+    statistics, the wgmma GEMMs, K7's attention launch) against its plain
+    version, a replay bit-equal, counted as attn_block_bf16_d256."""
+    rs = np.random.RandomState(13)
+    x = _bf16(rs, card, (B, S, C), 2.0, 0.5)
+    gs, gb = _tensors(rs, card, ((C,), 0.1, 1.0), ((C,), 0.1, 0.0))
+    w = [_bf16(rs, card, shape, scale, 0.0)
+         for shape, scale in (((C, 3 * C), C ** -0.5), ((3 * C,), 0.1),
+                              ((C, C), C ** -0.5), ((C,), 0.1))]
+    out = attn_block(x, gs, gb, *w, num_heads=1, eps=1e-6)
+    attn_bf16_check(out, attn_block_reference(x, gs, gb, *w, num_heads=1,
+                                              eps=1e-6), x, "K2 bf16 d256")
+    assert torch.equal(out, attn_block(x, gs, gb, *w, num_heads=1, eps=1e-6))
+    assert dict(_lib.LAUNCHES) == {"attn_block_bf16_d256": 2}
 
 
 def test_attn_block_autograd_matches_plain_autograd(card):
@@ -327,14 +400,15 @@ def test_flash_mha_reads_qkv_views(card):
 
 def test_unported_forms_raise(card):
     """A CUDA tensor launches the kernel or raises: K2 has no bf16 form at
-    d=256 and K4 no fp32 form yet."""
+    two heads of d = 256 (one head is the CIFAR-10 form) and K4 no fp32 form
+    yet."""
     rs = np.random.RandomState(8)
-    x = _bf16(rs, card, (1, 256, 256), 1.0, 0.0)
-    gs, gb = _tensors(rs, card, ((256,), 0.1, 1.0), ((256,), 0.1, 0.0))
+    x = _bf16(rs, card, (1, 256, 512), 1.0, 0.0)
+    gs, gb = _tensors(rs, card, ((512,), 0.1, 1.0), ((512,), 0.1, 0.0))
     w = [_bf16(rs, card, shape, 0.05, 0.0)
-         for shape in ((256, 768), (768,), (256, 256), (256,))]
+         for shape in ((512, 1536), (1536,), (512, 512), (512,))]
     with pytest.raises(NotImplementedError):
-        attn_block(x, gs, gb, *w, num_heads=1)
+        attn_block(x, gs, gb, *w, num_heads=2)
     q = torch.zeros(1, 512, 2, 64, device=card)
     with pytest.raises(NotImplementedError):
         flash_mha(q, q, q, 0.125)

@@ -365,17 +365,37 @@ def test_full_width_int8_launch_table(monkeypatch, path):
     (dict(quant_int8="static", quant_skip_last_level=True), ("K3",)),
     (dict(quant_int8="static", quant_skip_attn=True),
      ("K2 in bf16 at a single head of d = 256",))])
-def test_bf16_without_kernel_forms_raises(kw, named):
-    """bf16 at full width raises where a layer would need K3 with bf16
-    activations or K2 in bf16 at d = 256, naming them, instead of
-    unfusing without a word; int8 turns both fusions off."""
-    with pytest.raises(NotImplementedError) as info:
-        port.UNetSmall(dtype=torch.bfloat16, **kw)
+def test_bf16_without_kernel_forms_raises(monkeypatch, kw, named):
+    """The full-width bf16 constructions that raised until K3 took bf16
+    activations and K2 bf16 a single head of d = 256 now build, and their
+    layers take the fused route each one names: K3 on bf16 activations,
+    K2 on a bf16 (B, 256, 256) block with its bf16 weights (counted on the
+    meta device); int8 still turns both fusions off where it quantises."""
+    net = port.UNetSmall(dtype=torch.bfloat16, **kw)
+    routes = set()
+
+    def conv(x, gs, gb, k, b, *a):
+        assert x.dtype == torch.bfloat16
+        routes.add("K3")
+        return torch.empty(*x.shape[:3], k.shape[-1], dtype=x.dtype,
+                           device=x.device)
+
+    def attn(x, gs, gb, w_qkv, b_qkv, w_proj, b_proj, **kwargs):
+        assert x.dtype == w_qkv.dtype == w_proj.dtype == torch.bfloat16
+        routes.add("K2 in bf16" + (" at a single head of d = 256" if
+                                   x.shape[-1] == 256 else ""))
+        return torch.empty_like(x)
+
+    monkeypatch.setattr(port, "gn_silu_conv", conv)
+    monkeypatch.setattr(port, "attn_block", attn)
+    _count_launches(monkeypatch, net, batch=2)
     for name in named:
-        assert name in str(info.value)
-    port.UNetSmall(dtype=torch.bfloat16, quant_int8="static")
-    port.UNetSmall(dtype=torch.bfloat16, fuse_gn_conv=False,
-                   attn_impl="einsum")
+        assert any(r.startswith(name) for r in routes), (name, routes)
+    assert routes <= {"K3", "K2 in bf16 at a single head of d = 256"}
+    if "K3" not in named:
+        assert "K3" not in routes
+    if not any(n.startswith("K2") for n in named):
+        assert not any(r.startswith("K2") for r in routes)
 
 
 def _calib_draws(seed, rounds=2, n=4, T=10):

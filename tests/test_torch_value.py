@@ -103,3 +103,48 @@ def test_time_is_ignored():
         torch.testing.assert_close(value(x, torch.tensor([0, 1])),
                                    value(x, torch.tensor([9, 3])))
     assert isinstance(value, TimeIndependentValue)
+
+
+CIFAR_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "fixtures", "torch_rundir_t10")
+
+
+def test_bf16_torso_matches_jax():
+    """``IGEBMEncoder(dtype=bf16)`` (``train_cifar10 --fast_levers``' value
+    net) on the CIFAR fixture's value_best.pth (nh 32) against JAX's
+    ``dtype=jnp.bfloat16`` module: parameters fp32, the torso in bf16 with
+    XLA's roundings (the bias added to the rounded conv, the pool summed in
+    order, the slope in bf16), the head in fp32. JAX's own bf16 effect (its
+    bf16 output against its fp32 one) sets the limit: the port is within
+    half of it of JAX's bf16 output (0.31 of it measured: another fp32 sum
+    order in a conv flips a bf16 rounding now and then), and its own bf16
+    output is not its fp32 one. The gradient reaches the fp32 parameters."""
+    cfg = load_yaml(os.path.join(CIFAR_FIXTURE, "config.yaml"))
+    vcfg = {k: v for k, v in cfg["value"]["net"].items() if k != "_target_"}
+    ckpt, _ = jax_ckpt.load_run_checkpoint(CIFAR_FIXTURE, "value", "best",
+                                           torch_kind="value")
+    params = {"params": jax.tree.map(jnp.asarray, ckpt["params"])["net"]}
+    x = np.random.RandomState(0).randn(8, 3, 16, 16).astype(np.float32)
+    xj = jnp.asarray(x.transpose(0, 2, 3, 1))
+    ref = {dt: np.asarray(JaxIGEBM(**vcfg, dtype=dt).apply(params, xj))
+           for dt in (jnp.float32, jnp.bfloat16)}
+    sd = {k[4:]: v for k, v in load_value_state(
+        os.path.join(CIFAR_FIXTURE, "value_best.pth")).items()}
+    ours = {}
+    for dt in (torch.float32, torch.bfloat16):
+        net = IGEBMEncoder(**vcfg, dtype=dt)
+        net.load_state_dict(sd)
+        out = net(torch.from_numpy(x))
+        assert out.dtype == torch.float32
+        ours[dt] = out.detach().numpy()
+    effect = np.abs(ref[jnp.bfloat16] - ref[jnp.float32]).max()
+    assert np.abs(ours[torch.bfloat16] - ref[jnp.bfloat16]).max() \
+        < 0.5 * effect
+    assert np.abs(ours[torch.bfloat16] - ours[torch.float32]).max() \
+        > 0.5 * effect
+    np.testing.assert_allclose(ours[torch.float32], ref[jnp.float32],
+                               rtol=0, atol=1e-5 * np.abs(ref[jnp.float32])
+                               .max())
+    out.sum().backward()
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               for p in net.parameters())

@@ -72,10 +72,13 @@ def dropout_masks(sampler, params, s, t, k_step, k_drop):
     return masks, out
 
 
-def build():
+def build(net_overrides=None, value_net_overrides=None):
     """(arrays to store, full JAX results): the latter holds the value and
     sampler states before and after the iteration as the port's state dicts
-    (numpy), and the masks (NHWC)."""
+    (numpy), and the masks (NHWC). ``net_overrides`` and
+    ``value_net_overrides`` go to the sampler net's and the value net's
+    constructors, as the JAX entry's ``build`` passes them
+    (``train_cifar10.py:47-53``)."""
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     import chip_smoke
@@ -88,7 +91,7 @@ def build():
                                               var_sampler_from_flax)
 
     cfg = cfglib.load_yaml(os.path.join(FIXTURE, "config.yaml"))
-    net = cfglib.instantiate(cfg["sampler_net"])
+    net = cfglib.instantiate(cfg["sampler_net"], **(net_overrides or {}))
     sampler = cfglib.instantiate(cfg["sampler"], net=net)
     s_ckpt, _ = ckptlib.load_run_checkpoint(FIXTURE, "sampler", "best",
                                             torch_kind="unet_small")
@@ -96,7 +99,10 @@ def build():
                                             torch_kind="value")
     params = jax.tree.map(jnp.asarray, s_ckpt["params"])
     v_params = jax.tree.map(jnp.asarray, v_ckpt["params"])
-    value = cfglib.instantiate(cfg["value"])
+    vcfg = cfg["value"]
+    if value_net_overrides:
+        vcfg = {**vcfg, "net": {**vcfg["net"], **value_net_overrides}}
+    value = cfglib.instantiate(vcfg)
     tcfg = {k: v for k, v in cfg["trainer"].items() if k != "_target_"}
     T = int(cfg["sampler"]["n_timesteps"])
     trainer = DxMITrainer(**{**tcfg, "batchsize": B, "n_timesteps": T})
