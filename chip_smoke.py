@@ -33,19 +33,23 @@ failure exits non-zero naming the phase:
      route; K3 on bf16 x at every conv shape of E-bf16 and at E4-levers'
      batches 128 and 64 at the 32x32 and 4x4 maps (the small maps in
      slices), K2 bf16 at the 16x16 blocks' one head of d = 256 at batch
-     100, 128 and 64 and K7 bf16 there at batch 128 and 64, bb 4, each
-     against its plain version and replayed bit-equal);
+     100, 128 and 64 and at two heads of d = 256 at batch 100, K7 bf16 at
+     d = 256 at batch 128 and 64, bb 4, and the wide attention core alone
+     at the d = 256 shapes of batch 100, each against its plain version and
+     replayed bit-equal);
   T  time each kernel, its plain version and one PyTorch library call with
      CUDA events, device time (K4 at each shape the main paths launch it
      at; K2 fp32 beside K7 at bb 2 and 4 on the same inputs at batch 100,
      128 and 32; K6's fp32 form at G3's shape); and K2 bf16 and K5 at each
      of their main-path maps split by launch (torch.profiler: statistics,
-     GN apply or quantise, qkv GEMM, core, proj GEMM), and K3 at one shape
+     GN apply or quantise, qkv GEMM, core, proj GEMM), K2 bf16 at d = 256
+     and K7 bf16 at E4's shape, bb 4, the same way, and K3 at one shape
      of each map size (weight cast, statistics, conv, the sum of split
      slices), each beside its bound; K8 (both forms) at the CIFAR-10
      net's int8 shapes beside torch._int_mm on the im2col matrix; K3 on
-     bf16 x, K2 bf16 and K7 bf16 at d = 256 beside their library
-     compositions (cuDNN's bf16 conv; GN + matmul + SDPA);
+     bf16 x, K2 bf16 and K7 bf16 at d = 256 and the wide attention core
+     beside their library compositions (cuDNN's bf16 conv; GN + matmul +
+     SDPA; SDPA);
   T-bwd the device time of each launch of one K6 bf16 call and one K4-dkv
      call at the 32x32 map at batch 128 (torch.profiler);
   G  replay the trained reference fixture (tests/fixtures/torch_rundir_t10)
@@ -177,7 +181,8 @@ from dxmi_tpu_torch.ops.attn_block import (BWD_MAX_SLICES,
                                            attn_block_int8,
                                            attn_block_int8_plain,
                                            attn_block_reference,
-                                           prep_int8_mats,
+                                           attn_core_reference,
+                                           attn_core_wide, prep_int8_mats,
                                            resolve_block_b)
 from dxmi_tpu_torch.ops.conv_fused import gn_silu_conv, gn_silu_conv_reference
 from dxmi_tpu_torch.ops.groupnorm import (group_norm,
@@ -257,7 +262,7 @@ ADM_CALIB_LAUNCHES = {"gn_silu_bf16": 95 * 20, "flash_attn": 7 * 20}
 LAUNCHES_PER_FORWARD = {"gn_silu": 2, "gn_silu_conv3x3": 44, "attn_block": 5}
 # The same net in bf16 without int8 (generate_cifar10 --dtype bf16, E-bf16):
 # the same layers, K3 on bf16 activations, K2 bf16 at the 16x16 blocks' one
-# head of d = 256 (K7's attention launch).
+# head of d = 256 (the wide attention core).
 BF16_LAUNCHES_PER_FORWARD = {"gn_silu_bf16": 2, "gn_silu_conv3x3_bf16": 44,
                              "attn_block_bf16_d256": 5}
 # E-int8's launches a forward of the full-width CIFAR-10 net: (a) --int8
@@ -476,7 +481,7 @@ INFO = {
     "attn_block_bf16_d256": ("dxmi_tpu_torch/csrc/attn_block.cu",
                              "dxmi_tpu/ops/attn_block.py:225 (bf16, one "
                              "head of d = 256)"),
-    "attn_block_bb_bf16": ("dxmi_tpu_torch/csrc/attn_block_bb.cu",
+    "attn_block_bb_bf16": ("dxmi_tpu_torch/csrc/attn_block.cu",
                            "dxmi_tpu/ops/attn_block.py:261 (bf16, d = 256)"),
 }
 
@@ -1954,8 +1959,11 @@ def phase_kernels(gen):
 # (batch 100) and at E4-levers' training batch 128 and sampling chunk 64 at
 # the 32x32 and 4x4 maps (the small maps sum their reduction's slices
 # before the one rounding); K2 bf16 at the 16x16 blocks' one head of d =
-# 256 at batch 100, at E4's 128 and at E4-levers' chunk 64; K7 bf16 at d =
-# 256 at E4-levers' batch 128 and chunk 64, bb 4; each replayed bit-equal.
+# 256 at batch 100, at E4's 128 and at E4-levers' chunk 64, and at two heads
+# of d = 256 at batch 100; K7 bf16 at d = 256 at E4-levers' batch 128 and
+# chunk 64, bb 4; the wide core alone at batch 100, one and two heads (K4's
+# gate, flash_check, which allows for another rounding of p); each replayed
+# bit-equal.
 K3_BF16_SHAPES = CONV_SHAPES + [(128, 32, 128, 128), (64, 32, 128, 128),
                                 (128, 4, 512, 256), (64, 4, 512, 256)]
 
@@ -1982,24 +1990,22 @@ def phase_kernels_bf16(gen, errs):
     for name, shapes in (("attn_block_bf16_d256", K2_D256_SHAPES),
                          ("attn_block_bb_bf16", BB_D256_SHAPES)):
         errs[name] = 0.0
-        for shape in shapes:
-            B, S, C = shape[:3]
-            bb = shape[3] if len(shape) > 3 else 1
+        for B, S, C, nh, bb in shapes:
             a = attn_bf16_case(gen, B, S, C)
             _lib.reset_launches()
             if bb == 1:
-                run = lambda: attn_block(*a, num_heads=1, eps=1e-6)  # noqa
-                ref = attn_block_reference(*a, num_heads=1, eps=1e-6)
+                run = lambda: attn_block(*a, num_heads=nh, eps=1e-6)  # noqa
+                ref = attn_block_reference(*a, num_heads=nh, eps=1e-6)
             else:
-                run = lambda: attn_block_bb(*a, num_heads=1, eps=1e-6,  # noqa
-                                            bb=bb)
-                ref = attn_block_bb_reference(*a, num_heads=1, eps=1e-6,
+                run = lambda: attn_block_bb(*a, num_heads=nh,  # noqa
+                                            eps=1e-6, bb=bb)
+                ref = attn_block_bb_reference(*a, num_heads=nh, eps=1e-6,
                                               bb=bb)
             out = run()
             if dict(_lib.LAUNCHES) != {name: 1}:
-                raise AssertionError(f"{name} {shape}: launched "
+                raise AssertionError(f"{name} {(B, S, C, nh)}: launched "
                                      f"{dict(_lib.LAUNCHES)}")
-            what = f"{name} {(B, S, C)} nh 1 bb {bb}"
+            what = f"{name} {(B, S, C)} nh {nh} bb {bb}"
             rel, err, share = attn_bf16_check(out, ref, a[0], what)
             if not torch.equal(out, run()):
                 raise AssertionError(f"{what}: a replay differs")
@@ -2009,6 +2015,19 @@ def phase_kernels_bf16(gen, errs):
                   "replay bit-equal")
             errs[name] = max(errs[name], err)
             del a, out, ref
+    for B, S, C, nh in CORE_SHAPES:
+        qkv = core_case(gen, B, S, C, nh)
+        out = attn_core_wide(qkv, nh)
+        q, k, v = qkv.reshape(B, S, 3, nh, C // nh).unbind(2)
+        what = f"attn_core_wide {(B, S, C, nh)}"
+        err, share = flash_check(out.reshape(q.shape),
+                                 attn_core_reference(qkv, nh).reshape(q.shape),
+                                 q, k, v, 1.0, what)
+        if not torch.equal(out, attn_core_wide(qkv, nh)):
+            raise AssertionError(f"{what}: a replay differs")
+        print(f"  K {what}: max abs err {err:.3e}, worst element beyond one "
+              f"ulp at {share:.3f} of its row's limit; replay bit-equal")
+        del qkv, out, q, k, v
 
 
 def phase_kernels_cifar_int8(gen, errs):
@@ -2167,9 +2186,12 @@ def phase_kernels_flash_edges(gen, errs):
 E4_BATCH = 128  # training.batchsize of configs/cifar10/T10.yaml
 E4_CHUNK = 32  # its trajectory is sampled in chunks of 32
 LEVERS_CHUNK = 64  # E4-levers samples its trajectory in chunks of 64
-K2_D256_SHAPES = [(BATCH, 256, 256), (E4_BATCH, 256, 256),
-                  (LEVERS_CHUNK, 256, 256)]
-BB_D256_SHAPES = [(E4_BATCH, 256, 256, 4), (LEVERS_CHUNK, 256, 256, 4)]
+# (B, S, C, nh, bb) of K2 bf16 (bb 1) and K7 bf16 at d = 256, and (B, S, C,
+# nh) of the wide attention core alone
+K2_D256_SHAPES = [(BATCH, 256, 256, 1, 1), (E4_BATCH, 256, 256, 1, 1),
+                  (LEVERS_CHUNK, 256, 256, 1, 1), (BATCH, 256, 512, 2, 1)]
+BB_D256_SHAPES = [(E4_BATCH, 256, 256, 1, 4), (LEVERS_CHUNK, 256, 256, 1, 4)]
+CORE_SHAPES = [(BATCH, 256, 256, 1), (BATCH, 256, 512, 2)]
 BB_SHAPES = [(B, 256, 256, 1, bb) for B in (E4_BATCH, E4_CHUNK)
              for bb in (2, 4)]
 BB_BF16_SHAPES = ([(BATCH, 256, 576, 9, resolve_block_b(BATCH, 256, 576, 4))]
@@ -2196,12 +2218,15 @@ def phase_kernels_bb(gen, errs):
     for B, S, C, nh, bb in BB_BF16_SHAPES:
         a = attn_bf16_case(gen, B, S, C)
         what = f"attn_block_bb_bf16 {(B, S, C, nh)} bb {bb}"
+        out = attn_block_bb(*a, num_heads=nh, bb=bb)
         rel, err, share = attn_bf16_check(
-            attn_block_bb(*a, num_heads=nh, bb=bb),
-            attn_block_bb_reference(*a, num_heads=nh, bb=bb), a[0], what)
+            out, attn_block_bb_reference(*a, num_heads=nh, bb=bb), a[0], what)
+        if not torch.equal(out, attn_block_bb(*a, num_heads=nh, bb=bb)):
+            raise AssertionError(f"{what}: a replay differs")
         print(f"  K {what}: mean rel err {rel:.3e} (tol "
               f"{ATTN_BF16_MEAN_REL:g}), max abs err {err:.3e}, worst element "
-              f"beyond one ulp at {share:.3f} of its limit")
+              f"beyond one ulp at {share:.3f} of its limit; replay bit-equal")
+        del a, out
 
 
 # time_ms measures device time: the card first spins for ~20 ms
@@ -2290,10 +2315,9 @@ def bf16_time_rows(gen):
         plain_ms=time_ms(lambda: gn_silu_conv_reference(*a)),
         library_ms=time_ms(conv_library(a)), bytes=nbytes, ops=ops)
     del a
-    for name, (B, S, C), bb in (("attn_block_bf16_d256", K2_D256_SHAPES[0],
-                                 1),
-                                ("attn_block_bb_bf16", BB_D256_SHAPES[0][:3],
-                                 BB_D256_SHAPES[0][3])):
+    for name, (B, S, C, _, bb) in (
+            ("attn_block_bf16_d256", K2_D256_SHAPES[0]),
+            ("attn_block_bb_bf16", BB_D256_SHAPES[0])):
         a = attn_bf16_case(gen, B, S, C)
         x, gs, gb, wqkv, bqkv, wp, bp = a
 
@@ -2318,7 +2342,33 @@ def bf16_time_rows(gen):
             ops={"bf16": 2 * B * S * C * 3 * C + 4 * B * S * S * C
                  + 2 * B * S * C * C, "fp32": 5 * B * S * S})
         del a, x
+    B, S, C, nh = CORE_SHAPES[0]
+    qkv = core_case(gen, B, S, C, nh)
+    q, k, v = (t.transpose(1, 2) for t in
+               qkv.reshape(B, S, 3, nh, C // nh).unbind(2))
+    rows["attn_core_wide"] = dict(
+        ms=time_ms(lambda: attn_core_wide(qkv, nh)),
+        plain_ms=time_ms(lambda: attn_core_reference(qkv, nh)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=1.0)),
+        **core_work(B, S, C, nh))
+    del qkv, q, k, v
     return rows
+
+
+def core_case(gen, B, S, C, nh):
+    """A (B, S, 3C) bf16 qkv buffer as the qkv GEMM leaves it: q and k
+    scaled by d^-1/4 (logits of unit scale), v of unit scale."""
+    qkv = randn(gen, B, S, 3 * C)
+    qkv[..., :2 * C] *= (C // nh) ** -0.25
+    return qkv.bfloat16()
+
+
+def core_work(B, S, C, nh):
+    """Bytes (q, k, v read, o written) and operations (q k^T and p v once;
+    ~5 flops of softmax per logit) of the attention core."""
+    return dict(bytes=4 * B * S * C * 2,
+                ops={"bf16": 4 * B * S * S * C, "fp32": 5 * B * nh * S * S})
 
 
 def library_attn_block(x, gs, gb, wqkv, bqkv, wp, bp):
@@ -2532,8 +2582,10 @@ def cifar_int8_time_rows(gen):
 # each output written once; the GEMMs' weights with their inputs.
 def attn_block_launches(B, S, C, nh, es):
     M = B * S
-    core = ("core (K4)", "flash_fwd_kernel", 4 * M * C * 2,
-            {"bf16": 4 * B * S * S * C, "fp32": 5 * B * nh * S * S})
+    work = core_work(B, S, C, nh)
+    core = (("core (K4)", "flash_fwd_kernel") if C // nh <= 128 else
+            ("core (wide)", "attn_core_wide_kernel")) + (work["bytes"],
+                                                         work["ops"])
     gemm = "int8" if es == 1 else "bf16"
     qkv = ("qkv GEMM", "gemm_kernel", M * C * es + 3 * C * C * es + M * 3 * C * 2,
            {gemm: 2 * M * C * 3 * C})
@@ -2580,13 +2632,20 @@ def launch_split(fn, n_launches, reps=5):
 
 
 def attn_block_splits(gen):
-    """T: K2 bf16 at the three ImageNet64 maps and K5 (bf16) at those and
-    LSUN's C = 1024 map, split by launch, each beside its bound."""
+    """T: K2 bf16 at the three ImageNet64 maps and at the CIFAR-10 16x16
+    blocks' d = 256, K7 bf16 at E4's (128, 256, 256) bb 4 and K5 (bf16) at
+    the ImageNet64 maps and LSUN's C = 1024 map, split by launch, each
+    beside its bound."""
     peaks = {"bf16": BF16_FLOPS, "int8": INT8_OPS, "fp32": FP32_FLOPS}
     cases = [("K2 bf16", (B, S, C, nh), 2) for B, S, C, nh in ADM_ATTN_SHAPES]
+    cases += [("K2 bf16", K2_D256_SHAPES[0][:4], 2),
+              ("K7 bf16 bb 4", BB_D256_SHAPES[0][:4], 2)]
     cases += [("K5", sh[:4], 1) for sh in I8_ATTN_SHAPES[1:]]
     for label, (B, S, C, nh), es in cases:
-        if es == 2:
+        if label.startswith("K7"):
+            a = attn_bf16_case(gen, B, S, C)
+            fn = lambda: attn_block_bb(*a, num_heads=nh, bb=4)  # noqa: E731
+        elif es == 2:
             a = attn_bf16_case(gen, B, S, C)
             fn = lambda: attn_block(*a, num_heads=nh)  # noqa: E731
         else:
@@ -2805,7 +2864,7 @@ def phase_generate_bf16(rates):
         f"E-bf16 profile, one trajectory of {BATCH}", top=12,
         shares={"K3 (its conv launches)": ("conv3x3_",),
                 "K2 (less K1's statistics)": ("prep_kernel", "gemm_kernel",
-                                              "bb_attn_kernel"),
+                                              "attn_core_wide_kernel"),
                 "K1 (and K3's and K2's statistics)": ("gn_",)})
     e, e_prof = rates.get("E"), rates.get("E profile")
     if prof is not None:

@@ -1,14 +1,20 @@
-// K2: the whole attention block, bf16 (the ADM nets' multi-head blocks):
-//   y = x + proj(attention(qkv(GroupNorm(x)))) on (B, S, C).
-// K2's fp32 form (dxmi_attn_block) runs on K7's tensor-core launches and
-// lives in attn_block_bb.cu; this file also keeps the pieces that K6 and
-// K5's fp32 form call: the mma.sync GEMM (hgemm_kernel: launch_qkv_gemm,
-// launch_hgemm) and the fp32 SIMT GEMM and attention core.
+// K2: the whole attention block, bf16 (the ADM nets' multi-head blocks and
+// the CIFAR-10 nets' d = 256 blocks), and K7's bf16 form on the same
+// launches: y = x + proj(attention(qkv(GroupNorm(x)))) on (B, S, C).
+// K2's and K7's fp32 forms (dxmi_attn_block, dxmi_attn_block_bb) run on
+// 3xTF32 tensor-core launches and live in attn_block_bb.cu; this file also
+// keeps the pieces that K6 and K5's fp32 form call: the mma.sync GEMM
+// (hgemm_kernel: launch_qkv_gemm, launch_hgemm) and the fp32 SIMT GEMM and
+// attention core.
 //
 // Replaces: dxmi_tpu/ops/attn_block.py:_kernel (run by _pallas_forward with
 // bb=1, public entry fused_attn_block), the Pallas TPU kernel that holds a
 // whole (S, C) element, its q/k/v, the logits of 256-row q tiles and the
-// four weight matrices in ~16 MB of VMEM.
+// four weight matrices in ~16 MB of VMEM; in bf16 also :_kernel_bb (bb > 1,
+// dxmi_attn_block_bb_bf16), whose batch block only groups the TPU's work
+// and whose h is computed as _kernel's, (x s_c + t_c).astype(dt) (:288,
+// :244), from one-pass fp32 statistics (var = E[x^2] - mean^2): K7 bf16 is
+// K2 bf16 with K1's statistics pass in that mode.
 //
 // Bound: operations on the bf16 tensor cores. At ImageNet64's 32x32 maps
 // (B=100, S=1024, C=384, nh=6) the block does 91 + 30 GFLOP of qkv and proj
@@ -29,11 +35,12 @@
 //       output stored by TMA (tma_gemm.cuh): the accumulator rounded to
 //       bf16, the bf16 bias added in bf16, the q and k columns scaled by
 //       the bf16 d^-1/4 in bf16;
-//   (d) K4's flash-attention kernel (flash_attn.cu) with sm_scale 1,
-//       reading q, k and v through the qkv buffer's row stride; at d > 128
-//       (one head, the CIFAR-10 nets' d = 256 blocks), which K4 does not
-//       take, K7's attention launch (attn_block_bb.cu) on the same buffers,
-//       which normalises p before rounding it, as the TPU body does;
+//   (d) the attention core with sm_scale 1, reading q, k and v by TMA
+//       through the qkv buffer's row stride: K4's flash-attention kernel
+//       (flash_attn.cu) at d <= 128; at 128 < d <= 256 (the CIFAR-10 nets'
+//       d = 256 blocks), which K4 does not take, the wide core
+//       (attn_core_wide.cu), two passes over the keys on wgmma, which
+//       normalises p before rounding it, as the TPU body does;
 //   (e) the proj GEMM, the same kernel: rounded, the bias added, then the
 //       residual (by TMA) added in bf16.
 // The GroupNorm is applied once per element in (b), not once per N tile of
@@ -540,30 +547,25 @@ cudaError_t launch_attn_core_f32(const float* qkv, float* out, int B, int S,
   return cudaGetLastError();
 }
 
-// bf16 x, y: (B, S, C); w_qkv: (C, 3C) with [3, nh, d] output columns, b_qkv
-// (3C,), w_proj (C, C), b_proj (C,) bf16; gs, gb fp32; mean_c/rstd_c: (B, C)
-// fp32 scratch; qkv: (B, S, 3C) and attn: (B, S, C) bf16 scratch (attn holds
-// h until the attention core writes it). Needs S % 64 == 0, C % 32 == 0,
-// C / G <= 64 and d = C/nh with d % 8 == 0 and d <= 256 (K4's core up to
-// 128, K7's above).
-extern "C" int dxmi_attn_block_bf16(const void* x, const float* gs,
-                                    const float* gb, const void* w_qkv,
-                                    const void* b_qkv, const void* w_proj,
-                                    const void* b_proj, void* y,
-                                    float* mean_c, float* rstd_c, void* qkv,
-                                    void* attn, int B, int S, int C, int nh,
-                                    int G, float eps, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+namespace {
+
+// K2 bf16 and K7 bf16: K1's statistics pass (onepass: 0 two-pass, K2; 2
+// one-pass fp32, K7), then (b)-(e) above.
+int block_bf16(const void* x, const float* gs, const float* gb,
+               const void* w_qkv, const void* b_qkv, const void* w_proj,
+               const void* b_proj, void* y, float* mean_c, float* rstd_c,
+               void* qkv, void* attn, int B, int S, int C, int nh, int G,
+               float eps, int onepass, cudaStream_t s) {
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* qkvb = static_cast<bf16*>(qkv);
   bf16* attnb = static_cast<bf16*>(attn);
-  if (C % 32) return (int)cudaErrorInvalidValue;
+  if (C % 32 || nh < 1 || C % nh) return (int)cudaErrorInvalidValue;
   const int M = B * S, d = C / nh;
   // the TPU body scales by jnp.asarray(d ** -0.25, bf16)
   const float qk_scale =
       __bfloat162float(__float2bfloat16_rn((float)(1.0 / sqrt(sqrt((double)d)))));
   cudaError_t err =
-      launch_gn_stats_bf16(xb, mean_c, rstd_c, B, S, C, G, eps, 0, s);
+      launch_gn_stats_bf16(xb, mean_c, rstd_c, B, S, C, G, eps, onepass, s);
   if (err == cudaSuccess)
     err = tma_gemm::launch_prep<true, false>(xb, attnb, mean_c, rstd_c, gs,
                                              gb, nullptr, B, S, C, s);
@@ -574,10 +576,45 @@ extern "C" int dxmi_attn_block_bf16(const void* x, const float* gs,
   if (err == cudaSuccess)
     err = d <= 128 ? launch_flash_attn(qkvb, qkvb + C, qkvb + 2 * C, attnb,
                                        nullptr, B, S, nh, d, 3 * C, C, 1.f, s)
-                   : launch_attn_core_bb(qkvb, attnb, B, S, C, nh, s);
+                   : launch_attn_core_wide(qkvb, attnb, B, S, C, nh, s);
   if (err == cudaSuccess)
     err = tma_gemm::launch<false>(
         attnb, w_proj, y, xb, M, C, C,
         BlockEpi{static_cast<const bf16*>(b_proj), 1.f, 0, true}, s);
   return (int)err;
+}
+
+}  // namespace
+
+// bf16 x, y: (B, S, C); w_qkv: (C, 3C) with [3, nh, d] output columns, b_qkv
+// (3C,), w_proj (C, C), b_proj (C,) bf16; gs, gb fp32; mean_c/rstd_c: (B, C)
+// fp32 scratch; qkv: (B, S, 3C) and attn: (B, S, C) bf16 scratch (attn holds
+// h until the attention core writes it). Needs S % 64 == 0, C % 32 == 0, a
+// shape K1's statistics take and d = C/nh with d % 8 == 0 and d <= 256 (K4's
+// core up to 128, the wide core above).
+extern "C" int dxmi_attn_block_bf16(const void* x, const float* gs,
+                                    const float* gb, const void* w_qkv,
+                                    const void* b_qkv, const void* w_proj,
+                                    const void* b_proj, void* y,
+                                    float* mean_c, float* rstd_c, void* qkv,
+                                    void* attn, int B, int S, int C, int nh,
+                                    int G, float eps, void* stream) {
+  return block_bf16(x, gs, gb, w_qkv, b_qkv, w_proj, b_proj, y, mean_c,
+                    rstd_c, qkv, attn, B, S, C, nh, G, eps, 0,
+                    (cudaStream_t)stream);
+}
+
+// K7 bf16: the same arguments with bb (B % bb == 0, bb >= 2) and one fp32
+// statistics scratch stats of 2 B C (the per-channel mean, then rstd).
+extern "C" int dxmi_attn_block_bb_bf16(const void* x, const float* gs,
+                                       const float* gb, const void* w_qkv,
+                                       const void* b_qkv, const void* w_proj,
+                                       const void* b_proj, void* y,
+                                       float* stats, void* qkv, void* attn,
+                                       int B, int S, int C, int nh, int G,
+                                       int bb, float eps, void* stream) {
+  if (bb < 2 || B % bb) return (int)cudaErrorInvalidValue;
+  return block_bf16(x, gs, gb, w_qkv, b_qkv, w_proj, b_proj, y, stats,
+                    stats + (size_t)B * C, qkv, attn, B, S, C, nh, G, eps, 2,
+                    (cudaStream_t)stream);
 }

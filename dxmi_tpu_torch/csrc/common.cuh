@@ -10,8 +10,8 @@
 // flash-attention launch, flash_attn.cu, K4's kernel, and the fp32 SIMT
 // core of K5's fp32 form, attn_block.cu), and the attention backward that
 // K4-dkv, K4-dq and K6 share: its launches (flash_attn_bwd.cu) and the tile
-// loads and dot products of their kernels; and K7's bf16 attention launch,
-// K2 bf16's core at d > 128 (attn_block_bb.cu).
+// loads and dot products of their kernels; and the wide attention core,
+// K2's and K7's bf16 core at d > 128 (attn_core_wide.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,13 +67,14 @@ cudaError_t launch_flash_attn(const bf16* q, const bf16* k, const bf16* v,
                               int row_stride, int out_row_stride,
                               float sm_scale, cudaStream_t stream);
 
-// K7's bf16 attention launch (attn_block_bb.cu) on a (B, S, 3C) qkv buffer
-// whose q and k are pre-scaled, into (B, S, C): per (sample, head, 64 query
-// rows) an fp32 softmax over whole key rows, p normalised then rounded to
-// bf16, AV summed in fp32 and rounded. K2 bf16 runs it at d > 128. Needs
-// S % 64 == 0 and d = C / nh with d % 8 == 0, d <= 256.
-cudaError_t launch_attn_core_bb(const bf16* qkv, bf16* attn, int B, int S,
-                                int C, int nh, cudaStream_t stream);
+// The wide attention core (attn_core_wide.cu) on a (B, S, 3C) bf16 qkv
+// buffer whose q and k are pre-scaled, into (B, S, C): per (sample, head)
+// an fp32 softmax over whole key rows, p normalised then rounded to bf16,
+// AV summed in fp32 and rounded; two passes over the keys on wgmma. K2 and
+// K7 in bf16 run it at d > 128. Needs S % 64 == 0 and d = C / nh with
+// 128 < d <= 256, d % 8 == 0, and a 16-byte aligned qkv.
+cudaError_t launch_attn_core_wide(const bf16* qkv, bf16* attn, int B, int S,
+                                  int C, int nh, cudaStream_t stream);
 
 // The fp32 SIMT attention core of K5's fp32 form: out = softmax(q k^T) v
 // per (sample, head) on a (B, S, 3C) qkv buffer whose q and k are
@@ -153,6 +154,14 @@ __device__ __forceinline__ float silu(float t) { return t / (1.f + expf(-t)); }
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// 2^x on the special-function unit (2 ulp; the softmax exponentials of K4
+// and the wide attention core)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // round to bf16 and back: the rounding XLA applies after each bf16 op

@@ -1,6 +1,7 @@
 // mbarriers and TMA (cp.async.bulk.tensor) for the kernels that stream their
-// tiles from a producer thread: K4 (flash_attn.cu), the wgmma GEMMs of K2
-// bf16 and K5 (tma_gemm.cuh) and K3's conv (conv_fused.cu).
+// tiles from a producer thread: K4 (flash_attn.cu), the wide attention core
+// of K2 and K7 bf16 (attn_core_wide.cu), the wgmma GEMMs of K2 bf16 and K5
+// (tma_gemm.cuh) and K3's conv (conv_fused.cu).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (no link against libcuda)
@@ -62,14 +63,23 @@ __device__ __forceinline__ void tma_load_4d(unsigned dst, const CUtensorMap* map
       : "memory");
 }
 
-// one box of shared memory into a 2-d tensor map (parts past the edge are
-// not written), as part of this thread's bulk group
+// one box of shared memory into a 2-d or 4-d tensor map (parts past the
+// edge are not written), as part of this thread's bulk group
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
                                              unsigned src, int c0, int c1) {
   asm volatile(
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
       "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             unsigned src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -110,4 +120,26 @@ inline EncodeTiledFn encode_tiled() {
                : nullptr;
   }();
   return fn;
+}
+
+// The (B, S, nh, d) view at base (rows row_stride elements apart, heads d
+// apart) as a 4-d tensor map with boxes of box_cols columns of one head and
+// box_rows rows; columns at or past d read as zeros.
+inline bool encode_view(CUtensorMap* map, const bf16* base, int B, int S,
+                        int nh, int d, int row_stride, int box_cols,
+                        int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)nh, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)row_stride * 2,
+                                 (cuuint64_t)S * row_stride * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -27,7 +27,7 @@ fp32, ``softmax_nomax`` drops the softmax's max subtraction. The fused
 layers run in bf16 too, as in the JAX module: K3 takes the bf16 activations
 and returns bf16 (GroupNorm and SiLU in fp32, the sums rounded once), and
 K2 takes the bf16 block at its single head of d = C (d = 256 at full width:
-K7's attention launch) with the weights cast to bf16 where they are used.
+the wide attention core) with the weights cast to bf16 where they are used.
 Both keep the TPU kernels' own statistics (fp32), whatever ``gn_stats``
 says, as the Pallas kernels ignore ``DXMI_GN_STATS``.
 

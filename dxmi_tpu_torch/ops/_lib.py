@@ -63,6 +63,8 @@ _SIGNATURES = {
     # (fp32; bf16)
     "dxmi_attn_block_bb": [_P] * 11 + [_I, _I, _I, _I, _I, _I, _F, _P],
     "dxmi_attn_block_bb_bf16": [_P] * 11 + [_I, _I, _I, _I, _I, _I, _F, _P],
+    # qkv, attn, B, S, C, nh, stream: the wide attention core alone
+    "dxmi_attn_core_wide": [_P, _P, _I, _I, _I, _I, _P],
     # q, k, v, o, lse (or null), B, S, nh, d, row_stride, out_row_stride,
     # sm_scale, stream
     "dxmi_flash_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],

@@ -1,19 +1,20 @@
 """The attention block GN + q/k/v 1x1 + attention + proj 1x1 + residual:
 kernel K2 and its plain version, its batch-blocked form, kernel K7, with
 its plain version, and its int8 (W8A8) form, kernel K5, with its plain
-version and the JAX package's oracle.
+version and the JAX package's oracle; and the wide attention core of K2
+and K7 in bf16 at d > 128 (``attn_core_wide``), with its plain version.
 
 ``attn_block`` mirrors ``dxmi_tpu.ops.attn_block.fused_attn_block``: the
 batch block (``block_b`` or ``DXMI_FUSED_ATTN_BB``, clamped as JAX clamps
-it) selects K2 (one element per program: bf16 in ``csrc/attn_block.cu``,
-fp32 on K7's tensor-core launches after K1's two-pass statistics,
-``csrc/attn_block_bb.cu``) or K7 (blocks of bb elements); on a CPU tensor it
-runs their plain versions, on a CUDA tensor it launches the hand-written
-kernels (or raises). It takes fp32 (CIFAR's single-head blocks) or bf16 (the
-ADM nets' multi-head blocks, and CIFAR's single-head d = 256 blocks, whose
-attention runs K7's launch) activations, and is differentiable
-(``AttnBlockFn``): the backward is the vjp of the reference, as
-``_make_op.bwd`` is.
+it) selects K2 (one element per program) or K7 (blocks of bb elements); on
+a CPU tensor it runs their plain versions, on a CUDA tensor it launches the
+hand-written kernels (or raises). It takes fp32 (CIFAR's single-head
+blocks; K2 and K7 on 3xTF32 tensor-core launches, ``csrc/attn_block_bb.cu``)
+or bf16 (the ADM nets' multi-head blocks and CIFAR's d = 256 blocks; K2
+and K7 on the same wgmma launches, ``csrc/attn_block.cu``, their attention
+core K4's at d <= 128 and the wide core, ``csrc/attn_core_wide.cu``, above)
+activations, and is differentiable (``AttnBlockFn``): the backward is the
+vjp of the reference, as ``_make_op.bwd`` is.
 
 The bf16 form follows the arithmetic of the TPU kernel's body
 (``attn_block.py:225-258``): GN statistics in fp32, h rounded to bf16; q, k, v
@@ -82,12 +83,11 @@ def kernel_takes(channels: int, num_heads: int, dtype: torch.dtype,
     """The forms K2, K7 and (``int8``) K5 are written for, inside the gate:
     fp32 at d % 16 == 0 (the 16-column lanes of K5's fp32 SIMT core), bf16
     at d % 8 == 0 and d <= 128 (the flash kernel's core), and K2 and K7 in
-    bf16 also at a single head of d <= 256 (K2 then runs K7's attention
-    launch, CIFAR-10's d = 256 blocks)."""
+    bf16 also at 128 < d <= 256, any head count (the wide core, CIFAR-10's
+    d = 256 blocks)."""
     d = channels // num_heads
     if dtype == torch.bfloat16:
-        return d % 8 == 0 and (d <= 128 or (not int8 and num_heads == 1
-                                            and d <= 256))
+        return d % 8 == 0 and d <= (128 if int8 else 256)
     return dtype == torch.float32 and d % 16 == 0
 
 
@@ -172,7 +172,7 @@ def _attn_block_k2(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
         stats[1].data_ptr(), qkv.data_ptr(), attn.data_ptr(), B, S, C,
         num_heads, GROUPS, float(eps), _lib.stream())
     _lib.check(code, f"dxmi_{form}")
-    # bf16 at d > 128 (one head) runs K7's attention launch, not K4's
+    # bf16 at d > 128 runs the wide attention core, not K4's
     wide = dt == torch.bfloat16 and C // num_heads > 128
     _lib.LAUNCHES["attn_block_bf16_d256" if wide else form] += 1
     return y
@@ -186,7 +186,7 @@ def _check_kernel_form(name, S, C, num_heads, dt) -> None:
         raise NotImplementedError(
             f"{name} kernel: d={C // num_heads}, nh={num_heads} in {dt} not "
             "ported yet (fp32 at d % 16 == 0, bf16 at d % 8 == 0 and d <= "
-            "128, or one head of d <= 256)")
+            "256)")
 
 
 def _require_block_args(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj):
@@ -199,6 +199,49 @@ def _require_block_args(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj):
     _lib.require(b_qkv, "b_qkv", (3 * C,), dtype=dt, device=dev)
     _lib.require(w_proj, "w_proj", (C, C), dtype=dt, device=dev)
     _lib.require(b_proj, "b_proj", (C,), dtype=dt, device=dev)
+
+
+# ---- the wide attention core (bf16, 128 < d <= 256) ----------------------
+
+
+def attn_core_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain attention core of the bf16 block: qkv (B, S, 3C) with [3, nh,
+    d] columns, q and k already scaled; per (sample, head) the fp32 softmax
+    of the fp32 logits rounded to qkv's dtype, AV summed in fp32 and
+    rounded: (B, S, C)."""
+    B, S, C3 = qkv.shape
+    C = C3 // 3
+    d = C // num_heads
+    q, k, v = qkv.reshape(B, S, 3, num_heads, d).unbind(2)
+    lg = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    w = torch.softmax(lg, dim=-1).to(qkv.dtype)
+    a = torch.einsum("bhqk,bkhd->bqhd", w.float(), v.float())
+    return a.to(qkv.dtype).reshape(B, S, C)
+
+
+def attn_core_wide(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The attention core that K2 and K7 launch in bf16 at 128 < d <= 256
+    (``csrc/attn_core_wide.cu``), on its own: the plain version on a CPU
+    tensor; on a CUDA tensor the kernel, for bf16 qkv (B, S, 3C) with
+    S % 64 == 0 and d = C / nh, d % 8 == 0, 128 < d <= 256 (others raise);
+    it counts as ``attn_core_wide``."""
+    if qkv.device.type == "cpu":
+        return attn_core_reference(qkv, num_heads)
+    B, S, C3 = qkv.shape
+    C = C3 // 3
+    d = C // num_heads if C % num_heads == 0 else 0
+    if (qkv.dtype != torch.bfloat16 or C3 % 3 or S % 64 or d % 8 or d <= 128
+            or d > 256):
+        raise NotImplementedError(
+            f"attn_core_wide kernel: S={S}, C={C}, nh={num_heads} in "
+            f"{qkv.dtype} (bf16, S % 64 == 0, 128 < d <= 256, d % 8 == 0)")
+    _lib.require(qkv, "qkv", (B, S, C3), dtype=torch.bfloat16)
+    out = torch.empty((B, S, C), device=qkv.device, dtype=torch.bfloat16)
+    code = _lib.lib().dxmi_attn_core_wide(qkv.data_ptr(), out.data_ptr(), B,
+                                           S, C, num_heads, _lib.stream())
+    _lib.check(code, "dxmi_attn_core_wide")
+    _lib.LAUNCHES["attn_core_wide"] += 1
+    return out
 
 
 # ---- the batch-blocked forward: K7 ----------------------------------------
@@ -272,10 +315,11 @@ def attn_block_bb(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
                   bb: int = 2) -> torch.Tensor:
     """The attention block over blocks of ``bb`` batch elements on fp32 or
     bf16 ``x`` (B, S, C), B a multiple of bb: the plain version on a CPU
-    tensor; on a CUDA tensor K7 (``csrc/attn_block_bb.cu``), for shapes that
-    ``fused_attn_available`` admits, in the forms that ``kernel_takes``
-    names (others raise); it counts as ``attn_block_bb`` (fp32) or
-    ``attn_block_bb_bf16``."""
+    tensor; on a CUDA tensor K7 (fp32: ``csrc/attn_block_bb.cu``; bf16: its
+    one-pass fp32 statistics, then K2 bf16's launches, ``csrc/
+    attn_block.cu``), for shapes that ``fused_attn_available`` admits, in
+    the forms that ``kernel_takes`` names (others raise); it counts as
+    ``attn_block_bb`` (fp32) or ``attn_block_bb_bf16``."""
     if x.device.type == "cpu":
         return attn_block_bb_reference(x, gn_scale, gn_bias, w_qkv, b_qkv,
                                        w_proj, b_proj, num_heads, eps, bb)
@@ -350,7 +394,7 @@ def attn_block(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
     (``attn_block_bb``). On the card the kernels take the shapes that
     ``fused_attn_available`` admits, in the forms that ``kernel_takes``
     names (others raise); K2 counts as ``attn_block`` (fp32),
-    ``attn_block_bf16`` or, at one head of d > 128, ``attn_block_bf16_d256``.
+    ``attn_block_bf16`` or, at d > 128, ``attn_block_bf16_d256``.
     Differentiable (``AttnBlockFn``) when an input
     requires a gradient."""
     B, S, C = x.shape

@@ -14,6 +14,8 @@ from dxmi_tpu_torch.ops import _lib
 from dxmi_tpu.ops.attn_block import \
     fused_attn_available as jax_fused_attn_available
 from dxmi_tpu_torch.ops.attn_block import (attn_block, attn_block_reference,
+                                           attn_core_reference,
+                                           attn_core_wide,
                                            fused_attn_available, kernel_takes)
 
 
@@ -90,11 +92,11 @@ def _torch_bf16(args):
 
 
 @pytest.mark.parametrize("nomax", ["0", "1"])
-@pytest.mark.parametrize("C,nh", [(128, 2), (256, 4), (256, 1)])
+@pytest.mark.parametrize("C,nh", [(128, 2), (256, 4), (256, 1), (512, 2)])
 def test_plain_bf16_matches_pallas_kernel_interpret(monkeypatch, C, nh, nomax):
     """The bf16 plain version against the TPU kernel's body; (256, 1) is
-    the CIFAR-10 nets' single head of d = 256, whose attention runs K7's
-    launch on the card."""
+    the CIFAR-10 nets' single head of d = 256 and (512, 2) two heads of
+    d = 256, whose attention runs the wide core on the card."""
     args = _inputs_bf16(2, 64, C, seed=3)
     monkeypatch.setenv("DXMI_FUSED_NOMAX", nomax)
     ref = np.asarray(fused_attn_block(*(jnp.asarray(a) for a in args),
@@ -126,16 +128,19 @@ def test_gate_bf16(monkeypatch, S, C, nh, ok):
 
 @pytest.mark.parametrize("C,nh,dtype,ok", [(384, 6, torch.bfloat16, True),
                                            (256, 1, torch.bfloat16, True),
-                                           (512, 2, torch.bfloat16, False),
+                                           (512, 2, torch.bfloat16, True),
+                                           (384, 2, torch.bfloat16, True),
                                            (288, 1, torch.bfloat16, False),
+                                           (96, 24, torch.bfloat16, False),
                                            (96, 2, torch.bfloat16, True),
                                            (64, 8, torch.bfloat16, True),
                                            (256, 1, torch.float32, True),
                                            (64, 8, torch.float32, False),
                                            (384, 6, torch.float16, False)])
 def test_kernel_takes(C, nh, dtype, ok):
-    """bf16: d <= 128, or one head of d <= 256 (K2 and K7; K5 keeps d <=
-    128, its core is K4's); fp32: d % 16 == 0."""
+    """bf16: d % 8 == 0 and d <= 256 at any head count (K2 and K7: K4's
+    core up to 128, the wide core above; K5 keeps d <= 128, its core is
+    K4's); fp32: d % 16 == 0."""
     assert kernel_takes(C, nh, dtype) is ok
     if dtype == torch.bfloat16:
         assert kernel_takes(C, nh, dtype, int8=True) is (ok and C // nh
@@ -143,12 +148,15 @@ def test_kernel_takes(C, nh, dtype, ok):
 
 
 @pytest.mark.parametrize("S,C,nh,dtype,exc", [
-    (256, 512, 2, torch.bfloat16, NotImplementedError),
+    (256, 512, 2, torch.bfloat16, ValueError),
+    (256, 96, 24, torch.bfloat16, NotImplementedError),
     (64, 64, 8, torch.float32, NotImplementedError),
     (16, 256, 1, torch.float32, ValueError)])
 def test_card_tensor_outside_kernel_raises(S, C, nh, dtype, exc):
     """A tensor off the CPU (here on the meta device) never takes the plain
-    version: a shape or form the kernel does not take raises."""
+    version: a shape or form the kernel does not take raises, and so does a
+    form it takes on a tensor that is not on the card (two heads of d =
+    256 in bf16 reach the launch's argument checks)."""
     x = torch.empty(1, S, C, dtype=dtype, device="meta")
     gn = torch.empty(C, device="meta")
     w = [torch.empty(shape, dtype=dtype, device="meta")
@@ -156,4 +164,49 @@ def test_card_tensor_outside_kernel_raises(S, C, nh, dtype, exc):
     _lib.reset_launches()
     with pytest.raises(exc):
         attn_block(x, gn, gn, *w, num_heads=nh)
+    assert not _lib.LAUNCHES
+
+
+# ---- the wide attention core (bf16, 128 < d <= 256) -----------------------
+
+
+@pytest.mark.parametrize("C,nh", [(256, 1), (512, 2), (384, 2)])
+def test_core_reference_is_the_blocks_core(C, nh):
+    """attn_core_reference, the plain version of the core that K2 and K7
+    launch in bf16 at d > 128, is the attention part of the bf16 block's
+    plain version: the block rebuilt around it is bit-equal."""
+    x, gs, gb, wq, bq, wp, bp = _torch_bf16(_inputs_bf16(2, 64, C, seed=4))
+    B, S, _ = x.shape
+    d = C // nh
+    xf = x.float()
+    g = xf.reshape(B, S, 32, C // 32)
+    mean = g.mean(dim=(1, 3))
+    rstd = torch.rsqrt((g - mean[:, None, :, None]).square().mean(dim=(1, 3))
+                       + 1e-5)
+    s_c = gs * rstd.repeat_interleave(C // 32, dim=1)
+    t_c = gb - mean.repeat_interleave(C // 32, dim=1) * s_c
+    h = (xf * s_c[:, None] + t_c[:, None]).bfloat16()
+    qkv = (h.float() @ wq.float()).bfloat16() + bq
+    scale = torch.tensor(d ** -0.25, dtype=torch.bfloat16)
+    qkv = torch.cat([qkv[..., :2 * C] * scale, qkv[..., 2 * C:]], dim=-1)
+    a = attn_core_reference(qkv, nh)
+    y = x + ((a.float() @ wp.float()).bfloat16() + bp)
+    torch.testing.assert_close(y, attn_block_reference(
+        x, gs, gb, wq, bq, wp, bp, num_heads=nh), rtol=0, atol=0)
+    _lib.reset_launches()
+    torch.testing.assert_close(attn_core_wide(qkv, nh), a, rtol=0, atol=0)
+    assert not _lib.LAUNCHES
+
+
+@pytest.mark.parametrize("S,C,nh,dtype", [(64, 384, 6, torch.bfloat16),
+                                          (96, 512, 2, torch.bfloat16),
+                                          (64, 512, 2, torch.float32),
+                                          (64, 196, 1, torch.bfloat16)])
+def test_core_outside_kernel_raises(S, C, nh, dtype):
+    """On a tensor off the CPU the core launches or raises: d <= 128 (K4's
+    range), S not a multiple of 64, fp32 and d % 8 != 0 raise."""
+    qkv = torch.empty(1, S, 3 * C, dtype=dtype, device="meta")
+    _lib.reset_launches()
+    with pytest.raises(NotImplementedError):
+        attn_core_wide(qkv, nh)
     assert not _lib.LAUNCHES

@@ -96,6 +96,26 @@ def test_plain_matches_kernel_bb_bf16_d256():
         assert np.abs(out - kern).mean() / np.abs(kern).mean() < 2e-3
 
 
+def test_plain_matches_kernel_bb_bf16_d256_two_heads():
+    """Two heads of d = 256 in bf16 (B=2, S=64, C=512) at bb 2, the form
+    that the wide core takes on the card, under the limits above against
+    the fp32 reference and the TPU body's own bf16 output."""
+    args = _inputs(2, 64, 512, seed=6)
+    ref32 = np.asarray(jax_attn.attn_block_reference(
+        *(jnp.asarray(a) for a in args), num_heads=2))
+    kern = _jax_bb(args, 2, 2, jnp.bfloat16)
+    x, *rest = (torch.from_numpy(a) for a in args)
+    xb = x.to(torch.bfloat16)
+    w = [rest[0], rest[1]] + [r.to(torch.bfloat16) for r in rest[2:]]
+    _lib.reset_launches()
+    for out in (attn_block(xb, *w, num_heads=2, block_b=2),
+                attn_block_bb_reference(xb, *w, num_heads=2, bb=2)):
+        out = out.float().numpy()
+        assert np.abs(out - ref32).mean() / np.abs(ref32).mean() < 2e-2
+        assert np.abs(out - kern).mean() / np.abs(kern).mean() < 2e-3
+    assert not _lib.LAUNCHES
+
+
 @pytest.mark.parametrize("B,S,C,block_b,env", [
     (6, 128, 128, 4, None), (6, 128, 128, 3, None), (8, 256, 256, 8, None),
     (128, 256, 256, 4, None), (32, 256, 256, None, "4"),
@@ -197,11 +217,15 @@ def test_card_tensor_outside_kernel_raises():
           (256,))]
     with pytest.raises(ValueError):
         attn_block_bb(*t, num_heads=1, bb=4)
-    # bf16 at two heads of d = 256 (one head of d = 256 is K7's CIFAR form)
-    bf = [torch.empty(s, device="meta", dtype=dt) for s, dt in
-          (((6, 256, 512), torch.bfloat16), ((512,), torch.float32),
-           ((512,), torch.float32), ((512, 1536), torch.bfloat16),
-           ((1536,), torch.bfloat16), ((512, 512), torch.bfloat16),
-           ((512,), torch.bfloat16))]
+    # bf16 at d = 4 (d % 8 != 0; two heads of d = 256 are taken since the
+    # wide core, and on the meta device fail the launch's argument checks)
+    def bf16_block(C):
+        return [torch.empty(s, device="meta", dtype=dt) for s, dt in
+                (((6, 256, C), torch.bfloat16), ((C,), torch.float32),
+                 ((C,), torch.float32), ((C, 3 * C), torch.bfloat16),
+                 ((3 * C,), torch.bfloat16), ((C, C), torch.bfloat16),
+                 ((C,), torch.bfloat16))]
     with pytest.raises(NotImplementedError):
-        attn_block_bb(*bf, num_heads=2, bb=2)
+        attn_block_bb(*bf16_block(96), num_heads=24, bb=2)
+    with pytest.raises(ValueError):
+        attn_block_bb(*bf16_block(512), num_heads=2, bb=2)

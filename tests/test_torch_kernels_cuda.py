@@ -34,7 +34,8 @@ from dxmi_tpu_torch.ops.attn_block import (attn_block, attn_block_bb,
                                            attn_block_int8,
                                            attn_block_int8_plain,
                                            attn_block_reference,
-                                           prep_int8_mats)
+                                           attn_core_reference,
+                                           attn_core_wide, prep_int8_mats)
 from dxmi_tpu_torch.ops.conv_fused import gn_silu_conv, gn_silu_conv_reference
 from dxmi_tpu_torch.ops.groupnorm import (group_norm,
                                           group_norm_silu_reference, route)
@@ -221,7 +222,7 @@ def test_gn_silu_conv_bf16_autograd(card):
                                    (4, 64, 160)])
 def test_attn_block_bf16_d256(card, B, S, C):
     """K2 bf16 at one head of d > 128 (the CIFAR-10 blocks' d = 256: K1's
-    statistics, the wgmma GEMMs, K7's attention launch) against its plain
+    statistics, the wgmma GEMMs, the wide attention core) against its plain
     version, a replay bit-equal, counted as attn_block_bf16_d256."""
     rs = np.random.RandomState(13)
     x = _bf16(rs, card, (B, S, C), 2.0, 0.5)
@@ -234,6 +235,53 @@ def test_attn_block_bf16_d256(card, B, S, C):
                                               eps=1e-6), x, "K2 bf16 d256")
     assert torch.equal(out, attn_block(x, gs, gb, *w, num_heads=1, eps=1e-6))
     assert dict(_lib.LAUNCHES) == {"attn_block_bf16_d256": 2}
+
+
+@pytest.mark.parametrize("nh", [1, 2])
+@pytest.mark.parametrize("d", [136, 192, 256])
+@pytest.mark.parametrize("S", [64, 256, 1024])
+def test_attn_core_wide(card, S, d, nh):
+    """The wide attention core alone (bf16, 128 < d <= 256; one consumer
+    warpgroup at S = 64, two above; d = 136 and 192 leave columns of the
+    padded width to TMA's zeros) against its plain version under K4's gate
+    (chip_smoke.flash_check, which also allows for another rounding of p),
+    a replay bit-equal."""
+    rs = np.random.RandomState(14)
+    B, C = 2, nh * d
+    qkv = torch.from_numpy(rs.randn(B, S, 3 * C).astype(np.float32)).to(card)
+    qkv[..., :C] *= 2 * d ** -0.25  # logits of scale 2: a peaked softmax
+    qkv[..., C:2 * C] *= d ** -0.25
+    qkv = qkv.bfloat16()
+    out = attn_core_wide(qkv, nh)
+    q, k, v = qkv.reshape(B, S, 3, nh, d).unbind(2)
+    flash_check(out.reshape(q.shape),
+                attn_core_reference(qkv, nh).reshape(q.shape), q, k, v, 1.0,
+                "attn_core_wide")
+    assert torch.equal(out, attn_core_wide(qkv, nh))
+    assert dict(_lib.LAUNCHES) == {"attn_core_wide": 2}
+
+
+@pytest.mark.parametrize("nh", [1, 2])
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("S", [64, 256, 1024])
+def test_attn_block_bb_bf16_wide(card, S, d, nh):
+    """K7 bf16 at 128 < d <= 256 (K1's one-pass fp32 statistics, then K2
+    bf16's launches with the wide core) against its plain version, a
+    replay bit-equal. d = 136 has no width that GroupNorm(32) takes: the
+    core's own test holds it."""
+    rs = np.random.RandomState(15)
+    B, C = 4, nh * d
+    x = _bf16(rs, card, (B, S, C), 2.0, 0.5)
+    gs, gb = _tensors(rs, card, ((C,), 0.1, 1.0), ((C,), 0.1, 0.0))
+    w = [_bf16(rs, card, shape, scale, 0.0)
+         for shape, scale in (((C, 3 * C), C ** -0.5), ((3 * C,), 0.02),
+                              ((C, C), C ** -0.5), ((C,), 0.02))]
+    out = attn_block_bb(x, gs, gb, *w, num_heads=nh, bb=2)
+    attn_bf16_check(out, attn_block_bb_reference(x, gs, gb, *w,
+                                                 num_heads=nh, bb=2),
+                    x, "attn_block_bb_bf16 wide")
+    assert torch.equal(out, attn_block_bb(x, gs, gb, *w, num_heads=nh, bb=2))
+    assert dict(_lib.LAUNCHES) == {"attn_block_bb_bf16": 2}
 
 
 def test_attn_block_autograd_matches_plain_autograd(card):
@@ -400,15 +448,14 @@ def test_flash_mha_reads_qkv_views(card):
 
 def test_unported_forms_raise(card):
     """A CUDA tensor launches the kernel or raises: K2 has no bf16 form at
-    two heads of d = 256 (one head is the CIFAR-10 form) and K4 no fp32 form
-    yet."""
+    d % 8 != 0 (here d = 4) and K4 no fp32 form yet."""
     rs = np.random.RandomState(8)
-    x = _bf16(rs, card, (1, 256, 512), 1.0, 0.0)
-    gs, gb = _tensors(rs, card, ((512,), 0.1, 1.0), ((512,), 0.1, 0.0))
+    x = _bf16(rs, card, (1, 256, 96), 1.0, 0.0)
+    gs, gb = _tensors(rs, card, ((96,), 0.1, 1.0), ((96,), 0.1, 0.0))
     w = [_bf16(rs, card, shape, 0.05, 0.0)
-         for shape in ((512, 1536), (1536,), (512, 512), (512,))]
+         for shape in ((96, 288), (288,), (96, 96), (96,))]
     with pytest.raises(NotImplementedError):
-        attn_block(x, gs, gb, *w, num_heads=2)
+        attn_block(x, gs, gb, *w, num_heads=24)
     q = torch.zeros(1, 512, 2, 64, device=card)
     with pytest.raises(NotImplementedError):
         flash_mha(q, q, q, 0.125)
