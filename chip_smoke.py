@@ -22,7 +22,11 @@ failure exits non-zero naming the phase:
      logsumexp, the backward kernels K4-dkv, K4-dq and K6 at the ImageNet64
      maps at E3's batch 128, K4-dkv/dq also chained from the plain forward,
      K6 also at the ADM fixture's fp32 shape, and both at the tensor-core
-     kernels' edges (S = 64; head dims 24, 32, 36, 40); K4 at its wgmma
+     kernels' edges (S = 64; head dims 24, 32, 36, 40); K6 fp32 on its
+     one-launch route at batch 1, 3, 8, 64 and 128, one, two and four heads
+     and C = 32, and on the multi-launch route just past that route's limit
+     (C = 96, S = 128, d = 8), each replayed bit-equal and counted on its
+     route; K4 at its wgmma
      kernel's edges (S = 64, 256, 1024; d = 24, 32, 40, 64, 128; views of one
      qkv buffer and three tensors; with lse); K7 fp32 at E4's shape at batch
      128 and 32, bb 2 and 4, bf16 at ImageNet64's 16x16 map and at E4's
@@ -33,14 +37,18 @@ failure exits non-zero naming the phase:
      route; K3 on bf16 x at every conv shape of E-bf16 and at E4-levers'
      batches 128 and 64 at the 32x32 and 4x4 maps (the small maps in
      slices), K2 bf16 at the 16x16 blocks' one head of d = 256 at batch
-     100, 128 and 64 and at two heads of d = 256 at batch 100, K7 bf16 at
+     100, 128 and 64 and at two heads of d = 256 at batch 100, K2 fp32 at
+     the 8x8 map of conv16 (two heads of d = 32) at E5's batch 64 and
+     G3's 8, counted on its route, K7 bf16 at
      d = 256 at batch 128 and 64, bb 4, and the wide attention core alone
      at the d = 256 shapes of batch 100, each against its plain version and
      replayed bit-equal);
   T  time each kernel, its plain version and one PyTorch library call with
      CUDA events, device time (K4 at each shape the main paths launch it
      at; K2 fp32 beside K7 at bb 2 and 4 on the same inputs at batch 100,
-     128 and 32; K6's fp32 form at G3's shape); and K2 bf16 and K5 at each
+     128 and 32; K6's fp32 form at G3's and E5's shapes on its one-launch
+     route and at (128, 1024, 384), nh 6, on the multi-launch one); and K2
+     bf16 and K5 at each
      of their main-path maps split by launch (torch.profiler: statistics,
      GN apply or quantise, qkv GEMM, core, proj GEMM), K2 bf16 at d = 256
      and K7 bf16 at E4's shape, bb 4, the same way, and K3 at one shape
@@ -50,8 +58,9 @@ failure exits non-zero naming the phase:
      bf16 x, K2 bf16 and K7 bf16 at d = 256 and the wide attention core
      beside their library compositions (cuDNN's bf16 conv; GN + matmul +
      SDPA; SDPA);
-  T-bwd the device time of each launch of one K6 bf16 call and one K4-dkv
-     call at the 32x32 map at batch 128 (torch.profiler);
+  T-bwd the device time of each launch of one K6 fp32 call at G3's and E5's
+     shapes (8 and 64, 64, 64, nh 2), and of one K6 bf16 call and one
+     K4-dkv call at the 32x32 map at batch 128 (torch.profiler);
   G  replay the trained reference fixture (tests/fixtures/torch_rundir_t10)
      with its injected noise through the kernels, unfused and fused;
   G-int8 the CIFAR fixture under --int8: calibration from injected draws
@@ -98,6 +107,19 @@ failure exits non-zero naming the phase:
      the backward kernels' share of a profiled step, and the first
      minibatch's gradient by einsum, flash and fused_train,
      whole and per group of the attention blocks' parameters;
+  G5 the port's EDMSampler with runs_conv/pre_edm16.msgpack (the
+     pretrained net of configs/imagenet64/conv16.yaml) loaded by its own
+     msgpack reader, einsum and fused attention, against the JAX package's
+     trajectory from the same file (tests/torch_fixtures/edm16_golden.npz)
+     under the fp32 ADM goldens' limits;
+  E5 DxMI training at the full width of configs/imagenet64/conv16.yaml
+     (fp32, batch 64) from runs_conv/pre_edm16.msgpack: 3 steps with its
+     default einsum attention and 3 with fused_train (K2 fp32, K6 fp32 on
+     its one-launch route), the file's tensors loaded bit for bit and no
+     random-init warning, launches per step, finite metrics, s/step and a
+     profiled step's device time, idle share and K6's share; then the
+     entry itself (train_image_large
+     --attn_impl fused_train, 3 steps) in a subprocess;
   G4 one DxMITrainer iteration on the CIFAR fixture with the JAX trainer's
      trajectory, permutation, noise and dropout masks, einsum and fused
      attention at bb 2 (K7), with and without K3, against the JAX package's
@@ -113,9 +135,11 @@ failure exits non-zero naming the phase:
      (K2 bf16 at d = 256) and 2 at bb 4 (K7 bf16), the launches per step,
      finite metrics, s/step with its phase split, peak memory and a
      profiled step's idle share;
-  T-K1 K1's time at each shape that E-int8, E2 (fused, flash), E3 (flash,
-     fused_train) and E4 launched it at, with its launches per trajectory or
-     step (counted in those phases), its route and its bound;
+  T-K1 K1 at each shape that E-int8, E2 (fused, flash), E3 (flash,
+     fused_train), E5 (einsum, fused_train) and E4 launched it at, held
+     against its plain version under K's gate, with its time, its launches
+     per trajectory or step (counted in those phases), its route and its
+     bound;
   T-K3 K3's time at each shape that E and E4 launched it at, with its
      launches per trajectory or step (counted in those phases), its bound,
      its library and its plain time (without E and E4 in the run: at every
@@ -141,10 +165,12 @@ from __future__ import annotations
 import collections
 import contextlib
 import faulthandler
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import zlib
@@ -174,6 +200,7 @@ from dxmi_tpu_torch.models.unet_small import AttnBlock
 from dxmi_tpu_torch.ops.attn_block import (BWD_MAX_SLICES,
                                            BWD_ROWS_PER_CHUNK,
                                            BWD_ROWS_PER_SLICE, attn_block,
+                                           bwd_small_takes,
                                            attn_block_bb,
                                            attn_block_bb_reference,
                                            attn_block_bwd,
@@ -213,6 +240,13 @@ CIFAR_INT8_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
 TRAIN_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
                             "adm_train_golden.npz")
 BATCH, N_BATCHES, T = 100, 2, 10
+# configs/imagenet64/conv16.yaml (the Cond family's convergence recipe,
+# CONVERGENCE.md §8) and its training.pretrained_path, a flax msgpack file
+# of the JAX package read by the port's own reader; the golden of G5
+CONV16_CONFIG = os.path.join(REPO, "configs", "imagenet64", "conv16.yaml")
+CONV16_CKPT = os.path.join(REPO, "runs_conv", "pre_edm16.msgpack")
+EDM16_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
+                            "edm16_golden.npz")
 
 
 def fixture_config():
@@ -483,6 +517,9 @@ INFO = {
                              "head of d = 256)"),
     "attn_block_bb_bf16": ("dxmi_tpu_torch/csrc/attn_block.cu",
                            "dxmi_tpu/ops/attn_block.py:261 (bf16, d = 256)"),
+    "attn_block_bwd_small": ("dxmi_tpu_torch/csrc/attn_block_bwd_small.cu",
+                             "dxmi_tpu/ops/attn_block.py:406 (fp32, S = 64, "
+                             "C <= 64)"),
 }
 
 
@@ -658,8 +695,8 @@ class PhaseError(Exception):
 
 
 PHASES = ("B", "K", "T", "T-bwd", "G", "G-int8", "G-bf16", "E", "E-int8",
-          "E-bf16", "G2", "G2-int8", "E2", "E2-int8", "G3", "E3", "G4", "E4",
-          "E4-levers", "T-K1", "T-K3", "C")
+          "E-bf16", "G2", "G2-int8", "E2", "E2-int8", "G3", "E3", "G5", "E5",
+          "G4", "E4", "E4-levers", "T-K1", "T-K3", "C")
 
 
 def run_phase(name, fn):
@@ -772,8 +809,10 @@ CONV_SHAPES = [(BATCH, 32, 128, 128), (BATCH, 32, 384, 128),
                (BATCH, 8, 512, 256), (BATCH, 4, 256, 256),
                (BATCH, 4, 512, 256)]
 # K2 fp32 at generation's batch and at E4's training batch and sampling
-# chunk (the timed row is the first)
+# chunk (the timed row is the first); and at conv16's 8x8 map (S = 64, C =
+# 64, two heads of d = 32) at E5's batch 64 and G3's 8
 ATTN_SHAPES = [(BATCH, 256, 256), (128, 256, 256), (32, 256, 256)]
+ATTN_NH2_SHAPES = [(64, 64, 64, 2), (8, 64, 64, 2)]
 # ImageNet64 (bf16): K1 at the widest decoder input (8x8, C=1536, 48 channels
 # per group) and the 64x64 maps (C=192), both statistics modes; K2 at the
 # three attention maps; K4 at the 32x32 maps.
@@ -995,6 +1034,15 @@ ATTN_BWD_SHAPES = [(TRAIN_BATCH, 1024, 384, 6, torch.bfloat16),
                    (16, 64, 288, 8, torch.bfloat16)]
 
 
+# K6 fp32's one-launch route (S = 64, C = 32 or 64, d = 16, 32 or 64): batch
+# 1, 3, 8, 64 and 128, one, two and four heads at C = 64, C = 32 (one and
+# two heads); then the first shapes past its limit (C = 96, S = 128, d = 8),
+# which take the multi-launch route
+K6_SMALL_SHAPES = [(B, 64, 64, 2) for B in (1, 3, 8, 64, 128)] + [
+    (8, 64, 64, 1), (8, 64, 64, 4), (8, 64, 32, 1), (8, 64, 32, 2)]
+K6_PAST_SMALL = [(8, 64, 96, 2), (8, 128, 64, 2), (8, 64, 64, 8)]
+
+
 def flash_lse_check(lse, ref, what):
     """Hold K4's logsumexp to the plain version's; returns max abs err."""
     err = (lse - ref).abs().max().item()
@@ -1119,6 +1167,37 @@ def phase_kernels_train(gen, errs):
               f"slices, {-(-M // BWD_ROWS_PER_CHUNK)} chunks")
         del a, outs, refs, again
         torch.cuda.empty_cache()
+    for shape in K6_SMALL_SHAPES + K6_PAST_SMALL:
+        for name, err in k6_fp32_route_check(gen, *shape).items():
+            errs[name] = max(errs.get(name, 0.0), err)
+
+
+def k6_fp32_route_check(gen, B, S, C, nh):
+    """K6 fp32 at (B, S, C, nh) against its plain version under its gate
+    (5e-4 + 5e-4 rel on all seven cotangents), bit-equal on replay, through
+    the route ``bwd_small_takes`` names (two calls counted there and none on
+    the other route); returns {route's counter: max abs err}."""
+    a = attn_bwd_case(gen, B, S, C, torch.float32)
+    small = bwd_small_takes(S, C, nh, torch.float32)
+    name = "attn_block_bwd_small" if small else "attn_block_bwd"
+    other = "attn_block_bwd" if small else "attn_block_bwd_small"
+    before = _lib.LAUNCHES[name], _lib.LAUNCHES[other]
+    outs = attn_block_bwd(*a, nh)
+    refs = attn_block_bwd_reference(*a, nh)
+    what = f"{name} {(B, S, C, nh)} fp32"
+    rel, err = attn_bwd_check(outs, refs, torch.float32, what)
+    again = attn_block_bwd(*a, nh)
+    if not all(torch.equal(u, v) for u, v in zip(outs, again)):
+        raise AssertionError(f"{what}: a replay differs")
+    got = _lib.LAUNCHES[name] - before[0], _lib.LAUNCHES[other] - before[1]
+    if got != (2, 0):
+        raise AssertionError(f"{what}: {got[0]} calls counted on its route, "
+                             f"{got[1]} on the other, expected 2 and 0")
+    worst = max(((o - r).abs() / (ATTN_BWD_FP32_TOL * (1 + r.abs()))).max()
+                .item() for o, r in zip(outs, refs))
+    print(f"  K {what}: worst mean rel err {rel:.3e}, max abs err {err:.3e}"
+          f", worst element at {worst:.3f} of its limit; replay bit-equal")
+    return {name: err}
 
 
 def train_time_rows(gen):
@@ -1197,15 +1276,26 @@ def train_time_rows(gen):
                  * S * d, "fp32": 8 * TRAIN_BATCH * nh * S * S + 20 * M * C})
         del a, x, ct, xl, pl, y
         torch.cuda.empty_cache()
-    rows["attn_block_bwd"] = k6_fp32_time_row(gen)
+    rows["attn_block_bwd_small"] = k6_fp32_time_row(gen, *K6_FP32_G3)
+    rows[f"attn_block_bwd_small {K6_FP32_E5}"] = k6_fp32_time_row(
+        gen, *K6_FP32_E5)
+    rows[f"attn_block_bwd fp32 {K6_FP32_LARGE}"] = k6_fp32_time_row(
+        gen, *K6_FP32_LARGE, iters=3)
     return rows
 
 
-def k6_fp32_time_row(gen):
-    """T row of K6's fp32 form (SIMT) at G3's shape, the ADM fixture's 8x8
-    map at batch 8 (8, 64, 64, nh 2). Library yardstick: the backward alone
-    of autograd through F.group_norm, the matmuls and SDPA in fp32."""
-    B, S, C, nh = 8, 64, 64, 2
+# K6 fp32 rows: G3's shape (the ADM fixture's 8x8 map at batch 8), E5's
+# (configs/imagenet64/conv16.yaml's 8x8 map at batch 64), and one shape of
+# the multi-launch route, the largest that fused_attn_bwd_available admits
+# (S * C = 1024 * 384)
+K6_FP32_G3, K6_FP32_E5 = (8, 64, 64, 2), (64, 64, 64, 2)
+K6_FP32_LARGE = (128, 1024, 384, 6)
+
+
+def k6_fp32_time_row(gen, B=8, S=64, C=64, nh=2, iters=20):
+    """T row of K6's fp32 form at (B, S, C, nh). Library yardstick: the
+    backward alone of autograd through F.group_norm, the matmuls and SDPA
+    in fp32 (TF32 off for the matmuls and cuDNN, ``select_device``)."""
     a = attn_bwd_case(gen, B, S, C, torch.float32)
     x, ct, gs, gb, wq, bq, wp = a
     d = C // nh
@@ -1220,10 +1310,11 @@ def k6_fp32_time_row(gen):
     y = xl + o.transpose(1, 2).reshape(B, S, C) @ pl[4]
     M = B * S
     return dict(
-        ms=time_ms(lambda: attn_block_bwd(*a, nh)),
-        plain_ms=time_ms(lambda: attn_block_bwd_reference(*a, nh)),
+        ms=time_ms(lambda: attn_block_bwd(*a, nh), iters=iters),
+        plain_ms=time_ms(lambda: attn_block_bwd_reference(*a, nh),
+                         iters=max(2, iters // 4), warmup=1),
         library_ms=time_ms(lambda: torch.autograd.grad(
-            y, [xl, *pl], ct, retain_graph=True)),
+            y, [xl, *pl], ct, retain_graph=True), iters=iters),
         # x, ct read and dx written; weights read; the fp32 cotangents of
         # every parameter written
         bytes=3 * M * C * 4 + 4 * C * C * 4 + (4 * C * C + 6 * C) * 4,
@@ -1233,9 +1324,17 @@ def k6_fp32_time_row(gen):
 
 
 def bwd_breakdown(gen):
-    """Device time of each launch of one K6 bf16 call at the 32x32 map
-    (batch 128) and of one K4-dkv call at the same map, after a warm-up
-    call: the split that PERF.md's K6 breakdown records."""
+    """Device time of each launch of one K6 fp32 call at G3's and E5's
+    shapes, then of one K6 bf16 call at the 32x32 map (batch 128) and of
+    one K4-dkv call at the same map, each after a warm-up call: the splits
+    that PERF.md's K6 rows record."""
+    for B, S, C, nh in (K6_FP32_G3, K6_FP32_E5):
+        a = attn_bwd_case(gen, B, S, C, torch.float32)
+        attn_block_bwd(*a, nh)
+        torch.cuda.synchronize()
+        profile_run(lambda: attn_block_bwd(*a, nh),
+                    f"K6 fp32 {(B, S, C, nh)}, one call", top=24, width=150)
+        del a
     a = attn_bwd_case(gen, TRAIN_BATCH, 1024, 384, torch.bfloat16)
     attn_block_bwd(*a, 6)
     torch.cuda.synchronize()
@@ -1314,7 +1413,7 @@ def phase_train_replay():
         _lib.reset_launches()
         port = adm_train_replay(golden, "cuda", impl)
         used = {k for k, v in _lib.LAUNCHES.items() if v}
-        want = {"gn_silu"} | ({"attn_block", "attn_block_bwd"}
+        want = {"gn_silu"} | ({"attn_block", "attn_block_bwd_small"}
                               if impl == "fused_train" else set())
         if used != want:
             raise AssertionError(f"G3 {impl}: launched {used}, expected "
@@ -1537,11 +1636,135 @@ def phase_train(k1_log):
         profile_run(lambda: train_image_large.train_step(trainer, x, y, gen),
                     f"E3 {impl} profile, one training step", top=16,
                     shares=E3_SHARES[impl])
-        out[impl] = TRAIN_LAUNCHES_PER_STEP[impl]
+        out[impl] = got
         del trainer, data
         torch.cuda.empty_cache()
     for line in wiring_check(*e3_grads(cfg, B, E3_GRAD_ROWS)):
         print(f"  E3 wiring: {line}")
+    return out
+
+
+# E5: DxMI training on configs/imagenet64/conv16.yaml at the config's full
+# width (16x16 images, 828,003 sampler parameters, fp32, batch 64) from its
+# pretrained CONV16_CKPT: 3 steps with the config's default attention
+# (einsum) and 3 with fused_train (K2 fp32 forward, K6 fp32 on its one-launch
+# route: 4 attention blocks, all at the 8x8 map, S = 64, C = 64, two heads).
+# A step runs 20 forwards and 10 backwards (as E3); K1 takes the 25 norms of
+# a forward, or the 21 outside the attention blocks (counted on the CPU).
+E5_BATCH, E5_STEPS = 64, 3
+E5_LAUNCHES_PER_STEP = {
+    "einsum": {"gn_silu": 25 * TRAIN_FORWARDS},
+    "fused_train": {"gn_silu": 21 * TRAIN_FORWARDS,
+                    "attn_block": 4 * TRAIN_FORWARDS,
+                    "attn_block_bwd_small": 4 * TRAIN_BACKWARDS},
+}
+E5_SHARES = {"einsum": None, "fused_train": {
+    "K6 fp32 (both launches)": ("bwd_sample_kernel", "sum_samples_kernel")}}
+
+
+def e5_sampler_check(trainer, log, want):
+    """The pretrained file was loaded (the entry's line, no random-init
+    WARNING) and the sampler holds its tensors bit for bit."""
+    if "WARNING" in log or f"pretrained EDM loaded from {CONV16_CKPT}" \
+            not in log:
+        raise AssertionError(f"E5: the sampler was not loaded from "
+                             f"{CONV16_CKPT}:\n{log}")
+    got = trainer.sampler.state_dict()
+    bad = [k for k, v in want.items()
+           if not torch.equal(got[k].cpu(), v.float())]
+    if bad:
+        raise AssertionError(f"E5: {len(bad)} tensors differ from the file's,"
+                             f" e.g. {bad[:3]}")
+
+
+def e5_cli(impl="fused_train"):
+    """The entry itself: train_image_large on conv16.yaml for 3 steps from
+    the pretrained file, in a scratch directory; returns its seconds."""
+    cmd = [sys.executable, "-m", "dxmi_tpu_torch.train_image_large",
+           "--config", CONV16_CONFIG, "--dataset",
+           os.path.join(REPO, "configs", "imagenet64", "imagenet64.yaml"),
+           "--fake_data", "--fake_data_size", "1024", "--data.name",
+           "adm_conv16", "--max_steps", "3", "--attn_impl", impl,
+           "--training.pretrained_path", CONV16_CKPT, "--run", "e5"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        proc = subprocess.run(cmd, cwd=out_dir, capture_output=True,
+                              text=True, timeout=300,
+                              env=dict(os.environ, PYTHONPATH=REPO))
+    out = proc.stdout
+    if (proc.returncode != 0 or "WARNING" in out or "nan-guard skips: 0"
+            not in out or f"pretrained EDM loaded from {CONV16_CKPT}"
+            not in out):
+        raise AssertionError(f"E5 train_image_large failed:\n{out[-3000:]}"
+                             f"{proc.stderr[-3000:]}")
+    lines = [l for l in out.splitlines() if l.startswith("iter")]
+    secs = time.perf_counter() - t0
+    print(f"  E5 train_image_large --attn_impl {impl} --max_steps 3: "
+          f"{secs:.1f} s; {' | '.join(lines)}")
+    return secs
+
+
+def phase_conv16_train(k1_log):
+    """E5 (see the module docstring); returns the launches counted in the
+    last step of each form."""
+    if not os.path.exists(CONV16_CKPT):
+        raise AssertionError(f"{CONV16_CKPT} is missing")
+    cfg = conv16_config()
+    cfg["training"]["pretrained_path"] = CONV16_CKPT
+    want = load_sampler_state(CONV16_CKPT, net="unet_adm")
+    seed = int(cfg["training"]["seed"])
+    out = {}
+    for impl in ("einsum", "fused_train"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            trainer = build_trainer(cfg, None if impl == "einsum" else impl,
+                                    E5_BATCH)
+        e5_sampler_check(trainer, log.getvalue(), want)
+        n_params = sum(p.numel() for p in trainer.sampler.parameters())
+        data = train_image_large.fake_data(cfg, trainer.sampler, 1024,
+                                           E5_BATCH, seed,
+                                           torch.device("cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        walls = []
+        for i in range(E5_STEPS):
+            x, y = next(data)
+            _lib.reset_launches()
+            t0 = time.perf_counter()
+            with k1_shapes(k1_log, f"E5 {impl}", 1, "step") if i == 0 else \
+                    contextlib.nullcontext():
+                m = train_image_large.train_step(trainer, x, y, gen)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            got = dict(_lib.LAUNCHES)
+            if got != E5_LAUNCHES_PER_STEP[impl]:
+                raise AssertionError(f"E5 {impl} step {i}: launches {got}, "
+                                     f"expected {E5_LAUNCHES_PER_STEP[impl]}")
+            bad = [k for k, v in m.items() if not k.startswith("time/")
+                   and not torch.isfinite(torch.as_tensor(v)).all()]
+            if bad:
+                raise AssertionError(f"E5 {impl} step {i}: non-finite {bad}")
+            print(f"  E5 {impl} step {i}: {walls[-1]:.3f} s; d_loss "
+                  f"{float(m['ebm/d_loss_']):.4f}, sampler_loss "
+                  f"{float(m['sampler/sampler_loss_']):.4f}", flush=True)
+        if trainer.nan_guard_skips:
+            raise AssertionError(f"E5 {impl}: {trainer.nan_guard_skips} "
+                                 "updates skipped by the non-finite guard")
+        print(f"  E5 {impl}: {n_params} sampler parameters from "
+              f"{os.path.relpath(CONV16_CKPT, REPO)}, batch {E5_BATCH}; "
+              f"{np.mean(walls[1:]):.4f} s/step over steps 1-{E5_STEPS - 1};"
+              f" launches per step {E5_LAUNCHES_PER_STEP[impl]} as expected;"
+              f" peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        x, y = next(data)
+        profile_run(lambda: train_image_large.train_step(trainer, x, y, gen),
+                    f"E5 {impl} profile, one training step", top=10,
+                    shares=E5_SHARES[impl])
+        out[impl] = got
+        del trainer, data
+    e5_cli()
     return out
 
 
@@ -1887,6 +2110,21 @@ def phase_kernels(gen):
             raise AssertionError(f"attn_block {shape}: a replay differs")
         print(f"  K attn_block {shape}: max abs err vs plain {err:.3e}; "
               "replay bit-equal")
+        errs["attn_block"] = max(errs["attn_block"], err)
+    for B, S, C, nh in ATTN_NH2_SHAPES:
+        a = attn_case(gen, B, S, C)
+        before = _lib.LAUNCHES["attn_block"]
+        out = attn_block(*a, num_heads=nh, eps=1e-6)
+        if _lib.LAUNCHES["attn_block"] != before + 1:
+            raise AssertionError(f"attn_block {(B, S, C, nh)}: not counted as "
+                                 "K2 fp32")
+        err = max_err(out, attn_block_reference(*a, num_heads=nh, eps=1e-6),
+                      "attn_block")
+        if not torch.equal(out, attn_block(*a, num_heads=nh, eps=1e-6)):
+            raise AssertionError(f"attn_block {(B, S, C, nh)}: a replay "
+                                 "differs")
+        print(f"  K attn_block {(B, S, C, nh)}: max abs err vs plain "
+              f"{err:.3e}; replay bit-equal")
         errs["attn_block"] = max(errs["attn_block"], err)
     errs["gn_silu_bf16"] = max(
         max_err(group_norm(*a).float(), group_norm_silu_reference(*a).float(),
@@ -2884,20 +3122,21 @@ def profile_run(fn, label, top=12, width=90, shares=None):
     the device's idle share of the wall time; kernel names cut to
     ``width`` characters. ``shares`` maps a label to the substrings of the
     kernel names it sums (the device time of one of the port's kernels
-    over all its launches)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    over all its launches). Only the device's activity is recorded, not the
+    host's operators, so the host runs at its own speed while it is traced
+    (reading a training step's host events back takes tens of seconds)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev_us / 1e3, ev.count, ev.key))
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():  # the kernels' own events, summed by name
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name][0] += ev.time_range.elapsed_us() / 1e3
+            by_name[ev.name][1] += 1
+    rows = [(ms, n, name) for name, (ms, n) in by_name.items() if ms > 0]
     total = sum(r[0] for r in rows)
     if total == 0:
         print(f"  {label}: device time not measured (no CUDA events)")
@@ -3130,41 +3369,53 @@ def phase_replay_int8():
     return worst
 
 
+# The fp32 ADM goldens' limits (tests/test_golden_adm_fixture.py): each
+# step's mean within 5e-3, its sigma within 1e-5 rel, the final sample
+# within 5e-3.
+ADM_MEAN_ATOL, ADM_SIGMA_RTOL = 5e-3, 1e-5
+
+
+def adm_golden_replay(sampler, golden, device, what):
+    """Each step of ``golden`` (x_init, eps, y, means, sigmas, final)
+    restarted from the golden state, under the fp32 ADM goldens' limits;
+    returns (worst step mean err, final err)."""
+    y = torch.from_numpy(np.asarray(golden["y"])).long().to(device)
+    x = torch.from_numpy(golden["x_init"]).to(device)
+    worst = 0.0
+    with torch.no_grad():
+        for t in range(sampler.n_timesteps):
+            eps = torch.from_numpy(golden["eps"][t]).to(device)
+            out = sampler.sample_step(x, t, noise=eps, y=y)
+            err = float(np.abs(out["mean"].cpu().numpy()
+                               - golden["means"][t]).max())
+            worst = max(worst, err)
+            if err > ADM_MEAN_ATOL:
+                raise AssertionError(f"{what} step {t}: mean err {err:.3e}")
+            np.testing.assert_allclose(
+                out["sigma"].cpu().numpy().reshape(-1, 1, 1, 1),
+                golden["sigmas"][t], rtol=ADM_SIGMA_RTOL, atol=1e-6)
+            x = torch.from_numpy(golden["means"][t] + golden["sigmas"][t]
+                                 * golden["eps"][t]).to(device)
+    final = float(np.abs(out["sample"].cpu().numpy() - golden["final"]).max())
+    if final > ADM_MEAN_ATOL:
+        raise AssertionError(f"{what}: final err {final:.3e}")
+    return worst, final
+
+
 def phase_replay_adm():
     """The trained ADM fixture's trajectory (fp32, nh 2 at 8x8, d 32): each
-    step restarted from the golden mean with the golden eps and labels; the
-    limits of tests/test_golden_adm_fixture.py (per-step mean 5e-3, sigma
-    1e-5 rel, final sample 5e-3)."""
+    step restarted from the golden mean with the golden eps and labels
+    (``adm_golden_replay``)."""
     golden = np.load(os.path.join(ADM_FIXTURE_DIR, "golden.npz"))
     state = load_sampler_state(os.path.join(ADM_FIXTURE_DIR, "sampler.pth"))
-    y = torch.from_numpy(golden["y"]).long().cuda()
     errs = {}
     for impl in ("einsum", "fused"):
         _lib.reset_launches()
         sampler = generate_large.load_sampler(
             adm_fixture_config(), state, "cuda", attn_impl=impl,
             up_impl="resize", gn_stats="fp32")
-        x = torch.from_numpy(golden["x_init"]).cuda()
-        worst = 0.0
-        with torch.no_grad():
-            for t in range(sampler.n_timesteps):
-                eps = torch.from_numpy(golden["eps"][t]).cuda()
-                out = sampler.sample_step(x, t, noise=eps, y=y)
-                err = float(np.abs(out["mean"].cpu().numpy()
-                                   - golden["means"][t]).max())
-                worst = max(worst, err)
-                if err > 5e-3:
-                    raise AssertionError(f"attn_impl={impl} step {t}: mean "
-                                         f"err {err:.3e}")
-                np.testing.assert_allclose(
-                    out["sigma"].cpu().numpy().reshape(-1, 1, 1, 1),
-                    golden["sigmas"][t], rtol=1e-5, atol=1e-6)
-                x = torch.from_numpy(golden["means"][t] + golden["sigmas"][t]
-                                     * golden["eps"][t]).cuda()
-        final = float(np.abs(out["sample"].cpu().numpy()
-                             - golden["final"]).max())
-        if final > 5e-3:
-            raise AssertionError(f"attn_impl={impl}: final err {final:.3e}")
+        worst, final = adm_golden_replay(sampler, golden, "cuda",
+                                         f"attn_impl={impl}")
         used = {k for k, v in _lib.LAUNCHES.items() if v}
         want = {"gn_silu"} | ({"attn_block"} if impl == "fused" else set())
         if used != want:
@@ -3172,7 +3423,69 @@ def phase_replay_adm():
                                  f"expected {want}")
         errs[impl] = worst
         print(f"  G2 attn_impl={impl}: max per-step mean err {worst:.3e} "
-              f"(tol 5e-3), final {final:.3e}, kernels {sorted(used)}")
+              f"(tol {ADM_MEAN_ATOL:g}), final {final:.3e}, kernels "
+              f"{sorted(used)}")
+    return errs
+
+
+# G5: the JAX package's EDMSampler from CONV16_CKPT (its fp32 net, einsum
+# attention) on an injected trajectory (EDM16_GOLDEN, built by tests/
+# torch_fixtures/make_edm16_golden.py): batch 4, T = 10, labels 0-3, x_init
+# and the per-step noise drawn by ``edm16_draws`` from the golden's seed.
+EDM16_BATCH = 4
+
+
+def edm16_draws(seed, n=EDM16_BATCH, steps=T, shape=(3, 16, 16),
+                sigma_max=80.0, num_classes=4):
+    """G5's injected draws from a numpy seed (numpy's legacy generator is
+    the same on every host): x_init = sigma_max N(0, 1) (n, *shape), eps
+    (steps, n, *shape) and the labels 0, 1, ... modulo ``num_classes``."""
+    rs = np.random.RandomState(seed)
+    x_init = (rs.randn(n, *shape) * sigma_max).astype(np.float32)
+    eps = rs.randn(steps, n, *shape).astype(np.float32)
+    return x_init, eps, np.arange(n, dtype=np.int64) % num_classes
+
+
+def conv16_config():
+    """configs/imagenet64/conv16.yaml with its dataset config merged, read
+    by the port's YAML reader."""
+    return merge(load_yaml(CONV16_CONFIG), load_yaml(os.path.join(
+        REPO, "configs", "imagenet64", "imagenet64.yaml")))
+
+
+def edm16_golden():
+    """EDM16_GOLDEN with its draws: the arrays ``adm_golden_replay`` reads."""
+    gold = dict(np.load(EDM16_GOLDEN))
+    gold["x_init"], gold["eps"], gold["y"] = edm16_draws(int(gold["seed"]))
+    return gold
+
+
+def phase_replay_edm16():
+    """G5: the port's EDMSampler with CONV16_CKPT loaded by its msgpack
+    reader, against the JAX package's trajectory under the fp32 ADM goldens'
+    limits, with einsum and fused (K2 fp32) attention."""
+    if not os.path.exists(CONV16_CKPT):
+        raise AssertionError(f"{CONV16_CKPT} is missing")
+    state = load_sampler_state(CONV16_CKPT, net="unet_adm")
+    gold = edm16_golden()
+    errs = {}
+    for impl in ("einsum", "fused"):
+        _lib.reset_launches()
+        sampler = generate_large.load_sampler(
+            conv16_config(), state, "cuda", attn_impl=impl, up_impl="resize",
+            gn_stats="fp32")
+        worst, final = adm_golden_replay(sampler, gold, "cuda",
+                                         f"G5 attn_impl={impl}")
+        used = {k for k, v in _lib.LAUNCHES.items() if v}
+        want = {"gn_silu"} | ({"attn_block"} if impl == "fused" else set())
+        if used != want:
+            raise AssertionError(f"G5 attn_impl={impl}: launched {used}, "
+                                 f"expected {want}")
+        errs[impl] = worst
+        print(f"  G5 attn_impl={impl}: {len(state)} tensors from "
+              f"{os.path.relpath(CONV16_CKPT, REPO)}; max per-step mean err "
+              f"{worst:.3e} (tol {ADM_MEAN_ATOL:g}), final {final:.3e}, "
+              f"kernels {sorted(used)}")
     return errs
 
 
@@ -3695,14 +4008,17 @@ def k1_shapes(log, label, runs, unit):
 
 
 def k1_shape_table(gen, log):
-    """T-K1: K1's time at each shape E2, E3 and E4 launched it at (recorded
-    into ``log`` by k1_shapes in those phases), with its launches per
-    trajectory or step, its route, its bound (one read and one write of x
-    at HBM_BYTES_S) and the K1 time per trajectory or step that these
-    give."""
+    """T-K1: K1 at each shape E-int8, E2, E3, E5 and E4 launched it at
+    (recorded into ``log`` by k1_shapes in those phases), held against its
+    plain version under K's gate (``gn_silu`` or ``gn_silu_bf16``), with its
+    time, its launches per trajectory or step, its route, its bound (one
+    read and one write of x at HBM_BYTES_S) and the K1 time per trajectory
+    or step that these give; returns the max abs errors by counter."""
+    errs = {}
     if not log:
-        print("  T-K1: no shapes recorded (E2, E3, E4 did not run)")
-        return
+        print("  T-K1: no shapes recorded (E-int8, E2, E3, E5, E4 did not "
+              "run)")
+        return errs
     times = {}
     for label, (seen, runs, unit) in log.items():
         n_all = sum(seen.values()) / runs
@@ -3716,15 +4032,20 @@ def k1_shape_table(gen, log):
                 a = (randn(gen, B, HW, C, scale=2.0, shift=0.5).to(dt),
                      randn(gen, C, scale=0.1, shift=1.0),
                      randn(gen, C, scale=0.1), 32, 1e-5, bool(silu), mode)
-                times[key] = time_ms(lambda: group_norm(*a))
+                name = "gn_silu_bf16" if bf16 else "gn_silu"
+                err = max_err(group_norm(*a).float(),
+                              group_norm_silu_reference(*a).float(), name)
+                errs[name] = max(errs.get(name, 0.0), err)
+                times[key] = time_ms(lambda: group_norm(*a)), err
                 del a
-            ms = times[key]
+            ms, err = times[key]
             bound = 2 * B * HW * C * (2 if bf16 else 4) / HBM_BYTES_S * 1e3
             r = route(HW, C, 32, dt)
             total += n / runs * ms
             lines.append(
                 f"    ({B}, {HW}, {C}) {'bf16' if bf16 else 'fp32'} {mode}"
-                f"{' +SiLU' if silu else ''}: {n / runs:g} launches, "
+                f"{' +SiLU' if silu else ''}: max abs err vs plain "
+                f"{err:.3e}; {n / runs:g} launches, "
                 f"{'on-chip' if r.on_chip else 'split'} ({r.slabs} slabs, "
                 f"clusters of {r.cluster}), {ms:.4f} ms each, bound "
                 f"{bound:.4f} ms (bytes), {ms / bound:.2f}x it, "
@@ -3733,6 +4054,7 @@ def k1_shape_table(gen, log):
               f"{total:.3f} ms a {unit} at these times")
         for line in lines:
             print(line)
+    return errs
 
 
 # ---- K3 by shape on the main paths ---------------------------------------
@@ -3835,7 +4157,7 @@ def main() -> int:
     select_device("cuda")  # fp32 products in the plain versions (no TF32)
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = {}
-    k1_log = {}  # K1's launches by shape in E-int8, E2, E3, E4, for T-K1
+    k1_log = {}  # K1's launches by shape in E-int8, E2, E3, E5, E4, for T-K1
     rates = {}  # img/s of E and E-int8's paths
     k3_log = {}  # K3's launches by shape in E and E4, for T-K3
 
@@ -3861,6 +4183,8 @@ def main() -> int:
         step("E2-int8", lambda: phase_generate_adm_int8(e2[1], e2[2]))
         step("G3", phase_train_replay)
         step("E3", lambda: phase_train(k1_log))
+        step("G5", phase_replay_edm16)
+        step("E5", lambda: phase_conv16_train(k1_log))
         step("G4", phase_cifar_train_replay)
         step("E4", lambda: phase_cifar_train(k1_log, k3_log))
         step("E4-levers", phase_cifar_train_levers)
@@ -3875,6 +4199,8 @@ def main() -> int:
         print(smi)
         return 0
     errs, times, train, cifar = res["K"], res["T"], res["E3"], res["E4"]
+    for name, err in res["T-K1"].items():  # K1 at the main paths' shapes
+        errs[name] = max(errs[name], err)
     launches, int8 = res["E"], res["E2-int8"]
     adm = res["E2"][0]
     launches.update(gn_silu_bf16=adm["fused"]["gn_silu_bf16"],
@@ -3891,7 +4217,9 @@ def main() -> int:
                     **{k: res["E-bf16"][k] for k in ("gn_silu_conv3x3_bf16",
                                                     "attn_block_bf16_d256")},
                     attn_block_bb_bf16=res["E4-levers"][4][
-                        "attn_block_bb_bf16"])
+                        "attn_block_bb_bf16"],
+                    attn_block_bwd_small=res["E5"]["fused_train"][
+                        "attn_block_bwd_small"])
     kernels = []
     for name, (src, replaces) in INFO.items():
         r = times[name]

@@ -53,13 +53,16 @@
 // operands, fp32 sums), routed by the element type at compile time: 4, 8,
 // 9 and 10 on K2's tensor-core GEMM (attn_block.cu) in the layouts they
 // need (B read transposed for da and dh, A read transposed for the weight
-// cotangents), 5 on K4's forward core (attn_stats_tc_kernel below), 6 on
-// K4-dkv's tensor-core kernel. Only 7, K4-dq, stays SIMT fp32 (a later
-// redesign). Every bf16 operand of the TPU body enters an fp32 sum, which
-// is what mma.sync does, so only the order of the fp32 sums changes. The
-// fp32 form keeps the first, simple design throughout (SIMT fp32 GEMMs,
-// statistics and attention kernels): bf16 tensor cores would change its
-// precision, which the JAX package holds to 5e-4.
+// cotangents), 5 on K4's forward core (attn_stats_tc_kernel below), 6 and 7
+// on K4-dkv's and K4-dq's tensor-core kernels. Every bf16 operand of the
+// TPU body enters an fp32 sum, which is what mma.sync does, so only the
+// order of the fp32 sums changes. The fp32 form keeps SIMT fp32 GEMMs,
+// statistics and attention kernels here (bf16 tensor cores would change its
+// precision, which the JAX package holds to 5e-4), for the maps past one
+// sample's room in shared memory; at S = 64 and C <= 64 (conv16's and the
+// ADM fixture's 8x8 maps) fp32 takes one launch of one block, or a cluster
+// of two, per sample and one ordered sum over the samples instead
+// (attn_block_bwd_small.cu; ops/attn_block.py bwd_small_takes routes).
 #include <math.h>
 
 #include <type_traits>

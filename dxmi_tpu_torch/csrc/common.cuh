@@ -187,6 +187,52 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
+// ---- thread-block clusters (K1's on-chip route, K6 fp32's small maps) ----
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_ctas() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return (int)n;
+}
+// every thread of every CTA of the cluster arrives, then waits; a thread's
+// shared-memory writes before its arrive are seen after the wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// *p in the shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ float ld_rank(const float* p, int rank) {
+  unsigned addr;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// the 16 bytes at p in the shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ float4 ld4_rank(const float* p, int rank) {
+  unsigned addr;
+  float4 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])

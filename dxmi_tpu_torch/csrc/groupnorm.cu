@@ -194,39 +194,6 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
   }
 }
 
-// ---- the cluster ----------------------------------------------------------
-__device__ __forceinline__ int cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return (int)r;
-}
-__device__ __forceinline__ int cluster_ctas() {
-  unsigned n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return (int)n;
-}
-// every thread of every CTA of the cluster arrives, then waits; a thread's
-// shared-memory writes before its arrive are seen after the wait
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-// *p in the shared memory of the cluster's CTA `rank`
-__device__ __forceinline__ float ld_rank(const float* p, int rank) {
-  unsigned addr;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(addr)
-               : "r"(smem_u32(p)), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
-               : "=f"(v)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
 template <typename T>
 struct GnArgs {
   const T* x;

@@ -5,8 +5,10 @@
         [--save_npz samples.npz] [--seed S] [--int8] [--dtype fp32|bf16] \
         [--device cuda|cpu]
 
-Reads ``config.yaml`` and ``sampler_{best,last}.pth`` from the run directory
-(the reference's run-dir contract; the YAML is read without PyYAML) and
+Reads ``config.yaml`` and the sampler checkpoint from the run directory
+(the reference's run-dir contract in the JAX entry's order: flax
+``.msgpack`` before ``.pth`` and ``.pt``; the YAML is read without PyYAML)
+and
 draws ``N`` samples in batches of ``B``. ``--save_npz`` streams them batch by
 batch as uint8 NHWC into ``arr_0``, the evaluator's format, so the host never
 holds all N.
@@ -199,7 +201,7 @@ def main() -> None:
     path = resolve_run_checkpoint(args.log_dir, "sampler", args.sampler)
     print(f"sampler loaded from {path}", flush=True)
     t0 = time.perf_counter()
-    sampler = load_sampler(cfg, load_sampler_state(path), args.device,
+    sampler = load_sampler(cfg, load_sampler_state(path, net="unet_small"), args.device,
                            args.seed, args.int8, args.dtype)
     if args.int8:
         print("int8: static activation scales calibrated", flush=True)

@@ -7,8 +7,9 @@ port: UNetADM + EDMSampler.
         [--up_impl phase|resize] [--gn_stats fp32|bf16_onepass] [--int8] \
         [--device cuda|cpu]
 
-Reads ``config.yaml`` (without PyYAML) and ``sampler_{best,last}.pth`` (or
-``sampler.pth``) from the run directory, builds the net from its
+Reads ``config.yaml`` (without PyYAML) and the sampler checkpoint from the
+run directory, looked up in the JAX entry's order (``sampler_{best,last}``,
+then ``sampler``; flax ``.msgpack`` before ``.pth`` and ``.pt``), builds the net from its
 ``diffusion:`` section and the sampler from its ``sampler:`` section, and
 draws ``N`` samples in batches of ``B``. ``--save_npz`` streams them batch by
 batch as uint8 NHWC into ``arr_0`` and writes the class labels under
@@ -139,7 +140,7 @@ def main() -> None:
     path = resolve_run_checkpoint(args.log_dir, "sampler", args.sampler)
     print(f"sampler loaded from {path}", flush=True)
     t0 = time.perf_counter()
-    sampler = load_sampler(cfg, load_sampler_state(path), args.device,
+    sampler = load_sampler(cfg, load_sampler_state(path, net="unet_adm"), args.device,
                            args.seed, args.attn_impl, args.up_impl,
                            args.gn_stats, args.int8)
     if args.int8:

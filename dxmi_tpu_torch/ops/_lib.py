@@ -79,6 +79,10 @@ _SIGNATURES = {
     "dxmi_attn_block_bwd": [_P] * 26 + [_I, _I, _I, _I, _I, _F, _I, _I, _P],
     "dxmi_attn_block_bwd_bf16": [_P] * 26 + [_I, _I, _I, _I, _I, _F, _I, _I,
                                              _P],
+    # K6 fp32 at small maps: x, ct, gs, gb, w_qkv, b_qkv, w_proj, dx, the
+    # parameter cotangents (one buffer), the samples' partials; B, S, C, nh,
+    # G, eps, stream
+    "dxmi_attn_block_bwd_small": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P],
     # x, is_bf16, gs, gb, wq, swq, isa_q, bq, wp, swp, isa_p, bp, y, mean_c,
     # rstd_c, qkv scratch, attn scratch, B, S, C, nh, G, eps, stream
     "dxmi_attn_block_i8": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

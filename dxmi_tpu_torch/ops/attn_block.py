@@ -31,7 +31,9 @@ math); the port keeps one max-subtracting softmax.
 ``csrc/attn_block_bwd.cu``), which recomputes every intermediate from x and
 the parameters, as ``_make_op_train`` saves only those (``:633-646``); in
 bf16 its products run on the tensor cores (its dq pass is K4-dq's kernel),
-in fp32 all are SIMT. Its
+in fp32 all are SIMT: at S = 64 and C <= 64 in one launch of one block (or
+a cluster of two) a sample (``csrc/attn_block_bwd_small.cu``), elsewhere in
+the multi-launch route. Its
 plain version ``attn_block_bwd_reference`` repeats the TPU body's arithmetic
 and roundings step by step (``:406-556``). The parameter cotangents come back
 in fp32.
@@ -467,6 +469,46 @@ def attn_block_bwd_reference(x, ct, gn_scale, gn_bias, w_qkv, b_qkv, w_proj,
     return dx, dgs, dgb, dw_qkv, db_qkv, dw_proj, db_proj
 
 
+# K6 fp32 in one launch a sample (``csrc/attn_block_bwd_small.cu``): a
+# block, or a cluster of two splitting the heads, holds one sample's working
+# set in shared memory at S = 64 and C = 32 or 64 (217 KB at C = 64; C = 96
+# or S = 128 would need 326 or 410 KB), with head dims of 16, 32 or 64;
+# other shapes take the multi-launch route
+BWD_SMALL_S, BWD_SMALL_WIDTHS, BWD_SMALL_HEAD_DIMS = 64, (32, 64), (16, 32, 64)
+
+
+def bwd_small_takes(S: int, C: int, num_heads: int,
+                    dtype: torch.dtype) -> bool:
+    """Whether K6 runs its one-launch-a-sample route at this shape."""
+    return (dtype == torch.float32 and S == BWD_SMALL_S
+            and C in BWD_SMALL_WIDTHS and C % num_heads == 0
+            and C // num_heads in BWD_SMALL_HEAD_DIMS)
+
+
+def _attn_block_bwd_small(x, ct, gn_scale, gn_bias, w_qkv, b_qkv, w_proj,
+                          nh, eps):
+    """K6 fp32 at a shape ``bwd_small_takes``: one block (two, when the
+    heads split evenly) a sample writes dx and the sample's parameter
+    cotangents, a second launch sums those in sample order; it counts as
+    ``attn_block_bwd_small``."""
+    B, S, C = x.shape
+    n = 4 * C * C + 6 * C
+    f32 = dict(device=x.device, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    out = torch.empty(n, **f32)
+    part = torch.empty(B * n, **f32)
+    ptrs = [t.data_ptr() for t in (x, ct, gn_scale, gn_bias, w_qkv, b_qkv,
+                                   w_proj, dx, out, part)]
+    code = _lib.lib().dxmi_attn_block_bwd_small(
+        *ptrs, B, S, C, nh, GROUPS, float(eps), _lib.stream())
+    _lib.check(code, "dxmi_attn_block_bwd_small")
+    _lib.LAUNCHES["attn_block_bwd_small"] += 1
+    dw_qkv, dw_proj, db_qkv, db_proj, dgs, dgb = out.split(
+        [3 * C * C, C * C, 3 * C, C, C, C])
+    return (dx, dgs, dgb, dw_qkv.view(C, 3 * C), db_qkv, dw_proj.view(C, C),
+            db_proj)
+
+
 # fp32 partials of the weight GEMMs: one slice per this many rows of B * S
 # (at most 32 slices); bias sums: one chunk per 1024 rows
 BWD_ROWS_PER_SLICE, BWD_MAX_SLICES, BWD_ROWS_PER_CHUNK = 4096, 32, 1024
@@ -478,8 +520,9 @@ def attn_block_bwd(x, ct, gn_scale, gn_bias, w_qkv, b_qkv, w_proj,
     db_proj) as ``attn_block_bwd_reference``. On the card: K6, for shapes
     that ``fused_attn_bwd_available`` admits, fp32 or bf16 ``x`` with
     d % 4 == 0 and d <= 64 (others raise); weights and biases in x's dtype,
-    GN parameters fp32; it counts as ``attn_block_bwd`` (fp32) or
-    ``attn_block_bwd_bf16``."""
+    GN parameters fp32. fp32 at a shape ``bwd_small_takes`` runs one launch
+    a sample and counts as ``attn_block_bwd_small``; other fp32 shapes
+    count as ``attn_block_bwd``, bf16 as ``attn_block_bwd_bf16``."""
     if x.device.type == "cpu":
         return attn_block_bwd_reference(x, ct, gn_scale, gn_bias, w_qkv,
                                         b_qkv, w_proj, num_heads, eps)
@@ -500,6 +543,9 @@ def attn_block_bwd(x, ct, gn_scale, gn_bias, w_qkv, b_qkv, w_proj,
             ("w_qkv", w_qkv, (C, 3 * C), dt), ("b_qkv", b_qkv, (3 * C,), dt),
             ("w_proj", w_proj, (C, C), dt)):
         _lib.require(t, name, shape, dtype=dtype, device=dev)
+    if bwd_small_takes(S, C, nh, dt):
+        return _attn_block_bwd_small(x, ct, gn_scale, gn_bias, w_qkv, b_qkv,
+                                     w_proj, nh, eps)
     M = B * S
     splits = max(1, min(BWD_MAX_SLICES, M // BWD_ROWS_PER_SLICE))
     chunks = -(-M // BWD_ROWS_PER_CHUNK)

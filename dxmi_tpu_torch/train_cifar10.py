@@ -27,8 +27,9 @@ weights are absent, not ported yet where the JAX entry would compute it. The
 run directory ``results/<data.name>/<config name>/<run>`` gets ``config.yaml``
 and, at the end, ``sampler_last.pth`` and ``value_last.pth`` in the
 reference's format, which ``generate_cifar10 --sampler last`` reads. Not
-ported yet (they raise): ``--resume``, ``--wandb``, ``training.n_critic``
-other than 1 and msgpack checkpoints.
+ported yet (they raise): ``--resume``, ``--wandb`` and ``training.n_critic``
+other than 1. ``training.sampler_ckpt`` and ``value_ckpt`` may be flax
+``.msgpack`` files of the JAX package or reference ``.pth`` files.
 """
 from __future__ import annotations
 
@@ -93,10 +94,7 @@ def build(cfg: Dict[str, Any], device: torch.device, seed: int,
     sampler = instantiate(cfg["sampler"], net=net)
     path = tr.get("sampler_ckpt")
     if path and os.path.exists(path):
-        if path.endswith(".msgpack"):
-            raise NotImplementedError("sampler_ckpt: msgpack checkpoints are "
-                                      "not readable by the port yet")
-        load_sampler_into(sampler, load_sampler_state(path))
+        load_sampler_into(sampler, load_sampler_state(path, net="unet_small"))
         print(f"Sampler checkpoint loaded from {path}", flush=True)
     elif path:
         print(f"WARNING: sampler ckpt {path} not found; training from "

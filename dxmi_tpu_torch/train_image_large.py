@@ -11,8 +11,10 @@ with the port (``train_image_large.py:100-306``): UNetADM + EDMSampler +
         [--device cuda|cpu] [--any.dot.key value ...]
 
 The net keeps fp32 master parameters and computes in its config's dtype
-(bf16 under ``use_fp16``). Without ``training.pretrained_path`` on disk the
-net's weights are drawn from ``training.seed`` (``seeded_normal_``). The run
+(bf16 under ``use_fp16``). ``training.pretrained_path`` is a flax
+``.msgpack`` file of the JAX package (``load_sampler_params``'s layouts) or
+a reference ``.pth``; without it on disk the net's weights are drawn from
+``training.seed`` (``seeded_normal_``) after the JAX entry's WARNING. The run
 directory ``results/<data.name>/<config name>/<run>`` gets ``config.yaml``
 and, at the end, ``sampler_last.pth`` and ``value_last.pth`` in the
 reference's format, which ``generate_large --sampler last`` reads. Each
@@ -66,7 +68,7 @@ def build_sampler(cfg: Dict[str, Any], device: torch.device, seed: int,
     sampler.to(device)
     path = cfg["training"].get("pretrained_path")
     if path and os.path.exists(path):
-        load_sampler_into(sampler, load_sampler_state(path))
+        load_sampler_into(sampler, load_sampler_state(path, net="unet_adm"))
         print(f"pretrained EDM loaded from {path}", flush=True)
     else:
         if path:

@@ -1,42 +1,77 @@
-"""Run-directory checkpoints in the reference's PyTorch format.
+"""Run-directory checkpoints: the reference's PyTorch format and the JAX
+package's flax msgpack files.
 
-The run directory holds ``config.yaml``, ``sampler_{best,last}.pth`` and
-``value_{best,last}.pth``; ``resolve_run_checkpoint`` looks a checkpoint up in
-the JAX package's order, which puts flax msgpack files first (loading those
-is not ported yet).
-``save_run_checkpoint`` writes the ``{'state_dict': ...}`` files that the
-reference and ``load_sampler_state`` / ``load_value_state`` read; the full
-train state (optimizers, resume) is not ported yet.
+The run directory holds ``config.yaml``, ``sampler_{best,last}`` and
+``value_{best,last}`` checkpoints; ``resolve_run_checkpoint`` looks one up
+in the JAX package's order, which puts flax msgpack files first.
+``load_sampler_state`` and ``load_value_state`` read either format: a
+``.msgpack`` file through the port's own reader (``utils/msgpack.py``) and
+the flax-to-port converters (``utils/convert.py``), in every layout that
+the JAX package's ``load_sampler_params`` accepts; a ``.pth``/``.pt`` file
+through ``torch.load``. ``save_run_checkpoint`` writes the
+``{'state_dict': ...}`` files of the reference; the full train state
+(optimizers, resume) is not ported yet.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from dxmi_tpu_torch.utils import convert, msgpack
 
 
 def resolve_run_checkpoint(log_dir: str, name: str, which: str) -> str:
     """The first of ``{name}_{which}.msgpack``, ``{name}.msgpack``,
     ``{name}_{which}.pth``, ``{name}.pth``, ``{name}_{which}.pt`` and
     ``{name}.pt`` that exists, the order of the JAX package's
-    ``resolve_run_checkpoint``. The port cannot read msgpack yet, so a
-    msgpack file that ranks first raises, naming it, rather than resolving
-    to another checkpoint than the JAX entries would."""
+    ``resolve_run_checkpoint``."""
     names = (f"{name}_{which}.msgpack", f"{name}.msgpack",
              f"{name}_{which}.pth", f"{name}.pth", f"{name}_{which}.pt",
              f"{name}.pt")
     for cand in names:
         path = os.path.join(log_dir, cand)
-        if not os.path.exists(path):
-            continue
-        if cand.endswith(".msgpack"):
-            raise NotImplementedError(
-                f"{path}: msgpack checkpoints are not readable by the port "
-                "yet (the JAX entries would load this file)")
-        return path
+        if os.path.exists(path):
+            return path
     raise FileNotFoundError(f"no {name} checkpoint in {log_dir} (tried "
                             f"{', '.join(names)})")
+
+
+def load_flax_checkpoint(path: str) -> Any:
+    """A flax msgpack file (``save_checkpoint``'s ``{'params', 'meta'}``
+    payload, or any tree ``msgpack_serialize`` wrote) as a tree of dicts,
+    lists, scalars and numpy arrays."""
+    return msgpack.read(path)
+
+
+# the converters of a net's flax params and of a sampler's
+# ``{'net', 'log_betas'}`` params, by net
+_FLAX_NETS = {
+    "unet_small": (convert.unet_small_from_flax,
+                   convert.var_sampler_from_flax),
+    "unet_adm": (convert.unet_adm_from_flax, convert.edm_sampler_from_flax),
+}
+
+
+def sampler_state_from_flax(tree: Dict[str, Any], net: str
+                            ) -> Dict[str, torch.Tensor]:
+    """A sampler state dict from a flax checkpoint tree in any layout of
+    the JAX package's ``load_sampler_params``: a run-dir payload
+    ``{'params': ..., 'meta': ...}``, a bare sampler tree ``{'net',
+    'log_betas'}`` or a bare net tree (then ``log_betas`` is left out, and
+    the sampler keeps its own, as JAX keeps ``current``'s). ``net`` names the
+    network: ``unet_small`` (VARSampler) or ``unet_adm`` (EDMSampler)."""
+    net_fn, sampler_fn = _FLAX_NETS[net]
+    tree = tree.get("params", tree)
+    if "net" not in tree:
+        return {f"net.{k}": v for k, v in net_fn(tree).items()}
+    extra = sorted(set(tree) - {"net", "log_betas"})
+    if extra:
+        raise KeyError(f"sampler params: unexpected entries {extra}")
+    if "log_betas" in tree:
+        return sampler_fn(tree)
+    return {f"net.{k}": v for k, v in net_fn(tree["net"]).items()}
 
 
 def _state_dict_of(path: str) -> Dict[str, torch.Tensor]:
@@ -48,9 +83,13 @@ def _state_dict_of(path: str) -> Dict[str, torch.Tensor]:
 
 
 def load_value_state(path: str) -> Dict[str, torch.Tensor]:
-    """A reference value checkpoint (``TimeIndependentValue`` state dict,
-    keys ``net.*``) as a state dict of the port's ``TimeIndependentValue``;
-    containers and ``module.`` prefixes are unwrapped."""
+    """A value checkpoint as a state dict of the port's
+    ``TimeIndependentValue``: a flax msgpack file (``{'params': {'net':
+    ...}}`` or ``{'net': ...}``) through ``value_from_flax``, or a reference
+    ``value.pth`` (keys ``net.*``), containers and ``module.`` prefixes
+    unwrapped."""
+    if path.endswith(".msgpack"):
+        return convert.value_from_flax(load_flax_checkpoint(path))
     return {k.replace("module.", ""): v
             for k, v in _state_dict_of(path).items()}
 
@@ -70,12 +109,22 @@ def save_run_checkpoint(log_dir: str, which: str, sampler, value,
                    os.path.join(log_dir, f"{name}_{which}.pth"))
 
 
-def load_sampler_state(path: str) -> Dict[str, torch.Tensor]:
-    """A reference sampler checkpoint as a state dict of the port's
-    ``VARSampler``: network weights under ``net.``, plus ``log_betas`` when
-    the file has them. Container keys (``state_dict``/``model``/``ema``) and
-    ``module.`` prefixes are unwrapped; the reference's ``std`` buffer is
-    dropped (the port pins the last sigma itself)."""
+def load_sampler_state(path: str, net: Optional[str] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """A sampler checkpoint as a state dict of the port's sampler: network
+    weights under ``net.``, plus ``log_betas`` when the file has them. A
+    ``.msgpack`` file goes through ``sampler_state_from_flax`` with ``net``
+    (``unet_small`` or ``unet_adm``, required for such a file), as the JAX
+    entries load a path ending in ``.msgpack`` with ``load_sampler_params``.
+    Otherwise a reference
+    PyTorch checkpoint: container keys (``state_dict``/``model``/``ema``)
+    and ``module.`` prefixes are unwrapped, and the reference's ``std``
+    buffer is dropped (the port pins the last sigma itself)."""
+    if path.endswith(".msgpack"):
+        if net not in _FLAX_NETS:
+            raise ValueError(f"{path}: a flax checkpoint needs net= one of "
+                             f"{sorted(_FLAX_NETS)}, got {net!r}")
+        return sampler_state_from_flax(load_flax_checkpoint(path), net)
     out = {}
     for key, val in _state_dict_of(path).items():
         key = key.replace("module.", "")

@@ -6,19 +6,24 @@ fixture's ``sampler.pth``, each with one key renamed, raise ``KeyError``
 checkpoint missing only ``log_betas`` still loads.
 
 The generation entries' run-dir lookup (``resolve_run_checkpoint``) walks
-the JAX package's order on each run-dir layout: it resolves the file JAX
-resolves, or raises where JAX would load a msgpack file the port cannot
-read yet, naming that file."""
+the JAX package's order on each run-dir layout and resolves the file JAX
+resolves; a msgpack file it resolves loads to the weights JAX loads. So
+does a msgpack ``sampler_ckpt`` in ``train_cifar10.build``."""
 import os
 
+import jax
+import numpy as np
 import pytest
 import torch
+from flax import serialization
 
 import chip_smoke
 from dxmi_tpu.utils import checkpoint as jax_checkpoint
+from dxmi_tpu.utils import convert as jax_convert
 from dxmi_tpu_torch import train_cifar10, train_image_large
 from dxmi_tpu_torch.utils.checkpoint import (load_sampler_state,
                                              resolve_run_checkpoint)
+from dxmi_tpu_torch.utils.convert import var_sampler_from_flax
 
 
 def _cifar_cfg(path):
@@ -91,11 +96,31 @@ LAYOUTS = {
 }
 
 
+def _narrow_sampler_payload():
+    """A narrow UNetSmall sampler as the JAX package writes it: the CIFAR
+    fixture's ``sampler_best.pth`` converted by ``convert_unet_small`` into
+    ``save_checkpoint``'s ``{'params': {'net', 'log_betas'}, 'meta'}``."""
+    state = jax_checkpoint.load_torch_checkpoint(
+        os.path.join(chip_smoke.FIXTURE_DIR, "sampler_best.pth"))
+    state.pop("__meta__")
+    out = jax_convert.convert_unet_small(state)
+    return {"params": {"net": out["params"], "log_betas": out["log_betas"]},
+            "meta": {"epoch": 3, "fid": 12.5}}
+
+
+def _jax_loaded(path):
+    """The sampler params JAX's ``load_sampler_params`` reads from ``path``,
+    as the port's state dict."""
+    return var_sampler_from_flax(jax.tree.map(
+        np.array, jax_checkpoint.load_sampler_params(str(path))))
+
+
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 def test_run_dir_lookup_follows_jax(tmp_path, layout):
     files, (name, which) = LAYOUTS[layout]
+    blob = serialization.msgpack_serialize(_narrow_sampler_payload())
     for f in files:
-        (tmp_path / f).write_bytes(b"")
+        (tmp_path / f).write_bytes(blob if f.endswith(".msgpack") else b"")
     try:
         want, fmt = jax_checkpoint.resolve_run_checkpoint(str(tmp_path), name,
                                                           which)
@@ -103,9 +128,26 @@ def test_run_dir_lookup_follows_jax(tmp_path, layout):
         with pytest.raises(FileNotFoundError):
             resolve_run_checkpoint(str(tmp_path), name, which)
         return
+    got = resolve_run_checkpoint(str(tmp_path), name, which)
+    assert got == want
     if fmt == "msgpack":
-        with pytest.raises(NotImplementedError,
-                           match=os.path.basename(want)):
-            resolve_run_checkpoint(str(tmp_path), name, which)
-    else:
-        assert resolve_run_checkpoint(str(tmp_path), name, which) == want
+        state = load_sampler_state(got, net="unet_small")
+        ref = _jax_loaded(got)
+        assert sorted(state) == sorted(ref)
+        assert all(torch.equal(state[k], ref[k]) for k in ref)
+
+
+def test_train_cifar10_loads_msgpack_sampler_ckpt(tmp_path):
+    """``train_cifar10.build`` with a msgpack ``sampler_ckpt`` holds the
+    weights JAX's entry loads from it (``load_sampler_params``), which are
+    the fixture's own."""
+    path = tmp_path / "sampler.msgpack"
+    path.write_bytes(serialization.msgpack_serialize(
+        _narrow_sampler_payload()))
+    sampler = train_cifar10.build(_cifar_cfg(path), torch.device("cpu"), 0)[0]
+    got = sampler.state_dict()
+    ref = _jax_loaded(path)
+    assert all(torch.equal(got[k], ref[k]) for k in ref)
+    pth = load_sampler_state(os.path.join(chip_smoke.FIXTURE_DIR,
+                                          "sampler_best.pth"))
+    assert all(torch.equal(got[k], pth[k].float()) for k in pth)

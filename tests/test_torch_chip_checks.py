@@ -588,6 +588,41 @@ def test_attn_bwd_check(dtype, fault):
             attn_bwd_check(outs, refs, dtype, "replica")
 
 
+@pytest.mark.parametrize("fault", [None, "dropped_sample", "sample_twice"])
+def test_k6_fp32_gate_sees_partial_faults(fault):
+    """K6 fp32's one-launch route sums per-sample partials of the parameter
+    cotangents in a second launch. The replica built that way (each sample's
+    cotangents alone, then summed in sample order) passes the fp32 gate at
+    E5's map (S = 64, C = 64, nh 2, batch 8); with one sample's share of
+    dW_qkv dropped, or every partial summed with one sample twice, it
+    fails."""
+    from chip_smoke import attn_bwd_check
+    from dxmi_tpu_torch.ops.attn_block import attn_block_bwd_reference
+
+    B, S, C, nh = 8, 64, 64, 2
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(B, S, C, generator=g) * 2 + 0.5
+    ct = torch.randn(B, S, C, generator=g) + 0.5
+    _, gs, gb, wq, bq, wp, _ = (t.float() for t in _attn_inputs(S, C, 22))
+    refs = attn_block_bwd_reference(x, ct, gs, gb, wq, bq, wp, nh)
+    parts = [_attn_bwd_replica(x[b:b + 1], ct[b:b + 1], gs, gb, wq, bq, wp,
+                               nh) for b in range(B)]
+    order = list(range(B)) + ([3] if fault == "sample_twice" else [])
+    sums = []
+    for i in range(1, 7):
+        acc = torch.zeros_like(parts[0][i])
+        for b in order:
+            if not (fault == "dropped_sample" and i == 3 and b == 5):
+                acc = acc + parts[b][i]
+        sums.append(acc)
+    outs = (torch.cat([p[0] for p in parts]), *sums)
+    if fault is None:
+        attn_bwd_check(outs, refs, torch.float32, "replica")
+    else:
+        with pytest.raises(AssertionError):
+            attn_bwd_check(outs, refs, torch.float32, "replica")
+
+
 def _mean_rels(outs, refs):
     return [((a.float() - b.float()).abs().mean()
              / b.float().abs().mean()).item() for a, b in zip(outs, refs)]

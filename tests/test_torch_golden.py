@@ -166,19 +166,35 @@ def test_generate_cli_streams_the_in_process_samples(tmp_path):
 def test_generate_cli_int8_not_ported(tmp_path):
     """--int8 is ported (tests/test_torch_cifar_int8_golden.py), and so is a
     bf16 torso without it (tests/test_torch_cifar_bf16_golden.py): both run.
-    What the CLI still lacks, msgpack checkpoints, raises before any
-    sampling where the JAX entry would load one, naming the file."""
+    So are msgpack run dirs: a ``sampler_best.msgpack`` beside the
+    ``.pth``, written as the JAX package writes one from the fixture's
+    weights, is the file the CLI loads (JAX's order), and it samples what
+    the ``.pth`` samples."""
+    from dxmi_tpu.utils import checkpoint as jax_checkpoint
+    from dxmi_tpu.utils import convert as jax_convert
+
     proc = _cifar_cli("--dtype", "bf16")
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "generated 4 samples" in proc.stdout
     shutil.copy(os.path.join(FIXTURE, "config.yaml"), tmp_path)
     shutil.copy(os.path.join(FIXTURE, "sampler_best.pth"), tmp_path)
-    (tmp_path / "sampler_best.msgpack").write_bytes(b"")
-    proc = subprocess.run(
-        [sys.executable, "-m", "dxmi_tpu_torch.generate_cifar10",
-         "--log_dir", str(tmp_path), "--n_generate", "4", "--batchsize", "2",
-         "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
-        timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
-    assert proc.returncode != 0
-    assert "not readable by the port yet" in proc.stderr
-    assert "sampler_best.msgpack" in proc.stderr
+    state = jax_checkpoint.load_torch_checkpoint(
+        os.path.join(FIXTURE, "sampler_best.pth"))
+    state.pop("__meta__")
+    out = jax_convert.convert_unet_small(state)
+    jax_checkpoint.save_checkpoint(
+        str(tmp_path / "sampler_best.msgpack"),
+        {"net": out["params"], "log_betas": out["log_betas"]})
+    runs = []
+    for log_dir, name in ((tmp_path, "msgpack"), (FIXTURE, "pth")):
+        npz = tmp_path / f"{name}.npz"
+        proc = subprocess.run(
+            [sys.executable, "-m", "dxmi_tpu_torch.generate_cifar10",
+             "--log_dir", str(log_dir), "--n_generate", "4", "--batchsize",
+             "2", "--device", "cpu", "--save_npz", str(npz)], cwd=REPO,
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=REPO))
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        runs.append((proc.stdout, np.load(npz)["arr_0"]))
+    assert "sampler_best.msgpack" in runs[0][0]
+    assert np.array_equal(runs[0][1], runs[1][1])

@@ -21,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CONV_SHAPES, TOL, attn_bf16_check, attn_i8_check,
+from chip_smoke import (CONV_SHAPES, K6_PAST_SMALL, K6_SMALL_SHAPES, TOL,
+                        attn_bf16_check, attn_i8_check,
                         calibrated_attn_scales, conv_bf16_check, flash_check,
                         flash_lse_check, gn_route_edges)
 from dxmi_tpu_torch.ops import _lib
@@ -712,6 +713,20 @@ def test_attn_block_backward(card, B, S, C, nh, dtype):
                                                   attn_block_bwd(*args, nh)))
 
 
+@pytest.mark.parametrize("B,S,C,nh", K6_SMALL_SHAPES + K6_PAST_SMALL)
+def test_attn_block_backward_fp32_routes(card, B, S, C, nh):
+    """K6 fp32 under its gate and bit-equal on replay, on the one-launch
+    route inside its limit (S = 64, C <= 64) and on the multi-launch route
+    past it, each call counted on its own route."""
+    from chip_smoke import k6_fp32_route_check
+    from dxmi_tpu_torch.ops.attn_block import bwd_small_takes
+
+    gen = torch.Generator(device=card).manual_seed(7)
+    assert bwd_small_takes(S, C, nh, torch.float32) == (
+        (B, S, C, nh) in K6_SMALL_SHAPES)
+    k6_fp32_route_check(gen, B, S, C, nh)
+
+
 def test_tensor_core_backward_replays_bit_equal(card):
     """K4-dkv (di, dk and dv), K4-dq (dq) and K6 in bf16 at the 32x32
     map's widths: each replay equals the first call bit for bit (every sum
@@ -769,7 +784,7 @@ def test_fused_train_autograd_matches_plain_autograd(card):
     for x, y in zip(ga, gb):
         torch.testing.assert_close(x, y, rtol=5e-4, atol=5e-4)
     assert _lib.LAUNCHES["attn_block"] == 1
-    assert _lib.LAUNCHES["attn_block_bwd"] == 1
+    assert _lib.LAUNCHES["attn_block_bwd_small"] == 1
 
 
 def test_group_norm_autograd(card):
