@@ -31,6 +31,11 @@ _ALIASES: Dict[str, str] = {
         "dxmi_tpu_torch.samplers.var.VARSampler",
     "models.DxMI.var_sampler.VARSampler":
         "dxmi_tpu_torch.samplers.var.VARSampler",
+    "dxmi_tpu.models.ncsnpp.NCSNpp": "dxmi_tpu_torch.models.ncsnpp.NCSNpp",
+    "dxmi_tpu.models.ncsnpp.NCSNppArgs":
+        "dxmi_tpu_torch.models.ncsnpp.NCSNppArgs",
+    "dxmi_tpu.samplers.ddgan.DDGANSampler":
+        "dxmi_tpu_torch.samplers.ddgan.DDGANSampler",
     "dxmi_tpu.trainers.dxmi.DxMITrainer":
         "dxmi_tpu_torch.trainers.dxmi.DxMITrainer",
     "models.DxMI.trainer.DxMI_Trainer":

@@ -13,14 +13,17 @@ draws ``N`` samples in batches of ``B``. ``--save_npz`` streams them batch by
 batch as uint8 NHWC into ``arr_0``, the evaluator's format, so the host never
 holds all N.
 
-``--int8`` samples with W8A8 static int8 convs (K8: every ResnetBlock conv,
-the stride-2 Downsample convs, the Upsample convs and the attention 1x1s)
-after calibrating their activation scales on two rounds of 64
+The network follows the config's ``sampler_net._target_``: UNetSmall
+(VARSampler, T=10) or the DDGAN generator NCSN++ (DDGANSampler, T=4,
+``configs/cifar10/T4_ddgan.yaml``). ``--int8`` samples with W8A8 static
+int8 convs (K8: every ResnetBlock conv, the stride-2 Downsample convs, the
+Upsample convs and the attention 1x1s of UNetSmall; every ResBlock conv and
+shortcut of NCSN++, whose attention 1x1s stay out of int8 as the JAX entry
+keeps them) after calibrating their activation scales on two rounds of 64
 full-precision trajectories from a generator seeded with ``seed + 123``, as
-the JAX entry does (``generate_cifar10.py:149-187``). ``--dtype bf16`` runs
-the net in bf16 (parameters stay fp32); without ``--int8`` it raises, since
-the port's fused layers have no bf16 form at this width yet (K3 with bf16
-activations, K2 in bf16 at d = 256). GroupNorm statistics are the JAX
+the JAX entry does (``generate_cifar10.py:149-187``). ``--dtype`` is the
+net's compute dtype (parameters stay fp32): by default bf16 for NCSN++ and
+fp32 otherwise, as in the JAX entry. GroupNorm statistics are the JAX
 entry's default (two-pass fp32). Not ported yet: PNG writing, FID and
 ``--guidance_scale``.
 
@@ -45,7 +48,7 @@ from dxmi_tpu_torch.models.unet_small import QUANT_SCALE_NAMES, UNetSmall
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.samplers.var import VARSampler
 from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
-                                             load_sampler_state,
+                                             load_sampler_state, net_kind,
                                              resolve_run_checkpoint)
 from dxmi_tpu_torch.utils.npz_stream import NpzStreamWriter
 
@@ -55,23 +58,34 @@ CALIB_SEED_OFFSET, CALIB_N_SAMPLE, CALIB_N_ROUNDS = 123, 64, 2
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
+def default_dtype(cfg: Dict[str, Any]) -> str:
+    """The JAX entry's compute dtype when ``--dtype`` is not given: bf16 for
+    the DDGAN family (NCSN++), fp32 otherwise."""
+    return ("bf16" if net_kind(cfg["sampler_net"].get("_target_")) == "ncsnpp"
+            else "fp32")
+
+
 def load_sampler(cfg: Dict[str, Any],
                  state_dict: Optional[Dict[str, torch.Tensor]],
                  device: str = "cuda", seed: int = 0, int8: bool = False,
-                 dtype: str = "fp32", **net_overrides: Any) -> VARSampler:
-    """The config's sampler on ``device`` in eval mode. ``state_dict`` is a
-    ``VARSampler`` state dict (``log_betas`` and the activation scales of
+                 dtype: Optional[str] = None, **net_overrides: Any
+                 ) -> nn.Module:
+    """The config's sampler on ``device`` in eval mode. ``state_dict`` is
+    the sampler's state dict (``log_betas`` and the activation scales of
     int8 layers may be missing: the schedule's initial sigmas stay); None
-    keeps random weights drawn from ``seed``. ``dtype`` ('fp32' or 'bf16')
-    is the network's compute dtype; ``int8`` builds it with
-    ``quant_int8='static'`` and calibrates it (``CALIB_*``, from a generator
+    keeps random weights drawn from ``seed``. ``dtype`` ('fp32' or 'bf16';
+    None: ``default_dtype``) is the network's compute dtype; ``int8``
+    builds it with ``quant_int8='static'`` (NCSN++ also with
+    ``quant_skip_attn``) and calibrates it (``CALIB_*``, from a generator
     seeded with ``seed + CALIB_SEED_OFFSET``), as the JAX entry's
     ``--int8``."""
     dev = select_device(device)
     torch.manual_seed(seed)
-    net_kw = dict(dtype=DTYPES[dtype])
+    net_kw = dict(dtype=DTYPES[dtype or default_dtype(cfg)])
     if int8:
         net_kw["quant_int8"] = "static"
+        if net_kind(cfg["sampler_net"].get("_target_")) == "ncsnpp":
+            net_kw["quant_skip_attn"] = True
     net = instantiate(cfg["sampler_net"], **net_kw, **net_overrides)
     sampler = instantiate(cfg["sampler"], net=net)
     if state_dict is not None:
@@ -167,7 +181,7 @@ def stream_samples(sampler: nn.Module, n: int, batchsize: int, seed: int,
 def generate(cfg: Dict[str, Any],
              state_dict: Optional[Dict[str, torch.Tensor]], n: int,
              batchsize: int, device: str = "cuda", seed: int = 0,
-             int8: bool = False, dtype: str = "fp32",
+             int8: bool = False, dtype: Optional[str] = None,
              **net_overrides: Any) -> torch.Tensor:
     """Build the config's sampler, load ``state_dict`` (None: random weights
     from ``seed``), calibrate it when ``int8``, and return ``n`` samples
@@ -194,15 +208,20 @@ def main() -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--int8", action="store_true")
-    p.add_argument("--dtype", default="fp32", choices=sorted(DTYPES))
+    p.add_argument("--dtype", default=None, choices=sorted(DTYPES))
     args = p.parse_args()
 
     cfg = load_yaml(os.path.join(args.log_dir, "config.yaml"))
     path = resolve_run_checkpoint(args.log_dir, "sampler", args.sampler)
     print(f"sampler loaded from {path}", flush=True)
     t0 = time.perf_counter()
-    sampler = load_sampler(cfg, load_sampler_state(path, net="unet_small"), args.device,
-                           args.seed, args.int8, args.dtype)
+    kind = net_kind(cfg["sampler_net"].get("_target_"))
+    dtype = args.dtype or default_dtype(cfg)
+    if args.dtype is None and dtype != "fp32":
+        print(f"{dtype} compute torso (params fp32; --dtype fp32 opts out)",
+              flush=True)
+    sampler = load_sampler(cfg, load_sampler_state(path, net=kind),
+                           args.device, args.seed, args.int8, dtype)
     if args.int8:
         print("int8: static activation scales calibrated", flush=True)
     n = stream_samples(sampler, args.n_generate, args.batchsize, args.seed,

@@ -380,7 +380,53 @@ class Upsample(Int8Layer, nn.Module):
         return _conv(self.conv, x) if hasattr(self, "conv") else x
 
 
-class UNetSmall(nn.Module):
+class NetControls:
+    """The calibration and dropout controls of a net, mixed in before its
+    ``nn.Module`` base; the net sets ``self.dropout_masks`` (a
+    ``DropoutMasks`` its ``Dropout`` layers share)."""
+
+    def _int8_layers(self):
+        return [m for m in self.modules() if isinstance(m, Int8Layer)]
+
+    def set_calibrating(self, on: bool) -> None:
+        """Switch every static int8 layer into (or out of) calibration:
+        full-precision forwards that record activation scales. Switching it
+        on drops the weights that ``prepare_int8`` quantised."""
+        for m in self._int8_layers():
+            m.calibrating = on
+            if on:
+                m.clear_int8()
+
+    def reset_quant_scales(self) -> None:
+        """Zero every calibrated activation scale (an uncalibrated net)."""
+        for name, buf in self.named_buffers():
+            if name.endswith(QUANT_SCALE_NAMES):
+                buf.zero_()
+
+    def prepare_int8(self) -> None:
+        """Quantise the int8 layers' weights with the current scales once,
+        so that forwards reuse them; call again after changing either in
+        place."""
+        for m in self._int8_layers():
+            m.prepare_int8()
+
+    def inject_dropout_masks(self, masks: Optional[Sequence[torch.Tensor]]
+                             ) -> None:
+        """Replay ``masks`` (bool keep masks, NCHW, one per ResnetBlock in
+        call order: encoder, middle, decoder) in the training-mode forwards
+        that follow; None draws masks again."""
+        self.dropout_masks.queue = (None if masks is None
+                                    else collections.deque(masks))
+
+    def record_dropout_masks(self, on: bool = True) -> list:
+        """Keep the masks that dropout draws from now on (``on``) in the
+        list returned, in call order; ``on=False`` stops and returns them."""
+        got = self.dropout_masks.record
+        self.dropout_masks.record = [] if on else None
+        return self.dropout_masks.record if on else (got or [])
+
+
+class UNetSmall(NetControls, nn.Module):
     """DDPM CIFAR U-Net. ``forward(x_nchw, t) -> eps_nchw`` fp32
     (channels_last).
 
@@ -479,46 +525,6 @@ class UNetSmall(nn.Module):
 
         self.norm_out = GroupNorm32(cur, gn_stats)
         self.conv_out = nn.Conv2d(cur, out_ch, 3, padding=1)
-
-    def _int8_layers(self):
-        return [m for m in self.modules() if isinstance(m, Int8Layer)]
-
-    def set_calibrating(self, on: bool) -> None:
-        """Switch every static int8 layer into (or out of) calibration:
-        full-precision forwards that record activation scales. Switching it
-        on drops the weights that ``prepare_int8`` quantised."""
-        for m in self._int8_layers():
-            m.calibrating = on
-            if on:
-                m.clear_int8()
-
-    def reset_quant_scales(self) -> None:
-        """Zero every calibrated activation scale (an uncalibrated net)."""
-        for name, buf in self.named_buffers():
-            if name.endswith(QUANT_SCALE_NAMES):
-                buf.zero_()
-
-    def prepare_int8(self) -> None:
-        """Quantise the int8 layers' weights with the current scales once,
-        so that forwards reuse them; call again after changing either in
-        place."""
-        for m in self._int8_layers():
-            m.prepare_int8()
-
-    def inject_dropout_masks(self, masks: Optional[Sequence[torch.Tensor]]
-                             ) -> None:
-        """Replay ``masks`` (bool keep masks, NCHW, one per ResnetBlock in
-        call order: encoder, middle, decoder) in the training-mode forwards
-        that follow; None draws masks again."""
-        self.dropout_masks.queue = (None if masks is None
-                                    else collections.deque(masks))
-
-    def record_dropout_masks(self, on: bool = True) -> list:
-        """Keep the masks that dropout draws from now on (``on``) in the
-        list returned, in call order; ``on=False`` stops and returns them."""
-        got = self.dropout_masks.record
-        self.dropout_masks.record = [] if on else None
-        return self.dropout_masks.record if on else (got or [])
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         if x.shape[2] != self.resolution or x.shape[3] != self.resolution:

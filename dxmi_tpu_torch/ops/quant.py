@@ -316,7 +316,7 @@ class QConv(Int8Layer, nn.Conv2d):
     ``static_act=True``: uses the calibrated ``act_scale`` buffer (Cin,),
     zeros until calibrated. While ``calibrating`` is set, each call records
     max(act_scale, calib_channel_scale(x)) and runs the full-precision conv
-    in the input's dtype; otherwise it runs K8 on the cached int8 operands
+    in ``out_dtype``; otherwise it runs K8 on the cached int8 operands
     (``Int8Layer``). ``static_act=False`` quantises each call's x per tensor
     (``int8_conv``).
 
@@ -346,12 +346,16 @@ class QConv(Int8Layer, nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.calibrating and self.static_act:
+            # full precision in the output dtype, the bias added to the
+            # rounded product, as the JAX calibration pass runs it
             record_act_scale(self.act_scale, x)
             (pt, pb), (pl, pr) = self.pads
             if (pt, pl) != (pb, pr):
                 x, pt, pl = F.pad(x, (pl, pr, pt, pb)), 0, 0
-            return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                            self.stride, (pt, pl))
+            dt = self.out_dtype
+            y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
+                         (pt, pl))
+            return y + self.bias.to(dt)[:, None, None]
         nhwc = x.contiguous(memory_format=torch.channels_last).permute(
             0, 2, 3, 1)
         bias = self.bias.float()

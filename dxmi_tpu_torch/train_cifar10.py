@@ -1,5 +1,7 @@
 """DxMI training for CIFAR-10 with the port (``train_cifar10.py:130-379``):
-UNetSmall + VARSampler + ``DxMITrainer``, one iteration being
+UNetSmall + VARSampler (T=10) or the DDGAN generator NCSN++ +
+DDGANSampler (T=4, ``configs/cifar10/T4_ddgan.yaml``, ``value_resample``),
+and ``DxMITrainer``, one iteration being
 
     sample -> update_f_v -> update_sampler
 
@@ -8,9 +10,12 @@ UNetSmall + VARSampler + ``DxMITrainer``, one iteration being
         [--max_steps N] [--attn_impl fused|einsum] [--fuse_gn_conv true|false] \
         [--fast_levers] [--device cuda|cpu] [--any.dot.key value ...]
 
-The sampler net runs fp32 through the generation defaults: fused attention
-(K2, or K7 under ``DXMI_FUSED_ATTN_BB`` > 1) and K3 for each GN+SiLU+conv
-whose dropout is inactive. ``--fast_levers`` (or ``DXMI_TRAIN_LEVERS=1``)
+The sampler net runs fp32. UNetSmall takes the generation defaults: fused
+attention (K2, or K7 under ``DXMI_FUSED_ATTN_BB`` > 1) and K3 for each
+GN+SiLU+conv whose dropout is inactive (``--attn_impl`` and
+``--fuse_gn_conv`` are its options); NCSN++ runs its GroupNorms through K1
+and has none of these options, nor the levers (``--fast_levers`` raises
+there, as the JAX entry fails on NCSN++). ``--fast_levers`` (or ``DXMI_TRAIN_LEVERS=1``)
 applies the JAX entry's overrides (``train_cifar10.py:164-174``,
 ``LEVER_NET``, ``LEVER_VALUE_NET``): the sampler net in bf16 with the bf16
 softmax without its max pass, the phase upsample and ``bf16_onepass``
@@ -29,7 +34,10 @@ and, at the end, ``sampler_last.pth`` and ``value_last.pth`` in the
 reference's format, which ``generate_cifar10 --sampler last`` reads. Not
 ported yet (they raise): ``--resume``, ``--wandb`` and ``training.n_critic``
 other than 1. ``training.sampler_ckpt`` and ``value_ckpt`` may be flax
-``.msgpack`` files of the JAX package or reference ``.pth`` files.
+``.msgpack`` files of the JAX package or reference ``.pth`` files; an
+NCSN++ ``sampler_ckpt`` must be ``.msgpack`` (``runs_conv/
+pre_ddgan800.msgpack``): there is no reference layout to convert from, and
+a ``.pth`` one raises, as in the JAX entry (``train_cifar10.py:86-96``).
 """
 from __future__ import annotations
 
@@ -49,7 +57,7 @@ from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.trainers.dxmi import DxMITrainer, train_step
 from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
                                              load_sampler_state,
-                                             load_value_state,
+                                             load_value_state, net_kind,
                                              save_run_checkpoint)
 
 # the Inception weights and CIFAR-10 statistics that maybe_compute_fid looks
@@ -87,14 +95,28 @@ def build(cfg: Dict[str, Any], device: torch.device, seed: int,
     weights drawn from ``seed``; the optimizers; the auto-chunk rule.
     ``levers``: the nets get ``LEVER_NET`` and ``LEVER_VALUE_NET``."""
     tr = cfg["training"]
-    torch.manual_seed(seed)
-    net = instantiate(cfg["sampler_net"], attn_impl=attn_impl,
-                      fuse_gn_conv=fuse_gn_conv,
+    kind = net_kind(cfg["sampler_net"].get("_target_"))
+    if kind == "ncsnpp":
+        if levers:
+            raise ValueError("--fast_levers: the levers are UNetSmall's "
+                             "options (softmax_f32, softmax_nomax, up_impl); "
+                             "NCSNpp has none of them")
+        net_kw = {}
+    else:
+        net_kw = dict(attn_impl=attn_impl, fuse_gn_conv=fuse_gn_conv,
                       **(LEVER_NET if levers else {}))
+    torch.manual_seed(seed)
+    net = instantiate(cfg["sampler_net"], **net_kw)
     sampler = instantiate(cfg["sampler"], net=net)
     path = tr.get("sampler_ckpt")
     if path and os.path.exists(path):
-        load_sampler_into(sampler, load_sampler_state(path, net="unet_small"))
+        if kind == "ncsnpp" and not path.endswith(".msgpack"):
+            raise SystemExit(
+                f"sampler_ckpt {path}: no converter for the DDGAN NCSN++ "
+                "from a PyTorch checkpoint (the reference ships no module "
+                "for it, so the JAX package's NCSNpp has its own layout); "
+                "train from scratch, or load a JAX package .msgpack file")
+        load_sampler_into(sampler, load_sampler_state(path, net=kind))
         print(f"Sampler checkpoint loaded from {path}", flush=True)
     elif path:
         print(f"WARNING: sampler ckpt {path} not found; training from "

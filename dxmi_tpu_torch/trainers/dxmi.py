@@ -7,7 +7,10 @@ and CIFAR-10 configs reach with ``value_update_order='backward'``.
 the terminal timestep (with the ``gamma`` square penalty), then the TD sweep
 backward in time, one optimizer step per timestep, in order: the sweep stays
 sequential, as the reference's semantics need (``dxmi.py:6-10``), with the
-``value_grad_clip`` scaling to global norm 0.1.
+``value_grad_clip`` scaling to global norm 0.1. With ``value_resample`` each
+sweep step re-runs the policy step on its states, the net in training mode
+and without gradient, and its sample and sigma take the place of the
+trajectory's next state and sigma (``dxmi.py:475-488``).
 
 ``train_step`` composes one iteration as ``_train_step_impl`` does
 (``dxmi.py:303-336``): sample a trajectory (``sample_chunked``), the buffer,
@@ -19,13 +22,15 @@ descends V(x_{t+1}) + (tau2 cost - tau1 log sigma) [t < T - skip_sampler_tau]
 with the sampler optimizer (Adam or RAdam, a separate rate for
 ``log_betas``, optionally the 0.1 global-norm clip and the non-finite guard).
 
-Torch cannot reproduce threefry draws, so the noise of the re-run steps and
-the permutation come from a ``torch.Generator`` or are injected
-(``perm``, ``noise``): the tests replay the JAX trainer's draws that way.
+Torch cannot reproduce threefry draws, so the noise (and DDGAN's latents)
+of the re-run steps and the permutation come from a ``torch.Generator`` or
+are injected (``perm``, ``noise``, ``z``, ``resample``; dropout masks
+through the net's ``inject_dropout_masks``): the tests replay the JAX
+trainer's draws that way.
 Parameters are updated in place; the trainer keeps ``betas_for_q`` and the
 optimizer state. Options that the ImageNet64 and CIFAR-10 configs do not
 set raise ``NotImplementedError`` (see ROADMAP.md): a separate energy ``f``,
-``aug``, ``value_resample``, the ``shuffle`` and ``random`` orders,
+``aug``, the ``shuffle`` and ``random`` orders,
 ``repeat_value_update`` > 1 and spectral-norm value statistics.
 """
 from __future__ import annotations
@@ -74,8 +79,6 @@ class DxMITrainer:
                  sample_chunks: int = 1):
         if value_update_order != "backward":
             raise _not_ported(f"value_update_order={value_update_order!r}")
-        if value_resample:
-            raise _not_ported("value_resample")
         if aug is not None:
             raise _not_ported("aug")
         if int(repeat_value_update) != 1:
@@ -103,6 +106,7 @@ class DxMITrainer:
         self.sigma_scale = sigma_scale
         self.time_cost_sig_center = time_cost_sig_center
         self.sample_chunks = int(sample_chunks)
+        self.value_resample = bool(value_resample)
         self.sampler_grad_clip: Optional[float] = 0.1
         self.nan_guard = False
         self.sampler_optimizer = "adam"
@@ -185,9 +189,15 @@ class DxMITrainer:
     # ---- value / energy update -------------------------------------------
 
     def update_f_v(self, img: torch.Tensor, buffer: TrajectoryBuffer,
-                   y: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                   y: Optional[torch.Tensor] = None,
+                   resample: Optional[Sequence[Dict[str, Any]]] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
         """One value update from the data batch ``img`` (B, C, H, W) and the
-        newest trajectory of ``buffer``; returns the JAX trainer's metrics."""
+        newest trajectory of ``buffer``; returns the JAX trainer's metrics.
+        Under ``value_resample``, ``resample[i]`` holds the keyword draws of
+        the i-th sweep step's policy step (timestep T-1-i: ``noise``, and
+        ``z`` for DDGANSampler), drawn from ``generator`` when None."""
         T = self.n_timesteps
         last = buffer.last()
         state, next_state, sigma = (last.state[0], last.next_state[0],
@@ -217,13 +227,21 @@ class DxMITrainer:
         B = state.shape[1]
         steps: Dict[str, List[torch.Tensor]] = {
             k: [] for k in ("v_loss", "running_cost", "value", "t")}
-        for t in range(T - 1, -1, -1):
+        traj_y = None if last.y is None else last.y[0]
+        for i, t in enumerate(range(T - 1, -1, -1)):
             tvec = torch.full((B,), t, dtype=torch.long, device=state.device)
             with torch.no_grad():
-                cost = self._running_cost(betas, state[t], next_state[t],
-                                          tvec)
-                entropy = self._entropy_of(sigma[t])
-                target = self._v(next_state[t], tvec + 1, y) \
+                s_next, s_sigma = next_state[t], sigma[t]
+                if self.value_resample:
+                    # the policy step again, dropout on (``dxmi.py:475-488``)
+                    d = self.sampler.sample_step(
+                        state[t], tvec, generator=generator, train=True,
+                        y=None if traj_y is None else traj_y[t],
+                        **({} if resample is None else resample[i]))
+                    s_next, s_sigma = d["sample"], d["sigma"]
+                cost = self._running_cost(betas, state[t], s_next, tvec)
+                entropy = self._entropy_of(s_sigma)
+                target = self._v(s_next, tvec + 1, y) \
                     + self._time_cost_terms(tvec)
                 if self.velocity_in_value is not None:
                     nt = (tvec < T - self.velocity_in_value).float()
@@ -257,14 +275,17 @@ class DxMITrainer:
 
     def minibatch_loss(self, flat: Dict[str, torch.Tensor],
                        idx: torch.Tensor, noise: Optional[torch.Tensor],
-                       generator: Optional[torch.Generator] = None):
+                       generator: Optional[torch.Generator] = None,
+                       z: Optional[torch.Tensor] = None):
         """The policy loss of one minibatch of buffer rows ``idx``, with
-        gradients through the re-run step; returns (loss, v_term mean, cost
+        gradients through the re-run step (its ``noise``, and DDGAN's
+        latents ``z``, drawn when None); returns (loss, v_term mean, cost
         mean, causal entropy mean)."""
         T = self.n_timesteps
         s, t = flat["state"][idx], flat["timestep"][idx]
         yb = flat["y"][idx] if "y" in flat else None
-        d = self.sampler.sample_step(s, t, noise, yb, generator, train=True)
+        d = self.sampler.sample_step(s, t, noise, yb, generator, train=True,
+                                     **({} if z is None else {"z": z}))
         cost = self._running_cost(self.betas_for_q.to(s.device), s,
                                   d["sample"], t)
         causal_entropy = torch.log(d["sigma"])
@@ -286,12 +307,14 @@ class DxMITrainer:
                        n_generator: Optional[int] = 1,
                        perm: Optional[torch.Tensor] = None,
                        noise: Optional[Sequence[torch.Tensor]] = None,
-                       generator: Optional[torch.Generator] = None
+                       generator: Optional[torch.Generator] = None,
+                       z: Optional[Sequence[torch.Tensor]] = None
                        ) -> Dict[str, torch.Tensor]:
         """G = ``n_generator`` minibatches (None: every minibatch of the
         buffer) of a permutation of its rows (``perm``, or drawn from
-        ``generator``), each one optimizer step; ``noise[i]`` is the i-th
-        re-run step's noise (drawn when None)."""
+        ``generator``), each one optimizer step; ``noise[i]`` and ``z[i]``
+        are the i-th re-run step's noise and DDGAN latents (drawn when
+        None)."""
         flat = buffer.flat()
         N = flat["state"].shape[0]
         B = self.batchsize
@@ -305,7 +328,8 @@ class DxMITrainer:
         for i in range(G):
             loss, v_term, cost, ent = self.minibatch_loss(
                 flat, perm[i * B:(i + 1) * B],
-                None if noise is None else noise[i], generator)
+                None if noise is None else noise[i], generator,
+                None if z is None else z[i])
             grads = self.sampler_grads(loss)
             if self.sampler_grad_clip is not None:
                 grads = clip_by_global_norm(grads, self.sampler_grad_clip)
@@ -346,7 +370,7 @@ def train_step(trainer: DxMITrainer, x: torch.Tensor,
     traj = from_d_sample(d_sample)
     sync()
     t1 = time.perf_counter()
-    m_energy = trainer.update_f_v(x, traj, y=y)
+    m_energy = trainer.update_f_v(x, traj, y=y, generator=generator)
     sync()
     t2 = time.perf_counter()
     kw = {} if n_generator is None else {"n_generator": n_generator}

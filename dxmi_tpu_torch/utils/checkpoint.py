@@ -51,7 +51,15 @@ _FLAX_NETS = {
     "unet_small": (convert.unet_small_from_flax,
                    convert.var_sampler_from_flax),
     "unet_adm": (convert.unet_adm_from_flax, convert.edm_sampler_from_flax),
+    "ncsnpp": (convert.ncsnpp_from_flax, convert.ddgan_sampler_from_flax),
 }
+
+
+def net_kind(target: str) -> str:
+    """The network a CIFAR-10 config's ``sampler_net._target_`` names, as
+    the JAX entries tell them apart: ``ncsnpp`` (the DDGAN generator) when
+    the path mentions it, else ``unet_small``."""
+    return "ncsnpp" if "ncsnpp" in str(target).lower() else "unet_small"
 
 
 def sampler_state_from_flax(tree: Dict[str, Any], net: str
@@ -61,7 +69,8 @@ def sampler_state_from_flax(tree: Dict[str, Any], net: str
     ``{'params': ..., 'meta': ...}``, a bare sampler tree ``{'net',
     'log_betas'}`` or a bare net tree (then ``log_betas`` is left out, and
     the sampler keeps its own, as JAX keeps ``current``'s). ``net`` names the
-    network: ``unet_small`` (VARSampler) or ``unet_adm`` (EDMSampler)."""
+    network: ``unet_small`` (VARSampler), ``unet_adm`` (EDMSampler) or
+    ``ncsnpp`` (DDGANSampler)."""
     net_fn, sampler_fn = _FLAX_NETS[net]
     tree = tree.get("params", tree)
     if "net" not in tree:
@@ -114,7 +123,8 @@ def load_sampler_state(path: str, net: Optional[str] = None
     """A sampler checkpoint as a state dict of the port's sampler: network
     weights under ``net.``, plus ``log_betas`` when the file has them. A
     ``.msgpack`` file goes through ``sampler_state_from_flax`` with ``net``
-    (``unet_small`` or ``unet_adm``, required for such a file), as the JAX
+    (``unet_small``, ``unet_adm`` or ``ncsnpp``, required for such a
+    file), as the JAX
     entries load a path ending in ``.msgpack`` with ``load_sampler_params``.
     Otherwise a reference
     PyTorch checkpoint: container keys (``state_dict``/``model``/``ema``)

@@ -8,6 +8,9 @@ back to (O, I, kh, kw), dense kernels (I, O) back to (O, I) and embedding
 tables to ``weight``. ``unet_small_quant_scales_from_flax`` and
 ``adm_quant_scales_from_flax`` carry the JAX net's calibrated
 ``quant_scales`` collection into the port's scale buffers.
+``ncsnpp_from_flax``, ``ncsnpp_quant_scales_from_flax`` and
+``ddgan_sampler_from_flax`` carry the JAX package's own NCSN++ (which has
+no reference layout) into the port's, whose names are the flax ones.
 ``igebm_from_flax`` and ``value_from_flax`` invert ``convert_igebm`` and
 ``wrap_value_params`` (``dxmi_tpu/utils/convert.py:168-275``); the port's
 value state dicts are the reference ``value.pth`` layout.
@@ -186,3 +189,54 @@ def value_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     is accepted)."""
     params = params.get("params", params)
     return {f"net.{k}": v for k, v in igebm_from_flax(params["net"]).items()}
+
+
+def ncsnpp_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``NCSNpp`` from the JAX ``NCSNpp`` params
+    tree (numpy leaves; a ``{'params': ...}`` wrapper is accepted): the
+    flax module path joined with dots (``down_1_attn_0/q`` ->
+    ``down_1_attn_0.q``), Dense kernels (in, out) to ``Linear`` weights
+    (out, in), HWIO conv kernels to OIHW, GroupNorm ``scale`` to
+    ``weight``."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for path, val in _leaves(params):
+        *mods, leaf = path
+        if leaf == "kernel":
+            name = "weight"
+            val = val.transpose(3, 2, 0, 1) if val.ndim == 4 else val.T
+        elif leaf in ("bias", "scale"):
+            name = "bias" if leaf == "bias" else "weight"
+        else:
+            raise ValueError(f"unhandled flax leaf {'/'.join(path)}")
+        out[".".join([*mods, name])] = torch.from_numpy(np.array(val))
+    return out
+
+
+def ncsnpp_quant_scales_from_flax(scales: Dict[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """State-dict entries of the port's ``NCSNpp`` scale buffers from the
+    JAX ``quant_scales`` collection (a ``{'quant_scales': ...}`` wrapper is
+    accepted): the ``act_scale`` of every ``QConv``, the ResBlocks' conv1,
+    conv2 and shortcut and the attention 1x1s (``mid_attn/q`` ->
+    ``mid_attn.q.act_scale``). Load them with ``load_state_dict(...,
+    strict=False)``."""
+    scales = scales.get("quant_scales", scales)
+    out: Dict[str, torch.Tensor] = {}
+    for path, val in _leaves(scales):
+        *mods, leaf = path
+        if leaf != "act_scale" or not mods:
+            raise ValueError(f"unhandled quant_scales leaf {'/'.join(path)}")
+        out[".".join([*mods, leaf])] = torch.from_numpy(
+            np.array(val, dtype=np.float32))
+    return out
+
+
+def ddgan_sampler_from_flax(params: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``DDGANSampler`` from the JAX sampler
+    params ``{'net': <NCSNpp params>, 'log_betas': (T,)}``."""
+    out = {f"net.{k}": v for k, v in ncsnpp_from_flax(params["net"]).items()}
+    out["log_betas"] = torch.from_numpy(
+        np.array(params["log_betas"], dtype=np.float32))
+    return out

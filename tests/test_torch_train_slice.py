@@ -201,7 +201,8 @@ def test_instantiates_the_configs_targets():
 
 @pytest.mark.parametrize("kwargs", [
     {"value_update_order": "shuffle"}, {"value_update_order": "random"},
-    {"value_resample": True}, {"aug": lambda x, k: x},
+    {"value_resample": True, "repeat_value_update": 2},
+    {"aug": lambda x, k: x},
     {"repeat_value_update": 2}])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
