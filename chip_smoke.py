@@ -41,7 +41,14 @@ failure exits non-zero naming the phase:
      the 8x8 map of conv16 (two heads of d = 32) at E5's batch 64 and
      G3's 8, counted on its route, K1 at every GroupNorm shape of the
      full-width NCSN++ (fp32 and bf16, SiLU off) at batch 100 and 128 and
-     K8 at every NCSN++ int8 conv shape at batch 100, K7 bf16 at
+     K8 at every NCSN++ int8 conv shape at batch 100, LSUN-Bedroom 256's
+     shapes (K1 on its split route at every GroupNorm of the 256x256 and
+     128x128 maps, both statistics modes, SiLU on and off; K2 bf16 and K5
+     at the 32x32 blocks, (100, 1024, 512) with 8 heads, K5 at the 8x8
+     ones, (100, 64, 1024) with 16 heads; K4 at (100, 1024, 8, 64) and
+     its training forms at E9's batch; K8 at every int8 conv of the
+     256x256 and 128x128 maps; the plain versions of K1 and K8 over batch
+     chunks), K7 bf16 at
      d = 256 at batch 128 and 64, bb 4, and the wide attention core alone
      at the d = 256 shapes of batch 100, each against its plain version and
      replayed bit-equal);
@@ -59,7 +66,10 @@ failure exits non-zero naming the phase:
      net's int8 shapes beside torch._int_mm on the im2col matrix; K3 on
      bf16 x, K2 bf16 and K7 bf16 at d = 256 and the wide attention core
      beside their library compositions (cuDNN's bf16 conv; GN + matmul +
-     SDPA; SDPA);
+     SDPA; SDPA); and at LSUN's shapes K1 on the split route (both
+     statistics modes), K2 bf16, K5 (32x32 and 8x8), K4, K4-dkv, K4-dq
+     and K8 (256x256, 256 -> 256 and the widest decoder input) beside
+     their bounds and library calls;
   T-bwd the device time of each launch of one K6 fp32 call at G3's and E5's
      shapes (8 and 64, 64, 64, nh 2), and of one K6 bf16 call and one
      K4-dkv call at the 32x32 map at batch 128 (torch.profiler);
@@ -103,8 +113,8 @@ failure exits non-zero naming the phase:
      backward, fp32), against the JAX package's (tests/torch_fixtures/
      adm_train_golden.npz);
   E3 DxMI training at the full width of configs/imagenet64/T10.yaml (bf16,
-     seeded random weights, the structured fake pool): 3 steps with flash
-     attention (K4 forward, K4-dkv, K4-dq) and 3 with fused_train (K2, K6),
+     seeded random weights, the structured fake pool): 2 steps with flash
+     attention (K4 forward, K4-dkv, K4-dq) and 2 with fused_train (K2, K6),
      checking the launches per step, finite metrics and no skipped update,
      the backward kernels' share of a profiled step, and the first
      minibatch's gradient by einsum, flash and fused_train,
@@ -156,8 +166,27 @@ failure exits non-zero naming the phase:
      sampling chunks, value_resample): 3 steps from seeded weights, the
      launches per step, finite metrics, s/step by phase, peak memory and a
      profiled step's idle share;
+  G8 the LSUN goldens (tests/torch_fixtures/lsun_golden.npz,
+     lsun_int8_golden.npz, lsun_train_golden.npz): a small UNetADM of
+     LSUN's structure (LSUN_SMALL, numpy-made weights) in T4.yaml's
+     EDMSampler, each step from the golden's fp32 states, fp32 (K1, K2
+     fp32) per element, bf16 (generate_large's path) against JAX's own
+     bf16 effect, fp32 --int8 (K1, K5, K8) calibrated against JAX's scales
+     and its steps under G-int8's mean gate and the nudged median gate; then one iteration of T4_wide.yaml's trainer with a small
+     Wide-ResNet value, the metrics against JAX's and the plain versions';
+  E8 generate_large on configs/lsun/T4.yaml at full width (526,304,771
+     parameters, 256x256, seeded weights), 2 trajectories of 100 at T=4
+     on fused (the default), flash and --int8: launches by kernel and by
+     shape, img/s, a profiled trajectory's device time and idle share, each
+     step against the plain versions (at 10 samples);
+  E9 train_image_large on configs/lsun/T4.yaml (IGEBM value) and
+     T4_wide.yaml (Wide-ResNet value) at full width with --attn_impl flash
+     at batch 16 (32 does not fit the card): 3 steps each, launches,
+     finite metrics, s/step by phase, peak memory, the last step profiled;
+     then the wiring check of flash against einsum;
   T-K1 K1 at each shape that E-int8, E2 (fused, flash), E3 (flash,
-     fused_train), E5 (einsum, fused_train), E4, E6 and E7 launched it at, held
+     fused_train), E5 (einsum, fused_train), E4, E6, E7, E8 and E9
+     launched it at, held
      against its plain version under K's gate, with its time, its launches
      per trajectory or step (counted in those phases), its route and its
      bound;
@@ -219,6 +248,7 @@ from dxmi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
                                           flash_reference_dkv,
                                           flash_reference_dq)
 from dxmi_tpu_torch.data.cifar10 import EpochLoader, fake_cifar
+from dxmi_tpu_torch.data.synthetic import structured_class_images
 from dxmi_tpu_torch.models.unet_small import AttnBlock
 from dxmi_tpu_torch.ops.attn_block import (BWD_MAX_SLICES,
                                            BWD_ROWS_PER_CHUNK,
@@ -553,6 +583,30 @@ INFO = {
                             "off, bf16)"),
     "int8_conv_ncsnpp": ("dxmi_tpu_torch/csrc/int8_conv.cu",
                          "dxmi_tpu/ops/quant.py:68 (NCSN++ --int8)"),
+    # the same kernels at LSUN-Bedroom 256's shapes (configs/lsun/T4.yaml):
+    # E8's generation paths and E9's training
+    "gn_silu_bf16_lsun": ("dxmi_tpu_torch/csrc/groupnorm.cu",
+                          "dxmi_tpu/ops/groupnorm.py:157 (bf16, the split "
+                          "route at LSUN's 256x256 maps)"),
+    "attn_block_bf16_lsun": ("dxmi_tpu_torch/csrc/attn_block.cu",
+                             "dxmi_tpu/ops/attn_block.py:225 (bf16, LSUN's "
+                             "32x32 blocks, 8 heads of 64)"),
+    "attn_block_i8_lsun": ("dxmi_tpu_torch/csrc/attn_block_i8.cu",
+                           "dxmi_tpu/ops/attn_block.py:353 (LSUN's 32x32 "
+                           "blocks)"),
+    "flash_attn_lsun": ("dxmi_tpu_torch/csrc/flash_attn.cu",
+                        "dxmi_tpu/ops/attention.py:53 (LSUN's 32x32 map)"),
+    "flash_attn_bwd_dkv_lsun": (
+        "dxmi_tpu_torch/csrc/flash_attn_bwd.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:796 (jax.grad "
+        "of dxmi_tpu/ops/attention.py:53 at LSUN's 32x32 map)"),
+    "flash_attn_bwd_dq_lsun": (
+        "dxmi_tpu_torch/csrc/flash_attn_bwd.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1146 (jax.grad "
+        "of dxmi_tpu/ops/attention.py:53 at LSUN's 32x32 map)"),
+    "int8_conv_lsun": ("dxmi_tpu_torch/csrc/int8_conv.cu",
+                       "dxmi_tpu/ops/quant.py:68 (LSUN --int8, 256x256 "
+                       "maps)"),
 }
 
 
@@ -588,9 +642,7 @@ def direction(name, shape):
 def adm_train_replay(golden, device, attn_impl="einsum"):
     """One DxMITrainerCond iteration of the port on the ADM fixture with the
     case, data, trajectory and draws of ``golden`` (TRAIN_GOLDEN's arrays):
-    update_f_v, then update_sampler with the golden's permutation and
-    noise. Returns the arrays the golden keeps (``metric/*``, ``log_betas``,
-    the update norms and projections), computed the same way."""
+    ``cond_train_replay``."""
     cfg = adm_fixture_config()
     state = load_sampler_state(os.path.join(ADM_FIXTURE_DIR, "sampler.pth"))
     sampler = generate_large.load_sampler(cfg, state, device,
@@ -599,7 +651,17 @@ def adm_train_replay(golden, device, attn_impl="einsum"):
     value = instantiate(cfg["value"]).to(device)
     value.load_state_dict(load_value_state(os.path.join(ADM_FIXTURE_DIR,
                                                         "value.pth")))
-    tcfg = {k: v for k, v in cfg["trainer"].items() if k != "_target_"}
+    return cond_train_replay(sampler, value, cfg["trainer"], golden, device)
+
+
+def cond_train_replay(sampler, value, trainer_cfg, golden, device):
+    """One DxMITrainerCond iteration (``trainer_cfg``) of ``sampler`` and
+    ``value`` with the case, data, trajectory and draws of ``golden``:
+    update_f_v, then update_sampler with the golden's permutation and
+    noise (labels where the golden has them). Returns the arrays the golden
+    keeps (``metric/*``, ``log_betas``, the update norms and projections),
+    computed the same way."""
+    tcfg = {k: v for k, v in trainer_cfg.items() if k != "_target_"}
     trainer = DxMITrainerCond(
         **{**tcfg, "batchsize": int(golden["case/batchsize"])})
     trainer.set_models(sampler, value, lr=float(golden["case/lr"]),
@@ -612,10 +674,12 @@ def adm_train_replay(golden, device, attn_impl="einsum"):
 
     # the trainer reads no policy means: the golden does not keep them
     l_sample = t("l_sample")
+    labels = "y" in golden
     buf = from_d_sample({"l_sample": l_sample,
                          "mean": torch.zeros_like(l_sample[1:]),
                          "sigma": t("sigma"), "logp": t("logp"),
-                         "entropy": t("entropy"), "y": t("traj_y")})
+                         "entropy": t("entropy"),
+                         "y": t("traj_y") if labels else None})
 
     def params():
         return {k: v.detach().double().cpu().clone() for k, v in
@@ -624,7 +688,7 @@ def adm_train_replay(golden, device, attn_impl="einsum"):
                    for k, v in sampler.net.state_dict().items())]}
 
     before = params()
-    m = trainer.update_f_v(t("img"), buf, y=t("y"))
+    m = trainer.update_f_v(t("img"), buf, y=t("y") if labels else None)
     m.update(trainer.update_sampler(buf, perm=t("perm"),
                                     noise=list(t("noise"))))
     out = {f"metric/{k}": v.float().cpu().numpy() for k, v in m.items()}
@@ -729,8 +793,8 @@ class PhaseError(Exception):
 
 PHASES = ("B", "K", "T", "T-bwd", "G", "G-int8", "G-bf16", "E", "E-int8",
           "E-bf16", "G2", "G2-int8", "E2", "E2-int8", "G3", "E3", "G5", "E5",
-          "G4", "E4", "E4-levers", "G6", "G7", "E6", "E7", "T-K1", "T-K3",
-          "C")
+          "G4", "E4", "E4-levers", "G6", "G7", "E6", "E7", "G8", "E8", "E9",
+          "T-K1", "T-K3", "C")
 
 
 def run_phase(name, fn):
@@ -946,18 +1010,26 @@ def conv_i8_case(gen, B, R, Cin, Cout, pad, dtype, dynamic, k=None,
 
 def k8_library(x, q, pad, stride=1):
     """K8's library call: torch._int_mm on the int8 im2col matrix (built
-    here, outside the timed call) and the int8 weights; returns the call."""
+    here in int8, outside the timed call: float windows would take 60 GB at
+    LSUN's 256x256 maps) and the int8 weights; returns the call."""
     B, H, W, Cin = x.shape
     Cout, kh, kw, _ = q.w_i8.shape
     (pt, pb), (pl, pr) = pad
     Ho, Wo = out_size(H, W, kh, kw, pad, stride)
     xq = x.float() / q.xscale if q.divide else x.float() * q.xscale
-    xi = torch.clamp(torch.round(xq), -127, 127)
-    cols = F.pad(xi.permute(0, 3, 1, 2), (pl, pr, pt, pb))
-    cols = torch.stack([cols[:, :, ty:ty + stride * (Ho - 1) + 1:stride,
-                             tx:tx + stride * (Wo - 1) + 1:stride]
-                        for ty in range(kh) for tx in range(kw)], -1)
-    cols = cols.permute(0, 2, 3, 4, 1).reshape(B * Ho * Wo, -1).to(torch.int8)
+    xi = torch.clamp(torch.round(xq), -127, 127).to(torch.int8)
+    del xq
+    xp = F.pad(xi, (0, 0, pl, pr, pt, pb))
+    del xi
+    cols = torch.empty(B, Ho, Wo, kh * kw, Cin, dtype=torch.int8,
+                       device=x.device)
+    for ty in range(kh):
+        for tx in range(kw):
+            cols[:, :, :, ty * kw + tx] = xp[
+                :, ty:ty + stride * (Ho - 1) + 1:stride,
+                tx:tx + stride * (Wo - 1) + 1:stride]
+    del xp
+    cols = cols.reshape(B * Ho * Wo, kh * kw * Cin)
     w = q.w_i8.reshape(Cout, -1).t()
     return lambda: torch._int_mm(cols, w)
 
@@ -1234,14 +1306,11 @@ def k6_fp32_route_check(gen, B, S, C, nh):
     return {name: err}
 
 
-def train_time_rows(gen):
-    """T rows of K4-dkv, K4-dq (at the 32x32 map, batch 128) and K6 bf16
-    (the three maps at batch 128; the first is the recorded row). Library
-    yardsticks: the backward alone of autograd through
-    F.scaled_dot_product_attention (one call gives dq, dk and dv), and of
-    the library composition that K2's row times."""
+def flash_bwd_time_rows(gen, B, S, nh, d, suffix=""):
+    """T rows of K4-dkv and K4-dq at (B, S, nh, d) (bf16), named with
+    ``suffix``. Library yardstick: the backward alone of autograd through
+    F.scaled_dot_product_attention (one call gives dq, dk and dv)."""
     rows = {}
-    B, S, nh, d = TRAIN_BATCH, 1024, 6, 64
     qkv, o, lse, do, sm = flash_bwd_case(gen, B, S, nh, d)
     di, dqkv = flash_bwd_dkv(qkv, o, lse, do, sm)
     qt, kt, vt = (qkv[:, :, i].transpose(1, 2).detach().clone()
@@ -1251,7 +1320,7 @@ def train_time_rows(gen):
     lib_ms = time_ms(lambda: torch.autograd.grad(
         ot, (qt, kt, vt), dot, retain_graph=True))
     n, st = B * S * nh * d, B * nh * S
-    rows["flash_attn_bwd_dkv"] = dict(
+    rows["flash_attn_bwd_dkv" + suffix] = dict(
         ms=time_ms(lambda: flash_bwd_dkv(qkv, o, lse, do, sm, dqkv)),
         plain_ms=time_ms(lambda: flash_reference_dkv(qkv, o, lse, do, sm),
                          iters=3, warmup=1),
@@ -1261,7 +1330,7 @@ def train_time_rows(gen):
         # s, dp, dv and dk products; exp and ds per logit; di
         ops={"bf16": 4 * 2 * B * nh * S * S * d,
              "fp32": 6 * B * nh * S * S + 2 * n})
-    rows["flash_attn_bwd_dq"] = dict(
+    rows["flash_attn_bwd_dq" + suffix] = dict(
         ms=time_ms(lambda: flash_bwd_dq(qkv, do, lse, di, dqkv, sm)),
         plain_ms=time_ms(lambda: flash_reference_dq(qkv, o, lse, do, sm),
                          iters=3, warmup=1),
@@ -1272,6 +1341,16 @@ def train_time_rows(gen):
              "fp32": 6 * B * nh * S * S})
     del qkv, o, lse, do, di, dqkv, qt, kt, vt, ot, dot
     torch.cuda.empty_cache()
+    return rows
+
+
+def train_time_rows(gen):
+    """T rows of K4-dkv, K4-dq (at the 32x32 map, batch 128) and K6 bf16
+    (the three maps at batch 128; the first is the recorded row). Library
+    yardsticks: the backward alone of autograd through
+    F.scaled_dot_product_attention (one call gives dq, dk and dv), and of
+    the library composition that K2's row times."""
+    rows = flash_bwd_time_rows(gen, TRAIN_BATCH, 1024, 6, 64)
     for i, (S, C, nh) in enumerate([(1024, 384, 6), (256, 576, 9),
                                     (64, 768, 12)]):
         a = attn_bwd_case(gen, TRAIN_BATCH, S, C, torch.bfloat16)
@@ -1470,7 +1549,10 @@ def phase_train_replay():
 # 20 forwards and 10 backwards. flash: K4 at the 7 maps of 32x32, K1 at
 # the 95 norms of each forward; fused_train: K2 and K6 at all 22 attention
 # blocks (every map passes fused_attn_bwd_available), K1 at the 73 others.
-TRAIN_FORWARDS, TRAIN_BACKWARDS, E3_STEPS = 20, 10, 3
+# E3 runs 2 steps since the LSUN phases (E8, E9) joined the script, the
+# second profiled (its wall ends before the trace is read back): step 1
+# alone gives s/step, so that the whole run stays inside its time limit
+TRAIN_FORWARDS, TRAIN_BACKWARDS, E3_STEPS = 20, 10, 2
 TRAIN_LAUNCHES_PER_STEP = {
     "flash": {"gn_silu_bf16": 95 * TRAIN_FORWARDS,
               "flash_attn": 7 * TRAIN_FORWARDS,
@@ -1542,7 +1624,8 @@ def build_trainer(cfg, attn_impl, batchsize, device="cuda"):
     return trainer
 
 
-def e3_grads(cfg, batchsize, rows, device="cuda"):
+def e3_grads(cfg, batchsize, rows, device="cuda",
+             impls=("einsum", "flash", "fused_train")):
     """The first sampler minibatch's gradient (net and log_betas, fp32) of
     the seed-0 state under each attention path, on the same buffer rows,
     step noise and labels: {impl: [gradient per parameter]}, and each
@@ -1557,7 +1640,7 @@ def e3_grads(cfg, batchsize, rows, device="cuda"):
                          device=device)[:rows]
     noise = torch.randn(flat["state"][idx].shape, generator=gen,
                         device=device)
-    for impl in ("einsum", "flash", "fused_train"):
+    for impl in impls:
         for m in trainer.sampler.net.modules():
             if hasattr(m, "attn_impl"):
                 m.attn_impl = impl
@@ -1631,11 +1714,11 @@ def phase_train(k1_log):
         for i in range(E3_STEPS):
             x, y = next(data)
             _lib.reset_launches()
-            t0 = time.perf_counter()
             with k1_shapes(k1_log, f"E3 {impl}", 1, "step") if i == 0 else \
                     contextlib.nullcontext():
-                m = train_image_large.train_step(trainer, x, y, gen)
-            wall = time.perf_counter() - t0
+                wall, m = training_step(
+                    lambda: train_image_large.train_step(trainer, x, y, gen),
+                    i, E3_STEPS, f"E3 {impl}", E3_SHARES[impl], top=16)
             got = dict(_lib.LAUNCHES)
             if got != TRAIN_LAUNCHES_PER_STEP[impl]:
                 raise AssertionError(f"E3 {impl} step {i}: launches {got}, "
@@ -1667,10 +1750,6 @@ def phase_train(k1_log):
               f"{phases['update_sampler']:.3f}); launches per step "
               f"{TRAIN_LAUNCHES_PER_STEP[impl]} as expected; nan-guard "
               f"skips 0; peak allocated {peak / 2**30:.2f} GiB", flush=True)
-        x, y = next(data)
-        profile_run(lambda: train_image_large.train_step(trainer, x, y, gen),
-                    f"E3 {impl} profile, one training step", top=16,
-                    shares=E3_SHARES[impl])
         out[impl] = got
         del trainer, data
         torch.cuda.empty_cache()
@@ -2222,6 +2301,7 @@ def phase_kernels(gen):
     phase_kernels_cifar_int8(gen, errs)
     phase_kernels_gn_routes(gen, errs)
     phase_kernels_ddgan(gen, errs)
+    phase_kernels_lsun(gen, errs)
     phase_kernels_flash_edges(gen, errs)
     phase_kernels_train(gen, errs)
     phase_kernels_bb(gen, errs)
@@ -2560,6 +2640,7 @@ def phase_times(gen):
     rows.update(train_time_rows(gen))
     rows.update(bf16_time_rows(gen))
     rows.update(ddgan_time_rows(gen))
+    rows.update(lsun_time_rows(gen))
     peaks = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS, "int8": INT8_OPS,
              "tf32x3": TF32X3_FLOPS}
     for name, r in rows.items():
@@ -2720,27 +2801,8 @@ def adm_time_rows(gen):
                 # one bf16 read and one write; ~7 flops of GN and 4 of SiLU
                 bytes=2 * n * 2 + 2 * C * 4, ops={"fp32": 11 * n})
     for i, (B, S, C, nh) in enumerate(ADM_ATTN_SHAPES):
-        a = attn_bf16_case(gen, B, S, C)
-        x, gs, gb, wqkv, bqkv, wp, bp = a
-        d = C // nh
-
-        def library_attn():
-            g = F.group_norm(x.transpose(1, 2), 32, gs.bfloat16(),
-                             gb.bfloat16(), 1e-5).transpose(1, 2)
-            q, k, v = (g @ wqkv + bqkv).reshape(B, S, 3, nh, d).permute(
-                2, 0, 3, 1, 4)
-            o = F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)
-            return x + o.transpose(1, 2).reshape(B, S, C) @ wp + bp
-
         name = "attn_block_bf16" if i == 0 else f"attn_block_bf16 {(B, S, C, nh)}"
-        rows[name] = dict(
-            ms=time_ms(lambda: attn_block(*a, num_heads=nh)),
-            plain_ms=time_ms(lambda: attn_block_reference(*a, num_heads=nh)),
-            library_ms=time_ms(library_attn),
-            bytes=(2 * B * S * C + 4 * C * C + 4 * C) * 2 + 2 * C * 4,
-            # qkv, logits, AV and proj products; ~5 flops of softmax per logit
-            ops={"bf16": 2 * B * S * C * 3 * C + 4 * B * S * S * C
-                 + 2 * B * S * C * C, "fp32": 5 * B * nh * S * S})
+        rows[name] = attn_bf16_row(gen, B, S, C, nh)
     for i, (B, S, nh, d) in enumerate(FLASH_SHAPES + FLASH_TIME_SHAPES):
         if i == 0:  # flash_mha on three tensors, the E2 flash path's call
             q, k, v, sm = flash_case(gen, B, S, nh, d)
@@ -2768,34 +2830,9 @@ def int8_time_rows(gen):
     torch._int_mm on the im2col matrix (built outside the timed call)."""
     rows = {}
     for i, (B, S, C, nh, dt) in enumerate(I8_ATTN_SHAPES[1:]):
-        a = attn_i8_case(gen, B, S, C, nh, dt)
-        x, gs, gb, m, bq, bp = a
-        d = C // nh
-
-        def library_attn():
-            g = F.group_norm(x.transpose(1, 2), 32, gs.bfloat16(),
-                             gb.bfloat16(), 1e-5).transpose(1, 2)
-            hq = torch.clamp(torch.round(g.float() * m.isa_q), -127,
-                             127).to(torch.int8).reshape(B * S, C)
-            qkv = (torch._int_mm(hq, m.wq.t()).float() * m.swq + bq).bfloat16()
-            q, k, v = qkv.reshape(B, S, 3, nh, d).permute(2, 0, 3, 1, 4)
-            o = F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)
-            aq = torch.clamp(torch.round(o.transpose(1, 2).reshape(
-                B * S, C).float() * m.isa_p), -127, 127).to(torch.int8)
-            y = (torch._int_mm(aq, m.wp.t()).float() * m.swp + bp).bfloat16()
-            return x + y.reshape(B, S, C)
-
         name = "attn_block_i8" if i == 0 else \
             f"attn_block_i8 {(B, S, C, nh)}"
-        rows[name] = dict(
-            ms=time_ms(lambda: attn_block_int8(*a, nh)),
-            plain_ms=time_ms(lambda: attn_block_int8_plain(*a, nh), iters=3,
-                             warmup=1),
-            library_ms=time_ms(library_attn),
-            # x read, y written (bf16); int8 weights; fp32 scales and biases
-            bytes=2 * B * S * C * 2 + 4 * C * C + (3 * C * 3 + C * 3) * 4,
-            ops={"int8": 2 * B * S * C * 4 * C, "bf16": 4 * B * S * S * C,
-                 "fp32": 5 * B * nh * S * S + 8 * B * S * C})
+        rows[name] = attn_i8_row(gen, B, S, C, nh, dt)
     for i, shape in enumerate(I8_CONV_SHAPES[:2] + I8_CONV_SHAPES[5:6]):
         x, q, b, pad, dt, _ = conv_i8_case(gen, *shape)
         B, R, Cin, Cout = shape[:4]
@@ -3195,6 +3232,21 @@ def profile_run(fn, label, top=12, width=90, shares=None):
         print(f"    {name}: {ms:.3f} ms, {ms / total:.1%} of the device's "
               f"busy time, {ms / wall_ms:.1%} of the wall time")
     return total, wall_ms
+
+
+def training_step(run, i, n, label, shares, top=12):
+    """Step ``i`` of ``n`` of a training phase: ``run()`` returns its
+    metrics; the last step is profiled (``profile_run``), its wall ending
+    before its trace is read back. Returns (wall s, metrics)."""
+    t0 = time.perf_counter()
+    if i < n - 1:
+        m = run()
+        return time.perf_counter() - t0, m
+    out = []
+    prof = profile_run(lambda: out.append(run()), f"{label} profile, step "
+                       f"{i}", top=top, shares=shares)
+    return (time.perf_counter() - t0 if prof is None else prof[1] / 1e3,
+            out[0])
 
 
 # E-int8: the CIFAR-10 net at full width under int8, (a) generate_cifar10
@@ -4079,8 +4131,8 @@ def k1_shape_table(gen, log):
                      randn(gen, C, scale=0.1, shift=1.0),
                      randn(gen, C, scale=0.1), 32, 1e-5, bool(silu), mode)
                 name = "gn_silu_bf16" if bf16 else "gn_silu"
-                err = max_err(group_norm(*a).float(),
-                              group_norm_silu_reference(*a).float(), name)
+                err = max_err(group_norm(*a).float(), gn_plain(*a).float(),
+                              name)
                 errs[name] = max(errs.get(name, 0.0), err)
                 times[key] = time_ms(lambda: group_norm(*a)), err
                 del a
@@ -5001,6 +5053,1022 @@ def ddgan_train_cli(out_dir):
           f"{got.shape} within {diff} uint8 level of in-process")
 
 
+# ---- LSUN-Bedroom 256 at T=4: K1's split route, K2, K4, K5, K8 ---------
+
+LSUN_T4_CONFIG = os.path.join(REPO, "configs", "lsun", "T4.yaml")
+LSUN_T4_WIDE_CONFIG = os.path.join(REPO, "configs", "lsun", "T4_wide.yaml")
+LSUN_DATA_CONFIG = os.path.join(REPO, "configs", "lsun", "bedroom.yaml")
+# E8's paths: generate_large's defaults (fused attention, phase upsample,
+# bf16_onepass statistics), --attn_impl flash, and --int8 (calibrated on 2
+# x 8 trajectories, as the JAX entry)
+LSUN_PATHS = {"fused": dict(attn_impl="fused"),
+              "flash": dict(attn_impl="flash"),
+              "int8": dict(attn_impl="fused", int8=True)}
+LSUN_SIZE = 256
+LSUN_TRAIN_BATCH = 16
+
+
+def lsun_t4():
+    """The generation half of configs/lsun/T4.yaml (full width, bf16)."""
+    cfg = load_yaml(LSUN_T4_CONFIG)
+    return {k: cfg[k] for k in ("diffusion", "sampler")}
+
+
+def lsun_train_config(path=LSUN_T4_CONFIG):
+    """An LSUN training config with configs/lsun/bedroom.yaml merged."""
+    return merge(load_yaml(path), load_yaml(LSUN_DATA_CONFIG))
+
+
+def lsun_net(path, device="meta", use_fp16=True):
+    """The T4 sampler's UNetADM on ``path`` (LSUN_PATHS) as generate_large
+    builds it, without weights."""
+    from dxmi_tpu_torch.models.unet_adm import create_unet_adm
+    dcfg = dict(lsun_t4()["diffusion"], use_fp16=use_fp16)
+    for k in ("sigma_min", "sigma_max", "weight_schedule", "distillation"):
+        dcfg.pop(k, None)
+    opts = LSUN_PATHS[path]
+    with torch.device(device):
+        return create_unet_adm(**dcfg, attn_impl=opts["attn_impl"],
+                               up_impl="phase", gn_stats="bf16_onepass",
+                               quant_int8="static" if opts.get("int8")
+                               else False)
+
+
+def lsun_shape_counts(path, batch=1):
+    """The kernels' launches by shape in one forward of the full-width T4
+    net on ``path``, read on the meta device with the wrappers replaced by
+    recorders: {("gn", HW, C, silu): n, ("k2", S, C, nh): n, ("k5", S, C,
+    nh): n, ("k4", S, nh, d): n, ("k8", H, W, Cin, Cout, kh, kw, pads): n}.
+    The flash path's are also E9's training forward's (no route of
+    UNetADM looks at the gradient mode but fused_train's)."""
+    from dxmi_tpu_torch.models import unet_adm as adm
+    from dxmi_tpu_torch.ops import phase_up as phase_mod
+    from dxmi_tpu_torch.ops import quant as quant_mod
+    counts = collections.Counter()
+
+    def gn(x, scale, bias, G, eps, silu, stats="fp32"):
+        B, C = x.shape[0], x.shape[-1]
+        counts[("gn", x.numel() // (B * C), C, bool(silu))] += 1
+        return torch.empty_like(x)
+
+    def k2(x, *a, **k):
+        counts[("k2", x.shape[1], x.shape[2], a[6])] += 1
+        return torch.empty_like(x)
+
+    def k5(x, gs, gb, mats, bq, bp, nh, eps=1e-5):
+        counts[("k5", x.shape[1], x.shape[2], nh)] += 1
+        return torch.empty_like(x)
+
+    def k4(q, k, v, sm):
+        counts[("k4", q.shape[1], q.shape[2], q.shape[3])] += 1
+        return torch.empty_like(q)
+
+    def k8(x, q, bias, padding, out_dtype, stride=1):
+        B, H, W, Cin = x.shape
+        Cout, kh, kw, _ = q.w_i8.shape
+        counts[("k8", H, W, Cin, Cout, kh, kw,
+                tuple(tuple(p) for p in padding))] += 1
+        return torch.empty(B, H, W, Cout, dtype=out_dtype, device=x.device)
+
+    net = lsun_net(path).cast_weights()
+    with _patched(adm, "group_norm", gn), _patched(adm, "attn_block", k2), \
+            _patched(adm, "attn_block_int8", k5), \
+            _patched(adm, "flash_mha", k4), \
+            _patched(quant_mod, "int8_conv_apply", k8), \
+            _patched(phase_mod, "int8_conv_apply", k8), torch.no_grad():
+        net(torch.empty(batch, 3, LSUN_SIZE, LSUN_SIZE, device="meta"),
+            torch.empty(batch, device="meta"))
+    return counts
+
+
+def lsun_launches(counts):
+    """Launches a forward by counter name of ``lsun_shape_counts``."""
+    names = {"gn": "gn_silu_bf16", "k2": "attn_block_bf16",
+             "k5": "attn_block_i8", "k4": "flash_attn", "k8": "int8_conv"}
+    out = collections.Counter()
+    for key, n in counts.items():
+        out[names[key[0]]] += n
+    return dict(out)
+
+
+# The plain versions that take K1's and K8's arguments, in batch chunks of
+# at most PLAIN_CHUNK_ELEMS input elements: at LSUN's 256x256 maps one
+# plain call on the whole batch (fp32 temporaries of x, 13-20 GB each at
+# batch 100, and K8's float64 windows) would not fit beside the card's
+# other tensors. Every sample's result is the same as in one call.
+PLAIN_CHUNK_ELEMS = 1 << 27
+
+
+def _chunks(B, per_sample):
+    n = max(1, min(B, PLAIN_CHUNK_ELEMS // max(per_sample, 1)))
+    return [(i, min(B, i + n)) for i in range(0, B, n)]
+
+
+def gn_plain(x, *a):
+    """group_norm_silu_reference over batch chunks of x."""
+    return torch.cat([group_norm_silu_reference(x[i:j], *a)
+                      for i, j in _chunks(x.shape[0], x[0].numel())])
+
+
+def k8_plain(x, q, *a):
+    """int8_conv_reference over batch chunks of x (by its window size)."""
+    per = x[0].numel() * q.w_i8.shape[1] * q.w_i8.shape[2] // 2
+    return torch.cat([int8_conv_reference(x[i:j], q, *a)
+                      for i, j in _chunks(x.shape[0], per)])
+
+
+def plain_kernels_adm():
+    """The UNetADM path with the plain versions of K1, K2, K4, K5 and K8 on
+    the card (K1 and K8 over batch chunks)."""
+    from dxmi_tpu_torch.models import unet_adm as adm
+    from dxmi_tpu_torch.ops import phase_up as phase_mod
+    from dxmi_tpu_torch.ops import quant as quant_mod
+    stack = contextlib.ExitStack()
+    for mod, name, fn in ((adm, "group_norm", gn_plain),
+                          (adm, "attn_block", attn_block_reference),
+                          (adm, "attn_block_int8", attn_block_int8_plain),
+                          (adm, "flash_mha", flash_mha_reference),
+                          (quant_mod, "int8_conv_apply", k8_plain),
+                          (phase_mod, "int8_conv_apply", k8_plain)):
+        stack.enter_context(_patched(mod, name, fn))
+    return stack
+
+
+# Phase K at LSUN's shapes (batch 100, generation; batch LSUN_TRAIN_BATCH
+# for K4's training forms): K1 at every GroupNorm of 128x128 and larger
+# maps (the split route), in both statistics modes; K2 bf16 and K5 at the
+# 32x32 blocks (S = 1024, C = 512, 8 heads), K5 at the 16x16 and 8x8 ones
+# (C = 1024, 16 heads); K4 at the 32x32 map (8 heads of 64) in generation
+# and its training forward and backward; K8 at every int8 conv of the
+# 256x256 and 128x128 maps: each against its plain version and replayed
+# bit-equal.
+LSUN_BIG_HW = 128 * 128
+LSUN_ATTN_SHAPES = [(BATCH, 1024, 512, 8)]
+LSUN_I8_ATTN_SHAPES = [(BATCH, 1024, 512, 8), (BATCH, 64, 1024, 16)]
+
+
+def lsun_gn_keys():
+    """(HW, C, silu) of every K1 shape of the three E8 paths and E9 at
+    128x128 and larger."""
+    keys = set()
+    for path in LSUN_PATHS:
+        keys |= {k[1:] for k in lsun_shape_counts(path) if k[0] == "gn"}
+    return sorted(k for k in keys if k[0] >= LSUN_BIG_HW)
+
+
+def lsun_k8_keys():
+    """(H, W, Cin, Cout, kh, kw, pads) of --int8's K8 shapes at 128x128
+    and larger maps."""
+    return sorted(k[1:] for k in lsun_shape_counts("int8")
+                  if k[0] == "k8" and k[1] * k[2] >= LSUN_BIG_HW)
+
+
+def lsun_k8_case(gen, B, H, Cin, Cout, kh, pads):
+    """K8's arguments at an LSUN int8 conv: bf16 x, per-channel scales at
+    the input's 0.995 quantile (on a sample of the rows), bf16 out."""
+    x = randn(gen, B, H, H, Cin, scale=2.0, shift=0.3).bfloat16()
+    w = randn(gen, kh, kh, Cin, Cout, scale=(kh * kh * Cin) ** -0.5)
+    a = calib_channel_scale(x[:2].reshape(-1, Cin))
+    return x, prepare_conv_static(w, a), randn(gen, Cout, scale=0.1), pads
+
+
+def phase_kernels_lsun(gen, errs):
+    """Phase K at LSUN's shapes (see above); adds to ``errs``."""
+    for name in ("gn_silu_bf16_lsun", "attn_block_bf16_lsun",
+                 "attn_block_i8_lsun", "flash_attn_lsun",
+                 "flash_attn_bwd_dkv_lsun", "flash_attn_bwd_dq_lsun",
+                 "int8_conv_lsun"):
+        errs[name] = 0.0
+    for HW, C, silu in lsun_gn_keys():
+        for mode in GN_MODES:
+            a = gn_bf16_case(gen, BATCH, HW, C, silu, mode)
+            out = group_norm(*a)
+            err = max_err(out.float(), gn_plain(*a).float(), "gn_silu_bf16")
+            if not torch.equal(out, group_norm(*a)):
+                raise AssertionError(f"gn_silu_bf16 LSUN {(BATCH, HW, C)}: a "
+                                     "replay differs")
+            r = route(HW, C, 32, torch.bfloat16)
+            errs["gn_silu_bf16_lsun"] = max(errs["gn_silu_bf16_lsun"], err)
+            print(f"  K gn_silu_bf16 LSUN {(BATCH, HW, C)} {mode}"
+                  f"{' +SiLU' if silu else ''}: max abs err {err:.3e}; "
+                  f"{'on-chip' if r.on_chip else 'split'} ({r.slabs} slabs, "
+                  f"clusters of {r.cluster}); replay bit-equal")
+            del a, out
+            torch.cuda.empty_cache()
+    for B, S, C, nh in LSUN_ATTN_SHAPES:
+        a = attn_bf16_case(gen, B, S, C)
+        out = attn_block(*a, num_heads=nh)
+        rel, err, share = attn_bf16_check(
+            out, attn_block_reference(*a, num_heads=nh), a[0],
+            f"attn_block_bf16 LSUN {(B, S, C, nh)}")
+        if not torch.equal(out, attn_block(*a, num_heads=nh)):
+            raise AssertionError(f"attn_block_bf16 LSUN {(B, S, C, nh)}: a "
+                                 "replay differs")
+        errs["attn_block_bf16_lsun"] = max(errs["attn_block_bf16_lsun"], err)
+        print(f"  K attn_block_bf16 LSUN {(B, S, C, nh)}: mean rel err "
+              f"{rel:.3e} (tol {ATTN_BF16_MEAN_REL:g}), max abs err {err:.3e},"
+              f" worst element at {share:.3f} of its limit; replay bit-equal")
+        del a, out
+    for B, S, C, nh in LSUN_I8_ATTN_SHAPES:
+        x, gs, gb, mats, bq, bp = attn_i8_case(gen, B, S, C, nh,
+                                               torch.bfloat16)
+        what = f"attn_block_i8 LSUN {(B, S, C, nh)}"
+        out = attn_block_int8(x, gs, gb, mats, bq, bp, nh)
+        err, share, worst = attn_i8_check(
+            out, attn_block_int8_plain(x, gs, gb, mats, bq, bp, nh), x, mats,
+            what)
+        if not torch.equal(out, attn_block_int8(x, gs, gb, mats, bq, bp, nh)):
+            raise AssertionError(f"{what}: a replay differs")
+        errs["attn_block_i8_lsun"] = max(errs["attn_block_i8_lsun"], err)
+        print(f"  K {what}: max abs err {err:.3e}, {share:.3%} of elements "
+              f"over their base limit, worst {worst:.3f} int8 levels beyond "
+              "it; replay bit-equal")
+        del x, out
+    q, k, v, sm = flash_case(gen, BATCH, 1024, 8, 64)
+    out = flash_mha(q, k, v, sm)
+    err, share = flash_check(out, flash_mha_reference(q, k, v, sm), q, k, v,
+                             sm, "flash_attn LSUN")
+    if not torch.equal(out, flash_mha(q, k, v, sm)):
+        raise AssertionError("flash_attn LSUN: a replay differs")
+    errs["flash_attn_lsun"] = err
+    print(f"  K flash_attn LSUN {(BATCH, 1024, 8, 64)}: max abs err "
+          f"{err:.3e}, worst element at {share:.3f} of its row's limit; "
+          "replay bit-equal")
+    del q, k, v, out
+    lsun_flash_bwd_check(gen, errs)
+    for H, W, Cin, Cout, kh, kw, pads in lsun_k8_keys():
+        x, qw, b, pad = lsun_k8_case(gen, BATCH, H, Cin, Cout, kh, pads)
+        out = int8_conv_apply(x, qw, b, pad, torch.bfloat16)
+        what = f"int8_conv LSUN {(BATCH, H, Cin, Cout)} {kh}x{kw} pad {pad}"
+        err = (out.float() - k8_plain(x, qw, b, pad, torch.bfloat16).float()
+               ).abs().max().item()
+        if err != 0:
+            raise AssertionError(f"{what}: max abs err {err}")
+        if not torch.equal(out, int8_conv_apply(x, qw, b, pad,
+                                                torch.bfloat16)):
+            raise AssertionError(f"{what}: a replay differs")
+        print(f"  K {what}: max abs err {err:g} (must be 0); replay "
+              "bit-equal")
+        del x, out
+        torch.cuda.empty_cache()
+
+
+def lsun_flash_bwd_check(gen, errs):
+    """K4's training forms at the 32x32 map at E9's batch: the forward
+    with its logsumexp, K4-dkv and K4-dq against their plain versions
+    (FLASH_BWD_MEAN_REL, element-wise as phase K's training shapes), and
+    a replay bit-equal."""
+    shape = (LSUN_TRAIN_BATCH, 1024, 8, 64)
+    qkv, o, lse, do, sm = flash_bwd_case(gen, *shape)
+    q, k, v = qkv.unbind(2)
+    o_p, lse_p = flash_mha_reference_fwd(q, k, v, sm)
+    lse_err = flash_lse_check(lse, lse_p, f"flash_attn lse LSUN {shape}")
+    flash_check(o, o_p, q, k, v, sm, f"flash_attn o LSUN {shape}")
+    del o_p, lse_p
+    got = flash_mha_bwd(qkv, o, lse, do, sm)
+    ref = flash_mha_reference_bwd(qkv, o, lse, do, sm)
+    for i, name in ((1, "dk"), (2, "dv"), (0, "dq")):
+        rel, err = flash_bwd_check(got[:, :, i], ref[:, :, i],
+                                   f"flash_attn_bwd {name} LSUN {shape}")
+        kernel = ("flash_attn_bwd_dq_lsun" if i == 0
+                  else "flash_attn_bwd_dkv_lsun")
+        errs[kernel] = max(errs[kernel], err)
+        print(f"  K {kernel} {name} {shape}: mean rel err {rel:.3e} (tol "
+              f"{FLASH_BWD_MEAN_REL:.3e}), max abs err {err:.3e}")
+    if not torch.equal(got, flash_mha_bwd(qkv, o, lse, do, sm)):
+        raise AssertionError("flash_attn_bwd LSUN: a replay differs")
+    print(f"  K flash_attn LSUN with logsumexp {shape}: lse max abs err "
+          f"{lse_err:.3e}; backward replay bit-equal")
+    del qkv, o, lse, do, got, ref
+    torch.cuda.empty_cache()
+
+
+def lsun_time_rows(gen):
+    """T rows at LSUN's shapes: K1 on the split route at the most launched
+    256x256 shape of E8 fused (bf16_onepass) and in fp32 statistics; K2
+    bf16 and K5 at the 32x32 blocks, K5 at the 8x8 ones; K4 at the 32x32
+    map; K4-dkv and K4-dq at E9's batch; K8 at the 256x256 3x3 conv
+    (256 -> 256) and at the widest decoder input. The plain versions of K1
+    and K8 run over batch chunks (``gn_plain``, ``k8_plain``)."""
+    rows = {}
+    counts = lsun_shape_counts("fused")
+    _, HW, C, silu = max((k for k in counts if k[0] == "gn"
+                          and k[1] == LSUN_SIZE * LSUN_SIZE),
+                         key=lambda k: (counts[k], k[2]))
+    for mode in GN_MODES:
+        a = gn_bf16_case(gen, BATCH, HW, C, silu, mode)
+        x_nchw = a[0].reshape(BATCH, LSUN_SIZE, LSUN_SIZE, C).permute(
+            0, 3, 1, 2)
+        s16, b16 = a[1].bfloat16(), a[2].bfloat16()
+        n = BATCH * HW * C
+        act = F.silu if silu else (lambda t: t)
+        name = ("gn_silu_bf16_lsun" if mode == GN_MODES[0]
+                else f"gn_silu_bf16_lsun {(BATCH, HW, C)} {mode}")
+        rows[name] = dict(
+            shape=(BATCH, HW, C), ms=time_ms(lambda: group_norm(*a)),
+            plain_ms=time_ms(lambda: gn_plain(*a), iters=3, warmup=1),
+            library_ms=time_ms(lambda: act(F.group_norm(
+                x_nchw, 32, s16, b16, 1e-5))),
+            bytes=2 * n * 2 + 2 * C * 4, ops={"fp32": 11 * n})
+        del a, x_nchw
+        torch.cuda.empty_cache()
+    rows["attn_block_bf16_lsun"] = attn_bf16_row(gen, *LSUN_ATTN_SHAPES[0])
+    for i, shape in enumerate(LSUN_I8_ATTN_SHAPES):
+        name = ("attn_block_i8_lsun" if i == 0
+                else f"attn_block_i8_lsun {shape}")
+        rows[name] = attn_i8_row(gen, *shape, torch.bfloat16)
+    B, S, nh, d = BATCH, 1024, 8, 64
+    q, k, v, sm = flash_case(gen, B, S, nh, d)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    rows["flash_attn_lsun"] = dict(
+        shape=(B, S, nh, d), ms=time_ms(lambda: flash_fwd_kernel(q, k, v, sm)),
+        plain_ms=time_ms(lambda: flash_mha_reference(q, k, v, sm), iters=3,
+                         warmup=1),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=sm)),
+        bytes=4 * B * S * nh * d * 2,
+        ops={"bf16": 4 * B * nh * S * S * d, "fp32": 5 * B * nh * S * S})
+    del q, k, v, qt, kt, vt
+    rows.update(flash_bwd_time_rows(gen, LSUN_TRAIN_BATCH, 1024, 8, 64,
+                                    "_lsun"))
+    k8_keys = lsun_k8_keys()
+    first = (LSUN_SIZE, LSUN_SIZE, 256, 256, 3, 3, SAME_3X3)
+    widest = max((k for k in k8_keys if k[0] == LSUN_SIZE),
+                 key=lambda k: (k[2], k[4]))
+    for name, key in (("int8_conv_lsun", first),
+                      (f"int8_conv_lsun {widest[:4]}", widest)):
+        H, W, Cin, Cout, kh, kw, pads = key
+        x, qw, b, pad = lsun_k8_case(gen, BATCH, H, Cin, Cout, kh, pads)
+        nbytes, ops = k8_work(BATCH, H, W, Cin, Cout, kh, kw, H, W, 2, 2)
+        ms = time_ms(lambda: int8_conv_apply(x, qw, b, pad, torch.bfloat16))
+        plain = time_ms(lambda: k8_plain(x, qw, b, pad, torch.bfloat16),
+                        iters=1, warmup=1)
+        lib = k8_library(x, qw, pad)
+        rows[name] = dict(shape=(BATCH, H, W, Cin, Cout, kh), ms=ms,
+                          plain_ms=plain, library_ms=time_ms(lib),
+                          bytes=nbytes, ops=ops)
+        del x, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def attn_bf16_row(gen, B, S, C, nh):
+    """T row of K2 bf16 at (B, S, C, nh). Library yardstick: the same block
+    from PyTorch calls (bf16 GN, matmuls, SDPA)."""
+    a = attn_bf16_case(gen, B, S, C)
+    x, gs, gb, wqkv, bqkv, wp, bp = a
+    d = C // nh
+
+    def library_attn():
+        g = F.group_norm(x.transpose(1, 2), 32, gs.bfloat16(),
+                         gb.bfloat16(), 1e-5).transpose(1, 2)
+        q, k, v = (g @ wqkv + bqkv).reshape(B, S, 3, nh, d).permute(
+            2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)
+        return x + o.transpose(1, 2).reshape(B, S, C) @ wp + bp
+
+    return dict(
+        ms=time_ms(lambda: attn_block(*a, num_heads=nh)),
+        plain_ms=time_ms(lambda: attn_block_reference(*a, num_heads=nh),
+                         iters=3, warmup=1),
+        library_ms=time_ms(library_attn),
+        bytes=(2 * B * S * C + 4 * C * C + 4 * C) * 2 + 2 * C * 4,
+        # qkv, logits, AV and proj products; ~5 flops of softmax per logit
+        ops={"bf16": 2 * B * S * C * 3 * C + 4 * B * S * S * C
+             + 2 * B * S * C * C, "fp32": 5 * B * nh * S * S})
+
+
+def attn_i8_row(gen, B, S, C, nh, dt):
+    """T row of K5 at (B, S, C, nh) in ``dt``. Library yardstick: the same
+    block from PyTorch calls (bf16 GN, the int8 products as
+    torch._int_mm, SDPA)."""
+    a = attn_i8_case(gen, B, S, C, nh, dt)
+    x, gs, gb, m, bq, bp = a
+    d = C // nh
+
+    def library_attn():
+        g = F.group_norm(x.transpose(1, 2), 32, gs.bfloat16(),
+                         gb.bfloat16(), 1e-5).transpose(1, 2)
+        hq = torch.clamp(torch.round(g.float() * m.isa_q), -127,
+                         127).to(torch.int8).reshape(B * S, C)
+        qkv = (torch._int_mm(hq, m.wq.t()).float() * m.swq + bq).bfloat16()
+        q, k, v = qkv.reshape(B, S, 3, nh, d).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)
+        aq = torch.clamp(torch.round(o.transpose(1, 2).reshape(
+            B * S, C).float() * m.isa_p), -127, 127).to(torch.int8)
+        y = (torch._int_mm(aq, m.wp.t()).float() * m.swp + bp).bfloat16()
+        return x + y.reshape(B, S, C)
+
+    return dict(
+        ms=time_ms(lambda: attn_block_int8(*a, nh)),
+        plain_ms=time_ms(lambda: attn_block_int8_plain(*a, nh), iters=3,
+                         warmup=1),
+        library_ms=time_ms(library_attn),
+        # x read, y written (bf16); int8 weights; fp32 scales and biases
+        bytes=2 * B * S * C * 2 + 4 * C * C + (3 * C * 3 + C * 3) * 4,
+        ops={"int8": 2 * B * S * C * 4 * C, "bf16": 4 * B * S * S * C,
+             "fp32": 5 * B * nh * S * S + 8 * B * S * C})
+
+
+# ---- the LSUN goldens' small nets (G8; tests/test_torch_lsun.py) --------
+
+LSUN_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
+                           "lsun_golden.npz")
+LSUN_INT8_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
+                                "lsun_int8_golden.npz")
+LSUN_TRAIN_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
+                                 "lsun_train_golden.npz")
+# configs/lsun/T4.yaml's UNetADM structure at a small width: six levels
+# (64 down to 2), one ResBlock a level with resblock_updown, no scale-shift,
+# unconditional, attention at the 16x16, 8x8 and 4x4 maps (downsample rates
+# 4, 8, 16, as "32,16,8" at 256) with heads of num_head_channels 32 (2, 2
+# and 4 heads): K2 and K5 take the 16x16 and 8x8 maps, the 4x4 one takes
+# the einsum path; 32 channels is the narrowest that GroupNorm(32) takes.
+LSUN_SMALL = dict(image_size=64, in_channels=3, model_channels=32,
+                  out_channels=3, num_res_blocks=1,
+                  attention_resolutions=(4, 8, 16),
+                  channel_mult=(1, 1, 2, 2, 4, 4), num_classes=None,
+                  num_heads=4, num_head_channels=32,
+                  use_scale_shift_norm=False, resblock_updown=True)
+LSUN_BATCH, LSUN_SEED = 2, 20
+# the goldens' paths of the small net: fp32 (the default einsum; on the card
+# fused, K2 fp32), bf16 as generate_large runs it, and fp32 --int8 as the
+# ADM fixture's int8 golden
+LSUN_SMALL_PATHS = {
+    "fp32": dict(),
+    "bf16": dict(dtype=torch.bfloat16, softmax_f32=False, attn_impl="fused",
+                 up_impl="phase", gn_stats="bf16_onepass"),
+    "int8": dict(attn_impl="fused", up_impl="phase", gn_stats="bf16_onepass",
+                 quant_int8="static", quant_attn="static"),
+}
+# the small Wide-ResNet value of the training golden
+LSUN_SMALL_WRN = dict(depth=10, widen_factor=1, norm="group4",
+                      num_classes=1)
+
+
+def lsun_small_sampler_cfg():
+    """configs/lsun/T4.yaml's sampler section at the small net's size."""
+    cfg = dict(load_yaml(LSUN_T4_CONFIG)["sampler"])
+    size = LSUN_SMALL["image_size"]
+    cfg["sample_shape"] = [3, size, size]
+    return cfg
+
+
+def numpy_state(module, seed):
+    """numpy-made weights of ``module`` (its state-dict names): kernels
+    N(0, 1/fan_in), the zero-initialised ones included (flax and the
+    reference start out_layers.3, proj_out and out.2 at zero, which would
+    hide every fault upstream of them in a residual branch), biases 0.1
+    N(0, 1), GroupNorm scales 1 + 0.1 N(0, 1)."""
+    rs = np.random.RandomState(seed)
+    out = {}
+    for k, v in module.state_dict().items():
+        shape = tuple(v.shape)
+        if len(shape) == 1:  # a 1-D weight is a GroupNorm scale
+            a = float(k.endswith(".weight")) + 0.1 * rs.randn(*shape)
+        else:
+            a = rs.randn(*shape) / np.sqrt(np.prod(shape[1:]))
+        out[k] = torch.from_numpy(a.astype(np.float32))
+    return out
+
+
+def lsun_small_state(seed=LSUN_SEED):
+    """The small LSUN net's numpy-made weights (port names)."""
+    from dxmi_tpu_torch.models.unet_adm import UNetADM
+    return numpy_state(UNetADM(**LSUN_SMALL), seed)
+
+
+def lsun_small_sampler(device, path="fp32", **net_kw):
+    """The small LSUN net (``lsun_small_state``) on ``path``
+    (LSUN_SMALL_PATHS; ``net_kw`` overrides) in T4.yaml's EDMSampler (T=4,
+    stochastic_last, rho 4, the schedule's initial sigmas), eval mode on
+    ``device``, weights cast as generate_large casts them."""
+    from dxmi_tpu_torch.models.unet_adm import QUANT_SCALE_NAMES, UNetADM
+    from dxmi_tpu_torch.samplers.edm import EDMSampler, KarrasDenoiser
+    net = UNetADM(**LSUN_SMALL, **{**LSUN_SMALL_PATHS[path], **net_kw})
+    missing, unexpected = net.load_state_dict(lsun_small_state(),
+                                              strict=False)
+    if unexpected or any(not k.endswith(QUANT_SCALE_NAMES) for k in missing):
+        raise AssertionError(f"small LSUN net: missing {missing}, "
+                             f"unexpected {unexpected}")
+    sampler = EDMSampler(net, KarrasDenoiser(sigma_min=0.002, sigma_max=80.0),
+                         **lsun_small_sampler_cfg())
+    sampler.to(device).eval()
+    net.cast_weights()
+    return sampler
+
+
+def lsun_draws(seed, n=LSUN_BATCH, steps=4, rounds=None):
+    """Injected draws from a numpy seed at the small net's size: x0 (n, 3,
+    64, 64) times sigma_max 80 and eps (steps, n, 3, 64, 64); with
+    ``rounds`` each gains a leading rounds axis (calibration)."""
+    rs = np.random.RandomState(seed)
+    lead = () if rounds is None else (rounds,)
+    size = LSUN_SMALL["image_size"]
+    x0 = rs.randn(*lead, n, 3, size, size).astype(np.float32) * np.float32(
+        80.0)
+    eps = rs.randn(*lead, steps, n, 3, size, size).astype(np.float32)
+    return x0, eps
+
+
+def lsun_states(gold, eps):
+    """The fp32 golden trajectory's states x_0 .. x_{T-1} (numpy): x0, then
+    each step's mean plus its sigma times its noise."""
+    x0, _ = lsun_draws(int(gold["seed"]))
+    states = [x0]
+    for t in range(len(gold["fp32/means"]) - 1):
+        states.append(gold["fp32/means"][t] + gold["sigmas"][t] * eps[t])
+    return states
+
+
+def lsun_small_value(seed=LSUN_SEED + 2):
+    """T4_wide.yaml's value (TimeIndependentValue over a WideResNet) at
+    LSUN_SMALL_WRN's size with numpy-made weights, on the CPU."""
+    cfg = load_yaml(LSUN_T4_WIDE_CONFIG)["value"]
+    value = instantiate({**cfg, "net": {**cfg["net"], **LSUN_SMALL_WRN}})
+    value.load_state_dict(numpy_state(value, seed))
+    return value
+
+
+UPDATE_FAMILIES = ("vnorm/", "vproj/", "snorm/", "sproj/")
+
+
+def pack_update_families(arrays):
+    """The per-tensor update norms and projections of a training golden
+    (``vnorm/<name>`` ...) as one names array and one values array per
+    family, to keep a golden of a deep net small."""
+    out = {k: v for k, v in arrays.items()
+           if not k.startswith(UPDATE_FAMILIES)}
+    for fam in UPDATE_FAMILIES:
+        keys = [k for k in arrays if k.startswith(fam)]
+        out[f"pack/{fam}names"] = np.array([k[len(fam):] for k in keys])
+        out[f"pack/{fam}values"] = np.array([arrays[k] for k in keys],
+                                            np.float64)
+    return out
+
+
+def lsun_train_golden(path=None):
+    """LSUN_TRAIN_GOLDEN's arrays with the families unpacked and the data
+    batch rebuilt from its seed (``img``), as ``dxmi_train_replay``-style
+    replays and ``train_golden_check`` read a golden."""
+    packed = dict(np.load(path or LSUN_TRAIN_GOLDEN))
+    out = {k: v for k, v in packed.items() if not k.startswith("pack/")}
+    for fam in UPDATE_FAMILIES:
+        for name, val in zip(packed[f"pack/{fam}names"],
+                             packed[f"pack/{fam}values"]):
+            out[f"{fam}{name}"] = np.float64(val)
+    size = LSUN_SMALL["image_size"]
+    img, _ = structured_class_images(int(out["case/batchsize"]), size, 1,
+                                     seed=int(out["data_seed"]))
+    out["img"] = np.ascontiguousarray(img.transpose(0, 3, 1, 2))
+    return out
+
+
+def lsun_train_replay(device, attn_impl="einsum"):
+    """G8's trainer: the small LSUN sampler (fp32, ``attn_impl``, in
+    training mode as the trainer runs it) and the small Wide-ResNet value
+    on ``device``, one iteration of T4_wide.yaml's trainer against
+    LSUN_TRAIN_GOLDEN (``cond_train_replay``); returns (port arrays,
+    golden)."""
+    golden = lsun_train_golden()
+    sampler = lsun_small_sampler(device, attn_impl=attn_impl).train()
+    value = lsun_small_value().to(device)
+    cfg = load_yaml(LSUN_T4_WIDE_CONFIG)
+    return cond_train_replay(sampler, value, cfg["trainer"], golden,
+                             device), golden
+
+
+# train_image_large on the LSUN configs at a small width (the goldens' net
+# structure: six levels at 64x64, 32 channels, one ResBlock a level,
+# attention at 32x32, 16x16 and 8x8 by heads of 32 channels; fp32; batch 4)
+# and the value override each config's net takes
+SHRUNK_LSUN_ARGS = [
+    "--diffusion.image_size", "64", "--diffusion.num_channels", "32",
+    "--diffusion.num_res_blocks", "1", "--diffusion.channel_mult",
+    "1,1,2,2,4,4", "--diffusion.num_head_channels", "32",
+    "--diffusion.use_fp16", "False", "--sampler.sample_shape", "[3,64,64]",
+    "--training.batchsize", "4", "--training.log_every", "1"]
+SHRUNK_LSUN_VALUE = {"IGEBMEncoder": ["--value.net.nh", "16"],
+                     "WideResNet": ["--value.net.depth", "10",
+                                    "--value.net.widen_factor", "1"]}
+
+
+def lsun_cli_commands(config, run, device="cuda"):
+    """(train command, generate command, run dir relative to the working
+    directory) of train_image_large on an LSUN ``config`` for 2 steps at
+    the small width above, then generate_large on the run dir it writes
+    (8 samples, --save_npz)."""
+    name = os.path.basename(config).split(".")[0]
+    value = load_yaml(config)["value"]["net"]["_target_"].rsplit(".", 1)[1]
+    log_dir = os.path.join("results", "lsun_bedroom", name, run)
+    dev = ["--device", device]
+    train = [sys.executable, "-m", "dxmi_tpu_torch.train_image_large",
+             "--config", config, "--dataset", LSUN_DATA_CONFIG, "--run", run,
+             "--fake_data", "--fake_data_size", "16", "--max_steps", "2",
+             *dev, *SHRUNK_LSUN_ARGS, *SHRUNK_LSUN_VALUE[value]]
+    gen = [sys.executable, "-m", "dxmi_tpu_torch.generate_large",
+           "--log_dir", log_dir, "--sampler", "last", "--n_generate", "8",
+           "--batchsize", "4", "--save_npz",
+           os.path.join(log_dir, "samples.npz"), *dev]
+    return train, gen, log_dir
+
+
+LSUN_FP32_TOL = (2e-5, 2e-5)  # the fp32 kernels' limit (TOL), per element
+# The small LSUN net under fp32 static int8 is chaotic: its 30 ResBlocks
+# each carry an fp32 rounding of an activation across an int8 level now and
+# then, and each flip grows through the blocks that follow. A nudge of
+# every element of its input state by N(0, 1) LSUN_NUDGE of itself (about
+# the distance between the port's and JAX's fp32 activations, 1e-7 to 1e-6
+# relative through the net) moves the port's own int8 step means by
+# 0.18-0.21 of the int8 effect (mean and median on an H100 at 700 W), as
+# far as they sit from JAX's (0.14-0.20 on the CPU and the card; the
+# card's kernels sit as far from their plain versions, 0.13-0.17); the
+# trained ADM fixture's shallow net reads 0.0002. A single nudge does not
+# always spread: one of 2^-24 (an ulp) left a step's median at 0.003, one
+# of 2^-22 another at 1/8 of JAX's error. So the median gate of G-int8 is
+# read against the largest of LSUN_NUDGES nudges: each step's median
+# error from JAX's within LSUN_INT8_NUDGE_SHARE times the median distance
+# between the port's step from the state and from a nudged state; the mean
+# gate (INT8_STEP_RATIO of the int8 effect) stays.
+LSUN_NUDGE, LSUN_NUDGES = 2.0 ** -20, 2
+LSUN_INT8_NUDGE_SHARE = 2.0
+
+
+def check_lsun_int8(steps):
+    """The gates above on per-step (mean error / int8 effect, median error
+    / median nudge distance, max abs err); returns the worst of each."""
+    worst = max(r for r, _, _ in steps)
+    nudge = max(m for _, m, _ in steps)
+    if not worst <= INT8_STEP_RATIO:
+        raise AssertionError(f"LSUN int8 step means {worst:.3f} of the int8 "
+                             f"effect from JAX's (tol {INT8_STEP_RATIO:g})")
+    if not nudge <= LSUN_INT8_NUDGE_SHARE:
+        raise AssertionError(f"LSUN int8 step means' median error {nudge:.3f}"
+                             " times the nudge's (tol "
+                             f"{LSUN_INT8_NUDGE_SHARE:g})")
+    return worst, nudge
+
+
+def lsun_small_replay(device):
+    """G8's sampler readings and gates on LSUN_GOLDEN and LSUN_INT8_GOLDEN
+    (the small LSUN net), each step from the golden's fp32 states: (a) fp32
+    (fused: K1 and K2 fp32 on the card, their plain versions on the CPU;
+    and einsum) within LSUN_FP32_TOL of JAX's per element; (b) bf16 as
+    generate_large runs it within BF16_REPLAY_SHARE of JAX's own bf16
+    effect (the mean and the largest error over those of JAX's bf16 means
+    from its fp32 ones); (c) fp32 --int8 calibrated on the golden's draws,
+    its scales within INT8_SCALE_REL of JAX's, then with JAX's scales each
+    step under ``check_lsun_int8``. Returns the readings."""
+    gold = dict(np.load(LSUN_GOLDEN))
+    gold8 = dict(np.load(LSUN_INT8_GOLDEN))
+    _, eps = lsun_draws(int(gold["seed"]))
+    states = [torch.from_numpy(s).to(device)
+              for s in lsun_states(gold, eps)]
+    eps = torch.from_numpy(eps).to(device)
+    out = {}
+
+    def means(sampler, xs=states):
+        with torch.no_grad():
+            return [sampler.sample_step(x, t, eps[t])["mean"].cpu().numpy()
+                    for t, x in enumerate(xs)]
+
+    ref32 = gold["fp32/means"]
+    atol, rtol = LSUN_FP32_TOL
+    fp = None
+    for impl in ("fused", "einsum"):
+        s32 = lsun_small_sampler(device, attn_impl=impl)
+        got = np.stack(means(s32))
+        err = np.abs(got - ref32)
+        if not (err <= atol + rtol * np.abs(ref32)).all():
+            raise AssertionError(f"LSUN fp32 {impl} step means "
+                                 f"{err.max():.3e} from JAX's")
+        out[f"fp32 {impl}"] = float(err.max())
+        fp = fp if fp is not None else s32
+
+    got = np.stack(means(lsun_small_sampler(device, "bf16")))
+    worst = [0.0, 0.0]
+    for t in range(len(got)):
+        err = np.abs(got[t] - gold["bf16/means"][t])
+        eff = np.abs(gold["bf16/means"][t] - ref32[t])
+        ratios = (err.mean() / eff.mean(), err.max() / eff.max())
+        worst = [max(a, float(b)) for a, b in zip(worst, ratios)]
+    if max(worst) > BF16_REPLAY_SHARE:
+        raise AssertionError(f"LSUN bf16 steps {worst} times JAX's own bf16 "
+                             f"effect (tol {BF16_REPLAY_SHARE:g})")
+    out["bf16"] = worst
+
+    s8 = lsun_small_sampler(device, "int8")
+    cx0, ceps = (torch.from_numpy(a).to(device) for a in lsun_draws(
+        int(gold8["calib_seed"]), rounds=2))
+    s8.calibrate_quant(n_sample=cx0.shape[1], n_rounds=2, x0=cx0, eps=ceps)
+    ours = {k: v.clone() for k, v in s8.net.state_dict().items()}
+    want = load_int8_golden_scales(s8.net, gold8)
+    out["calib"] = max(float((ours[k].cpu() - v).abs().max()
+                             / v.abs().max()) for k, v in want.items())
+    if not out["calib"] <= INT8_SCALE_REL:
+        raise AssertionError(f"LSUN int8 calibration {out['calib']:.3e} "
+                             f"from JAX's (tol {INT8_SCALE_REL:g})")
+    got8, ref8 = np.stack(means(s8)), gold8["int8/means"]
+    gen = torch.Generator(device=device).manual_seed(1)
+    nudge = np.zeros(len(got8))
+    for _ in range(LSUN_NUDGES):
+        nudged = [x + x.abs() * LSUN_NUDGE * torch.randn(
+            x.shape, generator=gen, device=device) for x in states]
+        far = np.abs(np.stack(means(s8, nudged)) - got8)
+        nudge = np.maximum(nudge, np.median(far.reshape(len(far), -1), 1))
+    steps = []
+    for t in range(len(got8)):
+        err, effect = np.abs(got8[t] - ref8[t]), np.abs(ref32[t] - ref8[t])
+        steps.append((float(err.mean() / effect.mean()),
+                      float(np.median(err) / nudge[t]), float(err.max())))
+    out["int8"] = check_lsun_int8(steps)
+    return out
+
+
+def phase_replay_lsun():
+    """G8: the LSUN goldens on the card. ``lsun_small_replay`` (K1 and K2
+    fp32 under fused, K1 bf16 and K2 bf16 on the bf16 path, K1, K5 fp32 and
+    K8 under --int8), then one iteration of T4_wide.yaml's trainer with
+    the small Wide-ResNet value against LSUN_TRAIN_GOLDEN with K1 and with
+    its plain version: the metrics held to both under G3_METRIC_REL, the
+    updates read (the value's fp32 cuDNN convs round otherwise than the
+    CPU's, as in G7; tests/test_torch_lsun.py gates them on the CPU)."""
+    _lib.reset_launches()
+    out = lsun_small_replay("cuda")
+    used = {k for k, v in _lib.LAUNCHES.items() if v}
+    want = {"gn_silu", "attn_block", "gn_silu_bf16", "attn_block_bf16",
+            "attn_block_i8", "int8_conv"}
+    if used != want:
+        raise AssertionError(f"G8: launched {sorted(used)}, expected "
+                             f"{sorted(want)}")
+    print(f"  G8 fp32: step means within {out['fp32 fused']:.3e} (fused, K1 "
+          f"and K2 fp32) and {out['fp32 einsum']:.3e} (einsum) of JAX's (tol "
+          f"{LSUN_FP32_TOL[0]:g} + {LSUN_FP32_TOL[1]:g}*|JAX|); bf16 "
+          f"(generate_large's path): worst step {out['bf16'][0]:.3f} (mean) "
+          f"and {out['bf16'][1]:.3f} (largest) of JAX's own bf16 effect (tol "
+          f"{BF16_REPLAY_SHARE:g}); fp32 --int8: calibration "
+          f"{out['calib']:.3e} of each buffer's largest from JAX's (tol "
+          f"{INT8_SCALE_REL:g}), step means {out['int8'][0]:.3f} of the int8 "
+          f"effect from JAX's (tol {INT8_STEP_RATIO:g}), median error "
+          f"{out['int8'][1]:.3f} times the nudge's (tol "
+          f"{LSUN_INT8_NUDGE_SHARE:g}); kernels {dict(_lib.LAUNCHES)}")
+    with plain_kernels_adm():
+        plain, _ = lsun_train_replay("cuda")
+    _lib.reset_launches()
+    port, golden = lsun_train_replay("cuda")
+    used = {k for k, v in _lib.LAUNCHES.items() if v}
+    if used != {"gn_silu"}:
+        raise AssertionError(f"G8 trainer: launched {sorted(used)}")
+    m, v, sh = train_golden_check(port, golden, "G8 trainer",
+                                  gate_updates=False)
+    km, kv, ksh = train_golden_check(port, plain, "G8 trainer against plain",
+                                     gate_updates=False)
+    print(f"  G8 trainer (T4_wide.yaml, small WRN value): metrics within "
+          f"{m:.3e} of JAX's and {km:.3e} of the plain versions' (tol "
+          f"{G3_METRIC_REL:g}); read, not gated: value update {v:.3e} / "
+          f"{kv:.3e}, sampler updates at {sh:.3f} / {ksh:.3f} of G4's "
+          f"limit; d_loss {float(port['metric/ebm/d_loss_']):.5f}, "
+          f"sampler_loss {float(port['metric/sampler/sampler_loss_']):.5f}; "
+          f"kernels {dict(_lib.LAUNCHES)}")
+    return out
+
+
+# E8: generate_large on configs/lsun/T4.yaml at full width (526,304,771
+# parameters, 256x256, bf16, weights drawn from seed 0: the pretrained
+# file is not in the repository), N_BATCHES trajectories of BATCH on each
+# of LSUN_PATHS. Each step of one trajectory is held against the kernels'
+# plain versions at LSUN_PLAIN_BATCH samples (the plain fp32 net of that
+# batch holds ~2 GB a tensor at the 256x256 maps): bf16 and --int8 within
+# BF16_REPLAY_SHARE of the bf16 effect, the plain step's distance from the
+# plain fp32 net's (for --int8 the fp32 net with the same int8 layers and
+# scales), as E6.
+LSUN_PLAIN_BATCH = 10
+LSUN_SHARES = {"K1": ("gn_kernel", "gn_apply_kernel"),
+               "K4 (K2's core too)": ("flash_fwd_kernel",),
+               "K8": ("int8_conv_kernel",)}
+
+
+def lsun_fp_reference(path, sampler):
+    """The full-precision reference of ``e8_plain_check``: the fp32 net
+    with ``sampler``'s weights, for --int8 with its int8 layers and
+    scales."""
+    if path != "int8":
+        return generate_large.load_sampler(
+            merge(lsun_t4(), {"diffusion": {"use_fp16": False}}), None,
+            "cuda", 0, attn_impl=LSUN_PATHS[path]["attn_impl"])
+    from dxmi_tpu_torch.samplers.edm import EDMSampler, KarrasDenoiser
+    ref = EDMSampler(lsun_net("int8", "cuda", use_fp16=False),
+                     KarrasDenoiser(sigma_min=0.002, sigma_max=80.0),
+                     **lsun_t4()["sampler"]).cuda().eval()
+    ref.load_state_dict(sampler.state_dict())
+    ref.net.prepare_int8()
+    return ref
+
+
+def e8_plain_check(path, sampler):
+    """Each of the T steps from the kernels' state of one trajectory of
+    LSUN_PLAIN_BATCH: the kernels against their plain versions on the same
+    state and noise, read against the bf16 effect (see above); returns
+    (worst mean share, worst largest share)."""
+    fp = lsun_fp_reference(path, sampler)
+    rs = np.random.RandomState(8)
+    shape = (LSUN_PLAIN_BATCH, 3, LSUN_SIZE, LSUN_SIZE)
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32) * 80.0).cuda()
+    eps = torch.from_numpy(rs.randn(sampler.n_timesteps, *shape).astype(
+        np.float32)).cuda()
+    worst = [0.0, 0.0]
+    with torch.no_grad():
+        for t in range(sampler.n_timesteps):
+            step = sampler.sample_step(x, t, eps[t])
+            with plain_kernels_adm():
+                ref = sampler.sample_step(x, t, eps[t])["mean"]
+                eff = (ref - fp.sample_step(x, t, eps[t])["mean"]).abs()
+            err = (step["mean"] - ref).abs()
+            worst = [max(worst[0], (err.mean() / eff.mean()).item()),
+                     max(worst[1], (err.max() / eff.max()).item())]
+            x = step["sample"]
+    del fp
+    torch.cuda.empty_cache()
+    if max(worst) > BF16_REPLAY_SHARE:
+        raise AssertionError(f"E8 {path}: {worst} of the bf16 effect from "
+                             "the plain versions")
+    return worst
+
+
+def phase_generate_lsun(k1_log, rates):
+    """E8 (see above): each path's launches (calibration's too) against
+    ``lsun_shape_counts``, finite samples of the config's shape, img/s of
+    sampling alone and with setup, peak memory, a profiled trajectory's
+    device time, idle share and the kernels' shares (K8's time by shape is
+    phase T's at LSUN's two widest convs: one more trajectory here would
+    cost the run ~5 s), and each step against the plain versions. Returns
+    the launches of each path."""
+    cfg = lsun_t4()
+    T4 = cfg["sampler"]["n_timesteps"]
+    out = {}
+    for path, opts in LSUN_PATHS.items():
+        per_shape = lsun_shape_counts(path)
+        per = lsun_launches(per_shape)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        sampler = generate_large.load_sampler(cfg, None, "cuda", 0, **opts)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        calib = dict(_lib.LAUNCHES)
+        want_calib = ({k: v * T4 * generate_large.CALIB_N_ROUNDS for k, v in
+                       lsun_launches(lsun_shape_counts("flash")).items()}
+                      if opts.get("int8") else {})
+        if calib != want_calib:
+            raise AssertionError(f"E8 {path}: calibration launches {calib}, "
+                                 f"expected {want_calib}")
+        generate_large.sample_batches(sampler, BATCH, BATCH, 1)
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        with k1_shapes(k1_log, f"E8 {path}", N_BATCHES,
+                       f"trajectory of {BATCH}"):
+            x, _ = generate_large.sample_batches(sampler, N_BATCHES * BATCH,
+                                                 BATCH, 0)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(_lib.LAUNCHES)
+        want = {k: v * T4 * N_BATCHES for k, v in per.items()}
+        if got != want:
+            raise AssertionError(f"E8 {path}: launches {got}, expected "
+                                 f"{want}")
+        if tuple(x.shape) != (N_BATCHES * BATCH, 3, LSUN_SIZE, LSUN_SIZE) \
+                or not torch.isfinite(x).all():
+            raise AssertionError(f"E8 {path}: samples {tuple(x.shape)}, "
+                                 f"finite {bool(torch.isfinite(x).all())}")
+        peak = torch.cuda.max_memory_allocated()
+        # at ~3.4 s a trajectory the shape count's hook (a Python call per K1
+        # launch, 768 of them) costs nothing that shows: the counted run is
+        # the sampling alone
+        sampling, n = wall, N_BATCHES * BATCH
+        rates[f"E8 {path}"] = n / sampling
+        shapes = ", ".join(f"{k[0]}{k[1:]} x{v}" for k, v in
+                           sorted(per_shape.items(), key=str))
+        print(f"  E8 {path}: {sum(p.numel() for p in sampler.net.parameters())}"
+              f" parameters; load{' + calibration' if opts.get('int8') else ''}"
+              f" {setup:.3f} s (launches {calib}); launches {got} = {per} a "
+              f"forward x {T4} steps x {N_BATCHES}; sampling alone "
+              f"{sampling:.3f} s, {rates[f'E8 {path}']:.2f} img/s, "
+              f"{sampling / N_BATCHES * 1e3:.1f} ms a trajectory (host); with "
+              f"setup {n / (setup + wall):.2f} img/s; samples in "
+              f"[{x.min().item():.3f}, {x.max().item():.3f}], std "
+              f"{x.std().item():.3f}; peak allocated {peak / 2**30:.2f} GiB",
+              flush=True)
+        print(f"  E8 {path} launches a forward by shape: {shapes}")
+        profile_run(lambda: generate_large.sample_batches(sampler, BATCH,
+                                                          BATCH, 4),
+                    f"E8 {path} profile, one trajectory of {BATCH}", top=12,
+                    shares=LSUN_SHARES)
+        worst = e8_plain_check(path, sampler)
+        print(f"  E8 {path}: kernels against their plain versions, each step "
+              f"of a trajectory of {LSUN_PLAIN_BATCH} from the kernels' "
+              f"state: {worst[0]:.3f} (mean) and {worst[1]:.3f} (largest) of "
+              f"the bf16 effect (tol {BF16_REPLAY_SHARE:g})", flush=True)
+        out[path] = got
+        del sampler, x
+        torch.cuda.empty_cache()
+    return out
+
+
+# E9: train_image_large on configs/lsun/T4.yaml (IGEBM value) and
+# T4_wide.yaml (Wide-ResNet value) at full width with --attn_impl flash,
+# bf16 sampler, weights drawn from the seed, the structured fake pool:
+# LSUN_TRAIN_BATCH per step (the reference trains on 4 GPUs at 16 each;
+# 32 does not fit the card's 80 GB, PERF.md). A step samples T forwards and
+# sweeps the buffer's T minibatches, one forward and one backward each: 8
+# forwards of 101 K1 and 5 K4 launches, 4 backwards of 5 K4-dkv and K4-dq;
+# the value nets launch none of the port's kernels (the IGEBM has no norm,
+# the Wide-ResNet's norms are F.group_norm). Then the wiring check on the
+# first minibatch (flash against einsum, E3's gates) at LSUN_GRAD_ROWS.
+# The last step is the profiled one (device activity alone is traced).
+LSUN_TRAIN_STEPS, LSUN_GRAD_ROWS = 3, 8
+LSUN_TRAIN_SHARES = {"K1": ("gn_kernel", "gn_apply_kernel"),
+                     "K4": ("flash_fwd_kernel",),
+                     "K4-dkv": ("attn_bwd_dkv_tc_kernel", "di_kernel"),
+                     "K4-dq": ("attn_bwd_dq_tc_kernel",)}
+
+
+def phase_lsun_train(k1_log):
+    """E9 (see above): per config 3 steps, each one's launches, finite
+    metrics and no skipped update; s/step over steps 1-2 with its phase
+    split, peak memory and a profiled step; the wiring check once (the
+    sampler is the same in both configs). Returns the launches a step."""
+    T4 = lsun_t4()["sampler"]["n_timesteps"]
+    fwd = lsun_launches(lsun_shape_counts("flash"))
+    want = {"gn_silu_bf16": fwd["gn_silu_bf16"] * 2 * T4,
+            "flash_attn": fwd["flash_attn"] * 2 * T4,
+            "flash_attn_bwd_dkv": fwd["flash_attn"] * T4,
+            "flash_attn_bwd_dq": fwd["flash_attn"] * T4}
+    for label, path in (("T4", LSUN_T4_CONFIG),
+                        ("T4_wide", LSUN_T4_WIDE_CONFIG)):
+        cfg = lsun_train_config(path)
+        B = LSUN_TRAIN_BATCH
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = build_trainer(cfg, "flash", B)
+        data = train_image_large.fake_data(
+            cfg, trainer.sampler, 256, B, int(cfg["training"]["seed"]),
+            torch.device("cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        steps = []
+        for i in range(LSUN_TRAIN_STEPS):
+            x, y = next(data)
+            _lib.reset_launches()
+            with k1_shapes(k1_log, f"E9 {label}", 1, "step") if i == 0 else \
+                    contextlib.nullcontext():
+                wall, m = training_step(
+                    lambda: train_image_large.train_step(trainer, x, y, gen),
+                    i, LSUN_TRAIN_STEPS, f"E9 {label}", LSUN_TRAIN_SHARES)
+            got = dict(_lib.LAUNCHES)
+            if got != want:
+                raise AssertionError(f"E9 {label} step {i}: launches {got}, "
+                                     f"expected {want}")
+            bad = [k for k, v in m.items() if not k.startswith("time/")
+                   and not torch.isfinite(torch.as_tensor(v)).all()]
+            if bad:
+                raise AssertionError(f"E9 {label} step {i}: non-finite {bad}")
+            steps.append((wall, m))
+            print(f"  E9 {label} step {i}: {wall:.3f} s (sample "
+                  f"{m['time/sample']:.3f}, update_f_v "
+                  f"{m['time/update_f_v']:.3f}, update_sampler "
+                  f"{m['time/update_sampler']:.3f}); d_loss "
+                  f"{float(m['ebm/d_loss_']):.4f}, v_loss "
+                  f"{float(m['ebm/v_loss_']):.4f}, sampler_loss "
+                  f"{float(m['sampler/sampler_loss_']):.4f}", flush=True)
+        if trainer.nan_guard_skips:
+            raise AssertionError(f"E9 {label}: {trainer.nan_guard_skips} "
+                                 "updates skipped by the non-finite guard")
+        peak = torch.cuda.max_memory_allocated()
+        phases = {k: np.mean([mm[f"time/{k}"] for _, mm in steps[1:]])
+                  for k in ("sample", "update_f_v", "update_sampler")}
+        print(f"  E9 {label}: {type(trainer.value.net).__name__} value "
+              f"({sum(p.numel() for p in trainer.value.parameters())} "
+              f"parameters), batch {B}; "
+              f"{np.mean([w for w, _ in steps[1:]]):.3f} s/step over steps "
+              f"1-{LSUN_TRAIN_STEPS - 1} (sample {phases['sample']:.3f}, "
+              f"update_f_v {phases['update_f_v']:.3f}, update_sampler "
+              f"{phases['update_sampler']:.3f}); launches per step {want}; "
+              f"nan-guard skips 0; peak allocated {peak / 2**30:.2f} GiB",
+              flush=True)
+        del trainer, data
+        torch.cuda.empty_cache()
+        if label == "T4":
+            grads, groups = e3_grads(cfg, B, LSUN_GRAD_ROWS,
+                                     impls=("einsum", "flash"))
+            for line in wiring_check(grads, groups, (("flash", "einsum"),),
+                                     "E9"):
+                print(f"  E9 wiring: {line}")
+            del grads
+            torch.cuda.empty_cache()
+    return want
+
+
 def nvidia_smi():
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -5067,6 +6135,9 @@ def main() -> int:
         step("G7", phase_train_replay_ddgan)
         step("E6", lambda: phase_generate_ddgan(k1_log, rates))
         step("E7", lambda: phase_ddgan_train(k1_log))
+        step("G8", phase_replay_lsun)
+        step("E8", lambda: phase_generate_lsun(k1_log, rates))
+        step("E9", lambda: phase_lsun_train(k1_log))
         step("T-K1", lambda: k1_shape_table(gen, k1_log))
         step("T-K3", lambda: k3_shape_table(gen, k3_log))
         step("C", phase_cli)
@@ -5101,7 +6172,15 @@ def main() -> int:
                         "attn_block_bwd_small"],
                     gn_silu_ncsnpp=res["E6"]["fp32"]["gn_silu"],
                     gn_silu_bf16_ncsnpp=res["E6"]["bf16"]["gn_silu_bf16"],
-                    int8_conv_ncsnpp=res["E6"]["int8"]["int8_conv"])
+                    int8_conv_ncsnpp=res["E6"]["int8"]["int8_conv"],
+                    gn_silu_bf16_lsun=res["E8"]["fused"]["gn_silu_bf16"],
+                    attn_block_bf16_lsun=res["E8"]["fused"][
+                        "attn_block_bf16"],
+                    attn_block_i8_lsun=res["E8"]["int8"]["attn_block_i8"],
+                    flash_attn_lsun=res["E8"]["flash"]["flash_attn"],
+                    flash_attn_bwd_dkv_lsun=res["E9"]["flash_attn_bwd_dkv"],
+                    flash_attn_bwd_dq_lsun=res["E9"]["flash_attn_bwd_dq"],
+                    int8_conv_lsun=res["E8"]["int8"]["int8_conv"])
     kernels = []
     for name, (src, replaces) in INFO.items():
         r = times[name]

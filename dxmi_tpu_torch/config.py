@@ -52,6 +52,10 @@ _ALIASES: Dict[str, str] = {
         "dxmi_tpu_torch.models.igebm.IGEBMEncoder",
     "models.modules.IGEBMEncoderV2":
         "dxmi_tpu_torch.models.igebm.IGEBMEncoder",
+    "dxmi_tpu.models.wideresnet.WideResNet":
+        "dxmi_tpu_torch.models.wideresnet.WideResNet",
+    "models.wideresnet_te.wideresnet.Wide_ResNet":
+        "dxmi_tpu_torch.models.wideresnet.WideResNet",
 }
 
 # YAML 1.1 plain-scalar resolution, as PyYAML's resolver does it. A float

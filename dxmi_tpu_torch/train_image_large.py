@@ -1,6 +1,7 @@
-"""DxMI training of the class-conditional EDM sampler for ImageNet64 / LSUN
-with the port (``train_image_large.py:100-306``): UNetADM + EDMSampler +
-``DxMITrainerCond``, one iteration being
+"""DxMI training of the EDM sampler for ImageNet64 (class-conditional) and
+LSUN-Bedroom 256 (unconditional; configs/lsun, with the IGEBM or the
+Wide-ResNet value) with the port (``train_image_large.py:100-306``):
+UNetADM + EDMSampler + ``DxMITrainerCond``, one iteration being
 
     sample -> update_f_v -> update_sampler (full-buffer sweep)
 
@@ -21,7 +22,9 @@ reference's format, which ``generate_large --sampler last`` reads. Each
 ``log_every`` iterations it prints the JAX entry's line (d_loss,
 sampler_loss, it/s). Not ported yet (they raise): the ImageNet folder loader
 (use ``--fake_data``), FID during training, ``--wandb``, ``--resume``,
-``--data_workers`` and ``--save_state_every``.
+``--data_workers`` and ``--save_state_every``. Without ``--fake_data`` it
+raises for LSUN too (its image folder is decoded through PIL in the JAX
+package).
 """
 from __future__ import annotations
 

@@ -94,8 +94,9 @@ def _state_dict_of(path: str) -> Dict[str, torch.Tensor]:
 def load_value_state(path: str) -> Dict[str, torch.Tensor]:
     """A value checkpoint as a state dict of the port's
     ``TimeIndependentValue``: a flax msgpack file (``{'params': {'net':
-    ...}}`` or ``{'net': ...}``) through ``value_from_flax``, or a reference
-    ``value.pth`` (keys ``net.*``), containers and ``module.`` prefixes
+    ...}}`` or ``{'net': ...}``, an IGEBM encoder's or a Wide-ResNet's)
+    through ``value_from_flax``, or a ``value.pth`` of the reference or of
+    the port (keys ``net.*``), containers and ``module.`` prefixes
     unwrapped."""
     if path.endswith(".msgpack"):
         return convert.value_from_flax(load_flax_checkpoint(path))

@@ -14,11 +14,14 @@ no reference layout) into the port's, whose names are the flax ones.
 ``igebm_from_flax`` and ``value_from_flax`` invert ``convert_igebm`` and
 ``wrap_value_params`` (``dxmi_tpu/utils/convert.py:168-275``); the port's
 value state dicts are the reference ``value.pth`` layout.
+``wideresnet_from_flax`` carries the JAX package's Wide-ResNet value net
+(no reference layout either) into the port's, whose names are the flax
+ones; ``value_from_flax`` takes either value net.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,23 +114,38 @@ def _adm_module_path(name: str) -> str:
     return re.sub(r"_(op|conv)$", r".\1", name)
 
 
+def _axes(leaf: str, ndim: int) -> Optional[Tuple[int, ...]]:
+    """The transpose of a flax kernel into the port's layout (HWIO -> OIHW,
+    a Dense's (in, out) -> (out, in)); None for other leaves."""
+    if leaf != "kernel":
+        return None
+    return (3, 2, 0, 1) if ndim == 4 else (1, 0)
+
+
+def adm_leaf(path: Sequence[str], ndim: int
+             ) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """The port's ``UNetADM`` state-dict key of the flax leaf at ``path``
+    and the transpose that takes its value there (None: as it is)."""
+    *mods, leaf = path
+    if mods and mods[-1] == "gn":
+        mods, name = mods[:-1], {"scale": "weight", "bias": "bias"}[leaf]
+    elif leaf in ("kernel", "bias", "embedding"):
+        name = "bias" if leaf == "bias" else "weight"
+    else:
+        raise ValueError(f"unhandled flax leaf {'/'.join(path)}")
+    key = ".".join([*(_adm_module_path(m) for m in mods), name])
+    return key, _axes(leaf, ndim)
+
+
 def unet_adm_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict of the port's ``UNetADM`` from the JAX ``UNetADM`` params
     tree (numpy leaves; a ``{'params': ...}`` wrapper is accepted)."""
     params = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}
     for path, val in _leaves(params):
-        *mods, leaf = path
-        if mods and mods[-1] == "gn":
-            mods, name = mods[:-1], {"scale": "weight", "bias": "bias"}[leaf]
-        elif leaf == "kernel":
-            name = "weight"
-            val = val.transpose(3, 2, 0, 1) if val.ndim == 4 else val.T
-        elif leaf in ("bias", "embedding"):
-            name = "bias" if leaf == "bias" else "weight"
-        else:
-            raise ValueError(f"unhandled flax leaf {'/'.join(path)}")
-        key = ".".join([*(_adm_module_path(m) for m in mods), name])
+        key, axes = adm_leaf(path, val.ndim)
+        if axes is not None:
+            val = val.transpose(axes)
         out[key] = torch.from_numpy(np.ascontiguousarray(val))
     return out
 
@@ -183,12 +201,42 @@ def igebm_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def wideresnet_leaf(path: Sequence[str], ndim: int
+                    ) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """The port's ``WideResNet`` state-dict key of the flax leaf at
+    ``path`` (the module path joined with dots, GroupNorm ``scale`` as
+    ``weight``) and the transpose that takes its value there."""
+    *mods, leaf = path
+    if leaf not in ("kernel", "bias", "scale"):
+        raise ValueError(f"unhandled flax leaf {'/'.join(path)}")
+    name = "bias" if leaf == "bias" else "weight"
+    return ".".join([*mods, name]), _axes(leaf, ndim)
+
+
+def wideresnet_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``WideResNet`` from the JAX ``WideResNet``
+    params (numpy leaves; a ``{'params': ...}`` wrapper is accepted): HWIO
+    conv kernels to OIHW, the Dense kernel (in, out) to the Linear weight
+    (out, in), GroupNorm ``scale`` to ``weight`` (``wideresnet_leaf``)."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for path, val in _leaves(params):
+        key, axes = wideresnet_leaf(path, val.ndim)
+        if axes is not None:
+            val = val.transpose(axes)
+        out[key] = torch.from_numpy(np.array(val))
+    return out
+
+
 def value_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict of the port's ``TimeIndependentValue`` from the JAX value
-    params ``{'net': <IGEBMEncoder params>}`` (a ``{'params': ...}`` wrapper
-    is accepted)."""
+    params ``{'net': <IGEBMEncoder or WideResNet params>}`` (a ``{'params':
+    ...}`` wrapper is accepted); a WideResNet is told by its ``norm_out``
+    (the IGEBM encoder has none)."""
     params = params.get("params", params)
-    return {f"net.{k}": v for k, v in igebm_from_flax(params["net"]).items()}
+    net = params["net"]
+    conv = wideresnet_from_flax if "norm_out" in net else igebm_from_flax
+    return {f"net.{k}": v for k, v in conv(net).items()}
 
 
 def ncsnpp_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
