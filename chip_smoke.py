@@ -181,7 +181,7 @@ failure exits non-zero naming the phase:
      step against the plain versions (at 10 samples);
   E9 train_image_large on configs/lsun/T4.yaml (IGEBM value) and
      T4_wide.yaml (Wide-ResNet value) at full width with --attn_impl flash
-     at batch 16 (32 does not fit the card): 3 steps each, launches,
+     at batch 16 (32 does not fit the card): 2 steps each, launches,
      finite metrics, s/step by phase, peak memory, the last step profiled;
      then the wiring check of flash against einsum;
   T-K1 K1 at each shape that E-int8, E2 (fused, flash), E3 (flash,
@@ -197,11 +197,26 @@ failure exits non-zero naming the phase:
   C  run the generation CLIs (generate_cifar10 and generate_large, each
      with and without --int8; generate_cifar10 --dtype bf16) as
      subprocesses on the fixture run dirs with --save_npz, and hold each
-     npz to the in-process samples; then
+     npz to the in-process samples; and
      train_image_large for 2 steps on a shrunken config and generate_large
      on the run dir it wrote, and the same with train_cifar10 and
      generate_cifar10, on T10.yaml and on T4_ddgan.yaml (NCSN++ at a small
-     width; the npz within one uint8 level of the in-process samples).
+     width; the npz within one uint8 level of the in-process samples); the
+     subprocesses four at a time;
+  F  FID and the evaluator at full width in a temporary working directory
+     whose datasets/ holds the proxy files of dxmi_tpu_torch/fid/proxy.py
+     (the seed-0 synthetic Inception weights; statistics over 4096
+     fake_cifar images): the FID Inception against the JAX evaluator's
+     golden (tests/torch_fixtures/fid_golden.npz: pool3, the sFID tap, the
+     IS probabilities, within 1e-3 of the feature scale + 1e-4) and its
+     img/s at batch 100 with a profile of one batch; train_cifar10 on
+     configs/cifar10/T10.yaml for 2 steps with the FID at epoch 0 on 3200
+     samples (sampler_best written with fid, epoch, iter); generate_cifar10
+     --sampler best -n 3200 --eval_fid --save_npz (every PNG decodes to the
+     npz); the evaluator on that npz against the statistics' images as a
+     reference npz (IS, FID, sFID, precision and recall finite, its FID
+     within 1e-6 relative of generate_cifar10's); each FID's sampling,
+     Inception and Frechet seconds and the Frechet route; peak memory.
 
 `python3 chip_smoke.py --phases B,T-bwd` runs the phases named (here the
 build and the backward kernels' breakdown) and prints no kernels record and
@@ -214,6 +229,7 @@ nvidia-smi, the one before it the kernels' JSON record, and the last line is
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import faulthandler
 import io
@@ -247,7 +263,11 @@ from dxmi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
                                           flash_mha_reference_fwd,
                                           flash_reference_dkv,
                                           flash_reference_dq)
+from dxmi_tpu_torch import evaluator
 from dxmi_tpu_torch.data.cifar10 import EpochLoader, fake_cifar
+from dxmi_tpu_torch.fid import proxy
+from dxmi_tpu_torch.fid.inception import (build_inception,
+                                          load_fid_inception_params)
 from dxmi_tpu_torch.data.synthetic import structured_class_images
 from dxmi_tpu_torch.models.unet_small import AttnBlock
 from dxmi_tpu_torch.ops.attn_block import (BWD_MAX_SLICES,
@@ -278,6 +298,7 @@ from dxmi_tpu_torch.trainers.dxmi import DxMITrainer, train_step
 from dxmi_tpu_torch.trainers.dxmi_cond import DxMITrainerCond
 from dxmi_tpu_torch.utils.checkpoint import (load_sampler_state,
                                              load_value_state)
+from dxmi_tpu_torch.utils.png import read_png
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE_DIR = os.path.join(REPO, "tests", "fixtures", "torch_rundir_t10")
@@ -794,7 +815,7 @@ class PhaseError(Exception):
 PHASES = ("B", "K", "T", "T-bwd", "G", "G-int8", "G-bf16", "E", "E-int8",
           "E-bf16", "G2", "G2-int8", "E2", "E2-int8", "G3", "E3", "G5", "E5",
           "G4", "E4", "E4-levers", "G6", "G7", "E6", "E7", "G8", "E8", "E9",
-          "T-K1", "T-K3", "C")
+          "T-K1", "T-K3", "C", "F")
 
 
 def run_phase(name, fn):
@@ -3710,13 +3731,39 @@ def phase_replay_adm_int8():
     return worst
 
 
+CLI_WORKERS = 4  # CLI subprocesses at a time in phase C
+
+
+def fixture_cli(out_dir, module, run_dir, extra, bs):
+    """One generation CLI on a fixture run dir, in a subprocess; the npz's
+    path, the seconds and the last two lines of its output."""
+    path = os.path.join(out_dir, f"{module}{''.join(extra)}.npz")
+    if os.path.exists(path):
+        os.remove(path)
+    cmd = [sys.executable, "-m", f"dxmi_tpu_torch.{module}", "--log_dir",
+           run_dir, "--n_generate", "8", "--batchsize", str(bs),
+           "--save_npz", path, *extra]
+    if module == "generate_cifar10":  # its PNGs, off the fixture dir
+        cmd += ["--save_dir", path[:-4] + "_png"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[2:])} failed:\n"
+                             f"{proc.stdout}{proc.stderr}")
+    return path, time.perf_counter() - t0, proc.stdout.strip().splitlines()[-2:]
+
+
 def phase_cli():
     """The generation CLIs as a user runs them, in subprocesses on the card,
     on the fixture run dirs (config.yaml through the port's YAML reader,
     --save_npz streaming): generate_cifar10 (also --int8 and --dtype bf16),
-    generate_large, generate_large --int8. Each npz is held to the in-process samples of the same seed,
-    within one uint8 level (another process may get another cuDNN
-    algorithm); the labels equal."""
+    generate_large, generate_large --int8; and the training CLIs followed by
+    generation on the run dirs they write. The subprocesses run
+    ``CLI_WORKERS`` at a time (each spends most of its seconds starting).
+    Each npz is held to the in-process samples of the same seed, within one
+    uint8 level (another process may get another cuDNN algorithm); the
+    labels equal."""
     out_dir = os.path.join(REPO, "build", "chip_smoke_cli")
     os.makedirs(out_dir, exist_ok=True)
     runs = [("generate_cifar10", FIXTURE_DIR, (), 4),
@@ -3724,20 +3771,14 @@ def phase_cli():
             ("generate_cifar10", FIXTURE_DIR, ("--dtype", "bf16"), 4),
             ("generate_large", ADM_FIXTURE_DIR, (), 8),
             ("generate_large", ADM_FIXTURE_DIR, ("--int8",), 8)]
-    for module, run_dir, extra, bs in runs:
-        path = os.path.join(out_dir, f"{module}{''.join(extra)}.npz")
-        if os.path.exists(path):
-            os.remove(path)
-        cmd = [sys.executable, "-m", f"dxmi_tpu_torch.{module}", "--log_dir",
-               run_dir, "--n_generate", "8", "--batchsize", str(bs),
-               "--save_npz", path, *extra]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                              timeout=300,
-                              env=dict(os.environ, PYTHONPATH=REPO))
-        if proc.returncode != 0:
-            raise AssertionError(f"{' '.join(cmd[2:])} failed:\n"
-                                 f"{proc.stdout}{proc.stderr}")
+    with concurrent.futures.ThreadPoolExecutor(CLI_WORKERS) as pool:
+        trained = [pool.submit(fn, out_dir) for fn in
+                   (train_cli, cifar_train_cli, ddgan_train_cli)]
+        clis = [pool.submit(fixture_cli, out_dir, *run) for run in runs]
+        done = [f.result() for f in clis]
+        for f in trained:
+            f.result()
+    for (module, run_dir, extra, bs), (path, secs, last) in zip(runs, done):
         got = np.load(path)
         state = load_sampler_state(os.path.join(
             run_dir, "sampler_best.pth" if module == "generate_cifar10"
@@ -3757,13 +3798,185 @@ def phase_cli():
                                  "samples")
         if y is not None and not np.array_equal(got["arr_1"], y.numpy()):
             raise AssertionError(f"{module} {extra}: labels differ")
-        last = proc.stdout.strip().splitlines()[-2:]
-        print(f"  C {module} {' '.join(extra)}: {time.perf_counter() - t0:.1f}"
-              f" s, npz {got['arr_0'].shape} {got['arr_0'].dtype} within "
-              f"{diff} uint8 level of in-process; {' | '.join(last)}")
-    train_cli(out_dir)
-    cifar_train_cli(out_dir)
-    ddgan_train_cli(out_dir)
+        print(f"  C {module} {' '.join(extra)}: {secs:.1f} s, npz "
+              f"{got['arr_0'].shape} {got['arr_0'].dtype} within {diff} uint8 "
+              f"level of in-process; {' | '.join(last)}")
+
+
+# Phase F: FID and the evaluator at full width, in a temporary working
+# directory whose datasets/ holds the proxy files (fid/proxy.py: the seed-0
+# synthetic Inception weights, statistics over fake_cifar), never the repo's
+FID_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures", "fid_golden.npz")
+# 32 batches of 100: four whole chunks of 8 trajectories, above the 2048
+# samples below which the samples' covariance is singular
+FID_SAMPLES, FID_BATCH = 3200, 100
+FID_REF_N, FID_REF_SEED = 4096, 112233  # the proxy's fake_cifar statistics
+# JAX's own cross-framework limit for the FID Inception, 1e-3 of the
+# feature scale + 1e-4 (tests/test_inception_load.py)
+FID_REL, FID_ABS = 1e-3, 1e-4
+FID_SAME_REL = 1e-6  # the evaluator's FID against generate_cifar10's
+
+
+def run_entry(module, argv):
+    """``module.main()`` in this process with ``argv``; its stdout."""
+    buf, old = io.StringIO(), sys.argv
+    sys.argv = [module.__name__, *argv]
+    try:
+        with contextlib.redirect_stdout(buf):
+            module.main()
+    finally:
+        sys.argv = old
+    return buf.getvalue()
+
+
+def fid_lines(out, what):
+    """The value of an entry's ``FID:`` line and its ``FID time:`` line;
+    raises when FID was skipped."""
+    lines = out.splitlines()
+    fid = [l for l in lines if l.startswith("FID: ")]
+    split = [l for l in lines if l.startswith("FID time: ")]
+    if len(fid) != 1 or len(split) != 1:
+        raise AssertionError(f"{what}: FID not computed:\n{out[-3000:]}")
+    return float(fid[0].split()[1]), split[0]
+
+
+def fid_golden_check(model):
+    """The port's FID Inception on the card against the JAX evaluator's
+    outputs under the same weights (tests/torch_fixtures/fid_golden.npz)."""
+    gold = np.load(FID_GOLDEN)
+    fc_w, fc_b = (model.fc.weight.detach().cpu().numpy().T,
+                  model.fc.bias.detach().cpu().numpy())
+    worst = 0.0
+    for key in ("x32", "x64"):
+        dev = next(model.parameters()).device
+        with torch.no_grad():
+            out = {k: v.cpu().numpy() for k, v in model.taps(
+                torch.from_numpy(gold[key].transpose(0, 3, 1, 2).copy())
+                .to(dev)).items()}
+        logits = out["pool3"] @ fc_w + fc_b
+        e = np.exp(logits - logits.max(axis=1, keepdims=True))
+        out["probs"] = e / e.sum(axis=1, keepdims=True)
+        for name in ("pool3", "spatial", "probs"):
+            ref = gold[f"{key}_{name}"]
+            err = float(np.abs(out[name] - ref).max())
+            lim = FID_REL * float(np.abs(ref).mean()) + FID_ABS
+            if not err < lim:
+                raise AssertionError(f"F Inception {key} {name}: {err:.3e} "
+                                     f"from JAX's (limit {lim:.3e})")
+            worst = max(worst, err / lim)
+            print(f"  F Inception {key} {name}: {err:.3e} from JAX's "
+                  f"({err / lim:.4f} of the limit)")
+    return worst
+
+
+def inception_rate(model):
+    """Inception's img/s at batch 100 on 32x32 inputs (fp32, TF32 off) and
+    a profile of one batch."""
+    x = torch.rand(FID_BATCH, 3, 32, 32, device="cuda")
+    with torch.no_grad():
+        ms = time_ms(lambda: model(x), iters=5, warmup=2)
+        profile_run(lambda: model(x), "F Inception, one batch of 100",
+                    top=8)
+    rate = FID_BATCH / ms * 1e3
+    print(f"  F Inception: {ms:.2f} ms a batch of {FID_BATCH}, {rate:.1f} "
+          "img/s (fp32, TF32 off)")
+    return rate
+
+
+def phase_fid(device="cuda", n=FID_SAMPLES, batch=FID_BATCH,
+              ref_n=FID_REF_N, train_args=()):
+    """FID and the evaluator through the entries at full width (CIFAR-10
+    T=10), in a temporary working directory: the Inception against JAX's
+    golden, its img/s; the proxy files; train_cifar10 for 2 steps with the
+    FID at epoch 0 on 3200 samples (sampler_best written with its fid);
+    generate_cifar10 --sampler best -n 3200 --eval_fid --save_npz (the PNGs
+    decode to the npz); the evaluator on that npz against a reference npz
+    of the proxy's images (IS, FID, sFID, precision, recall finite; its FID
+    equal to generate_cifar10's). ``device``, the sizes and the training
+    overrides let the CPU rehearse the phase at a small width."""
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fid_") as work, \
+            contextlib.chdir(work):
+        t0 = time.perf_counter()
+        wpath = proxy.write_weights("datasets")
+        model = build_inception(load_fid_inception_params(wpath),
+                                torch.device(device))
+        t1 = time.perf_counter()
+        out["golden"] = fid_golden_check(model)
+        if cuda:
+            out["img_s"] = inception_rate(model)
+        t2 = time.perf_counter()
+        proxy.write_cifar_stats("datasets", model, ref_n, FID_REF_SEED, batch)
+        np.savez("ref.npz", arr_0=fake_cifar(ref_n, FID_REF_SEED).images)
+        del model
+        print(f"  F proxy files: weights {t1 - t0:.1f} s, statistics of "
+              f"{ref_n} images and the reference npz "
+              f"{time.perf_counter() - t2:.1f} s; golden and img/s "
+              f"{t2 - t1:.1f} s")
+
+        t0 = time.perf_counter()
+        log = run_entry(train_cifar10, [
+            "--config", CIFAR10_CONFIG, "--dataset",
+            os.path.join(REPO, "configs", "cifar10", "cifar10.yaml"),
+            "--run", "fid", "--fake_data", "--max_steps", "2", "--device",
+            device, "--training.n_fid_samples", str(n),
+            "--training.sampling_batchsize", str(batch), *train_args])
+        fid_train, split = fid_lines(log, "train_cifar10")
+        run = os.path.join("results", "cifar10", "T10", "fid")
+        best = torch.load(os.path.join(run, "sampler_best.pth"),
+                          weights_only=True)
+        meta = {k: v for k, v in best.items() if k != "state_dict"}
+        if meta != {"fid": fid_train, "epoch": 0, "iter": 0} \
+                or "done: 2 iters" not in log:
+            raise AssertionError(f"train_cifar10: sampler_best meta {meta}, "
+                                 f"FID {fid_train}")
+        print(f"  F train_cifar10 (2 steps, FID at epoch 0 on {n}): "
+              f"{time.perf_counter() - t0:.1f} s; FID "
+              f"{fid_train}; {split}; sampler_best meta fid/epoch/iter ok")
+
+        t0 = time.perf_counter()
+        log = run_entry(generate_cifar10, [
+            "--log_dir", run, "--sampler", "best", "-n", str(n),
+            "--batchsize", str(batch), "--eval_fid", "--save_npz",
+            "samples.npz", "--device", device])
+        fid_gen, split = fid_lines(log, "generate_cifar10")
+        arr = np.load("samples.npz")["arr_0"]
+        pngs = os.path.join(run, "generated_best")
+        if len(arr) != n or any(
+                not np.array_equal(read_png(os.path.join(pngs, f"0_{i}.png")),
+                                   arr[i]) for i in range(n)):
+            raise AssertionError("generate_cifar10: the PNGs do not decode "
+                                 "to the npz")
+        print(f"  F generate_cifar10 --eval_fid (-n {n}): "
+              f"{time.perf_counter() - t0:.1f} s; FID {fid_gen}; {split}; "
+              f"{n} PNGs decode to the npz")
+
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            ev = evaluator.evaluate(
+                "ref.npz", "samples.npz",
+                evaluator.build_extractors(wpath, device), batch, device)
+        names = ("IS", "FID", "sFID", "precision", "recall")
+        if not all(k in ev and np.isfinite(ev[k]) for k in names):
+            raise AssertionError(f"evaluator: {ev}")
+        rel = abs(ev["FID"] - fid_gen) / abs(fid_gen)
+        if not rel <= FID_SAME_REL:
+            raise AssertionError(f"evaluator FID {ev['FID']} against "
+                                 f"generate_cifar10's {fid_gen}: {rel:.3e}")
+        print(f"  F evaluator: {time.perf_counter() - t0:.1f} s; "
+              + ", ".join(f"{k} {ev[k]}" for k in names)
+              + f"; FID {ev['FID_route']} {ev['FID_seconds']:.3f} s, sFID "
+              f"{ev['sFID_route']} {ev['sFID_seconds']:.3f} s; FID "
+              f"{rel:.3e} from generate_cifar10's")
+    if cuda:
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  F peak memory {out['peak_gib']:.2f} GiB")
+    return out
 
 
 # train_cifar10 on a shrunken config (32 channels, mult (1, 2), one res
@@ -5987,7 +6200,8 @@ def phase_generate_lsun(k1_log, rates):
 # the Wide-ResNet's norms are F.group_norm). Then the wiring check on the
 # first minibatch (flash against einsum, E3's gates) at LSUN_GRAD_ROWS.
 # The last step is the profiled one (device activity alone is traced).
-LSUN_TRAIN_STEPS, LSUN_GRAD_ROWS = 3, 8
+# 2 steps, the second profiled, to keep the whole script inside its limit
+LSUN_TRAIN_STEPS, LSUN_GRAD_ROWS = 2, 8
 LSUN_TRAIN_SHARES = {"K1": ("gn_kernel", "gn_apply_kernel"),
                      "K4": ("flash_fwd_kernel",),
                      "K4-dkv": ("attn_bwd_dkv_tc_kernel", "di_kernel"),
@@ -6141,6 +6355,7 @@ def main() -> int:
         step("T-K1", lambda: k1_shape_table(gen, k1_log))
         step("T-K3", lambda: k3_shape_table(gen, k3_log))
         step("C", phase_cli)
+        step("F", phase_fid)
         smi = nvidia_smi()
     except PhaseError as e:
         print(str(e), file=sys.stderr, flush=True)

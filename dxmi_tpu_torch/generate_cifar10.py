@@ -1,17 +1,23 @@
 """Generate samples from a DxMI CIFAR-10 run directory with the port.
 
     python -m dxmi_tpu_torch.generate_cifar10 --log_dir <run> \
-        [--sampler best|last] [--n_generate N] [--batchsize B] \
-        [--save_npz samples.npz] [--seed S] [--int8] [--dtype fp32|bf16] \
-        [--device cuda|cpu]
+        [--sampler|--epoch best|last] [--n_generate N] [--batchsize B] \
+        [--save_dir DIR] [--save_npz samples.npz] [--eval_fid] \
+        [--stat stats.npz] [--cleanup] [--seed S] [--int8] \
+        [--dtype fp32|bf16] [--device cuda|cpu] [--any.dot.key value ...]
 
-Reads ``config.yaml`` and the sampler checkpoint from the run directory
+Reads ``config.yaml`` (without PyYAML; dot-key overrides merged over it, as
+the JAX entry merges them) and the sampler checkpoint from the run directory
 (the reference's run-dir contract in the JAX entry's order: flax
-``.msgpack`` before ``.pth`` and ``.pt``; the YAML is read without PyYAML)
-and
-draws ``N`` samples in batches of ``B``. ``--save_npz`` streams them batch by
-batch as uint8 NHWC into ``arr_0``, the evaluator's format, so the host never
-holds all N.
+``.msgpack`` before ``.pth`` and ``.pt``) and draws ``N`` samples in batches
+of ``B``. Each sample is written as ``0_<index>.png`` into ``--save_dir``
+(default ``<log_dir>/generated_<sampler>``) by a thread pool
+(``utils/png.py``). ``--save_npz`` also streams them batch by batch as
+uint8 NHWC into ``arr_0``, the evaluator's format, so the host never holds
+all N. ``--eval_fid`` (or ``--stat``) computes FID from the PNG directory
+against the dataset statistics (``--stat``, else ``fid/runner.py``'s
+``DEFAULT_STATS``) when they and the Inception weights are on disk, and
+prints its time split; ``--cleanup`` then deletes the PNGs.
 
 The network follows the config's ``sampler_net._target_``: UNetSmall
 (VARSampler, T=10) or the DDGAN generator NCSN++ (DDGANSampler, T=4,
@@ -24,8 +30,7 @@ full-precision trajectories from a generator seeded with ``seed + 123``, as
 the JAX entry does (``generate_cifar10.py:149-187``). ``--dtype`` is the
 net's compute dtype (parameters stay fp32): by default bf16 for NCSN++ and
 fp32 otherwise, as in the JAX entry. GroupNorm statistics are the JAX
-entry's default (two-pass fp32). Not ported yet: PNG writing, FID and
-``--guidance_scale``.
+entry's default (two-pass fp32). Not ported yet: ``--guidance_scale``.
 
 ``bench_sampler`` builds ``bench.py``'s configuration of the same net (bf16,
 static int8 with the attention 1x1s in bf16, the merged qkv product, the
@@ -35,22 +40,31 @@ calibrated as ``bench.py`` does; ``samplers.sample_many`` draws from it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import shutil
 import time
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from dxmi_tpu_torch.config import instantiate, load_yaml
+from dxmi_tpu_torch.config import (instantiate, load_yaml, merge,
+                                   parse_nested_args, parse_unknown_args)
+from dxmi_tpu_torch.fid import runner as fid_runner
+from dxmi_tpu_torch.fid import stats as stats_lib
+from dxmi_tpu_torch.fid.image_dir import dir_activations
+from dxmi_tpu_torch.fid.runner import FIDState
 from dxmi_tpu_torch.models.unet_small import QUANT_SCALE_NAMES, UNetSmall
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.samplers.var import VARSampler
 from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
                                              load_sampler_state, net_kind,
+                                             read_meta,
                                              resolve_run_checkpoint)
 from dxmi_tpu_torch.utils.npz_stream import NpzStreamWriter
+from dxmi_tpu_torch.utils.png import PNGWriter
 
 
 # calibration of --int8, as the JAX entry runs it (VARSampler's defaults)
@@ -153,29 +167,44 @@ def sample_batches(sampler: VARSampler, n: int, batchsize: int,
 
 @torch.no_grad()
 def stream_samples(sampler: nn.Module, n: int, batchsize: int, seed: int,
-                   save_npz: Optional[str]) -> int:
-    """Draw the batches of ``iter_batches`` and stream each one as uint8
-    NHWC into ``arr_0`` of ``save_npz``, and the class labels of a
-    class-conditional sampler (int64) into ``arr_1`` at the end (None:
-    draw and drop them); returns the count. Serves both CLIs."""
+                   save_npz: Optional[str], save_dir: Optional[str] = None,
+                   fid_state: Optional[FIDState] = None
+                   ) -> Tuple[int, Optional[np.ndarray]]:
+    """Draw the batches of ``iter_batches``. Each batch goes as uint8 NHWC
+    into ``arr_0`` of ``save_npz`` (the class labels of a class-conditional
+    sampler, int64, into ``arr_1`` at the end), as PNGs
+    ``0_<index>.png`` into ``save_dir`` (written on a thread pool), and, with
+    ``fid_state``, through its Inception on the device as
+    ``clip((x + 1) / 2, 0, 1)``. Returns the count and the pool3
+    activations (None without ``fid_state``). Serves both CLIs."""
     C, H, W = sampler.sample_shape
-    batches = iter_batches(sampler, n, batchsize, seed)
-    if save_npz is None:
-        n_done = sum(out["sample"].shape[0] for out in batches)
-        # the batches are only queued on the card: wait for them, so that
-        # the caller's clock times the generation
-        if sampler.log_betas.is_cuda:
-            torch.cuda.synchronize(sampler.log_betas.device)
-        return n_done
-    ys = []
-    with NpzStreamWriter(save_npz, n, (H, W, C)) as writer:
-        for out in batches:
-            writer.write(to_uint8(out["sample"]))
-            if out.get("y") is not None:
+    with contextlib.ExitStack() as stack:
+        writer = (None if save_npz is None else stack.enter_context(
+            NpzStreamWriter(save_npz, n, (H, W, C))))
+        pngs = (None if save_dir is None
+                else stack.enter_context(PNGWriter(save_dir)))
+        n_done, ys, acts = 0, [], []
+        for out in iter_batches(sampler, n, batchsize, seed):
+            x = out["sample"]
+            if fid_state is not None:
+                acts.append(fid_state.extract_raw(
+                    ((x + 1.0) / 2.0).clamp(0.0, 1.0)).cpu().numpy())
+            if writer is not None or pngs is not None:
+                xu8 = to_uint8(x)
+                if writer is not None:
+                    writer.write(xu8)
+                if pngs is not None:
+                    pngs.put_batch(n_done, xu8)
+            if writer is not None and out.get("y") is not None:
                 ys.append(out["y"].cpu().numpy().astype(np.int64))
+            n_done += x.shape[0]
         if ys:
             writer.add("arr_1", np.concatenate(ys))
-    return writer.n
+    # the batches may only be queued on the card: wait for them, so that
+    # the caller's clock times the generation
+    if sampler.log_betas.is_cuda:
+        torch.cuda.synchronize(sampler.log_betas.device)
+    return n_done, (np.concatenate(acts) if acts else None)
 
 
 def generate(cfg: Dict[str, Any],
@@ -201,19 +230,38 @@ def to_uint8(x: torch.Tensor) -> np.ndarray:
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--log_dir", required=True)
-    p.add_argument("--sampler", default="best", choices=["best", "last"])
+    p.add_argument("--sampler", "--epoch", dest="sampler", default="best",
+                   choices=["best", "last"])
     p.add_argument("-n", "--n_generate", type=int, default=50000)
     p.add_argument("--batchsize", type=int, default=100)
+    p.add_argument("--stat", default=None,
+                   help="FID dataset statistics (.pt/.npz); default: the "
+                        "first of fid/runner.py's DEFAULT_STATS on disk")
+    p.add_argument("--save_dir", default=None,
+                   help="PNG directory (default <log_dir>/generated_"
+                        "<sampler>)")
     p.add_argument("--save_npz", default=None)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--eval_fid", action="store_true")
+    p.add_argument("--cleanup", action="store_true",
+                   help="delete the PNGs after FID")
+    p.add_argument("-save", "--save_images", default=None,
+                   help="False deletes the PNGs after FID (== --cleanup)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--int8", action="store_true")
     p.add_argument("--dtype", default=None, choices=sorted(DTYPES))
-    args = p.parse_args()
+    args, unknown = p.parse_known_args()
+    if str(args.save_images).lower() in ("false", "0", "no"):
+        args.cleanup = True
 
-    cfg = load_yaml(os.path.join(args.log_dir, "config.yaml"))
+    cfg = merge(load_yaml(os.path.join(args.log_dir, "config.yaml")),
+                parse_nested_args(parse_unknown_args(unknown)))
     path = resolve_run_checkpoint(args.log_dir, "sampler", args.sampler)
     print(f"sampler loaded from {path}", flush=True)
+    meta = read_meta(path)
+    if "fid" in meta:
+        print(f"checkpoint FID {meta['fid']} (epoch {meta.get('epoch')})",
+              flush=True)
     t0 = time.perf_counter()
     kind = net_kind(cfg["sampler_net"].get("_target_"))
     dtype = args.dtype or default_dtype(cfg)
@@ -224,13 +272,41 @@ def main() -> None:
                            args.device, args.seed, args.int8, dtype)
     if args.int8:
         print("int8: static activation scales calibrated", flush=True)
-    n = stream_samples(sampler, args.n_generate, args.batchsize, args.seed,
-                       args.save_npz)
-    dt = time.perf_counter() - t0
-    print(f"generated {n} samples in {dt:.2f} s ({n / dt:.1f} img/s, setup "
-          "included)", flush=True)
+    save_dir = args.save_dir or os.path.join(args.log_dir,
+                                             f"generated_{args.sampler}")
+    os.makedirs(save_dir, exist_ok=True)
+    t1 = time.perf_counter()
+    n, _ = stream_samples(sampler, args.n_generate, args.batchsize,
+                          args.seed, args.save_npz, save_dir)
+    t2 = time.perf_counter()
+    print(f"generated {n} samples in {t2 - t0:.2f} s ({n / (t2 - t0):.1f} "
+          "img/s, setup included)", flush=True)
     if args.save_npz:
         print(f"saved {args.save_npz} (streamed)", flush=True)
+    print(f"wrote {n} PNGs to {save_dir}", flush=True)
+
+    if args.eval_fid or args.stat:
+        w = fid_runner._find(fid_runner.DEFAULT_WEIGHTS)
+        s = args.stat or fid_runner._find(fid_runner.DEFAULT_STATS)
+        if w is None or s is None:
+            print("FID skipped: Inception weights / dataset stats not on "
+                  "disk", flush=True)
+        else:
+            fid_state = fid_runner.build_fid_state(w, s, sampler.log_betas.device)
+            t3 = time.perf_counter()
+            acts = dir_activations(save_dir, fid_state.extract_fn,
+                                   batch=args.batchsize)
+            t4 = time.perf_counter()
+            info: Dict[str, Any] = {}
+            fid = stats_lib.frechet_distance(
+                *stats_lib.activation_statistics(acts), fid_state.m2,
+                fid_state.s2, info=info)
+            print(f"FID: {fid}", flush=True)
+            print(f"FID time: sample {t2 - t1:.3f} s, inception "
+                  f"{t4 - t3:.3f} s, frechet {info['seconds']:.3f} s "
+                  f"({info['route']})", flush=True)
+        if args.cleanup:
+            shutil.rmtree(save_dir)
 
 
 if __name__ == "__main__":

@@ -3,9 +3,10 @@ port: UNetADM + EDMSampler.
 
     python -m dxmi_tpu_torch.generate_large --log_dir <run> \
         [--sampler best|last] [--n_generate N] [--batchsize B] [--seed S] \
-        [--save_npz samples.npz] [--attn_impl fused|flash|einsum] \
-        [--up_impl phase|resize] [--gn_stats fp32|bf16_onepass] [--int8] \
-        [--device cuda|cpu]
+        [--save_npz samples.npz] [--skip_fid] [--save_dir DIR] \
+        [--attn_impl fused|flash|einsum] [--up_impl phase|resize] \
+        [--gn_stats fp32|bf16_onepass] [--int8] [--device cuda|cpu] \
+        [--any.dot.key value ...]
 
 Reads ``config.yaml`` (without PyYAML) and the sampler checkpoint from the
 run directory, looked up in the JAX entry's order (``sampler_{best,last}``,
@@ -16,8 +17,15 @@ batch as uint8 NHWC into ``arr_0`` and writes the class labels under
 ``arr_1`` at the end. ``--int8`` samples with static W8A8 ResBlock convs
 (K8) and attention blocks (K5) after calibrating their activation scales on
 two rounds of 8 full-precision trajectories, as the JAX entry does. The
-defaults are the JAX entry's. Not ported yet: ``--guidance_scale``, FID, and
-PNG writing (``--skip_fid``, ``--save_dir``).
+defaults are the JAX entry's, and so is FID: without ``--skip_fid`` each
+batch goes through the FID Inception on the device and FID against
+``datasets/VIRTUAL_<data.name>[_labeled].npz`` (or the ImageNet64 / LSUN
+file) is printed at the end, with its time split; when those files or the
+Inception weights are missing it says so and goes on. ``--skip_fid`` or
+``--save_dir`` writes the samples as PNGs (``0_<index>.png`` into
+``--save_dir``, default ``<log_dir>/generated_<sampler>``). Dot-key
+overrides are merged over ``config.yaml``. Not ported yet:
+``--guidance_scale``.
 """
 from __future__ import annotations
 
@@ -28,14 +36,17 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from dxmi_tpu_torch.config import load_yaml
+from dxmi_tpu_torch.config import (load_yaml, merge, parse_nested_args,
+                                   parse_unknown_args)
+from dxmi_tpu_torch.fid import runner as fid_runner
+from dxmi_tpu_torch.fid import stats as stats_lib
 from dxmi_tpu_torch.generate_cifar10 import iter_batches, stream_samples
 from dxmi_tpu_torch.models.unet_adm import (QUANT_SCALE_NAMES,
                                             create_unet_adm, seeded_normal_)
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.samplers.edm import EDMSampler, KarrasDenoiser
 from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
-                                             load_sampler_state,
+                                             load_sampler_state, read_meta,
                                              resolve_run_checkpoint)
 
 # calibration of --int8, as generate_large.py's JAX entry runs it
@@ -129,29 +140,62 @@ def main() -> None:
     p.add_argument("--guidance_scale", type=float, default=None)
     p.add_argument("--skip_fid", action="store_true")
     p.add_argument("--save_dir", default=None)
-    args = p.parse_args()
-    for flag, on in (("--guidance_scale", args.guidance_scale),
-                     ("--skip_fid (PNG writing)", args.skip_fid),
-                     ("--save_dir (PNG writing)", args.save_dir)):
-        if on:
-            raise NotImplementedError(f"{flag}: not ported yet")
+    args, unknown = p.parse_known_args()
+    if args.guidance_scale:
+        raise NotImplementedError("--guidance_scale: not ported yet")
 
-    cfg = load_yaml(os.path.join(args.log_dir, "config.yaml"))
+    cfg = merge(load_yaml(os.path.join(args.log_dir, "config.yaml")),
+                parse_nested_args(parse_unknown_args(unknown)))
     path = resolve_run_checkpoint(args.log_dir, "sampler", args.sampler)
     print(f"sampler loaded from {path}", flush=True)
+    meta = read_meta(path)
+    if "fid" in meta:
+        print(f"checkpoint FID {meta['fid']}", flush=True)
     t0 = time.perf_counter()
     sampler = load_sampler(cfg, load_sampler_state(path, net="unet_adm"), args.device,
                            args.seed, args.attn_impl, args.up_impl,
                            args.gn_stats, args.int8)
     if args.int8:
         print("int8: static activation scales calibrated", flush=True)
-    n = stream_samples(sampler, args.n_generate, args.batchsize, args.seed,
-                       args.save_npz)
+    save_dir = None
+    if args.skip_fid or args.save_dir:
+        save_dir = args.save_dir or os.path.join(
+            args.log_dir, f"generated_{args.sampler}")
+        os.makedirs(save_dir, exist_ok=True)
+    fid_state = None
+    if not args.skip_fid:
+        name = cfg["data"]["name"]
+        s = fid_runner._find((
+            f"datasets/VIRTUAL_{name}_labeled.npz",
+            f"datasets/VIRTUAL_{name}.npz",
+            "datasets/VIRTUAL_imagenet64_labeled.npz",
+            "datasets/VIRTUAL_lsun_bedroom256.npz"))
+        w = fid_runner._find(fid_runner.DEFAULT_WEIGHTS)
+        if w and s:
+            fid_state = fid_runner.build_fid_state(w, s,
+                                                   sampler.log_betas.device)
+        else:
+            print("FID assets missing; falling back to PNG dump", flush=True)
+    t1 = time.perf_counter()
+    n, acts = stream_samples(sampler, args.n_generate, args.batchsize,
+                             args.seed, args.save_npz, save_dir, fid_state)
     dt = time.perf_counter() - t0
     print(f"generated {n} samples in {dt:.2f} s ({n / dt:.1f} img/s, setup "
-          "included); FID is not ported yet", flush=True)
+          "included)", flush=True)
+    if save_dir is not None:
+        print(f"wrote {n} PNGs to {save_dir}", flush=True)
     if args.save_npz:
         print(f"saved {args.save_npz} (streamed)", flush=True)
+    if fid_state is not None:
+        t2 = time.perf_counter()
+        info: Dict[str, Any] = {}
+        fid = stats_lib.frechet_distance(
+            *stats_lib.activation_statistics(acts), fid_state.m2,
+            fid_state.s2, info=info)
+        print(f"FID: {fid}", flush=True)
+        print(f"FID time: sample and inception {t2 - t1:.3f} s, frechet "
+              f"{info['seconds']:.3f} s ({info['route']})", flush=True)
+
 
 if __name__ == "__main__":
     main()

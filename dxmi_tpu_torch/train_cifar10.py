@@ -26,12 +26,17 @@ JAX entry's own arithmetic. Without ``training.sampler_ckpt`` on disk the
 weights are PyTorch's initialisation drawn from ``training.seed`` (DxMI
 fine-tunes a pretrained sampler: the run warns). The trajectory is sampled
 in chunks of 32 (64 under the levers) when the config does not set
-``trainer.sample_chunks`` (the JAX entry's rule). Each epoch prints ``sample_norm_`` of 64 samples;
-FID runs as ``maybe_compute_fid`` gates it: skipped while the Inception
-weights are absent, not ported yet where the JAX entry would compute it. The
-run directory ``results/<data.name>/<config name>/<run>`` gets ``config.yaml``
-and, at the end, ``sampler_last.pth`` and ``value_last.pth`` in the
-reference's format, which ``generate_cifar10 --sampler last`` reads. Not
+``trainer.sample_chunks`` (the JAX entry's rule). Each epoch prints ``sample_norm_`` of 64 samples.
+FID runs every ``training.fid_epoch`` epochs or ``fid_every`` iterations
+(``fid/runner.py`` ``maybe_compute_fid``: ``n_fid_samples`` samples in
+batches of ``sampling_batchsize`` against the CIFAR-10 statistics under
+``datasets/``), and each time it improves, the run directory gets
+``sampler_best.pth`` and ``value_best.pth`` with ``fid``, ``epoch`` and
+``iter`` beside the weights; it is skipped, as in the JAX entry, while the
+Inception weights or the statistics are not on disk. The run directory
+``results/<data.name>/<config name>/<run>`` gets ``config.yaml`` and, at the
+end, ``sampler_last.pth`` and ``value_last.pth`` in the reference's format,
+which ``generate_cifar10 --sampler last`` reads. Not
 ported yet (they raise): ``--resume``, ``--wandb`` and ``training.n_critic``
 other than 1. ``training.sampler_ckpt`` and ``value_ckpt`` may be flax
 ``.msgpack`` files of the JAX package or reference ``.pth`` files; an
@@ -53,6 +58,7 @@ from dxmi_tpu_torch.config import (instantiate, load_yaml, merge,
                                    parse_nested_args, parse_unknown_args,
                                    save_yaml, to_yaml)
 from dxmi_tpu_torch.data.cifar10 import EpochLoader, fake_cifar, get_dataset
+from dxmi_tpu_torch.fid import runner as fid_runner
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.trainers.dxmi import DxMITrainer, train_step
 from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
@@ -60,15 +66,6 @@ from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
                                              load_value_state, net_kind,
                                              save_run_checkpoint)
 
-# the Inception weights and CIFAR-10 statistics that maybe_compute_fid looks
-# for (dxmi_tpu/fid/runner.py:26-32)
-FID_WEIGHTS = ("datasets/pt_inception-2015-12-05.npz",
-               "pretrained/pt_inception-2015-12-05.npz",
-               "datasets/pt_inception-2015-12-05.pth",
-               "pretrained/pt_inception-2015-12-05.pth")
-FID_STATS = ("datasets/cifar10_train_fid_stats.pt",
-             "datasets/cifar10_train_fid_stats.npz",
-             "datasets/fid_stats_cifar10_train.npz")
 # the per-chunk batch of the trajectory sampling at fp32, and under the
 # levers' bf16 torso (train_cifar10.py:61-72)
 SAMPLE_CHUNK = 32
@@ -145,24 +142,6 @@ def build(cfg: Dict[str, Any], device: torch.device, seed: int,
     return sampler, value, trainer
 
 
-def fid_ready(cfg: Dict[str, Any]) -> bool:
-    """Whether ``maybe_compute_fid`` would compute FID: the Inception weights
-    are on disk and so are the statistics (or, for CIFAR-10, the raw batches
-    it would build them from)."""
-    if not any(os.path.exists(p) for p in FID_WEIGHTS):
-        return False
-    return (any(os.path.exists(p) for p in FID_STATS)
-            or cfg.get("data", {}).get("name") == "cifar10")
-
-
-def maybe_fid(cfg: Dict[str, Any]) -> None:
-    if fid_ready(cfg):
-        raise NotImplementedError("FID during training: not ported yet "
-                                  "(ROADMAP.md); set training.fid_epoch "
-                                  "None")
-    print("FID skipped: no Inception weights on disk", flush=True)
-
-
 def to_device_batch(images: np.ndarray, device: torch.device) -> torch.Tensor:
     """NHWC [0, 1] numpy -> NCHW [-1, 1] fp32 on ``device``."""
     x = torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2)))
@@ -229,6 +208,11 @@ def main() -> None:
     print(f"run dir: {logdir}", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
+    # FID draws from its own generator: training's draws do not depend on
+    # whether the FID files are on disk
+    run_fid = fid_runner.BestFID(cfg, sampler, value, logdir,
+                                 torch.Generator(device=dev).manual_seed(seed),
+                                 dev)
     log_every = int(tr["log_every"])
     i_iter, epoch, t0 = 0, 0, time.time()
     done = False
@@ -238,10 +222,10 @@ def main() -> None:
         norm = float(xi.reshape(xi.shape[0], -1).norm(dim=1).mean())
         print(f"epoch {epoch} sample_norm_={norm:.4f}", flush=True)
         if fid_epoch is not None and epoch % int(fid_epoch) == 0:
-            maybe_fid(cfg)
+            run_fid(epoch=epoch, iter=i_iter)
         for step, (images, _) in enumerate(loader.epoch(epoch)):
             if fid_every is not None and i_iter % int(fid_every) == 0:
-                maybe_fid(cfg)
+                run_fid(epoch=epoch, iter=i_iter)
             x = to_device_batch(images, dev)
             m = train_step(trainer, x, None, gen, n_generator=n_generator)
             if (step + 1) % log_every == 0 or i_iter == 0:

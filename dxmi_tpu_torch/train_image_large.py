@@ -20,9 +20,15 @@ directory ``results/<data.name>/<config name>/<run>`` gets ``config.yaml``
 and, at the end, ``sampler_last.pth`` and ``value_last.pth`` in the
 reference's format, which ``generate_large --sampler last`` reads. Each
 ``log_every`` iterations it prints the JAX entry's line (d_loss,
-sampler_loss, it/s). Not ported yet (they raise): the ImageNet folder loader
-(use ``--fake_data``), FID during training, ``--wandb``, ``--resume``,
-``--data_workers`` and ``--save_state_every``. Without ``--fake_data`` it
+sampler_loss, it/s). Every ``training.fid_every`` iterations, when the
+Inception weights and the statistics ``datasets/VIRTUAL_<data.name>[_labeled]
+.npz`` (``maybe_fid_state``; ``fid/proxy.py --virtual_name`` writes them for
+the structured fake pool) are on disk, FID runs on ``n_fid_samples`` samples
+and each improvement writes ``sampler_best.pth`` and ``value_best.pth`` with
+``fid`` and ``i_iter``; without those files FID is skipped, as in the JAX
+entry. Not ported yet (they raise): the ImageNet folder loader (use
+``--fake_data``), ``--wandb``, ``--resume``, ``--data_workers`` and
+``--save_state_every``. Without ``--fake_data`` it
 raises for LSUN too (its image folder is decoded through PIL in the JAX
 package).
 """
@@ -40,6 +46,7 @@ from dxmi_tpu_torch.config import (instantiate, load_yaml, merge,
                                    parse_nested_args, parse_unknown_args,
                                    save_yaml, to_yaml)
 from dxmi_tpu_torch.data.synthetic import structured_class_images
+from dxmi_tpu_torch.fid import runner as fid_runner
 from dxmi_tpu_torch.models.unet_adm import create_unet_adm, seeded_normal_
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.samplers.edm import EDMSampler, KarrasDenoiser
@@ -79,6 +86,23 @@ def build_sampler(cfg: Dict[str, Any], device: torch.device, seed: int,
                   f"from seed {seed}", flush=True)
         seeded_normal_(net, seed)
     return sampler
+
+
+def maybe_fid_state(cfg: Dict[str, Any], device: torch.device
+                    ) -> Optional[fid_runner.FIDState]:
+    """The FID network and reference statistics (``VIRTUAL_*.npz``, in the
+    JAX entry's order), or None when either file is not on disk."""
+    name = cfg["data"]["name"]
+    stats_candidates = (
+        f"datasets/VIRTUAL_{name}_labeled.npz",
+        f"datasets/VIRTUAL_{name}.npz",
+        "datasets/VIRTUAL_imagenet64_labeled.npz" if "imagenet" in name else
+        "datasets/VIRTUAL_lsun_bedroom256.npz")
+    w = fid_runner._find(fid_runner.DEFAULT_WEIGHTS)
+    s = fid_runner._find(stats_candidates)
+    if w is None or s is None:
+        return None
+    return fid_runner.build_fid_state(w, s, device)
 
 
 def fake_data(cfg: Dict[str, Any], sampler: EDMSampler, size: int,
@@ -150,23 +174,27 @@ def main() -> None:
         raise NotImplementedError("the ImageNet folder loader: not ported "
                                   "yet (ROADMAP.md); pass --fake_data")
     data = fake_data(cfg, sampler, args.fake_data_size, batchsize, seed, dev)
-    name = cfg["data"]["name"]
-    if tr.get("fid_every") and any(os.path.exists(f) for f in (
-            f"datasets/VIRTUAL_{name}_labeled.npz",
-            f"datasets/VIRTUAL_{name}.npz")):
-        raise NotImplementedError("FID during training: not ported yet "
-                                  "(ROADMAP.md); set training.fid_every None")
 
     model_cfg_name = os.path.basename(args.config).split(".")[0]
-    logdir = os.path.join(f"results/{name}/{model_cfg_name}", args.run)
+    logdir = os.path.join(f"results/{cfg['data']['name']}/{model_cfg_name}",
+                          args.run)
     os.makedirs(logdir, exist_ok=True)
     save_yaml(cfg, os.path.join(logdir, "config.yaml"))
 
     gen = torch.Generator(device=dev).manual_seed(seed)
+    fid_state = maybe_fid_state(cfg, dev)
+    # FID draws from its own generator, as in train_cifar10
+    run_fid = fid_runner.BestFID(cfg, sampler, value, logdir,
+                                 torch.Generator(device=dev).manual_seed(seed),
+                                 dev, state=fid_state)
+    fid_every = tr.get("fid_every")
     log_every = int(tr["log_every"])
     n_iter = int(tr["n_iter"]) if args.max_steps is None else args.max_steps
     t0 = time.time()
     for i_iter in range(n_iter):
+        if (fid_every and fid_state is not None
+                and i_iter % int(fid_every) == 0):
+            run_fid(i_iter=i_iter)
         x, y = next(data)
         m = train_step(trainer, x, y, gen)
         if i_iter % log_every == 0:

@@ -91,6 +91,19 @@ def _state_dict_of(path: str) -> Dict[str, torch.Tensor]:
     return ckpt
 
 
+def read_meta(path: str) -> Dict[str, Any]:
+    """The metadata of a run-directory checkpoint: a ``.msgpack`` payload's
+    ``meta``, or the entries a ``.pth``/``.pt`` file holds beside its
+    weights (``save_run_checkpoint``'s ``fid``, ``epoch``, ...)."""
+    if path.endswith(".msgpack"):
+        tree = load_flax_checkpoint(path)
+        return dict(tree.get("meta", {})) if isinstance(tree, dict) else {}
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v for k, v in ckpt.items()
+            if k not in ("state_dict", "model", "ema")
+            and not isinstance(v, (dict, torch.Tensor))}
+
+
 def load_value_state(path: str) -> Dict[str, torch.Tensor]:
     """A value checkpoint as a state dict of the port's
     ``TimeIndependentValue``: a flax msgpack file (``{'params': {'net':

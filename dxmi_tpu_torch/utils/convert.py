@@ -17,6 +17,8 @@ value state dicts are the reference ``value.pth`` layout.
 ``wideresnet_from_flax`` carries the JAX package's Wide-ResNet value net
 (no reference layout either) into the port's, whose names are the flax
 ones; ``value_from_flax`` takes either value net.
+``inception_from_flax`` carries the JAX package's folded FID Inception tree
+into the port's ``InceptionV3FID``.
 """
 from __future__ import annotations
 
@@ -287,4 +289,22 @@ def ddgan_sampler_from_flax(params: Dict[str, Any]
     out = {f"net.{k}": v for k, v in ncsnpp_from_flax(params["net"]).items()}
     out["log_betas"] = torch.from_numpy(
         np.array(params["log_betas"], dtype=np.float32))
+    return out
+
+
+def inception_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``InceptionV3FID`` (without ``fc``) from the
+    JAX package's folded FID Inception tree (``load_fid_inception_params``:
+    ``<module path>/Conv_0/{kernel HWIO, bias}``; a ``{'params': ...}``
+    wrapper is accepted): ``<module path>.conv.{weight OIHW, bias}``."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for path, val in _leaves(params):
+        *mods, conv, leaf = path
+        if conv != "Conv_0" or leaf not in ("kernel", "bias"):
+            raise ValueError(f"unhandled flax leaf {'/'.join(path)}")
+        if leaf == "kernel":
+            val = val.transpose(3, 2, 0, 1)
+        name = "weight" if leaf == "kernel" else "bias"
+        out[".".join([*mods, "conv", name])] = torch.from_numpy(np.array(val))
     return out

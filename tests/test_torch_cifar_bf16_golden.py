@@ -50,9 +50,9 @@ def test_generate_cli_bf16(tmp_path):
         [sys.executable, "-m", "dxmi_tpu_torch.generate_cifar10",
          "--log_dir", chip_smoke.FIXTURE_DIR, "--dtype", "bf16", "--device",
          "cpu", "--n_generate", "8", "--batchsize", "4", "--save_npz",
-         str(out)], cwd=chip_smoke.REPO, capture_output=True, text=True,
-        timeout=300, env=dict(os.environ, PYTHONPATH=chip_smoke.REPO,
-                              OMP_NUM_THREADS="2"))
+         str(out), "--save_dir", str(tmp_path / "png")],
+        cwd=chip_smoke.REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=chip_smoke.REPO, OMP_NUM_THREADS="2"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = np.load(out)["arr_0"]
     state = load_sampler_state(os.path.join(chip_smoke.FIXTURE_DIR,

@@ -184,7 +184,8 @@ def test_generate_cifar10_cli_int8(tmp_path):
     trajectories, then the plain version of K8 (its stride-2 form at the
     Downsample); the npz streams the samples."""
     out = tmp_path / "s8.npz"
-    proc = _cli("--device", "cpu", "--int8", "--save_npz", str(out))
+    proc = _cli("--device", "cpu", "--int8", "--save_npz", str(out),
+                "--save_dir", str(tmp_path / "png"))
     assert proc.returncode == 0, proc.stderr
     assert "int8: static activation scales calibrated" in proc.stdout
     arr = np.load(out)["arr_0"]

@@ -125,7 +125,8 @@ def test_generate_cli(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "dxmi_tpu_torch.generate_cifar10",
          "--log_dir", FIXTURE, "--n_generate", "4", "--batchsize", "2",
-         "--device", "cpu", "--save_npz", str(out)],
+         "--device", "cpu", "--save_npz", str(out), "--save_dir",
+         str(tmp_path / "png")],
         cwd=REPO, capture_output=True, text=True, timeout=300,
         env=dict(os.environ, PYTHONPATH=REPO))
     assert proc.returncode == 0, proc.stderr
@@ -133,11 +134,12 @@ def test_generate_cli(tmp_path):
     assert arr.shape == (4, 16, 16, 3) and arr.dtype == np.uint8
 
 
-def _cifar_cli(*args):
+def _cifar_cli(tmp_path, *args):
+    """The CLI on the fixture, its PNGs written under ``tmp_path``."""
     return subprocess.run(
         [sys.executable, "-m", "dxmi_tpu_torch.generate_cifar10",
          "--log_dir", FIXTURE, "--n_generate", "4", "--batchsize", "2",
-         "--device", "cpu", *args],
+         "--device", "cpu", "--save_dir", str(tmp_path / "png"), *args],
         cwd=REPO, capture_output=True, text=True, timeout=300,
         env=dict(os.environ, PYTHONPATH=REPO))
 
@@ -151,7 +153,7 @@ def test_generate_cli_streams_the_in_process_samples(tmp_path):
     from dxmi_tpu_torch.utils.checkpoint import load_sampler_state
 
     out = tmp_path / "samples.npz"
-    proc = _cifar_cli("--save_npz", str(out), "--seed", "3")
+    proc = _cifar_cli(tmp_path, "--save_npz", str(out), "--seed", "3")
     assert proc.returncode == 0, proc.stderr
     assert "streamed" in proc.stdout
     want = to_uint8(generate(
@@ -173,7 +175,7 @@ def test_generate_cli_int8_not_ported(tmp_path):
     from dxmi_tpu.utils import checkpoint as jax_checkpoint
     from dxmi_tpu.utils import convert as jax_convert
 
-    proc = _cifar_cli("--dtype", "bf16")
+    proc = _cifar_cli(tmp_path, "--dtype", "bf16")
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "generated 4 samples" in proc.stdout
     shutil.copy(os.path.join(FIXTURE, "config.yaml"), tmp_path)
@@ -191,7 +193,8 @@ def test_generate_cli_int8_not_ported(tmp_path):
         proc = subprocess.run(
             [sys.executable, "-m", "dxmi_tpu_torch.generate_cifar10",
              "--log_dir", str(log_dir), "--n_generate", "4", "--batchsize",
-             "2", "--device", "cpu", "--save_npz", str(npz)], cwd=REPO,
+             "2", "--device", "cpu", "--save_npz", str(npz), "--save_dir",
+             str(tmp_path / f"png_{name}")], cwd=REPO,
             capture_output=True, text=True, timeout=300,
             env=dict(os.environ, PYTHONPATH=REPO))
         assert proc.returncode == 0, proc.stderr[-3000:]

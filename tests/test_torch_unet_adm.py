@@ -354,15 +354,43 @@ def test_generate_large_cli(tmp_path):
 
 @pytest.mark.parametrize("args,msg", [
     ((), "no CUDA device"),
-    (("--device", "cpu", "--guidance_scale", "0.1"), "not ported yet"),
-    (("--device", "cpu", "--skip_fid"), "not ported yet"),
-    (("--device", "cpu", "--save_dir", "pngs"), "not ported yet")])
+    (("--device", "cpu", "--guidance_scale", "0.1"), "not ported yet")])
 def test_generate_large_cli_refuses(args, msg):
     """Without --device cpu and with no card it raises instead of running
     on the CPU; unported options raise."""
     proc = _cli(*args)
     assert proc.returncode != 0
     assert msg in proc.stderr
+
+
+@pytest.mark.parametrize("flag", ["--skip_fid", "--save_dir"])
+def test_generate_large_cli_pngs(flag, tmp_path):
+    """--skip_fid writes the samples as PNGs into <log_dir>/generated_best
+    and computes no FID; --save_dir writes them there and, without the FID
+    files, says so (the JAX entry's message). The PNGs decode to the npz."""
+    run = tmp_path / "run"
+    run.mkdir()
+    for name in ("config.yaml", "sampler.pth"):
+        (run / name).write_bytes(open(os.path.join(FIXTURE, name),
+                                      "rb").read())
+    out = tmp_path / "samples.npz"
+    pngs = (run / "generated_best" if flag == "--skip_fid"
+            else tmp_path / "pngs")
+    extra = [flag] if flag == "--skip_fid" else [flag, str(pngs)]
+    proc = subprocess.run(
+        [sys.executable, "-m", "dxmi_tpu_torch.generate_large", "--log_dir",
+         str(run), "--n_generate", "8", "--batchsize", "8", "--device",
+         "cpu", "--save_npz", str(out), *extra], cwd=tmp_path,
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert ("FID assets missing" in proc.stdout) == (flag == "--save_dir")
+    assert "FID:" not in proc.stdout
+    from dxmi_tpu_torch.utils.png import read_png
+
+    arr = np.load(out)["arr_0"]
+    got = np.stack([read_png(str(pngs / f"0_{i}.png")) for i in range(8)])
+    np.testing.assert_array_equal(got, arr)
 
 
 def test_edm_sample_step_matches_jax(adm_rundir):
