@@ -129,9 +129,8 @@ failure exits non-zero naming the phase:
      default einsum attention and 3 with fused_train (K2 fp32, K6 fp32 on
      its one-launch route), the file's tensors loaded bit for bit and no
      random-init warning, launches per step, finite metrics, s/step and a
-     profiled step's device time, idle share and K6's share; then the
-     entry itself (train_image_large
-     --attn_impl fused_train, 3 steps) in a subprocess;
+     profiled step's device time, idle share and K6's share (the entry
+     itself runs in C's conv16 resume chain);
   G4 one DxMITrainer iteration on the CIFAR fixture with the JAX trainer's
      trajectory, permutation, noise and dropout masks, einsum and fused
      attention at bb 2 (K7), with and without K3, against the JAX package's
@@ -184,6 +183,12 @@ failure exits non-zero naming the phase:
      at batch 16 (32 does not fit the card): 2 steps each, launches,
      finite metrics, s/step by phase, peak memory, the last step profiled;
      then the wiring check of flash against einsum;
+  E10 value-guided generation (sample_guidance) at full width: CIFAR-10
+     T=10 fp32, 2 x 100 with the seeded IGEBM value, and ImageNet64 T=10
+     bf16 fused, 1 x 100 through the Cond trainer (labels drawn); launches
+     counted, each guided step held against the kernels' plain versions
+     on the same state and noise (fp32 per element within G's fused
+     limit, bf16 within twice the bf16 effect at 10 samples);
   T-K1 K1 at each shape that E-int8, E2 (fused, flash), E3 (flash,
      fused_train), E5 (einsum, fused_train), E4, E6, E7, E8 and E9
      launched it at, held
@@ -202,7 +207,14 @@ failure exits non-zero naming the phase:
      on the run dir it wrote, and the same with train_cifar10 and
      generate_cifar10, on T10.yaml and on T4_ddgan.yaml (NCSN++ at a small
      width; the npz within one uint8 level of the in-process samples); the
-     subprocesses four at a time;
+     resume chains: train_cifar10 on T10.yaml at full width and
+     train_image_large on conv16.yaml from its pretrained file
+     (--save_state_every 1) for 2 steps, then --resume to 3 in a fresh
+     process (train_state.msgpack: its parameter leaves equal to the first
+     run's *_last.pth bit for bit, the optimizer counts equal to the steps
+     taken, JAX's "resumed full train state" line, finite metrics), then
+     generate_cifar10 / generate_large --guidance_scale 0.1 on the run
+     dirs; the subprocesses four at a time;
   F  FID and the evaluator at full width in a temporary working directory
      whose datasets/ holds the proxy files of dxmi_tpu_torch/fid/proxy.py
      (the seed-0 synthetic Inception weights; statistics over 4096
@@ -235,6 +247,7 @@ import faulthandler
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -298,6 +311,8 @@ from dxmi_tpu_torch.trainers.dxmi import DxMITrainer, train_step
 from dxmi_tpu_torch.trainers.dxmi_cond import DxMITrainerCond
 from dxmi_tpu_torch.utils.checkpoint import (load_sampler_state,
                                              load_value_state)
+from dxmi_tpu_torch.utils import msgpack as port_msgpack
+from dxmi_tpu_torch.utils.train_state import flax_path
 from dxmi_tpu_torch.utils.png import read_png
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -815,7 +830,7 @@ class PhaseError(Exception):
 PHASES = ("B", "K", "T", "T-bwd", "G", "G-int8", "G-bf16", "E", "E-int8",
           "E-bf16", "G2", "G2-int8", "E2", "E2-int8", "G3", "E3", "G5", "E5",
           "G4", "E4", "E4-levers", "G6", "G7", "E6", "E7", "G8", "E8", "E9",
-          "T-K1", "T-K3", "C", "F")
+          "E10", "T-K1", "T-K3", "C", "F")
 
 
 def run_phase(name, fn):
@@ -1812,33 +1827,6 @@ def e5_sampler_check(trainer, log, want):
                              f" e.g. {bad[:3]}")
 
 
-def e5_cli(impl="fused_train"):
-    """The entry itself: train_image_large on conv16.yaml for 3 steps from
-    the pretrained file, in a scratch directory; returns its seconds."""
-    cmd = [sys.executable, "-m", "dxmi_tpu_torch.train_image_large",
-           "--config", CONV16_CONFIG, "--dataset",
-           os.path.join(REPO, "configs", "imagenet64", "imagenet64.yaml"),
-           "--fake_data", "--fake_data_size", "1024", "--data.name",
-           "adm_conv16", "--max_steps", "3", "--attn_impl", impl,
-           "--training.pretrained_path", CONV16_CKPT, "--run", "e5"]
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as out_dir:
-        proc = subprocess.run(cmd, cwd=out_dir, capture_output=True,
-                              text=True, timeout=300,
-                              env=dict(os.environ, PYTHONPATH=REPO))
-    out = proc.stdout
-    if (proc.returncode != 0 or "WARNING" in out or "nan-guard skips: 0"
-            not in out or f"pretrained EDM loaded from {CONV16_CKPT}"
-            not in out):
-        raise AssertionError(f"E5 train_image_large failed:\n{out[-3000:]}"
-                             f"{proc.stderr[-3000:]}")
-    lines = [l for l in out.splitlines() if l.startswith("iter")]
-    secs = time.perf_counter() - t0
-    print(f"  E5 train_image_large --attn_impl {impl} --max_steps 3: "
-          f"{secs:.1f} s; {' | '.join(lines)}")
-    return secs
-
-
 def phase_conv16_train(k1_log):
     """E5 (see the module docstring); returns the launches counted in the
     last step of each form."""
@@ -1899,7 +1887,6 @@ def phase_conv16_train(k1_log):
                     shares=E5_SHARES[impl])
         out[impl] = got
         del trainer, data
-    e5_cli()
     return out
 
 
@@ -3758,8 +3745,10 @@ def phase_cli():
     """The generation CLIs as a user runs them, in subprocesses on the card,
     on the fixture run dirs (config.yaml through the port's YAML reader,
     --save_npz streaming): generate_cifar10 (also --int8 and --dtype bf16),
-    generate_large, generate_large --int8; and the training CLIs followed by
-    generation on the run dirs they write. The subprocesses run
+    generate_large, generate_large --int8; the training CLIs followed by
+    generation on the run dirs they write; and the resume chains
+    (``resume_chains``: a training CLI, the same with --resume, then guided
+    generation on the run dir). The subprocesses run
     ``CLI_WORKERS`` at a time (each spends most of its seconds starting).
     Each npz is held to the in-process samples of the same seed, within one
     uint8 level (another process may get another cuDNN algorithm); the
@@ -3772,8 +3761,10 @@ def phase_cli():
             ("generate_large", ADM_FIXTURE_DIR, (), 8),
             ("generate_large", ADM_FIXTURE_DIR, ("--int8",), 8)]
     with concurrent.futures.ThreadPoolExecutor(CLI_WORKERS) as pool:
-        trained = [pool.submit(fn, out_dir) for fn in
-                   (train_cli, cifar_train_cli, ddgan_train_cli)]
+        trained = [pool.submit(resume_chain, out_dir, *chain)
+                   for chain in resume_chains()]
+        trained += [pool.submit(fn, out_dir) for fn in
+                    (train_cli, cifar_train_cli, ddgan_train_cli)]
         clis = [pool.submit(fixture_cli, out_dir, *run) for run in runs]
         done = [f.result() for f in clis]
         for f in trained:
@@ -3801,6 +3792,308 @@ def phase_cli():
         print(f"  C {module} {' '.join(extra)}: {secs:.1f} s, npz "
               f"{got['arr_0'].shape} {got['arr_0'].dtype} within {diff} uint8 "
               f"level of in-process; {' | '.join(last)}")
+
+
+# Phase C's resume chains: a training entry at its config's full width for 2
+# steps, the same with --resume to 3 (a fresh process that restores
+# train_state.msgpack), then guided generation on the run dir they leave.
+# After the first run the state file's parameter leaves are its
+# sampler_last.pth and value_last.pth bit for bit (flax layout) and its
+# optimizer counts the steps taken; the resumed run prints the JAX entry's
+# line with the saved iteration; every logged metric is finite. The conv16
+# chain's first run is also E5's check of the entry itself: the pretrained
+# file loaded with no random-init warning, no update skipped by the
+# non-finite guard.
+GUIDE_SCALE = 0.1
+
+
+def resume_chains():
+    """(name, train command, its --resume follow-up, guided generation
+    command, run dir, optimizer counts after 2 and after 3 steps) of
+    train_cifar10 on configs/cifar10/T10.yaml (full width, batch 128: the
+    sampler's two Adam counts, then the value's: 1 + T steps an iteration)
+    and of train_image_large on conv16.yaml from its pretrained file with
+    --save_state_every 1 (the guard's two int32 counters, two RAdam
+    counts of a full sweep of T minibatches an iteration, the value's
+    Adam)."""
+    run = "chip_resume"
+    cifar = [sys.executable, "-m", "dxmi_tpu_torch.train_cifar10",
+             "--config", CIFAR10_CONFIG, "--dataset",
+             os.path.join(REPO, "configs", "cifar10", "cifar10.yaml"),
+             "--run", run, "--fake_data", "--training.log_every", "1",
+             "--max_steps", "2"]
+    cifar_dir = os.path.join("results", "cifar10", "T10", run)
+    conv = [sys.executable, "-m", "dxmi_tpu_torch.train_image_large",
+            "--config", CONV16_CONFIG, "--dataset",
+            os.path.join(REPO, "configs", "imagenet64", "imagenet64.yaml"),
+            "--run", run, "--fake_data", "--fake_data_size", "1024",
+            "--data.name", "adm_conv16", "--training.pretrained_path",
+            CONV16_CKPT, "--attn_impl", "fused_train", "--save_state_every",
+            "1", "--training.log_every", "1", "--max_steps", "2"]
+    conv_dir = os.path.join("results", "adm_conv16", "conv16", run)
+
+    def gen(module, run_dir, n):
+        return [sys.executable, "-m", f"dxmi_tpu_torch.{module}",
+                "--log_dir", run_dir, "--sampler", "last", "--n_generate",
+                str(n), "--batchsize", str(n), "--guidance_scale",
+                str(GUIDE_SCALE), "--save_npz",
+                os.path.join(run_dir, "guided.npz")]
+
+    return [("train_cifar10", cifar, cifar[:-1] + ["3", "--resume"],
+             gen("generate_cifar10", cifar_dir, BATCH), cifar_dir,
+             ([2, 2, 2 * (1 + T)], [3, 3, 3 * (1 + T)])),
+            ("train_image_large", conv, conv[:-1] + ["3", "--resume"],
+             gen("generate_large", conv_dir, 64), conv_dir,
+             ([0, 0, 2 * T, 2 * T, 2 * (1 + T)],
+              [0, 0, 3 * T, 3 * T, 3 * (1 + T)]))]
+
+
+def run_cli(cmd, out_dir, what):
+    """One CLI in a subprocess from ``out_dir``: (stdout lines, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=out_dir, capture_output=True, text=True,
+                          timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} failed:\n{proc.stdout[-3000:]}"
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout.strip().splitlines(), time.perf_counter() - t0
+
+
+def finite_iters(lines, what):
+    """The logged iterations; each one's d_loss and sampler_loss finite."""
+    iters = []
+    for line in lines:
+        if line.startswith("iter "):
+            vals = [float(tok.split("=")[1]) for tok in line.split()
+                    if tok.startswith(("d_loss=", "sampler_loss="))]
+            if len(vals) != 2 or not np.isfinite(vals).all():
+                raise AssertionError(f"{what}: {line}")
+            iters.append(int(line.split()[1]))
+    return iters
+
+
+def state_counts(state):
+    """The int32 scalars of a train state, in order: the optimizers'
+    counters."""
+    return [int(a) for a in (state["leaves"][str(i)]
+                             for i in range(len(state["leaves"])))
+            if isinstance(a, np.ndarray) and a.dtype == np.int32
+            and a.ndim == 0]
+
+
+def state_params_are_last(run_dir, state):
+    """The state's first leaves are the run's ``sampler_last.pth`` (its
+    log_betas, then the net in flax order) and ``value_last.pth``, bit for
+    bit in flax's layout; returns their count."""
+    cfg = load_yaml(os.path.join(run_dir, "config.yaml"))
+    with torch.device("meta"):
+        if "diffusion" in cfg:
+            d = {k: v for k, v in cfg["diffusion"].items() if k not in (
+                "sigma_min", "sigma_max", "weight_schedule", "distillation")}
+            net = train_image_large.create_unet_adm(**d)
+        else:
+            net = instantiate(cfg["sampler_net"])
+        value = instantiate(cfg["value"])
+    want = []
+    for name, module in (("sampler", net), ("value", value)):
+        sd = torch.load(os.path.join(run_dir, f"{name}_last.pth"),
+                        weights_only=True)["state_dict"]
+        if "log_betas" in sd:
+            want.append(sd.pop("log_betas"))
+        for (_, axes), k in sorted((flax_path(module, k, v.dim()), k)
+                                   for k, v in sd.items()):
+            want.append(sd[k].permute(axes) if axes else sd[k])
+    for i, w in enumerate(want):
+        got = np.asarray(state["leaves"][str(i)])
+        if got.tobytes() != w.contiguous().numpy().tobytes():
+            raise AssertionError(f"{run_dir}: state leaf {i} is not the "
+                                 "run's *_last.pth tensor")
+    return len(want)
+
+
+def resume_chain(out_dir, name, first, resume, gen, run_dir, counts):
+    run_dir = os.path.join(out_dir, run_dir)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    path = os.path.join(run_dir, "train_state.msgpack")
+    lines, s1 = run_cli(first, out_dir, name)
+    it1 = finite_iters(lines, name)
+    if "--training.pretrained_path" in first and (
+            f"pretrained EDM loaded from {CONV16_CKPT}" not in lines
+            or "nan-guard skips: 0" not in lines
+            or any(l.startswith("WARNING") for l in lines)):
+        raise AssertionError(f"{name}: the pretrained file not loaded, or "
+                             f"an update skipped:\n{lines[-5:]}")
+    state = port_msgpack.read(path)
+    n = state_params_are_last(run_dir, state)
+    if state_counts(state) != counts[0]:
+        raise AssertionError(f"{name}: counts {state_counts(state)} after 2 "
+                             f"steps, expected {counts[0]}")
+    lines, s2 = run_cli(resume, out_dir, f"{name} --resume")
+    it2 = finite_iters(lines, f"{name} --resume")
+    resumed = [l for l in lines if l.startswith("resumed full train state")]
+    if not resumed or not resumed[0].endswith("iter 2") or it2 != [2]:
+        raise AssertionError(f"{name} --resume: {resumed} iterations {it2}")
+    got = state_counts(port_msgpack.read(path))
+    if got != counts[1]:
+        raise AssertionError(f"{name} --resume: counts {got}, expected "
+                             f"{counts[1]}")
+    lines, s3 = run_cli(gen, out_dir, f"{gen[2]} --guidance_scale")
+    npz = np.load(os.path.join(run_dir, "guided.npz"))["arr_0"]
+    if (f"value-guided sampling, scale={GUIDE_SCALE}" not in lines
+            or npz.shape[0] != int(gen[gen.index("--n_generate") + 1])):
+        raise AssertionError(f"{gen[2]} --guidance_scale: {lines[-3:]}, "
+                             f"npz {npz.shape}")
+    print(f"  C {name} resume chain: {s1:.1f} + {s2:.1f} s (iterations "
+          f"{it1} then {it2}; '{resumed[0]}'; {n} parameter leaves equal to "
+          f"*_last.pth; counts {counts[0]} -> {got}); {gen[2]} "
+          f"--guidance_scale {GUIDE_SCALE}: {s3:.1f} s, npz {npz.shape}, "
+          f"pixel std {npz.std():.2f}")
+
+
+# Phase E10: value-guided generation (``sample_guidance``) at full width:
+# CIFAR-10 T=10 (fp32, the port's default kernels), 2 x 100 with the seeded
+# IGEBM value, and ImageNet64 T=10 (bf16, fused), 1 x 100 through the Cond
+# trainer (labels drawn): launches counted (a forward's launches each step:
+# the value's gradient runs no kernel), each step from the kernels' state
+# held against the kernels' plain versions on the same state and noise: fp32
+# per element within G's fused limit (REPLAY_TOL, K3's bf16 operands), bf16
+# within BF16_REPLAY_SHARE of the bf16 effect (E8's gate, at
+# LSUN_PLAIN_BATCH samples). The guidance term itself is held the same way,
+# each against its own scale: it is small beside the sample (the seeded
+# value's gradient times 0.1 sigma), so the sample's gate cannot see it.
+# fp32: its distance from the plain step's within GUIDE_REL of the plain
+# step's norm (a dropped, doubled or sigma-less term is 1 or more of it;
+# the kernels' roundings move it only through the leaky-ReLU units of the
+# value that they flip); bf16: its mean distance within BF16_REPLAY_SHARE
+# of the bf16 effect on it, as the sample.
+GUIDE_REL = 0.1
+
+
+def plain_kernels_cifar():
+    """The UNetSmall path with the plain versions of K1, K3 and K2 on the
+    card."""
+    from dxmi_tpu_torch.models import unet_small as us
+    stack = contextlib.ExitStack()
+    for name, fn in (("group_norm", group_norm_silu_reference),
+                     ("gn_silu_conv", gn_silu_conv_reference),
+                     ("attn_block", lambda *a, block_b=None, **k:
+                      attn_block_reference(*a, **k))):
+        stack.enter_context(_patched(us, name, fn))
+    return stack
+
+
+def guide_trainer(cfg, sampler, seed=1):
+    """The config's trainer bound to ``sampler`` and the config's value
+    drawn from ``seed`` (no optimizer), guiding at GUIDE_SCALE."""
+    torch.manual_seed(seed)
+    value = instantiate(cfg["value"]).cuda().eval()
+    trainer = instantiate(cfg["trainer"], batchsize=BATCH, n_timesteps=T)
+    trainer.sampler, trainer.value = sampler, value
+    trainer.guidance_scale = GUIDE_SCALE
+    return trainer
+
+
+def guided_run(trainer, n_batches, want_per_forward, what):
+    _lib.reset_launches()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    outs = [trainer.sample_guidance(BATCH, generator=gen)
+            for _ in range(n_batches)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = dict(_lib.LAUNCHES)
+    want = {k: v * T * n_batches for k, v in want_per_forward.items()}
+    if got != want:
+        raise AssertionError(f"E10 {what}: launches {got}, expected {want}")
+    for out in outs:
+        if not (torch.isfinite(out["sample"]).all()
+                and torch.isfinite(out["logp_on_traj"]).all()):
+            raise AssertionError(f"E10 {what}: non-finite samples")
+        if not out["guidance"].abs().max() > 0:
+            raise AssertionError(f"E10 {what}: no guidance")
+    g = torch.stack([o["guidance"] for o in outs]).abs().mean().item()
+    print(f"  E10 {what}: {n_batches} x {BATCH} guided in {secs:.3f} s "
+          f"({n_batches * BATCH / secs:.1f} img/s), launches {got}, mean "
+          f"|guidance| {g:.3e}, sample std "
+          f"{torch.cat([o['sample'] for o in outs]).std().item():.3f}")
+    return outs
+
+
+def phase_guidance():
+    cfg = load_yaml(CIFAR10_CONFIG)
+    sampler = load_sampler(cfg, None, "cuda", seed=0)
+    trainer = guide_trainer(cfg, sampler)
+    trainer.sample_guidance(BATCH, generator=torch.Generator(
+        device="cuda").manual_seed(5))  # warm-up
+    guided_run(trainer, N_BATCHES, LAUNCHES_PER_FORWARD, "CIFAR-10 fp32")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((BATCH, 3, 32, 32), generator=gen, device="cuda")
+    worst, worst_g = 0.0, 0.0
+    for t in range(T):
+        noise = torch.randn(x.shape, generator=gen, device="cuda")
+        step = trainer.guided_step(x, t, GUIDE_SCALE, noise)
+        with plain_kernels_cifar():
+            ref = trainer.guided_step(x, t, GUIDE_SCALE, noise)
+        err = (step["sample"] - ref["sample"]).abs().max().item()
+        err_g = ((step["guidance"] - ref["guidance"]).norm()
+                 / ref["guidance"].norm()).item()
+        worst, worst_g = max(worst, err), max(worst_g, err_g)
+        if err > REPLAY_TOL[True] or not err_g <= GUIDE_REL:
+            raise AssertionError(f"E10 CIFAR-10 step {t}: {err:.3e} from "
+                                 f"the plain versions, guidance {err_g:.3e}"
+                                 " of its norm")
+        x = step["sample"]
+    print(f"  E10 CIFAR-10: each guided step against the plain versions "
+          f"{worst:.3e} at most (tol {REPLAY_TOL[True]:g}), its guidance "
+          f"{worst_g:.3e} of the plain step's norm at most (tol "
+          f"{GUIDE_REL:g})")
+    del trainer, sampler
+    torch.cuda.empty_cache()
+
+    cfg = load_yaml(IMAGENET64_CONFIG)
+    gcfg = {k: cfg[k] for k in ("diffusion", "sampler")}
+    sampler = generate_large.load_sampler(gcfg, None, "cuda", seed=0)
+    trainer = guide_trainer(cfg, sampler)
+    outs = guided_run(trainer, 1, ADM_LAUNCHES_PER_FORWARD["fused"],
+                      "ImageNet64 bf16 fused")
+    y = outs[0]["y"]
+    if y is None or int(y.min()) < 0 or int(y.max()) >= 1000:
+        raise AssertionError("E10 ImageNet64: labels out of range")
+    fp = generate_large.load_sampler(
+        merge(gcfg, {"diffusion": {"use_fp16": False}}), None, "cuda", 0)
+    rs = np.random.RandomState(10)
+    n = LSUN_PLAIN_BATCH
+    x = torch.from_numpy(rs.randn(n, 3, 64, 64).astype(np.float32)
+                         * 80.0).cuda()
+    yy = torch.from_numpy(rs.randint(0, 1000, n)).cuda()
+    worst = [0.0, 0.0, 0.0]
+    for t in range(T):
+        noise = torch.from_numpy(rs.randn(n, 3, 64, 64).astype(
+            np.float32)).cuda()
+        step = trainer.guided_step(x, t, GUIDE_SCALE, noise, y=yy)
+        with plain_kernels_adm():
+            ref = trainer.guided_step(x, t, GUIDE_SCALE, noise, y=yy)
+            trainer.sampler = fp
+            full = trainer.guided_step(x, t, GUIDE_SCALE, noise, y=yy)
+            trainer.sampler = sampler
+        eff = (ref["sample"] - full["sample"]).abs()
+        err = (step["sample"] - ref["sample"]).abs()
+        err_g = (step["guidance"] - ref["guidance"]).abs().mean() / (
+            ref["guidance"] - full["guidance"]).abs().mean()
+        worst = [max(worst[0], (err.mean() / eff.mean()).item()),
+                 max(worst[1], (err.max() / eff.max()).item()),
+                 max(worst[2], err_g.item())]
+        x = step["sample"]
+    if not max(worst) <= BF16_REPLAY_SHARE:
+        raise AssertionError(f"E10 ImageNet64: {worst} of the bf16 effect "
+                             "from the plain versions (sample mean, "
+                             "largest; guidance mean)")
+    print(f"  E10 ImageNet64: each guided step against the plain versions "
+          f"at {n} samples: mean {worst[0]:.3f}, largest {worst[1]:.3f} of "
+          f"the bf16 effect, its guidance mean {worst[2]:.3f} of the bf16 "
+          f"effect on it (limit {BF16_REPLAY_SHARE:g})")
+    del trainer, sampler, fp
+    torch.cuda.empty_cache()
 
 
 # Phase F: FID and the evaluator at full width, in a temporary working
@@ -6352,6 +6645,7 @@ def main() -> int:
         step("G8", phase_replay_lsun)
         step("E8", lambda: phase_generate_lsun(k1_log, rates))
         step("E9", lambda: phase_lsun_train(k1_log))
+        step("E10", phase_guidance)
         step("T-K1", lambda: k1_shape_table(gen, k1_log))
         step("T-K3", lambda: k3_shape_table(gen, k3_log))
         step("C", phase_cli)

@@ -4,7 +4,8 @@
         [--sampler|--epoch best|last] [--n_generate N] [--batchsize B] \
         [--save_dir DIR] [--save_npz samples.npz] [--eval_fid] \
         [--stat stats.npz] [--cleanup] [--seed S] [--int8] \
-        [--dtype fp32|bf16] [--device cuda|cpu] [--any.dot.key value ...]
+        [--dtype fp32|bf16] [--guidance_scale G] [--device cuda|cpu] \
+        [--any.dot.key value ...]
 
 Reads ``config.yaml`` (without PyYAML; dot-key overrides merged over it, as
 the JAX entry merges them) and the sampler checkpoint from the run directory
@@ -30,7 +31,11 @@ full-precision trajectories from a generator seeded with ``seed + 123``, as
 the JAX entry does (``generate_cifar10.py:149-187``). ``--dtype`` is the
 net's compute dtype (parameters stay fp32): by default bf16 for NCSN++ and
 fp32 otherwise, as in the JAX entry. GroupNorm statistics are the JAX
-entry's default (two-pass fp32). Not ported yet: ``--guidance_scale``.
+entry's default (two-pass fp32). ``--guidance_scale G`` samples through the
+trainer's ``sample_guidance`` with the run's value (``value_<sampler>``
+from the run directory), as the JAX entry does
+(``generate_cifar10.py:196-231``): each step's sample moves along the
+value's gradient times G times the step's sigma.
 
 ``bench_sampler`` builds ``bench.py``'s configuration of the same net (bf16,
 static int8 with the attention 1x1s in bf16, the merged qkv product, the
@@ -44,7 +49,7 @@ import contextlib
 import os
 import shutil
 import time
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +65,8 @@ from dxmi_tpu_torch.models.unet_small import QUANT_SCALE_NAMES, UNetSmall
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.samplers.var import VARSampler
 from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
-                                             load_sampler_state, net_kind,
+                                             load_sampler_state,
+                                             load_value_state, net_kind,
                                              read_meta,
                                              resolve_run_checkpoint)
 from dxmi_tpu_torch.utils.npz_stream import NpzStreamWriter
@@ -143,17 +149,44 @@ def bench_sampler(device: str = "cuda", seed: int = 0) -> VARSampler:
     return sampler
 
 
+Draw = Callable[[int, torch.Generator], Dict[str, torch.Tensor]]
+
+
 def iter_batches(sampler: nn.Module, n: int, batchsize: int,
-                 seed: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
+                 seed: int = 0, draw: Optional[Draw] = None
+                 ) -> Iterator[Dict[str, torch.Tensor]]:
     """The sampler's (VARSampler or EDMSampler) output dicts of
     ``n // batchsize`` batches, drawn from one generator seeded with
-    ``seed`` on the sampler's device."""
+    ``seed`` on the sampler's device; ``draw(batchsize, generator)`` takes
+    the place of ``sampler.sample`` when given (guided sampling)."""
     if n % batchsize:
         raise ValueError(f"n={n} is not a multiple of batchsize={batchsize}")
     device = sampler.log_betas.device
     gen = torch.Generator(device=device).manual_seed(seed)
     for _ in range(n // batchsize):
-        yield sampler.sample(batchsize, generator=gen)
+        yield (sampler.sample(batchsize, generator=gen) if draw is None
+               else draw(batchsize, gen))
+
+
+def guidance_draw(cfg: Dict[str, Any], sampler: nn.Module, log_dir: str,
+                  which: str, scale: float, batchsize: int) -> Draw:
+    """Value-guided batches as the JAX entries build them
+    (``generate_cifar10.py:196-213``, ``generate_large.py:133-153``): the
+    config's value with ``value_<which>`` of the run directory, the
+    config's trainer bound to ``sampler`` and that value (no optimizer:
+    guidance takes no step), and its ``sample_guidance`` at ``scale``."""
+    device = sampler.log_betas.device
+    value = instantiate(cfg["value"])
+    path = resolve_run_checkpoint(log_dir, "value", which)
+    value.load_state_dict(load_value_state(path))
+    value.to(device).eval()
+    print(f"value loaded from {path}", flush=True)
+    trainer = instantiate(cfg["trainer"], batchsize=batchsize,
+                          n_timesteps=cfg["sampler"]["n_timesteps"])
+    trainer.sampler, trainer.value = sampler, value
+    trainer.guidance_scale = scale
+    print(f"value-guided sampling, scale={scale}", flush=True)
+    return lambda b, gen: trainer.sample_guidance(b, generator=gen)
 
 
 @torch.no_grad()
@@ -168,7 +201,8 @@ def sample_batches(sampler: VARSampler, n: int, batchsize: int,
 @torch.no_grad()
 def stream_samples(sampler: nn.Module, n: int, batchsize: int, seed: int,
                    save_npz: Optional[str], save_dir: Optional[str] = None,
-                   fid_state: Optional[FIDState] = None
+                   fid_state: Optional[FIDState] = None,
+                   draw: Optional[Draw] = None
                    ) -> Tuple[int, Optional[np.ndarray]]:
     """Draw the batches of ``iter_batches``. Each batch goes as uint8 NHWC
     into ``arr_0`` of ``save_npz`` (the class labels of a class-conditional
@@ -176,7 +210,8 @@ def stream_samples(sampler: nn.Module, n: int, batchsize: int, seed: int,
     ``0_<index>.png`` into ``save_dir`` (written on a thread pool), and, with
     ``fid_state``, through its Inception on the device as
     ``clip((x + 1) / 2, 0, 1)``. Returns the count and the pool3
-    activations (None without ``fid_state``). Serves both CLIs."""
+    activations (None without ``fid_state``). ``draw`` goes to
+    ``iter_batches``. Serves both CLIs."""
     C, H, W = sampler.sample_shape
     with contextlib.ExitStack() as stack:
         writer = (None if save_npz is None else stack.enter_context(
@@ -184,7 +219,7 @@ def stream_samples(sampler: nn.Module, n: int, batchsize: int, seed: int,
         pngs = (None if save_dir is None
                 else stack.enter_context(PNGWriter(save_dir)))
         n_done, ys, acts = 0, [], []
-        for out in iter_batches(sampler, n, batchsize, seed):
+        for out in iter_batches(sampler, n, batchsize, seed, draw):
             x = out["sample"]
             if fid_state is not None:
                 acts.append(fid_state.extract_raw(
@@ -250,6 +285,7 @@ def main() -> None:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--int8", action="store_true")
     p.add_argument("--dtype", default=None, choices=sorted(DTYPES))
+    p.add_argument("--guidance_scale", type=float, default=None)
     args, unknown = p.parse_known_args()
     if str(args.save_images).lower() in ("false", "0", "no"):
         args.cleanup = True
@@ -272,12 +308,16 @@ def main() -> None:
                            args.device, args.seed, args.int8, dtype)
     if args.int8:
         print("int8: static activation scales calibrated", flush=True)
+    draw = None
+    if args.guidance_scale:
+        draw = guidance_draw(cfg, sampler, args.log_dir, args.sampler,
+                             args.guidance_scale, args.batchsize)
     save_dir = args.save_dir or os.path.join(args.log_dir,
                                              f"generated_{args.sampler}")
     os.makedirs(save_dir, exist_ok=True)
     t1 = time.perf_counter()
     n, _ = stream_samples(sampler, args.n_generate, args.batchsize,
-                          args.seed, args.save_npz, save_dir)
+                          args.seed, args.save_npz, save_dir, draw=draw)
     t2 = time.perf_counter()
     print(f"generated {n} samples in {t2 - t0:.2f} s ({n / (t2 - t0):.1f} "
           "img/s, setup included)", flush=True)

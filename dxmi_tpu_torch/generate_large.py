@@ -5,8 +5,8 @@ port: UNetADM + EDMSampler.
         [--sampler best|last] [--n_generate N] [--batchsize B] [--seed S] \
         [--save_npz samples.npz] [--skip_fid] [--save_dir DIR] \
         [--attn_impl fused|flash|einsum] [--up_impl phase|resize] \
-        [--gn_stats fp32|bf16_onepass] [--int8] [--device cuda|cpu] \
-        [--any.dot.key value ...]
+        [--gn_stats fp32|bf16_onepass] [--int8] [--guidance_scale G] \
+        [--device cuda|cpu] [--any.dot.key value ...]
 
 Reads ``config.yaml`` (without PyYAML) and the sampler checkpoint from the
 run directory, looked up in the JAX entry's order (``sampler_{best,last}``,
@@ -24,8 +24,11 @@ file) is printed at the end, with its time split; when those files or the
 Inception weights are missing it says so and goes on. ``--skip_fid`` or
 ``--save_dir`` writes the samples as PNGs (``0_<index>.png`` into
 ``--save_dir``, default ``<log_dir>/generated_<sampler>``). Dot-key
-overrides are merged over ``config.yaml``. Not ported yet:
-``--guidance_scale``.
+overrides are merged over ``config.yaml``. ``--guidance_scale G`` samples
+through ``DxMITrainerCond.sample_guidance`` with the run's value
+(``value_<sampler>``), as the JAX entry does (``generate_large.py:133-153``):
+labels drawn per batch, each step moved along the value's gradient times G
+times the step's sigma.
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ from dxmi_tpu_torch.config import (load_yaml, merge, parse_nested_args,
                                    parse_unknown_args)
 from dxmi_tpu_torch.fid import runner as fid_runner
 from dxmi_tpu_torch.fid import stats as stats_lib
-from dxmi_tpu_torch.generate_cifar10 import iter_batches, stream_samples
+from dxmi_tpu_torch.generate_cifar10 import (guidance_draw, iter_batches,
+                                             stream_samples)
 from dxmi_tpu_torch.models.unet_adm import (QUANT_SCALE_NAMES,
                                             create_unet_adm, seeded_normal_)
 from dxmi_tpu_torch.runtime import select_device
@@ -141,8 +145,6 @@ def main() -> None:
     p.add_argument("--skip_fid", action="store_true")
     p.add_argument("--save_dir", default=None)
     args, unknown = p.parse_known_args()
-    if args.guidance_scale:
-        raise NotImplementedError("--guidance_scale: not ported yet")
 
     cfg = merge(load_yaml(os.path.join(args.log_dir, "config.yaml")),
                 parse_nested_args(parse_unknown_args(unknown)))
@@ -157,6 +159,10 @@ def main() -> None:
                            args.gn_stats, args.int8)
     if args.int8:
         print("int8: static activation scales calibrated", flush=True)
+    draw = None
+    if args.guidance_scale:
+        draw = guidance_draw(cfg, sampler, args.log_dir, args.sampler,
+                             args.guidance_scale, args.batchsize)
     save_dir = None
     if args.skip_fid or args.save_dir:
         save_dir = args.save_dir or os.path.join(
@@ -178,7 +184,8 @@ def main() -> None:
             print("FID assets missing; falling back to PNG dump", flush=True)
     t1 = time.perf_counter()
     n, acts = stream_samples(sampler, args.n_generate, args.batchsize,
-                             args.seed, args.save_npz, save_dir, fid_state)
+                             args.seed, args.save_npz, save_dir, fid_state,
+                             draw)
     dt = time.perf_counter() - t0
     print(f"generated {n} samples in {dt:.2f} s ({n / dt:.1f} img/s, setup "
           "included)", flush=True)

@@ -5,10 +5,15 @@ and ``DxMITrainer``, one iteration being
 
     sample -> update_f_v -> update_sampler
 
+(with ``training.n_critic`` > 1: sample -> update_f_v each iteration, and
+every n_critic iterations ``update_sampler`` on the trajectories of those
+iterations, concatenated: ``train_cifar10.py:305-338``)
+
     python -m dxmi_tpu_torch.train_cifar10 --config configs/cifar10/T10.yaml \
         --dataset configs/cifar10/cifar10.yaml --run myrun [--fake_data] \
-        [--max_steps N] [--attn_impl fused|einsum] [--fuse_gn_conv true|false] \
-        [--fast_levers] [--device cuda|cpu] [--any.dot.key value ...]
+        [--max_steps N] [--resume] [--wandb] [--attn_impl fused|einsum] \
+        [--fuse_gn_conv true|false] [--fast_levers] [--device cuda|cpu] \
+        [--any.dot.key value ...]
 
 The sampler net runs fp32. UNetSmall takes the generation defaults: fused
 attention (K2, or K7 under ``DXMI_FUSED_ATTN_BB`` > 1) and K3 for each
@@ -36,9 +41,15 @@ batches of ``sampling_batchsize`` against the CIFAR-10 statistics under
 Inception weights or the statistics are not on disk. The run directory
 ``results/<data.name>/<config name>/<run>`` gets ``config.yaml`` and, at the
 end, ``sampler_last.pth`` and ``value_last.pth`` in the reference's format,
-which ``generate_cifar10 --sampler last`` reads. Not
-ported yet (they raise): ``--resume``, ``--wandb`` and ``training.n_critic``
-other than 1. ``training.sampler_ckpt`` and ``value_ckpt`` may be flax
+which ``generate_cifar10 --sampler last`` reads. The full train state
+(``train_state.msgpack``, the JAX package's layout: ``utils/train_state.py``)
+is saved at each epoch boundary with the next epoch and at the end with the
+current one (so a ``--max_steps`` stop resumes at the start of its epoch);
+``--resume`` restores it with its epoch, iteration and best FID, and, as the
+JAX entry, draws again from the seed (``train_cifar10.py:191-202``,
+``:372-393``). ``--wandb`` logs to wandb when it is installed (else JAX's
+warning); a ``tensorboardX`` writer is used when that package is.
+``training.sampler_ckpt`` and ``value_ckpt`` may be flax
 ``.msgpack`` files of the JAX package or reference ``.pth`` files; an
 NCSN++ ``sampler_ckpt`` must be ``.msgpack`` (``runs_conv/
 pre_ddgan800.msgpack``): there is no reference layout to convert from, and
@@ -60,11 +71,18 @@ from dxmi_tpu_torch.config import (instantiate, load_yaml, merge,
 from dxmi_tpu_torch.data.cifar10 import EpochLoader, fake_cifar, get_dataset
 from dxmi_tpu_torch.fid import runner as fid_runner
 from dxmi_tpu_torch.runtime import select_device
+from dxmi_tpu_torch.samplers import sample_chunked
+from dxmi_tpu_torch.trainers.buffer import concat, from_d_sample
 from dxmi_tpu_torch.trainers.dxmi import DxMITrainer, train_step
-from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
+from dxmi_tpu_torch.utils.checkpoint import (TRAIN_STATE, load_sampler_into,
                                              load_sampler_state,
+                                             load_train_state,
                                              load_value_state, net_kind,
-                                             save_run_checkpoint)
+                                             save_run_checkpoint,
+                                             save_train_state)
+from dxmi_tpu_torch.utils.logging import (BaseLogger, expand_metrics,
+                                          init_wandb, make_grid,
+                                          tensorboard_writer, weight_norm_of)
 
 # the per-chunk batch of the trajectory sampling at fp32, and under the
 # levers' bf16 torso (train_cifar10.py:61-72)
@@ -163,9 +181,6 @@ def main() -> None:
     p.add_argument("--fuse_gn_conv", default="true", choices=["true", "false"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args, unknown = p.parse_known_args()
-    for flag, on in (("--resume", args.resume), ("--wandb", args.wandb)):
-        if on:
-            raise NotImplementedError(f"{flag}: not ported yet (ROADMAP.md)")
     levers = levers_on(args.fast_levers)
     if levers:
         print("fast_levers: bf16 sampler and value torso, nomax softmax, "
@@ -178,9 +193,6 @@ def main() -> None:
     tr = cfg["training"]
     seed = int(tr["seed"])
     n_critic, n_generator = int(tr["n_critic"]), int(tr["n_generator"])
-    if n_critic != 1:
-        raise NotImplementedError("training.n_critic > 1: not ported yet "
-                                  "(ROADMAP.md)")
     fid_epoch, fid_every = tr.get("fid_epoch"), tr.get("fid_every")
     if fid_epoch is not None and fid_every is not None:
         raise ValueError("cannot set both fid_epoch and fid_every")
@@ -205,6 +217,13 @@ def main() -> None:
                           args.run)
     os.makedirs(logdir, exist_ok=True)
     save_yaml(cfg, os.path.join(logdir, "config.yaml"))
+    use_wandb = False
+    if args.wandb:
+        proj = ("dxmi_cifar10_ddgan" if "ddgan" in model_cfg_name
+                else f"dxmi_cifar10_T{cfg['sampler']['n_timesteps']}")
+        use_wandb = init_wandb(proj, f"{model_cfg_name}_{args.run}", logdir,
+                               dict(cfg)) is not None
+    logger = BaseLogger(tensorboard_writer(logdir), use_wandb=use_wandb)
     print(f"run dir: {logdir}", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -213,38 +232,97 @@ def main() -> None:
     run_fid = fid_runner.BestFID(cfg, sampler, value, logdir,
                                  torch.Generator(device=dev).manual_seed(seed),
                                  dev)
+    start_epoch, i_iter = 0, 0
+    if args.resume and os.path.exists(os.path.join(logdir, TRAIN_STATE)):
+        meta = load_train_state(logdir, trainer)
+        start_epoch, i_iter = int(meta["epoch"]), int(meta["i_iter"])
+        run_fid.best = float(meta.get("best_fid", float("inf")))
+        print(f"resumed full train state at epoch {start_epoch}, "
+              f"iter {i_iter}", flush=True)
+
+    def fid_at(epoch: int) -> None:
+        fid = run_fid(epoch=epoch, iter=i_iter)
+        if fid is not None:
+            logger.log({"FID_": fid, "Best_FID_": run_fid.best}, i_iter)
+
     log_every = int(tr["log_every"])
-    i_iter, epoch, t0 = 0, 0, time.time()
+    t0, start_iter = time.time(), i_iter
     done = False
-    for epoch in range(int(tr["n_epochs"])):
+    pending = []
+    epoch = start_epoch
+    for epoch in range(start_epoch, int(tr["n_epochs"])):
         with torch.no_grad():
             xi = sampler.sample(64, generator=gen)["sample"]
         norm = float(xi.reshape(xi.shape[0], -1).norm(dim=1).mean())
         print(f"epoch {epoch} sample_norm_={norm:.4f}", flush=True)
+        grid = make_grid(((xi + 1) / 2).clamp(0, 1).permute(0, 2, 3, 1)
+                         .cpu().numpy())
+        logger.log({"sample_init@" if epoch == 0 else "sample@": grid,
+                    "sample_norm_": norm}, 0 if epoch == 0 else i_iter)
         if fid_epoch is not None and epoch % int(fid_epoch) == 0:
-            run_fid(epoch=epoch, iter=i_iter)
+            fid_at(epoch)
         for step, (images, _) in enumerate(loader.epoch(epoch)):
             if fid_every is not None and i_iter % int(fid_every) == 0:
-                run_fid(epoch=epoch, iter=i_iter)
+                fid_at(epoch)
             x = to_device_batch(images, dev)
-            m = train_step(trainer, x, None, gen, n_generator=n_generator)
-            if (step + 1) % log_every == 0 or i_iter == 0:
-                its = (i_iter + 1) / (time.time() - t0)
+            if n_critic == 1:
+                m, do_log = train_step(trainer, x, None, gen,
+                                       n_generator=n_generator), True
+            else:
+                m, do_log = critic_step(trainer, x, gen, pending), False
+                if (step + 1) % n_critic == 0:
+                    m.update(trainer.update_sampler(
+                        concat(*pending), n_generator=n_generator,
+                        generator=gen))
+                    pending, do_log = [], True
+            if do_log and ((step + 1) % log_every == 0 or i_iter == 0):
+                logger.log({**expand_metrics(
+                    {k: v for k, v in m.items()
+                     if not k.startswith("time/")}),
+                    "weight_norm/sampler_": weight_norm_of(
+                        sampler.parameters()),
+                    "weight_norm/value_": weight_norm_of(value.parameters())},
+                    i_iter)
+                its = (i_iter + 1 - start_iter) / (time.time() - t0)
                 print(f"iter {i_iter} d_loss={float(m['ebm/d_loss_']):.4f} "
                       f"sampler_loss={float(m['sampler/sampler_loss_']):.4f} "
-                      f"({its:.3f} it/s) sample={m['time/sample']:.3f}s "
-                      f"update_f_v={m['time/update_f_v']:.3f}s "
-                      f"update_sampler={m['time/update_sampler']:.3f}s",
-                      flush=True)
+                      f"({its:.3f} it/s) " + " ".join(
+                          f"{k[5:]}={v:.3f}s" for k, v in m.items()
+                          if k.startswith("time/")), flush=True)
             i_iter += 1
             done = args.max_steps is not None and i_iter >= args.max_steps
             if done:
                 break
         if done:
             break
+        save_train_state(logdir, trainer, i_iter=i_iter, epoch=epoch + 1,
+                         best_fid=run_fid.best)
     save_run_checkpoint(logdir, "last", sampler, value,
                         meta={"epoch": epoch, "iter": i_iter})
+    save_train_state(logdir, trainer, i_iter=i_iter, epoch=epoch,
+                     best_fid=run_fid.best)
     print(f"done: {i_iter} iters", flush=True)
+
+
+def critic_step(trainer: DxMITrainer, x: torch.Tensor,
+                generator: torch.Generator, pending: list) -> Dict[str, Any]:
+    """One iteration of the n_critic > 1 loop before its sampler update: a
+    trajectory (kept in ``pending``) and ``update_f_v`` on it, with each
+    phase's seconds under ``time/``."""
+    sync = (torch.cuda.synchronize if x.device.type == "cuda"
+            else (lambda: None))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        traj = from_d_sample(sample_chunked(
+            trainer.sampler, trainer.batchsize, trainer.sample_chunks,
+            generator))
+    pending.append(traj)
+    sync()
+    t1 = time.perf_counter()
+    m = trainer.update_f_v(x, traj, generator=generator)
+    sync()
+    return {**m, "time/sample": t1 - t0,
+            "time/update_f_v": time.perf_counter() - t1}
 
 
 if __name__ == "__main__":

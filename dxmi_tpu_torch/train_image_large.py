@@ -7,7 +7,8 @@ UNetADM + EDMSampler + ``DxMITrainerCond``, one iteration being
 
     python -m dxmi_tpu_torch.train_image_large --config configs/imagenet64/T10.yaml \
         --dataset configs/imagenet64/imagenet64.yaml --run myrun --fake_data \
-        [--max_steps N] [--attn_impl flash|fused_train|einsum] \
+        [--max_steps N] [--resume] [--save_state_every K] [--wandb] \
+        [--attn_impl flash|fused_train|einsum] \
         [--up_impl phase|resize] [--gn_stats fp32|bf16_onepass] \
         [--device cuda|cpu] [--any.dot.key value ...]
 
@@ -26,11 +27,19 @@ Inception weights and the statistics ``datasets/VIRTUAL_<data.name>[_labeled]
 the structured fake pool) are on disk, FID runs on ``n_fid_samples`` samples
 and each improvement writes ``sampler_best.pth`` and ``value_best.pth`` with
 ``fid`` and ``i_iter``; without those files FID is skipped, as in the JAX
-entry. Not ported yet (they raise): the ImageNet folder loader (use
-``--fake_data``), ``--wandb``, ``--resume``, ``--data_workers`` and
-``--save_state_every``. Without ``--fake_data`` it
-raises for LSUN too (its image folder is decoded through PIL in the JAX
-package).
+entry. The full train state (``train_state.msgpack``, the JAX package's
+layout: ``utils/train_state.py``) is saved every ``--save_state_every``
+iterations (default 500) and at the end; ``--resume`` restores it from the
+run directory, with its iteration and best FID. As in the JAX entry
+(``train_image_large.py:246-250``, ``:286-288``, ``:304-305``), a periodic
+save records the iteration it has just run as ``i_iter``, so a run resumed
+from it runs that iteration again; the final save records ``n_iter``; the
+data stream and the generator start again from the seed. ``--wandb`` logs to
+wandb when it is installed (else JAX's warning), and a ``tensorboardX``
+writer is used when that package is. Not ported yet (they raise): the
+ImageNet folder loader (use ``--fake_data``) and ``--data_workers``. Without
+``--fake_data`` it raises for LSUN too (its image folder is decoded through
+PIL in the JAX package).
 """
 from __future__ import annotations
 
@@ -51,9 +60,13 @@ from dxmi_tpu_torch.models.unet_adm import create_unet_adm, seeded_normal_
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.samplers.edm import EDMSampler, KarrasDenoiser
 from dxmi_tpu_torch.trainers.dxmi import train_step
-from dxmi_tpu_torch.utils.checkpoint import (load_sampler_into,
+from dxmi_tpu_torch.utils.checkpoint import (TRAIN_STATE, load_sampler_into,
                                              load_sampler_state,
-                                             save_run_checkpoint)
+                                             load_train_state,
+                                             save_run_checkpoint,
+                                             save_train_state)
+from dxmi_tpu_torch.utils.logging import (BaseLogger, expand_metrics,
+                                          init_wandb, tensorboard_writer)
 
 
 def build_sampler(cfg: Dict[str, Any], device: torch.device, seed: int,
@@ -142,14 +155,11 @@ def main() -> None:
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--data_workers", type=int, default=None)
-    p.add_argument("--save_state_every", type=int, default=None)
+    p.add_argument("--save_state_every", type=int, default=500)
     args, unknown = p.parse_known_args()
-    for flag, on in (("--wandb", args.wandb), ("--resume", args.resume),
-                     ("--data_workers", args.data_workers is not None),
-                     ("--save_state_every",
-                      args.save_state_every is not None)):
-        if on:
-            raise NotImplementedError(f"{flag}: not ported yet (ROADMAP.md)")
+    if args.data_workers is not None:
+        raise NotImplementedError("--data_workers: not ported yet "
+                                  "(ROADMAP.md)")
 
     cfg = merge(load_yaml(args.config), load_yaml(args.dataset),
                 parse_nested_args(parse_unknown_args(unknown)))
@@ -180,6 +190,12 @@ def main() -> None:
                           args.run)
     os.makedirs(logdir, exist_ok=True)
     save_yaml(cfg, os.path.join(logdir, "config.yaml"))
+    use_wandb = False
+    if args.wandb:
+        proj = f"dxmi_{cfg['data']['name']}_T{cfg['sampler']['n_timesteps']}"
+        use_wandb = init_wandb(proj, f"{model_cfg_name}_{args.run}", logdir,
+                               dict(cfg)) is not None
+    logger = BaseLogger(tensorboard_writer(logdir), use_wandb=use_wandb)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     fid_state = maybe_fid_state(cfg, dev)
@@ -187,23 +203,39 @@ def main() -> None:
     run_fid = fid_runner.BestFID(cfg, sampler, value, logdir,
                                  torch.Generator(device=dev).manual_seed(seed),
                                  dev, state=fid_state)
+    start_iter = 0
+    if args.resume and os.path.exists(os.path.join(logdir, TRAIN_STATE)):
+        meta = load_train_state(logdir, trainer)
+        start_iter = int(meta["i_iter"])
+        run_fid.best = float(meta.get("best_fid", float("inf")))
+        print(f"resumed full train state at iter {start_iter}", flush=True)
     fid_every = tr.get("fid_every")
     log_every = int(tr["log_every"])
     n_iter = int(tr["n_iter"]) if args.max_steps is None else args.max_steps
     t0 = time.time()
-    for i_iter in range(n_iter):
+    for i_iter in range(start_iter, n_iter):
         if (fid_every and fid_state is not None
                 and i_iter % int(fid_every) == 0):
-            run_fid(i_iter=i_iter)
+            fid = run_fid(i_iter=i_iter)
+            if fid is not None:
+                logger.log({"FID_": fid, "Best_FID_": run_fid.best}, i_iter)
         x, y = next(data)
         m = train_step(trainer, x, y, gen)
+        if i_iter and i_iter % int(args.save_state_every) == 0:
+            save_train_state(logdir, trainer, i_iter=i_iter, epoch=0,
+                             best_fid=run_fid.best)
         if i_iter % log_every == 0:
-            ips = (i_iter + 1) / (time.time() - t0)
+            logger.log(expand_metrics(
+                {k: v for k, v in m.items() if not k.startswith("time/")}),
+                i_iter)
+            ips = (i_iter + 1 - start_iter) / (time.time() - t0)
             print(f"iter {i_iter} d_loss={float(m['ebm/d_loss_']):.4f} "
                   f"sampler_loss={float(m['sampler/sampler_loss_']):.4f} "
                   f"({ips:.3f} it/s)", flush=True)
     save_run_checkpoint(logdir, "last", sampler, value,
                         meta={"i_iter": n_iter})
+    save_train_state(logdir, trainer, i_iter=n_iter, epoch=0,
+                     best_fid=run_fid.best)
     print(f"nan-guard skips: {trainer.nan_guard_skips}", flush=True)
     print("done", flush=True)
 

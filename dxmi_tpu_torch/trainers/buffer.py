@@ -1,5 +1,5 @@
 """Trajectory replay buffer with a regular (K, T, B, ...) layout
-(``dxmi_tpu.trainers.buffer``, ``buffer.py:24-95``).
+(``dxmi_tpu.trainers.buffer``, ``buffer.py:24-106``).
 
 Exactly B rows per timestep per trajectory, so the (T, B) structure stays
 explicit; K is the number of stacked trajectories. States are NCHW.
@@ -60,3 +60,12 @@ def from_d_sample(d_sample: Dict[str, torch.Tensor]) -> TrajectoryBuffer:
         entropy=(torch.log(sigma) if entropy is None
                  else entropy.reshape(T, B))[None],
         y=y)
+
+
+def concat(*buffers: TrajectoryBuffer) -> TrajectoryBuffer:
+    """The trajectories of ``buffers`` stacked along K (``buffer.py:103``:
+    the buffers gathered between two sampler updates when n_critic > 1)."""
+    return TrajectoryBuffer(**{
+        f.name: None if getattr(buffers[0], f.name) is None
+        else torch.cat([getattr(b, f.name) for b in buffers])
+        for f in dataclasses.fields(TrajectoryBuffer)})

@@ -10,10 +10,15 @@ the two differ (``tests/test_torch_optim.py``), so the port keeps optax's.
 
 An optimizer holds a list of parameters and its state, and ``step(grads)``
 updates the parameters in place (optax: ``p + (-lr) * u``), all in fp32.
+``state()`` and ``load_state()`` give and take that state under optax's
+names and dtypes (``ScaleByAdamState``: ``count`` int32, ``mu`` and ``nu``
+in the parameters' dtype; ``ApplyIfFiniteState``: ``notfinite_count`` and
+``total_notfinite`` int32, ``last_finite`` bool), which
+``utils/train_state.py`` lays out as the JAX package's train state.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -75,6 +80,21 @@ class Adam:
         return [m / (torch.sqrt(v) + self.eps)
                 for m, v in self._moments(grads)]
 
+    def state(self) -> Dict[str, Any]:
+        """``{'count': int32 0-d array, 'mu': [...], 'nu': [...]}`` (the
+        moment tensors themselves, in the order of the parameters)."""
+        return {"count": np.asarray(self.count, np.int32), "mu": self.mu,
+                "nu": self.nu}
+
+    @torch.no_grad()
+    def load_state(self, count, mu: Sequence[torch.Tensor],
+                   nu: Sequence[torch.Tensor]) -> None:
+        """Restore ``count`` and copy ``mu`` and ``nu`` (one tensor a
+        parameter, in its shape) into the moments."""
+        self.count = int(count)
+        for dst, src in zip(self.mu + self.nu, list(mu) + list(nu)):
+            dst.copy_(torch.as_tensor(src).reshape(dst.shape))
+
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         step = float(np.float32(-self.lr))
@@ -118,6 +138,19 @@ class ApplyIfFinite:
         self.max_consecutive_errors = max_consecutive_errors
         self.notfinite_count = 0
         self.total_notfinite = 0
+        self.last_finite = True
+
+    def state(self) -> Dict[str, np.ndarray]:
+        """optax's three counters, int32 and bool 0-d arrays."""
+        return {"notfinite_count": np.asarray(self.notfinite_count, np.int32),
+                "last_finite": np.asarray(self.last_finite, np.bool_),
+                "total_notfinite": np.asarray(self.total_notfinite, np.int32)}
+
+    def load_state(self, notfinite_count, last_finite,
+                   total_notfinite) -> None:
+        self.notfinite_count = int(notfinite_count)
+        self.last_finite = bool(last_finite)
+        self.total_notfinite = int(total_notfinite)
 
     @torch.no_grad()
     def step(self, grads: Sequence[Sequence[torch.Tensor]]) -> bool:
@@ -125,6 +158,7 @@ class ApplyIfFinite:
         update was applied."""
         finite = all(bool(torch.isfinite(g).all()) for gs in grads
                      for g in gs)
+        self.last_finite = finite
         if finite:
             self.notfinite_count = 0
         else:

@@ -9,17 +9,24 @@ in the JAX package's order, which puts flax msgpack files first.
 the flax-to-port converters (``utils/convert.py``), in every layout that
 the JAX package's ``load_sampler_params`` accepts; a ``.pth``/``.pt`` file
 through ``torch.load``. ``save_run_checkpoint`` writes the
-``{'state_dict': ...}`` files of the reference; the full train state
-(optimizers, resume) is not ported yet.
+``{'state_dict': ...}`` files of the reference. ``save_train_state`` and
+``load_train_state`` write and read the full train state (parameters,
+optimizer states, ``betas_for_q``) in the JAX package's
+``train_state.msgpack`` layout (``utils/train_state.py``), so that a run
+resumes in either package from the other's file.
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from dxmi_tpu_torch.utils import convert, msgpack
+from dxmi_tpu_torch.utils.train_state import trainer_slots
+
+TRAIN_STATE = "train_state.msgpack"
 
 
 def resolve_run_checkpoint(log_dir: str, name: str, which: str) -> str:
@@ -171,3 +178,48 @@ def load_sampler_into(sampler: torch.nn.Module, state: Dict[str, torch.Tensor],
     if unexpected or missing:
         raise KeyError(f"state dict mismatch: missing {missing}, "
                        f"unexpected {sorted(unexpected)}")
+
+
+def save_train_state(log_dir: str, trainer, *, i_iter: int, epoch: int,
+                     best_fid: float = float("inf"),
+                     name: str = TRAIN_STATE) -> None:
+    """The JAX package's ``save_train_state`` (``checkpoint.py:147-165``):
+    ``{'leaves': {'0': ..., '1': ...}, 'meta': {'i_iter', 'epoch',
+    'best_fid'}}`` of ``trainer``'s state, written to ``<name>.tmp`` and then
+    moved into place."""
+    leaves = [slot.get() for slot in trainer_slots(trainer)]
+    msgpack.write(os.path.join(log_dir, name), {
+        "leaves": {str(i): a for i, a in enumerate(leaves)},
+        "meta": {"i_iter": int(i_iter), "epoch": int(epoch),
+                 "best_fid": float(best_fid)}})
+
+
+def _leaf_dtype(a) -> str:
+    return ("bfloat16" if isinstance(a, torch.Tensor)
+            and a.dtype == torch.bfloat16 else np.asarray(a).dtype.name)
+
+
+def load_train_state(log_dir: str, trainer,
+                     name: str = TRAIN_STATE) -> Dict[str, Any]:
+    """Restore ``trainer``'s state from a ``save_train_state`` file of
+    either package and return its meta. A file whose leaf count, or any
+    leaf's shape or dtype, differs from the trainer's configuration is
+    refused with a ``ValueError`` naming the first leaf that differs
+    (nothing is restored then)."""
+    payload = msgpack.read(os.path.join(log_dir, name))
+    stored = payload["leaves"]
+    leaves = [stored[str(i)] for i in range(len(stored))]
+    slots = trainer_slots(trainer)
+    if len(leaves) != len(slots):
+        raise ValueError(
+            f"{name}: {len(leaves)} leaves, the trainer's configuration has "
+            f"{len(slots)}: the saved state does not match it")
+    for i, (slot, leaf) in enumerate(zip(slots, leaves)):
+        got = (tuple(leaf.shape), _leaf_dtype(leaf))
+        if got != (slot.shape, slot.dtype):
+            raise ValueError(
+                f"{name}: leaf {i} ({slot.name}) is {got[1]} {got[0]} in the "
+                f"file, {slot.dtype} {slot.shape} in the trainer")
+    for slot, leaf in zip(slots, leaves):
+        slot.set(leaf)
+    return dict(payload["meta"])

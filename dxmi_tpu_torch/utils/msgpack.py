@@ -1,4 +1,4 @@
-"""A standard-library reader of flax's msgpack checkpoints.
+"""A standard-library reader and writer of flax's msgpack checkpoints.
 
 ``msgpack_restore(data)`` returns what ``flax.serialization.msgpack_restore``
 returns for the same bytes: the msgpack document as nested dicts, lists
@@ -17,11 +17,22 @@ Other ext codes come back as ``ExtType(code, data)``, as msgpack's own
 reader returns them. A leaf that flax split into chunks
 (``__msgpack_chunked_array__``, arrays above 2^30 bytes) is reassembled as
 flax's ``_unchunk_array_leaves_in_place`` does. Truncated input or bytes
-after the document raise ``ValueError``. The port reads checkpoints with
-this module alone: the card has no ``msgpack`` package.
+after the document raise ``ValueError``.
+
+``msgpack_serialize(tree)`` returns the bytes that
+``flax.serialization.msgpack_serialize`` writes for the same tree: dicts
+(their keys sorted, as flax's ``tree_map`` copy sorts them), lists, nil, bool, int, float (as float64), str and
+bytes in msgpack's shortest encodings, numpy arrays and torch tensors
+(``bfloat16`` included) as the ndarray ext type and numpy scalars as the
+scalar ext type; an array above ``MAX_CHUNK_SIZE`` bytes that is the tree or
+a value of a chain of dicts is split into flax's chunked form first. As
+flax packs with ``strict_types``, a tuple raises ``TypeError``. The port
+reads and writes checkpoints with this module alone: the card has no
+``msgpack`` package.
 """
 from __future__ import annotations
 
+import os
 import struct
 from typing import Any, NamedTuple, Tuple
 
@@ -189,3 +200,207 @@ def read(path: str) -> Any:
     """The tree of a flax msgpack file."""
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+# flax's MAX_CHUNK_SIZE: arrays above it are stored in chunks of this many
+# bytes (msgpack caps an object at 2^31 - 1 bytes)
+MAX_CHUNK_SIZE = 2 ** 30
+
+
+def _length(out: bytearray, n: int, small: int, fix: int,
+            wide: Tuple[Tuple[int, int, str], ...]) -> None:
+    """A length header: ``fix | n`` below ``small``, else the first of
+    ``wide``'s (limit, type byte, struct format) that holds ``n``."""
+    if n < small:
+        out.append(fix | n)
+        return
+    for limit, code, fmt in wide:
+        if n <= limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+_STR_W = ((0xff, 0xd9, ">B"), (0xffff, 0xda, ">H"),
+          (0xffffffff, 0xdb, ">I"))
+_BIN_W = ((0xff, 0xc4, ">B"), (0xffff, 0xc5, ">H"),
+          (0xffffffff, 0xc6, ">I"))
+_ARR_W = ((0xffff, 0xdc, ">H"), (0xffffffff, 0xdd, ">I"))
+_MAP_W = ((0xffff, 0xde, ">H"), (0xffffffff, 0xdf, ">I"))
+_FIXEXT_CODE = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+_EXT_W = ((0xff, 0xc7, ">B"), (0xffff, 0xc8, ">H"),
+          (0xffffffff, 0xc9, ">I"))
+
+
+def _int(out: bytearray, v: int) -> None:
+    """msgpack's shortest integer encoding, as msgpack-python packs it."""
+    if 0 <= v < 0x80 or -0x20 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+    elif 0 <= v:
+        for limit, code, fmt in ((0xff, 0xcc, ">B"), (0xffff, 0xcd, ">H"),
+                                 (0xffffffff, 0xce, ">I"),
+                                 (0xffffffffffffffff, 0xcf, ">Q")):
+            if v <= limit:
+                out.append(code)
+                out += struct.pack(fmt, v)
+                return
+        raise OverflowError(f"msgpack: int {v} too large")
+    else:
+        for limit, code, fmt in ((-0x80, 0xd0, ">b"), (-0x8000, 0xd1, ">h"),
+                                 (-0x80000000, 0xd2, ">i"),
+                                 (-0x8000000000000000, 0xd3, ">q")):
+            if v >= limit:
+                out.append(code)
+                out += struct.pack(fmt, v)
+                return
+        raise OverflowError(f"msgpack: int {v} too small")
+
+
+def _array_parts(a) -> Tuple[Tuple[int, ...], str, bytes]:
+    """(shape, dtype name, C-order bytes) of a numpy array or torch tensor,
+    flax's ``_ndarray_to_bytes`` triple (``bfloat16`` by name)."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().contiguous()
+        if a.dtype == torch.bfloat16:
+            return (tuple(a.shape), "bfloat16",
+                    a.view(torch.int16).numpy().tobytes())
+        a = a.numpy()
+    if a.dtype.hasobject or a.dtype.isalignedstruct:
+        raise ValueError("msgpack: object and structured dtypes are not "
+                         "serialisable")
+    return a.shape, a.dtype.name, a.tobytes("C")
+
+
+def _ext_out(out: bytearray, code: int, data: bytes) -> None:
+    n = len(data)
+    if n in _FIXEXT_CODE:
+        out.append(_FIXEXT_CODE[n])
+    else:
+        _length(out, n, 0, 0, _EXT_W)
+    out += struct.pack(">b", code) + data
+
+
+def _pack(out: bytearray, x: Any) -> None:
+    t = type(x)
+    if x is None:
+        out.append(0xc0)
+    elif t is bool:
+        out.append(0xc3 if x else 0xc2)
+    elif t is int:
+        _int(out, x)
+    elif t is float:
+        out.append(0xcb)
+        out += struct.pack(">d", x)
+    elif t is str:
+        raw = x.encode("utf-8")
+        _length(out, len(raw), 32, 0xa0, _STR_W)
+        out += raw
+    elif t in (bytes, bytearray, memoryview):
+        raw = bytes(x)
+        _length(out, len(raw), 0, 0, _BIN_W)
+        out += raw
+    elif t is dict:
+        _length(out, len(x), 16, 0x80, _MAP_W)
+        for k, v in x.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif t is list:
+        _length(out, len(x), 16, 0x90, _ARR_W)
+        for v in x:
+            _pack(out, v)
+    elif isinstance(x, (np.ndarray, torch.Tensor)):
+        _ext_out(out, EXT_NDARRAY, _ndarray_bytes(x))
+    elif isinstance(x, np.generic):
+        _ext_out(out, EXT_NPSCALAR, _ndarray_bytes(np.asarray(x)))
+    elif t is complex:
+        inner = bytearray()
+        _length(inner, 2, 16, 0x90, _ARR_W)
+        _pack(inner, x.real)
+        _pack(inner, x.imag)
+        _ext_out(out, EXT_COMPLEX, bytes(inner))
+    else:
+        raise TypeError(f"msgpack: can not serialize {t.__name__!r} object")
+
+
+def _ndarray_bytes(a) -> bytes:
+    """flax's ``_ndarray_to_bytes``: ``packb((shape, name, bytes))``."""
+    shape, name, raw = _array_parts(a)
+    out = bytearray()
+    _length(out, 3, 16, 0x90, _ARR_W)
+    _length(out, len(shape), 16, 0x90, _ARR_W)
+    for n in shape:
+        _int(out, int(n))
+    _pack(out, name)
+    _pack(out, raw)
+    return bytes(out)
+
+
+def packb(x: Any) -> bytes:
+    """One msgpack document of ``x`` with flax's ext types (flax's
+    ``msgpack.packb(..., default=_msgpack_ext_pack, strict_types=True)``)."""
+    out = bytearray()
+    _pack(out, x)
+    return bytes(out)
+
+
+def _nbytes(a) -> int:
+    return a.numel() * a.element_size() if isinstance(a, torch.Tensor) \
+        else a.size * a.dtype.itemsize
+
+
+def _chunk(a) -> dict:
+    """flax's ``_chunk``: the flat array in chunks of MAX_CHUNK_SIZE bytes."""
+    itemsize = (a.element_size() if isinstance(a, torch.Tensor)
+                else a.dtype.itemsize)
+    size = max(1, int(MAX_CHUNK_SIZE / itemsize))
+    flat = a.reshape(-1)
+    n = flat.shape[0]
+    return {CHUNKED: True,
+            "shape": {str(i): int(d) for i, d in enumerate(a.shape)},
+            "chunks": {str(j): flat[i:i + size]
+                       for j, i in enumerate(range(0, n, size))}}
+
+
+def _chunk_leaves(d: Any) -> Any:
+    """flax's ``_chunk_array_leaves_in_place`` on a copy of the dict chain:
+    an array above MAX_CHUNK_SIZE bytes at the top or as a value of nested
+    dicts becomes its chunked dict."""
+    if isinstance(d, dict):
+        out = {}
+        for k, v in d.items():
+            if isinstance(v, (np.ndarray, torch.Tensor)):
+                out[k] = _chunk(v) if _nbytes(v) > MAX_CHUNK_SIZE else v
+            elif isinstance(v, dict):
+                out[k] = _chunk_leaves(v)
+            else:
+                out[k] = v
+        return out
+    if isinstance(d, (np.ndarray, torch.Tensor)) and \
+            _nbytes(d) > MAX_CHUNK_SIZE:
+        return _chunk(d)
+    return d
+
+
+def _sorted(d: Any) -> Any:
+    """A copy with every dict's keys sorted, as the ``jax.tree_util.tree_map``
+    copy that ``msgpack_serialize`` starts from rebuilds them."""
+    if isinstance(d, dict):
+        return {k: _sorted(d[k]) for k in sorted(d)}
+    if isinstance(d, list):
+        return [_sorted(v) for v in d]
+    return d
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """``flax.serialization.msgpack_serialize`` without flax or msgpack."""
+    return packb(_chunk_leaves(_sorted(tree)))
+
+
+def write(path: str, tree: Any) -> None:
+    """Write ``tree`` as a flax msgpack file: to ``path + '.tmp'``, then
+    ``os.replace``, so a reader never sees half a file."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(msgpack_serialize(tree))
+    os.replace(tmp, path)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_fixtures.trainer_cases import run_files
 from dxmi_tpu.data import cifar10 as jax_cifar
 from dxmi_tpu_torch.config import instantiate, parse_yaml
 from dxmi_tpu_torch.data import cifar10 as port_cifar
@@ -384,8 +385,8 @@ def test_train_cli_then_generate(tmp_path):
     assert "trajectory sampling in 1 chunk(s)" in lines
     assert lines[-1] == "done: 2 iters"
     run = tmp_path / log_dir
-    assert sorted(os.listdir(run)) == ["config.yaml", "sampler_last.pth",
-                                       "value_last.pth"]
+    assert run_files(run) == ["config.yaml", "sampler_last.pth",
+                              "train_state.msgpack", "value_last.pth"]
     cfg = parse_yaml((run / "config.yaml").read_text())
     assert cfg["sampler_net"]["ch"] == 32 and cfg["training"][
         "batchsize"] == 8
@@ -415,31 +416,38 @@ def test_auto_chunk_rule():
 
 
 @pytest.mark.parametrize("flag", ["--resume", "--wandb", "--fast_levers"])
-def test_unported_flags_raise(flag, tmp_path):
-    """--resume and --wandb raise "not ported yet". --fast_levers is ported:
-    the CLI applies the JAX entry's overrides (train_cifar10.py:164-174) to
-    the nets it trains, and says so (one step at the shrunken config;
-    test_torch_cifar_levers.py holds the overrides and the iteration)."""
-    if flag == "--fast_levers":
-        train, _, _ = chip_smoke.cifar_train_cli_commands("flag",
-                                                          device="cpu")
-        proc = subprocess.run(
-            [*train[:train.index("--max_steps") + 1], "1",
-             *train[train.index("--max_steps") + 2:], flag], cwd=tmp_path,
-            capture_output=True, text=True, timeout=300,
-            env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2"))
+def test_entry_flags(flag, tmp_path):
+    """One step at the shrunken config with each flag. --resume on the run
+    dir of a first step starts at its iteration (JAX's line); --wandb
+    without wandb installed says so and trains on (the JAX entry's
+    ``init_wandb``); --fast_levers applies the JAX entry's overrides
+    (train_cifar10.py:164-174) and says so (test_torch_cifar_levers.py
+    holds the overrides and the iteration)."""
+    train, _, _ = chip_smoke.cifar_train_cli_commands("flag", device="cpu")
+    i = train.index("--max_steps")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+
+    def run(*extra, steps="1"):
+        proc = subprocess.run([*train[:i + 1], steps, *train[i + 2:],
+                               *extra], cwd=tmp_path, capture_output=True,
+                              text=True, timeout=300, env=env)
         assert proc.returncode == 0, proc.stderr[-3000:]
-        assert "fast_levers: bf16 sampler and value torso" in proc.stdout
-        assert "trajectory sampling in 1 chunk(s)" in proc.stdout
-        return
-    proc = subprocess.run(
-        [sys.executable, "-m", "dxmi_tpu_torch.train_cifar10", "--config",
-         chip_smoke.CIFAR10_CONFIG, "--dataset",
-         os.path.join(REPO, "configs", "cifar10", "cifar10.yaml"), flag,
-         "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
-        timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
-    assert proc.returncode != 0
-    assert "not ported yet" in proc.stderr
+        return proc.stdout
+
+    if flag == "--resume":
+        run()
+        out = run(flag, steps="2")
+        assert "resumed full train state at epoch 0, iter 1" in out
+        assert [l.split(" d_loss")[0] for l in out.splitlines()
+                if l.startswith("iter")] == ["iter 1"]
+    elif flag == "--wandb":
+        out = run(flag)
+        assert "wandb not installed — --wandb ignored" in out
+        assert out.splitlines()[-1] == "done: 1 iters"
+    else:
+        out = run(flag)
+        assert "fast_levers: bf16 sampler and value torso" in out
+        assert "trajectory sampling in 1 chunk(s)" in out
 
 
 def test_train_image_large_with_sample_chunks(tmp_path):

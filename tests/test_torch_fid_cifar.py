@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_fixtures.trainer_cases import run_files
 from dxmi_tpu_torch.fid.stats import frechet_distance
 from dxmi_tpu_torch.utils.png import read_png, write_png
 from torch_fixtures.fid_files import write_datasets
@@ -48,9 +49,9 @@ def test_train_then_generate_with_fid(tmp_path):
     fid = _fid(lines)
     assert lines[-1] == "done: 2 iters"
     run = tmp_path / log_dir
-    assert sorted(os.listdir(run)) == ["config.yaml", "sampler_best.pth",
-                                       "sampler_last.pth", "value_best.pth",
-                                       "value_last.pth"]
+    assert run_files(run) == ["config.yaml", "sampler_best.pth",
+                              "sampler_last.pth", "train_state.msgpack",
+                              "value_best.pth", "value_last.pth"]
     best = torch.load(run / "sampler_best.pth", weights_only=True)
     assert {k: v for k, v in best.items() if k != "state_dict"} == {
         "fid": fid, "epoch": 0, "iter": 0}

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_fixtures.trainer_cases import run_files
 from dxmi_tpu_torch.config import parse_yaml
 
 
@@ -33,8 +34,8 @@ def test_train_then_generate(tmp_path, config):
     assert "nan-guard skips: 0" in lines and lines[-1] == "done"
     assert any(l.startswith("WARNING: pretrained ckpt") for l in lines)
     run = tmp_path / log_dir
-    assert sorted(os.listdir(run)) == ["config.yaml", "sampler_last.pth",
-                                       "value_last.pth"]
+    assert run_files(run) == ["config.yaml", "sampler_last.pth",
+                              "train_state.msgpack", "value_last.pth"]
     cfg = parse_yaml((run / "config.yaml").read_text())
     assert cfg["diffusion"]["image_size"] == 64
     assert cfg["sampler"]["class_cond"] is False

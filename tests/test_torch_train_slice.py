@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_fixtures.trainer_cases import run_files
 from dxmi_tpu_torch.config import (merge, parse_nested_args, parse_unknown_args,
                                    parse_yaml, to_yaml)
 from dxmi_tpu_torch.trainers.dxmi import DxMITrainer
@@ -148,8 +149,8 @@ def test_train_cli_then_generate(tmp_path):
         == ["iter 0", "iter 1"]
     assert "nan-guard skips: 0" in lines and lines[-1] == "done"
     run = tmp_path / log_dir
-    assert sorted(os.listdir(run)) == ["config.yaml", "sampler_last.pth",
-                                       "value_last.pth"]
+    assert run_files(run) == ["config.yaml", "sampler_last.pth",
+                              "train_state.msgpack", "value_last.pth"]
     cfg = parse_yaml((run / "config.yaml").read_text())
     assert cfg["diffusion"]["image_size"] == 16 and cfg["training"][
         "batchsize"] == 8
@@ -204,15 +205,40 @@ def test_instantiates_the_configs_targets():
     {"value_resample": True, "repeat_value_update": 2},
     {"aug": lambda x, k: x},
     {"repeat_value_update": 2}])
-def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DxMITrainer(batchsize=4, **kwargs)
+def test_ported_options_run(kwargs):
+    """Each option that the trainer once refused runs a whole iteration
+    (``train_step``, draws from the generator) with finite metrics;
+    test_torch_trainer_options.py holds each against JAX."""
+    from dxmi_tpu_torch.trainers.dxmi import train_step
+    from torch_fixtures import trainer_cases
+
+    trainer = trainer_cases.port_trainer("cifar", **kwargs)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand(trainer_cases.B, 3, 16, 16, generator=gen) * 2 - 1
+    m = train_step(trainer, x, None, gen)
+    assert all(bool(torch.isfinite(torch.as_tensor(v)).all())
+               for v in m.values())
+    assert sorted(m["per_step/t"].tolist()) == list(range(trainer_cases.T))
+    assert trainer.opt_v.count == 1 + trainer_cases.T * int(
+        kwargs.get("repeat_value_update", 1))
 
 
-def test_separate_energy_raises():
-    trainer = DxMITrainer(batchsize=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.set_models(None, None, 1e-4, 1e-4, energy=object())
+def test_separate_energy_runs():
+    """With a separate energy net f the contrastive step trains f, not the
+    value, and the TD sweep trains the value (``dxmi.py:396-415``); the
+    Adam of f takes one step an iteration."""
+    from dxmi_tpu_torch.trainers.dxmi import train_step
+    from torch_fixtures import trainer_cases
+
+    trainer = trainer_cases.port_trainer("f")
+    f0 = [p.detach().clone() for p in trainer.energy.parameters()]
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand(trainer_cases.B, 3, 16, 16, generator=gen) * 2 - 1
+    m = train_step(trainer, x, None, gen)
+    assert bool(torch.isfinite(m["ebm/d_loss_"]))
+    assert (trainer.opt_f.count, trainer.opt_v.count) == (1, trainer_cases.T)
+    assert any(not torch.equal(a, b)
+               for a, b in zip(f0, trainer.energy.parameters()))
 
 
 def test_image_folder_loader_raises(tmp_path):

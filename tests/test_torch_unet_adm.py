@@ -352,15 +352,32 @@ def test_generate_large_cli(tmp_path):
     assert arr["arr_1"].shape == (8,) and arr["arr_1"].max() < 4
 
 
-@pytest.mark.parametrize("args,msg", [
-    ((), "no CUDA device"),
-    (("--device", "cpu", "--guidance_scale", "0.1"), "not ported yet")])
+@pytest.mark.parametrize("args,msg", [((), "no CUDA device")])
 def test_generate_large_cli_refuses(args, msg):
     """Without --device cpu and with no card it raises instead of running
-    on the CPU; unported options raise."""
+    on the CPU."""
     proc = _cli(*args)
     assert proc.returncode != 0
     assert msg in proc.stderr
+
+
+def test_generate_large_cli_guided(tmp_path):
+    """--guidance_scale samples through DxMITrainerCond.sample_guidance with
+    the run's value (the fixture's value.pth): finite samples, labels of
+    the fixture's 4 classes, and guidance that moves them."""
+    outs = {}
+    for extra in ((), ("--guidance_scale", "0.1")):
+        out = tmp_path / f"s{len(extra)}.npz"
+        proc = _cli("--device", "cpu", "--save_npz", str(out), *extra)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        outs[len(extra)] = np.load(out)
+    assert "value-guided sampling, scale=0.1" in proc.stdout
+    assert "value loaded from" in proc.stdout
+    guided, plain = outs[2], outs[0]
+    assert guided["arr_0"].shape == (8, 16, 16, 3)
+    assert guided["arr_1"].shape == (8,) and guided["arr_1"].max() < 4
+    assert np.array_equal(guided["arr_1"], plain["arr_1"])
+    assert not np.array_equal(guided["arr_0"], plain["arr_0"])
 
 
 @pytest.mark.parametrize("flag", ["--skip_fid", "--save_dir"])
