@@ -50,8 +50,11 @@ failure exits non-zero naming the phase:
      256x256 and 128x128 maps; the plain versions of K1 and K8 over batch
      chunks), K7 bf16 at
      d = 256 at batch 128 and 64, bb 4, and the wide attention core alone
-     at the d = 256 shapes of batch 100, each against its plain version and
-     replayed bit-equal);
+     at the d = 256 shapes of batch 100, train_anomaly's shapes at batch 32
+     (K1, K3 at every GN+conv pair of its policy and value, those at one
+     channel a group included, K2 fp32 at (32, 1024, 64) and (32, 256,
+     128), and K1 at one channel a group), each against its plain version
+     and replayed bit-equal);
   T  time each kernel, its plain version and one PyTorch library call with
      CUDA events, device time (K4 at each shape the main paths launch it
      at; K2 fp32 beside K7 at bb 2 and 4 on the same inputs at batch 100,
@@ -69,7 +72,9 @@ failure exits non-zero naming the phase:
      SDPA; SDPA); and at LSUN's shapes K1 on the split route (both
      statistics modes), K2 bf16, K5 (32x32 and 8x8), K4, K4-dkv, K4-dq
      and K8 (256x256, 256 -> 256 and the widest decoder input) beside
-     their bounds and library calls;
+     their bounds and library calls; at train_anomaly's shapes K1 (the
+     policy's norm_out, and at one channel a group), K3 at one channel a
+     group and K2 fp32 at its two maps, beside their library calls;
   T-bwd the device time of each launch of one K6 fp32 call at G3's and E5's
      shapes (8 and 64, 64, 64, nh 2), and of one K6 bf16 call and one
      K4-dkv call at the 32x32 map at batch 128 (torch.profiler);
@@ -189,13 +194,25 @@ failure exits non-zero naming the phase:
      counted, each guided step held against the kernels' plain versions
      on the same state and noise (fp32 per element within G's fused
      limit, bf16 within twice the bf16 effect at 10 samples);
+  G9 one DxMITrainerEV iteration of train_anomaly's nets at a small width
+     with a spectral-norm energy (numpy-made weights, K1 and K2 fp32)
+     against tests/torch_fixtures/ev_golden.npz: metrics within 1e-3, f's
+     u and sigma after the iteration within 1e-4, the updates' norms read;
+  E11 train_anomaly at its defaults (image 64, batch 32, T = 10) through
+     its main(): 3 iterations from a tensor file (launches of K1, K3 and
+     K2 fp32 counted, and by shape for T-K1 and T-K3) and 3 with
+     --spectral_norm from a PNG folder of 64x64 and 256x256 images, the
+     run directories' files, --score of that run on two PNG directories;
+     at one iteration's inputs each forward of the policy and the value
+     against the kernels' plain versions; s/iter, peak memory and the
+     idle share of a profiled iteration;
   T-K1 K1 at each shape that E-int8, E2 (fused, flash), E3 (flash,
-     fused_train), E5 (einsum, fused_train), E4, E6, E7, E8 and E9
+     fused_train), E5 (einsum, fused_train), E4, E6, E7, E8, E9 and E11
      launched it at, held
      against its plain version under K's gate, with its time, its launches
      per trajectory or step (counted in those phases), its route and its
      bound;
-  T-K3 K3's time at each shape that E and E4 launched it at, with its
+  T-K3 K3's time at each shape that E, E4 and E11 launched it at, with its
      launches per trajectory or step (counted in those phases), its bound,
      its library and its plain time (without E and E4 in the run: at every
      conv shape of the CIFAR-10 net at batch 100, 32 and 128, no launches);
@@ -214,7 +231,10 @@ failure exits non-zero naming the phase:
      run's *_last.pth bit for bit, the optimizer counts equal to the steps
      taken, JAX's "resumed full train state" line, finite metrics), then
      generate_cifar10 / generate_large --guidance_scale 0.1 on the run
-     dirs; the subprocesses four at a time;
+     dirs; train_2d for 300 iterations after 200 of pretraining (its
+     curve's JSON); train_image_large on conv16.yaml from a PNG folder of
+     class-prefixed 64x64 images with --data_workers 2 for 2 steps; the
+     subprocesses four at a time;
   F  FID and the evaluator at full width in a temporary working directory
      whose datasets/ holds the proxy files of dxmi_tpu_torch/fid/proxy.py
      (the seed-0 synthetic Inception weights; statistics over 4096
@@ -259,8 +279,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dxmi_tpu_torch import (generate_cifar10, generate_large, train_cifar10,
-                            train_image_large)
+from dxmi_tpu_torch import (generate_cifar10, generate_large, train_anomaly,
+                            train_cifar10, train_image_large)
 from dxmi_tpu_torch.config import instantiate, load_yaml, merge
 from dxmi_tpu_torch.generate_cifar10 import (generate, load_sampler,
                                              sample_batches, to_uint8)
@@ -309,10 +329,11 @@ from dxmi_tpu_torch.samplers.ddgan import DDGANSampler
 from dxmi_tpu_torch.trainers.buffer import from_d_sample
 from dxmi_tpu_torch.trainers.dxmi import DxMITrainer, train_step
 from dxmi_tpu_torch.trainers.dxmi_cond import DxMITrainerCond
+from dxmi_tpu_torch.trainers.dxmi_ev import DxMITrainerEV
 from dxmi_tpu_torch.utils.checkpoint import (load_sampler_state,
                                              load_value_state)
 from dxmi_tpu_torch.utils import msgpack as port_msgpack
-from dxmi_tpu_torch.utils.train_state import flax_path
+from dxmi_tpu_torch.utils.train_state import flax_path, sn_buffers
 from dxmi_tpu_torch.utils.png import read_png
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -643,6 +664,19 @@ INFO = {
     "int8_conv_lsun": ("dxmi_tpu_torch/csrc/int8_conv.cu",
                        "dxmi_tpu/ops/quant.py:68 (LSUN --int8, 256x256 "
                        "maps)"),
+    # the same kernels at train_anomaly's shapes (E11, image 64, batch 32)
+    "gn_silu_anomaly": ("dxmi_tpu_torch/csrc/groupnorm.cu",
+                        "dxmi_tpu/ops/groupnorm.py:157 (fp32, the policy's "
+                        "norm_out at 64x64)"),
+    "gn_silu_conv3x3_anomaly": ("dxmi_tpu_torch/csrc/conv_fused.cu",
+                                "dxmi_tpu/ops/conv_fused.py:36 (fp32, one "
+                                "channel a group: the value's 64x64 level)"),
+    "attn_block_anomaly": ("dxmi_tpu_torch/csrc/attn_block_bb.cu",
+                           "dxmi_tpu/ops/attn_block.py:225 (fp32, the "
+                           "value's mid block, S = 1024, C = 64)"),
+    "attn_block_anomaly_16": ("dxmi_tpu_torch/csrc/attn_block_bb.cu",
+                              "dxmi_tpu/ops/attn_block.py:225 (fp32, the "
+                              "policy's 16x16 blocks, C = 128)"),
 }
 
 
@@ -830,7 +864,7 @@ class PhaseError(Exception):
 PHASES = ("B", "K", "T", "T-bwd", "G", "G-int8", "G-bf16", "E", "E-int8",
           "E-bf16", "G2", "G2-int8", "E2", "E2-int8", "G3", "E3", "G5", "E5",
           "G4", "E4", "E4-levers", "G6", "G7", "E6", "E7", "G8", "E8", "E9",
-          "E10", "T-K1", "T-K3", "C", "F")
+          "E10", "G9", "E11", "T-K1", "T-K3", "C", "F")
 
 
 def run_phase(name, fn):
@@ -2310,6 +2344,7 @@ def phase_kernels(gen):
     phase_kernels_gn_routes(gen, errs)
     phase_kernels_ddgan(gen, errs)
     phase_kernels_lsun(gen, errs)
+    phase_kernels_anomaly(gen, errs)
     phase_kernels_flash_edges(gen, errs)
     phase_kernels_train(gen, errs)
     phase_kernels_bb(gen, errs)
@@ -2649,6 +2684,7 @@ def phase_times(gen):
     rows.update(bf16_time_rows(gen))
     rows.update(ddgan_time_rows(gen))
     rows.update(lsun_time_rows(gen))
+    rows.update(anomaly_time_rows(gen))
     peaks = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS, "int8": INT8_OPS,
              "tf32x3": TF32X3_FLOPS}
     for name, r in rows.items():
@@ -3764,7 +3800,8 @@ def phase_cli():
         trained = [pool.submit(resume_chain, out_dir, *chain)
                    for chain in resume_chains()]
         trained += [pool.submit(fn, out_dir) for fn in
-                    (train_cli, cifar_train_cli, ddgan_train_cli)]
+                    (train_cli, cifar_train_cli, ddgan_train_cli, twod_cli,
+                     folder_train_cli)]
         clis = [pool.submit(fixture_cli, out_dir, *run) for run in runs]
         done = [f.result() for f in clis]
         for f in trained:
@@ -6034,7 +6071,7 @@ def numpy_state(module, seed):
             a = float(k.endswith(".weight")) + 0.1 * rs.randn(*shape)
         else:
             a = rs.randn(*shape) / np.sqrt(np.prod(shape[1:]))
-        out[k] = torch.from_numpy(a.astype(np.float32))
+        out[k] = torch.from_numpy(np.asarray(a, dtype=np.float32))
     return out
 
 
@@ -6576,6 +6613,524 @@ def phase_lsun_train(k1_log):
     return want
 
 
+# ---- the anomaly entry (train_anomaly) and the 2D experiment ---------------
+
+# train_anomaly at its defaults (train_anomaly.py:40-58): image 64, batch 32,
+# T = 10. K1, K3 and K2 (fp32) launches of one forward of its nets: the
+# policy (UNetSmall ch 64, ch_mult (1, 2, 2), attention at 16x16) K1 at
+# norm_out, K3 at the 22 GN+conv pairs, K2 at the 4 blocks of 16x16; the
+# value (UNetSmallEncoder ch 32, ch_mult (1, 2)) K3 at its 8 pairs (those
+# of the 64x64 level at one channel a group) and K2 at the mid block of
+# 32x32 (its head's GroupNorm is flax's nn.GroupNorm in JAX, F.group_norm
+# here). One EV iteration runs the policy T times to sample, T times in the
+# TD sweep and once in update_sampler, the value twice a TD step and once in
+# update_sampler. tests/test_torch_unet_encoder.py counts these on the CPU.
+ANOMALY_SIZE, ANOMALY_BATCH, ANOMALY_T = 64, 32, 10
+ANOMALY_POLICY_LAUNCHES = {"gn_silu": 1, "gn_silu_conv3x3": 22,
+                           "attn_block": 4}
+ANOMALY_VALUE_LAUNCHES = {"gn_silu_conv3x3": 8, "attn_block": 1}
+E11_POLICY_FORWARDS = 2 * ANOMALY_T + 1
+E11_VALUE_FORWARDS = 2 * ANOMALY_T + 1
+E11_ITERS = 3
+# the energy's spectral-norm buffers (u and sigma of the stem and of the 15
+# convs of its six blocks, skips included)
+E11_SN_BUFFERS = 32
+E11_LAUNCHES_PER_ITER = {
+    k: E11_POLICY_FORWARDS * ANOMALY_POLICY_LAUNCHES.get(k, 0)
+    + E11_VALUE_FORWARDS * ANOMALY_VALUE_LAUNCHES.get(k, 0)
+    for k in ("gn_silu", "gn_silu_conv3x3", "attn_block")}
+# the record's rows: K1 at the policy's norm_out (B, H*W, C); K3 at the
+# value's 64x64 level, one channel a group (B, H, W, Cin, Cout); K2 fp32 at
+# the value's mid block and at the policy's 16x16 blocks (B, S, C). K1 at
+# one channel a group is checked and timed too (no net of the path has
+# such a GroupNorm outside K3).
+ANOMALY_K1 = (ANOMALY_BATCH, 4096, 64)
+ANOMALY_K1_ONE = (ANOMALY_BATCH, 4096, 32)
+ANOMALY_K3 = (ANOMALY_BATCH, 64, 64, 32, 32)
+ANOMALY_K2 = {"attn_block_anomaly": (ANOMALY_BATCH, 1024, 64),
+              "attn_block_anomaly_16": (ANOMALY_BATCH, 256, 128)}
+# E11's gates on each forward against the kernels' plain versions on the
+# card: the policy's eps by E's fused limit (REPLAY_TOL[True], max abs),
+# the value's output by E4's wiring limit relative to its scale
+E11_VALUE_REL = 2e-2
+# G9: one EV iteration of train_anomaly's nets at a small width (image 16,
+# T = 4, batch 4, the policy ch 64, the value ch 32, the energy nh 8 with
+# spectral norm; numpy-made weights, ev_small_trainer) against the JAX
+# trainer's (tests/torch_fixtures/make_ev_golden.py): metrics within
+# G3_METRIC_REL, f's u and sigma after the iteration within G9_SN_ABS (f's
+# power iteration after its Adam step: fp32 sums in another order; a wrong
+# update order or a missed store moves them by 1e-2 or more); the updates'
+# norms are read. The nets run K1 and K2 fp32 (fuse_gn_conv off, as JAX's
+# fp32 composition: K3's bf16 operands would move the metrics by ~1e-3).
+EV_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures", "ev_golden.npz")
+EV_SMALL = dict(image_size=16, n_timesteps=4, nh=8, ch=64)
+EV_BATCH, EV_SEED = 4, 23
+EV_HP = dict(tau1=0.01, tau2=0.01, lr=1e-5, v_lr=1e-4, f_lr=1e-4)
+G9_SN_ABS = 1e-4
+
+
+def ev_small_trainer(spectral_norm, device, seed=EV_SEED, **net_kw):
+    """G9's trainer: ``train_anomaly.build`` at EV_SMALL with numpy-made
+    weights from ``seed`` (``numpy_state``; spectral-norm sigmas 1), the
+    schedule's initial sigmas, DxMITrainerEV with EV_HP."""
+    _, sampler, value, energy = train_anomaly.build(
+        EV_SMALL["image_size"], EV_SMALL["n_timesteps"], nh=EV_SMALL["nh"],
+        ch=EV_SMALL["ch"], spectral_norm=spectral_norm, **net_kw)
+    for i, m in enumerate((sampler.net, value, energy)):
+        sd = numpy_state(m, seed + i)
+        m.load_state_dict({k: torch.ones(()) if k.endswith(".sigma") else v
+                           for k, v in sd.items()})
+    for m in (sampler, value, energy):
+        m.to(device)
+    tr = DxMITrainerEV(batchsize=EV_BATCH, tau1=EV_HP["tau1"],
+                       tau2=EV_HP["tau2"],
+                       n_timesteps=EV_SMALL["n_timesteps"],
+                       use_sampler_beta=True, adavelreg=0.99)
+    tr.set_models(sampler, value, energy, lr=EV_HP["lr"], v_lr=EV_HP["v_lr"],
+                  f_lr=EV_HP["f_lr"])
+    return tr
+
+
+def ev_replay(golden, device, **net_kw):
+    """The port's side of G9: ``ev_small_trainer`` with spectral norm, one
+    update_f_v and one update_sampler on the golden's trajectory, data and
+    draws. Returns the metrics (``metric/...``), f's spectral-norm buffers
+    after (``sn/...``) and the norm of each net's update (``update/...``)."""
+    tr = ev_small_trainer(bool(golden["case/spectral_norm"]), device,
+                          **net_kw)
+
+    def t(name):
+        return torch.from_numpy(np.asarray(golden[name])).to(device)
+
+    l_sample = t("l_sample")
+    buf = from_d_sample({"l_sample": l_sample,
+                         "mean": torch.zeros_like(l_sample[1:]),
+                         "sigma": t("sigma"), "logp": t("logp"),
+                         "entropy": t("entropy")})
+    nets = {"f": tr.energy, "v": tr.value, "s": tr.sampler.net}
+    before = {k: [p.detach().clone() for p in n.parameters()]
+              for k, n in nets.items()}
+    m = tr.update_f_v(t("img"), buf, noise=list(t("td_noise")))
+    m.update(tr.update_sampler(buf, perm=t("perm"), noise=list(t("noise"))))
+    out = {f"metric/{k}": v.float().cpu().numpy() for k, v in m.items()}
+    for k, b in sn_buffers(tr.energy):
+        out[f"sn/{k}"] = b.cpu().numpy()
+    for k, n in nets.items():
+        out[f"update/{k}"] = np.float64(sum(
+            float(((p.detach() - p0) ** 2).sum())
+            for p, p0 in zip(n.parameters(), before[k])) ** 0.5)
+    return out
+
+
+def ev_golden_check(port, golden, what):
+    """G9's gates; returns (worst metric rel err, worst u/sigma abs err)."""
+    worst_m = worst_sn = 0.0
+    for k in golden:
+        a = port.get(k)
+        if k.startswith("metric/"):
+            a, b = (np.asarray(x, np.float64) for x in (a, golden[k]))
+            rel = np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)
+            if not np.isfinite(a).all() or rel > G3_METRIC_REL:
+                raise AssertionError(f"{what} {k}: {a} vs JAX {b}")
+            worst_m = max(worst_m, rel)
+        elif k.startswith("sn/"):
+            err = float(np.abs(a - golden[k]).max())
+            if not err <= G9_SN_ABS:
+                raise AssertionError(f"{what} {k}: {err:.3e} from JAX's")
+            worst_sn = max(worst_sn, err)
+    return worst_m, worst_sn
+
+
+def phase_replay_ev():
+    """G9 (see EV_GOLDEN)."""
+    golden = dict(np.load(EV_GOLDEN))
+    _lib.reset_launches()
+    port = ev_replay(golden, "cuda", fuse_gn_conv=False)
+    used = {k for k, v in _lib.LAUNCHES.items() if v}
+    if used != {"gn_silu", "attn_block"}:
+        raise AssertionError(f"G9: launched {dict(_lib.LAUNCHES)}")
+    m, sn = ev_golden_check(port, golden, "G9")
+    upd = ", ".join(f"{k} {port[f'update/{k}']:.4e} (JAX "
+                    f"{float(golden[f'update/{k}']):.4e})" for k in "fvs")
+    print(f"  G9: metrics within {m:.3e} of JAX's (tol {G3_METRIC_REL:g}), "
+          f"f's u and sigma within {sn:.3e} (tol {G9_SN_ABS:g}); update "
+          f"norms (read) {upd}; kernels {dict(_lib.LAUNCHES)}")
+
+
+def anomaly_shapes():
+    """K1, K3 and K2 calls by shape of one forward of the policy and one of
+    the value of ``train_anomaly.build`` at full width, counted from the
+    nets' wrapper calls on the CPU (batch 1): {'policy'|'value': Counter of
+    ('gn', HW, C) | ('conv', H, W, Cin, Cout) | ('attn', S, C)}."""
+    from dxmi_tpu_torch.models import unet_small as us
+    counts = {}
+    nets = train_anomaly.build(ANOMALY_SIZE, ANOMALY_T)
+    for tag, net in (("policy", nets[0].eval()), ("value", nets[2])):
+        seen = collections.Counter()
+        stack = contextlib.ExitStack()
+
+        def wrap(name, key):
+            fn = getattr(us, name)
+
+            def counted(*a, **k):
+                seen[key(*a)] += 1
+                return fn(*a, **k)
+            stack.enter_context(_patched(us, name, counted))
+
+        wrap("group_norm", lambda x, *a: ("gn", x.shape[1] * x.shape[2],
+                                          x.shape[3]))
+        wrap("gn_silu_conv", lambda x, s, b, w, *a: ("conv", *x.shape[1:],
+                                                     w.shape[-1]))
+        wrap("attn_block", lambda x, *a: ("attn", *x.shape[1:]))
+        with stack, torch.no_grad():
+            net(torch.zeros(1, 3, ANOMALY_SIZE, ANOMALY_SIZE),
+                torch.zeros(1))
+        counts[tag] = seen
+    return counts
+
+
+def phase_kernels_anomaly(gen, errs):
+    """K1, K3 and K2 (fp32) at every shape of train_anomaly's nets at batch
+    32, and K1 at one channel a group, each against its plain version under
+    TOL (K3 by conv_check) and replayed bit-equal."""
+    for name in ("gn_silu_anomaly", "gn_silu_conv3x3_anomaly", *ANOMALY_K2):
+        errs[name] = 0.0
+    keys = {("gn", *ANOMALY_K1_ONE[1:])}
+    for seen in anomaly_shapes().values():
+        keys |= set(seen)
+    B = ANOMALY_BATCH
+    for key in sorted(keys):
+        one = False  # a GroupNorm of one channel a group
+        if key[0] == "gn":
+            a = gn_case(gen, B, key[1], key[2], True)
+            out = group_norm(*a)
+            err = max_err(out, group_norm_silu_reference(*a), "gn_silu")
+            again, row = group_norm(*a), "gn_silu_anomaly"
+            what = f"gn_silu {(B, *key[1:])}"
+            one = key[2] == 32
+        elif key[0] == "conv":
+            _, H, W, Cin, Cout = key
+            a = conv_case(gen, B, H, Cin, Cout, W)
+            out = gn_silu_conv(*a)
+            err = conv_check(out, gn_silu_conv_reference(*a),
+                             f"gn_silu_conv3x3 anomaly {key}")
+            again, row = gn_silu_conv(*a), "gn_silu_conv3x3_anomaly"
+            what = f"gn_silu_conv3x3 {(B, H, W, Cin, Cout)}"
+            one = Cin == 32
+        else:
+            _, S, C = key
+            a = attn_case(gen, B, S, C)
+            out = attn_block(*a, num_heads=1, eps=1e-6, block_b=1)
+            err = max_err(out, attn_block_reference(*a, num_heads=1,
+                                                    eps=1e-6), "attn_block")
+            again = attn_block(*a, num_heads=1, eps=1e-6, block_b=1)
+            row = ("attn_block_anomaly" if (S, C) == (1024, 64)
+                   else "attn_block_anomaly_16")
+            what = f"attn_block fp32 {(B, S, C)}"
+        if not torch.equal(out, again):
+            raise AssertionError(f"K anomaly {what}: a replay differs")
+        errs[row] = max(errs[row], err)
+        print(f"  K anomaly {what}{' (one channel a group)' if one else ''}"
+              f": max abs err {err:.3e}; replay bit-equal")
+        del a, out, again
+
+
+def anomaly_time_rows(gen):
+    """T rows of the anomaly shapes (ANOMALY_K1, ANOMALY_K3, ANOMALY_K2),
+    beside the plain versions and the library calls; K1 at one channel a
+    group printed beside them."""
+    rows = {}
+    for shape, name in ((ANOMALY_K1, "gn_silu_anomaly"),
+                        (ANOMALY_K1_ONE, None)):
+        B, HW, C = shape
+        a = gn_case(gen, B, HW, C, True)
+        x_nchw = a[0].reshape(B, 64, 64, C).permute(0, 3, 1, 2)
+        n = B * HW * C
+        r = dict(ms=time_ms(lambda: group_norm(*a)),
+                 plain_ms=time_ms(lambda: group_norm_silu_reference(*a)),
+                 library_ms=time_ms(lambda: F.silu(F.group_norm(
+                     x_nchw, 32, a[1], a[2], 1e-6))),
+                 bytes=2 * n * 4 + 2 * C * 4, ops={"fp32": 11 * n})
+        if name is None:
+            bound = r["bytes"] / HBM_BYTES_S * 1e3
+            print(f"  T gn_silu {shape} (one channel a group): kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                  f"{r['library_ms']:.4f} ms, bound {bound:.4f} ms (bytes)")
+        else:
+            rows[name] = r
+        del a, x_nchw
+    B, H, W, Cin, Cout = ANOMALY_K3
+    a = conv_case(gen, B, H, Cin, Cout, W)
+    nbytes, ops = conv_work(B, H, W, Cin, Cout)
+    rows["gn_silu_conv3x3_anomaly"] = dict(
+        ms=time_ms(lambda: gn_silu_conv(*a)),
+        plain_ms=time_ms(lambda: gn_silu_conv_reference(*a)),
+        library_ms=time_ms(conv_library(a)), bytes=nbytes, ops=ops)
+    del a
+    for name, (B, S, C) in ANOMALY_K2.items():
+        a = attn_case(gen, B, S, C)
+        rows[name] = dict(
+            ms=time_ms(lambda: attn_block(*a, num_heads=1, eps=1e-6,
+                                          block_b=1)),
+            plain_ms=time_ms(lambda: attn_block_reference(*a, num_heads=1,
+                                                          eps=1e-6)),
+            library_ms=time_ms(lambda: library_attn_block(*a)),
+            **attn_fp32_work(B, S, C))
+        del a
+    return rows
+
+
+@contextlib.contextmanager
+def k2_shapes(log, label, runs, unit):
+    """K2 fp32's launches by (B, S, C) into ``log[label]`` while the block
+    runs ``runs`` times one ``unit`` (as k3_shapes)."""
+    from dxmi_tpu_torch.ops import attn_block as ab
+    fwd = ab._attn_block_forward
+    seen = collections.Counter()
+
+    def counted(x, *rest):
+        if x.is_cuda:
+            seen[tuple(x.shape)] += 1
+        return fwd(x, *rest)
+
+    ab._attn_block_forward = counted
+    try:
+        yield
+    finally:
+        ab._attn_block_forward = fwd
+    log[label] = (seen, runs, unit)
+
+
+def anomaly_images(n, size, seed):
+    """``n`` structured RGB images (uint8 NHWC) at ``size``, the training
+    distribution of E11 (the class pool of --fake_data, one class)."""
+    x, _ = structured_class_images(n, size, 1, seed=seed)
+    return np.round((x + 1) * 127.5).clip(0, 255).astype(np.uint8)
+
+
+def write_anomaly_data(root):
+    """E11's inputs under ``root``: a tensor file of 64 images (uint8 NCHW,
+    the MVTec layout's train_data.pth), a PNG folder of 32 images at 64x64
+    and 32 at 256x256 (the loader halves those twice by BOX), and two PNG
+    directories to score, 16 nominal images at 64x64 and 16 noise images
+    at 128x128 (resized by the score's bilinear)."""
+    from dxmi_tpu_torch.utils.png import write_png
+    paths = {k: os.path.join(root, k) for k in ("tensor", "folder", "in",
+                                                  "out")}
+    for p in paths.values():
+        os.makedirs(p)
+    torch.save(torch.from_numpy(anomaly_images(64, 64, 1).transpose(
+        0, 3, 1, 2).copy()), os.path.join(paths["tensor"], "train_data.pth"))
+    for i, img in enumerate([*anomaly_images(32, 64, 2),
+                             *anomaly_images(32, 256, 3)]):
+        write_png(os.path.join(paths["folder"], f"{i:03d}.png"), img)
+    for i, img in enumerate(anomaly_images(16, 64, 4)):
+        write_png(os.path.join(paths["in"], f"{i:03d}.png"), img)
+    rs = np.random.RandomState(5)
+    for i in range(16):
+        write_png(os.path.join(paths["out"], f"{i:03d}.png"),
+                  rs.randint(0, 256, (128, 128, 3)).astype(np.uint8))
+    return paths
+
+
+def e11_forward_checks(tr, x):
+    """Each forward of the policy and the value at one iteration's inputs
+    against the kernels' plain versions on the card (E's and E4's gates);
+    returns (worst policy abs err, worst value rel err)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = [0.0, 0.0]
+    with torch.no_grad():
+        for t in range(ANOMALY_T):
+            s = torch.randn(x.shape, generator=gen, device="cuda")
+            tvec = torch.full((x.shape[0],), t, device="cuda")
+            eps = tr.sampler.net(s, tr.sampler.tau[tvec])
+            v = tr.value(s, tvec)
+            with plain_kernels_cifar():
+                eps_p = tr.sampler.net(s, tr.sampler.tau[tvec])
+                v_p = tr.value(s, tvec)
+            e = (eps - eps_p).abs().max().item()
+            r = ((v - v_p).abs().max() / v_p.abs().max().clamp_min(1e-6)
+                 ).item()
+            if not (e <= REPLAY_TOL[True] and r <= E11_VALUE_REL):
+                raise AssertionError(f"E11 t {t}: policy {e:.3e}, value "
+                                     f"{r:.3e} from the plain versions")
+            worst = [max(worst[0], e), max(worst[1], r)]
+    return worst
+
+
+def phase_anomaly(k1_log, k3_log, k2_log):
+    """E11: train_anomaly at its defaults (image 64, batch 32, T = 10) on
+    the card. (1) ``python -m dxmi_tpu_torch.train_anomaly`` (its ``main``)
+    for E11_ITERS iterations from a tensor file, launches counted (K1, K3,
+    K2 by shape into the logs of T-K1 and T-K3), and with --spectral_norm
+    from a PNG folder of 64x64 and 256x256 images; their run directories'
+    files; --score of the spectral-norm run on two PNG directories. (2) At
+    one iteration's inputs each forward of the policy and the value against
+    the kernels' plain versions. (3) s/iter over iterations 1-2 of a
+    trainer of the entry, peak memory, the third iteration profiled (idle
+    share)."""
+    cwd = os.getcwd()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_anomaly_data(tmp)
+        os.chdir(tmp)
+        try:
+            for run, data, extra in (("a", paths["tensor"], []),
+                                     ("b", paths["folder"],
+                                      ["--spectral_norm"])):
+                argv = ["--data_dir", data, "--n_iter", str(E11_ITERS),
+                        "--log_every", "1", "--run", run, *extra]
+                _lib.reset_launches()
+                t0 = time.perf_counter()
+                logged = run == "a"
+                with (k1_shapes(k1_log, "E11", E11_ITERS, "iteration")
+                      if logged else contextlib.nullcontext()), \
+                        (k3_shapes(k3_log, "E11", E11_ITERS, "iteration")
+                         if logged else contextlib.nullcontext()), \
+                        (k2_shapes(k2_log, "E11", E11_ITERS, "iteration")
+                         if logged else contextlib.nullcontext()):
+                    train_anomaly.main(argv)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                got = dict(_lib.LAUNCHES)
+                want = {k: v * E11_ITERS
+                        for k, v in E11_LAUNCHES_PER_ITER.items()}
+                if got != want:
+                    raise AssertionError(f"E11 {run}: launches {got}, "
+                                         f"expected {want}")
+                run_dir = os.path.join("results", "anomaly", run)
+                files = sorted(os.listdir(run_dir))
+                if files != ["config.yaml", "energy_last.pth",
+                             "sampler_last.pth", "value_last.pth"]:
+                    raise AssertionError(f"E11 {run}: run dir {files}")
+                sd = torch.load(os.path.join(run_dir, "energy_last.pth"))[
+                    "state_dict"]
+                n_sn = sum(k.endswith((".u", ".sigma")) for k in sd)
+                if n_sn != (E11_SN_BUFFERS if extra else 0) or not all(
+                        torch.isfinite(v).all() for v in sd.values()):
+                    raise AssertionError(f"E11 {run}: {n_sn} spectral-norm "
+                                         "buffers in energy_last.pth")
+                launches[run] = got
+                src = ("PNG folder, --spectral_norm" if extra
+                       else "tensor file")
+                print(f"  E11 {run} ({src}): {E11_ITERS} iterations in "
+                      f"{secs:.1f} s with set-up, launches {got}, run dir "
+                      f"{files}, {n_sn} spectral-norm buffers")
+            score = train_anomaly.main([
+                "--score", "--log_dir", os.path.join("results", "anomaly",
+                                                     "b"),
+                "--in_dir", paths["in"], "--out_dir", paths["out"]])
+            if not all(0 <= score[k] <= 1 for k in ("auroc", "aupr")):
+                raise AssertionError(f"E11 score: {score}")
+            print(f"  E11 --score (spectral-norm run, 16 nominal 64x64 "
+                  f"against 16 noise 128x128 images): AUROC "
+                  f"{score['auroc']:.4f}, AUPR {score['aupr']:.4f}")
+        finally:
+            os.chdir(cwd)
+
+    args = train_anomaly.parser().parse_args(["--fake_data"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = train_anomaly.make_trainer(args, torch.device("cuda"))
+    data = train_anomaly.data_batches(args)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = train_anomaly.to_device(next(data)[0], torch.device("cuda"))
+    pe, vr = e11_forward_checks(tr, x)
+    print(f"  E11 forwards against the plain versions: policy {pe:.3e} "
+          f"(tol {REPLAY_TOL[True]:g}), value {vr:.3e} of its scale (tol "
+          f"{E11_VALUE_REL:g})")
+    walls = []
+    shares = {"K3 (its conv launches)": ("conv3x3_",),
+              "K2 fp32 (less K1's statistics)": ("bb_gemm", "bb_attn"),
+              "K1 (and K3's and K2's statistics)": ("gn_", "bb_stats")}
+    for i in range(3):
+        x = train_anomaly.to_device(next(data)[0], torch.device("cuda"))
+        wall, m = training_step(
+            lambda: train_step(tr, x, None, gen, n_generator=1), i, 3,
+            "E11", shares)
+        if not all(torch.isfinite(torch.as_tensor(v)).all()
+                   for k, v in m.items() if not k.startswith("time/")):
+            raise AssertionError(f"E11 iteration {i}: non-finite metrics")
+        walls.append((wall, m))
+    later = walls[1:]
+    print(f"  E11: {np.mean([w for w, _ in later]):.3f} s/iter over "
+          f"iterations 1-2 (sample "
+          f"{np.mean([m['time/sample'] for _, m in later]):.3f}, update_f_v "
+          f"{np.mean([m['time/update_f_v'] for _, m in later]):.3f}, "
+          f"update_sampler "
+          f"{np.mean([m['time/update_sampler'] for _, m in later]):.3f}); "
+          f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; policy {sum(p.numel() for p in tr.sampler.net.parameters())}"
+          f", value {sum(p.numel() for p in tr.value.parameters())}, energy "
+          f"{sum(p.numel() for p in tr.energy.parameters())} parameters")
+    del tr
+    torch.cuda.empty_cache()
+    return launches["a"]
+
+
+def anomaly_launches(k1_log, k3_log, k2_log):
+    """The record's launches of the anomaly rows: those of E11's counted
+    run (E11_ITERS iterations of the entry) at each row's shape."""
+    B, HW, C = ANOMALY_K1
+    return {"gn_silu_anomaly": k1_log["E11"][0][(B, HW, C, 0, 0, 1)],
+            "gn_silu_conv3x3_anomaly": k3_log["E11"][0][ANOMALY_K3],
+            **{name: k2_log["E11"][0][shape]
+               for name, shape in ANOMALY_K2.items()}}
+
+
+# Phase C's runs of this slice: train_2d at its defaults for C_2D_ITERS
+# iterations after 200 of pretraining (the curve every 100, its JSON), and
+# train_image_large on conv16.yaml from a PNG folder of class-prefixed
+# 64x64 images (4 classes; the loader halves them to the config's 16x16,
+# data.image_size) with --data_workers 2 for 2 steps
+C_2D_ITERS = 300
+
+
+def twod_cli(out_dir):
+    curve = os.path.join(out_dir, "curve_2d.json")
+    cmd = [sys.executable, "-m", "dxmi_tpu_torch.train_2d", "--n_iter",
+           str(C_2D_ITERS), "--pretrain_iters", "200", "--eval_every", "100",
+           "--curve_out", curve, "--out", os.path.join(out_dir, "2d")]
+    lines, secs = run_cli(cmd, out_dir, "train_2d")
+    got = json.load(open(curve))["curve"]
+    if [p["iter"] for p in got] != list(range(0, C_2D_ITERS + 1, 100)) or \
+            not np.isfinite([p["loglik"] for p in got]).all():
+        raise AssertionError(f"train_2d: curve {got}")
+    print(f"  C train_2d: {secs:.1f} s, curve "
+          + ", ".join(f"{p['iter']}: {p['loglik']:.4f}" for p in got)
+          + f"; {lines[-3]}")
+
+
+def folder_train_cli(out_dir):
+    from dxmi_tpu_torch.utils.png import write_png
+    folder = os.path.join(out_dir, "imagenet_png")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    x, y = structured_class_images(64, 64, 4, seed=9)
+    for i, (img, c) in enumerate(zip(x, y)):
+        write_png(os.path.join(folder, f"c{c}_{i:03d}.png"),
+                  np.round((img + 1) * 127.5).clip(0, 255).astype(np.uint8))
+    run = "chip_folder"
+    cmd = [sys.executable, "-m", "dxmi_tpu_torch.train_image_large",
+           "--config", CONV16_CONFIG, "--dataset",
+           os.path.join(REPO, "configs", "imagenet64", "imagenet64.yaml"),
+           "--run", run, "--data.name", "adm_conv16_png", "--data.data_dir",
+           folder, "--data.image_size", "16", "--data.cachefile",
+           os.path.join(out_dir, "imagenet_png.cache"),
+           "--training.pretrained_path", CONV16_CKPT, "--data_workers", "2",
+           "--training.log_every", "1", "--max_steps", "2"]
+    lines, secs = run_cli(cmd, out_dir, "train_image_large (PNG folder)")
+    iters = finite_iters(lines, "train_image_large (PNG folder)")
+    run_dir = os.path.join(out_dir, "results", "adm_conv16_png", "conv16",
+                           run)
+    if iters != [0, 1] or not os.path.exists(os.path.join(
+            run_dir, "sampler_last.pth")):
+        raise AssertionError(f"train_image_large (PNG folder): iterations "
+                             f"{iters}, run dir {run_dir}")
+    print(f"  C train_image_large conv16 from a PNG folder (64 images of 4 "
+          f"classes, --data_workers 2): {secs:.1f} s, iterations {iters}")
+
+
 def nvidia_smi():
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -6609,7 +7164,8 @@ def main() -> int:
     res = {}
     k1_log = {}  # K1's launches by shape in E-int8, E2, E3, E5, E4, for T-K1
     rates = {}  # img/s of E and E-int8's paths
-    k3_log = {}  # K3's launches by shape in E and E4, for T-K3
+    k3_log = {}  # K3's launches by shape in E, E4 and E11, for T-K3
+    k2_log = {}  # K2 fp32's launches by shape in E11
 
     def step(name, fn):
         if only is None or name in only:
@@ -6646,6 +7202,8 @@ def main() -> int:
         step("E8", lambda: phase_generate_lsun(k1_log, rates))
         step("E9", lambda: phase_lsun_train(k1_log))
         step("E10", phase_guidance)
+        step("G9", phase_replay_ev)
+        step("E11", lambda: phase_anomaly(k1_log, k3_log, k2_log))
         step("T-K1", lambda: k1_shape_table(gen, k1_log))
         step("T-K3", lambda: k3_shape_table(gen, k3_log))
         step("C", phase_cli)
@@ -6689,7 +7247,8 @@ def main() -> int:
                     flash_attn_lsun=res["E8"]["flash"]["flash_attn"],
                     flash_attn_bwd_dkv_lsun=res["E9"]["flash_attn_bwd_dkv"],
                     flash_attn_bwd_dq_lsun=res["E9"]["flash_attn_bwd_dq"],
-                    int8_conv_lsun=res["E8"]["int8"]["int8_conv"])
+                    int8_conv_lsun=res["E8"]["int8"]["int8_conv"],
+                    **anomaly_launches(k1_log, k3_log, k2_log))
     kernels = []
     for name, (src, replaces) in INFO.items():
         r = times[name]

@@ -4,6 +4,8 @@ input's dtype where they are used, and in bf16 the bias is added to the
 rounded product and the sum rounded again."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -11,15 +13,18 @@ from torch import nn
 from dxmi_tpu_torch.ops.quant import QConv
 
 
-def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``conv`` in ``x``'s dtype; an int8 ``QConv`` runs its own forward."""
+def _conv(conv: nn.Conv2d, x: torch.Tensor,
+          weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``conv`` in ``x``'s dtype, with ``weight`` in place of its own when
+    given (a spectrally normalised one); an int8 ``QConv`` runs its own
+    forward."""
     if isinstance(conv, QConv):
         return conv(x)
+    w = (conv.weight if weight is None else weight).to(x.dtype)
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
     if x.dtype == torch.float32 or bias is None:
-        return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
-                        conv.padding)
-    y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
+        return F.conv2d(x, w, bias, conv.stride, conv.padding)
+    y = F.conv2d(x, w, None, conv.stride, conv.padding)
     return y + bias[:, None, None]
 
 

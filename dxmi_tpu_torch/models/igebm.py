@@ -10,12 +10,24 @@ and learned affine output scale. Parameter names are the reference
 dtype, as the JAX module's: the parameters stay fp32, the stem and the
 residual blocks (convs, class FiLM, activations, pooling) run in ``dtype``
 with the weights cast where they are used, and the head (``linear``,
-``out_scale``) runs in fp32 after the ReLU. Spectral normalisation is not
-ported yet (``use_spectral_norm=True`` raises).
+``out_scale``) runs in fp32 after the ReLU.
+
+``use_spectral_norm`` normalises the stem and every block conv (not the
+head) as flax's ``nn.SpectralNorm`` does (flax 0.12,
+``linen/normalization.py:1121-1180``), which is not torch's
+``spectral_norm``: the HWIO kernel flattened to (-1, out); one power
+iteration from the stored ``u`` (1, out) on every call, u and v out of the
+gradient, sigma = v W u^T in it; the kernel divided by sigma (by 1 where
+sigma is 0); biases untouched. Each such conv keeps ``u`` and ``sigma``
+as buffers (``conv1.u``, ``blocks.0.skip.0.sigma``, ...), JAX's
+``sn_stats`` collection; a forward stores the iterated ones only inside
+``update_sn_stats(net)``, as ``update_stats=True`` does, and reads them
+otherwise. ``u`` starts as a standard normal draw, ``sigma`` at 1.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -47,12 +59,60 @@ def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     return (s + x[:, :, 1::2, 1::2]) / 4
 
 
+SN_EPS = 1e-12
+
+
+def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.rsqrt((x * x).sum() + SN_EPS)
+
+
+def add_sn_stats(conv: nn.Conv2d) -> None:
+    """Give ``conv`` flax's ``sn_stats`` buffers: ``u`` (1, out) drawn from
+    a standard normal and ``sigma`` 1."""
+    conv.register_buffer("u", torch.randn(1, conv.out_channels))
+    conv.register_buffer("sigma", torch.ones(()))
+
+
+def sn_weight(conv: nn.Conv2d, update: bool) -> torch.Tensor:
+    """``conv``'s weight divided by its spectral norm's power-iteration
+    estimate (one step from ``conv.u``); stores the new u and sigma when
+    ``update``."""
+    w = conv.weight
+    mat = w.permute(2, 3, 1, 0).reshape(-1, w.shape[0])  # HWIO as (-1, out)
+    with torch.no_grad():
+        v0 = _l2_normalize(conv.u @ mat.t())
+        u0 = _l2_normalize(v0 @ mat)
+    sigma = (v0 @ mat @ u0.t())[0, 0]
+    if update:
+        with torch.no_grad():
+            conv.u.copy_(u0)
+            conv.sigma.copy_(sigma)
+    return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+
+
+@contextlib.contextmanager
+def update_sn_stats(net: nn.Module) -> Iterator[None]:
+    """Forwards of the spectral-norm IGEBMs inside ``net`` store their
+    power-iteration state while the context is open (flax's
+    ``update_stats=True``)."""
+    mods = [m for m in net.modules()
+            if isinstance(m, IGEBMEncoder) and m.use_spectral_norm]
+    for m in mods:
+        m.update_sn = True
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.update_sn = False
+
+
 class ResBlockEBM(nn.Module):
     """conv3 -> (class FiLM) -> lrelu -> conv3 -> (class FiLM) -> + skip ->
     (avgpool 2 when downsampling) -> lrelu (``igebm.py:24-82``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 n_class: Optional[int] = None, downsample: bool = False):
+                 n_class: Optional[int] = None, downsample: bool = False,
+                 use_spectral_norm: bool = False):
         super().__init__()
         bias = n_class is None
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1,
@@ -69,18 +129,31 @@ class ResBlockEBM(nn.Module):
             self.skip = nn.Sequential(nn.Conv2d(in_channels, out_channels, 1,
                                                 bias=False))
         self.downsample = downsample
+        self.use_spectral_norm = use_spectral_norm
+        if use_spectral_norm:
+            # flax creates the SpectralNorm modules in this order
+            for conv in (self.conv1, self.conv2, *(
+                    self.skip if hasattr(self, "skip") else ())):
+                add_sn_stats(conv)
 
-    def forward(self, x: torch.Tensor,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        out = _conv(self.conv1, x)
+    def _c(self, conv: nn.Conv2d, x: torch.Tensor,
+           update: bool) -> torch.Tensor:
+        if not self.use_spectral_norm:
+            return _conv(conv, x)
+        return _conv(conv, x, sn_weight(conv, update))
+
+    def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
+                update: bool = False) -> torch.Tensor:
+        out = self._c(self.conv1, x, update)
         if self.n_class is not None:
             w1, w2, b1, b2 = self.class_embed(y).to(x.dtype)[
                 :, :, None, None].chunk(4, 1)
             out = w1 * out + b1
-        out = _conv(self.conv2, leaky_relu(out))
+        out = self._c(self.conv2, leaky_relu(out), update)
         if self.n_class is not None:
             out = w2 * out + b2
-        out = out + (_conv(self.skip[0], x) if hasattr(self, "skip") else x)
+        out = out + (self._c(self.skip[0], x, update)
+                     if hasattr(self, "skip") else x)
         if self.downsample:
             out = avg_pool2(out)
         return leaky_relu(out)
@@ -99,18 +172,19 @@ class IGEBMEncoder(nn.Module):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype {dtype}: fp32 or bf16")
         self.dtype = dtype
-        if use_spectral_norm:
-            raise NotImplementedError(
-                "IGEBMEncoder use_spectral_norm=True: not ported yet "
-                "(ROADMAP.md, the CIFAR-10 training slice)")
+        self.use_spectral_norm = use_spectral_norm
+        self.update_sn = False
         if out_activation not in OUT_ACTIVATIONS:
             raise ValueError(f"unknown out_activation: {out_activation}")
         self.conv1 = nn.Conv2d(in_chan, nh, 3, padding=1)
+        if use_spectral_norm:
+            add_sn_stats(self.conv1)
         specs = [(nh, nh, True), (nh, nh, False), (nh, 2 * nh, True),
                  (2 * nh, 2 * nh, False), (2 * nh, 2 * nh, True),
                  (2 * nh, 2 * nh, False)]
         self.blocks = nn.ModuleList(
-            [ResBlockEBM(i, o, n_class, down) for i, o, down in specs])
+            [ResBlockEBM(i, o, n_class, down, use_spectral_norm)
+             for i, o, down in specs])
         self.keepdim = keepdim
         self.avg_pool_dim = avg_pool_dim
         self.linear = (nn.Conv2d(2 * nh, out_chan, 1) if keepdim
@@ -121,9 +195,11 @@ class IGEBMEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        out = leaky_relu(_conv(self.conv1, x.to(self.dtype)))
+        x, sn = x.to(self.dtype), self.use_spectral_norm
+        out = leaky_relu(_conv(self.conv1, x, sn_weight(
+            self.conv1, self.update_sn) if sn else None))
         for block in self.blocks:
-            out = block(out, y)
+            out = block(out, y, self.update_sn)
         out = F.relu(out).float()
         if self.keepdim:
             out = F.adaptive_avg_pool2d(out, self.avg_pool_dim)

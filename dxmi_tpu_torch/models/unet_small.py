@@ -561,3 +561,93 @@ class UNetSmall(NetControls, nn.Module):
 
         h = self.norm_out(h, silu=True)
         return _conv(self.conv_out, h).float()
+
+
+class UNetSmallEncoder(NetControls, nn.Module):
+    """The encoder half of UNetSmall with a pooled scalar head, the
+    time-dependent value of the anomaly entry (``unet_small.py:633-694``):
+    ``forward(x_nchw, t[, y]) -> (B, out_ch)`` fp32 (``y`` is ignored).
+
+    conv_in, the down levels (ResnetBlocks, attention at
+    ``attn_resolutions``, a Downsample between levels), mid_block_1,
+    mid_attn_1, mid_block_2, then the head: fp32 GroupNorm(32) with eps
+    1e-5 (flax's ``nn.GroupNorm``, no Pallas kernel in the JAX package:
+    ``F.group_norm``), SiLU, the spatial mean and a 1x1 conv. The names are
+    UNetSmall's (``temb.dense.0``, ``down.0.block.0``, ``mid.attn_1``) plus
+    ``out_norm`` and ``out_conv``. ``fuse_gn_conv`` and ``attn_impl`` switch
+    K3 and K2 as in UNetSmall, with its defaults."""
+
+    def __init__(self, ch: int = 128, out_ch: int = 1,
+                 ch_mult: Sequence[int] = (1, 2, 2, 2),
+                 num_res_blocks: int = 2,
+                 attn_resolutions: Sequence[int] = (16,),
+                 dropout: float = 0.0, in_channels: int = 3,
+                 resolution: int = 32, fuse_gn_conv: bool = True,
+                 attn_impl: str = "fused", block_b: Optional[int] = None,
+                 resamp_with_conv: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 softmax_f32: bool = True):
+        super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype {dtype}: fp32 or bf16")
+        self.dropout_masks = DropoutMasks()
+        self.ch, self.resolution, self.dtype = ch, resolution, dtype
+        self.num_resolutions = len(ch_mult)
+        temb_ch = ch * 4
+        blk = dict(temb_channels=temb_ch, dropout=dropout,
+                   fuse_gn_conv=fuse_gn_conv, masks=self.dropout_masks,
+                   dtype=dtype)
+        attn = dict(attn_impl=attn_impl, block_b=block_b, dtype=dtype,
+                    softmax_f32=softmax_f32)
+        self.temb = nn.Module()
+        self.temb.dense = nn.ModuleList([nn.Linear(ch, temb_ch),
+                                         nn.Linear(temb_ch, temb_ch)])
+        self.conv_in = nn.Conv2d(in_channels, ch, 3, padding=1)
+        cur, res = ch, resolution
+        self.down = nn.ModuleList()
+        for i_level, mult in enumerate(ch_mult):
+            level = nn.Module()
+            level.block, level.attn = nn.ModuleList(), nn.ModuleList()
+            for _ in range(num_res_blocks):
+                level.block.append(ResnetBlock(cur, ch * mult, **blk))
+                cur = ch * mult
+                if res in attn_resolutions:
+                    level.attn.append(AttnBlock(cur, **attn))
+            if i_level != self.num_resolutions - 1:
+                level.downsample = Downsample(cur, resamp_with_conv,
+                                              dtype=dtype)
+                res //= 2
+            self.down.append(level)
+        self.mid = nn.Module()
+        self.mid.block_1 = ResnetBlock(cur, cur, **blk)
+        self.mid.attn_1 = AttnBlock(cur, **attn)
+        self.mid.block_2 = ResnetBlock(cur, cur, **blk)
+        self.out_norm = nn.GroupNorm(32, cur, eps=1e-5)
+        self.out_conv = nn.Conv2d(cur, out_ch, 1)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        del y
+        if x.shape[2] != self.resolution or x.shape[3] != self.resolution:
+            raise ValueError(f"input {tuple(x.shape)} does not match "
+                             f"resolution {self.resolution}")
+        dt = self.dtype
+        t = torch.as_tensor(t, device=x.device).expand(x.shape[0])
+        temb = timestep_embedding(t, self.ch).to(dt)
+        temb = _linear(self.temb.dense[0], temb)
+        temb = _linear(self.temb.dense[1], swish(temb))
+        h = _conv(self.conv_in,
+                  x.to(dt).contiguous(memory_format=torch.channels_last))
+        for i_level, level in enumerate(self.down):
+            for i_block, block in enumerate(level.block):
+                h = block(h, temb)
+                if len(level.attn):
+                    h = level.attn[i_block](h)
+            if i_level != self.num_resolutions - 1:
+                h = level.downsample(h)
+        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h, temb)),
+                             temb)
+        h = F.silu(F.group_norm(h.float(), 32, self.out_norm.weight,
+                                self.out_norm.bias, self.out_norm.eps))
+        h = self.out_conv(h.mean(dim=(2, 3), keepdim=True))
+        return h.flatten(1)

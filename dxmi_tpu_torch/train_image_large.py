@@ -36,10 +36,12 @@ save records the iteration it has just run as ``i_iter``, so a run resumed
 from it runs that iteration again; the final save records ``n_iter``; the
 data stream and the generator start again from the seed. ``--wandb`` logs to
 wandb when it is installed (else JAX's warning), and a ``tensorboardX``
-writer is used when that package is. Not ported yet (they raise): the
-ImageNet folder loader (use ``--fake_data``) and ``--data_workers``. Without
-``--fake_data`` it raises for LSUN too (its image folder is decoded through
-PIL in the JAX package).
+writer is used when that package is. Without ``--fake_data`` the batches
+come from the image folder ``data.data_dir`` (``data/image_folder.py``: PNG
+files, classes from filename prefixes under ``sampler.class_cond``,
+``data.cachefile``, ``data.deterministic``), decoded on ``--data_workers``
+threads (default 4, as the JAX entry; 0 decodes in the loop), the call of
+``train_image_large.py:199-209``.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ import torch
 from dxmi_tpu_torch.config import (instantiate, load_yaml, merge,
                                    parse_nested_args, parse_unknown_args,
                                    save_yaml, to_yaml)
+from dxmi_tpu_torch.data.image_folder import load_data
 from dxmi_tpu_torch.data.synthetic import structured_class_images
 from dxmi_tpu_torch.fid import runner as fid_runner
 from dxmi_tpu_torch.models.unet_adm import create_unet_adm, seeded_normal_
@@ -138,6 +141,24 @@ def fake_data(cfg: Dict[str, Any], sampler: EDMSampler, size: int,
         yield pool_x[idx], (pool_y[idx] if class_cond else None)
 
 
+def folder_data(cfg: Dict[str, Any], batchsize: int, seed: int,
+                num_workers: int, device: torch.device
+                ) -> Iterator[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """Batches (x NCHW, y or None) of the image folder ``data.data_dir``,
+    as the JAX entry calls ``load_data`` (one process)."""
+    class_cond = bool(cfg["sampler"].get("class_cond"))
+    for x, extra in load_data(
+            data_dir=cfg["data"]["data_dir"], batch_size=batchsize,
+            image_size=int(cfg["data"]["image_size"]),
+            class_cond=class_cond, cachefile=cfg["data"].get("cachefile"),
+            deterministic=bool(cfg["data"].get("deterministic", False)),
+            seed=seed, num_workers=num_workers):
+        y = (torch.from_numpy(extra["y"].astype(np.int64)).to(device)
+             if class_cond else None)
+        yield torch.from_numpy(np.ascontiguousarray(
+            x.transpose(0, 3, 1, 2))).to(device), y
+
+
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
@@ -154,12 +175,9 @@ def main() -> None:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--data_workers", type=int, default=None)
+    p.add_argument("--data_workers", type=int, default=4)
     p.add_argument("--save_state_every", type=int, default=500)
     args, unknown = p.parse_known_args()
-    if args.data_workers is not None:
-        raise NotImplementedError("--data_workers: not ported yet "
-                                  "(ROADMAP.md)")
 
     cfg = merge(load_yaml(args.config), load_yaml(args.dataset),
                 parse_nested_args(parse_unknown_args(unknown)))
@@ -180,10 +198,11 @@ def main() -> None:
                        v_lr=float(tr["v_lr"]),
                        beta_lr=float(tr.get("beta_lr") or tr["lr"]))
 
-    if not args.fake_data:
-        raise NotImplementedError("the ImageNet folder loader: not ported "
-                                  "yet (ROADMAP.md); pass --fake_data")
-    data = fake_data(cfg, sampler, args.fake_data_size, batchsize, seed, dev)
+    if args.fake_data:
+        data = fake_data(cfg, sampler, args.fake_data_size, batchsize, seed,
+                         dev)
+    else:
+        data = folder_data(cfg, batchsize, seed, args.data_workers, dev)
 
     model_cfg_name = os.path.basename(args.config).split(".")[0]
     logdir = os.path.join(f"results/{cfg['data']['name']}/{model_cfg_name}",

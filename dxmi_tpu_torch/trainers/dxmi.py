@@ -41,9 +41,18 @@ Torch cannot reproduce threefry draws, so every draw comes from a
 the noise (``noise``, ``resample``; DDGAN's latents ``z``), the second
 argument of each ``aug`` call (``aug_draws``), and dropout masks through
 the net's ``inject_dropout_masks``: the tests replay the JAX trainer's
-draws that way. Parameters are updated in place; the trainer keeps
-``betas_for_q`` and the optimizer states, which ``utils/train_state.py``
-lays out as the JAX package's ``DxMIState``.
+draws that way.
+
+A spectral-norm value or energy (``models/igebm.py``) keeps its power
+iteration in buffers, JAX's ``v_stats`` and ``f_stats``: as ``_v_apply``
+and ``_f_apply`` thread them (``dxmi.py:238-270``), they are stored only by
+the energy step's forward (of the value, or of f when set) and by each TD
+step's forward of the value at the current state; every other forward
+(the TD targets, ``update_sampler``, ``sample_guidance``) reads them.
+
+Parameters are updated in place; the trainer keeps ``betas_for_q`` and the
+optimizer states, which ``utils/train_state.py`` lays out as the JAX
+package's ``DxMIState``.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from dxmi_tpu_torch.models.igebm import update_sn_stats
 from dxmi_tpu_torch.samplers import sample_chunked
 from dxmi_tpu_torch.samplers.var import gaussian_logp_mean
 from dxmi_tpu_torch.schedules import make_beta_schedule
@@ -265,8 +275,10 @@ class DxMITrainer:
                             device=inputs.device)
         ys = torch.cat([y, y]) if y is not None else None
         inputs = self._aug(inputs, augs, generator)
-        out = (self._v(inputs, t_term, ys) if self.energy is None
-               else self._f(inputs))
+        with update_sn_stats(self.value if self.energy is None
+                             else self.energy):
+            out = (self._v(inputs, t_term, ys) if self.energy is None
+                   else self._f(inputs))
         pos, neg = out[:img.shape[0]], out[img.shape[0]:]
         d_loss = pos.mean() - neg.mean()
         reg = torch.zeros((), device=out.device)
@@ -364,7 +376,8 @@ class DxMITrainer:
                 nt = (tvec < T - int(self.entropy_in_value)).float()
                 target = target - (entropy * self.tau1 * nt
                                    * self.entropy_value_scale)
-        v = self._v(v_state_in, tvec, y)
+        with update_sn_stats(self.value):
+            v = self._v(v_state_in, tvec, y)
         v_loss = ((v - target) ** 2).mean()
         self._value_step(v_loss, clip=self.value_grad_clip)
         return v_loss.detach(), cost.mean(), v.mean().detach()

@@ -10,6 +10,9 @@ the flax-to-port converters (``utils/convert.py``), in every layout that
 the JAX package's ``load_sampler_params`` accepts; a ``.pth``/``.pt`` file
 through ``torch.load``. ``save_run_checkpoint`` writes the
 ``{'state_dict': ...}`` files of the reference. ``save_train_state`` and
+``load_module_state`` reads a value or energy file of either package into
+a given net (the JAX files keep spectral-norm ``sn_stats`` beside
+``params``). ``save_train_state`` and
 ``load_train_state`` write and read the full train state (parameters,
 optimizer states, ``betas_for_q``) in the JAX package's
 ``train_state.msgpack`` layout (``utils/train_state.py``), so that a run
@@ -124,16 +127,35 @@ def load_value_state(path: str) -> Dict[str, torch.Tensor]:
             for k, v in _state_dict_of(path).items()}
 
 
+def load_module_state(path: str, module: torch.nn.Module
+                      ) -> Dict[str, torch.Tensor]:
+    """A state dict of ``module`` from a run-directory file of either
+    package: a ``.msgpack`` payload (``{'params'[, 'sn_stats'], 'meta'}``,
+    the spectral-norm statistics beside the parameters, as the JAX
+    package's ``save_run_checkpoint`` writes the value and energy files)
+    through ``convert.module_from_flax``, or a ``.pth`` state dict."""
+    if path.endswith(".msgpack"):
+        tree = load_flax_checkpoint(path)
+        return convert.module_from_flax(module, tree.get("params", tree),
+                                        tree.get("sn_stats"))
+    return _state_dict_of(path)
+
+
 def save_run_checkpoint(log_dir: str, which: str, sampler, value,
-                        meta: Optional[Dict] = None) -> None:
+                        meta: Optional[Dict] = None, energy=None) -> None:
     """Write ``sampler_{which}.pth`` (the network's keys without the
-    ``net.`` prefix, and ``log_betas``, as the reference's sampler files) and
-    ``value_{which}.pth`` (the value's own keys): fp32 tensors on the CPU
-    under ``state_dict``, with ``meta``'s entries beside it."""
+    ``net.`` prefix, and ``log_betas``, as the reference's sampler files),
+    ``value_{which}.pth`` (the value's own keys) and, with an ``energy``
+    net, ``energy_{which}.pth``: fp32 tensors on the CPU under
+    ``state_dict`` (spectral-norm buffers included), with ``meta``'s
+    entries beside it."""
     os.makedirs(log_dir, exist_ok=True)
     sampler_sd = {k[4:] if k.startswith("net.") else k: v
                   for k, v in sampler.state_dict().items()}
-    for name, sd in (("sampler", sampler_sd), ("value", value.state_dict())):
+    files = [("sampler", sampler_sd), ("value", value.state_dict())]
+    if energy is not None:
+        files.append(("energy", energy.state_dict()))
+    for name, sd in files:
         sd = {k: v.detach().float().cpu() for k, v in sd.items()}
         torch.save({"state_dict": sd, **(meta or {})},
                    os.path.join(log_dir, f"{name}_{which}.pth"))

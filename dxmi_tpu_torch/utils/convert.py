@@ -19,6 +19,12 @@ value state dicts are the reference ``value.pth`` layout.
 ones; ``value_from_flax`` takes either value net.
 ``inception_from_flax`` carries the JAX package's folded FID Inception tree
 into the port's ``InceptionV3FID``.
+``module_from_flax`` is derived from the flax names of
+``utils/train_state.py`` (``flax_path``): it looks each parameter (and
+spectral-norm buffer) of a port module up in the flax tree and applies the
+inverse of the torch-to-flax permutation; ``EpsMLP``, ``ValueMLP``,
+``UNetSmallEncoder``, the IGEBM's ``sn_stats`` and any net wrapped in a
+``TimeIndependentValue`` or a sampler convert through it.
 """
 from __future__ import annotations
 
@@ -96,6 +102,52 @@ def unet_small_quant_scales_from_flax(scales: Dict[str, Any]
             raise ValueError(f"unhandled quant_scales leaf {'/'.join(path)}")
         out[f"{_unet_small_path(mods)}.{leaf}"] = torch.from_numpy(
             np.array(val, dtype=np.float32))
+    return out
+
+
+def _lookup(tree: Dict[str, Any], path: Sequence[str]) -> np.ndarray:
+    node = tree
+    for i, k in enumerate(path):
+        if not isinstance(node, dict) or k not in node:
+            raise KeyError(f"flax tree has no {'/'.join(path[:i + 1])}")
+        node = node[k]
+    return np.asarray(node, dtype=np.float32)
+
+
+def _count(tree: Any) -> int:
+    return (sum(_count(v) for v in tree.values())
+            if isinstance(tree, dict) else 1)
+
+
+def module_from_flax(module: torch.nn.Module, params: Dict[str, Any],
+                     stats: Optional[Dict[str, Any]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """State dict of ``module`` from its flax ``params`` tree (a
+    ``{'params': ...}`` wrapper is accepted) and, for a spectral-norm net,
+    its ``sn_stats`` tree: each entry found at ``train_state.flax_path``
+    and permuted back. Raises ``KeyError`` when the trees lack a leaf of the
+    module or hold leaves it has not."""
+    from dxmi_tpu_torch.utils.train_state import (_inverse, flax_path,
+                                                  sn_buffers)
+
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    named = [(k, p, params) for k, p in module.named_parameters()]
+    if stats is not None:
+        stats = stats.get("sn_stats", stats)
+        named += [(k, b, stats) for k, b in sn_buffers(module)]
+    for key, t, tree in named:
+        path, axes = flax_path(module, key, t.dim())
+        val = _lookup(tree, path)
+        if axes is not None:
+            val = val.transpose(_inverse(axes))
+        out[key] = torch.from_numpy(np.array(val))
+    n_params = len(list(module.parameters()))
+    for tree, n in ((params, n_params),
+                    (stats, len(out) - n_params)):
+        if tree is not None and _count(tree) != n:
+            raise KeyError(f"flax tree holds {_count(tree)} leaves, "
+                           f"{type(module).__name__} {n}")
     return out
 
 

@@ -7,7 +7,8 @@ level 1, as the native writer); ``PNGWriter`` writes batches on a thread
 pool (``zlib`` releases the interpreter lock while it compresses).
 ``read_png`` reads non-interlaced 8-bit grayscale, RGB and RGBA files with
 any of the five row filters and returns RGB, as PIL's ``convert('RGB')``
-does (gray replicated, alpha dropped); any other file raises and names it.
+does (gray replicated, alpha dropped); ``read_png_raw`` returns the file's
+own channels. Any other file raises and names it.
 """
 from __future__ import annotations
 
@@ -138,6 +139,15 @@ def _unfilter(data: bytes, h: int, w: int, bpp: int,
 def read_png(path: str) -> np.ndarray:
     """An 8-bit non-interlaced grayscale, RGB or RGBA PNG as (H, W, 3)
     uint8 RGB."""
+    img = read_png_raw(path)
+    if img.shape[2] == 1:
+        return np.repeat(img, 3, axis=2)
+    return np.ascontiguousarray(img[..., :3])
+
+
+def read_png_raw(path: str) -> np.ndarray:
+    """An 8-bit non-interlaced grayscale, RGB or RGBA PNG as (H, W, C)
+    uint8 in its own channels (C = 1, 3 or 4: PIL's modes L, RGB, RGBA)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != SIGNATURE:
@@ -166,8 +176,5 @@ def read_png(path: str) -> np.ndarray:
             f"{interlace}; only non-interlaced 8-bit grayscale, RGB and "
             "RGBA PNGs are read")
     bpp = CHANNELS[ctype]
-    img = _unfilter(zlib.decompress(b"".join(idat)), h, w, bpp,
-                    path).reshape(h, w, bpp)
-    if bpp == 1:
-        return np.repeat(img, 3, axis=2)
-    return np.ascontiguousarray(img[..., :3])
+    return _unfilter(zlib.decompress(b"".join(idat)), h, w, bpp,
+                     path).reshape(h, w, bpp)

@@ -19,8 +19,9 @@ order of ``jax.tree.leaves``, each with JAX's shape and dtype.
 - ``betas_for_q``;
 - ``f_params`` and ``opt_state_f``: the separate energy net and its Adam,
   with no leaves when the trainer has none;
-- ``v_stats`` and ``f_stats``: spectral-norm statistics, which the port's
-  nets do not have (no leaves).
+- ``v_stats`` and ``f_stats``: the value's and the energy's spectral-norm
+  statistics (``sn_stats``: each normalised conv's ``u`` and ``sigma``),
+  no leaves when the net has none.
 
 A dict's leaves come in the sorted order of its keys, at every level. The
 flax names are those of the JAX package's torch-to-flax converters
@@ -109,9 +110,22 @@ def _adm_path(key: str, ndim: int) -> Tuple[Path, Axes]:
     return (*groups, leaf), axes
 
 
+# flax numbers a block's SpectralNorm wrappers in creation order
+_SN_INDEX = {"conv1": 0, "conv2": 1, "skip": 2}
+
+
 def _igebm_path(key: str, ndim: int) -> Tuple[Path, Axes]:
     """``convert_igebm``: ``blocks.<i>`` -> ``block_<i>``, ``skip.0`` ->
-    ``skip``, ``class_embed.weight`` -> ``class_embed/embedding``."""
+    ``skip``, ``class_embed.weight`` -> ``class_embed/embedding``. A
+    spectral-norm buffer (``blocks.<i>.<conv>.u`` / ``.sigma``, the stem's
+    ``conv1.u``) goes to its ``sn_stats`` path, ``[block_<i>/]
+    SpectralNorm_<k>/<conv>/kernel/<u|sigma>``."""
+    *mods, leaf = key.split(".")
+    if leaf in ("u", "sigma"):
+        prefix = (f"block_{mods[1]}",) if mods[0] == "blocks" else ()
+        conv = mods[2] if prefix else mods[0]
+        return (*prefix, f"SpectralNorm_{_SN_INDEX[conv]}",
+                f"{conv}/kernel/{leaf}"), None
     name = re.sub(r"^blocks\.(\d+)\.", r"block_\1.", key)
     name = name.replace("skip.0.", "skip.")
     *mods, leaf = name.split(".")
@@ -129,15 +143,18 @@ def _dotted_path(key: str, ndim: int) -> Tuple[Path, Axes]:
     return (*mods, leaf), axes
 
 
-_PATHS = {"UNetSmall": _unet_small_path, "UNetADM": _adm_path,
+_PATHS = {"UNetSmall": _unet_small_path, "UNetSmallEncoder":
+          _unet_small_path, "UNetADM": _adm_path,
           "IGEBMEncoder": _igebm_path, "NCSNpp": _dotted_path,
-          "WideResNet": _dotted_path}
+          "WideResNet": _dotted_path, "EpsMLP": _dotted_path,
+          "ValueMLP": _dotted_path}
 
 
 def flax_path(module: nn.Module, key: str, ndim: int) -> Tuple[Path, Axes]:
     """The flax path of ``module``'s parameter ``key`` (a
     ``named_parameters`` name, ``ndim`` its rank) and the permutation that
-    takes the torch tensor to flax's layout (None: as it is). A
+    takes the torch tensor to flax's layout (None: as it is); of a
+    spectral-norm buffer (``sn_buffers``), its path in ``sn_stats``. A
     ``TimeIndependentValue`` nests its net under ``net``; a sampler holds
     ``log_betas`` and its net under ``net``."""
     kind = type(module).__name__
@@ -165,6 +182,44 @@ def flax_params(module: nn.Module, params: Sequence[torch.Tensor]
         out.append((path, index[id(p)], axes))
     out.sort(key=lambda e: e[0])
     return out
+
+
+def sn_buffers(module: nn.Module) -> List[Tuple[str, torch.Tensor]]:
+    """(name, tensor) of ``module``'s spectral-norm buffers (each conv's
+    ``u`` and ``sigma``, ``models/igebm.py``)."""
+    out = []
+    for name, m in module.named_modules():
+        own = dict(m.named_buffers(recurse=False))
+        if "u" in own and "sigma" in own:
+            out += [(f"{name}.{leaf}", own[leaf]) for leaf in ("u", "sigma")]
+    return out
+
+
+def flax_stats(module: nn.Module) -> List[Tuple[Path, torch.Tensor]]:
+    """(path in JAX's ``sn_stats`` collection, tensor) of ``module``'s
+    spectral-norm buffers, sorted by path (jax.tree.leaves order)."""
+    return sorted(((flax_path(module, key, t.dim())[0], t)
+                   for key, t in sn_buffers(module)), key=lambda e: e[0])
+
+
+def flax_tree(module: nn.Module, stats: bool = False) -> dict:
+    """``module``'s parameters (``stats``: its spectral-norm buffers) as the
+    nested dict of numpy arrays that flax's ``to_state_dict`` gives for
+    the JAX net (its ``params`` or ``sn_stats`` collection)."""
+    if stats:
+        entries = flax_stats(module)
+    else:
+        entries = []
+        for key, p in module.named_parameters():
+            path, axes = flax_path(module, key, p.dim())
+            entries.append((path, p if axes is None else p.permute(axes)))
+    tree: dict = {}
+    for path, t in entries:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t.detach().float().cpu().contiguous().numpy().copy()
+    return tree
 
 
 # ---- the state's leaves --------------------------------------------------
@@ -205,7 +260,7 @@ def _tensor_slot(name: str, t: torch.Tensor, axes: Axes) -> Slot:
     @torch.no_grad()
     def set_(a):
         v = a if isinstance(a, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(a))
+            np.ascontiguousarray(a).reshape(np.shape(a)))
         if axes is not None:
             v = v.permute(_inverse(axes))
         t.copy_(v)
@@ -293,4 +348,9 @@ def trainer_slots(trainer) -> List[Slot]:
         f_layout, f_opt = _layout(trainer.energy, trainer.opt_f)
         slots += _param_slots(".f_params", f_layout)
         slots += _adam_slots(".opt_state_f[0]", trainer.opt_f, f_opt)
+    for field, net in (("v_stats", trainer.value),
+                       ("f_stats", trainer.energy)):
+        if net is not None:
+            slots += [_tensor_slot(_keystr(f".{field}", path), t, None)
+                      for path, t in flax_stats(net)]
     return slots

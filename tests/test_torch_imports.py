@@ -37,6 +37,7 @@ for name in names:
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
+print(" ".join(names))
 print(len(names))
 """
 
@@ -59,8 +60,15 @@ def test_port_imports_no_jax_yaml_or_reference():
     # CIFAR-10 training slice (data.cifar10, train_cifar10), 10 of the FID
     # slice (fid, fid.stats, fid.inception, fid.proxy, fid.runner,
     # fid.image_dir, fid.cli, evaluator, make_npz, utils.png), 2 of the
-    # resume slice (utils.train_state, utils.logging); 53 in all
-    assert int(proc.stdout.split()[-1]) >= 53
+    # resume slice (utils.train_state, utils.logging); 7 of the anomaly and
+    # 2D slice (models.mlp, data.tensor_file, data.image_folder,
+    # trainers.dxmi_ev, utils.metrics, train_anomaly, train_2d); 60 in all
+    assert int(proc.stdout.split()[-1]) >= 60
+    names = proc.stdout.split()[:-1]
+    for mod in ("models.mlp", "data.tensor_file", "data.image_folder",
+                "trainers.dxmi_ev", "utils.metrics", "train_anomaly",
+                "train_2d"):
+        assert f"dxmi_tpu_torch.{mod}" in names, mod
 
 
 def test_chip_smoke_fixture_config_matches_yaml():

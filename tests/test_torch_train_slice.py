@@ -5,7 +5,8 @@ trajectory, with the JAX trainer's own draws replayed from its key schedule
 (tests/torch_fixtures/make_adm_train_golden.py); the committed golden that
 chip_smoke.py (phase G3) holds the card to; the training CLI and the
 generation CLI on the run dir it writes; and the trainer's configuration
-surface (config overrides, the options that are not ported)."""
+surface (config overrides, the folder loader's refusal of a missing
+folder)."""
 import os
 import subprocess
 
@@ -242,7 +243,9 @@ def test_separate_energy_runs():
 
 
 def test_image_folder_loader_raises(tmp_path):
-    """Without --fake_data the ImageNet folder loader is not ported."""
+    """Without --fake_data the entry reads the config's ``data_dir``
+    through the folder loader, which raises, naming the folder, where the
+    folder does not exist (the JAX loader's ``os.listdir``)."""
     train, _, _ = chip_smoke.train_cli_commands("x", device="cpu")
     train = [a for a in train if a not in ("--fake_data",)]
     proc = subprocess.run(train, cwd=tmp_path, capture_output=True,
@@ -250,5 +253,5 @@ def test_image_folder_loader_raises(tmp_path):
                           env=dict(os.environ, PYTHONPATH=REPO,
                                    OMP_NUM_THREADS="2"))
     assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr and "--fake_data" in \
-        proc.stderr
+    assert "FileNotFoundError" in proc.stderr and "imagenet" in \
+        proc.stderr.lower()

@@ -60,6 +60,10 @@ LAYOUTS = {
     "lsun_T10": ("lsun/T10.yaml", chip_smoke.SHRUNK_LSUN_ARGS
                  + chip_smoke.SHRUNK_LSUN_VALUE["IGEBMEncoder"], False,
                  False),
+    # a spectral-norm value and a spectral-norm f: v_stats and f_stats
+    "cifar10_T10_sn": ("cifar10/T10.yaml", [
+        *chip_smoke.SHRUNK_CIFAR_ARGS, "--value.net.use_spectral_norm",
+        "true"], False, "sn"),
 }
 
 
@@ -69,9 +73,10 @@ def _config(name):
                  parse_nested_args(parse_unknown_args(list(over))))
 
 
-def _jax_layout(name):
+def _jax_layout(name, concrete=False):
     """(keystr, shape, dtype) of every leaf of the JAX entries' state for
-    ``name``, traced with ``jax.eval_shape`` (nothing compiled)."""
+    ``name``, traced with ``jax.eval_shape`` (nothing compiled); with
+    ``concrete``, the initial state itself."""
     from dxmi_tpu import config as cfglib
     from dxmi_tpu.models.igebm import IGEBMEncoder
 
@@ -100,19 +105,26 @@ def _jax_layout(name):
     value = cfglib.instantiate(vcfg)
     trainer = cfglib.instantiate(cfg["trainer"], batchsize=tr["batchsize"],
                                  n_timesteps=cfg["sampler"]["n_timesteps"])
-    energy = IGEBMEncoder(nh=8, keepdim=False) if with_f else None
+    energy = (IGEBMEncoder(nh=8, keepdim=False,
+                           use_spectral_norm=with_f == "sn")
+              if with_f else None)
     trainer.set_models(sampler, value, lr=1e-5, v_lr=1e-5, energy=energy)
     x = jnp.zeros((1, *sampler.sample_shape))
     y = jnp.zeros((1,), jnp.int32)
 
     def init(key):
-        vp = value.init(key, x, y)["params"]
-        fp = energy.init(key, x)["params"] if with_f else None
-        return trainer.init_state(sampler.init_params(key), vp, f_params=fp)
+        vv = value.init(key, x, y)
+        fv = energy.init(key, x) if with_f else {}
+        return trainer.init_state(
+            sampler.init_params(key), vv["params"],
+            f_params=fv.get("params"), v_stats=vv.get("sn_stats"),
+            f_stats=fv.get("sn_stats"))
 
-    state = jax.eval_shape(init, jax.random.key(0))
-    return [(jax.tree_util.keystr(p), tuple(a.shape), str(a.dtype))
-            for p, a in jax.tree_util.tree_flatten_with_path(state)[0]]
+    if not concrete:
+        state = jax.eval_shape(init, jax.random.key(0))
+        return [(jax.tree_util.keystr(p), tuple(a.shape), str(a.dtype))
+                for p, a in jax.tree_util.tree_flatten_with_path(state)[0]]
+    return init(jax.random.key(0))
 
 
 def _port_trainer(name):
@@ -134,7 +146,9 @@ def _port_trainer(name):
         cfg["training"]["sampler_ckpt"] = None
         sampler, value, trainer = train_cifar10.build(cfg, cpu, 0,
                                                       levers=levers)
-    energy = IGEBMEncoder(nh=8, keepdim=False) if with_f else None
+    energy = (IGEBMEncoder(nh=8, keepdim=False,
+                           use_spectral_norm=with_f == "sn")
+              if with_f else None)
     trainer.set_models(sampler, value, lr=1e-5, v_lr=1e-5, energy=energy)
     return trainer
 
@@ -295,6 +309,38 @@ def test_port_file_loads_in_jax(resumed):
     assert blob == serialization.msgpack_serialize({
         "leaves": {str(i): a for i, a in enumerate(got)},
         "meta": {"i_iter": 3, "epoch": 1, "best_fid": 0.25}})
+
+
+def test_spectral_norm_state_both_ways(tmp_path):
+    """A state with a spectral-norm value and f (``v_stats`` and
+    ``f_stats`` beside the parameters) written by JAX loads into the port
+    bit for bit, the stats into the nets' buffers; the port's file loads
+    into JAX's template bit for bit."""
+    from dxmi_tpu.utils import checkpoint as jck
+    from dxmi_tpu_torch.utils.train_state import sn_buffers
+
+    state = _jax_layout("cifar10_T10_sn", concrete=True)
+    assert state.v_stats is not None and state.f_stats is not None
+    jck.save_train_state(str(tmp_path), state, i_iter=4, epoch=0)
+    trainer = _port_trainer("cifar10_T10_sn")
+    meta = load_train_state(str(tmp_path), trainer)
+    assert meta["i_iter"] == 4
+    leaves = [np.asarray(a) for a in jax.tree.leaves(state)]
+    got = tc.port_leaves(trainer)
+    assert len(got) == len(leaves)
+    for a, b in zip(leaves, got):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    u = np.asarray(state.f_stats["SpectralNorm_0"]["conv1/kernel/u"])
+    np.testing.assert_array_equal(trainer.energy.conv1.u.numpy(), u)
+    assert len(sn_buffers(trainer.value)) == len(sn_buffers(
+        trainer.energy)) == 32
+    out = tmp_path / "port"
+    out.mkdir()
+    save_train_state(str(out), trainer, i_iter=5, epoch=1)
+    back, meta = jck.load_train_state(str(out), state)
+    assert meta["i_iter"] == 5
+    for a, b in zip(jax.tree.leaves(back), leaves):
+        assert np.asarray(a).tobytes() == b.tobytes()
 
 
 @pytest.mark.parametrize("fault", ["shape", "dtype", "count"])

@@ -2,7 +2,7 @@
 against ``dxmi_tpu.models.igebm`` / ``value`` on the ADM fixture's
 ``value.pth`` (the reference ``IGEBMEncoderV2`` layout, loaded by the port
 as it is and by JAX through its converter), the flax -> port converter,
-class-conditional FiLM, and the spectral-norm option that is not ported."""
+class-conditional FiLM, and the spectral-norm encoder's buffers."""
 import os
 
 import jax
@@ -92,8 +92,15 @@ def test_class_conditional_encoder_matches_jax():
 
 
 def test_spectral_norm_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IGEBMEncoder(use_spectral_norm=True)
+    """A spectral-norm encoder carries its ``sn_stats`` buffers: a value.pth
+    without them is refused by a strict load (the weights alone do not
+    define the net's forward)."""
+    cfg, value = _fixture_value()
+    vcfg = {k: v for k, v in cfg["value"]["net"].items() if k != "_target_"}
+    sn = TimeIndependentValue(IGEBMEncoder(**{**vcfg,
+                                              "use_spectral_norm": True}))
+    with pytest.raises(RuntimeError, match="Missing key"):
+        sn.load_state_dict(value.state_dict())
 
 
 def test_time_is_ignored():
