@@ -74,7 +74,8 @@ failure exits non-zero naming the phase:
      and K8 (256x256, 256 -> 256 and the widest decoder input) beside
      their bounds and library calls; at train_anomaly's shapes K1 (the
      policy's norm_out, and at one channel a group), K3 at one channel a
-     group and K2 fp32 at its two maps, beside their library calls;
+     group and K2 fp32 at its two maps, beside their library calls; K4
+     and K4-dkv/dq at E12's ImageNet64 training shape at batch 16;
   T-bwd the device time of each launch of one K6 fp32 call at G3's and E5's
      shapes (8 and 64, 64, 64, nh 2), and of one K6 bf16 call and one
      K4-dkv call at the 32x32 map at batch 128 (torch.profiler);
@@ -206,9 +207,30 @@ failure exits non-zero naming the phase:
      at one iteration's inputs each forward of the policy and the value
      against the kernels' plain versions; s/iter, peak memory and the
      idle share of a profiled iteration;
+  G10 the distillation golden (tests/torch_fixtures/distill_golden.npz,
+     the JAX package's, numpy-made weights, JAX's draws replayed): on a
+     small class-conditional UNetADM in fp32 (K1) the training,
+     consistency (distillation and training) and progdist losses at l2
+     and l1, l2-32 on its 64x64 form, each within 1e-4 of JAX's; the seven
+     karras_sample solvers and heun with churn within 2e-5 + 2e-5
+     relative, or twice the move that two 2^-22 nudges of the initial
+     state make in JAX's own samples (recorded in the golden) where that
+     is larger; one pretrain_ddpm update (UNetSmall, JAX's dropout masks)
+     and one pretrain_ddgan update (the small NCSN++), their losses within
+     1e-4, their gradient norms read; flax's initialisers drawn on the
+     card against JAX's init_params' statistics;
+  E12 the ImageNet64 T10 net (bf16, flash: K1, K4, K4-dkv/dq, seeded
+     weights) at batch 16: one Adam step each of training_losses,
+     consistency distillation (teacher the drawn net, target its EMA,
+     update_ema after the step), consistency training and progdist
+     (launches per step checked), then each karras_sample solver for 10
+     steps (img/s, launches); each loss, the dsm step's gradient norms
+     and each solver's 10 steps at batch 16 (K4-dkv/dq at the step's
+     shape) against the kernels' plain versions within twice the bf16
+     effect (its entries run in C);
   T-K1 K1 at each shape that E-int8, E2 (fused, flash), E3 (flash,
-     fused_train), E5 (einsum, fused_train), E4, E6, E7, E8, E9 and E11
-     launched it at, held
+     fused_train), E5 (einsum, fused_train), E4, E6, E7, E8, E9, E11 and
+     E12 (its dsm step, pretrain_edm's) launched it at, held
      against its plain version under K's gate, with its time, its launches
      per trajectory or step (counted in those phases), its route and its
      bound;
@@ -233,8 +255,12 @@ failure exits non-zero naming the phase:
      generate_cifar10 / generate_large --guidance_scale 0.1 on the run
      dirs; train_2d for 300 iterations after 200 of pretraining (its
      curve's JSON); train_image_large on conv16.yaml from a PNG folder of
-     class-prefixed 64x64 images with --data_workers 2 for 2 steps; the
-     subprocesses four at a time;
+     class-prefixed 64x64 images with --data_workers 2 for 2 steps;
+     E12's entries at full width for 3 steps each, pretrain_ddpm (batch
+     128), pretrain_ddgan (batch 128) and pretrain_edm (T10.yaml, batch 16,
+     flax's initialisers): their losses, s/step after the first, peak
+     memory and launches per step, and each file loaded into the port's
+     training entry bit for bit; the subprocesses five at a time;
   F  FID and the evaluator at full width in a temporary working directory
      whose datasets/ holds the proxy files of dxmi_tpu_torch/fid/proxy.py
      (the seed-0 synthetic Inception weights; statistics over 4096
@@ -778,12 +804,16 @@ CIFAR_TRAIN_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
                                   "cifar_train_golden.npz")
 
 
-def golden_dropout_masks(golden, device):
-    """The golden's dropout keep masks (bool, NCHW) in call order."""
+def golden_dropout_masks(golden, device, prefix=""):
+    """The golden's dropout keep masks (bool, NCHW) in call order, under
+    ``<prefix>dropout/NN``."""
     out = []
-    for i in range(len([k for k in golden if k.startswith("dropout/")])):
-        shape = tuple(int(n) for n in golden[f"dropout_shape/{i:02d}"])
-        bits = np.unpackbits(golden[f"dropout/{i:02d}"])[:int(np.prod(shape))]
+    for i in range(len([k for k in golden
+                        if k.startswith(f"{prefix}dropout/")])):
+        shape = tuple(int(n) for n in
+                      golden[f"{prefix}dropout_shape/{i:02d}"])
+        bits = np.unpackbits(golden[f"{prefix}dropout/{i:02d}"])[
+            :int(np.prod(shape))]
         out.append(torch.from_numpy(bits.reshape(shape).astype(bool)).to(
             device))
     return out
@@ -864,7 +894,7 @@ class PhaseError(Exception):
 PHASES = ("B", "K", "T", "T-bwd", "G", "G-int8", "G-bf16", "E", "E-int8",
           "E-bf16", "G2", "G2-int8", "E2", "E2-int8", "G3", "E3", "G5", "E5",
           "G4", "E4", "E4-levers", "G6", "G7", "E6", "E7", "G8", "E8", "E9",
-          "E10", "G9", "E11", "T-K1", "T-K3", "C", "F")
+          "E10", "G9", "E11", "G10", "E12", "T-K1", "T-K3", "C", "F")
 
 
 def run_phase(name, fn):
@@ -2685,6 +2715,7 @@ def phase_times(gen):
     rows.update(ddgan_time_rows(gen))
     rows.update(lsun_time_rows(gen))
     rows.update(anomaly_time_rows(gen))
+    rows.update(e12_time_rows(gen))
     peaks = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS, "int8": INT8_OPS,
              "tf32x3": TF32X3_FLOPS}
     for name, r in rows.items():
@@ -3754,7 +3785,9 @@ def phase_replay_adm_int8():
     return worst
 
 
-CLI_WORKERS = 4  # CLI subprocesses at a time in phase C
+# CLI subprocesses at a time in phase C (five since E12's entries joined
+# its pool; this process empties its cache of the card's memory first)
+CLI_WORKERS = 5
 
 
 def fixture_cli(out_dir, module, run_dir, extra, bs):
@@ -3791,6 +3824,14 @@ def phase_cli():
     labels equal."""
     out_dir = os.path.join(REPO, "build", "chip_smoke_cli")
     os.makedirs(out_dir, exist_ok=True)
+    # the subprocesses need the card's memory that this process's caching
+    # allocator still holds from the phases before (with E12's entries in
+    # its pool, the whole script's C ran out of it without this)
+    held = torch.cuda.memory_reserved() / 2 ** 30
+    torch.cuda.empty_cache()
+    print(f"  C: this process held {held:.2f} GiB of the card's memory in "
+          f"its cache, {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB "
+          "after emptying it", flush=True)
     runs = [("generate_cifar10", FIXTURE_DIR, (), 4),
             ("generate_cifar10", FIXTURE_DIR, ("--int8",), 4),
             ("generate_cifar10", FIXTURE_DIR, ("--dtype", "bf16"), 4),
@@ -3802,10 +3843,14 @@ def phase_cli():
         trained += [pool.submit(fn, out_dir) for fn in
                     (train_cli, cifar_train_cli, ddgan_train_cli, twod_cli,
                      folder_train_cli)]
+        entries = {name: pool.submit(e12_entry, name)
+                   for name in E12_ENTRIES}
         clis = [pool.submit(fixture_cli, out_dir, *run) for run in runs]
         done = [f.result() for f in clis]
         for f in trained:
             f.result()
+        entries = {name: f.result() for name, f in entries.items()}
+    e12_entries(entries)
     for (module, run_dir, extra, bs), (path, secs, last) in zip(runs, done):
         got = np.load(path)
         state = load_sampler_state(os.path.join(
@@ -5920,18 +5965,7 @@ def lsun_time_rows(gen):
         name = ("attn_block_i8_lsun" if i == 0
                 else f"attn_block_i8_lsun {shape}")
         rows[name] = attn_i8_row(gen, *shape, torch.bfloat16)
-    B, S, nh, d = BATCH, 1024, 8, 64
-    q, k, v, sm = flash_case(gen, B, S, nh, d)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    rows["flash_attn_lsun"] = dict(
-        shape=(B, S, nh, d), ms=time_ms(lambda: flash_fwd_kernel(q, k, v, sm)),
-        plain_ms=time_ms(lambda: flash_mha_reference(q, k, v, sm), iters=3,
-                         warmup=1),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, scale=sm)),
-        bytes=4 * B * S * nh * d * 2,
-        ops={"bf16": 4 * B * nh * S * S * d, "fp32": 5 * B * nh * S * S})
-    del q, k, v, qt, kt, vt
+    rows["flash_attn_lsun"] = flash_time_row(gen, BATCH, 1024, 8, 64)
     rows.update(flash_bwd_time_rows(gen, LSUN_TRAIN_BATCH, 1024, 8, 64,
                                     "_lsun"))
     k8_keys = lsun_k8_keys()
@@ -7131,6 +7165,741 @@ def folder_train_cli(out_dir):
           f"classes, --data_workers 2): {secs:.1f} s, iterations {iters}")
 
 
+# ---- G10 and E12: the distillation losses, karras_sample and the
+# pretraining entries -----------------------------------------------------
+
+DISTILL_GOLDEN = os.path.join(REPO, "tests", "torch_fixtures",
+                              "distill_golden.npz")
+# the small class-conditional ADM of the distillation golden (fp32, einsum
+# attention at the 8x8 map, numpy-made weights), and its 64x64 form for
+# l2-32
+DISTILL_SMALL = dict(image_size=16, in_channels=3, model_channels=32,
+                     out_channels=3, num_res_blocks=1,
+                     attention_resolutions=(2,), channel_mult=(1, 2),
+                     num_classes=4, num_heads=2, use_scale_shift_norm=True,
+                     resblock_updown=True, dropout=0.1)
+DISTILL_ROLES = ("online", "target", "teacher")
+DISTILL_SEED, DISTILL_BATCH, DISTILL_SCALES = 24, 4, 8
+# name: (loss, loss_norm, image size, with a teacher, training mode);
+# KarrasDenoiser(weight_schedule='karras') throughout
+DISTILL_CASES = {
+    "dsm": ("training", "l2", 16, False, True),
+    "cd_l2": ("consistency", "l2", 16, True, True),
+    "cd_l1": ("consistency", "l1", 16, True, False),
+    "ct_l2": ("consistency", "l2", 16, False, False),
+    "ct_l1": ("consistency", "l1", 16, False, True),
+    "pd_l2": ("progdist", "l2", 16, True, False),
+    "pd_l1": ("progdist", "l1", 16, True, True),
+    "cd_l2-32": ("consistency", "l2-32", 64, True, False),
+}
+# karras_sample's cases on the small net: steps, batch, options
+KARRAS_STEPS, KARRAS_BATCH = 4, 2
+KARRAS_CASES = {"onestep": {}, "heun": {}, "euler": {}, "ancestral": {},
+                "dpm": {}, "multistep": {}, "progdist": {},
+                "heun_churn": dict(s_churn=2.0, s_tmin=0.05, s_tmax=50.0)}
+# one pretrain_ddpm update at a small width (ch 32, the script's structure)
+DDPM_CH, DDPM_BATCH, DDPM_LR, DDPM_T = 32, 4, 2e-4, 10
+G10_LOSS_REL = 1e-4       # losses against JAX's
+G10_SAMPLE = (2e-5, 2e-5)  # samples: the fp32 limit (abs, rel)
+# heun's 4 steps from sigma 80 amplify rounding: nudging the initial state
+# by 2^-22 of itself (two ulps) moves JAX's own samples by about the fp32
+# limit on the CPU, and the card's cuDNN convs read 1.12 of it against
+# JAX's. The golden records that move (``karras/<case>/move``, JAX's runs
+# from two such nudges), and a sample is held to the fp32 limit, or to
+# twice JAX's recorded move where that is larger (G8's rule for a chaotic
+# path, read from the reference and not from the code under test).
+KARRAS_NUDGE, KARRAS_NUDGE_FACTOR = 2.0 ** -22, 2.0
+
+
+def distill_net(size, role, device="cpu", **over):
+    """The small ADM at ``size`` (``over`` overrides DISTILL_SMALL) with
+    numpy-made weights for ``role`` (DISTILL_ROLES) on ``device``."""
+    from dxmi_tpu_torch.models.unet_adm import UNetADM
+    net = UNetADM(**dict(DISTILL_SMALL, image_size=size, **over))
+    net.load_state_dict(numpy_state(net, DISTILL_SEED
+                                    + DISTILL_ROLES.index(role)
+                                    + (10 if size != 16 else 0)))
+    return net.to(device)
+
+
+def distill_inputs(name, seed, size=None):
+    """The numpy-made inputs of case ``name`` (at its image size, or
+    ``size``): x_start (NHWC in (-1, 1)), labels and, for the training
+    loss, the noise levels (EDM's lognormal)."""
+    kind, _, case_size, _, _ = DISTILL_CASES[name]
+    size = size or case_size
+    B = 2 if size == 64 else DISTILL_BATCH
+    rs = np.random.RandomState(seed)
+    x = np.tanh(rs.randn(B, size, size, 3)).astype(np.float32)
+    y = rs.randint(0, DISTILL_SMALL["num_classes"], B)
+    sigmas = (np.exp(rs.randn(B) * 1.2 - 1.2).astype(np.float32)
+              if kind == "training" else None)
+    return x, y, sigmas
+
+
+def tanh_batch(seed, B, size):
+    """A numpy-made image batch (NHWC in (-1, 1))."""
+    rs = np.random.RandomState(seed)
+    return np.tanh(rs.randn(B, size, size, 3)).astype(np.float32)
+
+
+def distill_diffusion(loss_norm="l2"):
+    from dxmi_tpu_torch.samplers.edm import KarrasDenoiser
+    return KarrasDenoiser(weight_schedule="karras", loss_norm=loss_norm)
+
+
+def distill_case(gold, name, device, nets=None, size=None):
+    """The port's per-sample loss of case ``name`` on its inputs
+    (``distill_inputs`` of the golden's seed, at ``size`` when given) and
+    the golden's JAX draws (noise, scale indices and, in training mode,
+    dropout masks), the nets in ``nets`` or ``distill_net``'s; returns
+    (loss tensor (B,), the online net)."""
+    from dxmi_tpu_torch.trainers import distill
+    kind, norm, case_size, teacher, train = DISTILL_CASES[name]
+    nets = nets or {r: distill_net(case_size, r, device)
+                    for r in DISTILL_ROLES}
+    x, y, sigmas = (torch.from_numpy(np.asarray(a)).to(device)
+                    if a is not None else None for a in
+                    distill_inputs(name, int(gold[f"{name}/key"]), size))
+    x = x.permute(0, 3, 1, 2).contiguous()
+
+    def t(key):
+        return torch.from_numpy(np.asarray(gold[f"{name}/{key}"])).to(device)
+
+    masks = (golden_dropout_masks(gold, device, f"{name}/") if train
+             else None)
+    kw = dict(y=y, noise=t("noise"), train=train, dropout_masks=masks)
+    diff = distill_diffusion(norm)
+    if kind == "training":
+        out = distill.training_losses(diff, nets["online"], x, sigmas, **kw)
+    elif kind == "consistency":
+        out = distill.consistency_losses(
+            diff, nets["online"], nets["target"], x, DISTILL_SCALES,
+            teacher_net=nets["teacher"] if teacher else None,
+            indices=t("indices"), **kw)
+    else:
+        out = distill.progdist_losses(
+            diff, nets["online"], x, DISTILL_SCALES,
+            teacher_net=nets["teacher"], indices=t("indices"), **kw)
+    return out["loss"], nets["online"]
+
+
+def karras_case(gold, name, device, net=None):
+    """The port's ``karras_sample`` of case ``name`` from the golden's
+    initial state and noise (NCHW samples)."""
+    from dxmi_tpu_torch.samplers.edm import karras_sample
+    net = net or distill_net(16, "online", device)
+    sampler = "heun" if name == "heun_churn" else name
+
+    def t(key):
+        return torch.from_numpy(np.asarray(gold[f"karras/{name}/{key}"])).to(
+            device)
+
+    y = np.random.RandomState(int(gold[f"karras/{name}/key"])).randint(
+        0, DISTILL_SMALL["num_classes"], KARRAS_BATCH)
+    return karras_sample(distill_diffusion(), net, tuple(t("x").shape),
+                         KARRAS_STEPS, sampler,
+                         y=torch.from_numpy(y).to(device), x=t("x"),
+                         noise=t("noise"), **KARRAS_CASES[name])
+
+
+def ddpm_small(device, fuse=False):
+    """pretrain_ddpm's sampler at DDPM_CH with numpy-made weights, einsum
+    attention and unfused convs (JAX's arithmetic), or the entry's fused
+    attention and K3 (``fuse``)."""
+    from dxmi_tpu_torch import pretrain_ddpm
+    kw = (dict(attn_impl="fused", fuse_gn_conv=True) if fuse
+          else dict(attn_impl="einsum", fuse_gn_conv=False))
+    sampler = pretrain_ddpm.build(DDPM_CH, DDPM_T, torch.device(device),
+                                  None, **kw)
+    sampler.net.load_state_dict(numpy_state(sampler.net, DISTILL_SEED + 5))
+    return sampler
+
+
+def ddpm_update_replay(gold, device, fuse=False):
+    """One pretrain_ddpm update of the port on the golden's batch, step
+    indices, noise and JAX's dropout masks: (loss, {name: gradient norm},
+    {name: update norm})."""
+    from dxmi_tpu_torch import pretrain_ddpm
+    from dxmi_tpu_torch.trainers.optim import Adam
+    sampler = ddpm_small(device, fuse)
+
+    def t(key):
+        return torch.from_numpy(np.asarray(gold[f"ddpm/{key}"])).to(device)
+
+    names = [n for n, _ in sampler.net.named_parameters()]
+    params = [p for _, p in sampler.net.named_parameters()]
+    before = [p.detach().clone() for p in params]
+    x = torch.from_numpy(tanh_batch(int(gold["ddpm/key"]), DDPM_BATCH, 32))
+    sampler.net.inject_dropout_masks(golden_dropout_masks(gold, device,
+                                                          "ddpm/"))
+    loss = pretrain_ddpm.eps_loss(sampler, x.permute(0, 3, 1, 2).to(device),
+                                  t("i"), t("eps"))
+    left = len(sampler.net.dropout_masks.queue)
+    sampler.net.inject_dropout_masks(None)
+    if left:
+        raise AssertionError(f"{left} injected dropout masks not used")
+    grads = torch.autograd.grad(loss, params)
+    Adam(params, DDPM_LR).step(grads)
+    return (float(loss.detach()),
+            {n: float(g.norm()) for n, g in zip(names, grads)},
+            {n: float((p.detach() - b).norm()) for n, p, b in
+             zip(names, params, before)})
+
+
+def ddgan_update_replay(gold, device):
+    """One pretrain_ddgan update's loss of the port on the golden's small
+    NCSN++ batch and draws: (loss, {name: gradient norm})."""
+    from dxmi_tpu_torch import pretrain_ddgan
+    net = NCSNpp(NCSNppArgs(**DDGAN_SMALL))
+    net.load_state_dict(ddgan_small_state())
+    net.to(device)
+
+    def t(key):
+        return torch.from_numpy(np.asarray(gold[f"ddgan/{key}"])).to(device)
+
+    a_bar = torch.from_numpy(pretrain_ddgan.alpha_bar(DDGAN_T)).to(device)
+    x = torch.from_numpy(tanh_batch(int(gold["ddgan/key"]), DISTILL_BATCH,
+                                    DDGAN_SMALL["image_size"]))
+    loss = pretrain_ddgan.x0_loss(net, a_bar,
+                                  x.permute(0, 3, 1, 2).to(device),
+                                  t("ti"), t("eps"), t("z"))
+    names = [n for n, _ in net.named_parameters()]
+    grads = torch.autograd.grad(loss, list(net.parameters()))
+    return float(loss.detach()), {n: float(g.norm())
+                                  for n, g in zip(names, grads)}
+
+
+INIT_STD_REL = 0.05  # the flax initialisers' std against JAX's init_params
+
+
+def init_samplers(device, generator):
+    """The three samplers of the golden's ``init/`` stats, their nets drawn
+    by ``models/flax_init.py`` from ``generator`` on ``device``."""
+    from dxmi_tpu_torch import pretrain_ddgan, pretrain_ddpm
+    from dxmi_tpu_torch.models.flax_init import flax_init_
+    from dxmi_tpu_torch.models.unet_adm import UNetADM
+    from dxmi_tpu_torch.samplers.edm import EDMSampler, KarrasDenoiser
+    dev = torch.device(device)
+    with dev:
+        adm = EDMSampler(UNetADM(**DISTILL_SMALL), KarrasDenoiser(), 10,
+                         (3, 16, 16), class_cond=True, num_classes=4,
+                         trainable_beta="fix_last")
+    flax_init_(adm.net, generator)
+    return {"unet_small": pretrain_ddpm.build(DDPM_CH, 10, dev, generator),
+            "unet_adm": adm,
+            "ncsnpp": pretrain_ddgan.build(4, dev, generator,
+                                           NCSNppArgs(**DDGAN_SMALL))}
+
+
+def flax_init_check(gold, device):
+    """The port's flax initialisers against the golden's stats of JAX's
+    ``init_params``, per parameter: the same flax paths and shapes, the
+    same shares of exact zeros and ones, the std within INIT_STD_REL (or
+    four standard errors of two draws' difference, 4 / sqrt(n), for
+    tensors under 6400 elements), and every lecun_normal kernel truncated
+    at two of its standard deviations. Returns the worst std error as a
+    share of its limit."""
+    from dxmi_tpu_torch.models.flax_init import TRUNC_STD
+    from dxmi_tpu_torch.utils.train_state import flax_tree
+    gen = torch.Generator(device=device).manual_seed(DISTILL_SEED)
+    worst = 0.0
+    for kind, sampler in init_samplers(device, gen).items():
+        flat = {}
+
+        def walk(node, prefix):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, prefix + (k,))
+                else:
+                    flat["/".join(prefix + (k,))] = v
+        walk(flax_tree(sampler), ())
+        paths = [str(p) for p in gold[f"init/{kind}/paths"]]
+        if sorted(paths) != sorted(flat):
+            raise AssertionError(f"{kind}: the parameters differ from "
+                                 f"JAX's: {sorted(set(paths) ^ set(flat))}")
+        for path, shape, (std, zeros, ones, top) in zip(
+                paths, gold[f"init/{kind}/shapes"],
+                gold[f"init/{kind}/stats"]):
+            a = flat[path].astype(np.float64)
+            if a.shape != tuple(int(n) for n in shape if n >= 0):
+                raise AssertionError(f"{kind} {path}: shape {a.shape}")
+            if (a == 0).mean() != zeros or (a == 1).mean() != ones:
+                raise AssertionError(f"{kind} {path}: zeros or ones differ "
+                                     "from JAX's")
+            if std > 0:
+                lim = max(INIT_STD_REL, 4 / np.sqrt(a.size))
+                err = abs(a.std() / std - 1)
+                if err > lim:
+                    raise AssertionError(f"{kind} {path}: std {a.std():.4g} "
+                                         f"vs JAX's {std:.4g}")
+                worst = max(worst, err / lim)
+            if path.endswith("kernel") and std > 0:
+                bound = 2 * np.sqrt(1.0 / np.prod(a.shape[:-1])) / TRUNC_STD
+                if max(np.abs(a).max(), top) > bound * (1 + 1e-6):
+                    raise AssertionError(f"{kind} {path}: not truncated at "
+                                         "two standard deviations")
+    return worst
+
+
+def distill_golden_check(gold, device):
+    """G10's gates on ``device``: each loss within G10_LOSS_REL of JAX's,
+    each sample within G10_SAMPLE, or KARRAS_NUDGE_FACTOR times JAX's
+    recorded nudged move where larger; the pretrain_ddpm and
+    pretrain_ddgan updates' losses within G10_LOSS_REL, their gradient (and
+    ddpm's update) norms read; the flax initialisers against JAX's
+    (``flax_init_check``). Returns the readings (each sample's as a share
+    of the fp32 limit, and JAX's move under ``karras_move/``)."""
+    worst = {}
+    for name in DISTILL_CASES:
+        got = distill_case(gold, name, device)[0].detach().cpu().numpy()
+        want = gold[f"{name}/loss"]
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        if not np.isfinite(got).all() or rel > G10_LOSS_REL:
+            raise AssertionError(f"G10 {name}: loss {got} vs JAX {want}")
+        worst[name] = rel
+    net = distill_net(16, "online", device)
+    for name in KARRAS_CASES:
+        got = karras_case(gold, name, device, net).cpu().numpy()
+        want = gold[f"karras/{name}/out"]
+        lim = G10_SAMPLE[0] + G10_SAMPLE[1] * np.abs(want)
+        share = float((np.abs(got - want) / lim).max())
+        moved = float((gold[f"karras/{name}/move"] / lim).max())
+        allowed = max(1.0, KARRAS_NUDGE_FACTOR * moved)
+        worst[f"karras_move/{name}"] = moved
+        if not np.isfinite(got).all() or share > allowed:
+            raise AssertionError(f"G10 karras {name}: {share:.2f} of the "
+                                 f"fp32 limit (allowed {allowed:.2f})")
+        worst[f"karras/{name}"] = share
+    loss, gn, un = ddpm_update_replay(gold, device)
+    rel = abs(loss - float(gold["ddpm/loss"])) / float(gold["ddpm/loss"])
+    if rel > G10_LOSS_REL:
+        raise AssertionError(f"G10 pretrain_ddpm loss {loss} vs JAX "
+                             f"{float(gold['ddpm/loss'])}")
+    worst["ddpm/loss"] = rel
+    for what, got, key in (("grad", gn, "gnorm/"), ("update", un, "unorm/")):
+        a = np.array([got[n] for n in sorted(got)])
+        b = np.array([gold[f"ddpm/{key}{n}"] for n in sorted(got)])
+        worst[f"ddpm/{what}"] = float(np.linalg.norm(a - b)
+                                      / np.linalg.norm(b))
+    loss, gn = ddgan_update_replay(gold, device)
+    rel = abs(loss - float(gold["ddgan/loss"])) / float(gold["ddgan/loss"])
+    if rel > G10_LOSS_REL:
+        raise AssertionError(f"G10 pretrain_ddgan loss {loss} vs JAX "
+                             f"{float(gold['ddgan/loss'])}")
+    worst["ddgan/loss"] = rel
+    a = np.array([gn[n] for n in sorted(gn)])
+    b = np.array([gold[f"ddgan/gnorm/{n}"] for n in sorted(gn)])
+    worst["ddgan/grad"] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    worst["init"] = flax_init_check(gold, device)
+    return worst
+
+
+def phase_replay_distill():
+    """G10 (see above)."""
+    gold = dict(np.load(DISTILL_GOLDEN))
+    worst = distill_golden_check(gold, "cuda")
+    losses = max(v for k, v in worst.items() if k in DISTILL_CASES)
+    samples = {k[7:]: round(v, 3) for k, v in worst.items()
+               if k.startswith("karras/")}
+    nudges = {k[12:]: round(v, 3) for k, v in worst.items()
+              if k.startswith("karras_move/")}
+    print(f"  G10: {len(DISTILL_CASES)} losses, worst {losses:.2e} "
+          f"relative (gate {G10_LOSS_REL:g}); karras_sample against JAX, "
+          f"in fp32 limits: {samples}; two nudges of the initial state by "
+          f"2^-22 of itself move JAX's by {nudges} (golden); "
+          f"pretrain_ddpm update: loss {worst['ddpm/loss']:.2e} relative, "
+          f"gradient norms {worst['ddpm/grad']:.2e} and update norms "
+          f"{worst['ddpm/update']:.2e} from JAX's (read); pretrain_ddgan "
+          f"update: loss {worst['ddgan/loss']:.2e}, gradient norms "
+          f"{worst['ddgan/grad']:.2e} (read); flax initialisers on the card's "
+          f"generator: worst std {worst['init']:.2f} of its limit",
+          flush=True)
+    return worst
+
+
+# E12: the ImageNet64 T10 net (bf16, flash: K1, K4 and its backward) through
+# one Adam step of each distillation loss at batch 16 and karras_sample's
+# seven solvers for 10 steps, each loss, the dsm step's gradients and each
+# solver's 10 steps then held against the plain versions at the path's own
+# batch of 16 (K4-dkv/dq's shape in the step): at 10 samples, E8's count,
+# cuDNN runs the T10 net's fp32 convs on its FFT route, ~116k complex GEMM
+# launches and ~1.0 s a forward on the H100 against ~0.3 s at 16, which
+# made the fp32 references most of E12's time; the three pretraining
+# entries run as subprocesses in C's pool, 3 steps each, at full width
+E12_BATCH, E12_SCALES, E12_SOLVER_STEPS, E12_STEPS = 16, 40, 10, 3
+E12_LR, E12_EMA = 2e-4, 0.95
+# forwards a step of each loss makes (online, teachers, target); one backward
+E12_FORWARDS = {"dsm": 1, "cd": 4, "ct": 2, "pd": 3}
+# forwards of each solver over 10 steps (heun and dpm skip their second
+# evaluation on the last step, to sigma 0)
+E12_SOLVER_FORWARDS = {"onestep": 1, "heun": 19, "euler": 10,
+                       "ancestral": 10, "dpm": 19, "multistep": 10,
+                       "progdist": 10}
+E12_DIR = os.path.join(REPO, "build", "chip_smoke_e12")
+
+
+def flash_time_row(gen, B, S, nh, d):
+    """T row of K4's forward at (B, S, nh, d) bf16; library yardstick:
+    F.scaled_dot_product_attention."""
+    q, k, v, sm = flash_case(gen, B, S, nh, d)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return dict(
+        shape=(B, S, nh, d), ms=time_ms(lambda: flash_fwd_kernel(q, k, v, sm)),
+        plain_ms=time_ms(lambda: flash_mha_reference(q, k, v, sm), iters=3,
+                         warmup=1),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=sm)),
+        bytes=4 * B * S * nh * d * 2,
+        ops={"bf16": 4 * B * nh * S * S * d, "fp32": 5 * B * nh * S * S})
+
+
+def e12_time_rows(gen):
+    """T rows of K4 and K4-dkv/dq at E12's (and pretrain_edm's) ImageNet64
+    training shape, batch 16 (the 32x32 map: 6 heads of 64)."""
+    rows = {"flash_attn_e12": flash_time_row(gen, E12_BATCH, 1024, 6, 64)}
+    rows.update(flash_bwd_time_rows(gen, E12_BATCH, 1024, 6, 64, "_e12"))
+    return rows
+
+
+def e12_launches(forwards, backwards):
+    per = ADM_LAUNCHES_PER_FORWARD["flash"]
+    out = {k: v * forwards for k, v in per.items()}
+    if backwards:
+        out.update(flash_attn_bwd_dkv=7 * backwards,
+                   flash_attn_bwd_dq=7 * backwards)
+    return out
+
+
+@contextlib.contextmanager
+def compute_dtype(nets, dtype):
+    """The UNetADMs ``nets`` computing in ``dtype`` (their fp32 parameters
+    cast where used), for the fp32 references of the bf16 effect."""
+    old = [n.dtype for n in nets]
+    for n in nets:
+        n.dtype = dtype
+    try:
+        yield
+    finally:
+        for n, d in zip(nets, old):
+            n.dtype = d
+
+
+def e12_loss(kind, nets, diff, x, y, draws):
+    """The per-sample loss of ``kind`` (E12_FORWARDS) in training mode with
+    the draws given (noise, and the scale indices or sigmas)."""
+    from dxmi_tpu_torch.trainers import distill
+    kw = dict(y=y, noise=draws["noise"], train=True)
+    if kind == "dsm":
+        return distill.training_losses(diff, nets["online"], x,
+                                       draws["sigmas"], **kw)["loss"]
+    if kind == "pd":
+        return distill.progdist_losses(diff, nets["online"], x, E12_SCALES,
+                                       teacher_net=nets["teacher"],
+                                       indices=draws["indices"],
+                                       **kw)["loss"]
+    return distill.consistency_losses(
+        diff, nets["online"], nets["target"], x, E12_SCALES,
+        teacher_net=nets["teacher"] if kind == "cd" else None,
+        indices=draws["indices"], **kw)["loss"]
+
+
+def e12_draws(kind, n, gen=None, rs=None):
+    """A loss's draws at batch ``n``: from the card's generator ``gen``,
+    or from numpy's ``rs`` (the plain-version check)."""
+    shape = (n, 3, 64, 64)
+    if rs is not None:
+        noise = torch.from_numpy(rs.randn(*shape).astype(np.float32)).cuda()
+        u = rs.randn(n).astype(np.float32)
+        idx = rs.randint(0, E12_SCALES - 1, n)
+        sig, idx = torch.from_numpy(u).cuda(), torch.from_numpy(idx).cuda()
+    else:
+        noise = torch.randn(shape, generator=gen, device="cuda")
+        sig = torch.randn((n,), generator=gen, device="cuda")
+        idx = torch.randint(0, E12_SCALES - 1, (n,), generator=gen,
+                            device="cuda")
+    return {"noise": noise, "sigmas": torch.exp(sig * 1.2 - 1.2),
+            "indices": idx}
+
+
+@contextlib.contextmanager
+def plain_fp32(*nets):
+    """The plain versions with the UNetADMs ``nets`` computing in fp32: the
+    reference that the bf16 effect is read against."""
+    with plain_kernels_adm(), compute_dtype(nets, torch.float32):
+        yield
+
+
+def e12_grad_shares(nets, diff, images, labels, rs):
+    """(mean, largest) share of the bf16 effect by which the dsm step's
+    gradient norms (one per parameter of the online net) move from the
+    plain versions', at batch E12_BATCH on numpy draws: the backward
+    through K1 and K4-dkv/dq at the step's shapes."""
+    idx = rs.randint(0, len(images), E12_BATCH)
+    x = torch.from_numpy(images[idx].transpose(0, 3, 1, 2).copy()).cuda()
+    y = torch.from_numpy(labels[idx].astype(np.int64)).cuda()
+    draws = e12_draws("dsm", E12_BATCH, rs=rs)
+    params = list(nets["online"].parameters())
+
+    def norms():
+        loss = e12_loss("dsm", nets, diff, x, y, draws).mean()
+        grads = torch.autograd.grad(loss, params)
+        return torch.stack([g.float().norm() for g in grads])
+
+    out = norms()
+    with plain_kernels_adm():
+        plain = norms()
+    with plain_fp32(*nets.values()):
+        full = norms()
+    return bf16_share(out, plain, full)
+
+
+def bf16_share(out, plain, full):
+    """(mean, largest) of |out - plain| as shares of the bf16 effect
+    |plain - full|."""
+    err, eff = (out - plain).abs(), (plain - full).abs()
+    return ((err.mean() / eff.mean()).item(),
+            (err.max() / eff.max()).item())
+
+
+def phase_pretrain_distill(k1_log):
+    """E12 (see above): the distillation steps and the solvers; their
+    launches by step and solver (K1's by shape of the dsm step, the
+    pretrain_edm step, into ``k1_log`` for T-K1)."""
+    import copy
+
+    from dxmi_tpu_torch.samplers.edm import karras_sample
+    from dxmi_tpu_torch.trainers.optim import Adam
+    from dxmi_tpu_torch.trainers.pretrain import adam_step
+    from dxmi_tpu_torch.utils.ema import update_ema
+    t_phase = time.perf_counter()
+    cfg = imagenet64_train_config()
+    seed = int(cfg["training"]["seed"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sampler = train_image_large.build_sampler(cfg, torch.device("cuda"),
+                                              seed)
+    diff = sampler.diffusion
+    nets = {"online": sampler.net, "teacher": copy.deepcopy(sampler.net),
+            "target": copy.deepcopy(sampler.net)}
+    for role in ("teacher", "target"):
+        nets[role].requires_grad_(False)
+    opt = Adam(list(sampler.net.parameters()), E12_LR)
+    images, labels = structured_class_images(256, 64, 1000, seed=seed)
+    rs = np.random.RandomState(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    launches = {}
+    torch.cuda.synchronize()
+    print(f"  E12 build: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    for kind, fwd in E12_FORWARDS.items():
+        idx = rs.randint(0, len(images), E12_BATCH)
+        x = torch.from_numpy(images[idx].transpose(0, 3, 1, 2).copy()).cuda()
+        y = torch.from_numpy(labels[idx].astype(np.int64)).cuda()
+        draws = e12_draws(kind, E12_BATCH, gen)
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        with (k1_shapes(k1_log, "E12", 1, "step") if kind == "dsm"
+              else contextlib.nullcontext()):
+            loss = e12_loss(kind, nets, diff, x, y, draws).mean()
+            adam_step(opt, loss)
+        if kind == "cd":
+            update_ema(nets["target"], sampler.net, E12_EMA)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(_lib.LAUNCHES)
+        want = e12_launches(fwd, 1)
+        if got != want:
+            raise AssertionError(f"E12 {kind}: launches {got}, expected "
+                                 f"{want}")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"E12 {kind}: loss {loss}")
+        launches[kind] = got
+        print(f"  E12 {kind} step at batch {E12_BATCH}: {wall:.3f} s, loss "
+              f"{float(loss):.4f}, launches {got}", flush=True)
+
+    n = E12_BATCH
+    rs = np.random.RandomState(seed + 1)
+    idx = rs.randint(0, len(images), n)
+    x = torch.from_numpy(images[idx].transpose(0, 3, 1, 2).copy()).cuda()
+    y = torch.from_numpy(labels[idx].astype(np.int64)).cuda()
+    worst = {}
+    t_check = time.perf_counter()
+    with torch.no_grad():
+        for kind in E12_FORWARDS:
+            draws = e12_draws(kind, n, rs=rs)
+            out = e12_loss(kind, nets, diff, x, y, draws)
+            with plain_kernels_adm():
+                plain = e12_loss(kind, nets, diff, x, y, draws)
+            with plain_fp32(*nets.values()):
+                full = e12_loss(kind, nets, diff, x, y, draws)
+            worst[kind] = bf16_share(out, plain, full)
+        torch.cuda.synchronize()
+        print(f"  E12 the losses' plain-version checks: "
+              f"{time.perf_counter() - t_check:.1f} s", flush=True)
+    t_check = time.perf_counter()
+    worst["dsm_grad"] = e12_grad_shares(nets, diff, images, labels, rs)
+    torch.cuda.synchronize()
+    print(f"  E12 the dsm step's gradient norms at batch {E12_BATCH} "
+          f"against the plain versions ({time.perf_counter() - t_check:.1f}"
+          f" s): {worst['dsm_grad'][0]:.3f} (mean) and "
+          f"{worst['dsm_grad'][1]:.3f} (largest) of the bf16 effect",
+          flush=True)
+    with torch.no_grad():
+        for solver, fwd in E12_SOLVER_FORWARDS.items():
+            t_solver = time.perf_counter()
+            _lib.reset_launches()
+            t0 = time.perf_counter()
+            s = karras_sample(diff, sampler.net, (E12_BATCH, 3, 64, 64),
+                              E12_SOLVER_STEPS, solver,
+                              y=torch.from_numpy(rs.randint(
+                                  0, 1000, E12_BATCH)).cuda(),
+                              generator=gen)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = dict(_lib.LAUNCHES)
+            if got != e12_launches(fwd, 0) or not torch.isfinite(s).all():
+                raise AssertionError(f"E12 karras_sample {solver}: launches "
+                                     f"{got}, expected "
+                                     f"{e12_launches(fwd, 0)}")
+            launches[solver] = got
+            x0 = torch.from_numpy(rs.randn(n, 3, 64, 64).astype(
+                np.float32) * 80.0).cuda()
+            noise = torch.from_numpy(rs.randn(
+                E12_SOLVER_STEPS, n, 3, 64, 64).astype(np.float32)).cuda()
+            kw = dict(y=y, x=x0, noise=noise)
+            runs = {}
+            for what, ctx in (("kernels", contextlib.nullcontext),
+                              ("plain", plain_kernels_adm),
+                              ("fp32", lambda: plain_fp32(sampler.net))):
+                t0 = time.perf_counter()
+                with ctx():
+                    runs[what] = karras_sample(diff, sampler.net, x0.shape,
+                                               E12_SOLVER_STEPS, solver,
+                                               **kw)
+                torch.cuda.synchronize()
+                runs[what + "_s"] = time.perf_counter() - t0
+            worst[solver] = bf16_share(runs["kernels"], runs["plain"],
+                                       runs["fp32"])
+            print(f"  E12 karras_sample {solver} "
+                  f"({time.perf_counter() - t_solver:.1f} s): {E12_BATCH} x "
+                  f"{E12_SOLVER_STEPS} steps in {secs:.3f} s "
+                  f"({E12_BATCH / secs:.1f} img/s), {fwd} forwards, "
+                  f"launches {got}; at {n} samples against the plain "
+                  f"versions {worst[solver][0]:.3f} (mean) and "
+                  f"{worst[solver][1]:.3f} (largest) of the bf16 effect "
+                  f"(kernels {runs['kernels_s']:.2f} s, plain "
+                  f"{runs['plain_s']:.2f} s, fp32 {runs['fp32_s']:.2f} s)",
+                  flush=True)
+    for kind in E12_FORWARDS:
+        print(f"  E12 {kind} loss at {n} samples against the plain versions:"
+              f" {worst[kind][0]:.3f} (mean) and {worst[kind][1]:.3f} "
+              f"(largest) of the bf16 effect", flush=True)
+    bad = {k: v for k, v in worst.items() if max(v) > BF16_REPLAY_SHARE}
+    if bad:
+        raise AssertionError(f"E12: {bad} of the bf16 effect from the plain "
+                             f"versions (limit {BF16_REPLAY_SHARE:g})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  E12: {time.perf_counter() - t_phase:.1f} s, peak allocated "
+          f"{peak:.2f} GiB", flush=True)
+    del sampler, nets, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+# the entries as a user runs them, at full width, 3 steps each
+E12_ENTRIES = {
+    "pretrain_ddpm": ["--fake_data", "--batch", "128"],
+    "pretrain_ddgan": ["--fake_data", "--batch", "128"],
+    "pretrain_edm": ["--config", IMAGENET64_CONFIG, "--batch", "16"],
+}
+
+
+def e12_entry(name):
+    """One pretraining entry in a subprocess (phase C's pool): (its
+    output's lines, its file, its seconds)."""
+    os.makedirs(E12_DIR, exist_ok=True)
+    out = os.path.join(E12_DIR, f"{name}.msgpack")
+    cmd = [sys.executable, "-m", f"dxmi_tpu_torch.{name}", "--out", out,
+           "--steps", str(E12_STEPS), "--log_every", "1",
+           *E12_ENTRIES[name]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=E12_DIR, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=REPO))
+    if proc.returncode != 0:
+        raise AssertionError(f"{name} failed:\n{proc.stdout}{proc.stderr}")
+    return proc.stdout.splitlines(), out, time.perf_counter() - t0
+
+
+def entry_timing(lines, name):
+    """(s/step after the first, peak GiB, launches over the run) from the
+    entry's timing line."""
+    line = [ln for ln in lines if ln.startswith("pretrain timing:")]
+    if len(line) != 1:
+        raise AssertionError(f"{name}: no timing line")
+    text = line[0]
+    rate = float(text.split(" s/step")[0].rsplit(", ", 1)[1])
+    peak = float(text.split("peak allocated ")[1].split(" GiB")[0])
+    return rate, peak, json.loads(text.split(f"over {E12_STEPS} steps ")[1])
+
+
+def e12_entries(runs):
+    """The entries' runs (``e12_entry``'s results by name, from C's pool):
+    JAX's log lines, finite losses, the kernels' launches per step; each
+    file loaded into the port's training entry bit for bit:
+    train_cifar10's build on T10.yaml and T4_ddgan.yaml,
+    train_image_large's build_sampler on T10.yaml."""
+    from dxmi_tpu_torch.utils.train_state import flax_tree
+    tags = {"pretrain_ddpm": "eps-loss", "pretrain_ddgan": "x0-mse",
+            "pretrain_edm": "edm-loss"}
+    want = {"pretrain_ddpm": ("gn_silu", "gn_silu_conv3x3", "attn_block"),
+            "pretrain_ddgan": ("gn_silu",),
+            "pretrain_edm": ("gn_silu_bf16", "flash_attn",
+                             "flash_attn_bwd_dkv", "flash_attn_bwd_dq")}
+    out = {}
+    for name, (lines, path, wall) in runs.items():
+        losses = [float(ln.split()[-1]) for ln in lines if tags[name] in ln]
+        if len(losses) != E12_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: losses {losses}")
+        rate, peak, got = entry_timing(lines, name)
+        if sorted(got) != sorted(want[name]) or any(
+                v % E12_STEPS for v in got.values()):
+            raise AssertionError(f"{name}: launches {got}")
+        per = {k: v // E12_STEPS for k, v in got.items()}
+        out[name] = per
+        if name == "pretrain_edm":
+            cfg = merge(imagenet64_train_config(),
+                        {"training": {"pretrained_path": path}})
+            sampler = train_image_large.build_sampler(
+                cfg, torch.device("cuda"), 0)
+        else:
+            cfg = (cifar10_train_config() if name == "pretrain_ddpm"
+                   else t4_ddgan_config())
+            cfg = merge(cfg, {"training": {"sampler_ckpt": path}})
+            sampler = train_cifar10.build(cfg, torch.device("cuda"), 0)[0]
+        stored = port_msgpack.read(path)
+        if stored["meta"] != {"pretrain_steps": E12_STEPS}:
+            raise AssertionError(f"{name}: meta {stored['meta']}")
+        got_tree = flax_tree(sampler)
+
+        def same(a, b):
+            if isinstance(b, dict):
+                return a.keys() == b.keys() and all(same(a[k], b[k])
+                                                    for k in b)
+            return np.array_equal(np.asarray(a), np.asarray(b))
+        if not same(got_tree, stored["params"]):
+            raise AssertionError(f"{name}: the file does not load bit for "
+                                 "bit into the training entry")
+        del sampler
+        torch.cuda.empty_cache()
+        print(f"  C {name} (E12's entries): {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; {rate:.4f} s/step after the first (C's "
+              f"other subprocesses sharing the card), peak allocated "
+              f"{peak:.2f} GiB, launches per step {per}; {wall:.1f} s in its "
+              f"process; its file loads into the training entry bit for bit",
+              flush=True)
+    return out
+
+
 def nvidia_smi():
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -7204,6 +7973,8 @@ def main() -> int:
         step("E10", phase_guidance)
         step("G9", phase_replay_ev)
         step("E11", lambda: phase_anomaly(k1_log, k3_log, k2_log))
+        step("G10", phase_replay_distill)
+        step("E12", lambda: phase_pretrain_distill(k1_log))
         step("T-K1", lambda: k1_shape_table(gen, k1_log))
         step("T-K3", lambda: k3_shape_table(gen, k3_log))
         step("C", phase_cli)

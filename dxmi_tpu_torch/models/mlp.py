@@ -11,30 +11,14 @@ recipe diverges (CONVERGENCE.md §2).
 """
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dxmi_tpu_torch.models.flax_init import lecun_normal_
 from dxmi_tpu_torch.models.unet_small import timestep_embedding
-
-# std of a standard normal truncated to (-2, 2) (flax's variance_scaling)
-_TRUNC_STD = 0.87962566103423978
-
-
-def lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator]
-                  ) -> None:
-    """flax's ``lecun_normal`` on a torch (out, in) weight: a normal
-    truncated to (-2, 2), scaled to variance 1 / in."""
-    std = math.sqrt(1.0 / w.shape[1]) / _TRUNC_STD
-    # the inverse CDF of a uniform draw, as jax.random.truncated_normal
-    lo, hi = (math.erf(b / math.sqrt(2.0)) for b in (-2.0, 2.0))
-    u = torch.rand(w.shape, generator=generator) * (hi - lo) + lo
-    z = (torch.erfinv(u) * math.sqrt(2.0)).clamp(-2.0, 2.0)
-    with torch.no_grad():
-        w.copy_(z * std)
 
 
 def _dense(cin: int, cout: int, generator: Optional[torch.Generator]

@@ -28,7 +28,9 @@ admits through ``fused_attn_block_train`` (K2 forward, K6 backward) and the
 rest as ``'flash'`` does. Every layer is differentiable: K1 through
 ``GroupNormFn``, K4 through ``FlashAttention`` (K4-dkv and K4-dq backward). ``use_checkpoint`` recomputes each ResBlock in the backward
 (``torch.utils.checkpoint``, the JAX package's ``nn.remat``, ``:370-371``);
-dropout follows the module's ``train()`` mode. The routes are the JAX gates
+dropout follows the module's ``train()`` mode, its keep masks recorded or
+replayed through ``inject_dropout_masks`` and ``record_dropout_masks`` (one
+per ResBlock in call order), as UNetSmall's. The routes are the JAX gates
 alone: on the card a form the kernels do not take (K4 in fp32, K2 at some
 head widths) raises instead of falling back.
 
@@ -57,6 +59,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dxmi_tpu_torch.models._layers import _conv, _linear
+from dxmi_tpu_torch.models.unet_small import Dropout, DropoutMasks, NetControls
 from dxmi_tpu_torch.ops.attention import flash_available, flash_mha
 from dxmi_tpu_torch.ops.attn_block import (Int8AttnMats, attn_block,
                                            attn_block_int8,
@@ -146,7 +149,8 @@ class ResBlockADM(Int8Layer, nn.Module):
                  use_scale_shift_norm: bool, up: bool = False,
                  down: bool = False, up_impl: str = "resize",
                  gn_stats: str = "fp32", dropout: float = 0.0,
-                 quant: object = False, dtype: torch.dtype = torch.float32):
+                 quant: object = False, dtype: torch.dtype = torch.float32,
+                 masks: Optional[DropoutMasks] = None):
         super().__init__()
         phase_up = up and up_impl == "phase"
 
@@ -163,8 +167,8 @@ class ResBlockADM(Int8Layer, nn.Module):
             nn.SiLU(), nn.Linear(emb_channels, (2 if use_scale_shift_norm
                                                 else 1) * out_channels)])
         self.out_layers = nn.ModuleList([
-            GroupNormADM(out_channels, gn_stats), nn.SiLU(), nn.Dropout(dropout),
-            conv3(out_channels)])
+            GroupNormADM(out_channels, gn_stats), nn.SiLU(),
+            Dropout(dropout, masks or DropoutMasks()), conv3(out_channels)])
         if channels != out_channels:
             self.skip_connection = nn.Conv2d(channels, out_channels, 1)
         self.use_scale_shift_norm = use_scale_shift_norm
@@ -326,13 +330,16 @@ class Upsample(nn.Module):
         return _conv(self.conv, _upsample2x(x))
 
 
-class UNetADM(nn.Module):
+class UNetADM(NetControls, nn.Module):
     """The ADM U-Net. ``forward(x_nchw, t[, y]) -> (B, out_channels, H, W)``
     fp32. Constructor arguments follow ``dxmi_tpu``'s ``UNetADM``
     (``attention_resolutions`` are downsample rates); ``dtype`` is the
     compute dtype; ``quant_int8`` (False, True, 'static') and ``quant_attn``
     (False, 'static') select the int8 layers; ``use_checkpoint`` recomputes
-    each ResBlock in the backward."""
+    each ResBlock in the backward. Dropout's keep masks can be recorded and
+    replayed (``NetControls``)."""
+
+    quant_scale_names = QUANT_SCALE_NAMES
 
     def __init__(self, image_size: int, in_channels: int = 3,
                  model_channels: int = 192, out_channels: int = 3,
@@ -367,6 +374,7 @@ class UNetADM(nn.Module):
         self.num_classes = num_classes
         self.dtype = dtype
         self.use_checkpoint = use_checkpoint
+        self.dropout_masks = DropoutMasks()
         mc = model_channels
         ted = mc * 4
 
@@ -379,7 +387,7 @@ class UNetADM(nn.Module):
 
         res = dict(emb_channels=ted, use_scale_shift_norm=use_scale_shift_norm,
                    up_impl=up_impl, gn_stats=gn_stats, dropout=dropout,
-                   quant=quant_int8, dtype=dtype)
+                   quant=quant_int8, dtype=dtype, masks=self.dropout_masks)
         attn = dict(attn_impl=attn_impl, softmax_f32=softmax_f32,
                     gn_stats=gn_stats, quant=quant_attn)
 
@@ -466,31 +474,6 @@ class UNetADM(nn.Module):
             if id(p) not in keep:
                 p.data = p.data.to(self.dtype)
         return self
-
-    def _int8_layers(self):
-        return [m for m in self.modules() if isinstance(m, Int8Layer)]
-
-    def set_calibrating(self, on: bool) -> None:
-        """Switch every static int8 layer into (or out of) calibration:
-        full-precision forwards that record activation scales. Switching it
-        on drops the weights that ``prepare_int8`` quantised."""
-        for m in self._int8_layers():
-            m.calibrating = on
-            if on:
-                m.clear_int8()
-
-    def reset_quant_scales(self) -> None:
-        """Zero every calibrated activation scale (an uncalibrated net)."""
-        for name, buf in self.named_buffers():
-            if name.endswith(QUANT_SCALE_NAMES):
-                buf.zero_()
-
-    def prepare_int8(self) -> None:
-        """Quantise the int8 layers' weights with the current scales once,
-        so that forwards reuse them (a forward quantises them itself when no
-        cache is there); call again after changing either in place."""
-        for m in self._int8_layers():
-            m.prepare_int8()
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:

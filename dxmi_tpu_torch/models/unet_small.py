@@ -385,6 +385,9 @@ class NetControls:
     ``nn.Module`` base; the net sets ``self.dropout_masks`` (a
     ``DropoutMasks`` its ``Dropout`` layers share)."""
 
+    # the names of the calibrated activation-scale buffers
+    quant_scale_names = QUANT_SCALE_NAMES
+
     def _int8_layers(self):
         return [m for m in self.modules() if isinstance(m, Int8Layer)]
 
@@ -400,7 +403,7 @@ class NetControls:
     def reset_quant_scales(self) -> None:
         """Zero every calibrated activation scale (an uncalibrated net)."""
         for name, buf in self.named_buffers():
-            if name.endswith(QUANT_SCALE_NAMES):
+            if name.endswith(self.quant_scale_names):
                 buf.zero_()
 
     def prepare_int8(self) -> None:

@@ -12,17 +12,24 @@ returns the per-step trajectory (``l_sample``, ``mean``, ``sigma``, ``logp``,
 ``entropy``) that the trainers' buffer consumes; ``sample_step`` is the
 differentiable policy step of the sampler update.
 ``calibrate_quant`` calibrates the static int8 layers of the net.
+``karras_sample`` is the JAX package's standalone EDM solvers (heun, euler,
+ancestral, onestep, dpm, multistep, progdist).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from dxmi_tpu_torch.samplers.var import gaussian_logp_mean
-from dxmi_tpu_torch.schedules import (edm_rescaled_t, edm_scalings,
-                                      karras_schedule)
+from dxmi_tpu_torch.schedules import (ancestral_split, edm_rescaled_t,
+                                      edm_scalings, karras_schedule,
+                                      karras_sigmas)
+
+KARRAS_SAMPLERS = ("onestep", "heun", "euler", "ancestral", "dpm",
+                   "multistep", "progdist")
 
 
 class KarrasDenoiser:
@@ -52,11 +59,23 @@ class KarrasDenoiser:
         return c_skip, c_out, c_in
 
     def denoise(self, net: nn.Module, x: torch.Tensor, sigma: torch.Tensor,
-                y: Optional[torch.Tensor] = None):
-        """-> (model output, denoised x0 estimate); ``sigma`` is (B,)."""
+                y: Optional[torch.Tensor] = None,
+                train: Optional[bool] = None):
+        """-> (model output, denoised x0 estimate); ``sigma`` is (B,).
+        ``train`` (the JAX package's ``train``: dropout on) puts ``net`` in
+        that mode for this call alone and restores its mode after; None
+        leaves the mode as it is."""
         c_skip, c_out, c_in = (s.reshape(-1, *([1] * (x.dim() - 1)))
                                for s in self.scalings(sigma))
-        out = net(c_in * x, edm_rescaled_t(sigma), y)
+        if train is None:
+            out = net(c_in * x, edm_rescaled_t(sigma), y)
+        else:
+            was = net.training
+            net.train(train)
+            try:
+                out = net(c_in * x, edm_rescaled_t(sigma), y)
+            finally:
+                net.train(was)
         return out, c_out * out + c_skip * x
 
 
@@ -205,3 +224,118 @@ class EDMSampler(nn.Module):
         return {"sample": xs[-1], "l_sample": torch.stack(xs),
                 **{k: torch.stack(v) for k, v in traj.items()},
                 "logp_terminal": x0.new_zeros(n_sample), "y": y}
+
+
+def _f32(v) -> float:
+    """The value of ``v`` rounded to fp32, as a Python float (the JAX
+    package computes these step scalars in fp32)."""
+    return float(np.float32(v))
+
+
+@torch.no_grad()
+def karras_sample(diffusion: KarrasDenoiser, net: nn.Module,
+                  shape: Sequence[int], steps: int, sampler: str = "heun",
+                  sigma_min: float = 0.002, sigma_max: float = 80.0,
+                  rho: float = 7.0, clip_denoised: bool = True,
+                  s_churn: float = 0.0, s_tmin: float = 0.0,
+                  s_tmax: float = float("inf"), s_noise: float = 1.0,
+                  y: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  x: Optional[torch.Tensor] = None,
+                  noise: Optional[Sequence[torch.Tensor]] = None
+                  ) -> torch.Tensor:
+    """The standalone EDM samplers of ``dxmi_tpu.samplers.edm.karras_sample``
+    (``edm.py:277-430``): ``onestep``, ``heun``, ``euler``, ``ancestral``,
+    ``dpm``, ``multistep`` and ``progdist``, ``s_churn`` adding EDM's
+    stochastic churn on ``heun``, ``euler`` and ``dpm``. ``shape`` is
+    (B, C, H, W) and the samples are NCHW, clipped to [-1, 1]. The net runs
+    in eval mode. ``x`` is the initial state (N(0, I) * sigma_max when
+    None); ``noise[i]`` is step i's standard normal draw (the churn's on
+    heun/euler/dpm, the injected noise on ancestral/multistep), drawn from
+    ``generator`` when None."""
+    if sampler not in KARRAS_SAMPLERS:
+        raise ValueError(f"unknown sampler: {sampler}")
+    sigmas = karras_sigmas(steps, sigma_min, sigma_max, rho)
+    if x is None:
+        x = torch.randn(tuple(shape), generator=generator,
+                        device=next(net.parameters()).device) * sigma_max
+
+    def draw(i: int, like: torch.Tensor) -> torch.Tensor:
+        if noise is not None:
+            return noise[i]
+        return torch.randn(like.shape, generator=generator,
+                           device=like.device, dtype=like.dtype)
+
+    def denoise(xc: torch.Tensor, sigma: float) -> torch.Tensor:
+        s = torch.full((xc.shape[0],), sigma, device=xc.device)
+        den = diffusion.denoise(net, xc, s, y, train=False)[1]
+        return den.clamp(-1, 1) if clip_denoised else den
+
+    if sampler == "onestep":
+        return denoise(x, float(sigmas[0]))
+
+    def churned(xc, s_i, i):
+        # EDM churn (edm.py:307-316): sigma bumped by gamma inside
+        # [s_tmin, s_tmax] and matching noise added
+        gamma = (min(s_churn / (len(sigmas) - 1), 2 ** 0.5 - 1)
+                 if s_tmin <= s_i <= s_tmax else 0.0)
+        s_hat = np.float32(s_i) * (np.float32(1.0) + np.float32(gamma))
+        eps = draw(i, xc) * s_noise
+        amp = np.sqrt(np.maximum(s_hat * s_hat - np.float32(s_i) ** 2,
+                                 np.float32(0)))
+        return xc + eps * float(amp), float(s_hat)
+
+    if sampler in ("heun", "euler", "dpm"):
+        for i in range(steps):
+            s_i, s_n = float(sigmas[i]), float(sigmas[i + 1])
+            xc = x
+            if s_churn > 0.0:
+                xc, s_i = churned(xc, s_i, i)
+            d = (xc - denoise(xc, s_i)) / s_i
+            if sampler == "euler" or s_n == 0.0:
+                x = xc + d * _f32(s_n - s_i)
+            elif sampler == "heun":
+                x_e = xc + d * _f32(s_n - s_i)
+                d2 = (x_e - denoise(x_e, s_n)) / s_n
+                x = xc + 0.5 * (d + d2) * _f32(s_n - s_i)
+            else:
+                # DPM-Solver-2 midpoint in log sigma (edm.py:369-383)
+                mid = _f32(np.exp(np.float32(0.5) * (
+                    np.log(np.float32(s_i))
+                    + np.log(np.maximum(np.float32(s_n), np.float32(1e-8))))))
+                x_mid = xc + d * _f32(mid - s_i)
+                d2 = (x_mid - denoise(x_mid, mid)) / mid
+                x = xc + d2 * _f32(s_n - s_i)
+        return x.clamp(-1, 1)
+
+    if sampler == "ancestral":
+        down, up = ancestral_split(sigmas)
+        for i in range(steps):
+            s_i = float(sigmas[i])
+            d = (x - denoise(x, s_i)) / s_i
+            x = x + d * _f32(down[i] - sigmas[i])
+            x = x + draw(i, x) * float(up[i])
+        return x.clamp(-1, 1)
+
+    if sampler == "multistep":
+        # the stochastic iterative sampler over its own t grid
+        # (edm.py:388-411)
+        ts = np.asarray([(sigma_max ** (1 / rho) + i / max(steps - 1, 1)
+                          * (sigma_min ** (1 / rho) - sigma_max ** (1 / rho)))
+                         ** rho for i in range(steps)], np.float32)
+        for i in range(steps):
+            den = denoise(x, float(ts[i]))
+            nxt = np.clip(ts[min(i + 1, steps - 1)], np.float32(sigma_min),
+                          np.float32(sigma_max))
+            amp = np.sqrt(np.maximum(nxt * nxt - np.float32(sigma_min ** 2),
+                                     np.float32(0)))
+            x = den + draw(i, den) * float(amp)
+        return x.clamp(-1, 1)
+
+    # progdist: Euler over an (steps + 1)-point grid without its zero
+    # (edm.py:414-427), never stepping to sigma = 0
+    sig = karras_sigmas(steps + 1, sigma_min, sigma_max, rho)[:-1]
+    for i in range(steps):
+        s_i, s_n = float(sig[i]), float(sig[i + 1])
+        x = x + (x - denoise(x, s_i)) / s_i * _f32(s_n - s_i)
+    return x.clamp(-1, 1)

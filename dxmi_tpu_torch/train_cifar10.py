@@ -83,6 +83,7 @@ from dxmi_tpu_torch.utils.checkpoint import (TRAIN_STATE, load_sampler_into,
 from dxmi_tpu_torch.utils.logging import (BaseLogger, expand_metrics,
                                           init_wandb, make_grid,
                                           tensorboard_writer, weight_norm_of)
+from dxmi_tpu_torch.utils.profiling import PhaseTimer
 
 # the per-chunk batch of the trajectory sampling at fp32, and under the
 # levers' bf16 torso (train_cifar10.py:61-72)
@@ -309,20 +310,16 @@ def critic_step(trainer: DxMITrainer, x: torch.Tensor,
     """One iteration of the n_critic > 1 loop before its sampler update: a
     trajectory (kept in ``pending``) and ``update_f_v`` on it, with each
     phase's seconds under ``time/``."""
-    sync = (torch.cuda.synchronize if x.device.type == "cuda"
-            else (lambda: None))
-    t0 = time.perf_counter()
-    with torch.no_grad():
+    timer = PhaseTimer()
+    block = x if x.device.type == "cuda" else None
+    with timer.phase("sample", block_on=block), torch.no_grad():
         traj = from_d_sample(sample_chunked(
             trainer.sampler, trainer.batchsize, trainer.sample_chunks,
             generator))
     pending.append(traj)
-    sync()
-    t1 = time.perf_counter()
-    m = trainer.update_f_v(x, traj, generator=generator)
-    sync()
-    return {**m, "time/sample": t1 - t0,
-            "time/update_f_v": time.perf_counter() - t1}
+    with timer.phase("update_f_v", block_on=block):
+        m = trainer.update_f_v(x, traj, generator=generator)
+    return {**m, **{f"time/{k}": v for k, v in timer.totals.items()}}
 
 
 if __name__ == "__main__":

@@ -59,6 +59,7 @@ from dxmi_tpu_torch.config import (instantiate, load_yaml, merge,
 from dxmi_tpu_torch.data.image_folder import load_data
 from dxmi_tpu_torch.data.synthetic import structured_class_images
 from dxmi_tpu_torch.fid import runner as fid_runner
+from dxmi_tpu_torch.models.flax_init import flax_init_
 from dxmi_tpu_torch.models.unet_adm import create_unet_adm, seeded_normal_
 from dxmi_tpu_torch.runtime import select_device
 from dxmi_tpu_torch.samplers.edm import EDMSampler, KarrasDenoiser
@@ -75,22 +76,27 @@ from dxmi_tpu_torch.utils.logging import (BaseLogger, expand_metrics,
 def build_sampler(cfg: Dict[str, Any], device: torch.device, seed: int,
                   attn_impl: Optional[str] = None,
                   up_impl: Optional[str] = None,
-                  gn_stats: str = "fp32") -> EDMSampler:
+                  gn_stats: str = "fp32", init: str = "seeded"
+                  ) -> EDMSampler:
     """The config's EDMSampler on ``device`` with fp32 parameters: the
     pretrained checkpoint when ``training.pretrained_path`` exists, else
-    weights drawn from ``seed``."""
+    weights drawn from ``seed``: ``init='seeded'`` (``seeded_normal_``, no
+    layer zero: the DxMI entries) or ``'flax'`` (flax's initialisers, as
+    the JAX package's ``init_params``: the pretraining entry)."""
+    if init not in ("seeded", "flax"):
+        raise ValueError(f"init={init!r}: 'seeded' or 'flax'")
     dcfg = dict(cfg["diffusion"])
     sigma_min = dcfg.pop("sigma_min", 0.002)
     sigma_max = dcfg.pop("sigma_max", 80.0)
-    dcfg.pop("weight_schedule", None)
+    weight_schedule = dcfg.pop("weight_schedule", "uniform")
     distillation = dcfg.pop("distillation", False)
     with device:
         net = create_unet_adm(**dcfg, attn_impl=attn_impl, up_impl=up_impl,
                               gn_stats=gn_stats)
-        sampler = EDMSampler(net, KarrasDenoiser(sigma_min=sigma_min,
-                                                 sigma_max=sigma_max,
-                                                 distillation=distillation),
-                             **cfg["sampler"])
+        sampler = EDMSampler(net, KarrasDenoiser(
+            sigma_min=sigma_min, sigma_max=sigma_max,
+            weight_schedule=weight_schedule, distillation=distillation),
+            **cfg["sampler"])
     sampler.to(device)
     path = cfg["training"].get("pretrained_path")
     if path and os.path.exists(path):
@@ -100,7 +106,10 @@ def build_sampler(cfg: Dict[str, Any], device: torch.device, seed: int,
         if path:
             print(f"WARNING: pretrained ckpt {path} missing; random init "
                   f"from seed {seed}", flush=True)
-        seeded_normal_(net, seed)
+        if init == "flax":
+            flax_init_(net, torch.Generator(device=device).manual_seed(seed))
+        else:
+            seeded_normal_(net, seed)
     return sampler
 
 

@@ -9,8 +9,9 @@ in the JAX package's order, which puts flax msgpack files first.
 the flax-to-port converters (``utils/convert.py``), in every layout that
 the JAX package's ``load_sampler_params`` accepts; a ``.pth``/``.pt`` file
 through ``torch.load``. ``save_run_checkpoint`` writes the
-``{'state_dict': ...}`` files of the reference. ``save_train_state`` and
-``load_module_state`` reads a value or energy file of either package into
+``{'state_dict': ...}`` files of the reference; ``save_checkpoint`` the JAX
+package's ``{'params', 'meta'}`` msgpack payload of a net or sampler (the
+pretraining entries' files). ``load_module_state`` reads a value or energy file of either package into
 a given net (the JAX files keep spectral-norm ``sn_stats`` beside
 ``params``). ``save_train_state`` and
 ``load_train_state`` write and read the full train state (parameters,
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from dxmi_tpu_torch.utils import convert, msgpack
-from dxmi_tpu_torch.utils.train_state import trainer_slots
+from dxmi_tpu_torch.utils.train_state import flax_tree, trainer_slots
 
 TRAIN_STATE = "train_state.msgpack"
 
@@ -159,6 +160,17 @@ def save_run_checkpoint(log_dir: str, which: str, sampler, value,
         sd = {k: v.detach().float().cpu() for k, v in sd.items()}
         torch.save({"state_dict": sd, **(meta or {})},
                    os.path.join(log_dir, f"{name}_{which}.pth"))
+
+
+def save_checkpoint(path: str, module: torch.nn.Module,
+                    meta: Optional[Dict[str, Any]] = None) -> None:
+    """The JAX package's ``save_checkpoint`` (``checkpoint.py:23-37``):
+    ``{'params': <module's flax tree>, 'meta': meta}`` as a flax msgpack
+    file, written to ``path + '.tmp'`` and moved into place. For a sampler
+    the tree is ``{'log_betas', 'net'}``; the bytes equal JAX's for the
+    same parameters."""
+    msgpack.write(path, {"params": flax_tree(module),
+                         "meta": dict(meta or {})})
 
 
 def load_sampler_state(path: str, net: Optional[str] = None

@@ -62,12 +62,19 @@ def test_port_imports_no_jax_yaml_or_reference():
     # fid.image_dir, fid.cli, evaluator, make_npz, utils.png), 2 of the
     # resume slice (utils.train_state, utils.logging); 7 of the anomaly and
     # 2D slice (models.mlp, data.tensor_file, data.image_folder,
-    # trainers.dxmi_ev, utils.metrics, train_anomaly, train_2d); 60 in all
-    assert int(proc.stdout.split()[-1]) >= 60
+    # trainers.dxmi_ev, utils.metrics, train_anomaly, train_2d); 10 of the
+    # pretraining and distillation slice (models.flax_init,
+    # trainers.distill, trainers.pretrain, utils.ema, utils.kvlogger,
+    # utils.misc, utils.profiling, pretrain_ddpm, pretrain_ddgan,
+    # pretrain_edm); 70 in all
+    assert int(proc.stdout.split()[-1]) >= 70
     names = proc.stdout.split()[:-1]
     for mod in ("models.mlp", "data.tensor_file", "data.image_folder",
                 "trainers.dxmi_ev", "utils.metrics", "train_anomaly",
-                "train_2d"):
+                "train_2d", "models.flax_init", "trainers.distill",
+                "trainers.pretrain", "utils.ema", "utils.kvlogger",
+                "utils.misc", "utils.profiling", "pretrain_ddpm",
+                "pretrain_ddgan", "pretrain_edm"):
         assert f"dxmi_tpu_torch.{mod}" in names, mod
 
 
